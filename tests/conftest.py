@@ -23,6 +23,12 @@ import pytest
 REFERENCE_FIXTURES = "/root/reference/Code/CUDA/FinalProject/build/step3"
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (tpu_gpad_torch kernels); "
+        "skipped without one")
+
+
 def backend_tol(cpu: float, tpu: float) -> float:
     """Backend-aware tolerance.
 
