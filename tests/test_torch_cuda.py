@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain torch version, on the card.
+"""The CUDA kernels against their plain torch versions, on the card.
 
 Every test here needs a CUDA device and skips without one. This file
 imports no jax, so it runs on the machine with the card (which has none):
@@ -13,12 +13,16 @@ import pytest
 import torch
 
 import tpu_gpad_torch as tg
-from tpu_gpad_torch.solver import core, kernels
+from tpu_gpad_torch.solver import core, dual_kernels, kernels
 
 pytestmark = pytest.mark.cuda
 
 ITERS = 100
 TOL = 1e-4  # fp32 sums in another order than cuBLAS's over 100 iterations
+# Restart decisions near r = 0 may differ between kernel and plain version
+# and part the trajectories for a while: restart runs are compared on u and
+# z at tpu_gpad's pallas-vs-xla restart bound (tests/test_restart.py).
+RESTART_TOL = 5e-5
 
 
 @pytest.fixture(scope="module")
@@ -122,10 +126,111 @@ def test_controller_routes_through_kernel(dev):
 def test_forced_cuda_engine_refuses_unserved_cases(dev):
     data = _data(dev)
     X0 = torch.zeros((2, data.n_x), device=dev)
+    with pytest.raises(ValueError, match="engine='cuda'"):  # dense paired mvp
+        tg.solve_batch(data, X0, tg.SolverConfig(engine="cuda", form="mvp",
+                                                 flat="off"))
     with pytest.raises(ValueError, match="engine='cuda'"):
-        tg.solve_batch(data, X0, tg.SolverConfig(engine="cuda", form="dual"))
+        tg.solve_batch(data, X0, tg.SolverConfig(engine="cuda", form="mvp",
+                                                 restart=True))
+    flagship = tg.dualize(tg.condense(tg.problems.battery(30, 30)), 10,
+                          paired="auto", device=dev)
+    X30 = torch.zeros((2, flagship.n_x), device=dev)
+    for cfg in (tg.SolverConfig(engine="cuda", form="dual"),
+                tg.SolverConfig(engine="cuda", mode="eps", restart=True)):
+        with pytest.raises(ValueError, match="engine='cuda'"):
+            tg.solve_batch(flagship, X30, cfg)
+    assert core.resolve_engine(flagship, tg.SolverConfig(restart=True)) == "torch"
     dense = tg.dualize(tg.condense(tg.problems.battery(3, 10)), ITERS,
                        paired=False, device=dev)
     with pytest.raises(ValueError, match="engine='cuda'"):
         tg.solve_batch(dense, X0, tg.SolverConfig(engine="cuda"))
     assert core.resolve_engine(dense, tg.SolverConfig()) == "torch"
+
+
+def _dual_both(data, g_P, p_D, y0=None, **kw):
+    out_k = dual_kernels.gpad_fixed_dual(data, g_P, p_D, y0, **kw)
+    out_p = dual_kernels.gpad_fixed_dual_torch(data, g_P, p_D, y0, **kw)
+    torch.cuda.synchronize()
+    return out_k, out_p
+
+
+@pytest.mark.parametrize(
+    "case", ["cold", "warm_shared", "warm_per_scenario", "no_diagnostics",
+             "soft", "B1", "B5", "restart_cold", "restart_warm",
+             "restart_past_schedule"])
+def test_dual_kernel_matches_plain(dev, case):
+    data = _data(dev)
+    B = {"B1": 1, "B5": 5}.get(case, 256)
+    g_P, p_D = _inputs(data, B, seed=B)
+    rng = np.random.default_rng(2)
+    y0 = None
+    if case == "warm_shared":
+        y0 = rng.uniform(0, 0.5, (2, data.m_half))
+    elif case in ("warm_per_scenario", "B1", "B5", "restart_warm"):
+        y0 = rng.uniform(0, 0.5, (B, 2, data.m_half))
+    if y0 is not None:
+        y0 = torch.as_tensor(y0, dtype=torch.float32, device=dev)
+    if case == "soft":
+        data = dataclasses.replace(data, soft_damp=torch.as_tensor(
+            rng.uniform(0, 0.2, data.m_half), dtype=torch.float32, device=dev))
+    restart = case.startswith("restart")
+    kw = dict(iterations=ITERS + 50 if case == "restart_past_schedule" else ITERS,
+              restart=restart, diagnostics=case != "no_diagnostics")
+    before = dual_kernels.DUAL_LAUNCHES
+    out_k, out_p = _dual_both(data, g_P, p_D, y0, **kw)
+    assert dual_kernels.DUAL_LAUNCHES == before + 1
+    if not restart:
+        _assert_close(out_k, out_p)
+        return
+    assert all(bool(torch.isfinite(t).all()) for t in out_k)
+    torch.testing.assert_close(out_k[0], out_p[0], atol=RESTART_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("restart", [False, True], ids=["plain", "restart"])
+def test_dual_chunk_kernel_matches_plain(dev, restart):
+    """One chunk of 10 from k0 = 30 on the state 30 iterations left."""
+    data = _data(dev)
+    g_P, p_D = _inputs(data, 256, seed=4)
+    c = dual_kernels.relu_offsets(data, g_P, p_D)
+    y = torch.zeros((256, 2, data.m_half), device=dev)
+    state = dual_kernels.gpad_dual_chunk_torch(
+        data, c, y, y, torch.zeros((256, data.m_half), device=dev),
+        torch.ones((256, 2), device=dev), k0=0, chunk=30, restart=restart)[:4]
+    before = dual_kernels.DUAL_CHUNK_LAUNCHES
+    out_k = dual_kernels.gpad_dual_chunk(data, c, *state, k0=30, chunk=10,
+                                         restart=restart)
+    out_p = dual_kernels.gpad_dual_chunk_torch(data, c, *state, k0=30,
+                                               chunk=10, restart=restart)
+    torch.cuda.synchronize()
+    assert dual_kernels.DUAL_CHUNK_LAUNCHES == before + 1
+    tol = RESTART_TOL if restart else TOL
+    for name, a, b in zip(("y", "y_prev", "s", "mom", "w"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        if not restart or name == "s":
+            torch.testing.assert_close(a, b, atol=tol, rtol=0, msg=name)
+
+
+def test_restart_and_eps_route_through_dual_kernels(dev):
+    data = _data(dev)
+    X0 = torch.rand((64, data.n_x), device=dev) * 0.8 - 0.4
+    before = dual_kernels.DUAL_LAUNCHES
+    res = tg.solve_batch(data, X0, tg.SolverConfig(iterations=80, restart=True))
+    assert dual_kernels.DUAL_LAUNCHES == before + 1
+    ref = tg.solve_batch(data, X0, tg.SolverConfig(iterations=80, restart=True,
+                                                   engine="torch"))
+    torch.testing.assert_close(res.u, ref.u, atol=RESTART_TOL, rtol=0)
+    for cfg in (tg.SolverConfig(form="dual"), tg.SolverConfig(flat="off")):
+        before = dual_kernels.DUAL_LAUNCHES
+        res = tg.solve_batch(data, X0, cfg)
+        assert dual_kernels.DUAL_LAUNCHES == before + 1
+        ref = tg.solve_batch(data, X0, dataclasses.replace(cfg, engine="torch"))
+        torch.testing.assert_close(res.u, ref.u, atol=TOL, rtol=0)
+    before = dual_kernels.DUAL_CHUNK_LAUNCHES
+    res = tg.solve_to_accuracy(data, X0, tol=1e-5)
+    # one launch per window of 10, up to the last scenario's convergence
+    windows = -(-int(res.iterations.max()) // 10)
+    assert dual_kernels.DUAL_CHUNK_LAUNCHES - before == windows > 0
+    assert res.converged.all() and res.residual.max() <= 1e-5 + 1e-6
+    ref = tg.solve_to_accuracy(data, X0, tol=1e-5, engine="torch")
+    assert (res.iterations - ref.iterations).abs().max() <= 10
+    torch.testing.assert_close(res.u, ref.u, atol=2e-4, rtol=0)

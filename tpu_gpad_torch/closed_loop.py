@@ -143,8 +143,11 @@ class Controller:
     ``step`` accepts one state (n_x,) or a batch (B, n_x) of plants as
     NumPy, solves on ``device``, and returns the first move(s) as float32
     NumPy; each step warm-starts from the previous sample's dual
-    (``warm_start=True``). ``reset()`` drops the warm start. ``polish``
-    and ``gain`` need ``solver/qp.py`` and ``diff.py``, not yet ported."""
+    (``warm_start=True``). ``config`` takes any ``SolverConfig``: e.g.
+    ``SolverConfig(iterations=60, restart=True)`` serves through the dual
+    kernel on a CUDA device, and ``mode="eps"`` stops each sample at its
+    tolerance. ``reset()`` drops the warm start. ``polish`` and ``gain``
+    need ``solver/qp.py`` and ``diff.py``, not yet ported."""
 
     def __init__(
         self,

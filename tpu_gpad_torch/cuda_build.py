@@ -50,27 +50,38 @@ def _nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    BUILD_SECONDS[name] = 0.0
-    if not out.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    return load_all([name])[0]
+
+
+def load_all(names) -> list[ctypes.CDLL]:
+    """Compile every named source that needs it, one ``nvcc`` each, all
+    started together, then load them in order."""
+    pending = []
+    for name in names:
+        if name in _LIBS:
+            continue
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        out = BUILD_DIR / f"lib{name}-{digest}.so"
+        BUILD_SECONDS[name] = 0.0
+        if not out.exists():
+            BUILD_DIR.mkdir(exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            pending.append((name, src, out, tmp, proc, time.perf_counter()))
+        else:
+            _LIBS[name] = ctypes.CDLL(str(out))
+    # wait for every nvcc before raising for any, so none outlives the call
+    errs = [proc.communicate()[1] for *_, proc, _ in pending]
+    for (name, src, out, tmp, proc, t0), err in zip(pending, errs):
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed for {src.name} (rc {proc.returncode}):\n"
-                f"{proc.stderr}"
+                f"nvcc failed for {src.name} (rc {proc.returncode}):\n{err}"
             )
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         BUILD_SECONDS[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = proc.stderr
-    lib = ctypes.CDLL(str(out))
-    _LIBS[name] = lib
-    return lib
+        BUILD_LOG[name] = err
+        _LIBS[name] = ctypes.CDLL(str(out))
+    return [_LIBS[name] for name in names]

@@ -1,12 +1,20 @@
 """Online GPAD solvers.
 
 - ``reference``: pure-NumPy oracle (float32 GPAD loop on raw dual constants).
-- ``core``: the batched fixed-mode solver and its routing; the "torch"
-  engine is a Python loop of tensor ops.
-- ``kernels``: the hand-written CUDA kernel of the flat paired solve (the
-  "cuda" engine) and its plain torch version.
+- ``core``: the batched solver (fixed and eps modes, restart) and its
+  routing; the "torch" engine is a Python loop of tensor ops.
+- ``kernels``: the hand-written CUDA kernel of the flat paired solve and
+  its plain torch version, and the "cuda" engine's entry.
+- ``dual_kernels``: the hand-written CUDA kernels of the dual form (whole
+  solve, and one eps check window), their plain versions, and the eps
+  loop.
 """
 
-from tpu_gpad_torch.solver.core import SolverConfig, solve, solve_batch
+from tpu_gpad_torch.solver.core import (
+    SolverConfig,
+    solve,
+    solve_batch,
+    solve_to_accuracy,
+)
 
-__all__ = ["SolverConfig", "solve", "solve_batch"]
+__all__ = ["SolverConfig", "solve", "solve_batch", "solve_to_accuracy"]

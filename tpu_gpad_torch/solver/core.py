@@ -1,15 +1,24 @@
-"""GPAD solver in PyTorch (the online layer), fixed-iteration mode.
+"""GPAD solver in PyTorch (the online layer): fixed-budget and eps modes.
 
 The counterpart of ``tpu_gpad.solver.core``. The JAX package traces the
-iteration into one ``lax.fori_loop``; here the loop is a Python loop of
-tensor ops (``engine="torch"``, the XLA engine's counterpart) or one
-hand-written CUDA kernel launch for the whole solve (``engine="cuda"``,
-the Pallas engine's counterpart, ``solver/kernels.py``).
+iteration into one ``lax.fori_loop`` (``lax.while_loop`` in eps mode);
+here the loop is a Python loop of tensor ops (``engine="torch"``, the XLA
+engine's counterpart) or hand-written CUDA kernels (``engine="cuda"``, the
+Pallas engine's counterpart, ``solver/kernels.py`` and
+``solver/dual_kernels.py``).
 
-Routing (``engine="auto"``) keys on the device of the data tensors: on a
-CUDA device the kernel serves flat paired mvp solves in fixed mode whose
-operands fit one block's shared memory; everything else runs the torch
-engine, as the JAX package sends what its kernels do not serve to XLA.
+Routing (``engine="auto"``) keys on the device of the data tensors. On a
+CUDA device: fixed flat paired mvp solves launch the flat kernel; fixed
+dual-form solves (restart, ``form="dual"``, ``flat="off"``) launch the
+dual kernel; eps solves in the dual form run the chunked dual kernel, one
+launch per check window. Each only where its state fits one block's
+shared memory; everything else runs the torch engine, as the JAX package
+sends what its kernels do not serve to XLA.
+
+Eps mode (Algorithm 1) checks the stopping test every ``check_every``
+iterations and once more at a budget that is not a multiple of it; the
+loop stops when every scenario has converged, which the host learns with
+one sync per check.
 """
 
 from __future__ import annotations
@@ -27,16 +36,19 @@ class SolverConfig:
     """Runtime solver configuration; the same fields as
     ``tpu_gpad.solver.SolverConfig``.
 
-    ``engine``: "auto" | "torch" | "cuda". "auto" launches the CUDA kernel
-    when the data lives on a CUDA device and the kernel serves the case
-    (flat paired mvp form, fixed mode, no restart, operands fit shared
-    memory) and runs the torch loop otherwise. Forcing "cuda" where the
-    kernel does not serve the case, or on CPU tensors, raises.
+    ``engine``: "auto" | "torch" | "cuda". "auto" launches a CUDA kernel
+    when the data lives on a CUDA device and a kernel serves the case (see
+    the module docstring) and runs the torch loop otherwise. Forcing
+    "cuda" where no kernel serves the case, or on CPU tensors, raises.
 
-    Not yet ported (raise ``NotImplementedError``): ``mode="eps"``,
-    ``restart=True``, ``model_axis``/``collective_axes``, ``precision``
-    other than "highest" and ``matmul_dtype`` other than "float32".
-    ``unroll`` is accepted for parity and has no effect on the eager loop.
+    ``restart``: O'Donoghue-Candes adaptive restart, per scenario; theta
+    and beta are computed on the fly, so the budget may exceed the shipped
+    schedule.
+
+    Not yet ported (raise ``NotImplementedError``):
+    ``model_axis``/``collective_axes``, ``precision`` other than "highest"
+    and ``matmul_dtype`` other than "float32". ``unroll`` is accepted for
+    parity and has no effect on the eager loop.
     """
 
     iterations: int | None = None  # None: the full shipped schedule
@@ -58,18 +70,8 @@ class SolverConfig:
 
 def _check_ported(config: SolverConfig) -> None:
     """Raise for the configuration values the port does not carry yet."""
-    if config.mode == "eps":
-        raise NotImplementedError(
-            "mode='eps' is not yet ported to tpu_gpad_torch "
-            "(ROADMAP Queue 1, item 3: eps mode)"
-        )
-    if config.mode != "fixed":
+    if config.mode not in ("fixed", "eps"):
         raise ValueError(f"unknown mode: {config.mode!r}")
-    if config.restart:
-        raise NotImplementedError(
-            "restart=True is not yet ported to tpu_gpad_torch "
-            "(ROADMAP Queue 1, item 3: restart)"
-        )
     if config.model_axis is not None or config.collective_axes:
         raise NotImplementedError(
             "model_axis/collective_axes are not yet ported to "
@@ -136,15 +138,22 @@ def _pm(q):
     return torch.stack([q, -q], dim=-2)
 
 
+def _expand_to(v, like):
+    """Append trailing singleton dims so ``v`` broadcasts against ``like``."""
+    return v.reshape(tuple(v.shape) + (1,) * (like.ndim - v.ndim))
+
+
 def _iteration(data: GPADData, g_P, p_D, theta_k, beta_k, y, y_prev, z,
                flat: bool = False):
-    """One GPAD iteration (steps 1-4), batched."""
-    w = y + beta_k * (y - y_prev)
+    """One GPAD iteration (steps 1-4), batched. ``theta_k``/``beta_k`` are
+    schedule scalars, or per-scenario rows under restart."""
+    w = y + _expand_to(beta_k, y) * (y - y_prev)
     if data.paired:
         zhat = -((w[..., 0, :] - w[..., 1, :]) @ data.MG_T) - g_P
     else:
         zhat = -(w @ data.MG_T) - g_P
-    z = (1.0 - theta_k) * z + theta_k * zhat
+    theta_z = _expand_to(theta_k, z)
+    z = (1.0 - theta_z) * z + theta_z * zhat
     w_s = w if data.soft_damp is None else w * (1.0 - data.soft_damp)
     if data.paired:
         q = _step4_product(data, zhat, flat)
@@ -174,6 +183,26 @@ def _residuals(data: GPADData, g_P, p_D, z, zhat, w, flat: bool = False,
     viol_zhat = torch.amax(gzh, dim=dims)
     gap = -torch.sum(w * gzh, dim=dims)
     return viol_z, viol_zhat, gap
+
+
+def _momentum(config: SolverConfig, data: GPADData, k, th, th_prev):
+    """(theta_k, beta_k): the shipped schedule's scalars, or under restart
+    the per-scenario recursion carried in (th, th_prev)."""
+    if not config.restart:
+        return data.theta[k], data.beta[k]
+    return th, th * (1.0 / th_prev - 1.0)
+
+
+def _restart_update(th, th_prev, y, y_next, w):
+    """Advance the momentum recursion, resetting the scenarios whose
+    momentum opposes the projected-gradient step (O'Donoghue-Candes):
+    restart iff (w - y+) . (y+ - y) > 0. Returns (y_prev', th', th_prev')."""
+    r = torch.sum((w - y_next) * (y_next - y), dim=tuple(range(th.ndim, y.ndim)))
+    mask = r > 0.0
+    th_next = torch.where(mask, 1.0, th * (torch.sqrt(th * th + 4.0) - th) * 0.5)
+    th_prev_next = torch.where(mask, 1.0, th)
+    y_prev_next = torch.where(_expand_to(mask, y), y_next, y)
+    return y_prev_next, th_next, th_prev_next
 
 
 def _init_y(data: GPADData, batch_shape, y0, device):
@@ -222,11 +251,18 @@ def _solve_fixed(data: GPADData, g_P, p_D, config: SolverConfig,
     """Fixed-budget mvp loop (flat or dense products, paired or dense)."""
     flat = resolve_flat(data, config)
     y, y_prev, z, w, zhat = _init_state(data, g_P.shape[:-1], y0)
+    th = th_prev = torch.ones(g_P.shape[:-1], dtype=torch.float32,
+                              device=g_P.device)
     for k in range(config.iterations):
+        theta_k, beta_k = _momentum(config, data, k, th, th_prev)
         w, zhat, z, y_next = _iteration(
-            data, g_P, p_D, data.theta[k], data.beta[k], y, y_prev, z, flat
+            data, g_P, p_D, theta_k, beta_k, y, y_prev, z, flat
         )
-        y_prev, y = y, y_next
+        if config.restart:
+            y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w)
+        else:
+            y_prev = y
+        y = y_next
     return _finish(data, g_P, p_D, z, zhat, w, y, config, flat)
 
 
@@ -235,23 +271,30 @@ def _solve_fixed_dual(data: GPADData, g_P, p_D, config: SolverConfig,
     """Dual-only fixed-budget loop: one (m_h, m_h) product per iteration
     against D; the primal is recovered after the loop from the running
     momentum combination s of the w differences:
-    z_K = -(s_K @ MG_T) - a_K g_P with a_K = 1 - prod_k (1 - theta_k)."""
+    z_K = -(s_K @ MG_T) - a_K g_P with a_K = 1 - prod_k (1 - theta_k).
+    theta_0 = 1 makes a_K = 1 under restart too."""
     batch_shape = g_P.shape[:-1]
     y = _init_y(data, batch_shape, y0, g_P.device)
     y_prev = y
     w = torch.zeros_like(y)
     s = torch.zeros(tuple(batch_shape) + (data.m_half,), dtype=torch.float32,
                     device=g_P.device)
+    th = th_prev = torch.ones(batch_shape, dtype=torch.float32, device=g_P.device)
     e = g_P @ data.GL_T  # (B, m_h), hoisted out of the loop
     for k in range(config.iterations):
-        theta_k, beta_k = data.theta[k], data.beta[k]
-        w = y + beta_k * (y - y_prev)
+        theta_k, beta_k = _momentum(config, data, k, th, th_prev)
+        w = y + _expand_to(beta_k, y) * (y - y_prev)
         wd = w[..., 0, :] - w[..., 1, :]
         q = -(wd @ data.D) - e
         w_s = w if data.soft_damp is None else w * (1.0 - data.soft_damp)
         y_next = torch.clamp_min(w_s + _pm(q) + p_D, 0.0)
-        s = (1.0 - theta_k) * s + theta_k * wd
-        y_prev, y = y, y_next
+        theta_s = _expand_to(theta_k, s)
+        s = (1.0 - theta_s) * s + theta_s * wd
+        if config.restart:
+            y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w)
+        else:
+            y_prev = y
+        y = y_next
     a = 1.0 - torch.prod(1.0 - data.theta[: config.iterations])
     z = -(s @ data.MG_T) - a * g_P
     wd = w[..., 0, :] - w[..., 1, :]
@@ -259,26 +302,102 @@ def _solve_fixed_dual(data: GPADData, g_P, p_D, config: SolverConfig,
     return _finish(data, g_P, p_D, z, zhat, w, y, config, flat=False)
 
 
-def _kernel_serves(data: GPADData, config: SolverConfig) -> bool:
-    """Does the CUDA kernel serve this (data, config), device aside?"""
-    from tpu_gpad_torch.solver import kernels
+def _eps_test(data: GPADData, g_P, p_D, config: SolverConfig, k_now: int,
+             z, zhat, w, y, converged, iters, z_out, flat: bool = False):
+    """Algorithm 1's test at iteration ``k_now``: capture each newly
+    converged scenario's eps-optimal point (z on the primal branch, zhat on
+    the gap branch, where zhat is exactly optimal for the Lagrangian at w
+    while the averaged z may still be infeasible). Returns the updated
+    (converged, iters, z_out)."""
+    viol_z, viol_zhat, gap = _residuals(data, g_P, p_D, z, zhat, w, flat, y=y)
+    ok_z = viol_z <= config.eps_g
+    ok = ok_z | ((viol_zhat <= config.eps_g) & (gap <= config.eps_V))
+    newly = ok & ~converged
+    z_sel = torch.where(ok_z[..., None], z, zhat)
+    return (converged | ok, iters.masked_fill(newly, k_now),
+            torch.where(newly[..., None], z_sel, z_out))
 
-    return (
-        config.mode == "fixed"
-        and not config.restart
-        and resolve_form(data, config) == "mvp"
-        and resolve_flat(data, config)
-        and kernels.flat_fits_smem(data)
+
+def _eps_result(data: GPADData, g_P, p_D, z, zhat, w, y, converged, iters,
+               z_out, flat: bool = False) -> SolveResult:
+    """The SolveResult of an eps solve: the captured point where a scenario
+    converged, the last iterate elsewhere."""
+    z_final = torch.where(converged[..., None], z_out, z)
+    viol_z, _, gap = _residuals(data, g_P, p_D, z_final, zhat, w, flat, y=y)
+    return SolveResult(
+        u=z_final[..., : data.n_u], z=z_final, y=y, iterations=iters,
+        residual=torch.clamp_min(viol_z, 0.0), gap=gap, converged=converged,
     )
 
 
+def _solve_eps(data: GPADData, g_P, p_D, config: SolverConfig,
+               y0=None) -> SolveResult:
+    """Eps-terminated mvp loop (Algorithm 1), checked every
+    ``check_every`` iterations and at the budget's end. The loop leaves
+    once every scenario has converged: one host sync per check, none in
+    between."""
+    flat = resolve_flat(data, config)
+    batch_shape = g_P.shape[:-1]
+    y, y_prev, z, w, zhat = _init_state(data, batch_shape, y0)
+    th = th_prev = torch.ones(batch_shape, dtype=torch.float32, device=g_P.device)
+    converged = torch.zeros(batch_shape, dtype=torch.bool, device=g_P.device)
+    iters = torch.full(batch_shape, config.iterations, dtype=torch.int32,
+                       device=g_P.device)
+    z_out = z
+    for k in range(config.iterations):
+        theta_k, beta_k = _momentum(config, data, k, th, th_prev)
+        w, zhat, z, y_next = _iteration(
+            data, g_P, p_D, theta_k, beta_k, y, y_prev, z, flat
+        )
+        if config.restart:
+            y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w)
+        else:
+            y_prev = y
+        y = y_next
+        if (k + 1) % config.check_every and k + 1 < config.iterations:
+            continue
+        converged, iters, z_out = _eps_test(
+            data, g_P, p_D, config, k + 1, z, zhat, w, y, converged, iters,
+            z_out, flat,
+        )
+        if k + 1 < config.iterations and bool(converged.all()):
+            break
+    return _eps_result(data, g_P, p_D, z, zhat, w, y, converged, iters, z_out,
+                      flat)
+
+
+def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:
+    """The CUDA kernel that serves this (data, config), device aside:
+    "paired_flat", "dual", "dual_chunk" (eps mode), or None. Follows
+    ``tpu_gpad.solver.core.resolve_engine``; like it, independent of
+    ``diagnostics``, so the flag never changes which loop runs."""
+    from tpu_gpad_torch.solver import dual_kernels, kernels
+
+    dual_ok = data.paired and data.D is not None and config.form != "mvp"
+    if config.restart and not dual_ok:
+        return None  # the restart recursion rides the dual kernels only
+    if config.mode == "eps":
+        # tpu_gpad streams duals too large for on-chip memory through its
+        # tiled chunk kernel (core.py:397-406); that kernel is not ported
+        # yet (ROADMAP Queue 2), so such eps solves run the torch engine.
+        if dual_ok and dual_kernels.dual_fits_smem(data):
+            return "dual_chunk"
+        return None
+    if resolve_form(data, config) == "dual":
+        # likewise the tiled fixed dual kernel for oversized duals
+        return "dual" if dual_kernels.dual_fits_smem(data) else None
+    if resolve_flat(data, config) and kernels.flat_fits_smem(data):
+        return "paired_flat"
+    return None
+
+
 def resolve_engine(data: GPADData, config: SolverConfig) -> str:
-    """Pick the execution engine: "cuda" (the kernel) or "torch".
+    """Pick the execution engine: "cuda" (a kernel) or "torch".
 
     "auto" keys on the device of the data tensors (the counterpart of the
     JAX package's ``jax.default_backend() == "tpu"`` test); a warm start
-    never changes the choice. Forcing "cuda" where the kernel does not
-    serve the case raises."""
+    never changes the choice. Forcing "cuda" where no kernel serves the
+    case raises."""
     if config.engine == "torch":
         return "torch"
     if config.engine == "cuda":
@@ -287,16 +406,17 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
                 "engine='cuda' needs the data on a CUDA device; got "
                 f"{data.device}"
             )
-        if not _kernel_serves(data, config):
+        if cuda_kernel(data, config) is None:
             raise ValueError(
-                "engine='cuda' serves only flat paired mvp solves in fixed "
-                "mode without restart whose operands fit shared memory "
-                "(kernels.flat_fits_smem); use engine='torch' here"
+                "engine='cuda' serves paired solves only: flat mvp in fixed "
+                "mode without restart (kernels.flat_fits_smem), or the dual "
+                "form with D, fixed or eps, restart or not "
+                "(dual_kernels.dual_fits_smem); use engine='torch' here"
             )
         return "cuda"
     if config.engine != "auto":
         raise ValueError(f"unknown engine: {config.engine!r}")
-    if data.device.type == "cuda" and _kernel_serves(data, config):
+    if data.device.type == "cuda" and cuda_kernel(data, config) is not None:
         return "cuda"
     return "torch"
 
@@ -354,7 +474,8 @@ def solve_batch(
     n_iters = (
         config.iterations if config.iterations is not None else data.max_iters
     )
-    if n_iters > data.max_iters:
+    if n_iters > data.max_iters and not config.restart:
+        # restart computes theta/beta on the fly and ignores the schedule
         raise ValueError(
             f"config asks for {n_iters} iterations but the shipped momentum "
             f"schedule only has {data.max_iters}; re-dualize with a longer one"
@@ -374,7 +495,10 @@ def solve_batch(
         from tpu_gpad_torch.solver import kernels
 
         return kernels.solve_batch_cuda(data, g_P, p_D, config, y0=y0)
-    if resolve_form(data, config) == "dual":
+    form = resolve_form(data, config)  # in eps mode: validates the form
+    if config.mode == "eps":
+        return _solve_eps(data, g_P, p_D, config, y0)
+    if form == "dual":
         return _solve_fixed_dual(data, g_P, p_D, config, y0)
     return _solve_fixed(data, g_P, p_D, config, y0)
 
@@ -392,3 +516,29 @@ def solve(
         if y0.ndim in (1, 2):
             y0 = y0[None]
     return solve_batch(data, x0[None, :], config=config, y0=y0)
+
+
+def solve_to_accuracy(
+    data: GPADData,
+    x0: torch.Tensor,
+    tol: float = 1e-5,
+    max_iterations: int = 2000,
+    check_every: int = 10,
+    y0: torch.Tensor | None = None,
+    **config_kw,
+) -> SolveResult:
+    """Solve until eps-optimality ``tol`` (primal infeasibility and duality
+    gap) with adaptive restart on: ``solve_batch`` in ``mode="eps"``.
+    Check ``result.converged`` for scenarios that hit ``max_iterations``
+    first. ``x0`` may be (n_x,) or (B, n_x)."""
+    # a check cadence longer than the budget shrinks to one window rather
+    # than inflating the budget
+    check_every = max(min(check_every, max_iterations), 1)
+    config = SolverConfig(
+        mode="eps", eps_g=tol, eps_V=tol, check_every=check_every,
+        iterations=max_iterations, restart=True, **config_kw,
+    )
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=data.device)
+    if x0.ndim == 1:
+        return solve(data, x0, config=config, y0=y0)
+    return solve_batch(data, x0, config=config, y0=y0)

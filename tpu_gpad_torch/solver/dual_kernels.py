@@ -1,0 +1,316 @@
+"""The dual-form GPAD kernels (CUDA C++ for Hopper), their plain versions,
+and the eps-mode host loop.
+
+``gpad_fixed_dual`` runs a whole fixed-budget dual-form solve in one
+launch, the counterpart of ``tpu_gpad.solver.kernels.gpad_pallas_fixed_dual``;
+``gpad_dual_chunk`` runs ``chunk`` iterations from schedule offset ``k0``
+with the state in and out (``_dual_chunk_call``), and ``gpad_eps_dual``
+drives it one check window at a time (``gpad_pallas_eps_dual``). Both
+kernels are in ``csrc/gpad_dual.cu`` and share one iteration body. On CUDA
+tensors the wrappers launch the kernel or raise; on CPU tensors they run
+the plain versions ``gpad_fixed_dual_torch`` and ``gpad_dual_chunk_torch``,
+which are also what the tests and ``chip_smoke.py`` hold the kernels
+against.
+
+The state keeps the public layouts: y and y_prev (B, 2, m_h), s (B, m_h),
+and ``mom`` (B, 2), each scenario's restart recursion (theta, theta_prev).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpu_gpad_torch.solver import kernels
+from tpu_gpad_torch.types import GPADData, SolveResult
+
+# Launches of each CUDA kernel in this process; a run resets them to 0 to
+# show that a path went through the kernels.
+DUAL_LAUNCHES = 0
+DUAL_CHUNK_LAUNCHES = 0
+# The eps loop's host syncs: one per all-converged test, after every
+# window but the budget's last (its windows are DUAL_CHUNK_LAUNCHES).
+EPS_SYNCS = 0
+
+_WARPS = 8  # kWarps of csrc/gpad_dual.cu: one restart partial per warp
+
+
+def _dual_smem_bytes(m_h: int, log2_tile: int) -> int:
+    """Shared memory of one block of either dual kernel (csrc carve-up): D,
+    the od column, 10 dual-row arrays of 2**log2_tile scenarios each, and
+    one restart partial per warp and scenario."""
+    T = 1 << log2_tile
+    return 4 * (m_h * m_h + m_h + 10 * m_h * T + _WARPS * T)
+
+
+def _pick_dual_tile(m_h: int, B: int) -> int | None:
+    return kernels._widest_tile(lambda log2: _dual_smem_bytes(m_h, log2), B)
+
+
+def dual_fits_smem(data: GPADData) -> bool:
+    """Can the dual kernels run this data: paired with D, with D and one
+    scenario's state within one block's shared memory? Both kernels share
+    one carve-up, so one guard serves the fixed and the eps path."""
+    if not (data.paired and data.D is not None):
+        return False
+    return _pick_dual_tile(data.m_half, 1) is not None
+
+
+def relu_offsets(data: GPADData, g_P, p_D):
+    """c = (p_D+ - e, p_D- + e) with e = g_P @ GL_T, hoisted out of the
+    loop: (B, 2, m_h)."""
+    e = g_P @ data.GL_T
+    return (p_D - torch.stack([e, -e], dim=-2)).contiguous()
+
+
+def _init_state(data: GPADData, B: int, y0, device):
+    """Cold or warm y (y_prev starts equal to it), s = 0, mom = 1."""
+    m_h = data.m_half
+    if y0 is None:
+        y = torch.zeros((B, 2, m_h), dtype=torch.float32, device=device)
+    else:
+        y = kernels._norm_y0(y0, B, m_h).expand(B, 2, m_h).contiguous()
+    s = torch.zeros((B, m_h), dtype=torch.float32, device=device)
+    mom = torch.ones((B, 2), dtype=torch.float32, device=device)
+    return y, s, mom
+
+
+def _primal(data: GPADData, g_P, s, w, a, diagnostics: bool = True):
+    """z = -(s @ MG_T) - a g_P and, with ``diagnostics``, the last zhat."""
+    z = -(s @ data.MG_T) - a * g_P
+    if not diagnostics:
+        return z, None
+    return z, -((w[:, 0] - w[:, 1]) @ data.MG_T) - g_P
+
+
+def recovery_weight(data: GPADData, iterations: int):
+    """a_K = 1 - prod_k (1 - theta_k): the weight of g_P in the recovered
+    z. theta_0 = 1 makes it exactly 1 for K >= 1, under restart too; the
+    eps loop relies on that."""
+    return 1.0 - torch.prod(1.0 - data.theta[:iterations])
+
+
+def gpad_dual_chunk_torch(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
+                          chunk: int, restart: bool = False):
+    """The kernels' iteration body in torch ops, on any device: the plain
+    version of the chunk kernel (same contract as ``gpad_dual_chunk``),
+    and, from k0 = 0, of the whole-solve kernel's loop."""
+    from tpu_gpad_torch.solver import core
+
+    od = kernels._od(data)
+    th, thp = mom[:, 0], mom[:, 1]
+    w = torch.zeros_like(y)
+    for i in range(chunk):
+        if restart:
+            theta_k = th[:, None]
+            beta_k = (th * (1.0 / thp - 1.0))[:, None, None]
+        else:
+            theta_k, beta_k = data.theta[k0 + i], data.beta[k0 + i]
+        w = y + beta_k * (y - y_prev)
+        wd = w[:, 0] - w[:, 1]
+        d = -(wd @ data.D)
+        w_s = w if od is None else w * od
+        y_next = torch.clamp_min(w_s + torch.stack([d, -d], dim=1) + c, 0.0)
+        s = s + theta_k * (wd - s)
+        if restart:
+            y_prev, th, thp = core._restart_update(th, thp, y, y_next, w)
+        else:
+            y_prev = y
+        y = y_next
+    return y, y_prev, s, torch.stack([th, thp], dim=1), w
+
+
+def _check_data(data: GPADData) -> None:
+    if not (data.paired and data.D is not None):
+        raise ValueError("the dual kernels need paired data with D "
+                         "(GPADData.D)")
+
+
+def _check_schedule(data: GPADData, end: int, restart: bool) -> None:
+    if end > data.max_iters and not restart:
+        raise ValueError(f"iterations up to {end} exceed the schedule's "
+                         f"{data.max_iters}")
+
+
+def _launch_fns():
+    """The kernels' C launchers, built and loaded at first use."""
+    from tpu_gpad_torch import cuda_build
+
+    lib = cuda_build.load("gpad_dual")
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fixed, chunk = lib.gpad_dual_launch, lib.gpad_dual_chunk_launch
+    fixed.argtypes = [P, P, P, P, LL, P, P, I, I, I, I, I, P, P, P, I, P]
+    chunk.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                      P, P, P, P, P, I, P]
+    fixed.restype = chunk.restype = I
+    return fixed, chunk
+
+
+def _tile_or_raise(m_h: int, B: int) -> int:
+    log2_tile = _pick_dual_tile(m_h, B)
+    if log2_tile is None:
+        raise ValueError(
+            f"dual problem (m_half={m_h}) exceeds the kernels' shared memory "
+            f"({kernels.SMEM_LIMIT_BYTES} bytes); use engine='torch'"
+        )
+    return log2_tile
+
+
+def _device_or_raise(t) -> bool:
+    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {t.device}")
+    return t.device.type == "cuda"
+
+
+def gpad_fixed_dual_torch(
+    data: GPADData, g_P, p_D, y0=None, *, iterations: int,
+    restart: bool = False, diagnostics: bool = True,
+):
+    """The whole-solve kernel in torch ops, on any device: the plain version
+    the kernel is checked against. Same contract as ``gpad_fixed_dual``."""
+    y, s, mom = _init_state(data, g_P.shape[0], y0, g_P.device)
+    y, _, s, _, w = gpad_dual_chunk_torch(
+        data, relu_offsets(data, g_P, p_D), y, y, s, mom, k0=0,
+        chunk=iterations, restart=restart,
+    )
+    z, zhat = _primal(data, g_P, s, w, recovery_weight(data, iterations),
+                      diagnostics)
+    return (z, y, w, zhat) if diagnostics else (z, y, None, None)
+
+
+def gpad_fixed_dual(
+    data: GPADData, g_P, p_D, y0=None, *, iterations: int,
+    restart: bool = False, diagnostics: bool = True,
+):
+    """Fixed-budget dual-form GPAD for a batch: returns (z, y, w, zhat).
+
+    ``g_P`` (B, n_z), ``p_D`` (B, 2, m_h), optional warm start ``y0``
+    broadcasting to (B, 2, m_h). ``z`` is recovered after the loop from
+    the running average s; ``w`` and ``zhat`` are the last iteration's and
+    come back only with ``diagnostics`` (else None). Under ``restart`` the
+    budget may exceed the schedule. CUDA tensors launch the kernel (or
+    raise); CPU tensors run the plain version."""
+    global DUAL_LAUNCHES
+    _check_data(data)
+    _check_schedule(data, iterations, restart)
+    B, m_h = g_P.shape[0], data.m_half
+    if g_P.ndim != 2 or g_P.shape[1] != data.n_z:
+        raise ValueError(f"g_P must be (B, {data.n_z}); got {tuple(g_P.shape)}")
+    if tuple(p_D.shape) != (B, 2, m_h):
+        raise ValueError(f"p_D must be ({B}, 2, {m_h}); got {tuple(p_D.shape)}")
+    kernels._check_tensors([data.D, data.MG_T, data.GL_T, data.theta,
+                           data.beta, g_P, p_D, y0, data.soft_damp], g_P.device)
+    if not _device_or_raise(g_P):
+        return gpad_fixed_dual_torch(data, g_P, p_D, y0, iterations=iterations,
+                                     restart=restart, diagnostics=diagnostics)
+    fixed, _ = _launch_fns()
+    log2_tile = _tile_or_raise(m_h, B)
+    c = relu_offsets(data, g_P, p_D)
+    y0_rows = None if y0 is None else kernels._norm_y0(y0, B, m_h)
+    y0_stride = 0 if y0_rows is None or y0_rows.shape[0] == 1 else 2 * m_h
+    od = kernels._od(data)
+    s = torch.empty((B, m_h), dtype=torch.float32, device=g_P.device)
+    y = torch.empty((B, 2, m_h), dtype=torch.float32, device=g_P.device)
+    w = torch.empty_like(y) if diagnostics else None
+    ptr = kernels._ptr
+    with torch.cuda.device(g_P.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fixed(ptr(data.D), ptr(od), ptr(c), ptr(y0_rows), y0_stride,
+                    ptr(data.theta), ptr(data.beta), B, m_h, iterations,
+                    int(restart), log2_tile, ptr(s), ptr(y), ptr(w),
+                    _dual_smem_bytes(m_h, log2_tile), stream)
+    if err != 0:
+        raise RuntimeError(f"gpad_dual launch failed: CUDA error {err}")
+    DUAL_LAUNCHES += 1
+    z, zhat = _primal(data, g_P, s, w, recovery_weight(data, iterations),
+                      diagnostics)
+    return z, y, w, zhat
+
+
+def gpad_dual_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
+                    chunk: int, restart: bool = False):
+    """``chunk`` dual-form iterations from schedule index ``k0``: returns
+    the advanced (y, y_prev, s, mom) and the last iteration's w.
+
+    ``c`` (B, 2, m_h) are the relu offsets (``relu_offsets``); y, y_prev
+    (B, 2, m_h), s (B, m_h) and mom (B, 2) the state, which comes back in
+    new tensors. Consecutive chunks compose to one whole solve. CUDA
+    tensors launch the kernel (or raise); CPU tensors run the plain
+    version."""
+    global DUAL_CHUNK_LAUNCHES
+    _check_data(data)
+    _check_schedule(data, k0 + chunk, restart)
+    B, m_h = c.shape[0], data.m_half
+    for name, t, shape in (("c", c, (B, 2, m_h)), ("y", y, (B, 2, m_h)),
+                           ("y_prev", y_prev, (B, 2, m_h)),
+                           ("s", s, (B, m_h)), ("mom", mom, (B, 2))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
+    kernels._check_tensors([data.D, data.theta, data.beta, c, y, y_prev, s,
+                           mom, data.soft_damp], c.device)
+    if not _device_or_raise(c):
+        return gpad_dual_chunk_torch(data, c, y, y_prev, s, mom, k0=k0,
+                                     chunk=chunk, restart=restart)
+    _, launch = _launch_fns()
+    log2_tile = _tile_or_raise(m_h, B)
+    od = kernels._od(data)
+    out = [torch.empty_like(t) for t in (y, y_prev, s, mom, y)]
+    ptr = kernels._ptr
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(ptr(data.D), ptr(od), ptr(c), ptr(y), ptr(y_prev),
+                     ptr(s), ptr(mom), ptr(data.theta), ptr(data.beta), B,
+                     m_h, k0, chunk, int(restart), log2_tile,
+                     *(ptr(t) for t in out),
+                     _dual_smem_bytes(m_h, log2_tile), stream)
+    if err != 0:
+        raise RuntimeError(f"gpad_dual_chunk launch failed: CUDA error {err}")
+    DUAL_CHUNK_LAUNCHES += 1
+    return tuple(out)
+
+
+def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
+    """Algorithm-1 (eps-terminated) solve of a batch with the chunk kernel.
+
+    Full windows of C = min(check_every, iterations) iterations, then one
+    partial window to the budget's end. After each window the host runs
+    the residual/gap test (``core._eps_test``, soft rows against the
+    recovered slack), captures each newly converged scenario's point, and
+    stops once every scenario has converged: one host sync per window. It
+    skips the partial window too when all have converged, where
+    ``tpu_gpad`` runs it anyway (the captured points are the same; y and
+    the gap are then those of the stopping window)."""
+    global EPS_SYNCS
+    from tpu_gpad_torch.solver import core
+
+    B, dev = g_P.shape[0], g_P.device
+    iterations = config.iterations
+    C = max(min(config.check_every, iterations), 1)
+    n_full, rem = divmod(iterations, C)
+    windows = [C] * n_full + ([rem] if rem else [])
+    c = relu_offsets(data, g_P, p_D)
+    y, s, mom = _init_state(data, B, y0, dev)
+    y_prev, w = y, torch.zeros_like(y)
+    converged = torch.zeros((B,), dtype=torch.bool, device=dev)
+    iters = torch.full((B,), iterations, dtype=torch.int32, device=dev)
+    z_out = torch.zeros((B, data.n_z), dtype=torch.float32, device=dev)
+    k0 = 0
+    for i, chunk in enumerate(windows):
+        y, y_prev, s, mom, w = gpad_dual_chunk(
+            data, c, y, y_prev, s, mom, k0=k0, chunk=chunk,
+            restart=config.restart,
+        )
+        k0 += chunk
+        z, zhat = _primal(data, g_P, s, w, 1.0)  # a = 1: theta_0 = 1
+        converged, iters, z_out = core._eps_test(
+            data, g_P, p_D, config, k0, z, zhat, w, y, converged, iters, z_out
+        )
+        if i + 1 < len(windows):
+            EPS_SYNCS += 1
+            if bool(converged.all()):
+                break
+    z, zhat = _primal(data, g_P, s, w, 1.0)
+    return core._eps_result(data, g_P, p_D, z, zhat, w, y, converged, iters,
+                           z_out)

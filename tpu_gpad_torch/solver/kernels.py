@@ -5,7 +5,9 @@ the kernel in ``csrc/gpad_paired_flat.cu``, the counterpart of
 ``tpu_gpad.solver.kernels.gpad_pallas_fixed_paired_flat``. On CUDA tensors
 it launches the kernel or raises; on CPU tensors it runs
 ``gpad_fixed_paired_flat_torch``, the same loop in torch ops, which is also
-what the tests and ``chip_smoke.py`` hold the kernel against.
+what the tests and ``chip_smoke.py`` hold the kernel against. Also here:
+the helpers the dual kernels share (``dual_kernels.py``) and
+``solve_batch_cuda``, the "cuda" engine's entry.
 
 The data's dual rows are already in the kernel's [struct | box] order
 (``dualize`` puts the identity rows last), so unlike the TPU kernel there is
@@ -44,15 +46,21 @@ def _smem_bytes(m_h: int, n_z: int, n_s: int, log2_tile: int) -> int:
     return 4 * (m_h * n_z + n_z * n_s + m_h + 7 * m_h * T + 3 * n_z * T)
 
 
-def _pick_log2_tile(m_h: int, n_z: int, n_s: int, B: int) -> int | None:
-    """The widest scenario tile (a power of two, at most 2**_MAX_LOG2_TILE
-    and at most B rounded up) whose block fits shared memory, or None."""
+def _widest_tile(smem_bytes, B: int) -> int | None:
+    """log2 of the widest scenario tile (a power of two, at most
+    2**_MAX_LOG2_TILE and at most B rounded up) whose block fits shared
+    memory, or None; ``smem_bytes(log2_tile)`` is a kernel's carve-up."""
     log2 = min(_MAX_LOG2_TILE, max(B - 1, 0).bit_length())
     while log2 >= 0:
-        if _smem_bytes(m_h, n_z, n_s, log2) <= SMEM_LIMIT_BYTES:
+        if smem_bytes(log2) <= SMEM_LIMIT_BYTES:
             return log2
         log2 -= 1
     return None
+
+
+def _pick_log2_tile(m_h: int, n_z: int, n_s: int, B: int) -> int | None:
+    """The flat kernel's tile for B scenarios (see ``_widest_tile``)."""
+    return _widest_tile(lambda log2: _smem_bytes(m_h, n_z, n_s, log2), B)
 
 
 def flat_fits_smem(data: GPADData) -> bool:
@@ -146,15 +154,27 @@ def _check_inputs(data: GPADData, g_P, p_D, y0, iterations: int) -> None:
     if tuple(p_D.shape) != (g_P.shape[0], 2, m_h):
         raise ValueError(f"p_D must be ({g_P.shape[0]}, 2, {m_h}); got "
                          f"{tuple(p_D.shape)}")
-    tensors = [data.MG_T, data.GL_T, data.L, data.theta, data.beta, g_P, p_D]
-    tensors += [t for t in (y0, data.soft_damp) if t is not None]
+    _check_tensors([data.MG_T, data.GL_T, data.L, data.theta, data.beta, g_P,
+                   p_D, y0, data.soft_damp], g_P.device)
+
+
+def _check_tensors(tensors, device) -> None:
+    """Raise unless every tensor (None skipped) is contiguous float32 on
+    ``device``."""
     for t in tensors:
-        if t.device != g_P.device:
-            raise ValueError(f"tensor on {t.device}, g_P on {g_P.device}")
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"tensor on {t.device}, expected {device}")
         if t.dtype != torch.float32:
             raise ValueError(f"kernel takes float32 tensors; got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("kernel takes contiguous tensors")
+
+
+def _ptr(t):
+    """A tensor's device address for a C launcher (None for no tensor)."""
+    return None if t is None else t.data_ptr()
 
 
 def gpad_fixed_paired_flat(
@@ -193,15 +213,12 @@ def gpad_fixed_paired_flat(
     w = torch.empty_like(y) if diagnostics else None
     zhat = torch.empty_like(z) if diagnostics else None
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(g_P.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptr(data.MG_T), ptr(data.GL_T), ptr(g_P), ptr(p_D),
-                 ptr(y0_rows), y0_stride, ptr(od), ptr(data.theta),
-                 ptr(data.beta), ptr(data.L), B, m_h, n_z, n_s, iterations,
-                 log2_tile, ptr(z), ptr(y), ptr(w), ptr(zhat),
+        err = fn(_ptr(data.MG_T), _ptr(data.GL_T), _ptr(g_P), _ptr(p_D),
+                 _ptr(y0_rows), y0_stride, _ptr(od), _ptr(data.theta),
+                 _ptr(data.beta), _ptr(data.L), B, m_h, n_z, n_s, iterations,
+                 log2_tile, _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
                  _smem_bytes(m_h, n_z, n_s, log2_tile), stream)
     if err != 0:
         raise RuntimeError(f"gpad_paired_flat launch failed: CUDA error {err}")
@@ -211,20 +228,30 @@ def gpad_fixed_paired_flat(
 
 def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
     """CUDA-engine entry called from ``solver.core.solve_batch``: the
-    fixed-mode branch of ``tpu_gpad.solver.kernels.solve_batch_pallas``.
+    counterpart of ``tpu_gpad.solver.kernels.solve_batch_pallas``, with the
+    kernel that ``core.cuda_kernel`` picks.
 
-    Residuals and gap are recovered outside the kernel with plain
+    Residuals and gap are recovered outside the kernels with plain
     products, as the JAX package does outside Pallas."""
-    from tpu_gpad_torch.solver import core
+    from tpu_gpad_torch.solver import core, dual_kernels
 
+    kernel = core.cuda_kernel(data, config)
     batch_shape = g_P.shape[:-1]
     gP2 = g_P.reshape(-1, data.n_z).contiguous()
     pD2 = p_D.reshape(-1, 2, data.m_half).contiguous()
-    z, y, w, zhat = gpad_fixed_paired_flat(
-        data, gP2, pD2, None if y0 is None else y0.contiguous(),
-        iterations=config.iterations, diagnostics=config.diagnostics,
-    )
-    res = core._finish(data, gP2, pD2, z, zhat, w, y, config, flat=False)
+    y0 = None if y0 is None else y0.contiguous()
+    kw = dict(iterations=config.iterations, diagnostics=config.diagnostics)
+    if kernel == "dual_chunk":
+        res = dual_kernels.gpad_eps_dual(data, gP2, pD2, config, y0)
+    else:
+        if kernel == "dual":
+            z, y, w, zhat = dual_kernels.gpad_fixed_dual(
+                data, gP2, pD2, y0, restart=config.restart, **kw)
+        elif kernel == "paired_flat":
+            z, y, w, zhat = gpad_fixed_paired_flat(data, gP2, pD2, y0, **kw)
+        else:
+            raise ValueError("no CUDA kernel serves this solve")
+        res = core._finish(data, gP2, pD2, z, zhat, w, y, config, flat=False)
     return SolveResult(
         **{
             name: t.reshape(tuple(batch_shape) + tuple(t.shape[1:]))
