@@ -11,11 +11,20 @@ the card, drives the port's paths and checks, with the launch counters,
 that each went through its kernel: the batched condensed solve at the
 headline shape and a warm-started ``Controller`` serving a fleet of plants
 (the flat kernel), the flagship example's restart serving loop (the dual
-kernel), and ``solve_to_accuracy`` (the chunked dual kernel, one launch per
-check window). It times kernels and plain versions with CUDA events and
-prints one JSON object per phase. Any failed check exits non-zero. The last
-line is ``{"ok": true, "device": {...}}``. It imports neither jax nor
-``tpu_gpad``. Without a CUDA device it exits non-zero and prints no result.
+kernel), ``solve_to_accuracy`` (the chunked dual kernel, one launch per
+check window), and the stage-wise O(N) engine at full width: ``auto_solver``
+at battery n30 N200 B1024 and n8 N60 B4096 (the streamed kernel) and n8
+N60 B1024 (the resident kernel), a warm ``StagewiseController`` and the
+long-horizon eps example (the torch engine). It times kernels and plain
+versions with CUDA events, computes each kernel's roofline bound from its
+shapes, and prints one JSON object per phase. Any failed check exits
+non-zero. The last line is ``{"ok": true, "device": {...}}``. It imports
+neither jax nor ``tpu_gpad``. Without a CUDA device it exits non-zero and
+prints no result.
+
+    python3 chip_smoke.py --sweep
+
+builds the kernels and times the stage-wise kernels by tile instead.
 """
 
 from __future__ import annotations
@@ -44,6 +53,45 @@ ORACLE_TOL = 1e-4  # |u* - NumPy oracle|: the gate of bench.py
 SERVE_STEPS = 50
 SERVE_PLANTS = 256
 DEVICE = "cuda"
+# The stage-wise engine at full width: battery n30 N200 (60 state and 62
+# input rows per stage) routes to the streamed kernel; n8 N60, stage-wise
+# at B >= 24 N, to the streamed kernel at B4096 and to the resident one at
+# B1024; the eps leg is examples/long_horizon_stagewise.py's call, battery
+# n30 N400.
+SW_FULL, SW_FULL_BATCH, SW_FULL_ITERS = (30, 200), 1024, 200
+SW_RES, SW_RES_BATCH, SW_RES_ITERS = (8, 60), 4096, 100
+SW_CMP_BATCH = 64  # the streamed kernel against its plain version
+# the resident kernel against its plain version
+SW_RES_CMP_BATCH = 256
+# Under restart, the share of scenarios (at least one) whose kernel run may
+# part from the plain version's by a flipped restart decision (the plain
+# version in float32 parts from its float64 run in the same way; the phase
+# reports both counts)
+SW_RESTART_PARTED_SHARE = 0.01
+SW_SERVE_PLANTS, SW_SERVE_STEPS, SW_SERVE_ITERS = 64, 20, 100
+SW_EPS = (30, 400)
+SW_WAVE_BATCH = 1024  # n8 N60: one wave of resident blocks on 132 SMs
+SW_SERVE_SETTLE = 10  # warm steps before the moves are held to the limits
+SW_LIMIT_TOL = 1e-2  # settled moves: |u| <= 0.3 + tol, |sum u| <= tol
+SW_RESIDUAL_TOL = 1e-4  # a plan's excess over the limits beyond its residual
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 outside the tensor
+# cores, and HBM bandwidth
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the fp32 peak and the bytes (each input read once, each output
+    written once) over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def emit(obj) -> None:
@@ -98,8 +146,8 @@ def phase_device(torch):
 def phase_build():
     from tpu_gpad_torch import cuda_build
 
-    names = ["gpad_paired_flat", "gpad_dual"]
-    cuda_build.load_all(names)  # both nvcc runs at once
+    names = ["gpad_paired_flat", "gpad_dual", "gpad_stagewise"]
+    cuda_build.load_all(names)  # every nvcc run at once
     emit({"phase": "build",
           "build_s": {n: cuda_build.BUILD_SECONDS[n] for n in names},
           "ptxas": {n: [ln.strip() for ln in cuda_build.BUILD_LOG.get(n, "")
@@ -249,7 +297,15 @@ def phase_timing(torch, tg, kernels, core, smi):
         for k in order:
             ms[k].append(device_time_per_call(runs[k], warmup=3, repeats=20) * 1e3)
     med = {k: float(np.mean(v)) for k, v in ms.items()}
+    # the loop's two products per scenario and iteration: MG_T (m_h, n_z)
+    # over all rows, GL_T's n_s struct columns; z, y, w, zhat written once
+    m_h, n_z, n_s = data.m_half, data.n_z, data.n_struct
+    med["bound"] = bound(
+        BATCH * ITERS * 2.0 * n_z * (m_h + n_s),
+        nbytes(data.MG_T, data.GL_T[:, :n_s], g_P, p_D, data.theta[:ITERS],
+               data.beta[:ITERS]) + 4 * BATCH * (2 * n_z + 4 * m_h))
     emit({"phase": "timing", "gpu": smi, "batch": BATCH, "iterations": ITERS,
+          "kernel_bound": med["bound"],
           "ms_median_of_20_per_turn": ms,
           "solves_per_s": {"cuda_engine": BATCH / med["solve_cuda"] * 1e3,
                            "torch_engine": BATCH / med["solve_torch"] * 1e3,
@@ -264,10 +320,11 @@ def headline(tg):
     return qp, tg.dualize(qp, ITERS, paired="auto", device=DEVICE)
 
 
-def reset_counters(kernels, dual_kernels):
+def reset_counters(kernels, dual_kernels, sk, ss):
     kernels.PAIRED_FLAT_LAUNCHES = 0
     dual_kernels.DUAL_LAUNCHES = dual_kernels.DUAL_CHUNK_LAUNCHES = 0
     dual_kernels.EPS_SYNCS = 0
+    sk.STAGEWISE_LAUNCHES = ss.STAGEWISE_STREAM_LAUNCHES = 0
 
 
 def phase_dual_kernel_vs_plain(torch, tg, dual_kernels, core):
@@ -493,8 +550,19 @@ def phase_dual_timing(torch, tg, dual_kernels, core, smi):
         for k in turn:
             ms[k].append(device_time_per_call(runs[k], warmup=3, repeats=20) * 1e3)
     med = {k: float(np.mean(v)) for k, v in ms.items()}
+    # the loop's product w D per scenario and iteration (2 m_h^2), plus the
+    # offsets g_P GL_T and the recovery s MG_T once per solve
+    m_h, n_z = data.m_half, data.n_z
+    dual_io = 4 * BATCH * (2 * n_z + 4 * m_h)  # z, y, w, zhat
+    chunk_io = nbytes(*state) + 4 * BATCH * 2 * m_h  # the state back, and w
+    med["bound"] = bound(
+        BATCH * (ITERS * 2.0 * m_h * m_h + 4.0 * m_h * n_z),
+        nbytes(data.D, data.GL_T, data.MG_T, g_P, p_D) + dual_io)
+    med["chunk_bound"] = bound(BATCH * 10 * 2.0 * m_h * m_h,
+                               nbytes(data.D, c, *state) + chunk_io)
     emit({"phase": "dual_timing", "gpu": smi, "batch": BATCH,
           "iterations": ITERS, "chunk": 10,
+          "dual_bound": med["bound"], "chunk_bound": med["chunk_bound"],
           "ms_median_of_20_per_turn": ms,
           "note": "eps_* are CUDA-event times of whole solve_to_accuracy "
                   "calls, host syncs between windows included",
@@ -505,6 +573,376 @@ def phase_dual_timing(torch, tg, dual_kernels, core, smi):
     return med
 
 
+# ---------------------------------------------------------------------------
+# the stage-wise O(N) engine
+# ---------------------------------------------------------------------------
+
+_SW_DATA = {}
+
+
+def sw_data(tg, shape, iterations):
+    """``build_stagewise`` of battery ``shape`` on the card, built once."""
+    key = (shape, iterations)
+    if key not in _SW_DATA:
+        _SW_DATA[key] = tg.build_stagewise(tg.problems.battery(*shape),
+                                           iterations=iterations, device=DEVICE)
+    return _SW_DATA[key]
+
+
+def sw_x0(torch, B, n, seed):
+    return torch.as_tensor(np.random.default_rng(seed).uniform(
+        -0.4, 0.4, (B, n)).astype(np.float32), device=DEVICE)
+
+
+def sw_flops(data) -> float:
+    """The kernels' packed products per stage, scenario and iteration:
+    Gx' wx, Gu' wu, R [st; ru], HB [st; ru], M [x; kff], Gx x, Gu u."""
+    n, p, m_x, m_u = data.n_x, data.n_u, data.m_x, data.m_u
+    return 2.0 * (2 * m_x * n + 2 * m_u * p + (2 * n + 2 * p) * (n + p))
+
+
+def sw_bound(sk, data, B, iterations):
+    pack = sk.pack_stagewise_constants(data)
+    N, n, p, m = data.horizon, data.n_x, data.n_u, data.m_x + data.m_u
+    inputs = nbytes(*(getattr(pack, f.name) for f in dataclasses.fields(pack)))
+    # x0 in; u0, zu, y, residual and gap out
+    io = 4 * B * (n + p + N * p + N * m + 2)
+    return bound(sw_flops(data) * N * B * iterations, inputs + io)
+
+
+def sw_limits(zu):
+    """(max |u|, max |sum of u over the cells| per stage) of plans
+    (..., n_u)."""
+    return zu.abs().max().item(), zu.sum(-1).abs().max().item()
+
+
+def sw_compare(torch, sk, fn, data, x0, iterations, restart=False, y0=None):
+    """A stage-wise kernel and the plain version on the same CUDA tensors:
+    the largest errors on (u0, zu), on y and on (residual, gap)."""
+    out_k = fn(data, x0, iterations, restart=restart, y0=y0)
+    out_p = sk.stagewise_plain(sk.pack_stagewise_constants(data), x0, y0,
+                               iterations=iterations, restart=restart)
+    torch.cuda.synchronize()
+    for t in out_k:
+        check(bool(torch.isfinite(t).all()), "stage-wise kernel output not finite")
+    return {"u_z": max_err(out_k[:2], out_p[:2]),
+            "y": max_err(out_k[2:3], out_p[2:3]),
+            "residual_gap": max_err(out_k[3:], out_p[3:])}
+
+
+def sw_restart_compare(torch, sk, fn, data, x0, iterations):
+    """Under restart, per scenario: the kernel against the plain version,
+    and both against the plain version in float64. A restart decision is
+    the sign of a sum that float32 rounding may flip where it is near 0;
+    a scenario whose decision flipped parts from the other run by far more
+    than RESTART_TOL. Returns the largest (u0, zu) error of the scenarios
+    that did not part, and the counts of those that did."""
+    out_k = fn(data, x0, iterations, restart=True)
+    pack = sk.pack_stagewise_constants(data)
+    out_p = sk.stagewise_plain(pack, x0, iterations=iterations, restart=True)
+    pack64 = sk.StagewisePack(**{f.name: getattr(pack, f.name).double()
+                                 for f in dataclasses.fields(pack)})
+    out_64 = sk.stagewise_plain(pack64, x0.double(), iterations=iterations,
+                                restart=True)
+    torch.cuda.synchronize()
+    for t in out_k:
+        check(bool(torch.isfinite(t).all()), "stage-wise kernel output not finite")
+    per = lambda a, b: (a[1].double() - b[1].double()).abs().amax(dim=(1, 2))
+    e_k, e_k64, e_p64 = per(out_k, out_p), per(out_k, out_64), per(out_p, out_64)
+    parted = e_k > RESTART_TOL
+    return {"u_z": e_k[~parted].max().item() if not parted.all() else None,
+            "parted": int(parted.sum()), "u_z_parted_max": e_k.max().item(),
+            "parted_vs_float64": int((e_k64 > RESTART_TOL).sum()),
+            "plain_parted_vs_float64": int((e_p64 > RESTART_TOL).sum()),
+            "y": max_err(out_k[2:3], out_p[2:3])}
+
+
+def phase_stagewise_kernels_vs_plain(torch, tg, sk, ss):
+    """Each kernel against the plain version: cold, warm per-scenario y0,
+    restart, affine offsets with a fixed reference, and a ragged tile; the
+    streamed kernel also at its full batch against the torch engine."""
+    affine = tg.build_stagewise(
+        dataclasses.replace(tg.problems.battery(3, 7),
+                            c=np.array([0.02, -0.01, 0.015])),
+        iterations=SW_RES_ITERS, x_ref=np.full(3, 0.05), device=DEVICE)
+    x_aff = sw_x0(torch, 64, 3, seed=12)
+    worst = {}
+    for name, fn, data, B, iters in (
+            ("resident", sk.solve_stagewise_cuda, sw_data(tg, SW_RES, SW_RES_ITERS),
+             SW_RES_CMP_BATCH, SW_RES_ITERS),
+            ("stream", ss.solve_stagewise_stream,
+             sw_data(tg, SW_FULL, SW_FULL_ITERS), SW_CMP_BATCH, SW_FULL_ITERS)):
+        x0 = sw_x0(torch, B, data.n_x, seed=11)
+        y_warm = fn(data, 0.9 * x0, iters)[2]
+        cases = {
+            "cold": sw_compare(torch, sk, fn, data, x0, iters),
+            "warm": sw_compare(torch, sk, fn, data, x0, iters, y0=y_warm),
+            "restart": sw_restart_compare(torch, sk, fn, data, x0, iters),
+            "affine_x_ref": sw_compare(torch, sk, fn, affine, x_aff, SW_RES_ITERS),
+            "B5": sw_compare(torch, sk, fn, data, x0[:5].contiguous(), iters,
+                             y0=y_warm[:5].contiguous()),
+        }
+        fixed = max(v["u_z"] for k, v in cases.items() if k != "restart")
+        parted_max = max(1, int(SW_RESTART_PARTED_SHARE * B))
+        emit({"phase": "stagewise_kernels_vs_plain", "kernel": name,
+              "shape": {"n_x": data.n_x, "horizon": data.horizon, "batch": B,
+                        "iterations": iters}, "max_abs_err": cases,
+              "tol_u_z": KERNEL_TOL, "restart_tol_u_z": RESTART_TOL,
+              "restart_parted_max": parted_max})
+        check(fixed <= KERNEL_TOL, f"{name} kernel vs plain: {cases}")
+        rs = cases["restart"]
+        check(rs["parted"] <= parted_max and rs["u_z"] is not None
+              and rs["u_z"] <= RESTART_TOL,
+              f"{name} kernel vs plain under restart: {rs}")
+        worst[name] = max(fixed, rs["u_z"])
+    # the full width against the torch engine
+    d30 = sw_data(tg, SW_FULL, SW_FULL_ITERS)
+    X0 = sw_x0(torch, SW_FULL_BATCH, d30.n_x, seed=13)
+    r_k = tg.solve_stagewise(d30, X0, engine="stream")
+    r_t = tg.solve_stagewise(d30, X0, engine="torch")
+    torch.cuda.synchronize()
+    full = max_err((r_k.u, r_k.z), (r_t.u, r_t.z))
+    emit({"phase": "stagewise_kernels_vs_plain", "kernel": "stream",
+          "shape": {"n_x": d30.n_x, "horizon": d30.horizon,
+                    "batch": SW_FULL_BATCH, "iterations": SW_FULL_ITERS},
+          "u_z_vs_torch_engine": full,
+          "y_vs_torch_engine": max_err((r_k.y,), (r_t.y,)), "tol": KERNEL_TOL})
+    check(full <= KERNEL_TOL, f"streamed kernel vs torch engine {full}")
+    return worst
+
+
+def sw_limits_within_residual(torch, res, data):
+    """The battery's input rows are |u_i| <= 0.3 and sum_i u_i = 0 at
+    every stage: per scenario, the plan's worst excess over them, which
+    the solve's own residual max(G z - h, 0) must cover."""
+    z = res.z.reshape(-1, data.horizon, data.n_u)
+    excess = torch.maximum(z.abs().amax(dim=(1, 2)) - 0.3,
+                           z.sum(-1).abs().amax(dim=1))
+    return (excess - res.residual.reshape(-1)).max().item()
+
+
+def phase_stagewise_main_path(torch, tg, sk, ss, ts):
+    """``auto_solver`` at full width: battery n30 N200 B1024 routes to the
+    streamed kernel; n8 N60 (stage-wise at batch_hint 4096) to the
+    streamed kernel at B4096, where an SM holds 16 of its scenarios to the
+    resident kernel's 8, and to the resident kernel at B1024, one wave of
+    its blocks."""
+    out = {"phase": "stagewise_main_path"}
+    counters = {"stream": lambda: ss.STAGEWISE_STREAM_LAUNCHES,
+                "cuda": lambda: sk.STAGEWISE_LAUNCHES}
+    for shape, iters, hint, legs in (
+            (SW_FULL, SW_FULL_ITERS, None, ((SW_FULL_BATCH, "stream"),)),
+            (SW_RES, SW_RES_ITERS, SW_RES_BATCH,
+             ((SW_RES_BATCH, "stream"), (SW_WAVE_BATCH, "cuda")))):
+        solve_fn, data, kind = tg.auto_solver(
+            tg.problems.battery(*shape), iterations=iters, batch_hint=hint)
+        check(kind == "stagewise", f"auto_solver at battery {shape}: {kind}")
+        for B, expect in legs:
+            X0 = sw_x0(torch, B, data.n_x, seed=21)
+            route = ts.resolve_stagewise_engine(data, B)
+            before = counters[expect]()
+            res = solve_fn(X0)
+            torch.cuda.synchronize()
+            launched = counters[expect]() - before
+            for f in ("u", "z", "y", "residual", "gap"):
+                check(bool(torch.isfinite(getattr(res, f)).all()),
+                      f"battery {shape} B{B} {f} not finite")
+            ref = tg.solve_stagewise(data, X0, engine="torch")
+            vs_torch = max_err((res.u, res.z), (ref.u, ref.z))
+            u_max, sum_max = sw_limits(res.z.reshape(B, data.horizon, data.n_u))
+            over = sw_limits_within_residual(torch, res, data)
+            out[f"battery_n{shape[0]}_N{shape[1]}_B{B}"] = {
+                "iterations": iters, "kind": kind, "route": route,
+                "launches": launched, "u_z_vs_torch_engine": vs_torch,
+                "residual_max": res.residual.max().item(),
+                "max_abs_u": u_max, "max_abs_sum_u": sum_max,
+                "limit_excess_over_residual": over}
+            check(route == expect and launched == 1,
+                  f"battery {shape} B{B} routed to {route}, {launched} launches")
+            check(vs_torch <= KERNEL_TOL, f"B{B} u/z vs torch engine {vs_torch}")
+            check(over <= SW_RESIDUAL_TOL,
+                  f"B{B}: the plan exceeds its limits by {over} beyond its residual")
+    emit(out)
+
+
+def phase_stagewise_serving(torch, tg, ss):
+    """A warm ``StagewiseController`` at battery n30 N200 serving a fleet:
+    one streamed-kernel launch per step. Every move stays within its
+    solve's residual of the limits; once the warm start has settled, within
+    the limits themselves."""
+    problem = tg.problems.battery(*SW_FULL)
+    ctl = tg.StagewiseController(problem, iterations=SW_SERVE_ITERS)
+    A = np.asarray(problem.A, dtype=np.float32)
+    Bm = np.asarray(problem.B, dtype=np.float32)
+    x = np.random.default_rng(23).uniform(
+        -0.4, 0.4, (SW_SERVE_PLANTS, problem.n_x)).astype(np.float32)
+    spread0 = float(np.mean(x.max(1) - x.min(1)))
+    before = ss.STAGEWISE_STREAM_LAUNCHES
+    u_max, sum_max, over, soc_max = [], [], [], 0.0
+    step_ms = []
+    for _ in range(SW_SERVE_STEPS):
+        t0 = time.perf_counter()
+        u = ctl.step(x)  # returns host NumPy: the device work is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        u_max.append(float(np.abs(u).max()))
+        sum_max.append(float(np.abs(u.sum(1)).max()))
+        over.append(sw_limits_within_residual(torch, ctl.last_result, ctl.data))
+        x = x @ A.T + u @ Bm.T
+        soc_max = max(soc_max, float(np.abs(x).max()))
+    spread = float(np.mean(x.max(1) - x.min(1)))
+    launched = ss.STAGEWISE_STREAM_LAUNCHES - before
+    settled = slice(SW_SERVE_SETTLE, None)
+    emit({"phase": "stagewise_serving", "battery": SW_FULL,
+          "plants": SW_SERVE_PLANTS, "steps": SW_SERVE_STEPS,
+          "iterations": SW_SERVE_ITERS, "launches": launched,
+          "max_abs_u_per_step": u_max, "max_abs_sum_u_per_step": sum_max,
+          "limit_excess_over_residual": max(over), "max_abs_soc": soc_max,
+          "mean_spread": [spread0, spread],
+          "step_ms_host_clock": {"median": float(np.median(step_ms[1:])),
+                                 "max": float(np.max(step_ms[1:])),
+                                 "first": step_ms[0]}})
+    check(launched == SW_SERVE_STEPS,
+          f"StagewiseController launched the streamed kernel {launched}x")
+    check(max(over) <= SW_RESIDUAL_TOL, f"moves beyond their residual: {over}")
+    check(max(u_max[settled]) <= 0.3 + SW_LIMIT_TOL, f"settled |u| {u_max}")
+    check(max(sum_max[settled]) <= SW_LIMIT_TOL, f"settled |sum u| {sum_max}")
+    check(soc_max <= 0.5 + SW_LIMIT_TOL, f"|SoC| {soc_max}")
+    check(spread < spread0, f"SoC spread did not shrink: {spread0} -> {spread}")
+
+
+def phase_stagewise_eps(torch, tg, sk, ss):
+    """examples/long_horizon_stagewise.py's call past the condensation
+    wall: battery n30 N400, 8 scenarios, eps 1e-4 with restart, a check
+    every 20 iterations, at most 2000; eps mode runs the torch engine."""
+    problem = tg.problems.battery(*SW_EPS)
+    try:
+        tg.condense(problem)
+        raise SystemExit("chip_smoke FAILED: condense() took battery n30 N400")
+    except ValueError as e:
+        check("tpu_gpad_torch.stagewise" in str(e), f"condense wall: {e}")
+    solve_fn, data, kind = tg.auto_solver(problem, iterations=2000)
+    check(kind == "stagewise", f"auto_solver at battery {SW_EPS}: {kind}")
+    X0 = torch.as_tensor(np.random.default_rng(0).uniform(
+        -0.3, 0.3, (8, problem.n_x)).astype(np.float32), device=DEVICE)
+    cfg = tg.SolverConfig(mode="eps", eps_g=1e-4, eps_V=1e-4, check_every=20,
+                          restart=True, iterations=2000)
+    before = (sk.STAGEWISE_LAUNCHES, ss.STAGEWISE_STREAM_LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_fn(X0, config=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    iters = res.iterations.cpu().numpy()
+    drift = sw_limits(res.z.reshape(8, SW_EPS[1], problem.n_u))[1]
+    emit({"phase": "stagewise_eps", "battery": SW_EPS, "batch": 8,
+          "engine": "torch", "iterations_mean": float(iters.mean()),
+          "iterations_max": int(iters.max()),
+          "converged": int(res.converged.sum()),
+          "residual_max": res.residual.max().item(), "charge_drift": drift,
+          "wall_s_host_clock": wall})
+    check((sk.STAGEWISE_LAUNCHES, ss.STAGEWISE_STREAM_LAUNCHES) == before,
+          "eps mode launched a stage-wise kernel")
+    check(bool(res.converged.all()), "not every scenario converged")
+    check(res.residual.max().item() < 1e-2, "eps residual")
+    check(drift < 5e-3, f"charge-conservation drift {drift}")
+
+
+def phase_stagewise_timing(torch, tg, sk, ss, ts, smi):
+    """CUDA events, median of 5 calls per turn, turns kernel, plain, plain,
+    kernel: each kernel at its main-path shape against its plain version,
+    both kernels at n8 N60 B4096 and B1024 (the routing rule's two sides),
+    and the torch engine at 10 iterations, per iteration."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    d30 = sw_data(tg, SW_FULL, SW_FULL_ITERS)
+    d8 = sw_data(tg, SW_RES, SW_RES_ITERS)
+    X30 = sw_x0(torch, SW_FULL_BATCH, d30.n_x, seed=31)
+    X8 = sw_x0(torch, SW_RES_BATCH, d8.n_x, seed=32)
+    X8w = X8[:SW_WAVE_BATCH].contiguous()
+    p30, p8 = sk.pack_stagewise_constants(d30), sk.pack_stagewise_constants(d8)
+    kernels = {
+        "stream": lambda: ss.solve_stagewise_stream(d30, X30, SW_FULL_ITERS),
+        "resident": lambda: sk.solve_stagewise_cuda(d8, X8w, SW_RES_ITERS),
+        "stream_n8_B1024": lambda: ss.solve_stagewise_stream(
+            d8, X8w, SW_RES_ITERS),
+        "stream_n8_B4096": lambda: ss.solve_stagewise_stream(
+            d8, X8, SW_RES_ITERS),
+        "resident_n8_B4096": lambda: sk.solve_stagewise_cuda(
+            d8, X8, SW_RES_ITERS),
+    }
+    plains = {
+        "stream_plain": lambda: sk.stagewise_plain(p30, X30,
+                                                   iterations=SW_FULL_ITERS),
+        "resident_plain": lambda: sk.stagewise_plain(p8, X8w,
+                                                     iterations=SW_RES_ITERS),
+        "torch_engine_10_full": lambda: ts.solve_stagewise(
+            d30, X30, iterations=10, engine="torch"),
+        "torch_engine_10_n8_B1024": lambda: ts.solve_stagewise(
+            d8, X8w, iterations=10, engine="torch"),
+    }
+    runs = {**kernels, **plains}
+    ms = {k: [] for k in runs}
+    for order in (list(kernels) + list(plains), list(plains) + list(kernels)):
+        for k in order:
+            ms[k].append(device_time_per_call(runs[k], warmup=1, repeats=5) * 1e3)
+    med = {k: float(np.mean(v)) for k, v in ms.items()}
+    med["stream_bound"] = sw_bound(sk, d30, SW_FULL_BATCH, SW_FULL_ITERS)
+    med["resident_bound"] = sw_bound(sk, d8, SW_WAVE_BATCH, SW_RES_ITERS)
+    sms = sk.sm_count(DEVICE)
+    emit({"phase": "stagewise_timing", "gpu": smi, "sms": sms,
+          "shapes": {"stream": [SW_FULL, SW_FULL_BATCH, SW_FULL_ITERS],
+                     "resident": [SW_RES, SW_WAVE_BATCH, SW_RES_ITERS]},
+          "tiles_log2": {
+              "stream": ss.stream_layout(d30, SW_FULL_BATCH, sms)[:2],
+              "stream_n8_B4096": ss.stream_layout(d8, SW_RES_BATCH, sms)[:2],
+              "resident_n8_B1024": sk._pick_log2_tile(d8, SW_WAVE_BATCH),
+              "resident_n8_B4096": sk._pick_log2_tile(d8, SW_RES_BATCH)},
+          "ms_median_of_5_per_turn": ms,
+          "torch_engine_ms_per_iteration": {
+              "full": med["torch_engine_10_full"] / 10,
+              "n8_B1024": med["torch_engine_10_n8_B1024"] / 10},
+          "stream_bound": med["stream_bound"],
+          "resident_bound": med["resident_bound"]})
+    return med
+
+
+def sweep_stagewise(torch, tg, sk, ss, smi):
+    """``python3 chip_smoke.py --sweep``: each stage-wise kernel's time by
+    tile (2**log2 scenarios per block; the streamed kernel's slab placement
+    as ``stream_layout`` picks it for that tile) at the shapes the routing
+    rule weighs. CUDA events, median of 3 calls after one warm-up."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    d30 = sw_data(tg, SW_FULL, SW_FULL_ITERS)
+    d8 = sw_data(tg, SW_RES, SW_RES_ITERS)
+    X30 = sw_x0(torch, SW_FULL_BATCH, d30.n_x, seed=31)
+    X8 = sw_x0(torch, SW_RES_BATCH, d8.n_x, seed=32)
+    sms = sk.sm_count(DEVICE)
+    cases = [("stream", d30, X30, SW_FULL_ITERS),
+             ("stream", d30, X30[:SW_SERVE_PLANTS].contiguous(), SW_SERVE_ITERS)]
+    for B in (SW_RES_BATCH, SW_WAVE_BATCH):
+        for kernel in ("resident", "stream"):
+            cases.append((kernel, d8, X8[:B].contiguous(), SW_RES_ITERS))
+    for kernel, data, X, iters in cases:
+        fn = sk.solve_stagewise_cuda if kernel == "resident" else ss.solve_stagewise_stream
+        B = X.shape[0]
+        row = {}
+        for log2 in range(sk._MAX_LOG2_TILE + 1):
+            if kernel == "resident" and not sk.stagewise_fits_smem(data, 1 << log2):
+                continue
+            ms = device_time_per_call(
+                lambda: fn(data, X, iters, log2_tile=log2), warmup=1, repeats=3)
+            row[log2] = {"ms": ms * 1e3}
+            if kernel == "stream":
+                row[log2]["slabs_in_smem"] = ss.stream_layout(data, B, sms, log2)[1]
+        pick = (sk._pick_log2_tile(data, B) if kernel == "resident"
+                else ss.stream_layout(data, B, sms)[0])
+        emit({"phase": "stagewise_tile_sweep", "gpu": smi, "kernel": kernel,
+              "battery": [data.n_x, data.horizon], "batch": B,
+              "iterations": iters, "default_log2_tile": pick,
+              "ms_by_log2_tile": row})
+
+
 def main() -> int:
     import torch
 
@@ -512,29 +950,47 @@ def main() -> int:
         raise SystemExit("chip_smoke FAILED: no CUDA device (torch.cuda."
                          "is_available() is False); nothing runs on the host")
     import tpu_gpad_torch as tg
+    from tpu_gpad_torch import stagewise as ts
+    from tpu_gpad_torch import stagewise_kernel as sk
+    from tpu_gpad_torch import stagewise_stream as ss
     from tpu_gpad_torch.solver import core, dual_kernels, kernels, reference
 
     smi, name = phase_device(torch)
     phase_build()
+    if sys.argv[1:] == ["--sweep"]:
+        sweep_stagewise(torch, tg, sk, ss, smi)
+        return 0
     worst = phase_kernel_vs_plain(torch, tg, kernels, core)
     worst_dual = phase_dual_kernel_vs_plain(torch, tg, dual_kernels, core)
     worst_chunk = phase_dual_chunk_vs_plain(torch, tg, dual_kernels, core)
+    worst_sw = phase_stagewise_kernels_vs_plain(torch, tg, sk, ss)
     # each path's launches are counted from 0, set just before it
-    reset_counters(kernels, dual_kernels)
+    reset_counters(kernels, dual_kernels, sk, ss)
     phase_main_path(torch, tg, kernels, core, reference)
     phase_serving(torch, tg, kernels)
     launches = kernels.PAIRED_FLAT_LAUNCHES
     check(launches == 1 + SERVE_STEPS, f"main path launched {launches}x")
-    reset_counters(kernels, dual_kernels)
+    reset_counters(kernels, dual_kernels, sk, ss)
     phase_restart_serving(torch, tg, dual_kernels)
     phase_dual_forms(torch, tg, dual_kernels, core)
     dual_launches = dual_kernels.DUAL_LAUNCHES
     check(dual_launches == SERVE_STEPS + 2, f"dual path launched {dual_launches}x")
-    reset_counters(kernels, dual_kernels)
+    reset_counters(kernels, dual_kernels, sk, ss)
     chunk_launches = phase_eps_path(torch, tg, dual_kernels, core, reference)
+    reset_counters(kernels, dual_kernels, sk, ss)
+    phase_stagewise_main_path(torch, tg, sk, ss, ts)
+    phase_stagewise_serving(torch, tg, ss)
+    sw_launches = {"resident": sk.STAGEWISE_LAUNCHES,
+                   "stream": ss.STAGEWISE_STREAM_LAUNCHES}
+    check(sw_launches == {"resident": 1, "stream": 2 + SW_SERVE_STEPS},
+          f"stage-wise path launches {sw_launches}")
+    phase_stagewise_eps(torch, tg, sk, ss)
     phase_near_limit(torch, tg, kernels, core)
     med = phase_timing(torch, tg, kernels, core, smi)
     dmed = phase_dual_timing(torch, tg, dual_kernels, core, smi)
+    smed = phase_stagewise_timing(torch, tg, sk, ss, ts, smi)
+    # no single PyTorch call computes a GPAD solve loop
+    no_library = {"library_ms": None}
     emit({"kernels": [{
         "name": "gpad_paired_flat",
         "route": "cuda",
@@ -544,6 +1000,7 @@ def main() -> int:
         "max_abs_err": worst,
         "ms": med["kernel"],
         "plain_ms": med["plain"],
+        **med["bound"], **no_library,
     }, {
         "name": "gpad_dual",
         "route": "cuda",
@@ -553,6 +1010,7 @@ def main() -> int:
         "max_abs_err": worst_dual,
         "ms": dmed["dual"],
         "plain_ms": dmed["dual_plain"],
+        **dmed["bound"], **no_library,
     }, {
         "name": "gpad_dual_chunk",
         "route": "cuda",
@@ -562,6 +1020,27 @@ def main() -> int:
         "max_abs_err": worst_chunk,
         "ms": dmed["chunk"],
         "plain_ms": dmed["chunk_plain"],
+        **dmed["chunk_bound"], **no_library,
+    }, {
+        "name": "gpad_stagewise_resident",
+        "route": "cuda",
+        "source": "tpu_gpad_torch/csrc/gpad_stagewise.cu",
+        "replaces": "tpu_gpad/stagewise_kernel.py:148",
+        "launches": sw_launches["resident"],
+        "max_abs_err": worst_sw["resident"],
+        "ms": smed["resident"],
+        "plain_ms": smed["resident_plain"],
+        **smed["resident_bound"], **no_library,
+    }, {
+        "name": "gpad_stagewise_stream",
+        "route": "cuda",
+        "source": "tpu_gpad_torch/csrc/gpad_stagewise.cu",
+        "replaces": "tpu_gpad/stagewise_stream.py:112",
+        "launches": sw_launches["stream"],
+        "max_abs_err": worst_sw["stream"],
+        "ms": smed["stream"],
+        "plain_ms": smed["stream_plain"],
+        **smed["stream_bound"], **no_library,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -27,7 +27,7 @@ def _torch_cli(*argv):
 
 def test_solve_matches_jax_cli(capsys):
     argv = ["solve", "--batch", "16"]
-    proc = _torch_cli(*argv)
+    proc = _torch_cli(*argv, "--device", "cpu")
     assert proc.returncode == 0, proc.stderr
     (out_t,) = [json.loads(ln) for ln in proc.stdout.strip().splitlines()]
     assert jax_main(argv) == 0
@@ -44,7 +44,7 @@ def test_solve_matches_jax_cli(capsys):
 @pytest.mark.parametrize(
     "argv,msg",
     [(["solve", "--dataset", "x.txt"], "--dataset"),
-     (["solve", "--engine", "stagewise"], "stagewise"),
+     (["solve", "--engine", "stagewise", "--dataset", "x.txt"], "--dataset"),
      (["info", "--cells", "3"], "`info`"),
      (["closedloop"], "`closedloop`")],
     ids=["dataset", "stagewise", "info", "closedloop"],
@@ -60,5 +60,6 @@ def test_unported_commands_say_so(argv, msg):
 def test_time_needs_a_card():
     """--time measures device time; without a card it fails, never falls
     back to the host clock."""
-    proc = _torch_cli("solve", "--batch", "2", "--iterations", "5", "--time")
+    proc = _torch_cli("solve", "--batch", "2", "--iterations", "5", "--time",
+                      "--device", "cpu")
     assert proc.returncode != 0 and "CUDA" in proc.stderr

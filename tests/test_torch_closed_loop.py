@@ -28,7 +28,8 @@ def _states(B, n_x, seed):
 
 def test_controller_warm_matches_tpu_gpad():
     c_j = tpu_gpad.Controller(jp.battery(3, 10), iterations=100)
-    c_t = tpu_gpad_torch.Controller(tp.battery(3, 10), iterations=100)
+    c_t = tpu_gpad_torch.Controller(tp.battery(3, 10), iterations=100,
+                                    device="cpu")
     A = np.asarray(c_j.problem.A, np.float32)
     Bm = np.asarray(c_j.problem.B, np.float32)
     x = _states(8, 3, seed=5)
@@ -57,7 +58,7 @@ def test_controller_parameter_layouts():
     kw = dict(iterations=60, tracking=True, input_reference=True,
               process_disturbance=True)
     c_j = tpu_gpad.Controller(problem(tpu_gpad), **kw)
-    c_t = tpu_gpad_torch.Controller(problem(tpu_gpad_torch), **kw)
+    c_t = tpu_gpad_torch.Controller(problem(tpu_gpad_torch), **kw, device="cpu")
     x = _states(4, 3, seed=6)
     r = np.full(3, 0.1, np.float32)
     d = np.full(3, 1e-3, np.float32)
@@ -68,14 +69,14 @@ def test_controller_parameter_layouts():
     c_t.reset()
     assert c_t._y is None and c_t._u_prev is None
     with pytest.raises(ValueError, match="x_ref"):
-        tpu_gpad_torch.Controller(tp.battery(3, 6)).step(x, x_ref=r)
+        tpu_gpad_torch.Controller(tp.battery(3, 6), device="cpu").step(x, x_ref=r)
 
 
 def test_controller_unported_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpu_gpad_torch.Controller(tp.battery(3, 6), polish=True)
+        tpu_gpad_torch.Controller(tp.battery(3, 6), polish=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpu_gpad_torch.Controller(tp.battery(3, 6)).gain()
+        tpu_gpad_torch.Controller(tp.battery(3, 6), device="cpu").gain()
 
 
 @pytest.mark.parametrize("warm_start", [False, True])
@@ -84,7 +85,7 @@ def test_simulate_matches_tpu_gpad(warm_start):
     r_j = tpu_gpad.simulate(jp.battery(3, 10), X0, n_steps=30,
                             warm_start=warm_start)
     r_t = tpu_gpad_torch.simulate(tp.battery(3, 10), X0, n_steps=30,
-                                  warm_start=warm_start)
+                                  warm_start=warm_start, device="cpu")
     assert r_t.X.shape == (31, 4, 3) and r_t.U.shape == (30, 4, 3)
     np.testing.assert_allclose(r_t.X.numpy(), np.asarray(r_j.X), atol=X_TOL, rtol=0)
     np.testing.assert_allclose(r_t.U.numpy(), np.asarray(r_j.U), atol=U_TOL, rtol=0)

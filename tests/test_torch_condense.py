@@ -59,7 +59,8 @@ def test_condense_dualize_bit_exact(name, build, kw, paired):
         qp_j.n_u, qp_j.n_x, qp_j.horizon, qp_j.name)
 
     d_j = tpu_gpad.dualize(qp_j, iterations=50, paired=paired)
-    d_t = tpu_gpad_torch.dualize(qp_t, iterations=50, paired=paired)
+    d_t = tpu_gpad_torch.dualize(qp_t, iterations=50, paired=paired,
+                                 device="cpu")
     for meta in GPAD_META_FIELDS:
         assert getattr(d_t, meta) == getattr(d_j, meta), meta
     for field, ref in _fields(d_j).items():
@@ -77,7 +78,8 @@ def test_condense_dualize_bit_exact(name, build, kw, paired):
 def test_headline_layout():
     """The headline problem condenses to the kernel's flat paired layout."""
     d = tpu_gpad_torch.dualize(
-        tpu_gpad_torch.condense(tp.battery(3, 10)), iterations=100, paired="auto"
+        tpu_gpad_torch.condense(tp.battery(3, 10)), iterations=100, paired="auto",
+        device="cpu",
     )
     assert d.paired and (d.n_z, d.m_half, d.n_struct) == (30, 70, 40)
     assert d.device.type == "cpu"

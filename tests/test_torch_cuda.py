@@ -234,3 +234,96 @@ def test_restart_and_eps_route_through_dual_kernels(dev):
     ref = tg.solve_to_accuracy(data, X0, tol=1e-5, engine="torch")
     assert (res.iterations - ref.iterations).abs().max() <= 10
     torch.testing.assert_close(res.u, ref.u, atol=2e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the stage-wise kernels (csrc/gpad_stagewise.cu)
+# ---------------------------------------------------------------------------
+
+from tpu_gpad_torch import stagewise as ts  # noqa: E402
+from tpu_gpad_torch import stagewise_kernel as sk  # noqa: E402
+from tpu_gpad_torch import stagewise_stream as ss  # noqa: E402
+
+SW_ITERS = 60
+
+
+def _sw_data(dev, n, N, **kw):
+    problem = tg.problems.battery(n, N)
+    if "c" in kw:
+        problem = dataclasses.replace(problem, c=kw.pop("c"))
+    return tg.build_stagewise(problem, iterations=SW_ITERS, device=dev, **kw)
+
+
+def _sw_both(fn, data, x0, y0=None, restart=False):
+    out_k = fn(data, x0, SW_ITERS, restart=restart, y0=y0)
+    out_p = sk.stagewise_plain(sk.pack_stagewise_constants(data), x0, y0,
+                               iterations=SW_ITERS, restart=restart)
+    torch.cuda.synchronize()
+    return out_k, out_p
+
+
+@pytest.mark.parametrize("kernel", ["resident", "stream"])
+@pytest.mark.parametrize("case", ["cold", "warm", "warm_shared", "restart",
+                                  "affine", "B1", "B5"])
+def test_stagewise_kernel_matches_plain(dev, kernel, case):
+    fn = sk.solve_stagewise_cuda if kernel == "resident" else ss.solve_stagewise_stream
+    if case == "affine":
+        data = _sw_data(dev, 3, 7, c=np.array([0.02, -0.01, 0.015]),
+                        x_ref=np.full(3, 0.05))
+    else:
+        data = _sw_data(dev, 8, 24)
+    B = {"B1": 1, "B5": 5}.get(case, 64)
+    rng = np.random.default_rng(B)
+    x0 = torch.as_tensor(rng.uniform(-0.4, 0.4, (B, data.n_x)),
+                         dtype=torch.float32, device=dev)
+    y0 = None
+    if case in ("warm", "B1", "B5"):
+        y0 = fn(data, 0.9 * x0, SW_ITERS)[2]
+    elif case == "warm_shared":
+        y0 = fn(data, 0.9 * x0[:1], SW_ITERS)[2][0]
+    launches = (sk.STAGEWISE_LAUNCHES, ss.STAGEWISE_STREAM_LAUNCHES)
+    out_k, out_p = _sw_both(fn, data, x0, y0, restart=case == "restart")
+    after = (sk.STAGEWISE_LAUNCHES, ss.STAGEWISE_STREAM_LAUNCHES)
+    assert after[kernel == "stream"] == launches[kernel == "stream"] + 1
+    assert after[kernel != "stream"] == launches[kernel != "stream"]
+    tol = RESTART_TOL if case == "restart" else TOL
+    for name, a, b in zip(("u0", "zu", "y", "residual", "gap"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        if case != "restart" or name in ("u0", "zu"):
+            torch.testing.assert_close(a, b, atol=tol, rtol=0, msg=name)
+
+
+def test_stagewise_routes_through_kernels(dev):
+    small = _sw_data(dev, 8, 24)
+    assert ts.resolve_stagewise_engine(small, 64) == "cuda"
+    X0 = torch.rand((64, small.n_x), device=dev) * 0.8 - 0.4
+    before = sk.STAGEWISE_LAUNCHES
+    res = ts.solve_stagewise(small, X0)
+    assert sk.STAGEWISE_LAUNCHES == before + 1
+    ref = ts.solve_stagewise(small, X0, engine="torch")
+    for name in ("u", "z", "y", "residual", "gap"):
+        torch.testing.assert_close(getattr(res, name), getattr(ref, name),
+                                   atol=TOL, rtol=0, msg=name)
+    # eps mode and runtime parameters ride the torch engine
+    before = (sk.STAGEWISE_LAUNCHES, ss.STAGEWISE_STREAM_LAUNCHES)
+    ts.solve_stagewise(small, X0, mode="eps", eps_g=1e-3, eps_V=1e-3)
+    ts.solve_stagewise(small, X0, q_lin=torch.zeros(small.n_x, device=dev))
+    assert (sk.STAGEWISE_LAUNCHES, ss.STAGEWISE_STREAM_LAUNCHES) == before
+    # past one block's shared memory: the streamed kernel
+    big = tg.build_stagewise(tg.problems.battery(30, 200), iterations=20,
+                             device=dev)
+    assert not sk.stagewise_fits_smem(big, 1)
+    assert ts.resolve_stagewise_engine(big, 4) == "stream"
+    with pytest.raises(ValueError, match="stagewise kernel cannot take"):
+        ts.solve_stagewise(big, torch.zeros((4, 30), device=dev), engine="cuda")
+
+
+def test_stagewise_controller_serves_through_a_kernel(dev):
+    ctl = tg.StagewiseController(tg.problems.battery(8, 24), iterations=SW_ITERS,
+                                 device=dev)
+    x = np.random.default_rng(3).uniform(-0.4, 0.4, (16, 8)).astype(np.float32)
+    before = sk.STAGEWISE_LAUNCHES
+    for _ in range(3):
+        u = ctl.step(x)
+    assert sk.STAGEWISE_LAUNCHES == before + 3
+    assert u.shape == (16, 8) and np.isfinite(u).all()

@@ -191,7 +191,7 @@ def test_wrappers_reject_bad_inputs(pair):
                                      chunk=10)
     dense = tpu_gpad_torch.dualize(
         tpu_gpad_torch.condense(tpu_gpad_torch.problems.battery(3, 4)),
-        iterations=5, paired=False)
+        iterations=5, paired=False, device="cpu")
     with pytest.raises(ValueError, match="paired data with D"):
         dual_kernels.gpad_fixed_dual(dense, torch.zeros((1, dense.n_z)),
                                      torch.zeros((1, 2, 1)), iterations=5)
@@ -203,7 +203,7 @@ def test_shared_memory_guard():
     def data(n, N):
         return tpu_gpad_torch.dualize(
             tpu_gpad_torch.condense(tpu_gpad_torch.problems.battery(n, N)),
-            iterations=5, paired="auto")
+            iterations=5, paired="auto", device="cpu")
 
     head, mid, flagship = data(3, 10), data(5, 20), data(30, 30)
     assert dual_kernels.dual_fits_smem(head) and dual_kernels.dual_fits_smem(mid)
@@ -214,5 +214,5 @@ def test_shared_memory_guard():
     assert dual_kernels._dual_smem_bytes(220, 3) > 227 * 1024
     dense = tpu_gpad_torch.dualize(
         tpu_gpad_torch.condense(tpu_gpad_torch.problems.battery(3, 4)),
-        iterations=5, paired=False)
+        iterations=5, paired=False, device="cpu")
     assert not dual_kernels.dual_fits_smem(dense)

@@ -142,7 +142,7 @@ def test_wrapper_rejects_bad_inputs(pair):
         kernels.gpad_fixed_paired_flat(d_t, g_P, p_D, iterations=ITERS + 1)
     dense = tpu_gpad_torch.dualize(
         tpu_gpad_torch.condense(tpu_gpad_torch.problems.battery(3, 4)),
-        iterations=5, paired=False)
+        iterations=5, paired=False, device="cpu")
     with pytest.raises(ValueError, match="identity block"):
         kernels.gpad_fixed_paired_flat(
             dense, torch.zeros((1, dense.n_z)), torch.zeros((1, 2, 1)),
@@ -155,7 +155,7 @@ def test_shared_memory_guard():
     def data(n, N):
         return tpu_gpad_torch.dualize(
             tpu_gpad_torch.condense(tpu_gpad_torch.problems.battery(n, N)),
-            iterations=5, paired="auto")
+            iterations=5, paired="auto", device="cpu")
 
     head, mid = data(3, 10), data(5, 20)
     assert kernels.flat_fits_smem(head) and kernels.flat_fits_smem(mid)
@@ -167,5 +167,5 @@ def test_shared_memory_guard():
     assert not kernels.flat_fits_smem(data(30, 30))
     dense = tpu_gpad_torch.dualize(
         tpu_gpad_torch.condense(tpu_gpad_torch.problems.battery(3, 4)),
-        iterations=5, paired=False)
+        iterations=5, paired=False, device="cpu")
     assert not kernels.flat_fits_smem(dense)

@@ -177,7 +177,8 @@ def test_controller_restart_matches_tpu_gpad():
     c_j = tpu_gpad.Controller(jp.battery(3, 10),
                               config=JConfig(iterations=60, restart=True))
     c_t = tpu_gpad_torch.Controller(tp.battery(3, 10),
-                                    config=SolverConfig(iterations=60, restart=True))
+                                    config=SolverConfig(iterations=60, restart=True),
+                                    device="cpu")
     A = np.asarray(c_j.problem.A, np.float32)
     Bm = np.asarray(c_j.problem.B, np.float32)
     x = np.random.default_rng(5).uniform(-0.4, 0.4, (8, 3)).astype(np.float32)
@@ -195,7 +196,7 @@ def test_simulate_restart_matches_tpu_gpad():
                             config=JConfig(iterations=60, restart=True), **kw)
     r_t = tpu_gpad_torch.simulate(tp.battery(3, 10), X0,
                                   config=SolverConfig(iterations=60, restart=True),
-                                  **kw)
+                                  **kw, device="cpu")
     np.testing.assert_allclose(r_t.U.numpy(), np.asarray(r_j.U),
                                atol=RESTART_TOL, rtol=0)
     np.testing.assert_allclose(r_t.X.numpy(), np.asarray(r_j.X),
@@ -205,7 +206,8 @@ def test_simulate_restart_matches_tpu_gpad():
 def test_cli_solve_eps_restart(capsys):
     argv = ["solve", "--batch", "16", "--mode", "eps", "--restart"]
     env = dict(os.environ, OMP_NUM_THREADS="2")
-    proc = subprocess.run([sys.executable, "-m", "tpu_gpad_torch", *argv],
+    proc = subprocess.run([sys.executable, "-m", "tpu_gpad_torch", *argv,
+                           "--device", "cpu"],
                           cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -105,7 +105,8 @@ def test_diagnostics_off_and_batch_dims(paired_pair):
 def test_u_star_matches_oracle(paired):
     problem = tpu_gpad_torch.problems.battery(3, 10)
     qp = tpu_gpad_torch.condense(problem)
-    data = tpu_gpad_torch.dualize(qp, iterations=ITERS, paired=paired)
+    data = tpu_gpad_torch.dualize(qp, iterations=ITERS, paired=paired,
+                                  device="cpu")
     X0 = _x0(3, qp.n_x, seed=4)
     for form in (("mvp", "dual") if paired else ("mvp",)):
         res = tpu_gpad_torch.solve_batch(data, X0, SolverConfig(form=form))

@@ -10,9 +10,15 @@ by slice. It carries the condensed serving path:
   hand-written CUDA kernels for the flat paired and the dual forms
   (``engine="cuda"``), routed by ``engine="auto"``; ``solve_to_accuracy``,
 - the warm-started serving ``Controller`` and batched ``simulate``,
-- the ``solve`` CLI command.
+- the stage-wise O(N) engine past the condensation wall
+  (``build_stagewise``, ``solve_stagewise``, ``StagewiseController``,
+  ``auto_solver``): a loop of torch ops and two CUDA kernels, one with the
+  whole solve's state in shared memory and one that streams the dual
+  iterates through device memory,
+- the ``solve`` CLI command, ``--engine stagewise`` included.
 
-It imports no jax and no tpu_gpad.
+Entry points place their data on the card unless the caller passes
+``device="cpu"``. It imports no jax and no tpu_gpad.
 """
 
 from tpu_gpad_torch.types import LinearMPCProblem, CondensedQP, GPADData, SolveResult
@@ -21,7 +27,20 @@ from tpu_gpad_torch.schedule import momentum_schedule
 from tpu_gpad_torch import problems
 from tpu_gpad_torch.solver import SolverConfig, solve, solve_batch, solve_to_accuracy
 from tpu_gpad_torch.closed_loop import Controller, simulate
-from tpu_gpad_torch.convert import gpad_data_from_numpy, solve_result_to_numpy
+from tpu_gpad_torch.stagewise import (
+    StagewiseController,
+    StagewiseData,
+    auto_solver,
+    build_stagewise,
+    solve_stagewise,
+    stagewise_compatible,
+    stagewise_preferred,
+)
+from tpu_gpad_torch.convert import (
+    gpad_data_from_numpy,
+    solve_result_to_numpy,
+    stagewise_data_from_numpy,
+)
 
 __all__ = [
     "LinearMPCProblem",
@@ -38,6 +57,14 @@ __all__ = [
     "solve_to_accuracy",
     "Controller",
     "simulate",
+    "StagewiseData",
+    "auto_solver",
+    "StagewiseController",
+    "build_stagewise",
+    "solve_stagewise",
+    "stagewise_compatible",
+    "stagewise_preferred",
     "gpad_data_from_numpy",
     "solve_result_to_numpy",
+    "stagewise_data_from_numpy",
 ]

@@ -1,9 +1,11 @@
 """Command line: ``python -m tpu_gpad_torch solve ...``.
 
-The condensed ``solve`` command of ``tpu_gpad.cli`` with the same flags and
-JSON keys, plus ``--device`` and the keys ``"engine"`` (the engine that ran)
-and ``"device"``. ``--dataset``, ``--engine stagewise`` and the other
-commands of the JAX CLI are not yet ported and say so.
+The ``solve`` command of ``tpu_gpad.cli`` with the same flags and JSON keys,
+plus ``--device`` (the card by default) and the key ``"device"``; the
+condensed route also reports ``"engine"``, the engine that ran. ``--engine
+stagewise`` solves on the stage-wise O(N) engine (``tpu_gpad_torch.
+stagewise``). ``--dataset`` and the other commands of the JAX CLI are not
+yet ported and say so.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ def _solver_config(args):
         mode=args.mode,
         eps_g=args.eps_g,
         eps_V=args.eps_v,
-        engine=args.engine,
+        engine="auto" if args.engine == "stagewise" else args.engine,
         form=args.form,
         matmul_dtype=args.dtype,
         precision=args.precision,
@@ -66,10 +68,10 @@ def cmd_solve(args) -> int:
 
     if args.dataset:
         raise SystemExit(f"solve --dataset {_NOT_PORTED}")
-    if args.engine == "stagewise":
-        raise SystemExit(f"solve --engine stagewise {_NOT_PORTED}")
     config = _solver_config(args)
     problem = _build_problem(args)
+    if args.engine == "stagewise":
+        return _solve_stagewise(args, problem, config)
     data = tpu_gpad_torch.dualize(
         tpu_gpad_torch.condense(problem),
         iterations=args.iterations,
@@ -102,6 +104,36 @@ def cmd_solve(args) -> int:
     return 0
 
 
+def _solve_stagewise(args, problem, config) -> int:
+    import torch
+
+    from tpu_gpad_torch.stagewise import build_stagewise, solve_stagewise
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    data = build_stagewise(problem, iterations=args.iterations,
+                           device=args.device)
+    X0 = torch.as_tensor(_scenarios(args, problem.n_x), device=data.device)
+    res = solve_stagewise(data, X0, config=config)
+    out = {
+        "problem": data.name, "engine": "stagewise",
+        "n_u": data.n_u, "horizon": data.horizon, "m": data.m,
+        "batch": int(X0.shape[0]),
+        "iterations": int(res.iterations.max()),
+        "residual_max": float(res.residual.max()),
+        "converged_all": bool(res.converged.all()),
+        "u_star": res.u[0].cpu().tolist(),
+        "device": str(data.device),
+    }
+    if args.time:
+        t = device_time_per_call(lambda: solve_stagewise(data, X0, config=config))
+        out["batch_device_us"] = t * 1e6
+        out["device_us_per_solve"] = t * 1e6 / X0.shape[0]
+        out["solves_per_sec"] = X0.shape[0] / t
+        out["device_name"] = torch.cuda.get_device_name(data.device)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def _not_ported(args) -> int:
     raise SystemExit(f"`{args.command}` {_NOT_PORTED}")
 
@@ -125,7 +157,8 @@ def main(argv=None) -> int:
     p.add_argument("--eps-v", type=float, default=1e-6)
     p.add_argument("--engine", default="auto",
                    choices=["auto", "torch", "cuda", "stagewise"],
-                   help="torch loop, the CUDA kernel, or auto routing")
+                   help="torch loop, the CUDA kernel, auto routing, or the "
+                        "stage-wise O(N) engine")
     p.add_argument("--form", default="auto", choices=["auto", "mvp", "dual"])
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="operand dtype for the hot products")
@@ -138,7 +171,8 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--x0", help="text file of initial states, one per row")
-    p.add_argument("--device", default="cpu", help='"cpu", "cuda" or "cuda:N"')
+    p.add_argument("--device", default="cuda",
+                   help='"cuda" (the default), "cuda:N" or "cpu"')
     p.add_argument("--time", action="store_true",
                    help="median device time over 20 calls (CUDA events)")
     p.set_defaults(fn=cmd_solve)

@@ -61,12 +61,12 @@ def simulate(
     x_ref=None,
     u_prev0=None,
     preview: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> ClosedLoopResult:
     """Run the closed loop: condense once, then solve -> actuate ->
     propagate ``n_steps`` times. Arguments as ``tpu_gpad.closed_loop.
-    simulate``; ``device`` places the data (ignored when ``data`` is
-    given: the loop then runs on the data's device)."""
+    simulate``; ``device`` places the data, the card by default (ignored
+    when ``data`` is given: the loop then runs on the data's device)."""
     if preview and x_ref is None:
         raise ValueError("preview=True requires an x_ref trajectory")
     if problem.is_ltv or problem.c is not None:
@@ -162,7 +162,7 @@ class Controller:
         input_reference: bool = False,
         process_disturbance: bool = False,
         polish: bool = False,
-        device="cpu",
+        device="cuda",
     ):
         if polish:
             raise NotImplementedError(

@@ -253,12 +253,21 @@ def condense(
     )
     limit_gb = float(os.environ.get("TPU_GPAD_CONDENSE_LIMIT_GB", "8"))
     if est_gb > limit_gb:
+        from tpu_gpad_torch.stagewise import stagewise_compatible
+
+        ok, why = stagewise_compatible(problem)
+        hint = (
+            "this problem IS stage-wise compatible: use "
+            "tpu_gpad_torch.stagewise.build_stagewise/solve_stagewise (O(N) "
+            "memory) or tpu_gpad_torch.stagewise.auto_solver"
+            if ok
+            else f"the stage-wise engine cannot take it either ({why})"
+        )
         raise ValueError(
             f"condensing horizon={N} with n_x={n_x}, n_u={n_u} allocates "
             f"~{est_gb:.1f} GB of dense host matrices (limit "
             f"{limit_gb:.0f} GB; set TPU_GPAD_CONDENSE_LIMIT_GB to "
-            f"raise); the O(N) stage-wise engine that serves such horizons "
-            f"is not yet ported to tpu_gpad_torch (ROADMAP Queue 1)"
+            f"raise); {hint}"
         )
     if problem.is_ltv:
         if np.asarray(problem.A).shape[0] != N:
@@ -642,7 +651,7 @@ def dualize(
     dtype=torch.float32,
     L: Optional[float] = None,
     paired: bool | str = False,
-    device="cpu",
+    device="cuda",
 ) -> GPADData:
     """Precompute the dual-QP constants consumed by the online solver.
 
@@ -656,8 +665,9 @@ def dualize(
     constraint stacks. ``True`` requires a perfect pairing (ValueError
     otherwise); ``"auto"`` uses it when available.
 
-    ``device``: where the emitted tensors live (e.g. ``"cuda"``). The
-    algebra above runs in float64 NumPy on the host either way.
+    ``device``: where the emitted tensors live, the card by default
+    (``"cpu"`` asks for the host). The algebra above runs in float64 NumPy
+    on the host either way.
     """
     if L is None:
         L = lipschitz_constant(qp, lipschitz)

@@ -1,0 +1,975 @@
+// Stage-wise (non-condensed) GPAD: a whole fixed-budget solve per launch.
+//
+// Replaces two Pallas TPU kernels of tpu_gpad:
+//   tpu_gpad/stagewise_kernel.py::_stagewise_kernel (solve_stagewise_pallas):
+//     all dual and plan state on chip -> gpad_stagewise_resident_kernel;
+//   tpu_gpad/stagewise_stream.py::_stream_kernel (solve_stagewise_stream):
+//     the same function for dual state past on-chip memory, the dual
+//     iterates streamed through device memory -> gpad_stagewise_stream_kernel.
+// Both run one iteration body, stagewise_iterations(); they differ only in
+// where the per-scenario slabs live.
+//
+// Per scenario and iteration, with w = y + beta (y - y_prev) per stage and the
+// packed per-stage constants R = [E'|-K'], HB = [HiB'|Hi], M = [[E,-B],[-K,-I]]
+// and block-diagonal G = diag(Gx, Gu) (stagewise_kernel.pack_stagewise_
+// constants; R, HB and M are stored transposed, so row j of a stored matrix
+// holds what multiplies v_j):
+//
+//   P1  st_k = Gx' wx_k + qoff_k,  ru_k = Gu' wu_k                 (all stages)
+//   P1b st_k += R_{k+1} [0; ru_{k+1}]                               (all stages)
+//   CB  st_k += R_{k+1} [st_{k+1}; 0],  k = N-2..0                  (chain)
+//   P3  kff_k = HB_k [st_k + dtl_k; ru_k],
+//       st_k <- d_k = M_k [0; kff_k]_top + c_k                      (all stages)
+//   CF  x_{k+1} = M_k [x_k; 0]_top + d_k into st_k, k = 0..N-1      (chain)
+//   P4  u_k = M_k [x_k; kff_k]_bottom,  zu_k = (1-theta) zu_k + theta u_k,
+//       y+ = max(w + (G [x_{k+1}; u_k] - h_k) / L, 0),
+//       y_prev <- y,  y <- y+   (in place: stage k alone touches its rows)
+//
+// i.e. the backward sweep s_k = qx_k + E_{k+1}' s_{k+1} - K_{k+1}' ru_{k+1}
+// and the forward rollout kff_k = Hi_k (B_k' st_k + ru_k), u_k = -K_k x_k -
+// kff_k, x_{k+1} = E_k x_k - B_k kff_k + c_k of the TPU kernels, with every
+// product that does not depend on the previous stage taken out of the two
+// chains. Restart (O'Donoghue-Candes): when r = sum (w - y+)(y+ - y) over the
+// scenario's rows is > 0, the momentum recursion resets and the next
+// iteration reads y_prev as y (the streamed TPU kernel's lazy per-lane mask;
+// both kernels here use it). The epilogue rolls the averaged plan zu through
+// the dynamics and returns the residual max(G z - h, 0) and the gap
+// -y'(G z - h), as the TPU kernels do.
+//
+// What bounds it (H100 SXM: 67 TFLOP/s fp32, 3.35 TB/s): about 29 kFLOP
+// per stage, scenario and iteration at battery n30 (1.2 TFLOP, about 18 ms,
+// at N200 B1024 x 200 iterations) and about 2.1 kFLOP at n8 (52 GFLOP, about
+// 0.8 ms, at N60 B4096 x 100). The bytes a solve must move once are a few
+// hundred MB at most (under 0.1 ms), so the roofline says operation-bound.
+// What binds in practice: the two chains of N dependent stage steps per
+// iteration. On an H100 80GB HBM3 at 700 W (PERF.md, chip_smoke.py) the
+// streamed kernel took 339 ms at n30 N200 B1024 x 200, 19x its bound, and
+// the resident one 8.2 ms at n8 N60 B1024 x 100, 42x. The streamed
+// kernel's dual slabs also cross HBM every iteration (about 0.5 GB per
+// iteration at n30 N200 B1024, not measured). What the design does:
+//   - a block holds a tile of T <= 8 scenarios; every per-scenario slab is
+//     laid out [stage][row][scenario], so the T values of one row sit side
+//     by side (one vector access) and a warp's lanes walk consecutive rows
+//     (coalesced in device memory, no bank conflicts in shared memory);
+//   - the phases between the chains give each warp whole stages and each
+//     lane one output row of a product (lanes split the input range when
+//     the output is narrower than 32 and sum by shuffles), with the T
+//     scenarios in registers: a stage's constants are read once per tile,
+//     coalesced, through L2 (about 6 MB at n30 N200, far under its 50 MB);
+//   - the chains keep the carried vector in registers, one warp per
+//     scenario, lane i owning row i and reading the others by shuffle, so a
+//     chain step needs no barrier; the next step's matrix rows are loaded
+//     while the current step runs, and those 8 steps on are prefetched into
+//     L1 (a step waits on nothing slower than L1);
+//   - the dual slabs in device memory stream with evict-first hints, so
+//     the constants stay in L2; each phase prefetches its warp's next stage;
+//   - seven block barriers per iteration.
+// The stage-invariant G blocks sit in shared memory, rows padded to an odd
+// stride. Per-scenario slabs:
+//   resident: y, y_prev, st, zu, ru, kff all in shared memory;
+//   streamed: y and y_prev in device memory (a work buffer per tile, the
+//   result copied out to the public (B, N, m) layout at the end); st, zu,
+//   ru, kff in shared memory when two blocks still fit on an SM, else in
+//   device memory (the tile rules live in stagewise_kernel.py and
+//   stagewise_stream.py).
+// Products are plain fp32 FMA (precision "highest"). n_x, n_u <= 32.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLoadBatch = 4;  // device-memory loads a lane keeps in flight
+constexpr int kAhead = 8;      // stages a chain prefetches ahead into L1
+
+// Bring the line holding `p` into L1. Generic addressing: on a shared-memory
+// address the prefetch does nothing.
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+    asm volatile("prefetch.L1 [%0];" ::"l"(p));
+}
+
+// Prefetch `floats` consecutive floats from `p`, the warp's lanes taking
+// one 128-byte line each in turn.
+__device__ __forceinline__ void prefetch_block(const float* p, int floats,
+                                               int lane) {
+    for (int off = lane * 32; off < floats; off += 32 * 32) prefetch_l1(p + off);
+}
+
+__host__ __device__ constexpr int up4(int x) { return (x + 3) & ~3; }
+
+struct Dims {
+    int N, n, p, m_x, m_u, m, np, gx_ld, gu_ld, wb;
+};
+
+__host__ __device__ inline Dims make_dims(int N, int n, int p, int m_x,
+                                          int m_u, int T) {
+    const int m = m_x + m_u;
+    return {N, n, p, m_x, m_u, m, n + p, n | 1, p | 1, (m > p ? m : p) * T};
+}
+
+// Floats of shared memory a block needs (mirrored by stagewise_kernel.py::
+// _smem_bytes): the G blocks, x0, one scratch row block per warp, two
+// per-warp partials and (theta, beta, reset) per scenario; then the st, zu,
+// ru, kff slabs; then y and y_prev. Every region starts 16-byte aligned.
+__host__ __device__ inline int shared_floats(const Dims& d, int T) {
+    return up4(d.m_x * d.gx_ld) + up4(d.m_u * d.gu_ld) + up4(d.n * T) +
+           up4(kWarps * d.wb) + up4(2 * kWarps * T) + up4(3 * T);
+}
+__host__ __device__ inline int aux_floats(const Dims& d, int T) {
+    return up4(d.N * d.n * T) + 3 * up4(d.N * d.p * T);
+}
+__host__ __device__ inline int dual_floats(const Dims& d, int T) {
+    return up4(d.N * d.m * T);
+}
+
+// A per-scenario slab: row `row` of stage k for the tile's T scenarios is
+// T consecutive floats at p + (k * W + row) * T.
+template <int T>
+struct Slab {
+    float* p;
+    int W;
+    __device__ __forceinline__ float* at(int k, int row) const {
+        return p + (k * W + row) * T;
+    }
+};
+
+template <int T>
+__device__ __forceinline__ void ldT(float (&v)[T], const float* q) {
+    if constexpr (T == 1) {
+        v[0] = q[0];
+    } else if constexpr (T == 2) {
+        const float2 a = *reinterpret_cast<const float2*>(q);
+        v[0] = a.x;
+        v[1] = a.y;
+    } else {
+#pragma unroll
+        for (int s = 0; s < T; s += 4) {
+            const float4 a = *reinterpret_cast<const float4*>(q + s);
+            v[s] = a.x;
+            v[s + 1] = a.y;
+            v[s + 2] = a.z;
+            v[s + 3] = a.w;
+        }
+    }
+}
+
+template <int T>
+__device__ __forceinline__ void stT(float* q, const float (&v)[T]) {
+    if constexpr (T == 1) {
+        q[0] = v[0];
+    } else if constexpr (T == 2) {
+        *reinterpret_cast<float2*>(q) = make_float2(v[0], v[1]);
+    } else {
+#pragma unroll
+        for (int s = 0; s < T; s += 4)
+            *reinterpret_cast<float4*>(q + s) =
+                make_float4(v[s], v[s + 1], v[s + 2], v[s + 3]);
+    }
+}
+
+// ldT / stT for the dual slabs: in device memory (kGY) they stream through
+// the caches with an evict-first hint, so the per-stage constants stay in L2.
+template <int T, bool kGY>
+__device__ __forceinline__ void ldY(float (&v)[T], const float* q) {
+    if constexpr (!kGY) {
+        ldT(v, q);
+    } else if constexpr (T == 1) {
+        v[0] = __ldcs(q);
+    } else if constexpr (T == 2) {
+        const float2 a = __ldcs(reinterpret_cast<const float2*>(q));
+        v[0] = a.x;
+        v[1] = a.y;
+    } else {
+#pragma unroll
+        for (int s = 0; s < T; s += 4) {
+            const float4 a = __ldcs(reinterpret_cast<const float4*>(q + s));
+            v[s] = a.x;
+            v[s + 1] = a.y;
+            v[s + 2] = a.z;
+            v[s + 3] = a.w;
+        }
+    }
+}
+
+template <int T, bool kGY>
+__device__ __forceinline__ void stY(float* q, const float (&v)[T]) {
+    if constexpr (!kGY) {
+        stT(q, v);
+    } else if constexpr (T == 1) {
+        __stcs(q, v[0]);
+    } else if constexpr (T == 2) {
+        __stcs(reinterpret_cast<float2*>(q), make_float2(v[0], v[1]));
+    } else {
+#pragma unroll
+        for (int s = 0; s < T; s += 4)
+            __stcs(reinterpret_cast<float4*>(q + s),
+                   make_float4(v[s], v[s + 1], v[s + 2], v[s + 3]));
+    }
+}
+
+template <bool kGY>
+__device__ __forceinline__ float ld1(const float* q) {
+    if constexpr (kGY) return __ldcs(q);
+    return *q;
+}
+
+template <int T>
+__device__ __forceinline__ void zeroT(float (&v)[T]) {
+#pragma unroll
+    for (int s = 0; s < T; ++s) v[s] = 0.0f;
+}
+
+// Sum over the lanes that share an output row: lane = g * NMAX + i.
+template <int T, int NMAX>
+__device__ __forceinline__ void group_sum(float (&v)[T]) {
+#pragma unroll
+    for (int off = NMAX; off < 32; off <<= 1)
+#pragma unroll
+        for (int s = 0; s < T; ++s) v[s] += __shfl_xor_sync(kFull, v[s], off);
+}
+
+template <int T>
+__device__ __forceinline__ void warp_reduce(float (&v)[T], bool is_max) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int s = 0; s < T; ++s) {
+            const float o = __shfl_xor_sync(kFull, v[s], off);
+            v[s] = is_max ? fmaxf(v[s], o) : v[s] + o;
+        }
+}
+
+struct Consts {
+    const float* __restrict__ RT;   // (N, n+p, n)    R'
+    const float* __restrict__ HBT;  // (N, n+p, p)    HB'
+    const float* __restrict__ MT;   // (N, n+p, n+p)  M'
+    const float* __restrict__ h;    // (N, m)         [hx | hu]
+    const float* __restrict__ V;    // (N, 3, n)      dtl, qoff, c
+    const float* __restrict__ theta;
+    const float* __restrict__ beta;
+};
+
+struct Shared {
+    float *Gx, *Gu, *x0, *wbuf, *rpart, *vpart, *mom;
+};
+
+template <int T>
+struct State {
+    Slab<T> y, yp, st, zu, ru, kff;
+};
+
+__device__ Shared carve_shared(float* smem, const Dims& d, int T) {
+    Shared s;
+    s.Gx = smem;
+    s.Gu = s.Gx + up4(d.m_x * d.gx_ld);
+    s.x0 = s.Gu + up4(d.m_u * d.gu_ld);
+    s.wbuf = s.x0 + up4(d.n * T);
+    s.rpart = s.wbuf + up4(kWarps * d.wb);
+    s.vpart = s.rpart + kWarps * T;
+    s.mom = s.rpart + up4(2 * kWarps * T);
+    return s;
+}
+
+// st, zu, ru, kff from `base` (shared or device memory).
+template <int T>
+__device__ void carve_aux(State<T>& S, float* base, const Dims& d) {
+    S.st = {base, d.n};
+    S.zu = {base + up4(d.N * d.n * T), d.p};
+    S.ru = {S.zu.p + up4(d.N * d.p * T), d.p};
+    S.kff = {S.ru.p + up4(d.N * d.p * T), d.p};
+}
+
+template <int T>
+__device__ void stage_shared(const Shared& sh, const float* __restrict__ Gx,
+                             const float* __restrict__ Gu,
+                             const float* __restrict__ x0, int B, long long b0,
+                             const Dims& d) {
+    for (int idx = threadIdx.x; idx < d.m_x * d.n; idx += kThreads) {
+        const int r = idx / d.n;
+        sh.Gx[r * d.gx_ld + idx - r * d.n] = Gx[idx];
+    }
+    for (int idx = threadIdx.x; idx < d.m_u * d.p; idx += kThreads) {
+        const int r = idx / d.p;
+        sh.Gu[r * d.gu_ld + idx - r * d.p] = Gu[idx];
+    }
+    for (int idx = threadIdx.x; idx < d.n * T; idx += kThreads) {
+        const int i = idx / T, s = idx - i * T;  // [i][s]
+        sh.x0[idx] = (b0 + s < B) ? x0[(b0 + s) * d.n + i] : 0.0f;
+    }
+}
+
+// y and y_prev <- y0 (zeros when null; scenarios past B read zero), zu <- 0.
+template <int T>
+__device__ void init_state(const State<T>& S, const float* __restrict__ y0,
+                           long long y0_stride, int B, long long b0,
+                           const Dims& d) {
+    const int rows = d.N * d.m;
+    for (int e = threadIdx.x; e < rows * T; e += kThreads) {
+        const int s = e & (T - 1), row = e / T;  // row = k * m + r
+        const float v =
+            (y0 && b0 + s < B) ? y0[(b0 + s) * y0_stride + row] : 0.0f;
+        S.y.p[e] = v;
+        S.yp.p[e] = v;
+    }
+    for (int e = threadIdx.x; e < d.N * d.p * T; e += kThreads) S.zu.p[e] = 0.0f;
+}
+
+// One chain over the horizon for scenario s (one warp; lane i owns row i):
+// v_k = st_k + sum_j Mat_k[j * ld + i] v_prev[j], written over st_k.
+// Backward (CB): Mat_k = rows j < n of R'_{k+1} (its E' block), v_{N-1} =
+// st_{N-1}, k = N-2..0. Forward (CF): Mat_k = rows j < n of M'_k (its E
+// block), v_{-1} = x0, k = 0..N-1. The next step's rows and addend are
+// loaded during the current one, and those kAhead steps on prefetched
+// into L1.
+template <int T, int NMAX>
+__device__ void chain(const State<T>& S, int s, const float* __restrict__ base,
+                      long long kstride, int ld, const Dims& d, bool backward,
+                      float v) {
+    const int lane = threadIdx.x & 31;
+    const int n = d.n, N = d.N;
+    const bool own = lane < n;
+    const int dk = backward ? -1 : 1;
+    const int kend = backward ? -1 : N;
+    int k = backward ? N - 2 : 0;
+    if (k == kend) return;
+    auto mat = [&](int kk) { return base + (backward ? kk + 1 : kk) * kstride; };
+    auto prefetch = [&](int kk) {
+        if (own && kk >= 0 && kk < N - (backward ? 1 : 0)) {
+            const float* row = mat(kk) + lane * ld;
+            prefetch_l1(row);
+            prefetch_l1(row + n - 1);
+            prefetch_l1(S.st.at(kk, lane) + s);
+        }
+    };
+    for (int a = 1; a <= kAhead; ++a) prefetch(k + a * dk);
+    float e[NMAX], en[NMAX];
+    const float* M0 = mat(k);
+#pragma unroll
+    for (int j = 0; j < NMAX; ++j) {
+        e[j] = (own && j < n) ? __ldg(M0 + j * ld + lane) : 0.0f;
+        en[j] = 0.0f;
+    }
+    float a = own ? S.st.at(k, lane)[s] : 0.0f;
+    for (; k != kend; k += dk) {
+        const int kn = k + dk;
+        float an = 0.0f;
+        if (kn != kend) {  // the next step's rows and addend
+            const float* Mn = mat(kn);
+#pragma unroll
+            for (int j = 0; j < NMAX; ++j)
+                en[j] = (own && j < n) ? __ldg(Mn + j * ld + lane) : 0.0f;
+            an = own ? S.st.at(kn, lane)[s] : 0.0f;
+            prefetch(kn + kAhead * dk);
+        }
+        float acc[4] = {a, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < NMAX; ++j)
+            acc[j & 3] = fmaf(e[j], __shfl_sync(kFull, v, j), acc[j & 3]);
+        v = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        if (own) S.st.at(k, lane)[s] = v;
+#pragma unroll
+        for (int j = 0; j < NMAX; ++j) e[j] = en[j];
+        a = an;
+    }
+}
+
+// gg = row r of G [x; u] for the tile: a state row of Gx against x, or an
+// input row of Gu against u, both [j][s] with T scenarios per entry.
+template <int T, int NMAX>
+__device__ __forceinline__ void row_dot(float (&gg)[T], int r,
+                                        const float* x, const float* u,
+                                        const Shared& sh, const Dims& d) {
+    const bool state = r < d.m_x;
+    const float* Grow = state ? sh.Gx + r * d.gx_ld : sh.Gu + (r - d.m_x) * d.gu_ld;
+    const float* v = state ? x : u;
+    const int len = state ? d.n : d.p;
+    zeroT(gg);
+#pragma unroll
+    for (int j = 0; j < NMAX; ++j) {
+        if (j < len) {
+            const float gv = Grow[j];
+            float vj[T];
+            ldT(vj, v + j * T);
+#pragma unroll
+            for (int s = 0; s < T; ++s) gg[s] = fmaf(gv, vj[s], gg[s]);
+        }
+    }
+}
+
+// `iterations` GPAD iterations on the block's tile. Phases give each warp
+// whole stages (k = warp, warp + 8, ...); lane = g * NMAX + i works on
+// output row i and inputs j = g (mod 32 / NMAX). Ends with a barrier.
+template <int T, int NMAX, bool kGY>
+__device__ void stagewise_iterations(const State<T>& S, const Shared& sh,
+                                     const Consts& c, const Dims& d,
+                                     float inv_L, int iterations,
+                                     bool restart) {
+    constexpr int G = 32 / NMAX;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane / NMAX, i = lane - g * NMAX;
+    const int N = d.N, n = d.n, p = d.p, m = d.m, m_x = d.m_x, m_u = d.m_u;
+    const int np = d.np;
+    float* wb = sh.wbuf + warp * d.wb;
+    float th = 1.0f, thp = 1.0f;  // scenario tid's recursion (tid < T)
+    for (int it = 0; it < iterations; ++it) {
+        if (tid < T) {
+            bool reset = false;
+            if (restart && it > 0) {
+                float r = 0.0f;
+                for (int w = 0; w < kWarps; ++w) r += sh.rpart[w * T + tid];
+                reset = r > 0.0f;
+                if (reset) {
+                    th = 1.0f;
+                    thp = 1.0f;
+                } else {
+                    const float next = th * (sqrtf(th * th + 4.0f) - th) * 0.5f;
+                    thp = th;
+                    th = next;
+                }
+            }
+            sh.mom[tid] = restart ? th : c.theta[it];
+            sh.mom[T + tid] = restart ? th * (1.0f / thp - 1.0f) : c.beta[it];
+            sh.mom[2 * T + tid] = reset ? 1.0f : 0.0f;
+        }
+        __syncthreads();
+        float theta[T], beta[T], keep[T];  // keep = 0 where y_prev reads as y
+#pragma unroll
+        for (int s = 0; s < T; ++s) {
+            theta[s] = sh.mom[s];
+            beta[s] = sh.mom[T + s];
+            keep[s] = sh.mom[2 * T + s] != 0.0f ? 0.0f : 1.0f;
+        }
+        // P1: w rows of stage k into the warp's scratch, then st = Gx' wx +
+        // qoff and ru = Gu' wu
+        {
+            const int sl = lane & (T - 1);  // 32 % T == 0: a lane's scenario
+            const float bl = sh.mom[T + sl];
+            const bool rl = sh.mom[2 * T + sl] != 0.0f;
+            for (int k = warp; k < N; k += kWarps) {
+                const float* yk = S.y.at(k, 0);
+                const float* ypk = S.yp.at(k, 0);
+                for (int e0 = lane; e0 < m * T; e0 += 32 * kLoadBatch) {
+                    float y[kLoadBatch], yp[kLoadBatch];
+#pragma unroll
+                    for (int u = 0; u < kLoadBatch; ++u) {  // loads in flight
+                        const int e = e0 + 32 * u;
+                        y[u] = e < m * T ? ld1<kGY>(yk + e) : 0.0f;
+                        yp[u] = e < m * T && !rl ? ld1<kGY>(ypk + e) : y[u];
+                    }
+#pragma unroll
+                    for (int u = 0; u < kLoadBatch; ++u)
+                        if (e0 + 32 * u < m * T)
+                            wb[e0 + 32 * u] = y[u] + bl * (y[u] - yp[u]);
+                }
+                __syncwarp();
+                float q[T], r[T], wv[T];
+                zeroT(q);
+                zeroT(r);
+                if (i < n)
+#pragma unroll 4
+                    for (int rr = g; rr < m_x; rr += G) {
+                        const float gv = sh.Gx[rr * d.gx_ld + i];
+                        ldT(wv, wb + rr * T);
+#pragma unroll
+                        for (int s = 0; s < T; ++s) q[s] = fmaf(gv, wv[s], q[s]);
+                    }
+                if (i < p)
+#pragma unroll 4
+                    for (int rr = g; rr < m_u; rr += G) {
+                        const float gv = sh.Gu[rr * d.gu_ld + i];
+                        ldT(wv, wb + (m_x + rr) * T);
+#pragma unroll
+                        for (int s = 0; s < T; ++s) r[s] = fmaf(gv, wv[s], r[s]);
+                    }
+                group_sum<T, NMAX>(q);
+                group_sum<T, NMAX>(r);
+                if (g == 0 && i < n) {
+                    const float qo = __ldg(c.V + (k * 3 + 1) * n + i);
+#pragma unroll
+                    for (int s = 0; s < T; ++s) q[s] += qo;
+                    stT(S.st.at(k, i), q);
+                }
+                if (g == 0 && i < p) stT(S.ru.at(k, i), r);
+                __syncwarp();
+            }
+        }
+        __syncthreads();
+        // P1b: st_k += -K'_{k+1} ru_{k+1}, rows n.. of R'_{k+1}
+        for (int k = warp; k < N - 1; k += kWarps) {
+            const float* Kk = c.RT + ((long long)(k + 1) * np + n) * n;
+            if (k + kWarps < N - 1)
+                prefetch_block(Kk + (long long)kWarps * np * n, p * n, lane);
+            float a[T], v[T];
+            zeroT(a);
+            if (i < n)
+#pragma unroll
+                for (int t = 0; t < NMAX / G; ++t) {
+                    const int jj = g + G * t;
+                    if (jj < p) {
+                        const float kv = __ldg(Kk + jj * n + i);
+                        ldT(v, S.ru.at(k + 1, jj));
+#pragma unroll
+                        for (int s = 0; s < T; ++s) a[s] = fmaf(kv, v[s], a[s]);
+                    }
+                }
+            group_sum<T, NMAX>(a);
+            if (g == 0 && i < n) {
+                ldT(v, S.st.at(k, i));
+#pragma unroll
+                for (int s = 0; s < T; ++s) v[s] += a[s];
+                stT(S.st.at(k, i), v);
+            }
+        }
+        __syncthreads();
+        // CB: the backward chain through the E' block of R'_{k+1}
+        if (warp < T) {
+            const float v = lane < n ? S.st.at(N - 1, lane)[warp] : 0.0f;
+            chain<T, NMAX>(S, warp, c.RT, (long long)np * n, n, d, true, v);
+        }
+        __syncthreads();
+        // P3: kff_k = HB_k [st_k + dtl_k; ru_k], st_k <- M_k [0; kff_k]_top + c_k
+        for (int k = warp; k < N; k += kWarps) {
+            const float* HBk = c.HBT + (long long)k * np * p;
+            const float* MTk = c.MT + (long long)k * np * np;
+            if (k + kWarps < N) {  // the warp's next stage
+                prefetch_block(HBk + (long long)kWarps * np * p, np * p, lane);
+                prefetch_block(MTk + (long long)kWarps * np * np + n * np, p * np,
+                               lane);
+            }
+            float kf[T], v[T];
+            zeroT(kf);
+            if (i < p) {
+#pragma unroll
+                for (int t = 0; t < NMAX / G; ++t) {
+                    const int j = g + G * t;
+                    if (j < n) {
+                        const float hb = __ldg(HBk + j * p + i);
+                        const float dj = __ldg(c.V + k * 3 * n + j);
+                        ldT(v, S.st.at(k, j));
+#pragma unroll
+                        for (int s = 0; s < T; ++s)
+                            kf[s] = fmaf(hb, v[s] + dj, kf[s]);
+                    }
+                }
+#pragma unroll
+                for (int t = 0; t < NMAX / G; ++t) {
+                    const int j = g + G * t;
+                    if (j < p) {
+                        const float hb = __ldg(HBk + (n + j) * p + i);
+                        ldT(v, S.ru.at(k, j));
+#pragma unroll
+                        for (int s = 0; s < T; ++s) kf[s] = fmaf(hb, v[s], kf[s]);
+                    }
+                }
+            }
+            group_sum<T, NMAX>(kf);
+            if (g == 0 && i < p) stT(S.kff.at(k, i), kf);
+            __syncwarp();
+            float dd[T];
+            zeroT(dd);
+            if (i < n)
+#pragma unroll
+                for (int t = 0; t < NMAX / G; ++t) {
+                    const int j = g + G * t;
+                    if (j < p) {
+                        const float mt = __ldg(MTk + (n + j) * np + i);
+                        ldT(v, S.kff.at(k, j));
+#pragma unroll
+                        for (int s = 0; s < T; ++s) dd[s] = fmaf(mt, v[s], dd[s]);
+                    }
+                }
+            group_sum<T, NMAX>(dd);
+            if (g == 0 && i < n) {
+                const float ck = __ldg(c.V + (k * 3 + 2) * n + i);
+#pragma unroll
+                for (int s = 0; s < T; ++s) dd[s] += ck;
+                stT(S.st.at(k, i), dd);
+            }
+            __syncwarp();
+        }
+        __syncthreads();
+        // CF: the forward chain through the E block of M', from x0
+        if (warp < T) {
+            const float v = lane < n ? sh.x0[lane * T + warp] : 0.0f;
+            chain<T, NMAX>(S, warp, c.MT, (long long)np * np, np, d, false, v);
+        }
+        __syncthreads();
+        // P4: u_k = M_k [x_k; kff_k]_bottom, averaging, the dual step
+        float rsum[T];
+        zeroT(rsum);
+        for (int k = warp; k < N; k += kWarps) {
+            const float* MTk = c.MT + (long long)k * np * np;
+            if (k + kWarps < N)  // the warp's next stage
+                prefetch_block(MTk + (long long)kWarps * np * np, n * np, lane);
+            const float* xk = k == 0 ? sh.x0 : S.st.at(k - 1, 0);  // [j][s]
+            float u[T], v[T];
+            zeroT(u);
+            if (i < p)
+#pragma unroll
+                for (int t = 0; t < NMAX / G; ++t) {
+                    const int j = g + G * t;
+                    if (j < n) {
+                        const float mt = __ldg(MTk + j * np + n + i);
+                        ldT(v, xk + j * T);
+#pragma unroll
+                        for (int s = 0; s < T; ++s) u[s] = fmaf(mt, v[s], u[s]);
+                    }
+                }
+            group_sum<T, NMAX>(u);
+            if (g == 0 && i < p) {  // u = -K x - kff: M's -I block
+                float kf[T], z[T];
+                ldT(kf, S.kff.at(k, i));
+                ldT(z, S.zu.at(k, i));
+#pragma unroll
+                for (int s = 0; s < T; ++s) {
+                    u[s] -= kf[s];
+                    z[s] = (1.0f - theta[s]) * z[s] + theta[s] * u[s];
+                }
+                stT(S.zu.at(k, i), z);
+                stT(wb + i * T, u);
+            }
+            __syncwarp();
+            const float* xn = S.st.at(k, 0);  // x_{k+1}, [j][s]
+            for (int r = lane; r < m; r += 32) {
+                float gg[T], y[T], yp[T];
+                float* yr = S.y.at(k, r);
+                float* ypr = S.yp.at(k, r);
+                ldY<T, kGY>(y, yr);  // in flight during the product
+                ldY<T, kGY>(yp, ypr);
+                const float hr = __ldg(c.h + k * m + r);
+                row_dot<T, NMAX>(gg, r, xn, wb, sh, d);
+#pragma unroll
+                for (int s = 0; s < T; ++s) {
+                    const float ys = y[s];
+                    const float w = ys + beta[s] * (ys - (keep[s] * yp[s] +
+                                                          (1.0f - keep[s]) * ys));
+                    const float yn = fmaxf(w + (gg[s] - hr) * inv_L, 0.0f);
+                    rsum[s] = fmaf(w - yn, yn - ys, rsum[s]);
+                    yp[s] = ys;
+                    y[s] = yn;
+                }
+                stY<T, kGY>(ypr, yp);
+                stY<T, kGY>(yr, y);
+            }
+            __syncwarp();
+        }
+        if (restart) {
+            warp_reduce<T>(rsum, false);
+            if (lane < T) {
+                float mine = rsum[0];
+#pragma unroll
+                for (int s = 1; s < T; ++s)
+                    if (lane == s) mine = rsum[s];
+                sh.rpart[warp * T + lane] = mine;
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// Residual max(G z - h, 0) and gap -y'(G z - h) on the averaged plan rolled
+// through the dynamics: kff = -(u + K x), x' = M [x; kff]_top + c.
+template <int T, int NMAX, bool kGY>
+__device__ void epilogue(const State<T>& S, const Shared& sh, const Consts& c,
+                         const Dims& d, float* __restrict__ residual,
+                         float* __restrict__ gap, int B, long long b0) {
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int N = d.N, n = d.n, p = d.p, m = d.m;
+    const int np = d.np;
+    if (warp < T) {  // rollout, one warp per scenario, x_{k+1} into st_k
+        const int s = warp;
+        float x = lane < n ? sh.x0[lane * T + s] : 0.0f;
+        for (int k = 0; k < N; ++k) {
+            const float* MTk = c.MT + (long long)k * np * np;
+            float xs[NMAX];
+#pragma unroll
+            for (int j = 0; j < NMAX; ++j) xs[j] = __shfl_sync(kFull, x, j);
+            float kx = 0.0f;  // (-K x)_lane
+            if (lane < p)
+#pragma unroll
+                for (int j = 0; j < NMAX; ++j)
+                    if (j < n) kx = fmaf(__ldg(MTk + j * np + n + lane), xs[j], kx);
+            const float kff = lane < p ? kx - S.zu.at(k, lane)[s] : 0.0f;
+            float acc = 0.0f;
+            if (lane < n) {
+                acc = __ldg(c.V + (k * 3 + 2) * n + lane);
+#pragma unroll
+                for (int j = 0; j < NMAX; ++j)
+                    if (j < n) acc = fmaf(__ldg(MTk + j * np + lane), xs[j], acc);
+            }
+#pragma unroll
+            for (int j = 0; j < NMAX; ++j) {
+                const float kj = __shfl_sync(kFull, kff, j);
+                if (lane < n && j < p)
+                    acc = fmaf(__ldg(MTk + (n + j) * np + lane), kj, acc);
+            }
+            x = acc;
+            if (lane < n) S.st.at(k, lane)[s] = x;
+        }
+    }
+    __syncthreads();
+    float vmax[T], gsum[T];
+#pragma unroll
+    for (int s = 0; s < T; ++s) {
+        vmax[s] = -INFINITY;
+        gsum[s] = 0.0f;
+    }
+    for (int k = warp; k < N; k += kWarps) {
+        const float* xn = S.st.at(k, 0);
+        const float* zk = S.zu.at(k, 0);
+        for (int r = lane; r < m; r += 32) {
+            float gg[T], y[T];
+            ldY<T, kGY>(y, S.y.at(k, r));
+            const float hr = __ldg(c.h + k * m + r);
+            row_dot<T, NMAX>(gg, r, xn, zk, sh, d);
+#pragma unroll
+            for (int s = 0; s < T; ++s) {
+                const float gs = gg[s] - hr;
+                vmax[s] = fmaxf(vmax[s], gs);
+                gsum[s] = fmaf(y[s], gs, gsum[s]);
+            }
+        }
+    }
+    warp_reduce<T>(vmax, true);
+    warp_reduce<T>(gsum, false);
+    if (lane < T) {
+        float vm = vmax[0], gs = gsum[0];
+#pragma unroll
+        for (int s = 1; s < T; ++s)
+            if (lane == s) {
+                vm = vmax[s];
+                gs = gsum[s];
+            }
+        sh.vpart[warp * T + lane] = vm;
+        sh.rpart[warp * T + lane] = gs;
+    }
+    __syncthreads();
+    if (tid < T && b0 + tid < B) {
+        float vm = -INFINITY, gs = 0.0f;
+        for (int w = 0; w < kWarps; ++w) {
+            vm = fmaxf(vm, sh.vpart[w * T + tid]);
+            gs += sh.rpart[w * T + tid];
+        }
+        residual[b0 + tid] = fmaxf(vm, 0.0f);
+        gap[b0 + tid] = -gs;
+    }
+}
+
+// A slab of the tile's scenarios out to public (B, N * W) storage.
+template <int T>
+__device__ void store_rows(float* __restrict__ dst, const Slab<T>& src,
+                           int N, int B, long long b0) {
+    const int rows = N * src.W;
+    for (int idx = threadIdx.x; idx < T * rows; idx += kThreads) {
+        const int s = idx / rows, row = idx - s * rows;
+        if (b0 + s < B) dst[(b0 + s) * rows + row] = src.p[row * T + s];
+    }
+}
+
+struct Args {
+    Consts c;
+    const float* Gx;
+    const float* Gu;
+    const float* L;
+    const float* x0;
+    const float* y0;
+    long long y0_stride;
+    int B, iterations, restart;
+    Dims d;
+    float *y_out, *zu_out, *residual, *gap;
+    // streamed kernel only
+    float *y_work, *yp_work, *aux;
+};
+
+template <int T, int NMAX, bool kGY>
+__device__ void solve_tile(const Args& a, const State<T>& S, const Shared& sh,
+                           long long b0) {
+    stage_shared<T>(sh, a.Gx, a.Gu, a.x0, a.B, b0, a.d);
+    init_state<T>(S, a.y0, a.y0_stride, a.B, b0, a.d);
+    __syncthreads();
+    const float inv_L = 1.0f / a.L[0];
+    stagewise_iterations<T, NMAX, kGY>(S, sh, a.c, a.d, inv_L, a.iterations,
+                                       a.restart != 0);
+    epilogue<T, NMAX, kGY>(S, sh, a.c, a.d, a.residual, a.gap, a.B, b0);
+    store_rows<T>(a.zu_out, S.zu, a.d.N, a.B, b0);
+    store_rows<T>(a.y_out, S.y, a.d.N, a.B, b0);
+}
+
+template <int T, int NMAX>
+__global__ void __launch_bounds__(kThreads, 2)
+gpad_stagewise_resident_kernel(Args a) {
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    const Dims& d = a.d;
+    const long long b0 = (long long)blockIdx.x * T;
+    const Shared sh = carve_shared(smem, d, T);
+    State<T> S;
+    float* next = smem + shared_floats(d, T);
+    carve_aux<T>(S, next, d);
+    next += aux_floats(d, T);
+    S.y = {next, d.m};
+    S.yp = {next + dual_floats(d, T), d.m};
+    solve_tile<T, NMAX, false>(a, S, sh, b0);
+}
+
+template <int T, int NMAX>
+__global__ void __launch_bounds__(kThreads, 2)
+gpad_stagewise_stream_kernel(Args a) {
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    const Dims& d = a.d;
+    const long long b0 = (long long)blockIdx.x * T;
+    const Shared sh = carve_shared(smem, d, T);
+    State<T> S;
+    const long long ys = dual_floats(d, T);
+    S.y = {a.y_work + blockIdx.x * ys, d.m};
+    S.yp = {a.yp_work + blockIdx.x * ys, d.m};
+    carve_aux<T>(S, a.aux ? a.aux + blockIdx.x * (long long)aux_floats(d, T)
+                          : smem + shared_floats(d, T), d);
+    solve_tile<T, NMAX, true>(a, S, sh, b0);
+}
+
+int nmax_of(int n, int p) {
+    const int q = n > p ? n : p;
+    return q <= 8 ? 8 : q <= 16 ? 16 : q <= 32 ? 32 : 0;
+}
+
+template <typename K>
+cudaError_t launch(K kernel, const Args& a, int T, int smem, cudaStream_t st) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const int grid = (a.B + T - 1) / T;
+    kernel<<<grid, kThreads, (size_t)smem, st>>>(a);
+    return cudaGetLastError();
+}
+
+// Every (T, NMAX) instance of KERNEL, by T * 100 + NMAX.
+#define GPAD_SW_LAUNCH(KERNEL)                                      \
+    switch (T * 100 + nmax) {                                       \
+        case 108: return launch(KERNEL<1, 8>, a, T, smem, st);      \
+        case 116: return launch(KERNEL<1, 16>, a, T, smem, st);     \
+        case 132: return launch(KERNEL<1, 32>, a, T, smem, st);     \
+        case 208: return launch(KERNEL<2, 8>, a, T, smem, st);      \
+        case 216: return launch(KERNEL<2, 16>, a, T, smem, st);     \
+        case 232: return launch(KERNEL<2, 32>, a, T, smem, st);     \
+        case 408: return launch(KERNEL<4, 8>, a, T, smem, st);      \
+        case 416: return launch(KERNEL<4, 16>, a, T, smem, st);     \
+        case 432: return launch(KERNEL<4, 32>, a, T, smem, st);     \
+        case 808: return launch(KERNEL<8, 8>, a, T, smem, st);      \
+        case 816: return launch(KERNEL<8, 16>, a, T, smem, st);     \
+        case 832: return launch(KERNEL<8, 32>, a, T, smem, st);     \
+        default: return cudaErrorInvalidValue;                      \
+    }
+
+cudaError_t launch_resident(const Args& a, int T, int nmax, int smem,
+                            cudaStream_t st) {
+    GPAD_SW_LAUNCH(gpad_stagewise_resident_kernel)
+}
+
+cudaError_t launch_stream(const Args& a, int T, int nmax, int smem,
+                          cudaStream_t st) {
+    GPAD_SW_LAUNCH(gpad_stagewise_stream_kernel)
+}
+
+#undef GPAD_SW_LAUNCH
+
+Args make_args(const float* RT, const float* HBT, const float* MT,
+               const float* Gx, const float* Gu, const float* h,
+               const float* V, const float* theta, const float* beta,
+               const float* L, const float* x0, const float* y0,
+               long long y0_stride, int B, int N, int n, int p, int m_x,
+               int m_u, int iterations, int restart, int log2_tile) {
+    Args a{};
+    a.c = {RT, HBT, MT, h, V, theta, beta};
+    a.Gx = Gx;
+    a.Gu = Gu;
+    a.L = L;
+    a.x0 = x0;
+    a.y0 = y0;
+    a.y0_stride = y0_stride;
+    a.B = B;
+    a.iterations = iterations;
+    a.restart = restart;
+    a.d = make_dims(N, n, p, m_x, m_u, 1 << log2_tile);
+    return a;
+}
+
+bool bad_shape(int B, int N, int n, int p, int m_x, int m_u, int log2_tile) {
+    return log2_tile < 0 || log2_tile > 3 || nmax_of(n, p) == 0 || N < 1 ||
+           B < 1 || n < 1 || p < 1 || m_x < 1 || m_u < 1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Both launchers run on `stream` and return a cudaError_t (0 on success):
+// cudaErrorInvalidValue for a shape they do not take or `smem` below the
+// carve-up's need, else cudaGetLastError() after the launch. `smem` is the
+// block's dynamic shared memory in bytes, computed by the caller
+// (stagewise_kernel.py::_smem_bytes) so the routing guard and the launch
+// agree; a block holds 2**log2_tile scenarios, log2_tile in [0, 3].
+
+int gpad_stagewise_launch(
+    const float* RT, const float* HBT, const float* MT, const float* Gx,
+    const float* Gu, const float* h, const float* V, const float* theta,
+    const float* beta, const float* L, const float* x0, const float* y0,
+    long long y0_stride, int B, int N, int n, int p, int m_x, int m_u,
+    int iterations, int restart, int log2_tile, float* y_out, float* zu_out,
+    float* residual, float* gap, int smem, void* stream)
+{
+    if (bad_shape(B, N, n, p, m_x, m_u, log2_tile))
+        return (int)cudaErrorInvalidValue;
+    Args a = make_args(RT, HBT, MT, Gx, Gu, h, V, theta, beta, L, x0, y0,
+                       y0_stride, B, N, n, p, m_x, m_u, iterations, restart,
+                       log2_tile);
+    const int T = 1 << log2_tile;
+    const long long need = 4LL * (shared_floats(a.d, T) + aux_floats(a.d, T) +
+                                  2LL * dual_floats(a.d, T));
+    if (need > smem) return (int)cudaErrorInvalidValue;
+    a.y_out = y_out;
+    a.zu_out = zu_out;
+    a.residual = residual;
+    a.gap = gap;
+    return (int)launch_resident(a, T, nmax_of(n, p), smem,
+                                (cudaStream_t)stream);
+}
+
+// y_work and yp_work hold dual_floats(T) floats per block of T scenarios
+// (the kernel's own layout); y_out is the public (B, N, m) result. `aux` is
+// null (st, zu, ru, kff in shared memory) or aux_floats(T) floats of device
+// memory per block.
+int gpad_stagewise_stream_launch(
+    const float* RT, const float* HBT, const float* MT, const float* Gx,
+    const float* Gu, const float* h, const float* V, const float* theta,
+    const float* beta, const float* L, const float* x0, const float* y0,
+    long long y0_stride, int B, int N, int n, int p, int m_x, int m_u,
+    int iterations, int restart, int log2_tile, float* y_work, float* yp_work,
+    float* aux, float* y_out, float* zu_out, float* residual, float* gap,
+    int smem, void* stream)
+{
+    if (bad_shape(B, N, n, p, m_x, m_u, log2_tile))
+        return (int)cudaErrorInvalidValue;
+    Args a = make_args(RT, HBT, MT, Gx, Gu, h, V, theta, beta, L, x0, y0,
+                       y0_stride, B, N, n, p, m_x, m_u, iterations, restart,
+                       log2_tile);
+    const int T = 1 << log2_tile;
+    const long long need = 4LL * (shared_floats(a.d, T) +
+                                  (aux ? 0LL : (long long)aux_floats(a.d, T)));
+    if (need > smem) return (int)cudaErrorInvalidValue;
+    a.y_work = y_work;
+    a.yp_work = yp_work;
+    a.aux = aux;
+    a.y_out = y_out;
+    a.zu_out = zu_out;
+    a.residual = residual;
+    a.gap = gap;
+    return (int)launch_stream(a, T, nmax_of(n, p), smem,
+                              (cudaStream_t)stream);
+}
+
+}  // extern "C"
