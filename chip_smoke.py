@@ -12,7 +12,11 @@ that each went through its kernel: the batched condensed solve at the
 headline shape and a warm-started ``Controller`` serving a fleet of plants
 (the flat kernel), the flagship example's restart serving loop (the dual
 kernel), ``solve_to_accuracy`` (the chunked dual kernel, one launch per
-check window), and the stage-wise O(N) engine at full width: ``auto_solver``
+check window), the reference's dense layout (the dense kernel): a dataset
+written by ``export`` and solved by ``solve --dataset``, ``solve_multi``
+over the reference's 28 plants, a dense ``Controller`` and a checkpointed
+``run_sweep``; a paired mvp solve without the flat block (the full paired
+kernel); and the stage-wise O(N) engine at full width: ``auto_solver``
 at battery n30 N200 B1024 and n8 N60 B4096 (the streamed kernel) and n8
 N60 B1024 (the resident kernel), a warm ``StagewiseController`` and the
 long-horizon eps example (the torch engine). It times kernels and plain
@@ -53,6 +57,12 @@ ORACLE_TOL = 1e-4  # |u* - NumPy oracle|: the gate of bench.py
 SERVE_STEPS = 50
 SERVE_PLANTS = 256
 DEVICE = "cuda"
+# the dense (unpaired) layout: battery n3 N10 (m 140) and n3 N20 (m 280,
+# 134 KB of operands, near the shared-memory guard); the reference's 28
+# inputs_manysets plants; a sweep of 4 chunks
+DENSE_NEAR = dict(n_cells=3, horizon=20)
+MULTI_PLANTS, MULTI_BATCH = 28, 256
+SWEEP_BATCH, SWEEP_CHUNK = 16384, 4096
 # The stage-wise engine at full width: battery n30 N200 (60 state and 62
 # input rows per stage) routes to the streamed kernel; n8 N60, stage-wise
 # at B >= 24 N, to the streamed kernel at B4096 and to the resident one at
@@ -109,13 +119,15 @@ def max_err(a, b) -> float:
     return max(errs)
 
 
-def kernel_vs_plain(kernels, data, g_P, p_D, y0=None, diagnostics=True):
-    """Run the kernel and its plain version on the same CUDA tensors."""
+def kernel_vs_plain(kernels, data, g_P, p_D, y0=None, diagnostics=True,
+                    kernel="paired_flat"):
+    """Run a whole-solve kernel of ``solver/kernels.py`` ("paired_flat",
+    "paired" or "dense") and its plain version on the same CUDA tensors."""
     import torch
 
     kw = dict(iterations=ITERS, diagnostics=diagnostics)
-    out_k = kernels.gpad_fixed_paired_flat(data, g_P, p_D, y0, **kw)
-    out_p = kernels.gpad_fixed_paired_flat_torch(data, g_P, p_D, y0, **kw)
+    out_k = getattr(kernels, f"gpad_fixed_{kernel}")(data, g_P, p_D, y0, **kw)
+    out_p = getattr(kernels, f"gpad_fixed_{kernel}_torch")(data, g_P, p_D, y0, **kw)
     torch.cuda.synchronize()
     for t in out_k:
         if t is not None:
@@ -146,7 +158,7 @@ def phase_device(torch):
 def phase_build():
     from tpu_gpad_torch import cuda_build
 
-    names = ["gpad_paired_flat", "gpad_dual", "gpad_stagewise"]
+    names = ["gpad_paired_flat", "gpad_dense", "gpad_dual", "gpad_stagewise"]
     cuda_build.load_all(names)  # every nvcc run at once
     emit({"phase": "build",
           "build_s": {n: cuda_build.BUILD_SECONDS[n] for n in names},
@@ -217,15 +229,18 @@ def phase_main_path(torch, tg, kernels, core, reference):
     check(vs_torch < ORACLE_TOL, f"cuda vs torch engine {vs_torch}")
 
 
-def phase_serving(torch, tg, kernels):
+def phase_serving(torch, tg, kernels, paired="auto", counter="PAIRED_FLAT_LAUNCHES",
+                  phase="serving"):
+    """A warm ``Controller`` serving 256 plants for 50 steps, one launch of
+    the kernel behind ``counter`` per step; the limits checked."""
     problem = tg.problems.battery(**HEADLINE)
-    ctl = tg.Controller(problem, iterations=ITERS, device=DEVICE)
+    ctl = tg.Controller(problem, iterations=ITERS, paired=paired, device=DEVICE)
     A = np.asarray(problem.A, dtype=np.float32)
     Bm = np.asarray(problem.B, dtype=np.float32)
     x = np.random.default_rng(2).uniform(
         -0.4, 0.4, (SERVE_PLANTS, problem.n_x)).astype(np.float32)
     spread0 = float(np.mean(x.max(1) - x.min(1)))
-    before = kernels.PAIRED_FLAT_LAUNCHES
+    before = getattr(kernels, counter)
     u_max = sum_max = soc_max = 0.0
     step_ms = []
     for _ in range(SERVE_STEPS):
@@ -237,14 +252,14 @@ def phase_serving(torch, tg, kernels):
         x = x @ A.T + u @ Bm.T
         soc_max = max(soc_max, float(np.abs(x).max()))
     spread = float(np.mean(x.max(1) - x.min(1)))
-    launched = kernels.PAIRED_FLAT_LAUNCHES - before
-    emit({"phase": "serving", "plants": SERVE_PLANTS, "steps": SERVE_STEPS,
+    launched = getattr(kernels, counter) - before
+    emit({"phase": phase, "plants": SERVE_PLANTS, "steps": SERVE_STEPS,
           "launches": launched, "max_abs_u": u_max, "max_abs_sum_u": sum_max,
           "max_abs_soc": soc_max, "mean_spread": [spread0, spread],
           "step_ms_host_clock": {"median": float(np.median(step_ms[1:])),
                                  "max": float(np.max(step_ms[1:])),
                                  "first": step_ms[0]}})
-    check(launched == SERVE_STEPS, f"Controller launched the kernel {launched}x")
+    check(launched == SERVE_STEPS, f"{phase}: Controller launched {launched}x")
     check(u_max <= 0.3 + 1e-2, f"|u| {u_max}")
     check(sum_max <= 1e-2, f"|sum u| {sum_max}")
     check(soc_max <= 0.5 + 1e-2, f"|SoC| {soc_max}")
@@ -322,6 +337,7 @@ def headline(tg):
 
 def reset_counters(kernels, dual_kernels, sk, ss):
     kernels.PAIRED_FLAT_LAUNCHES = 0
+    kernels.PAIRED_LAUNCHES = kernels.DENSE_LAUNCHES = 0
     dual_kernels.DUAL_LAUNCHES = dual_kernels.DUAL_CHUNK_LAUNCHES = 0
     dual_kernels.EPS_SYNCS = 0
     sk.STAGEWISE_LAUNCHES = ss.STAGEWISE_STREAM_LAUNCHES = 0
@@ -570,6 +586,275 @@ def phase_dual_timing(torch, tg, dual_kernels, core, smi):
                            "dual_plain_restart": BATCH / med["dual_plain"] * 1e3,
                            "eps_auto": BATCH / med["eps_auto"] * 1e3,
                            "eps_torch": BATCH / med["eps_torch"] * 1e3}})
+    return med
+
+
+# ---------------------------------------------------------------------------
+# the dense (unpaired) layout and the full paired kernel
+# ---------------------------------------------------------------------------
+
+
+def dense_headline(tg, shape=HEADLINE):
+    """A battery QP and its dense (unpaired) data on the card."""
+    qp = tg.condense(tg.problems.battery(**shape))
+    return qp, tg.dualize(qp, ITERS, paired=False, device=DEVICE)
+
+
+def phase_dense_kernel_vs_plain(torch, tg, kernels, core):
+    """The dense kernel against its plain version: cold, warm (per
+    scenario and shared), diagnostics off, a ragged tile and one scenario
+    at n3 N10 B4096; n3 N20 near the shared-memory guard."""
+    _, data = dense_headline(tg)
+    rng = np.random.default_rng(40)
+    X0 = torch.as_tensor(
+        rng.uniform(-0.4, 0.4, (BATCH, data.n_x)).astype(np.float32), device=DEVICE)
+    g_P, p_D = core.affine_params(data, X0)
+    run = lambda *a, **kw: kernel_vs_plain(kernels, *a, kernel="dense", **kw)
+    cases = {}
+    cases["cold"], (_, y_cold, _, _) = run(data, g_P, p_D)
+    cases["warm_per_scenario"], _ = run(data, g_P, p_D, y_cold)
+    cases["warm_shared"], _ = run(data, g_P, p_D, y_cold[0].contiguous())
+    cases["no_diagnostics"], _ = run(data, g_P, p_D, y_cold, diagnostics=False)
+    for B in (4093, 5, 1):  # ragged last tile, a few, one scenario
+        cases[f"B{B}"], _ = run(data, g_P[:B].contiguous(), p_D[:B].contiguous(),
+                                y_cold[:B].contiguous())
+    _, near = dense_headline(tg, DENSE_NEAR)
+    Xn = torch.as_tensor(
+        rng.uniform(-0.4, 0.4, (BATCH, near.n_x)).astype(np.float32), device=DEVICE)
+    cases["near_guard_n3_N20"], _ = run(near, *core.affine_params(near, Xn))
+    log2 = kernels._pick_dense_log2_tile(near.m, near.n_z, BATCH)
+    worst = max(cases.values())
+    emit({"phase": "dense_kernel_vs_plain", "shape": [BATCH, data.n_z, data.m],
+          "near_guard": {"n_z": near.n_z, "m": near.m, "log2_tile": log2,
+                         "smem_bytes": kernels._dense_smem_bytes(near.m, near.n_z,
+                                                                 log2)},
+          "max_abs_err": cases, "max_abs_y": y_cold.abs().max().item(),
+          "tol": KERNEL_TOL})
+    check(log2 == 3, f"n3 N20 dense tile 2**{log2}, expected 8")
+    check(worst <= KERNEL_TOL, f"dense kernel disagrees with plain version: {cases}")
+    return worst
+
+
+def phase_paired_kernel_vs_plain(torch, tg, kernels, core):
+    """The full paired kernel against its plain version at the headline
+    paired shape: cold, warm, diagnostics off, soft rows, a ragged tile."""
+    _, data = headline(tg)
+    rng = np.random.default_rng(41)
+    X0 = torch.as_tensor(
+        rng.uniform(-0.4, 0.4, (BATCH, data.n_x)).astype(np.float32), device=DEVICE)
+    g_P, p_D = core.affine_params(data, X0)
+    run = lambda *a, **kw: kernel_vs_plain(kernels, *a, kernel="paired", **kw)
+    cases = {}
+    cases["cold"], (_, y_cold, _, _) = run(data, g_P, p_D)
+    cases["warm_per_scenario"], _ = run(data, g_P, p_D, y_cold)
+    cases["no_diagnostics"], _ = run(data, g_P, p_D, y_cold, diagnostics=False)
+    soft = dataclasses.replace(data, soft_damp=torch.as_tensor(
+        rng.uniform(0.0, 0.2, data.m_half).astype(np.float32), device=DEVICE))
+    cases["soft"], _ = run(soft, g_P, p_D)
+    cases["B5"], _ = run(data, g_P[:5].contiguous(), p_D[:5].contiguous(),
+                         y_cold[:5].contiguous())
+    worst = max(cases.values())
+    emit({"phase": "paired_kernel_vs_plain", "shape": [BATCH, data.n_z, data.m_half],
+          "max_abs_err": cases, "tol": KERNEL_TOL})
+    check(worst <= KERNEL_TOL, f"paired kernel disagrees with plain version: {cases}")
+    return worst
+
+
+def phase_dataset_path(torch, tg, kernels, reference):
+    """The reference's dataset round: ``export`` writes battery n3 N10 in
+    the reference's text format, ``solve --dataset`` solves it in process
+    on the dense kernel; u* against the NumPy oracle on the file's own
+    constants and schedule, and on the QP at the exported x0."""
+    import contextlib
+    import io as textio
+    import tempfile
+
+    from tpu_gpad_torch import cli, io
+
+    def run(argv):
+        buf = textio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(argv) == 0, f"cli {argv[0]} failed")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/input_1.txt"
+        before = kernels.DENSE_LAUNCHES
+        exported = run(["export", "--out", path, "--cells", "3", "--horizon", "10",
+                        "--device", DEVICE])
+        out = run(["solve", "--dataset", path, "--device", DEVICE])
+        launched = kernels.DENSE_LAUNCHES - before
+        ds = io.read_solver_dataset(path)
+    ref = reference.gpad_solve(ds.M_G, ds.g_P, ds.G_L, ds.p_D, ds.n_u,
+                               iterations=ds.num_iterations, theta=ds.theta,
+                               beta=ds.beta)
+    qp = tg.condense(tg.problems.battery(**HEADLINE))
+    ref_qp = reference.gpad_solve_qp(qp, np.asarray(exported["x0"]), ITERS)
+    u = np.asarray(out["u_star"])
+    errs = {"u_vs_oracle_on_file": float(np.abs(u - ref.u).max()),
+            "u_vs_oracle_on_qp": float(np.abs(u - ref_qp.u).max())}
+    emit({"phase": "dataset_path", "export": exported, "solve": out,
+          "launches": launched, **errs, "tol": ORACLE_TOL})
+    check(out["engine"] == "cuda" and out["device"].startswith("cuda"),
+          f"solve --dataset ran on {out['engine']} / {out['device']}")
+    check(launched == 1, f"solve --dataset launched the dense kernel {launched}x")
+    check(max(errs.values()) < ORACLE_TOL, f"dataset u* vs oracle {errs}")
+
+
+def phase_multi_path(torch, tg, kernels, reference):
+    """``solve_multi`` over the reference's 28 plants (battery n3 N10, cell
+    capacities and current limits differing), 256 scenarios each, dense
+    layout: one dense-kernel launch per plant; each plant's first u*
+    against the oracle on its own QP, every move within its own limit."""
+    from tpu_gpad_torch.solver.multi import solve_multi
+
+    caps = np.linspace(0.08, 0.15, MULTI_PLANTS)
+    limits = np.linspace(0.2, 0.4, MULTI_PLANTS)
+    qps = [tg.condense(tg.problems.battery(**HEADLINE, cell_capacity_ah=c,
+                                           current_limit=lim))
+           for c, lim in zip(caps, limits)]
+    datas = [tg.dualize(qp, ITERS, paired=False, device=DEVICE) for qp in qps]
+    X0np = np.random.default_rng(42).uniform(
+        -0.4, 0.4, (MULTI_PLANTS, MULTI_BATCH, 3)).astype(np.float32)
+    before = kernels.DENSE_LAUNCHES
+    res = solve_multi(datas, X0np)
+    torch.cuda.synchronize()
+    launched = kernels.DENSE_LAUNCHES - before
+    u = res.u.cpu().numpy()
+    oracle = [float(np.abs(u[p, 0] - reference.gpad_solve_qp(
+        qps[p], X0np[p, 0].astype(np.float64), ITERS).u).max())
+        for p in range(MULTI_PLANTS)]
+    over = [float(np.abs(u[p]).max() - limits[p]) for p in range(MULTI_PLANTS)]
+    emit({"phase": "multi_path", "plants": MULTI_PLANTS, "batch": MULTI_BATCH,
+          "launches": launched, "u_vs_oracle_max": max(oracle),
+          "limit_excess_max": max(over),
+          "residual_max": res.residual.max().item(), "tol": ORACLE_TOL})
+    check(tuple(res.u.shape) == (MULTI_PLANTS, MULTI_BATCH, 3), "multi u shape")
+    check(bool(torch.isfinite(res.z).all()), "multi z not finite")
+    check(launched == MULTI_PLANTS, f"solve_multi launched {launched}x")
+    check(max(oracle) < ORACLE_TOL, f"multi u* vs oracle {oracle}")
+    check(max(over) <= 1e-2, f"multi moves beyond their limits {over}")
+
+
+def phase_sweep_path(torch, tg, kernels):
+    """``run_sweep`` over B 16384 in chunks of 4096 with a checkpoint,
+    dense layout: 4 dense-kernel launches; a second run resumes from the
+    finished checkpoint with none and identical arrays."""
+    import tempfile
+
+    from tpu_gpad_torch.sweep import run_sweep
+
+    _, data = dense_headline(tg)
+    X0 = np.random.default_rng(43).uniform(
+        -0.4, 0.4, (SWEEP_BATCH, data.n_x)).astype(np.float32)
+    cfg = tg.SolverConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = f"{tmp}/sweep.npz"
+        before = kernels.DENSE_LAUNCHES
+        first = run_sweep(data, X0, cfg, chunk_size=SWEEP_CHUNK, checkpoint=ck)
+        launched = kernels.DENSE_LAUNCHES - before
+        before = kernels.DENSE_LAUNCHES
+        again = run_sweep(data, X0, cfg, chunk_size=SWEEP_CHUNK, checkpoint=ck)
+        resumed = kernels.DENSE_LAUNCHES - before
+    same = all(np.array_equal(getattr(first, f), getattr(again, f))
+               for f in ("U", "residual", "iterations", "converged"))
+    plain = tg.solve_batch(data, X0[:SWEEP_CHUNK],
+                           dataclasses.replace(cfg, engine="torch"))
+    vs_torch = float(np.abs(first.U[:SWEEP_CHUNK] - plain.u.cpu().numpy()).max())
+    emit({"phase": "sweep_path", "batch": SWEEP_BATCH, "chunk": SWEEP_CHUNK,
+          "launches": launched, "resume_launches": resumed,
+          "resumed_identical": same, "u_vs_torch_engine": vs_torch,
+          "residual_max": float(first.residual.max()),
+          "wall_s_host_clock": first.wall_s})
+    check(launched == SWEEP_BATCH // SWEEP_CHUNK, f"sweep launched {launched}x")
+    check(resumed == 0 and same, f"resume launched {resumed}x, identical {same}")
+    check(np.isfinite(first.U).all() and vs_torch <= KERNEL_TOL,
+          f"sweep u vs the torch engine {vs_torch}")
+    return launched
+
+
+def phase_paired_path(torch, tg, kernels, core, reference):
+    """A paired mvp solve with the flat block off (``form="mvp"``,
+    ``flat="off"``) at the headline shape: one launch of the full paired
+    kernel; u* against the oracle and the torch engine."""
+    qp, data = headline(tg)
+    X0np = np.random.default_rng(44).uniform(
+        -0.4, 0.4, (BATCH, qp.n_x)).astype(np.float32)
+    X0 = torch.as_tensor(X0np, device=DEVICE)
+    cfg = tg.SolverConfig(form="mvp", flat="off")
+    before = kernels.PAIRED_LAUNCHES
+    res = tg.solve_batch(data, X0, cfg)
+    torch.cuda.synchronize()
+    launched = kernels.PAIRED_LAUNCHES - before
+    oracle = [float(np.abs(res.u[i].cpu().numpy() - reference.gpad_solve_qp(
+        qp, X0np[i].astype(np.float64), ITERS).u).max()) for i in range(4)]
+    plain = tg.solve_batch(data, X0, dataclasses.replace(cfg, engine="torch"))
+    vs_torch = (res.u - plain.u).abs().max().item()
+    emit({"phase": "paired_path", "kernel": core.cuda_kernel(data, cfg),
+          "batch": BATCH, "launches": launched, "u_vs_oracle": oracle,
+          "u_vs_torch_engine": vs_torch, "tol": ORACLE_TOL})
+    check(launched == 1, f"paired mvp solve launched the paired kernel {launched}x")
+    check(max(oracle) < ORACLE_TOL and vs_torch < ORACLE_TOL,
+          f"paired u* vs oracle {oracle}, vs torch engine {vs_torch}")
+    return launched
+
+
+def phase_dense_timing(torch, tg, kernels, core, smi):
+    """CUDA events, median of 20 calls per turn, two turns in opposite
+    orders: the dense and the full paired kernels at their main-path
+    shapes (B4096 x 100), their plain versions, the solves through
+    ``auto`` and ``engine="torch"``, and the flat kernel beside them."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    _, dense = dense_headline(tg)
+    _, paired = headline(tg)
+    X0 = torch.as_tensor(np.random.default_rng(45).uniform(
+        -0.4, 0.4, (BATCH, dense.n_x)).astype(np.float32), device=DEVICE)
+    gd, pd = core.affine_params(dense, X0)
+    gp, pp = core.affine_params(paired, X0)
+    mvp = tg.SolverConfig(form="mvp", flat="off")
+    runs = {
+        "dense": lambda: kernels.gpad_fixed_dense(dense, gd, pd, iterations=ITERS),
+        "dense_plain": lambda: kernels.gpad_fixed_dense_torch(
+            dense, gd, pd, iterations=ITERS),
+        "dense_auto": lambda: tg.solve_batch(dense, X0),
+        "dense_torch": lambda: tg.solve_batch(dense, X0,
+                                              tg.SolverConfig(engine="torch")),
+        "paired": lambda: kernels.gpad_fixed_paired(paired, gp, pp,
+                                                    iterations=ITERS),
+        "paired_plain": lambda: kernels.gpad_fixed_paired_torch(
+            paired, gp, pp, iterations=ITERS),
+        "paired_auto": lambda: tg.solve_batch(paired, X0, mvp),
+        "paired_torch": lambda: tg.solve_batch(
+            paired, X0, dataclasses.replace(mvp, engine="torch")),
+        "flat": lambda: kernels.gpad_fixed_paired_flat(paired, gp, pp,
+                                                       iterations=ITERS),
+    }
+    ms = {k: [] for k in runs}
+    order = list(runs)
+    for turn in (order, order[::-1]):
+        for k in turn:
+            ms[k].append(device_time_per_call(runs[k], warmup=3, repeats=20) * 1e3)
+    med = {k: float(np.mean(v)) for k, v in ms.items()}
+    # the loop's two products per scenario and iteration over every row:
+    # dense 2 (m n_z) + 2 (n_z m), paired 2 (m_h n_z) + 2 (n_z m_h);
+    # z, y, w, zhat written once
+    m, n_z, m_h = dense.m, dense.n_z, paired.m_half
+    schedule = (dense.theta[:ITERS], dense.beta[:ITERS])
+    med["dense_bound"] = bound(
+        BATCH * ITERS * 4.0 * m * n_z,
+        nbytes(dense.MG_T, dense.GL_T, gd, pd, *schedule)
+        + 4 * BATCH * (2 * n_z + 2 * m))
+    med["paired_bound"] = bound(
+        BATCH * ITERS * 4.0 * m_h * n_z,
+        nbytes(paired.MG_T, paired.GL_T, gp, pp, *schedule)
+        + 4 * BATCH * (2 * n_z + 4 * m_h))
+    emit({"phase": "dense_timing", "gpu": smi, "batch": BATCH,
+          "iterations": ITERS, "dense_shape": [n_z, m],
+          "paired_shape": [n_z, m_h], "dense_bound": med["dense_bound"],
+          "paired_bound": med["paired_bound"],
+          "ms_median_of_20_per_turn": ms,
+          "solves_per_s": {k: BATCH / med[k] * 1e3 for k in runs}})
     return med
 
 
@@ -964,6 +1249,8 @@ def main() -> int:
     worst_dual = phase_dual_kernel_vs_plain(torch, tg, dual_kernels, core)
     worst_chunk = phase_dual_chunk_vs_plain(torch, tg, dual_kernels, core)
     worst_sw = phase_stagewise_kernels_vs_plain(torch, tg, sk, ss)
+    worst_dense = phase_dense_kernel_vs_plain(torch, tg, kernels, core)
+    worst_paired = phase_paired_kernel_vs_plain(torch, tg, kernels, core)
     # each path's launches are counted from 0, set just before it
     reset_counters(kernels, dual_kernels, sk, ss)
     phase_main_path(torch, tg, kernels, core, reference)
@@ -978,6 +1265,21 @@ def main() -> int:
     reset_counters(kernels, dual_kernels, sk, ss)
     chunk_launches = phase_eps_path(torch, tg, dual_kernels, core, reference)
     reset_counters(kernels, dual_kernels, sk, ss)
+    phase_dataset_path(torch, tg, kernels, reference)
+    phase_multi_path(torch, tg, kernels, reference)
+    phase_serving(torch, tg, kernels, paired=False, counter="DENSE_LAUNCHES",
+                  phase="dense_serving")
+    sweep_launches = phase_sweep_path(torch, tg, kernels)
+    dense_launches = kernels.DENSE_LAUNCHES
+    check(dense_launches == 1 + MULTI_PLANTS + SERVE_STEPS + sweep_launches,
+          f"dense path launched {dense_launches}x")
+    check(kernels.PAIRED_FLAT_LAUNCHES == kernels.PAIRED_LAUNCHES == 0,
+          "the dense path launched a paired kernel")
+    reset_counters(kernels, dual_kernels, sk, ss)
+    paired_launches = phase_paired_path(torch, tg, kernels, core, reference)
+    check(kernels.PAIRED_LAUNCHES == paired_launches == 1,
+          f"paired path launched {kernels.PAIRED_LAUNCHES}x")
+    reset_counters(kernels, dual_kernels, sk, ss)
     phase_stagewise_main_path(torch, tg, sk, ss, ts)
     phase_stagewise_serving(torch, tg, ss)
     sw_launches = {"resident": sk.STAGEWISE_LAUNCHES,
@@ -989,6 +1291,7 @@ def main() -> int:
     med = phase_timing(torch, tg, kernels, core, smi)
     dmed = phase_dual_timing(torch, tg, dual_kernels, core, smi)
     smed = phase_stagewise_timing(torch, tg, sk, ss, ts, smi)
+    dnmed = phase_dense_timing(torch, tg, kernels, core, smi)
     # no single PyTorch call computes a GPAD solve loop
     no_library = {"library_ms": None}
     emit({"kernels": [{
@@ -1041,6 +1344,26 @@ def main() -> int:
         "ms": smed["stream"],
         "plain_ms": smed["stream_plain"],
         **smed["stream_bound"], **no_library,
+    }, {
+        "name": "gpad_dense",
+        "route": "cuda",
+        "source": "tpu_gpad_torch/csrc/gpad_dense.cu",
+        "replaces": "tpu_gpad/solver/kernels.py:336",
+        "launches": dense_launches,
+        "max_abs_err": worst_dense,
+        "ms": dnmed["dense"],
+        "plain_ms": dnmed["dense_plain"],
+        **dnmed["dense_bound"], **no_library,
+    }, {
+        "name": "gpad_paired",
+        "route": "cuda",
+        "source": "tpu_gpad_torch/csrc/gpad_paired_flat.cu",
+        "replaces": "tpu_gpad/solver/kernels.py:1271",
+        "launches": paired_launches,
+        "max_abs_err": worst_paired,
+        "ms": dnmed["paired"],
+        "plain_ms": dnmed["paired_plain"],
+        **dnmed["paired_bound"], **no_library,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -43,11 +43,9 @@ def test_solve_matches_jax_cli(capsys):
 
 @pytest.mark.parametrize(
     "argv,msg",
-    [(["solve", "--dataset", "x.txt"], "--dataset"),
-     (["solve", "--engine", "stagewise", "--dataset", "x.txt"], "--dataset"),
-     (["info", "--cells", "3"], "`info`"),
+    [(["info", "--cells", "3"], "`info`"),
      (["closedloop"], "`closedloop`")],
-    ids=["dataset", "stagewise", "info", "closedloop"],
+    ids=["info", "closedloop"],
 )
 def test_unported_commands_say_so(argv, msg):
     from tpu_gpad_torch.cli import main

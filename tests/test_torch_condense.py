@@ -101,7 +101,7 @@ def test_gpad_data_from_numpy_round_trip():
     moved = d_t.to("cpu")
     assert moved.MG_T.device.type == "cpu" and moved.n_struct == d_t.n_struct
     with pytest.raises(ValueError, match="missing"):
-        gpad_data_from_numpy({"MG_T": ref}, meta)
+        gpad_data_from_numpy({"MG_T": ref}, meta, device="cpu")
 
     res = tpu_gpad_torch.solve_batch(d_t, np.zeros((2, 3), np.float32))
     out = solve_result_to_numpy(res)

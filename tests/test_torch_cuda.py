@@ -126,9 +126,6 @@ def test_controller_routes_through_kernel(dev):
 def test_forced_cuda_engine_refuses_unserved_cases(dev):
     data = _data(dev)
     X0 = torch.zeros((2, data.n_x), device=dev)
-    with pytest.raises(ValueError, match="engine='cuda'"):  # dense paired mvp
-        tg.solve_batch(data, X0, tg.SolverConfig(engine="cuda", form="mvp",
-                                                 flat="off"))
     with pytest.raises(ValueError, match="engine='cuda'"):
         tg.solve_batch(data, X0, tg.SolverConfig(engine="cuda", form="mvp",
                                                  restart=True))
@@ -142,9 +139,103 @@ def test_forced_cuda_engine_refuses_unserved_cases(dev):
     assert core.resolve_engine(flagship, tg.SolverConfig(restart=True)) == "torch"
     dense = tg.dualize(tg.condense(tg.problems.battery(3, 10)), ITERS,
                        paired=False, device=dev)
-    with pytest.raises(ValueError, match="engine='cuda'"):
-        tg.solve_batch(dense, X0, tg.SolverConfig(engine="cuda"))
-    assert core.resolve_engine(dense, tg.SolverConfig()) == "torch"
+    soft = dataclasses.replace(dense, soft_damp=torch.full(
+        (dense.m,), 0.1, device=dev))
+    for d, cfg in ((dense, tg.SolverConfig(engine="cuda", restart=True)),
+                   (dense, tg.SolverConfig(engine="cuda", mode="eps")),
+                   (soft, tg.SolverConfig(engine="cuda"))):
+        with pytest.raises(ValueError, match="engine='cuda'"):
+            tg.solve_batch(d, X0, cfg)
+    assert core.resolve_engine(dense, tg.SolverConfig(restart=True)) == "torch"
+    assert core.resolve_engine(soft, tg.SolverConfig()) == "torch"
+
+
+def _dense_data(dev, n=3, N=10):
+    return tg.dualize(tg.condense(tg.problems.battery(n, N)), ITERS,
+                      paired=False, device=dev)
+
+
+def _dense_both(data, g_P, p_D, y0=None, diagnostics=True):
+    kw = dict(iterations=ITERS, diagnostics=diagnostics)
+    before = kernels.DENSE_LAUNCHES
+    out_k = kernels.gpad_fixed_dense(data, g_P, p_D, y0, **kw)
+    assert kernels.DENSE_LAUNCHES == before + 1
+    out_p = kernels.gpad_fixed_dense_torch(data, g_P, p_D, y0, **kw)
+    torch.cuda.synchronize()
+    return out_k, out_p
+
+
+@pytest.mark.parametrize(
+    "case", ["cold", "warm_shared", "warm_one_row", "warm_per_scenario",
+             "no_diagnostics", "B1", "B5", "B33", "near_guard"])
+def test_dense_kernel_matches_plain(dev, case):
+    data = _dense_data(dev, 3, 20) if case == "near_guard" else _dense_data(dev)
+    B = {"B1": 1, "B5": 5, "B33": 33}.get(case, 256)
+    g_P, p_D = _inputs(data, B, seed=B)
+    rng = np.random.default_rng(5)
+    y0 = None
+    if case == "warm_shared":
+        y0 = rng.uniform(0, 0.5, (data.m,))
+    elif case == "warm_one_row":
+        y0 = rng.uniform(0, 0.5, (1, data.m))
+    elif case in ("warm_per_scenario", "B1", "B5", "B33"):
+        y0 = rng.uniform(0, 0.5, (B, data.m))
+    if y0 is not None:
+        y0 = torch.as_tensor(y0, dtype=torch.float32, device=dev)
+    _assert_close(*_dense_both(data, g_P, p_D, y0,
+                               diagnostics=case != "no_diagnostics"))
+
+
+def _paired_both(data, g_P, p_D, y0=None, diagnostics=True):
+    kw = dict(iterations=ITERS, diagnostics=diagnostics)
+    before = kernels.PAIRED_LAUNCHES
+    out_k = kernels.gpad_fixed_paired(data, g_P, p_D, y0, **kw)
+    assert kernels.PAIRED_LAUNCHES == before + 1
+    out_p = kernels.gpad_fixed_paired_torch(data, g_P, p_D, y0, **kw)
+    torch.cuda.synchronize()
+    return out_k, out_p
+
+
+@pytest.mark.parametrize(
+    "case", ["cold", "warm_shared", "warm_per_scenario", "no_diagnostics",
+             "soft", "B1", "B5"])
+def test_paired_kernel_matches_plain(dev, case):
+    data = _data(dev)
+    B = {"B1": 1, "B5": 5}.get(case, 256)
+    g_P, p_D = _inputs(data, B, seed=B)
+    rng = np.random.default_rng(6)
+    y0 = None
+    if case == "warm_shared":
+        y0 = rng.uniform(0, 0.5, (2, data.m_half))
+    elif case in ("warm_per_scenario", "B1", "B5"):
+        y0 = rng.uniform(0, 0.5, (B, 2, data.m_half))
+    if y0 is not None:
+        y0 = torch.as_tensor(y0, dtype=torch.float32, device=dev)
+    if case == "soft":
+        data = dataclasses.replace(data, soft_damp=torch.as_tensor(
+            rng.uniform(0, 0.2, data.m_half), dtype=torch.float32, device=dev))
+    _assert_close(*_paired_both(data, g_P, p_D, y0,
+                                diagnostics=case != "no_diagnostics"))
+
+
+def test_dense_and_paired_solves_route_through_kernels(dev):
+    dense = _dense_data(dev)
+    X0 = torch.rand((64, dense.n_x), device=dev) * 0.8 - 0.4
+    y_warm = torch.rand((64, dense.m), device=dev) * 0.1
+    for d, cfg, counter in (
+            (dense, tg.SolverConfig(), "DENSE_LAUNCHES"),
+            (_data(dev), tg.SolverConfig(form="mvp", flat="off"),
+             "PAIRED_LAUNCHES")):
+        assert core.resolve_engine(d, cfg) == "cuda"
+        for y0 in (None, y_warm if d is dense else None):
+            before = getattr(kernels, counter)
+            res = tg.solve_batch(d, X0, cfg, y0=y0)
+            assert getattr(kernels, counter) == before + 1
+            ref = tg.solve_batch(d, X0, dataclasses.replace(cfg, engine="torch"),
+                                 y0=y0)
+            for name in ("u", "z", "y", "residual", "gap"):
+                torch.testing.assert_close(getattr(res, name), getattr(ref, name),
+                                           atol=TOL, rtol=0, msg=name)
 
 
 def _dual_both(data, g_P, p_D, y0=None, **kw):

@@ -12,6 +12,8 @@ import torch
 import tpu_gpad_torch as tg
 from tpu_gpad_torch import cli
 from tpu_gpad_torch import problems as tp
+from tpu_gpad_torch.stagewise import STAGEWISE_META_FIELDS, STAGEWISE_TENSOR_FIELDS
+from tpu_gpad_torch.types import GPAD_META_FIELDS, GPAD_TENSOR_FIELDS
 
 torch.set_num_threads(2)
 
@@ -45,6 +47,43 @@ def _auto_solver():
     return tg.auto_solver(_small(), iterations=5)[1].L
 
 
+def _gpad_data_from_numpy():
+    d = tg.dualize(tg.condense(_small()), iterations=5, device="cpu")
+    fields = {k: None if getattr(d, k) is None else getattr(d, k).numpy()
+              for k in GPAD_TENSOR_FIELDS}
+    return tg.gpad_data_from_numpy(
+        fields, {k: getattr(d, k) for k in GPAD_META_FIELDS}).MG_T
+
+
+def _stagewise_data_from_numpy():
+    d = tg.build_stagewise(_small(), iterations=5, device="cpu")
+    fields = {k: getattr(d, k).numpy() for k in STAGEWISE_TENSOR_FIELDS}
+    return tg.stagewise_data_from_numpy(
+        fields, {k: getattr(d, k) for k in STAGEWISE_META_FIELDS}).E
+
+
+def _dataset(tmp):
+    path = tmp / "input_1.txt"
+    cli.main(["export", "--out", str(path), "--horizon", "4", "--iterations",
+              "5", "--device", "cpu"])
+    return path
+
+
+def _dataset_to_gpad_data(tmp):
+    from tpu_gpad_torch import io
+
+    return io.dataset_to_gpad_data(io.read_solver_dataset(_dataset(tmp))).MG_T
+
+
+def _load_gpad_data(tmp):
+    from tpu_gpad_torch import io
+
+    path = tmp / "data.npz"
+    io.save_gpad_data(path, tg.dualize(tg.condense(_small()), iterations=5,
+                                       device="cpu"))
+    return io.load_gpad_data(path).MG_T
+
+
 def _cli(*extra):
     def run(capsys):
         cli.main(["solve", "--batch", "2", "--iterations", "5", "--horizon",
@@ -60,6 +99,13 @@ ENTRY_POINTS = {
     "build_stagewise": _build_stagewise,
     "StagewiseController": _stagewise_controller,
     "auto_solver": _auto_solver,
+    "gpad_data_from_numpy": _gpad_data_from_numpy,
+    "stagewise_data_from_numpy": _stagewise_data_from_numpy,
+}
+# entry points that read a file, written on the CPU into the test's tmp_path
+FILE_ENTRY_POINTS = {
+    "dataset_to_gpad_data": _dataset_to_gpad_data,
+    "load_gpad_data": _load_gpad_data,
 }
 
 
@@ -81,3 +127,34 @@ def test_cli_solve_defaults_to_the_card(engine, capsys):
         return
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         run(capsys)
+
+
+@pytest.mark.parametrize("name", list(FILE_ENTRY_POINTS))
+def test_file_entry_point_defaults_to_the_card(name, tmp_path, capsys):
+    call = FILE_ENTRY_POINTS[name]
+    if torch.cuda.is_available():
+        assert call(tmp_path).device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        call(tmp_path)
+
+
+@pytest.mark.parametrize("command", ["dataset", "sweep", "export"])
+def test_cli_commands_default_to_the_card(command, tmp_path, capsys):
+    argv = {
+        "dataset": ["solve", "--dataset", str(_dataset(tmp_path))],
+        "sweep": ["sweep", "--batch", "4", "--iterations", "5", "--horizon",
+                  "4"],
+        "export": ["export", "--out", str(tmp_path / "out.txt"),
+                   "--iterations", "5", "--horizon", "4"],
+    }[command]
+    capsys.readouterr()
+
+    def run():
+        cli.main(argv)
+        return json.loads(capsys.readouterr().out.strip().splitlines()[-1])["device"]
+    if torch.cuda.is_available():
+        assert run().startswith("cuda")
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        run()

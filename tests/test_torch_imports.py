@@ -38,7 +38,8 @@ def test_port_imports_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "tpu_gpad_torch.solver.kernels" in out["imported"]
     assert "tpu_gpad_torch.cuda_build" in out["imported"]
-    for name in ("stagewise", "stagewise_kernel", "stagewise_stream"):
+    for name in ("stagewise", "stagewise_kernel", "stagewise_stream", "io",
+                 "solver.multi", "sweep"):
         assert f"tpu_gpad_torch.{name}" in out["imported"]
     assert out["bad"] == []
 

@@ -34,7 +34,7 @@ def pair():
     fields = {k: None if getattr(d_j, k) is None else np.asarray(getattr(d_j, k))
               for k in GPAD_TENSOR_FIELDS}
     d_t = gpad_data_from_numpy(
-        fields, {k: getattr(d_j, k) for k in GPAD_META_FIELDS})
+        fields, {k: getattr(d_j, k) for k in GPAD_META_FIELDS}, device="cpu")
     return d_j, d_t
 
 

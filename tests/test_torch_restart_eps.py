@@ -41,7 +41,7 @@ def _carry(d_j):
     fields = {k: None if getattr(d_j, k) is None else np.asarray(getattr(d_j, k))
               for k in GPAD_TENSOR_FIELDS}
     return gpad_data_from_numpy(
-        fields, {k: getattr(d_j, k) for k in GPAD_META_FIELDS})
+        fields, {k: getattr(d_j, k) for k in GPAD_META_FIELDS}, device="cpu")
 
 
 @pytest.fixture(scope="module")

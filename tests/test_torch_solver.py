@@ -34,7 +34,8 @@ def _pair(problem, paired):
     d_j = tpu_gpad.dualize(qp, iterations=ITERS, paired=paired)
     fields = {k: None if getattr(d_j, k) is None else np.asarray(getattr(d_j, k))
               for k in GPAD_TENSOR_FIELDS}
-    d_t = gpad_data_from_numpy(fields, {k: getattr(d_j, k) for k in GPAD_META_FIELDS})
+    d_t = gpad_data_from_numpy(fields, {k: getattr(d_j, k) for k in GPAD_META_FIELDS},
+                               device="cpu")
     return qp, d_j, d_t
 
 

@@ -25,11 +25,12 @@ from tpu_gpad_torch.types import (
 )
 
 
-def gpad_data_from_numpy(fields: dict, meta: dict, device="cpu") -> GPADData:
-    """``GPADData`` on ``device`` from NumPy ``fields`` (one array, or None
-    for the optional ``soft_damp``/``D``, per tensor field) and ``meta``
-    (``n_u``, ``n_x``, ``horizon``, ``name``, ``paired``, ``n_struct``).
-    Values keep their dtype, so float32 fields arrive bit for bit."""
+def gpad_data_from_numpy(fields: dict, meta: dict, device="cuda") -> GPADData:
+    """``GPADData`` on ``device`` (the card unless the caller asks for
+    "cpu") from NumPy ``fields`` (one array, or None for the optional
+    ``soft_damp``/``D``, per tensor field) and ``meta`` (``n_u``, ``n_x``,
+    ``horizon``, ``name``, ``paired``, ``n_struct``). Values keep their
+    dtype, so float32 fields arrive bit for bit."""
     missing = set(GPAD_TENSOR_FIELDS) - set(fields) - {"soft_damp", "D"}
     missing |= set(GPAD_META_FIELDS) - set(meta)
     if missing:
@@ -43,10 +44,11 @@ def gpad_data_from_numpy(fields: dict, meta: dict, device="cpu") -> GPADData:
 
 
 def stagewise_data_from_numpy(fields: dict, meta: dict,
-                              device) -> StagewiseData:
-    """``StagewiseData`` on ``device`` from NumPy ``fields`` (one array per
-    tensor field) and ``meta`` (``n_x``, ``n_u``, ``horizon``, ``name``).
-    Values keep their dtype, bit for bit."""
+                              device="cuda") -> StagewiseData:
+    """``StagewiseData`` on ``device`` (the card unless the caller asks for
+    "cpu") from NumPy ``fields`` (one array per tensor field) and ``meta``
+    (``n_x``, ``n_u``, ``horizon``, ``name``). Values keep their dtype, bit
+    for bit."""
     missing = (set(STAGEWISE_TENSOR_FIELDS) - set(fields)) | (
         set(STAGEWISE_META_FIELDS) - set(meta))
     if missing:

@@ -1,30 +1,36 @@
-// Fixed-budget GPAD on the flat paired half stack, one launch per solve.
+// Fixed-budget GPAD on the paired half stack, one launch per solve: two
+// instances of one kernel body.
 //
-// Replaces tpu_gpad/solver/kernels.py::_gpad_kernel_paired_flat (the Pallas
-// TPU kernel behind gpad_pallas_fixed_paired_flat). Per scenario, for each
-// iteration k < iterations:
+// The flat instance replaces tpu_gpad/solver/kernels.py::_gpad_kernel_paired_flat
+// (the Pallas TPU kernel behind gpad_pallas_fixed_paired_flat); the full
+// instance replaces _gpad_kernel_paired (behind gpad_pallas_fixed_paired).
+// Per scenario, for each iteration k < iterations:
 //
 //   w+-  = y+- + beta_k (y+- - y+-_prev)
 //   zhat = -MG_T' (w+ - w-) - g_P                 MG_T (m_h, n_z): all rows
 //   z    = (1 - theta_k) z + theta_k zhat
-//   q    = [ GL_T[:, :n_s]' zhat ; zhat / L ]     box rows need no product
+//   q    = [ GL_T[:, :n_s]' zhat ; zhat / L ]     flat: box rows need no product
+//   q    = GL_T' zhat                             full: every row is a product
 //   y+   = relu(w+ od + q + p_D+),  y- = relu(w- od - q + p_D-)
 //
-// od is 1 - soft_damp (1 without soft rows). The dual rows are already in
-// [struct | box] order (dualize puts the identity rows last), so no layout
-// change happens on either side of the kernel.
+// od is 1 - soft_damp (1 without soft rows). In the flat instance the dual
+// rows are already in [struct | box] order (dualize puts the identity rows
+// last), so no layout change happens on either side of the kernel. The full
+// instance is the flat body with n_s = m_h, chosen at compile time (kFlat),
+// so the flat instance's code is the same as when it stood alone.
 //
 // What bounds it: at the headline shape (battery n3 N10: n_z = 30,
-// m_h = 70, n_s = 40) an iteration is 2 m_h n_z + 2 n_z n_s = 6.6 kFLOP per
-// scenario, so a B = 4096, 100-iteration solve is about 2.7 GFLOP, a few
-// hundredths of a millisecond at the card's FP32 rate. The operands are
-// 13 KB. Each multiply-add reads two shared-memory words, so the kernel is
-// bounded by shared-memory traffic and the two barriers per iteration, not
-// by the FP32 rate or by device memory.
+// m_h = 70, n_s = 40) a flat iteration is 2 m_h n_z + 2 n_z n_s = 6.6 kFLOP
+// per scenario (full: 4 m_h n_z = 8.4 kFLOP), so a B = 4096, 100-iteration
+// solve is about 2.7 GFLOP, a few hundredths of a millisecond at the card's
+// FP32 rate. The operands are 13 KB (full: 17 KB). Each multiply-add reads
+// two shared-memory words, so the kernel is bounded by shared-memory
+// traffic and the two barriers per iteration, not by the FP32 rate or by
+// device memory.
 //
 // Design: one block per tile of T scenarios (T a power of two <= 32; the
 // wrapper picks 8, the fastest measured at the headline shape). MG_T
-// and the struct columns of GL_T are staged once into dynamic shared
+// and the used columns of GL_T are staged once into dynamic shared
 // memory; every per-scenario array is in shared memory too, laid out
 // [row][scenario] so a warp reads neighbouring scenarios of one row while
 // the operand word is a broadcast. Step 1 of iteration k+1 is fused into
@@ -41,10 +47,12 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kFlat>
 __global__ void __launch_bounds__(kThreads)
-gpad_paired_flat_kernel(
+gpad_paired_kernel(
     const float* __restrict__ MG,     // (m_h, n_z) row-major
     const float* __restrict__ GL,     // (n_z, m_h) row-major; cols [:n_s] used
+                                      // (n_s == m_h in the full instance)
     const float* __restrict__ gP,     // (B, n_z)
     const float* __restrict__ pD,     // (B, 2, m_h)
     const float* __restrict__ y0,     // (., 2, m_h) or null (cold start)
@@ -133,7 +141,7 @@ gpad_paired_flat_kernel(
         for (int idx = tid; idx < hT; idx += kThreads) {
             const int i = idx >> log2_tile, s = idx & tmask;
             float q;
-            if (i < n_s) {
+            if (!kFlat || i < n_s) {
                 q = 0.0f;
                 for (int j = 0; j < n_z; ++j)
                     q = fmaf(sGL[j * n_s + i], sZh[j * T + s], q);
@@ -177,11 +185,33 @@ gpad_paired_flat_kernel(
     }
 }
 
+template <bool kFlat>
+int launch(
+    const float* MG, const float* GL, const float* gP, const float* pD,
+    const float* y0, long long y0_stride, const float* od,
+    const float* theta, const float* beta, const float* L,
+    int B, int m_h, int n_z, int n_s, int iterations, int log2_tile,
+    float* z_out, float* y_out, float* w_out, float* zhat_out,
+    int smem, void* stream)
+{
+    cudaError_t err = cudaFuncSetAttribute(
+        gpad_paired_kernel<kFlat>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    const int T = 1 << log2_tile;
+    const int grid = (B + T - 1) / T;
+    gpad_paired_kernel<kFlat><<<grid, kThreads, (size_t)smem,
+                                (cudaStream_t)stream>>>(
+        MG, GL, gP, pD, y0, y0_stride, od, theta, beta, L,
+        B, m_h, n_z, n_s, iterations, log2_tile, z_out, y_out, w_out, zhat_out);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Both launch on `stream` and return cudaGetLastError() (0 on success).
 // `smem` is the block's dynamic shared memory in bytes,
 // 4 (m_h n_z + n_z n_s + m_h + 7 m_h T + 3 n_z T), computed by the caller
 // (kernels.py::_smem_bytes) so the routing guard and the launch agree.
@@ -193,17 +223,24 @@ int gpad_paired_flat_launch(
     float* z_out, float* y_out, float* w_out, float* zhat_out,
     int smem, void* stream)
 {
-    cudaError_t err = cudaFuncSetAttribute(
-        gpad_paired_flat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-    const int T = 1 << log2_tile;
-    const int grid = (B + T - 1) / T;
-    gpad_paired_flat_kernel<<<grid, kThreads, (size_t)smem,
-                              (cudaStream_t)stream>>>(
-        MG, GL, gP, pD, y0, y0_stride, od, theta, beta, L,
-        B, m_h, n_z, n_s, iterations, log2_tile, z_out, y_out, w_out, zhat_out);
-    return (int)cudaGetLastError();
+    return launch<true>(MG, GL, gP, pD, y0, y0_stride, od, theta, beta, L,
+                        B, m_h, n_z, n_s, iterations, log2_tile,
+                        z_out, y_out, w_out, zhat_out, smem, stream);
+}
+
+// The full instance: n_s must be m_h.
+int gpad_paired_launch(
+    const float* MG, const float* GL, const float* gP, const float* pD,
+    const float* y0, long long y0_stride, const float* od,
+    const float* theta, const float* beta, const float* L,
+    int B, int m_h, int n_z, int n_s, int iterations, int log2_tile,
+    float* z_out, float* y_out, float* w_out, float* zhat_out,
+    int smem, void* stream)
+{
+    if (n_s != m_h) return (int)cudaErrorInvalidValue;
+    return launch<false>(MG, GL, gP, pD, y0, y0_stride, od, theta, beta, L,
+                         B, m_h, n_z, n_s, iterations, log2_tile,
+                         z_out, y_out, w_out, zhat_out, smem, stream);
 }
 
 }  // extern "C"

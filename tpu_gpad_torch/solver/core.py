@@ -8,12 +8,15 @@ Pallas engine's counterpart, ``solver/kernels.py`` and
 ``solver/dual_kernels.py``).
 
 Routing (``engine="auto"``) keys on the device of the data tensors. On a
-CUDA device: fixed flat paired mvp solves launch the flat kernel; fixed
-dual-form solves (restart, ``form="dual"``, ``flat="off"``) launch the
-dual kernel; eps solves in the dual form run the chunked dual kernel, one
-launch per check window. Each only where its state fits one block's
-shared memory; everything else runs the torch engine, as the JAX package
-sends what its kernels do not serve to XLA.
+CUDA device: fixed flat paired mvp solves launch the flat kernel; other
+fixed paired mvp solves (``form="mvp"``, ``flat="off"``, or no identity
+block) the full paired kernel; fixed dense (unpaired) solves without soft
+rows the dense kernel; fixed dual-form solves (restart, ``form="dual"``,
+``flat="off"``) the dual kernel; eps solves in the dual form the chunked
+dual kernel, one launch per check window. Each only where its state fits
+one block's shared memory; everything else (unpaired restart or eps
+among it) runs the torch engine, as the JAX package sends what its
+kernels do not serve to XLA.
 
 Eps mode (Algorithm 1) checks the stopping test every ``check_every``
 iterations and once more at a budget that is not a multiple of it; the
@@ -368,9 +371,10 @@ def _solve_eps(data: GPADData, g_P, p_D, config: SolverConfig,
 
 def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:
     """The CUDA kernel that serves this (data, config), device aside:
-    "paired_flat", "dual", "dual_chunk" (eps mode), or None. Follows
-    ``tpu_gpad.solver.core.resolve_engine``; like it, independent of
-    ``diagnostics``, so the flag never changes which loop runs."""
+    "paired_flat", "paired", "dense", "dual", "dual_chunk" (eps mode), or
+    None. Follows ``tpu_gpad.solver.core.resolve_engine`` and
+    ``solve_batch_pallas``; like them, independent of ``diagnostics``, so
+    the flag never changes which loop runs."""
     from tpu_gpad_torch.solver import dual_kernels, kernels
 
     dual_ok = data.paired and data.D is not None and config.form != "mvp"
@@ -388,7 +392,10 @@ def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:
         return "dual" if dual_kernels.dual_fits_smem(data) else None
     if resolve_flat(data, config) and kernels.flat_fits_smem(data):
         return "paired_flat"
-    return None
+    if data.paired:
+        return "paired" if kernels.paired_fits_smem(data) else None
+    # the dense kernel declines soft rows (dense_fits_smem), as tpu_gpad's
+    return "dense" if kernels.dense_fits_smem(data) else None
 
 
 def resolve_engine(data: GPADData, config: SolverConfig) -> str:
@@ -408,9 +415,10 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
             )
         if cuda_kernel(data, config) is None:
             raise ValueError(
-                "engine='cuda' serves paired solves only: flat mvp in fixed "
-                "mode without restart (kernels.flat_fits_smem), or the dual "
-                "form with D, fixed or eps, restart or not "
+                "engine='cuda' serves fixed mvp solves without restart "
+                "(paired: kernels.flat_fits_smem or paired_fits_smem; "
+                "unpaired without soft rows: kernels.dense_fits_smem), and "
+                "the dual form with D, fixed or eps, restart or not "
                 "(dual_kernels.dual_fits_smem); use engine='torch' here"
             )
         return "cuda"

@@ -1,17 +1,27 @@
-"""The flat paired GPAD kernel (CUDA C++ for Hopper) and its plain version.
+"""The paired and dense GPAD kernels (CUDA C++ for Hopper) and their plain
+versions.
 
-``gpad_fixed_paired_flat`` runs a whole fixed-budget solve in one launch of
-the kernel in ``csrc/gpad_paired_flat.cu``, the counterpart of
-``tpu_gpad.solver.kernels.gpad_pallas_fixed_paired_flat``. On CUDA tensors
-it launches the kernel or raises; on CPU tensors it runs
-``gpad_fixed_paired_flat_torch``, the same loop in torch ops, which is also
+Three whole-solve kernels, each one launch per fixed-budget solve:
+
+- ``gpad_fixed_paired_flat``: the flat paired mvp loop (the identity block
+  of the input box costs a division), ``csrc/gpad_paired_flat.cu``; the
+  counterpart of ``tpu_gpad.solver.kernels.gpad_pallas_fixed_paired_flat``.
+- ``gpad_fixed_paired``: the paired mvp loop with the full ``GL_T``
+  product and no identity block, the second instance of the same source;
+  the counterpart of ``gpad_pallas_fixed_paired``.
+- ``gpad_fixed_dense``: the dense (unpaired) loop on the reference's
+  ``[S; -S; I; -I; K; -K]`` stack, ``csrc/gpad_dense.cu``; the counterpart
+  of ``gpad_pallas_fixed``.
+
+On CUDA tensors each launches its kernel or raises; on CPU tensors it runs
+its plain version (``*_torch``), the same loop in torch ops, which is also
 what the tests and ``chip_smoke.py`` hold the kernel against. Also here:
 the helpers the dual kernels share (``dual_kernels.py``) and
 ``solve_batch_cuda``, the "cuda" engine's entry.
 
-The data's dual rows are already in the kernel's [struct | box] order
-(``dualize`` puts the identity rows last), so unlike the TPU kernel there is
-no padding, transposition or flat-layout mapping around the launch.
+The data's dual rows are already in the flat kernel's [struct | box] order
+(``dualize`` puts the identity rows last), so unlike the TPU kernels there
+is no padding, transposition or layout mapping around a launch.
 """
 
 from __future__ import annotations
@@ -22,9 +32,11 @@ import torch
 
 from tpu_gpad_torch.types import GPADData, SolveResult
 
-# Launches of the CUDA kernel in this process; a run resets it to 0 to
-# show that a path went through the kernel.
+# Launches of each CUDA kernel in this process; a run resets them to 0 to
+# show that a path went through its kernel.
 PAIRED_FLAT_LAUNCHES = 0
+PAIRED_LAUNCHES = 0
+DENSE_LAUNCHES = 0
 
 # Dynamic shared memory one block may use on an H100 (232,448 bytes, the
 # sm_90 opt-in maximum). The guard below is derived from it alone: which
@@ -39,8 +51,9 @@ _MAX_LOG2_TILE = 3
 
 
 def _smem_bytes(m_h: int, n_z: int, n_s: int, log2_tile: int) -> int:
-    """Shared memory of one block of the kernel (csrc carve-up): both
-    operands, the od column, 7 dual-row arrays and 3 primal arrays of
+    """Shared memory of one block of the paired kernels (csrc carve-up):
+    both operands (n_s used columns of GL_T; the full instance has
+    n_s = m_h), the od column, 7 dual-row arrays and 3 primal arrays of
     2**log2_tile scenarios each."""
     T = 1 << log2_tile
     return 4 * (m_h * n_z + n_z * n_s + m_h + 7 * m_h * T + 3 * n_z * T)
@@ -59,16 +72,47 @@ def _widest_tile(smem_bytes, B: int) -> int | None:
 
 
 def _pick_log2_tile(m_h: int, n_z: int, n_s: int, B: int) -> int | None:
-    """The flat kernel's tile for B scenarios (see ``_widest_tile``)."""
+    """A paired kernel's tile for B scenarios (see ``_widest_tile``)."""
     return _widest_tile(lambda log2: _smem_bytes(m_h, n_z, n_s, log2), B)
 
 
+def _dense_smem_bytes(m: int, n_z: int, log2_tile: int) -> int:
+    """Shared memory of one block of the dense kernel (csrc carve-up): both
+    operands, 3 dual-row arrays and 3 primal arrays of 2**log2_tile
+    scenarios each."""
+    T = 1 << log2_tile
+    return 4 * (2 * m * n_z + 3 * m * T + 3 * n_z * T)
+
+
+def _pick_dense_log2_tile(m: int, n_z: int, B: int) -> int | None:
+    """The dense kernel's tile for B scenarios (see ``_widest_tile``)."""
+    return _widest_tile(lambda log2: _dense_smem_bytes(m, n_z, log2), B)
+
+
 def flat_fits_smem(data: GPADData) -> bool:
-    """Can the kernel run this data: a flat paired layout whose operands
-    and one scenario's state fit one block's shared memory?"""
+    """Can the flat kernel run this data: a flat paired layout whose
+    operands and one scenario's state fit one block's shared memory?"""
     if not (data.paired and data.n_struct is not None):
         return False
     return _pick_log2_tile(data.m_half, data.n_z, data.n_struct, 1) is not None
+
+
+def paired_fits_smem(data: GPADData) -> bool:
+    """Can the full paired kernel run this data: a paired layout whose
+    operands and one scenario's state fit one block's shared memory?"""
+    if not data.paired:
+        return False
+    return _pick_log2_tile(data.m_half, data.n_z, data.m_half, 1) is not None
+
+
+def dense_fits_smem(data: GPADData) -> bool:
+    """Can the dense kernel run this data: an unpaired stack without soft
+    rows whose operands and one scenario's state fit one block's shared
+    memory? (tpu_gpad's VMEM guard admits far larger stacks; those run the
+    torch engine here.)"""
+    if data.paired or data.soft_damp is not None:
+        return False
+    return _pick_dense_log2_tile(data.m, data.n_z, 1) is not None
 
 
 def _norm_y0(y0, B: int, m_h: int):
@@ -87,6 +131,21 @@ def _norm_y0(y0, B: int, m_h: int):
     return y0
 
 
+def _norm_dense_y0(y0, B: int, m: int):
+    """A dense warm-start dual as (rows, m) with rows 1 or B, as
+    ``tpu_gpad.solver.kernels.solve_batch_pallas`` takes it: (m,), (1, m),
+    or (B..., m) with leading batch dims flattened."""
+    if y0.ndim > 2:
+        y0 = y0.reshape(-1, y0.shape[-1])
+    if y0.ndim == 1:
+        y0 = y0[None]
+    if y0.ndim != 2 or y0.shape[1] != m or y0.shape[0] not in (1, B):
+        raise ValueError(
+            f"y0 of shape {tuple(y0.shape)} does not broadcast to ({B}, {m})"
+        )
+    return y0
+
+
 def _od(data: GPADData):
     """The (m_h,) column 1 - soft_damp, or None on hard data."""
     if data.soft_damp is None:
@@ -94,14 +153,13 @@ def _od(data: GPADData):
     return 1.0 - data.soft_damp.to(torch.float32)
 
 
-def gpad_fixed_paired_flat_torch(
-    data: GPADData, g_P, p_D, y0=None, *, iterations: int,
-    diagnostics: bool = True,
-):
-    """The kernel's loop in torch ops, on any device: the plain version
-    the kernel is checked against. Same contract as
-    ``gpad_fixed_paired_flat``."""
-    B, m_h, n_s = g_P.shape[0], data.m_half, data.n_struct
+def _paired_plain(data: GPADData, g_P, p_D, y0, iterations: int,
+                  diagnostics: bool, flat: bool):
+    """The paired kernels' loop in torch ops, on any device. ``flat``
+    replaces the identity block's product by a division, as the flat
+    kernel does."""
+    B, m_h = g_P.shape[0], data.m_half
+    n_s = data.n_struct if flat else m_h
     GLs = data.GL_T[:, :n_s]
     inv_L = 1.0 / data.L
     od = _od(data)
@@ -117,7 +175,9 @@ def gpad_fixed_paired_flat_torch(
         w = y + data.beta[k] * (y - y_prev)
         zhat = -((w[:, 0] - w[:, 1]) @ data.MG_T) - g_P
         z = (1.0 - data.theta[k]) * z + data.theta[k] * zhat
-        q = torch.cat([zhat @ GLs, zhat * inv_L], dim=-1)
+        q = zhat @ GLs
+        if flat:
+            q = torch.cat([q, zhat * inv_L], dim=-1)
         w_s = w if od is None else w * od
         y_prev, y = y, torch.clamp_min(w_s + torch.stack([q, -q], 1) + p_D, 0.0)
     if not diagnostics:
@@ -125,37 +185,100 @@ def gpad_fixed_paired_flat_torch(
     return z, y, w, zhat
 
 
-def _launch_fn():
-    """The kernel's C launcher, built and loaded at first use."""
+def gpad_fixed_paired_flat_torch(
+    data: GPADData, g_P, p_D, y0=None, *, iterations: int,
+    diagnostics: bool = True,
+):
+    """The flat kernel's loop in torch ops, on any device: the plain
+    version the kernel is checked against. Same contract as
+    ``gpad_fixed_paired_flat``."""
+    return _paired_plain(data, g_P, p_D, y0, iterations, diagnostics, flat=True)
+
+
+def gpad_fixed_paired_torch(
+    data: GPADData, g_P, p_D, y0=None, *, iterations: int,
+    diagnostics: bool = True,
+):
+    """The full paired kernel's loop in torch ops, on any device: the plain
+    version the kernel is checked against. Same contract as
+    ``gpad_fixed_paired``."""
+    return _paired_plain(data, g_P, p_D, y0, iterations, diagnostics, flat=False)
+
+
+def gpad_fixed_dense_torch(
+    data: GPADData, g_P, p_D, y0=None, *, iterations: int,
+    diagnostics: bool = True,
+):
+    """The dense kernel's loop in torch ops, on any device: the plain
+    version the kernel is checked against. Same contract as
+    ``gpad_fixed_dense``."""
+    B, m = g_P.shape[0], data.m
+    if y0 is None:
+        y = torch.zeros((B, m), dtype=torch.float32, device=g_P.device)
+    else:
+        y = _norm_dense_y0(y0, B, m).expand(B, m).clone()
+    y_prev = y
+    z = torch.zeros_like(g_P)
+    w = torch.zeros_like(y)
+    zhat = torch.zeros_like(g_P)
+    for k in range(iterations):
+        w = y + data.beta[k] * (y - y_prev)
+        zhat = -(w @ data.MG_T) - g_P
+        z = (1.0 - data.theta[k]) * z + data.theta[k] * zhat
+        y_prev, y = y, torch.clamp_min(w + zhat @ data.GL_T + p_D, 0.0)
+    if not diagnostics:
+        return z, y, None, None
+    return z, y, w, zhat
+
+
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signatures of the launchers in csrc/gpad_paired_flat.cu (both
+# instances) and csrc/gpad_dense.cu
+_PAIRED_ARGTYPES = [_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 6 + [_PTR] * 4 + [_INT, _PTR]
+_DENSE_ARGTYPES = [_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 5 + [_PTR] * 4 + [_INT, _PTR]
+
+
+def _launch_fn(library: str, symbol: str, argtypes):
+    """A kernel's C launcher, built and loaded at first use."""
     from tpu_gpad_torch import cuda_build
 
-    fn = cuda_build.load("gpad_paired_flat").gpad_paired_flat_launch
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, ctypes.c_longlong, P, P, P, P,
-                   I, I, I, I, I, I, P, P, P, P, I, P]
-    fn.restype = I
+    fn = getattr(cuda_build.load(library), symbol)
+    fn.argtypes = argtypes
+    fn.restype = _INT
     return fn
 
 
-def _check_inputs(data: GPADData, g_P, p_D, y0, iterations: int) -> None:
-    """Raise on anything the kernel does not take."""
-    if not data.paired or data.n_struct is None:
-        raise ValueError("flat kernel needs paired data with a detected "
-                         "identity block (GPADData.n_struct)")
-    m_h, n_z, n_s = data.m_half, data.n_z, data.n_struct
-    if m_h != n_s + n_z:
-        raise ValueError(f"flat layout needs m_half == n_struct + n_z; got "
-                         f"{m_h} != {n_s} + {n_z}")
+def _check_common(data: GPADData, g_P, p_D, dual_shape, iterations: int,
+                  tensors) -> None:
+    """Raise on a budget past the schedule, wrong shapes, or tensors the
+    kernels do not take."""
     if iterations > data.max_iters:
         raise ValueError(f"{iterations} iterations exceed the schedule's "
                          f"{data.max_iters}")
+    n_z = data.n_z
     if g_P.ndim != 2 or g_P.shape[1] != n_z:
         raise ValueError(f"g_P must be (B, {n_z}); got {tuple(g_P.shape)}")
-    if tuple(p_D.shape) != (g_P.shape[0], 2, m_h):
-        raise ValueError(f"p_D must be ({g_P.shape[0]}, 2, {m_h}); got "
-                         f"{tuple(p_D.shape)}")
-    _check_tensors([data.MG_T, data.GL_T, data.L, data.theta, data.beta, g_P,
-                   p_D, y0, data.soft_damp], g_P.device)
+    want = (g_P.shape[0],) + tuple(dual_shape)
+    if tuple(p_D.shape) != want:
+        raise ValueError(f"p_D must be {want}; got {tuple(p_D.shape)}")
+    _check_tensors([data.MG_T, data.GL_T, data.theta, data.beta, g_P, p_D,
+                    *tensors], g_P.device)
+
+
+def _check_inputs(data: GPADData, g_P, p_D, y0, iterations: int,
+                  flat: bool = True) -> None:
+    """Raise on anything a paired kernel does not take."""
+    if flat and (not data.paired or data.n_struct is None):
+        raise ValueError("flat kernel needs paired data with a detected "
+                         "identity block (GPADData.n_struct)")
+    if not data.paired:
+        raise ValueError("the paired kernel needs paired data")
+    m_h, n_z = data.m_half, data.n_z
+    if flat and m_h != data.n_struct + n_z:
+        raise ValueError(f"flat layout needs m_half == n_struct + n_z; got "
+                         f"{m_h} != {data.n_struct} + {n_z}")
+    _check_common(data, g_P, p_D, (2, m_h), iterations,
+                  [data.L, y0, data.soft_damp])
 
 
 def _check_tensors(tensors, device) -> None:
@@ -177,6 +300,57 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _outputs(B: int, n_z: int, dual_shape, diagnostics: bool, device):
+    """Empty (z, y, w, zhat) for a launch; w/zhat None without
+    diagnostics."""
+    z = torch.empty((B, n_z), dtype=torch.float32, device=device)
+    y = torch.empty((B,) + tuple(dual_shape), dtype=torch.float32, device=device)
+    if not diagnostics:
+        return z, y, None, None
+    return z, y, torch.empty_like(y), torch.empty_like(z)
+
+
+def _need_cuda(g_P) -> None:
+    """Raise for tensors on a device without these kernels."""
+    if g_P.device.type != "cuda":
+        raise ValueError(f"no kernel for device {g_P.device}")
+
+
+def _too_big(what: str, shape: str):
+    return ValueError(
+        f"problem ({shape}) exceeds the {what} kernel's shared memory "
+        f"({SMEM_LIMIT_BYTES} bytes); use engine='torch'"
+    )
+
+
+def _launch_paired(data: GPADData, g_P, p_D, y0, iterations: int,
+                   diagnostics: bool, flat: bool):
+    """One launch of a paired kernel instance on CUDA tensors."""
+    B, m_h, n_z = g_P.shape[0], data.m_half, data.n_z
+    n_s = data.n_struct if flat else m_h
+    fn = _launch_fn("gpad_paired_flat", "gpad_paired_flat_launch" if flat
+                    else "gpad_paired_launch", _PAIRED_ARGTYPES)
+    log2_tile = _pick_log2_tile(m_h, n_z, n_s, B)
+    if log2_tile is None:
+        raise _too_big("flat" if flat else "paired",
+                       f"m_half={m_h}, n_z={n_z}, n_struct={n_s}")
+    y0_rows = None if y0 is None else _norm_y0(y0, B, m_h)
+    y0_stride = 0 if y0_rows is None or y0_rows.shape[0] == 1 else 2 * m_h
+    od = _od(data)
+    z, y, w, zhat = _outputs(B, n_z, (2, m_h), diagnostics, g_P.device)
+    with torch.cuda.device(g_P.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_ptr(data.MG_T), _ptr(data.GL_T), _ptr(g_P), _ptr(p_D),
+                 _ptr(y0_rows), y0_stride, _ptr(od), _ptr(data.theta),
+                 _ptr(data.beta), _ptr(data.L), B, m_h, n_z, n_s, iterations,
+                 log2_tile, _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
+                 _smem_bytes(m_h, n_z, n_s, log2_tile), stream)
+    if err != 0:
+        name = "gpad_paired_flat" if flat else "gpad_paired"
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return z, y, w, zhat
+
+
 def gpad_fixed_paired_flat(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     diagnostics: bool = True,
@@ -194,35 +368,78 @@ def gpad_fixed_paired_flat(
         return gpad_fixed_paired_flat_torch(
             data, g_P, p_D, y0, iterations=iterations, diagnostics=diagnostics
         )
-    if g_P.device.type != "cuda":
-        raise ValueError(f"no kernel for device {g_P.device}")
-    fn = _launch_fn()
-    B, m_h, n_z, n_s = g_P.shape[0], data.m_half, data.n_z, data.n_struct
-    log2_tile = _pick_log2_tile(m_h, n_z, n_s, B)
-    if log2_tile is None:
+    _need_cuda(g_P)
+    out = _launch_paired(data, g_P, p_D, y0, iterations, diagnostics, flat=True)
+    PAIRED_FLAT_LAUNCHES += 1
+    return out
+
+
+def gpad_fixed_paired(
+    data: GPADData, g_P, p_D, y0=None, *, iterations: int,
+    diagnostics: bool = True,
+):
+    """Fixed-budget paired mvp GPAD with the full ``GL_T`` product (no
+    identity block), soft rows carried: the contract of
+    ``gpad_fixed_paired_flat`` on any paired data. CUDA tensors launch the
+    kernel (or raise); CPU tensors run the plain version."""
+    global PAIRED_LAUNCHES
+    _check_inputs(data, g_P, p_D, y0, iterations, flat=False)
+    if g_P.device.type == "cpu":
+        return gpad_fixed_paired_torch(
+            data, g_P, p_D, y0, iterations=iterations, diagnostics=diagnostics
+        )
+    _need_cuda(g_P)
+    out = _launch_paired(data, g_P, p_D, y0, iterations, diagnostics, flat=False)
+    PAIRED_LAUNCHES += 1
+    return out
+
+
+def gpad_fixed_dense(
+    data: GPADData, g_P, p_D, y0=None, *, iterations: int,
+    diagnostics: bool = True,
+):
+    """Fixed-budget dense (unpaired) GPAD for a batch: returns
+    (z, y, w, zhat).
+
+    ``g_P`` (B, n_z), ``p_D`` (B, m), optional warm start ``y0``
+    broadcasting to (B, m) (leading batch dims flattened). ``z``/``zhat``
+    are (B, n_z), ``y``/``w`` (B, m); ``w`` and ``zhat`` are the last
+    iteration's, and both are None when ``diagnostics`` is False. Soft rows
+    are refused, as by ``tpu_gpad``'s dense kernel. CUDA tensors launch the
+    kernel (or raise); CPU tensors run the plain version."""
+    global DENSE_LAUNCHES
+    if data.paired:
+        raise ValueError("the dense kernel needs unpaired data")
+    if data.soft_damp is not None:
         raise ValueError(
-            f"problem (m_half={m_h}, n_z={n_z}, n_struct={n_s}) exceeds the "
-            f"kernel's shared memory ({SMEM_LIMIT_BYTES} bytes); use "
+            "the dense (unpaired) kernel does not carry soft (dual-damped) "
+            "rows; soft data is paired: use the paired kernels or "
             "engine='torch'"
         )
-    y0_rows = None if y0 is None else _norm_y0(y0, B, m_h)
-    y0_stride = 0 if y0_rows is None or y0_rows.shape[0] == 1 else 2 * m_h
-    od = _od(data)
-    z = torch.empty((B, n_z), dtype=torch.float32, device=g_P.device)
-    y = torch.empty((B, 2, m_h), dtype=torch.float32, device=g_P.device)
-    w = torch.empty_like(y) if diagnostics else None
-    zhat = torch.empty_like(z) if diagnostics else None
-
+    m, n_z = data.m, data.n_z
+    _check_common(data, g_P, p_D, (m,), iterations, [y0])
+    if g_P.device.type == "cpu":
+        return gpad_fixed_dense_torch(
+            data, g_P, p_D, y0, iterations=iterations, diagnostics=diagnostics
+        )
+    _need_cuda(g_P)
+    B = g_P.shape[0]
+    log2_tile = _pick_dense_log2_tile(m, n_z, B)
+    if log2_tile is None:
+        raise _too_big("dense", f"m={m}, n_z={n_z}")
+    fn = _launch_fn("gpad_dense", "gpad_dense_launch", _DENSE_ARGTYPES)
+    y0_rows = None if y0 is None else _norm_dense_y0(y0, B, m)
+    y0_stride = 0 if y0_rows is None or y0_rows.shape[0] == 1 else m
+    z, y, w, zhat = _outputs(B, n_z, (m,), diagnostics, g_P.device)
     with torch.cuda.device(g_P.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_ptr(data.MG_T), _ptr(data.GL_T), _ptr(g_P), _ptr(p_D),
-                 _ptr(y0_rows), y0_stride, _ptr(od), _ptr(data.theta),
-                 _ptr(data.beta), _ptr(data.L), B, m_h, n_z, n_s, iterations,
-                 log2_tile, _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
-                 _smem_bytes(m_h, n_z, n_s, log2_tile), stream)
+                 _ptr(y0_rows), y0_stride, _ptr(data.theta), _ptr(data.beta),
+                 B, m, n_z, iterations, log2_tile, _ptr(z), _ptr(y), _ptr(w),
+                 _ptr(zhat), _dense_smem_bytes(m, n_z, log2_tile), stream)
     if err != 0:
-        raise RuntimeError(f"gpad_paired_flat launch failed: CUDA error {err}")
-    PAIRED_FLAT_LAUNCHES += 1
+        raise RuntimeError(f"gpad_dense launch failed: CUDA error {err}")
+    DENSE_LAUNCHES += 1
     return z, y, w, zhat
 
 
@@ -238,7 +455,10 @@ def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
     kernel = core.cuda_kernel(data, config)
     batch_shape = g_P.shape[:-1]
     gP2 = g_P.reshape(-1, data.n_z).contiguous()
-    pD2 = p_D.reshape(-1, 2, data.m_half).contiguous()
+    dual_shape = (2, data.m_half) if data.paired else (data.m,)
+    pD2 = p_D.reshape((-1,) + dual_shape).contiguous()
+    # a warm start keeps its own rows (1 or B); each wrapper flattens its
+    # leading batch dims, as tpu_gpad's solve_batch_pallas does
     y0 = None if y0 is None else y0.contiguous()
     kw = dict(iterations=config.iterations, diagnostics=config.diagnostics)
     if kernel == "dual_chunk":
@@ -249,6 +469,10 @@ def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
                 data, gP2, pD2, y0, restart=config.restart, **kw)
         elif kernel == "paired_flat":
             z, y, w, zhat = gpad_fixed_paired_flat(data, gP2, pD2, y0, **kw)
+        elif kernel == "paired":
+            z, y, w, zhat = gpad_fixed_paired(data, gP2, pD2, y0, **kw)
+        elif kernel == "dense":
+            z, y, w, zhat = gpad_fixed_dense(data, gP2, pD2, y0, **kw)
         else:
             raise ValueError("no CUDA kernel serves this solve")
         res = core._finish(data, gP2, pD2, z, zhat, w, y, config, flat=False)
