@@ -16,7 +16,11 @@ check window), the reference's dense layout (the dense kernel): a dataset
 written by ``export`` and solved by ``solve --dataset``, ``solve_multi``
 over the reference's 28 plants, a dense ``Controller`` and a checkpointed
 ``run_sweep``; a paired mvp solve without the flat block (the full paired
-kernel); and the stage-wise O(N) engine at full width: ``auto_solver``
+kernel); the reference's 30x30 flagship (the tiled kernels): restart and
+dual-form solves, a restart ``Controller``, ``solve_to_accuracy`` with the
+flat block off, a forced flat solve, the default solve (no kernel, as the
+JAX package routes it) and the CLI's ``closedloop`` and ``info``; and the
+stage-wise O(N) engine at full width: ``auto_solver``
 at battery n30 N200 B1024 and n8 N60 B4096 (the streamed kernel) and n8
 N60 B1024 (the resident kernel), a warm ``StagewiseController`` and the
 long-horizon eps example (the torch engine). It times kernels and plain
@@ -28,7 +32,8 @@ prints no result.
 
     python3 chip_smoke.py --sweep
 
-builds the kernels and times the stage-wise kernels by tile instead.
+builds the kernels and times the stage-wise and the tiled kernels by tile
+instead.
 """
 
 from __future__ import annotations
@@ -84,6 +89,15 @@ SW_WAVE_BATCH = 1024  # n8 N60: one wave of resident blocks on 132 SMs
 SW_SERVE_SETTLE = 10  # warm steps before the moves are held to the limits
 SW_LIMIT_TOL = 1e-2  # settled moves: |u| <= 0.3 + tol, |sum u| <= tol
 SW_RESIDUAL_TOL = 1e-4  # a plan's excess over the limits beyond its residual
+# The reference's 30x30 flagship (battery n30 N30: n_z 900, m_h 1830,
+# n_struct 930; D 13.4 MB) at AB_FLAGSHIP.json's batch, and battery n5 N30
+# (m_h 330), just past the resident dual kernels' shared-memory guard
+FLAGSHIP = dict(n_cells=30, horizon=30)
+FLAG_BATCH = 256
+TILED_MID = dict(n_cells=5, horizon=30)
+FLAG_SERVE_STEPS, FLAG_SERVE_SETTLE = 20, 5
+FLAG_EPS_TOL = 1e-4
+FLAG_CLI_STEPS = 5
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 outside the tensor
 # cores, and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -158,7 +172,8 @@ def phase_device(torch):
 def phase_build():
     from tpu_gpad_torch import cuda_build
 
-    names = ["gpad_paired_flat", "gpad_dense", "gpad_dual", "gpad_stagewise"]
+    names = ["gpad_paired_flat", "gpad_dense", "gpad_dual", "gpad_stagewise",
+             "gpad_dual_tiled", "gpad_flat_tiled"]
     cuda_build.load_all(names)  # every nvcc run at once
     emit({"phase": "build",
           "build_s": {n: cuda_build.BUILD_SECONDS[n] for n in names},
@@ -338,9 +353,29 @@ def headline(tg):
 def reset_counters(kernels, dual_kernels, sk, ss):
     kernels.PAIRED_FLAT_LAUNCHES = 0
     kernels.PAIRED_LAUNCHES = kernels.DENSE_LAUNCHES = 0
+    kernels.FLAT_TILED_LAUNCHES = 0
     dual_kernels.DUAL_LAUNCHES = dual_kernels.DUAL_CHUNK_LAUNCHES = 0
+    dual_kernels.DUAL_TILED_LAUNCHES = dual_kernels.DUAL_TILED_CHUNK_LAUNCHES = 0
     dual_kernels.EPS_SYNCS = 0
     sk.STAGEWISE_LAUNCHES = ss.STAGEWISE_STREAM_LAUNCHES = 0
+
+
+def launch_counts(kernels, dual_kernels, sk, ss) -> dict:
+    """Every kernel's launches since the last ``reset_counters``, those
+    that launched only."""
+    counts = {
+        "gpad_paired_flat": kernels.PAIRED_FLAT_LAUNCHES,
+        "gpad_paired": kernels.PAIRED_LAUNCHES,
+        "gpad_dense": kernels.DENSE_LAUNCHES,
+        "gpad_flat_tiled": kernels.FLAT_TILED_LAUNCHES,
+        "gpad_dual": dual_kernels.DUAL_LAUNCHES,
+        "gpad_dual_chunk": dual_kernels.DUAL_CHUNK_LAUNCHES,
+        "gpad_dual_tiled": dual_kernels.DUAL_TILED_LAUNCHES,
+        "gpad_dual_tiled_chunk": dual_kernels.DUAL_TILED_CHUNK_LAUNCHES,
+        "gpad_stagewise_resident": sk.STAGEWISE_LAUNCHES,
+        "gpad_stagewise_stream": ss.STAGEWISE_STREAM_LAUNCHES,
+    }
+    return {k: v for k, v in counts.items() if v}
 
 
 def phase_dual_kernel_vs_plain(torch, tg, dual_kernels, core):
@@ -859,6 +894,491 @@ def phase_dense_timing(torch, tg, kernels, core, smi):
 
 
 # ---------------------------------------------------------------------------
+# the reference's 30x30 flagship and the tiled kernels
+# ---------------------------------------------------------------------------
+
+_FLAG = {}
+
+
+def flagship(tg, shape=FLAGSHIP):
+    """A battery QP and its paired data on the card (100-iteration
+    schedule), built once per shape."""
+    key = tuple(shape.values())
+    if key not in _FLAG:
+        qp = tg.condense(tg.problems.battery(**shape))
+        _FLAG[key] = qp, tg.dualize(qp, ITERS, paired="auto", device=DEVICE)
+    return _FLAG[key]
+
+
+def flag_x0(torch, n_x, B, seed):
+    X0np = np.random.default_rng(seed).uniform(-0.4, 0.4, (B, n_x)).astype(
+        np.float32)
+    return X0np, torch.as_tensor(X0np, device=DEVICE)
+
+
+def restart_parting(torch, data, g_P, p_D, y0, z_k, z_p):
+    """A restart run of the tiled dual kernel (z_k) against the plain
+    version (z_p), per scenario, and both against the plain version in
+    float64. A restart decision is the sign of a sum that float32 rounding
+    may flip where it is near 0; a scenario whose decision flipped parts
+    from the other run by far more than RESTART_TOL. At most
+    SW_RESTART_PARTED_SHARE of the scenarios (at least one) may part;
+    ``u_z`` is the largest error of those that did not."""
+    from tpu_gpad_torch.solver import dual_kernels
+    from tpu_gpad_torch.types import GPAD_TENSOR_FIELDS
+
+    d64 = dataclasses.replace(data, **{
+        f: getattr(data, f).double() for f in GPAD_TENSOR_FIELDS
+        if getattr(data, f) is not None})
+    y64 = (torch.zeros_like(p_D, dtype=torch.float64) if y0 is None
+           else y0.double())
+    z64 = dual_kernels.gpad_fixed_dual_torch(
+        d64, g_P.double(), p_D.double(), y64, iterations=ITERS, restart=True,
+        diagnostics=False)[0]
+    per = lambda a, b: (a.double() - b.double()).abs().amax(dim=1)
+    e_k, e_k64, e_p64 = per(z_k, z_p), per(z_k, z64), per(z_p, z64)
+    parted = e_k > RESTART_TOL
+    return {"u_z": e_k[~parted].max().item() if not parted.all() else None,
+            "parted": int(parted.sum()),
+            "parted_max": max(1, int(SW_RESTART_PARTED_SHARE * z_k.shape[0])),
+            "u_z_parted_max": e_k.max().item(),
+            "parted_vs_float64": int((e_k64 > RESTART_TOL).sum()),
+            "plain_parted_vs_float64": int((e_p64 > RESTART_TOL).sum())}
+
+
+def eps_agreement(res, ref) -> dict:
+    """Two eps solves of one batch, scenario by scenario: a scenario whose
+    restart decision flipped near r = 0 in one of them takes another path
+    and stops at another point that meets the same tolerance, so only most
+    scenarios agree to the fp32 sums of a path."""
+    du = (res.u - ref.u).abs().amax(dim=-1)
+    return {"agree": int((du < EPS_U_TOL).sum()), "batch": int(du.numel()),
+            "same_window": int((res.iterations == ref.iterations).sum()),
+            "u_max": du.max().item(),
+            "iterations_max_diff": int((res.iterations - ref.iterations)
+                                       .abs().max())}
+
+
+def phase_tiled_kernels_vs_plain(torch, tg, kernels, dual_kernels, core):
+    """Each tiled kernel against its plain version: the flagship at B 1, 5,
+    33 and 256 (cold, warm per scenario and shared, restart, diagnostics
+    off), battery n5 N30 (m_h 330) and n3 N10 at the narrowest and widest
+    tile (1 and 8 scenarios per block); the chunk kernel on a window of 10 from k0 = 30, and ten windows
+    against one whole launch."""
+    _, flag = flagship(tg)
+    _, mid = flagship(tg, TILED_MID)
+    _, small = headline(tg)
+    rng = np.random.default_rng(50)
+    dual, restart, flat, chunk, bitwise = {}, {}, {}, {}, {}
+
+    def warm(d, rows):
+        return torch.as_tensor(rng.uniform(0.0, 0.5, (rows, 2, d.m_half)).astype(
+            np.float32), device=DEVICE)
+
+    def finite(out, diagnostics):
+        for t in out:
+            if t is not None:
+                check(bool(torch.isfinite(t).all()), "tiled kernel output not finite")
+        if not diagnostics:
+            check(out[2] is None and out[3] is None,
+                  "diagnostics=False returned w/zhat")
+
+    def run(name, d, B, y0=None, rs=False, diagnostics=True, tile=None,
+            kinds=("dual", "flat")):
+        g, p = core.affine_params(d, flag_x0(torch, d.n_x, B, seed=B)[1])
+        kw = dict(iterations=ITERS, diagnostics=diagnostics)
+        outs = {}
+        if "dual" in kinds:
+            out_k = dual_kernels.gpad_fixed_dual_tiled(d, g, p, y0, restart=rs,
+                                                       log2_tile=tile, **kw)
+            out_p = dual_kernels.gpad_fixed_dual_torch(d, g, p, y0, restart=rs,
+                                                       **kw)
+            torch.cuda.synchronize()
+            finite(out_k, diagnostics)
+            if rs:  # u and z only (u is a slice of z), scenario by scenario
+                restart[name] = restart_parting(torch, d, g, p, y0, out_k[0],
+                                                out_p[0])
+            else:
+                dual[name] = max_err(out_k, out_p)
+            outs["dual"] = out_k
+        if "flat" in kinds and not rs:
+            out_k = kernels.gpad_fixed_flat_tiled(d, g, p, y0, log2_tile=tile,
+                                                  **kw)
+            out_p = kernels.gpad_fixed_paired_flat_torch(d, g, p, y0, **kw)
+            torch.cuda.synchronize()
+            finite(out_k, diagnostics)
+            flat[name] = max_err(out_k, out_p)
+            outs["flat"] = out_k
+        return outs
+
+    B = FLAG_BATCH
+    y_warm = warm(flag, B)
+    with_diag = run("warm_per_scenario", flag, B, y_warm)
+    no_diag = run("no_diagnostics", flag, B, y_warm, diagnostics=False)
+    for kind in ("dual", "flat"):  # the flag never changes the iterates
+        bitwise[kind] = all(torch.equal(a, b) for a, b in
+                            zip(with_diag[kind][:2], no_diag[kind][:2]))
+    run("cold", flag, B)
+    run("warm_shared", flag, B, warm(flag, 1))
+    run("restart_cold", flag, B, rs=True)
+    run("restart_warm", flag, B, y_warm, rs=True)
+    for b in (33, 5, 1):
+        run(f"B{b}", flag, b, warm(flag, b))
+    run("restart_B5", flag, 5, rs=True)
+    run("n5_N30", mid, B)
+    run("restart_n5_N30", mid, B, warm(mid, B), rs=True)
+    for tile in (0, 3):  # 1 and 8 scenarios per block
+        run(f"n3_N10_tile{1 << tile}", small, 33, warm(small, 33), tile=tile)
+        run(f"restart_n3_N10_tile{1 << tile}", small, 33, rs=True, tile=tile)
+    # the chunk kernel: one window, and ten windows against a whole solve
+    g, p = core.affine_params(flag, flag_x0(torch, flag.n_x, B, seed=51)[1])
+    c = dual_kernels.relu_offsets(flag, g, p)
+    zero = torch.zeros((B, 2, flag.m_half), device=DEVICE)
+    start = (zero, zero, torch.zeros((B, flag.m_half), device=DEVICE),
+             torch.ones((B, 2), device=DEVICE))
+    for rs in (False, True):
+        key = "restart" if rs else "plain"
+        state = dual_kernels.gpad_dual_chunk_torch(flag, c, *start, k0=0,
+                                                   chunk=30, restart=rs)[:4]
+        out_k = dual_kernels.gpad_dual_tiled_chunk(flag, c, *state, k0=30,
+                                                   chunk=10, restart=rs)
+        out_p = dual_kernels.gpad_dual_chunk_torch(flag, c, *state, k0=30,
+                                                   chunk=10, restart=rs)
+        torch.cuda.synchronize()
+        for t in out_k:
+            check(bool(torch.isfinite(t).all()), "tiled chunk output not finite")
+        # under restart the recovered z, as for the whole-solve kernel
+        chunk[f"window_{key}"] = (
+            ((out_k[2] - out_p[2]) @ flag.MG_T).abs().max().item() if rs
+            else max_err(out_k, out_p))
+        state = start
+        for k0 in range(0, ITERS, 10):
+            *state, w = dual_kernels.gpad_dual_tiled_chunk(
+                flag, c, *state, k0=k0, chunk=10, restart=rs)
+        z, y, w_f, _ = dual_kernels.gpad_fixed_dual_tiled(
+            flag, g, p, iterations=ITERS, restart=rs)
+        torch.cuda.synchronize()
+        chunk[f"ten_windows_vs_whole_{key}"] = max_err(
+            (-(state[2] @ flag.MG_T) - g, state[0], w), (z, y, w_f))
+    kept = [float("inf") if v["u_z"] is None else v["u_z"]
+            for v in restart.values()]
+    worst = {"dual": max(max(dual.values()), max(kept)),
+             "flat": max(flat.values()), "chunk": max(chunk.values())}
+    emit({"phase": "tiled_kernels_vs_plain",
+          "shapes": {"flagship": [flag.n_z, flag.m_half, flag.n_struct],
+                     "n5_N30": [mid.n_z, mid.m_half, mid.n_struct],
+                     "n3_N10": [small.n_z, small.m_half, small.n_struct]},
+          "log2_tile": {"dual_B256": dual_kernels.pick_tiled_tiles(flag.m_half, B),
+                        "flat_B256": kernels.pick_flat_tiled_tiles(
+                            flag.m_half, flag.n_z, B)},
+          "max_abs_err": {"dual": dual, "dual_restart_u_z": restart,
+                          "flat": flat, "dual_chunk": chunk},
+          "diagnostics_off_bit_identical": bitwise,
+          "tol": KERNEL_TOL, "restart_tol_u_z": RESTART_TOL})
+    check(max(dual.values()) <= KERNEL_TOL, f"tiled dual vs plain: {dual}")
+    check(max(kept) <= RESTART_TOL
+          and all(v["parted"] <= v["parted_max"] for v in restart.values()),
+          f"tiled dual restart: {restart}")
+    check(max(flat.values()) <= KERNEL_TOL, f"flat tiled vs plain: {flat}")
+    check(chunk["window_plain"] <= KERNEL_TOL
+          and chunk["window_restart"] <= RESTART_TOL
+          and chunk["ten_windows_vs_whole_plain"] <= KERNEL_TOL
+          and chunk["ten_windows_vs_whole_restart"] <= KERNEL_TOL,
+          f"tiled chunk: {chunk}")
+    check(all(bitwise.values()), f"diagnostics=False changed the iterates {bitwise}")
+    return worst
+
+
+def phase_flagship_path(torch, tg, kernels, dual_kernels, core, reference, sk, ss):
+    """The reference's 30x30 flagship on the card, each leg counted from 0:
+    restart and dual-form solves (the tiled dual kernel), a restart
+    ``Controller`` serving 256 plants, ``solve_to_accuracy`` with the flat
+    block off (the tiled chunk kernel, one launch per window), a forced
+    flat solve (the flat tiled kernel), the default solve (no kernel: the
+    torch engine, as the JAX package runs XLA there on a TPU), and the
+    CLI's ``closedloop`` and ``info`` in process. Returns the launches."""
+    import contextlib
+    import io as textio
+
+    from tpu_gpad_torch import cli
+
+    qp, flag = flagship(tg)
+    X0np, X0 = flag_x0(torch, flag.n_x, FLAG_BATCH, seed=52)
+    out = {"phase": "flagship_path", "batch": FLAG_BATCH,
+           "shape": [flag.n_z, flag.m_half, flag.n_struct]}
+    total = {}
+
+    def leg(name, fn, expect):
+        """Run ``fn`` with every count at 0; ``expect`` maps the result to
+        the launches it must have made."""
+        reset_counters(kernels, dual_kernels, sk, ss)
+        res = fn()
+        torch.cuda.synchronize()
+        got = launch_counts(kernels, dual_kernels, sk, ss)
+        want = expect(res) if callable(expect) else expect
+        out[name] = {"launches": got}
+        check(got == want, f"flagship {name}: launches {got}, expected {want}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return res
+
+    def oracle_err(res, n=4):
+        return [float(np.abs(res.u[i].cpu().numpy() - reference.gpad_solve_qp(
+            qp, X0np[i].astype(np.float64), ITERS).u).max()) for i in range(n)]
+
+    cfg = tg.SolverConfig(restart=True)
+    res = leg("restart", lambda: tg.solve_batch(flag, X0, cfg),
+              {"gpad_dual_tiled": 1})
+    ref = tg.solve_batch(flag, X0, dataclasses.replace(cfg, engine="torch"))
+    du = (res.u - ref.u).abs().amax(dim=1)
+    parted = du > RESTART_TOL  # a restart decision flipped near r = 0
+    out["restart"].update(
+        kernel=core.cuda_kernel(flag, cfg), residual_max=res.residual.max().item(),
+        u_vs_torch_engine=du[~parted].max().item() if not parted.all() else None,
+        parted=int(parted.sum()), u_parted_max=du.max().item())
+    check(out["restart"]["parted"] <= max(1, int(SW_RESTART_PARTED_SHARE
+                                                 * FLAG_BATCH))
+          and bool(torch.isfinite(res.u).all()),
+          f"flagship restart u vs torch engine {out['restart']}")
+
+    cfg = tg.SolverConfig(form="dual")
+    res = leg("form_dual", lambda: tg.solve_batch(flag, X0, cfg),
+              {"gpad_dual_tiled": 1})
+    out["form_dual"]["u_vs_oracle"] = oracle_err(res)
+    check(max(out["form_dual"]["u_vs_oracle"]) < ORACLE_TOL,
+          f"flagship dual u* vs oracle {out['form_dual']}")
+
+    cfg = tg.SolverConfig(engine="cuda", form="mvp")
+    res = leg("forced_mvp", lambda: tg.solve_batch(flag, X0, cfg),
+              {"gpad_flat_tiled": 1})
+    out["forced_mvp"].update(kernel=core.cuda_kernel(flag, cfg),
+                             u_vs_oracle=oracle_err(res))
+    check(max(out["forced_mvp"]["u_vs_oracle"]) < ORACLE_TOL,
+          f"flagship flat u* vs oracle {out['forced_mvp']}")
+
+    cfg = tg.SolverConfig()
+    res = leg("default", lambda: tg.solve_batch(flag, X0, cfg), {})
+    out["default"].update(
+        engine=core.resolve_engine(flag, cfg), kernel=core.cuda_kernel(flag, cfg),
+        form=core.resolve_form(flag, cfg), u_vs_oracle=oracle_err(res))
+    check(out["default"]["engine"] == "torch"
+          and max(out["default"]["u_vs_oracle"]) < ORACLE_TOL,
+          f"flagship default solve {out['default']}")
+
+    # solve_to_accuracy with the flat block off: one launch per window of
+    # 10, up to the last scenario's convergence
+    res = leg("eps_flat_off", lambda: tg.solve_to_accuracy(
+        flag, X0, tol=FLAG_EPS_TOL, flat="off"),
+        lambda r: {"gpad_dual_tiled_chunk": -(-int(r.iterations.max()) // 10)})
+    syncs = dual_kernels.EPS_SYNCS
+    # the same eps loop on the plain version of the chunk kernel (the dual
+    # algebra, cuBLAS sums), and the torch engine (the mvp algebra, as
+    # tpu_gpad's XLA eps loop)
+    cfg = tg.SolverConfig(mode="eps", eps_g=FLAG_EPS_TOL, eps_V=FLAG_EPS_TOL,
+                          check_every=10, iterations=2000, restart=True,
+                          flat="off")
+    g, p = core.affine_params(flag, X0)
+    plain = dual_kernels.gpad_eps_dual(
+        flag, g, p, cfg, chunk_fn=dual_kernels.gpad_dual_chunk_torch)
+    ref = tg.solve_to_accuracy(flag, X0, tol=FLAG_EPS_TOL, flat="off",
+                               engine="torch")
+    vs_plain, vs_torch = eps_agreement(res, plain), eps_agreement(res, ref)
+    out["eps_flat_off"].update(
+        iterations_max=int(res.iterations.max()),
+        iterations_torch_engine_max=int(ref.iterations.max()),
+        host_syncs=syncs, converged_all=bool(res.converged.all()),
+        residual_max=res.residual.max().item(),
+        u_vs_plain_chunk_loop=vs_plain, u_vs_torch_engine=vs_torch,
+        tol=FLAG_EPS_TOL, u_tol=EPS_U_TOL)
+    check(bool(res.converged.all()) and bool(plain.converged.all())
+          and bool(ref.converged.all()),
+          "flagship eps: not every scenario converged")
+    check(res.residual.max().item() <= FLAG_EPS_TOL + EPS_SLACK,
+          f"flagship eps residual {out['eps_flat_off']}")
+    check(vs_plain["agree"] >= 0.9 * FLAG_BATCH,
+          f"flagship eps u vs the plain chunk loop {vs_plain}")
+
+    # a restart Controller serving 256 plants, 20 warm steps
+    problem = tg.problems.battery(**FLAGSHIP)
+    ctl = tg.Controller(problem, config=tg.SolverConfig(
+        iterations=RESTART_ITERS, restart=True), device=DEVICE)
+    A = np.asarray(problem.A, dtype=np.float32)
+    Bm = np.asarray(problem.B, dtype=np.float32)
+    x = X0np.copy()
+    spread0 = float(np.mean(x.max(1) - x.min(1)))
+    moves = {"max_abs_u": [], "max_abs_sum_u": [], "excess_over_residual": []}
+    step_ms = []
+
+    def serve():
+        nonlocal x
+        for _ in range(FLAG_SERVE_STEPS):
+            t0 = time.perf_counter()
+            u = ctl.step(x)  # returns host NumPy: the device work is done
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            residual = ctl.last_result.residual.cpu().numpy()
+            excess = np.maximum(np.abs(u).max(1) - 0.3, np.abs(u.sum(1)))
+            moves["max_abs_u"].append(float(np.abs(u).max()))
+            moves["max_abs_sum_u"].append(float(np.abs(u.sum(1)).max()))
+            moves["excess_over_residual"].append(float((excess - residual).max()))
+            x = x @ A.T + u @ Bm.T
+
+    leg("serving", serve, {"gpad_dual_tiled": FLAG_SERVE_STEPS})
+    spread = float(np.mean(x.max(1) - x.min(1)))
+    settled = moves["excess_over_residual"][FLAG_SERVE_SETTLE:]
+    out["serving"].update(
+        plants=FLAG_BATCH, steps=FLAG_SERVE_STEPS, iterations=RESTART_ITERS,
+        **moves, mean_spread=[spread0, spread],
+        step_ms_host_clock={"median": float(np.median(step_ms[1:])),
+                            "max": float(np.max(step_ms[1:])),
+                            "first": step_ms[0]})
+    check(max(settled) <= SW_RESIDUAL_TOL,
+          f"settled moves beyond their residual of the limits: {settled}")
+    check(spread < spread0, f"SoC spread did not shrink: {spread0} -> {spread}")
+
+    # the CLI in process
+    def run_cli(argv):
+        buf = textio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(argv) == 0, f"cli {argv[0]} failed")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    shape = ["--cells", "30", "--horizon", "30", "--device", DEVICE]
+    loop = leg("closedloop", lambda: run_cli(
+        ["closedloop", *shape, "--restart", "--warm-start", "--steps",
+         str(FLAG_CLI_STEPS)]), {"gpad_dual_tiled": FLAG_CLI_STEPS})
+    out["closedloop"].update(loop)
+    check(loop["engine"] == "cuda" and np.isfinite(loop["final_state"]).all(),
+          f"closedloop {loop}")
+    info = leg("info", lambda: run_cli(["info", *shape]), {})
+    info_restart = leg("info_restart", lambda: run_cli(
+        ["info", *shape, "--restart"]), {})
+    out["info"].update(info)
+    out["info_restart"].update(info_restart)
+    check((info["resolved_engine"], info["resolved_form"], info["kernel"])
+          == ("torch", "mvp+flat", None), f"info routing {info}")
+    check((info_restart["resolved_engine"], info_restart["resolved_form"],
+           info_restart["kernel"]) == ("cuda", "dual", "dual_tiled"),
+          f"info --restart routing {info_restart}")
+    out["launches"] = total
+    emit(out)
+    return total
+
+
+def phase_tiled_timing(torch, tg, kernels, dual_kernels, core, smi):
+    """CUDA events, median of 5 calls per turn, two turns in opposite
+    orders, at the flagship B256 x 100: each tiled kernel (the dual one
+    fixed and under restart, and one 10-iteration restart window), its
+    plain version, the torch engine on the same configuration, the solves
+    through ``auto``, and ``solve_to_accuracy``."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    _, flag = flagship(tg)
+    B = FLAG_BATCH
+    _, X0 = flag_x0(torch, flag.n_x, B, seed=53)
+    g, p = core.affine_params(flag, X0)
+    c = dual_kernels.relu_offsets(flag, g, p)
+    zero = torch.zeros((B, 2, flag.m_half), device=DEVICE)
+    state = dual_kernels.gpad_dual_chunk_torch(
+        flag, c, zero, zero, torch.zeros((B, flag.m_half), device=DEVICE),
+        torch.ones((B, 2), device=DEVICE), k0=0, chunk=30, restart=True)[:4]
+    win = dict(k0=30, chunk=10, restart=True)
+    S = tg.SolverConfig
+    eps = dict(tol=FLAG_EPS_TOL, flat="off")
+    runs = {
+        "dual": lambda: dual_kernels.gpad_fixed_dual_tiled(flag, g, p,
+                                                           iterations=ITERS),
+        "dual_plain": lambda: dual_kernels.gpad_fixed_dual_torch(
+            flag, g, p, iterations=ITERS),
+        "dual_torch_engine": lambda: tg.solve_batch(
+            flag, X0, S(form="dual", engine="torch")),
+        "dual_restart": lambda: dual_kernels.gpad_fixed_dual_tiled(
+            flag, g, p, iterations=ITERS, restart=True),
+        "dual_restart_plain": lambda: dual_kernels.gpad_fixed_dual_torch(
+            flag, g, p, iterations=ITERS, restart=True),
+        "restart_auto": lambda: tg.solve_batch(flag, X0, S(restart=True)),
+        "restart_torch_engine": lambda: tg.solve_batch(
+            flag, X0, S(restart=True, engine="torch")),
+        "flat": lambda: kernels.gpad_fixed_flat_tiled(flag, g, p,
+                                                      iterations=ITERS),
+        "flat_plain": lambda: kernels.gpad_fixed_paired_flat_torch(
+            flag, g, p, iterations=ITERS),
+        "forced_mvp": lambda: tg.solve_batch(flag, X0, S(engine="cuda",
+                                                         form="mvp")),
+        "default_auto": lambda: tg.solve_batch(flag, X0),
+        "window": lambda: dual_kernels.gpad_dual_tiled_chunk(flag, c, *state,
+                                                             **win),
+        "window_plain": lambda: dual_kernels.gpad_dual_chunk_torch(
+            flag, c, *state, **win),
+        # the torch engine over a window's work: 10 restart iterations
+        "window_torch_engine": lambda: tg.solve_batch(
+            flag, X0, S(iterations=10, restart=True, form="dual",
+                        engine="torch")),
+        "eps_auto": lambda: tg.solve_to_accuracy(flag, X0, **eps),
+        "eps_torch": lambda: tg.solve_to_accuracy(flag, X0, engine="torch",
+                                                  **eps),
+    }
+    ms = {k: [] for k in runs}
+    order = list(runs)
+    for turn in (order, order[::-1]):
+        for k in turn:
+            ms[k].append(device_time_per_call(runs[k], warmup=1, repeats=5) * 1e3)
+    med = {k: float(np.mean(v)) for k, v in ms.items()}
+    m_h, n_z, n_s = flag.m_half, flag.n_z, flag.n_struct
+    # the dual loop's product w D per scenario and iteration (2 m_h^2), plus
+    # the offsets g_P GL_T and the recovery s MG_T once per solve; the flat
+    # loop's two products, MG_T over every row and GL_T's n_s struct columns;
+    # z, y, w, zhat written once
+    dual_io = 4 * B * (2 * n_z + 4 * m_h)
+    med["dual_bound"] = bound(
+        B * (ITERS * 2.0 * m_h * m_h + 4.0 * m_h * n_z),
+        nbytes(flag.D, flag.GL_T, flag.MG_T, g, p) + dual_io)
+    med["flat_bound"] = bound(
+        B * ITERS * 2.0 * n_z * (m_h + n_s),
+        nbytes(flag.MG_T, flag.GL_T[:, :n_s], g, p, flag.theta[:ITERS],
+               flag.beta[:ITERS]) + dual_io)
+    med["window_bound"] = bound(
+        B * 10 * 2.0 * m_h * m_h,
+        nbytes(flag.D, c, *state) + nbytes(*state) + 4 * B * 2 * m_h)
+    emit({"phase": "tiled_timing", "gpu": smi, "batch": B, "iterations": ITERS,
+          "window": 10, "shape": [n_z, m_h, n_s],
+          "log2_tile": {"dual": dual_kernels.pick_tiled_tiles(m_h, B),
+                        "flat": kernels.pick_flat_tiled_tiles(m_h, n_z, B)},
+          "dual_bound": med["dual_bound"], "flat_bound": med["flat_bound"],
+          "window_bound": med["window_bound"],
+          "ms_median_of_5_per_turn": ms,
+          "note": "eps_* are CUDA-event times of whole solve_to_accuracy "
+                  "calls, host syncs between windows included; default_auto "
+                  "is the torch engine (no kernel serves it)",
+          "solves_per_s": {k: B / med[k] * 1e3 for k in runs
+                           if not k.startswith("window")}})
+    return med
+
+
+def sweep_tiled(torch, tg, kernels, dual_kernels, core, smi):
+    """``python3 chip_smoke.py --sweep``: each tiled kernel's time by tile
+    (2**log2 scenarios per block) at the flagship, B 256 and 1024, 100
+    fixed iterations. CUDA events, median of 3 calls after one warm-up."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    _, flag = flagship(tg)
+    m_h, n_z = flag.m_half, flag.n_z
+    for B in (FLAG_BATCH, 1024):
+        g, p = core.affine_params(flag, flag_x0(torch, flag.n_x, B, seed=54)[1])
+        for name, fn, pick in (
+                ("dual_tiled", dual_kernels.gpad_fixed_dual_tiled,
+                 dual_kernels.pick_tiled_tiles(m_h, B)),
+                ("flat_tiled", kernels.gpad_fixed_flat_tiled,
+                 kernels.pick_flat_tiled_tiles(m_h, n_z, B))):
+            row = {log2: device_time_per_call(
+                lambda: fn(flag, g, p, iterations=ITERS, log2_tile=log2),
+                warmup=1, repeats=3) * 1e3
+                for log2 in kernels._TILED_LOG2_TILES}
+            emit({"phase": "tiled_tile_sweep", "gpu": smi, "kernel": name,
+                  "batch": B, "iterations": ITERS, "default_log2_tile": pick,
+                  "ms_by_log2_tile": row})
+
+
+# ---------------------------------------------------------------------------
 # the stage-wise O(N) engine
 # ---------------------------------------------------------------------------
 
@@ -1244,6 +1764,7 @@ def main() -> int:
     phase_build()
     if sys.argv[1:] == ["--sweep"]:
         sweep_stagewise(torch, tg, sk, ss, smi)
+        sweep_tiled(torch, tg, kernels, dual_kernels, core, smi)
         return 0
     worst = phase_kernel_vs_plain(torch, tg, kernels, core)
     worst_dual = phase_dual_kernel_vs_plain(torch, tg, dual_kernels, core)
@@ -1251,6 +1772,8 @@ def main() -> int:
     worst_sw = phase_stagewise_kernels_vs_plain(torch, tg, sk, ss)
     worst_dense = phase_dense_kernel_vs_plain(torch, tg, kernels, core)
     worst_paired = phase_paired_kernel_vs_plain(torch, tg, kernels, core)
+    worst_tiled = phase_tiled_kernels_vs_plain(torch, tg, kernels, dual_kernels,
+                                               core)
     # each path's launches are counted from 0, set just before it
     reset_counters(kernels, dual_kernels, sk, ss)
     phase_main_path(torch, tg, kernels, core, reference)
@@ -1279,6 +1802,12 @@ def main() -> int:
     paired_launches = phase_paired_path(torch, tg, kernels, core, reference)
     check(kernels.PAIRED_LAUNCHES == paired_launches == 1,
           f"paired path launched {kernels.PAIRED_LAUNCHES}x")
+    # each leg of the flagship path counts from 0 (phase_flagship_path)
+    tiled_launches = phase_flagship_path(torch, tg, kernels, dual_kernels, core,
+                                         reference, sk, ss)
+    check(set(tiled_launches) == {"gpad_dual_tiled", "gpad_dual_tiled_chunk",
+                                  "gpad_flat_tiled"},
+          f"flagship path launches {tiled_launches}")
     reset_counters(kernels, dual_kernels, sk, ss)
     phase_stagewise_main_path(torch, tg, sk, ss, ts)
     phase_stagewise_serving(torch, tg, ss)
@@ -1292,6 +1821,7 @@ def main() -> int:
     dmed = phase_dual_timing(torch, tg, dual_kernels, core, smi)
     smed = phase_stagewise_timing(torch, tg, sk, ss, ts, smi)
     dnmed = phase_dense_timing(torch, tg, kernels, core, smi)
+    tmed = phase_tiled_timing(torch, tg, kernels, dual_kernels, core, smi)
     # no single PyTorch call computes a GPAD solve loop
     no_library = {"library_ms": None}
     emit({"kernels": [{
@@ -1364,6 +1894,44 @@ def main() -> int:
         "ms": dnmed["paired"],
         "plain_ms": dnmed["paired_plain"],
         **dnmed["paired_bound"], **no_library,
+    }, {
+        # the flagship's main path runs it under restart
+        "name": "gpad_dual_tiled",
+        "route": "cuda",
+        "source": "tpu_gpad_torch/csrc/gpad_dual_tiled.cu",
+        "replaces": "tpu_gpad/solver/kernels.py:771",
+        "launches": tiled_launches["gpad_dual_tiled"],
+        "max_abs_err": worst_tiled["dual"],
+        "ms": tmed["dual_restart"],
+        "plain_ms": tmed["dual_restart_plain"],
+        "torch_engine_ms": tmed["restart_torch_engine"],
+        **tmed["dual_bound"], **no_library,
+    }, {
+        "name": "gpad_dual_tiled_chunk",
+        "route": "cuda",
+        "source": "tpu_gpad_torch/csrc/gpad_dual_tiled.cu",
+        "replaces": "tpu_gpad/solver/kernels.py:929",
+        "launches": tiled_launches["gpad_dual_tiled_chunk"],
+        "max_abs_err": worst_tiled["chunk"],
+        "ms": tmed["window"],
+        "plain_ms": tmed["window_plain"],
+        # 10 restart iterations on the torch engine, and the whole eps solve
+        "torch_engine_ms": tmed["window_torch_engine"],
+        "eps_solve_ms": tmed["eps_auto"],
+        "eps_solve_torch_engine_ms": tmed["eps_torch"],
+        **tmed["window_bound"], **no_library,
+    }, {
+        "name": "gpad_flat_tiled",
+        "route": "cuda",
+        "source": "tpu_gpad_torch/csrc/gpad_flat_tiled.cu",
+        "replaces": "tpu_gpad/solver/kernels.py:1730",
+        "launches": tiled_launches["gpad_flat_tiled"],
+        "max_abs_err": worst_tiled["flat"],
+        "ms": tmed["flat"],
+        "plain_ms": tmed["flat_plain"],
+        # the torch engine on the same configuration: what auto runs here
+        "torch_engine_ms": tmed["default_auto"],
+        **tmed["flat_bound"], **no_library,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

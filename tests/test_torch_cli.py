@@ -43,9 +43,11 @@ def test_solve_matches_jax_cli(capsys):
 
 @pytest.mark.parametrize(
     "argv,msg",
-    [(["info", "--cells", "3"], "`info`"),
-     (["closedloop"], "`closedloop`")],
-    ids=["info", "closedloop"],
+    [(["export", "--aot", "--out", "unused.pt2", "--device", "cpu"],
+      "export --aot"),
+     (["sweep", "--sharded", "--batch", "4", "--device", "cpu"],
+      "sweep --sharded")],
+    ids=["export_aot", "sweep_sharded"],
 )
 def test_unported_commands_say_so(argv, msg):
     from tpu_gpad_torch.cli import main

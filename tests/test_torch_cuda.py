@@ -129,14 +129,23 @@ def test_forced_cuda_engine_refuses_unserved_cases(dev):
     with pytest.raises(ValueError, match="engine='cuda'"):
         tg.solve_batch(data, X0, tg.SolverConfig(engine="cuda", form="mvp",
                                                  restart=True))
+    # the flagship's forced dual, eps and restart solves ride the tiled
+    # kernels; with soft rows, which those do not carry, they raise
     flagship = tg.dualize(tg.condense(tg.problems.battery(30, 30)), 10,
                           paired="auto", device=dev)
     X30 = torch.zeros((2, flagship.n_x), device=dev)
-    for cfg in (tg.SolverConfig(engine="cuda", form="dual"),
-                tg.SolverConfig(engine="cuda", mode="eps", restart=True)):
+    served = (tg.SolverConfig(engine="cuda", form="dual"),
+              tg.SolverConfig(engine="cuda", mode="eps", restart=True),
+              tg.SolverConfig(engine="cuda", restart=True))
+    for cfg in served:
+        assert torch.isfinite(tg.solve_batch(flagship, X30, cfg).u).all()
+    assert core.resolve_engine(flagship, tg.SolverConfig(restart=True)) == "cuda"
+    soft30 = dataclasses.replace(flagship, soft_damp=torch.full(
+        (flagship.m_half,), 0.1, device=dev))
+    for cfg in served + (tg.SolverConfig(engine="cuda", form="mvp"),):
         with pytest.raises(ValueError, match="engine='cuda'"):
-            tg.solve_batch(flagship, X30, cfg)
-    assert core.resolve_engine(flagship, tg.SolverConfig(restart=True)) == "torch"
+            tg.solve_batch(soft30, X30, cfg)
+    assert core.resolve_engine(soft30, tg.SolverConfig(restart=True)) == "torch"
     dense = tg.dualize(tg.condense(tg.problems.battery(3, 10)), ITERS,
                        paired=False, device=dev)
     soft = dataclasses.replace(dense, soft_damp=torch.full(
@@ -325,6 +334,192 @@ def test_restart_and_eps_route_through_dual_kernels(dev):
     ref = tg.solve_to_accuracy(data, X0, tol=1e-5, engine="torch")
     assert (res.iterations - ref.iterations).abs().max() <= 10
     torch.testing.assert_close(res.u, ref.u, atol=2e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the tiled kernels (csrc/gpad_dual_tiled.cu, csrc/gpad_flat_tiled.cu)
+# ---------------------------------------------------------------------------
+
+_TILED_DATA = {}
+
+
+def _tiled_data(dev, n, N):
+    """battery n N10 data, built once per shape: 30x30 is the flagship (m_h
+    1830), 5x30 (m_h 330) just past the resident dual guard."""
+    if (n, N) not in _TILED_DATA:
+        _TILED_DATA[n, N] = _data(dev, n, N)
+    return _TILED_DATA[n, N]
+
+
+TILED_CASES = {
+    # case: (battery shape, B, warm start, restart, diagnostics, tile)
+    "flagship_cold": ((30, 30), 256, None, False, True, None),
+    "flagship_warm": ((30, 30), 256, "per_scenario", False, True, None),
+    "flagship_warm_shared": ((30, 30), 33, "shared", False, True, None),
+    "flagship_restart": ((30, 30), 256, None, True, True, None),
+    "flagship_no_diagnostics": ((30, 30), 33, "per_scenario", False, False,
+                                None),
+    "flagship_B1": ((30, 30), 1, "per_scenario", False, True, None),
+    "flagship_B5": ((30, 30), 5, None, True, True, None),
+    "flagship_B33": ((30, 30), 33, None, False, True, None),
+    "n5N30": ((5, 30), 256, None, False, True, None),
+    "n5N30_restart": ((5, 30), 256, "per_scenario", True, True, None),
+    "n3N10_tile1": ((3, 10), 33, None, False, True, 0),
+    "n3N10_tile8": ((3, 10), 33, "per_scenario", True, True, 3),
+}
+
+
+def _tiled_args(dev, case):
+    shape, B, warm, restart, diagnostics, tile = TILED_CASES[case]
+    data = _tiled_data(dev, *shape)
+    g_P, p_D = _inputs(data, B, seed=B + 7)
+    y0 = None
+    if warm is not None:
+        rows = B if warm == "per_scenario" else 1
+        y0 = torch.rand((rows, 2, data.m_half), device=dev) * 0.5
+    return data, g_P, p_D, y0, restart, diagnostics, tile
+
+
+@pytest.mark.parametrize("case", list(TILED_CASES))
+def test_dual_tiled_kernel_matches_plain(dev, case):
+    data, g_P, p_D, y0, restart, diagnostics, tile = _tiled_args(dev, case)
+    kw = dict(iterations=ITERS, restart=restart, diagnostics=diagnostics)
+    before = dual_kernels.DUAL_TILED_LAUNCHES
+    out_k = dual_kernels.gpad_fixed_dual_tiled(data, g_P, p_D, y0,
+                                               log2_tile=tile, **kw)
+    assert dual_kernels.DUAL_TILED_LAUNCHES == before + 1
+    out_p = dual_kernels.gpad_fixed_dual_torch(data, g_P, p_D, y0, **kw)
+    torch.cuda.synchronize()
+    if not restart:
+        _assert_close(out_k, out_p)
+        return
+    assert all(bool(torch.isfinite(t).all()) for t in out_k if t is not None)
+    _assert_restart_close(out_k[0], out_p[0])
+
+
+def _assert_restart_close(a, b):
+    """Restart runs scenario by scenario: a restart decision is the sign of
+    a sum that float32 rounding may flip where it is near 0, and a scenario
+    whose decision flipped parts from the other run for a while. At most 1%
+    of the scenarios (at least one) may part; the rest agree within
+    RESTART_TOL (chip_smoke.py's restart_parting holds both against a
+    float64 run)."""
+    err = (a - b).abs().amax(dim=-1)
+    parted = err > RESTART_TOL
+    assert int(parted.sum()) <= max(1, a.shape[0] // 100), err.max().item()
+    if not parted.all():
+        assert err[~parted].max().item() <= RESTART_TOL
+
+
+@pytest.mark.parametrize("case", [c for c, v in TILED_CASES.items()
+                                  if not v[3]])
+def test_flat_tiled_kernel_matches_plain(dev, case):
+    data, g_P, p_D, y0, _, diagnostics, tile = _tiled_args(dev, case)
+    kw = dict(iterations=ITERS, diagnostics=diagnostics)
+    before = kernels.FLAT_TILED_LAUNCHES
+    out_k = kernels.gpad_fixed_flat_tiled(data, g_P, p_D, y0, log2_tile=tile,
+                                          **kw)
+    assert kernels.FLAT_TILED_LAUNCHES == before + 1
+    out_p = kernels.gpad_fixed_paired_flat_torch(data, g_P, p_D, y0, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out_k, out_p)
+
+
+def test_tiled_kernels_diagnostics_off_bit_identical(dev):
+    data = _tiled_data(dev, 30, 30)
+    g_P, p_D = _inputs(data, 33, seed=3)
+    for fn in (dual_kernels.gpad_fixed_dual_tiled, kernels.gpad_fixed_flat_tiled):
+        on = fn(data, g_P, p_D, iterations=ITERS)
+        off = fn(data, g_P, p_D, iterations=ITERS, diagnostics=False)
+        assert off[2] is None and off[3] is None
+        assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+
+
+def test_tiled_kernels_zero_iterations(dev):
+    data = _tiled_data(dev, 30, 30)
+    g_P, p_D = _inputs(data, 4)
+    y0 = torch.rand((4, 2, data.m_half), device=dev)
+    for fn in (dual_kernels.gpad_fixed_dual_tiled, kernels.gpad_fixed_flat_tiled):
+        z, y, w, zhat = fn(data, g_P, p_D, y0, iterations=0)
+        torch.cuda.synchronize()
+        assert not z.any() and not w.any()
+        torch.testing.assert_close(y, y0, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("restart", [False, True], ids=["plain", "restart"])
+def test_dual_tiled_chunks(dev, restart):
+    """One window of 10 from k0 = 30 against the plain version, and ten
+    windows against one whole launch (bit for bit: the same body)."""
+    data = _tiled_data(dev, 30, 30)
+    g_P, p_D = _inputs(data, 256, seed=4)
+    c = dual_kernels.relu_offsets(data, g_P, p_D)
+    zero = torch.zeros((256, 2, data.m_half), device=dev)
+    start = (zero, zero, torch.zeros((256, data.m_half), device=dev),
+             torch.ones((256, 2), device=dev))
+    state = dual_kernels.gpad_dual_chunk_torch(data, c, *start, k0=0, chunk=30,
+                                               restart=restart)[:4]
+    before = dual_kernels.DUAL_TILED_CHUNK_LAUNCHES
+    out_k = dual_kernels.gpad_dual_tiled_chunk(data, c, *state, k0=30,
+                                               chunk=10, restart=restart)
+    out_p = dual_kernels.gpad_dual_chunk_torch(data, c, *state, k0=30,
+                                               chunk=10, restart=restart)
+    torch.cuda.synchronize()
+    assert dual_kernels.DUAL_TILED_CHUNK_LAUNCHES == before + 1
+    tol = RESTART_TOL if restart else TOL
+    for name, a, b in zip(("y", "y_prev", "s", "mom", "w"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        if not restart or name == "s":
+            torch.testing.assert_close(a, b, atol=tol, rtol=0, msg=name)
+    state = start
+    for k0 in range(0, ITERS, 10):
+        *state, w = dual_kernels.gpad_dual_tiled_chunk(data, c, *state, k0=k0,
+                                                       chunk=10,
+                                                       restart=restart)
+    z, y, w_f, _ = dual_kernels.gpad_fixed_dual_tiled(data, g_P, p_D,
+                                                      iterations=ITERS,
+                                                      restart=restart)
+    torch.cuda.synchronize()
+    assert torch.equal(state[0], y) and torch.equal(w, w_f)
+    torch.testing.assert_close(-(state[2] @ data.MG_T) - g_P, z, atol=1e-6,
+                               rtol=0)
+
+
+def test_flagship_routes_through_tiled_kernels(dev):
+    data = _tiled_data(dev, 30, 30)
+    X0 = torch.rand((64, data.n_x), device=dev) * 0.8 - 0.4
+    for cfg, counter in (
+            (tg.SolverConfig(restart=True), "DUAL_TILED_LAUNCHES"),
+            (tg.SolverConfig(form="dual"), "DUAL_TILED_LAUNCHES"),
+            (tg.SolverConfig(engine="cuda", form="mvp"), "FLAT_TILED_LAUNCHES")):
+        mod = kernels if counter.startswith("FLAT") else dual_kernels
+        before = getattr(mod, counter)
+        res = tg.solve_batch(data, X0, cfg)
+        assert getattr(mod, counter) == before + 1
+        ref = tg.solve_batch(data, X0, dataclasses.replace(cfg, engine="torch"))
+        if cfg.restart:
+            _assert_restart_close(res.u, ref.u)
+        else:
+            torch.testing.assert_close(res.u, ref.u, atol=TOL, rtol=0)
+    launches = (dual_kernels.DUAL_TILED_LAUNCHES, kernels.FLAT_TILED_LAUNCHES)
+    tg.solve_batch(data, X0)  # the torch engine, as tpu_gpad's XLA on a TPU
+    assert (dual_kernels.DUAL_TILED_LAUNCHES,
+            kernels.FLAT_TILED_LAUNCHES) == launches
+    before = dual_kernels.DUAL_TILED_CHUNK_LAUNCHES
+    res = tg.solve_to_accuracy(data, X0, tol=1e-4, flat="off")
+    windows = -(-int(res.iterations.max()) // 10)
+    assert dual_kernels.DUAL_TILED_CHUNK_LAUNCHES - before == windows > 0
+    assert res.converged.all() and res.residual.max() <= 1e-4 + 1e-6
+    # the same loop on the plain chunk version: a scenario whose restart
+    # decision flipped near r = 0 stops at another point within the
+    # tolerance; at least 90% agree to 2e-4 (chip_smoke.py, flagship_path)
+    cfg = tg.SolverConfig(mode="eps", eps_g=1e-4, eps_V=1e-4, check_every=10,
+                          iterations=2000, restart=True, flat="off")
+    g_P, p_D = core.affine_params(data, X0)
+    ref = dual_kernels.gpad_eps_dual(data, g_P, p_D, cfg,
+                                     chunk_fn=dual_kernels.gpad_dual_chunk_torch)
+    assert ref.converged.all()
+    agree = (res.u - ref.u).abs().amax(dim=-1) < 2e-4
+    assert int(agree.sum()) >= 0.9 * X0.shape[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,17 @@
 """Command line: ``python -m tpu_gpad_torch <command>``.
 
-The ``solve``, ``sweep`` and ``export`` commands of ``tpu_gpad.cli`` with
-the same flags and JSON keys, plus ``--device`` (the card by default) and
-the key ``"device"``; the solving routes also report ``"engine"``, the
-engine that ran. ``solve --dataset`` solves a reference-format dataset file
-(``input_%d.txt``, see ``tpu_gpad_torch.io``), ``export`` writes one, and
-``sweep`` is the checkpointed large-batch runner. ``--engine stagewise``
-solves on the stage-wise O(N) engine (``tpu_gpad_torch.stagewise``).
-``export --aot``, ``sweep --sharded`` and the commands ``closedloop`` and
-``info`` are not yet ported and say so.
+The ``solve``, ``closedloop``, ``sweep``, ``export`` and ``info`` commands
+of ``tpu_gpad.cli`` with the same flags and JSON keys, plus ``--device``
+(the card by default) and the key ``"device"``; the solving routes also
+report ``"engine"``, the engine that ran, and ``info`` the CUDA kernel that
+a configuration routes to on the card (``"kernel"``; its solver flags
+``--mode``, ``--form``, ``--flat`` and ``--restart`` pick the
+configuration). ``solve --dataset`` solves a reference-format dataset file
+(``input_%d.txt``, see ``tpu_gpad_torch.io``), ``export`` writes one,
+``sweep`` is the checkpointed large-batch runner and ``closedloop`` the
+reference's controller loop (``gpad.m``). ``--engine stagewise`` solves on
+the stage-wise O(N) engine (``tpu_gpad_torch.stagewise``). ``export
+--aot`` and ``sweep --sharded`` are not yet ported and say so.
 """
 
 from __future__ import annotations
@@ -87,19 +90,22 @@ def _reject_stagewise(args, where: str) -> None:
 
 
 def _solver_config(args):
+    """A SolverConfig from parsed args; ``info``, which exposes a subset of
+    the solver flags, falls back to the defaults, as ``tpu_gpad.cli``."""
     from tpu_gpad_torch.solver import SolverConfig
 
+    engine = getattr(args, "engine", "auto")
     return SolverConfig(
         iterations=args.iterations,
-        mode=args.mode,
-        eps_g=args.eps_g,
-        eps_V=args.eps_v,
-        engine="auto" if args.engine == "stagewise" else args.engine,
-        form=args.form,
-        matmul_dtype=args.dtype,
-        precision=args.precision,
-        flat=args.flat,
-        restart=args.restart,
+        mode=getattr(args, "mode", "fixed"),
+        eps_g=getattr(args, "eps_g", 1e-6),
+        eps_V=getattr(args, "eps_v", 1e-6),
+        engine="auto" if engine == "stagewise" else engine,
+        form=getattr(args, "form", "auto"),
+        matmul_dtype=getattr(args, "dtype", "float32"),
+        precision=getattr(args, "precision", "highest"),
+        flat=getattr(args, "flat", "auto"),
+        restart=getattr(args, "restart", False),
     )
 
 
@@ -196,6 +202,47 @@ def _solve_stagewise(args, problem, config) -> int:
     return 0
 
 
+def cmd_closedloop(args) -> int:
+    """The reference's controller loop (``gpad.m``): condense once, then
+    ``--steps`` samples of solve, actuate and propagate."""
+    import tpu_gpad_torch
+    from tpu_gpad_torch.closed_loop import plot_closed_loop, simulate
+    from tpu_gpad_torch.problems.battery import default_x0
+    from tpu_gpad_torch.solver.core import resolve_engine
+
+    _reject_stagewise(args, "closedloop")
+    problem = _build_problem(args)
+    config = _solver_config(args)
+    if args.x0 or args.batch > 1:
+        X0 = _scenarios(args, problem.n_x)
+    else:
+        X0 = (default_x0(args.cells, seed=args.seed)
+              if args.problem == "battery"
+              else _scenarios(args, problem.n_x)[0])
+    # the data simulate would build, kept to report the engine
+    data = tpu_gpad_torch.dualize(
+        tpu_gpad_torch.condense(problem), iterations=args.iterations,
+        paired=_paired(args), device=args.device)
+    result = simulate(problem, X0, n_steps=args.steps, config=config,
+                      data=data, iterations=args.iterations,
+                      warm_start=args.warm_start)
+    X = result.X.cpu().numpy()
+    _emit({
+        "problem": problem.name,
+        "steps": args.steps,
+        "warm_start": args.warm_start,
+        "final_state": X[-1].tolist() if X.ndim == 2 else X[-1, 0].tolist(),
+        "max_residual": float(result.residual.max()),
+        "mean_iterations": float(result.iterations.float().mean()),
+        "engine": resolve_engine(data, config),
+        "device": str(data.device),
+    })
+    if args.plot:
+        plot_closed_loop(result, path=args.plot)
+        _emit({"plot": args.plot})
+    return 0
+
+
 def cmd_sweep(args) -> int:
     import tpu_gpad_torch
     from tpu_gpad_torch.solver.core import resolve_engine
@@ -264,8 +311,88 @@ def cmd_export(args) -> int:
     return 0
 
 
-def _not_ported(args) -> int:
-    raise SystemExit(f"`{args.command}` {_NOT_PORTED}")
+def _devices() -> list:
+    import torch
+
+    if torch.cuda.is_available():
+        return [f"cuda:{i} {torch.cuda.get_device_name(i)}"
+                for i in range(torch.cuda.device_count())]
+    return ["cpu"]
+
+
+def cmd_info(args) -> int:
+    """Problem dims, L, the routing (engine, form and the CUDA kernel a
+    configuration takes on the card), FLOPs per iteration, devices; with
+    ``--bound`` the certified iteration bound."""
+    import tpu_gpad_torch
+    from tpu_gpad_torch.solver.core import (
+        cuda_kernel, resolve_engine, resolve_flat, resolve_form)
+    from tpu_gpad_torch.utils import solve_flops
+
+    problem = _build_problem(args)
+    if args.engine == "stagewise":
+        from tpu_gpad_torch.stagewise import (
+            build_stagewise, condensed_operand_mb, stagewise_compatible)
+
+        ok, reason = stagewise_compatible(problem)
+        if not ok:
+            raise SystemExit(f"--engine stagewise: {reason}")
+        sw = build_stagewise(problem, iterations=args.iterations,
+                             device=args.device)
+        tensors = [getattr(sw, f.name) for f in dataclasses.fields(sw)]
+        _emit({
+            "problem": problem.name,
+            "n_x": problem.n_x, "n_u": problem.n_u,
+            "horizon": problem.horizon,
+            "engine": "stagewise", "m": sw.m, "L": float(sw.L),
+            "stagewise_data_mb": round(sum(
+                t.numel() * t.element_size() for t in tensors
+                if hasattr(t, "element_size")) / 1e6, 4),
+            "condensed_operand_mb": round(condensed_operand_mb(problem), 4),
+            "devices": _devices(),
+            "device": str(sw.device),
+        })
+        return 0
+    qp = tpu_gpad_torch.condense(problem)
+    data = tpu_gpad_torch.dualize(qp, iterations=args.iterations,
+                                  paired=_paired(args), device=args.device)
+    cfg = _solver_config(args)
+    form = resolve_form(data, cfg)
+    flat = form == "mvp" and data.paired and resolve_flat(data, cfg)
+    info = {
+        "problem": problem.name,
+        "n_x": problem.n_x, "n_u": problem.n_u, "horizon": problem.horizon,
+        "n_z": qp.n_z, "m": qp.m,
+        "paired": data.paired,
+        "n_struct": data.n_struct,
+        "L": float(data.L),
+        "resolved_engine": resolve_engine(data, cfg),
+        "resolved_form": form + ("+flat" if flat else ""),
+        "flops_per_iteration_dense": int(
+            3 * qp.m + 2 * qp.n_z * qp.m + 3 * qp.n_z + 2 * qp.n_z * qp.m),
+        "flops_per_iteration_resolved": int(
+            solve_flops(data, 2, form, flat=flat)
+            - solve_flops(data, 1, form, flat=flat)),
+        "devices": _devices(),
+        "kernel": cuda_kernel(data, cfg),
+        "device": str(data.device),
+    }
+    if args.bound:
+        from tpu_gpad_torch.bounds import certify
+
+        box = (np.atleast_2d(problem.x_min)[0] if problem.x_min is not None
+               else np.full(problem.n_x, -0.4))
+        box_hi = (np.atleast_2d(problem.x_max)[0] if problem.x_max is not None
+                  else np.full(problem.n_x, 0.4))
+        kw = (dict(n_samples=50, seed=args.seed)
+              if args.bound_method == "sampled" else {})
+        n_nu, dn, L = certify(qp, 0.8 * box, 0.8 * box_hi,
+                              eps_g=args.eps_v, eps_V=args.eps_v,
+                              method=args.bound_method, **kw)
+        info["certified_iterations"] = int(n_nu)
+        info["dual_norm_bound"] = float(dn.delta)
+    _emit(info)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -287,6 +414,18 @@ def main(argv=None) -> int:
     p.add_argument("--time", action="store_true",
                    help="median device time over 20 calls (CUDA events)")
     p.set_defaults(fn=cmd_solve)
+
+    p = sub.add_parser("closedloop", help="closed-loop MPC simulation")
+    _add_problem_args(p)
+    _add_solver_args(p)
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--x0", help="text file of initial states")
+    p.add_argument("--warm-start", action="store_true")
+    p.add_argument("--plot", help="write SoC/current trajectory plot (png)")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_closedloop)
 
     p = sub.add_parser("sweep", help="chunked scenario sweep w/ checkpoint")
     _add_problem_args(p)
@@ -318,12 +457,31 @@ def main(argv=None) -> int:
     _add_device_arg(p)
     p.set_defaults(fn=cmd_export)
 
-    for name in ("closedloop", "info"):
-        sub.add_parser(name, help="not yet ported").set_defaults(fn=_not_ported)
+    p = sub.add_parser("info", help="problem dims, L, routing, flops, devices")
+    _add_problem_args(p)
+    p.add_argument("--iterations", type=int, default=100)
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "torch", "cuda", "stagewise"],
+                   help="report the condensed routing (auto/torch/cuda) "
+                        "or the stage-wise engine's data/L instead")
+    p.add_argument("--mode", default="fixed", choices=["fixed", "eps"])
+    p.add_argument("--form", default="auto", choices=["auto", "mvp", "dual"])
+    p.add_argument("--flat", default="auto", choices=["auto", "on", "off"])
+    p.add_argument("--restart", action="store_true")
+    p.add_argument("--paired", default="auto", choices=["auto", "on", "off"])
+    p.add_argument("--bound", action="store_true",
+                   help="compute the certified iteration bound")
+    p.add_argument("--bound-method", default="sampled",
+                   choices=["sampled", "milp"],
+                   help="Delta bound: vertex/sampling, or the paper's "
+                        "exact eq.-(16) MILP")
+    p.add_argument("--eps-v", type=float, default=1e-6)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--batch", type=int, default=1, help=argparse.SUPPRESS)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_info)
 
-    args, extra = parser.parse_known_args(argv)
-    if extra and args.fn is not _not_ported:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = parser.parse_args(argv)
     return args.fn(args)
 
 

@@ -309,3 +309,35 @@ class Controller:
         if u_prev is not None:
             self._u_prev = torch.atleast_2d(torch.as_tensor(
                 u_prev, dtype=torch.float32, device=self.data.device))
+
+
+def plot_closed_loop(result: ClosedLoopResult, scenario: int = 0,
+                     path: str | None = None):
+    """The reference's two trajectory plots (``gpad.m:98-114``): per-cell SoC
+    and balancing currents over time. Returns the matplotlib figure, or None
+    if matplotlib is unavailable (it is not a hard dependency)."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return None
+
+    X = result.X[:, scenario, :].cpu().numpy()
+    U = result.U[:, scenario, :].cpu().numpy()
+    fig, (ax0, ax1) = plt.subplots(2, 1, figsize=(8, 6), sharex=True)
+    for i in range(X.shape[1]):
+        ax0.plot(X[:, i], label=f"cell {i + 1}")
+    ax0.set_ylabel("state of charge")
+    ax0.legend(loc="best", fontsize=8)
+    ax0.set_title("closed-loop SoC trajectories")
+    for i in range(U.shape[1]):
+        ax1.plot(U[:, i], label=f"cell {i + 1}")
+    ax1.set_ylabel("balancing current [A]")
+    ax1.set_xlabel("sample")
+    ax1.set_title("applied first moves u*")
+    fig.tight_layout()
+    if path is not None:
+        fig.savefig(path, dpi=120)
+    return fig

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, under
 ``tpu_gpad_torch/_build/`` (git-ignored). The library is named by a hash of
-its source, so an edited source rebuilds, and is loaded with ``ctypes``.
+its source and the shared ``csrc/*.cuh`` headers, so an edited source
+rebuilds, and is loaded with ``ctypes``.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -61,7 +62,10 @@ def load_all(names) -> list[ctypes.CDLL]:
         if name in _LIBS:
             continue
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        # the shared headers count too: an edited header rebuilds
+        digest = hashlib.sha256(b"".join(
+            p.read_bytes() for p in [src, *sorted(CSRC.glob("*.cuh"))]
+        )).hexdigest()[:16]
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         BUILD_SECONDS[name] = 0.0
         if not out.exists():

@@ -14,9 +14,14 @@ block) the full paired kernel; fixed dense (unpaired) solves without soft
 rows the dense kernel; fixed dual-form solves (restart, ``form="dual"``,
 ``flat="off"``) the dual kernel; eps solves in the dual form the chunked
 dual kernel, one launch per check window. Each only where its state fits
-one block's shared memory; everything else (unpaired restart or eps
-among it) runs the torch engine, as the JAX package sends what its
-kernels do not serve to XLA.
+one block's shared memory. Past it (the reference's 30x30 flagship),
+dual-form solves without soft rows read D from device memory in the
+tiled dual kernels, fixed or one eps window at a time (eps only with
+``flat="off"`` or a forced ``engine="cuda"``), and a forced flat solve
+reads its operands so in the flat tiled kernel. Everything else (a
+default fixed solve at the flagship, unpaired restart or eps, soft rows
+past shared memory) runs the torch engine, as the JAX package sends what
+its kernels do not serve to XLA.
 
 Eps mode (Algorithm 1) checks the stopping test every ``check_every``
 iterations and once more at a budget that is not a multiple of it; the
@@ -370,28 +375,42 @@ def _solve_eps(data: GPADData, g_P, p_D, config: SolverConfig,
 
 
 def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:
-    """The CUDA kernel that serves this (data, config), device aside:
-    "paired_flat", "paired", "dense", "dual", "dual_chunk" (eps mode), or
-    None. Follows ``tpu_gpad.solver.core.resolve_engine`` and
+    """The CUDA kernel that serves this (data, config) on the card, device
+    aside: "paired_flat", "paired", "dense", "dual", "dual_tiled",
+    "flat_tiled", "dual_chunk" or "dual_tiled_chunk" (eps mode), or None.
+    Follows ``tpu_gpad.solver.core.resolve_engine`` and
     ``solve_batch_pallas``; like them, independent of ``diagnostics``, so
-    the flag never changes which loop runs."""
+    the flag never changes which loop runs. ``engine="auto"`` and a forced
+    ``"cuda"`` part ways where the JAX package's do: a flat stack past
+    shared memory (auto: the torch engine; forced: the flat tiled kernel)
+    and an eps solve past it with the flat block on (auto: the torch
+    engine; forced: the tiled chunk kernel)."""
     from tpu_gpad_torch.solver import dual_kernels, kernels
 
+    forced = config.engine == "cuda"
     dual_ok = data.paired and data.D is not None and config.form != "mvp"
     if config.restart and not dual_ok:
         return None  # the restart recursion rides the dual kernels only
     if config.mode == "eps":
-        # tpu_gpad streams duals too large for on-chip memory through its
-        # tiled chunk kernel (core.py:397-406); that kernel is not ported
-        # yet (ROADMAP Queue 2), so such eps solves run the torch engine.
-        if dual_ok and dual_kernels.dual_fits_smem(data):
+        if not dual_ok:
+            return None
+        if dual_kernels.dual_fits_smem(data):
             return "dual_chunk"
+        # tpu_gpad's auto keeps the XLA mvp+flat eps loop where the flat
+        # block is on (measured faster on a TPU; core.py:397-406)
+        flat_on = data.n_struct is not None and config.flat != "off"
+        if dual_kernels.dual_tiled_fits(data) and (forced or not flat_on):
+            return "dual_tiled_chunk"
         return None
-    if resolve_form(data, config) == "dual":
-        # likewise the tiled fixed dual kernel for oversized duals
-        return "dual" if dual_kernels.dual_fits_smem(data) else None
-    if resolve_flat(data, config) and kernels.flat_fits_smem(data):
+    if resolve_form(data, config, on_card=True) == "dual":
+        if dual_kernels.dual_fits_smem(data):
+            return "dual"
+        return "dual_tiled" if dual_kernels.dual_tiled_fits(data) else None
+    flat = resolve_flat(data, config)
+    if flat and kernels.flat_fits_smem(data):
         return "paired_flat"
+    if flat and forced and kernels.flat_tiled_fits(data):
+        return "flat_tiled"
     if data.paired:
         return "paired" if kernels.paired_fits_smem(data) else None
     # the dense kernel declines soft rows (dense_fits_smem), as tpu_gpad's
@@ -416,10 +435,11 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
         if cuda_kernel(data, config) is None:
             raise ValueError(
                 "engine='cuda' serves fixed mvp solves without restart "
-                "(paired: kernels.flat_fits_smem or paired_fits_smem; "
-                "unpaired without soft rows: kernels.dense_fits_smem), and "
-                "the dual form with D, fixed or eps, restart or not "
-                "(dual_kernels.dual_fits_smem); use engine='torch' here"
+                "(paired: kernels.flat_fits_smem, flat_tiled_fits or "
+                "paired_fits_smem; unpaired without soft rows: "
+                "kernels.dense_fits_smem), and the dual form with D, fixed "
+                "or eps, restart or not (dual_kernels.dual_fits_smem, or "
+                "dual_tiled_fits without soft rows); use engine='torch' here"
             )
         return "cuda"
     if config.engine != "auto":
@@ -429,12 +449,16 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
     return "torch"
 
 
-def resolve_form(data: GPADData, config: SolverConfig) -> str:
+def resolve_form(data: GPADData, config: SolverConfig,
+                 on_card: bool | None = None) -> str:
     """Pick the iteration algebra for this (data, config) combination.
 
     "auto" picks the flat mvp form on a CUDA device whenever the identity
     block is available (the kernel's form) and the dual form elsewhere,
-    as the JAX package does on TPU and CPU."""
+    as the JAX package does on TPU and CPU; a forced ``engine="cuda"``
+    takes the dual form where the flat kernel's shared memory declines, as
+    tpu_gpad's forced Pallas engine does past VMEM. ``on_card`` overrides
+    the data's device (``cuda_kernel`` asks what the card would run)."""
     dual_ok = (
         data.paired
         and data.D is not None
@@ -447,7 +471,7 @@ def resolve_form(data: GPADData, config: SolverConfig) -> str:
             and data.n_struct is not None
             and config.flat != "off"
             and not config.restart
-            and data.device.type == "cuda"
+            and (data.device.type == "cuda" if on_card is None else on_card)
         )
         if flat_avail:
             from tpu_gpad_torch.solver import kernels

@@ -6,11 +6,17 @@ launch, the counterpart of ``tpu_gpad.solver.kernels.gpad_pallas_fixed_dual``;
 ``gpad_dual_chunk`` runs ``chunk`` iterations from schedule offset ``k0``
 with the state in and out (``_dual_chunk_call``), and ``gpad_eps_dual``
 drives it one check window at a time (``gpad_pallas_eps_dual``). Both
-kernels are in ``csrc/gpad_dual.cu`` and share one iteration body. On CUDA
-tensors the wrappers launch the kernel or raise; on CPU tensors they run
-the plain versions ``gpad_fixed_dual_torch`` and ``gpad_dual_chunk_torch``,
-which are also what the tests and ``chip_smoke.py`` hold the kernels
-against.
+kernels are in ``csrc/gpad_dual.cu`` and share one iteration body; they
+keep D and the state in one block's shared memory (``dual_fits_smem``).
+For larger duals (the reference's 30x30 flagship, D 13.4 MB),
+``gpad_fixed_dual_tiled`` and ``gpad_dual_tiled_chunk`` have the same
+contracts and read D from device memory on every iteration
+(``csrc/gpad_dual_tiled.cu``, the counterpart of ``_gpad_kernel_dual_tiled``;
+``dual_tiled_fits``); the eps loop takes them where ``dual_fits_smem``
+declines. On CUDA tensors the wrappers launch the kernel or raise; on CPU
+tensors they run the plain versions ``gpad_fixed_dual_torch`` and
+``gpad_dual_chunk_torch``, which are also what the tests and
+``chip_smoke.py`` hold the kernels against.
 
 The state keeps the public layouts: y and y_prev (B, 2, m_h), s (B, m_h),
 and ``mom`` (B, 2), each scenario's restart recursion (theta, theta_prev).
@@ -29,11 +35,15 @@ from tpu_gpad_torch.types import GPADData, SolveResult
 # show that a path went through the kernels.
 DUAL_LAUNCHES = 0
 DUAL_CHUNK_LAUNCHES = 0
+DUAL_TILED_LAUNCHES = 0
+DUAL_TILED_CHUNK_LAUNCHES = 0
 # The eps loop's host syncs: one per all-converged test, after every
-# window but the budget's last (its windows are DUAL_CHUNK_LAUNCHES).
+# window but the budget's last (its windows are DUAL_CHUNK_LAUNCHES, or
+# DUAL_TILED_CHUNK_LAUNCHES past dual_fits_smem).
 EPS_SYNCS = 0
 
 _WARPS = 8  # kWarps of csrc/gpad_dual.cu: one restart partial per warp
+_TILED_WARPS = 16  # kWarps of csrc/tiled_product.cuh
 
 
 def _dual_smem_bytes(m_h: int, log2_tile: int) -> int:
@@ -55,6 +65,31 @@ def dual_fits_smem(data: GPADData) -> bool:
     if not (data.paired and data.D is not None):
         return False
     return _pick_dual_tile(data.m_half, 1) is not None
+
+
+def _dual_tiled_smem_bytes(m_h: int, log2_tile: int) -> int:
+    """Shared memory of one block of either tiled dual kernel (csrc
+    carve-up): wd of 2**log2_tile scenarios and one restart partial per
+    warp and scenario; D and the state stay in device memory."""
+    T = 1 << log2_tile
+    return 4 * (m_h * T + _TILED_WARPS * T)
+
+
+def pick_tiled_tiles(m_half: int, B: int = 1) -> int | None:
+    """log2 of the tiled dual kernels' scenarios per block for B scenarios,
+    or None when not even one scenario's wd fits a block's shared memory
+    (see ``kernels._tiled_tile``)."""
+    return kernels._tiled_tile(
+        lambda log2: _dual_tiled_smem_bytes(m_half, log2), B,
+        kernels.DUAL_TILED_MIN_BLOCKS)
+
+
+def dual_tiled_fits(data: GPADData) -> bool:
+    """Can the tiled dual kernels run this data: paired with D, no soft
+    rows (the tiled kernels do not carry the damp column, as tpu_gpad's
+    do not), and one scenario's wd within a block's shared memory?"""
+    return (data.paired and data.D is not None and data.soft_damp is None
+            and pick_tiled_tiles(data.m_half) is not None)
 
 
 def relu_offsets(data: GPADData, g_P, p_D):
@@ -147,6 +182,19 @@ def _launch_fns():
     return fixed, chunk
 
 
+def _tiled_launch_fns():
+    """The tiled kernels' C launchers, built and loaded at first use."""
+    from tpu_gpad_torch import cuda_build
+
+    lib = cuda_build.load("gpad_dual_tiled")
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fixed, chunk = lib.gpad_dual_tiled_launch, lib.gpad_dual_tiled_chunk_launch
+    fixed.argtypes = [P, P, P, LL, P, P, I, I, I, I, I, P, P, P, P, I, P]
+    chunk.argtypes = [P] * 8 + [I] * 6 + [P] * 5 + [I, P]
+    fixed.restype = chunk.restype = I
+    return fixed, chunk
+
+
 def _tile_or_raise(m_h: int, B: int) -> int:
     log2_tile = _pick_dual_tile(m_h, B)
     if log2_tile is None:
@@ -180,6 +228,44 @@ def gpad_fixed_dual_torch(
     return (z, y, w, zhat) if diagnostics else (z, y, None, None)
 
 
+def _check_fixed(data: GPADData, g_P, p_D, y0, iterations: int,
+                 restart: bool) -> None:
+    """Raise on anything the whole-solve dual kernels do not take."""
+    _check_data(data)
+    _check_schedule(data, iterations, restart)
+    B, m_h = g_P.shape[0], data.m_half
+    if g_P.ndim != 2 or g_P.shape[1] != data.n_z:
+        raise ValueError(f"g_P must be (B, {data.n_z}); got {tuple(g_P.shape)}")
+    if tuple(p_D.shape) != (B, 2, m_h):
+        raise ValueError(f"p_D must be ({B}, 2, {m_h}); got {tuple(p_D.shape)}")
+    kernels._check_tensors([data.D, data.MG_T, data.GL_T, data.theta,
+                           data.beta, g_P, p_D, y0, data.soft_damp], g_P.device)
+
+
+def _check_chunk(data: GPADData, c, y, y_prev, s, mom, k0: int, chunk: int,
+                 restart: bool) -> None:
+    """Raise on anything the chunk kernels do not take."""
+    _check_data(data)
+    _check_schedule(data, k0 + chunk, restart)
+    B, m_h = c.shape[0], data.m_half
+    for name, t, shape in (("c", c, (B, 2, m_h)), ("y", y, (B, 2, m_h)),
+                           ("y_prev", y_prev, (B, 2, m_h)),
+                           ("s", s, (B, m_h)), ("mom", mom, (B, 2))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
+    kernels._check_tensors([data.D, data.theta, data.beta, c, y, y_prev, s,
+                           mom, data.soft_damp], c.device)
+
+
+def _warm_rows(y0, B: int, m_h: int):
+    """A warm start as (rows, 2, m_h) and its row stride for a launch (0:
+    one row shared by every scenario)."""
+    if y0 is None:
+        return None, 0
+    rows = kernels._norm_y0(y0, B, m_h)
+    return rows, 0 if rows.shape[0] == 1 else 2 * m_h
+
+
 def gpad_fixed_dual(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     restart: bool = False, diagnostics: bool = True,
@@ -193,23 +279,15 @@ def gpad_fixed_dual(
     budget may exceed the schedule. CUDA tensors launch the kernel (or
     raise); CPU tensors run the plain version."""
     global DUAL_LAUNCHES
-    _check_data(data)
-    _check_schedule(data, iterations, restart)
-    B, m_h = g_P.shape[0], data.m_half
-    if g_P.ndim != 2 or g_P.shape[1] != data.n_z:
-        raise ValueError(f"g_P must be (B, {data.n_z}); got {tuple(g_P.shape)}")
-    if tuple(p_D.shape) != (B, 2, m_h):
-        raise ValueError(f"p_D must be ({B}, 2, {m_h}); got {tuple(p_D.shape)}")
-    kernels._check_tensors([data.D, data.MG_T, data.GL_T, data.theta,
-                           data.beta, g_P, p_D, y0, data.soft_damp], g_P.device)
+    _check_fixed(data, g_P, p_D, y0, iterations, restart)
     if not _device_or_raise(g_P):
         return gpad_fixed_dual_torch(data, g_P, p_D, y0, iterations=iterations,
                                      restart=restart, diagnostics=diagnostics)
     fixed, _ = _launch_fns()
+    B, m_h = g_P.shape[0], data.m_half
     log2_tile = _tile_or_raise(m_h, B)
     c = relu_offsets(data, g_P, p_D)
-    y0_rows = None if y0 is None else kernels._norm_y0(y0, B, m_h)
-    y0_stride = 0 if y0_rows is None or y0_rows.shape[0] == 1 else 2 * m_h
+    y0_rows, y0_stride = _warm_rows(y0, B, m_h)
     od = kernels._od(data)
     s = torch.empty((B, m_h), dtype=torch.float32, device=g_P.device)
     y = torch.empty((B, 2, m_h), dtype=torch.float32, device=g_P.device)
@@ -229,6 +307,65 @@ def gpad_fixed_dual(
     return z, y, w, zhat
 
 
+def _tiled_tile_or_raise(m_h: int, B: int, log2_tile) -> int:
+    if log2_tile is None:
+        log2_tile = pick_tiled_tiles(m_h, B)
+        if log2_tile is None:
+            raise ValueError(
+                f"dual problem (m_half={m_h}) exceeds even the tiled dual "
+                f"kernels' shared memory ({kernels.SMEM_LIMIT_BYTES} bytes); "
+                "use engine='torch'"
+            )
+    if not 0 <= log2_tile <= kernels._TILED_LOG2_TILES[-1]:
+        raise ValueError(f"log2_tile {log2_tile} outside the tiled kernels' "
+                         f"{kernels._TILED_LOG2_TILES}")
+    return log2_tile
+
+
+def gpad_fixed_dual_tiled(
+    data: GPADData, g_P, p_D, y0=None, *, iterations: int,
+    restart: bool = False, diagnostics: bool = True,
+    log2_tile: int | None = None,
+):
+    """``gpad_fixed_dual``'s contract for duals too large for it: D is read
+    from device memory on every iteration (the counterpart of
+    ``tpu_gpad.solver.kernels.gpad_pallas_fixed_dual_tiled``). Soft rows
+    are refused. ``log2_tile`` overrides the scenarios per block (for
+    sweeps). CUDA tensors launch the kernel (or raise); CPU tensors run the
+    plain version, ``gpad_fixed_dual_torch``."""
+    global DUAL_TILED_LAUNCHES
+    kernels._refuse_soft(data, "the tiled dual kernels")
+    _check_fixed(data, g_P, p_D, y0, iterations, restart)
+    if not _device_or_raise(g_P):
+        return gpad_fixed_dual_torch(data, g_P, p_D, y0, iterations=iterations,
+                                     restart=restart, diagnostics=diagnostics)
+    fixed, _ = _tiled_launch_fns()
+    B, m_h = g_P.shape[0], data.m_half
+    log2_tile = _tiled_tile_or_raise(m_h, B, log2_tile)
+    c = relu_offsets(data, g_P, p_D)
+    y0_rows, y0_stride = _warm_rows(y0, B, m_h)
+    # the state lives in device memory: y_prev and, without diagnostics,
+    # w are the kernel's scratch
+    s = torch.empty((B, m_h), dtype=torch.float32, device=g_P.device)
+    y, y_prev, w = (torch.empty((B, 2, m_h), dtype=torch.float32,
+                                device=g_P.device) for _ in range(3))
+    ptr = kernels._ptr
+    with torch.cuda.device(g_P.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fixed(ptr(data.D), ptr(c), ptr(y0_rows), y0_stride,
+                    ptr(data.theta), ptr(data.beta), B, m_h, iterations,
+                    int(restart), log2_tile, ptr(s), ptr(y), ptr(y_prev),
+                    ptr(w), _dual_tiled_smem_bytes(m_h, log2_tile), stream)
+    if err != 0:
+        raise RuntimeError(f"gpad_dual_tiled launch failed: CUDA error {err}")
+    DUAL_TILED_LAUNCHES += 1
+    if not diagnostics:
+        w = None
+    z, zhat = _primal(data, g_P, s, w, recovery_weight(data, iterations),
+                      diagnostics)
+    return z, y, w, zhat
+
+
 def gpad_dual_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
                     chunk: int, restart: bool = False):
     """``chunk`` dual-form iterations from schedule index ``k0``: returns
@@ -240,20 +377,12 @@ def gpad_dual_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
     tensors launch the kernel (or raise); CPU tensors run the plain
     version."""
     global DUAL_CHUNK_LAUNCHES
-    _check_data(data)
-    _check_schedule(data, k0 + chunk, restart)
-    B, m_h = c.shape[0], data.m_half
-    for name, t, shape in (("c", c, (B, 2, m_h)), ("y", y, (B, 2, m_h)),
-                           ("y_prev", y_prev, (B, 2, m_h)),
-                           ("s", s, (B, m_h)), ("mom", mom, (B, 2))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
-    kernels._check_tensors([data.D, data.theta, data.beta, c, y, y_prev, s,
-                           mom, data.soft_damp], c.device)
+    _check_chunk(data, c, y, y_prev, s, mom, k0, chunk, restart)
     if not _device_or_raise(c):
         return gpad_dual_chunk_torch(data, c, y, y_prev, s, mom, k0=k0,
                                      chunk=chunk, restart=restart)
     _, launch = _launch_fns()
+    B, m_h = c.shape[0], data.m_half
     log2_tile = _tile_or_raise(m_h, B)
     od = kernels._od(data)
     out = [torch.empty_like(t) for t in (y, y_prev, s, mom, y)]
@@ -271,8 +400,44 @@ def gpad_dual_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
     return tuple(out)
 
 
-def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
-    """Algorithm-1 (eps-terminated) solve of a batch with the chunk kernel.
+def gpad_dual_tiled_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
+                          chunk: int, restart: bool = False,
+                          log2_tile: int | None = None):
+    """``gpad_dual_chunk``'s contract for duals too large for it, with D
+    read from device memory on every iteration (the chunk form of
+    ``gpad_fixed_dual_tiled``; ``_dual_tiled_call`` in tpu_gpad). Soft
+    rows are refused. CUDA tensors launch the kernel (or raise); CPU
+    tensors run the plain version, ``gpad_dual_chunk_torch``."""
+    global DUAL_TILED_CHUNK_LAUNCHES
+    kernels._refuse_soft(data, "the tiled dual kernels")
+    _check_chunk(data, c, y, y_prev, s, mom, k0, chunk, restart)
+    if not _device_or_raise(c):
+        return gpad_dual_chunk_torch(data, c, y, y_prev, s, mom, k0=k0,
+                                     chunk=chunk, restart=restart)
+    _, launch = _tiled_launch_fns()
+    B, m_h = c.shape[0], data.m_half
+    log2_tile = _tiled_tile_or_raise(m_h, B, log2_tile)
+    out = [torch.empty_like(t) for t in (y, y_prev, s, mom, y)]
+    ptr = kernels._ptr
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(ptr(data.D), ptr(c), ptr(y), ptr(y_prev), ptr(s),
+                     ptr(mom), ptr(data.theta), ptr(data.beta), B, m_h, k0,
+                     chunk, int(restart), log2_tile, *(ptr(t) for t in out),
+                     _dual_tiled_smem_bytes(m_h, log2_tile), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"gpad_dual_tiled_chunk launch failed: CUDA error {err}")
+    DUAL_TILED_CHUNK_LAUNCHES += 1
+    return tuple(out)
+
+
+def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
+                  chunk_fn=None) -> SolveResult:
+    """Algorithm-1 (eps-terminated) solve of a batch with the chunk kernel:
+    the resident one where ``dual_fits_smem`` admits the data, else the
+    tiled one where ``dual_tiled_fits`` does. ``chunk_fn`` replaces it
+    (``gpad_dual_chunk_torch`` runs the same loop on the plain version).
 
     Full windows of C = min(check_every, iterations) iterations, then one
     partial window to the budget's end. After each window the host runs
@@ -286,6 +451,10 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
     from tpu_gpad_torch.solver import core
 
     B, dev = g_P.shape[0], g_P.device
+    if chunk_fn is None:
+        chunk_fn = gpad_dual_chunk
+        if not dual_fits_smem(data) and dual_tiled_fits(data):
+            chunk_fn = gpad_dual_tiled_chunk
     iterations = config.iterations
     C = max(min(config.check_every, iterations), 1)
     n_full, rem = divmod(iterations, C)
@@ -298,7 +467,7 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
     z_out = torch.zeros((B, data.n_z), dtype=torch.float32, device=dev)
     k0 = 0
     for i, chunk in enumerate(windows):
-        y, y_prev, s, mom, w = gpad_dual_chunk(
+        y, y_prev, s, mom, w = chunk_fn(
             data, c, y, y_prev, s, mom, k0=k0, chunk=chunk,
             restart=config.restart,
         )

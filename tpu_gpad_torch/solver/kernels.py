@@ -1,7 +1,7 @@
 """The paired and dense GPAD kernels (CUDA C++ for Hopper) and their plain
 versions.
 
-Three whole-solve kernels, each one launch per fixed-budget solve:
+Four whole-solve kernels, each one launch per fixed-budget solve:
 
 - ``gpad_fixed_paired_flat``: the flat paired mvp loop (the identity block
   of the input box costs a division), ``csrc/gpad_paired_flat.cu``; the
@@ -12,6 +12,11 @@ Three whole-solve kernels, each one launch per fixed-budget solve:
 - ``gpad_fixed_dense``: the dense (unpaired) loop on the reference's
   ``[S; -S; I; -I; K; -K]`` stack, ``csrc/gpad_dense.cu``; the counterpart
   of ``gpad_pallas_fixed``.
+- ``gpad_fixed_flat_tiled``: the flat loop for stacks whose operands do
+  not fit one block's shared memory (the reference's 30x30 flagship), both
+  operands read from device memory on every iteration,
+  ``csrc/gpad_flat_tiled.cu``; the counterpart of
+  ``gpad_pallas_fixed_flat_tiled``.
 
 On CUDA tensors each launches its kernel or raises; on CPU tensors it runs
 its plain version (``*_torch``), the same loop in torch ops, which is also
@@ -37,6 +42,7 @@ from tpu_gpad_torch.types import GPADData, SolveResult
 PAIRED_FLAT_LAUNCHES = 0
 PAIRED_LAUNCHES = 0
 DENSE_LAUNCHES = 0
+FLAT_TILED_LAUNCHES = 0
 
 # Dynamic shared memory one block may use on an H100 (232,448 bytes, the
 # sm_90 opt-in maximum). The guard below is derived from it alone: which
@@ -71,6 +77,33 @@ def _widest_tile(smem_bytes, B: int) -> int | None:
     return None
 
 
+# The tiled kernels (csrc/gpad_dual_tiled.cu, csrc/gpad_flat_tiled.cu) take
+# 1 to 8 scenarios per block, the widest tile that keeps a kernel's minimum
+# of blocks in the grid. On an H100 at the flagship (battery 30x30)
+# B = 256 x 100 iterations, the dual kernel ran 56.0 / 38.3 / 34.1 / 45.5 /
+# 78.8 ms at 1 / 2 / 4 / 8 / 16 per block (64 blocks best) and the flat one
+# 32.7 / 16.7 / 28.7 / 32.0 / 52.1 ms (128 blocks best); at B = 1024 both
+# were fastest at 8, and 16 was never best (PERF.md, the tiled tile sweep).
+_TILED_LOG2_TILES = (0, 1, 2, 3)
+_TILED_MAX_LOG2_TILE = 3
+DUAL_TILED_MIN_BLOCKS = 64
+FLAT_TILED_MIN_BLOCKS = 128
+
+
+def _tiled_tile(smem_bytes, B: int, min_blocks: int) -> int | None:
+    """log2 of a tiled kernel's scenarios per block for B scenarios: the
+    widest power of two at most 2**_TILED_MAX_LOG2_TILE whose grid still
+    has ``min_blocks`` blocks and whose block fits shared memory (one
+    scenario per block where B is below ``min_blocks``), or None when not
+    even one scenario fits; ``smem_bytes(log2_tile)`` is the kernel's
+    carve-up."""
+    log2 = _TILED_MAX_LOG2_TILE
+    while log2 > 0 and (-(-B // (1 << log2)) < min_blocks
+                        or smem_bytes(log2) > SMEM_LIMIT_BYTES):
+        log2 -= 1
+    return log2 if smem_bytes(log2) <= SMEM_LIMIT_BYTES else None
+
+
 def _pick_log2_tile(m_h: int, n_z: int, n_s: int, B: int) -> int | None:
     """A paired kernel's tile for B scenarios (see ``_widest_tile``)."""
     return _widest_tile(lambda log2: _smem_bytes(m_h, n_z, n_s, log2), B)
@@ -95,6 +128,32 @@ def flat_fits_smem(data: GPADData) -> bool:
     if not (data.paired and data.n_struct is not None):
         return False
     return _pick_log2_tile(data.m_half, data.n_z, data.n_struct, 1) is not None
+
+
+def _flat_tiled_smem_bytes(m_h: int, n_z: int, log2_tile: int) -> int:
+    """Shared memory of one block of the flat tiled kernel (csrc carve-up):
+    wd and zhat of 2**log2_tile scenarios; the operands and the state stay
+    in device memory."""
+    return 4 * (m_h + n_z) * (1 << log2_tile)
+
+
+def pick_flat_tiled_tiles(m_half: int, n_z: int, B: int = 1) -> int | None:
+    """log2 of the flat tiled kernel's scenarios per block for B scenarios,
+    or None when not even one scenario's wd and zhat fit a block's shared
+    memory (see ``_tiled_tile``); the operands, structural block included,
+    stay in device memory and do not bound it."""
+    return _tiled_tile(lambda log2: _flat_tiled_smem_bytes(m_half, n_z, log2),
+                       B, FLAT_TILED_MIN_BLOCKS)
+
+
+def flat_tiled_fits(data: GPADData) -> bool:
+    """Can the flat tiled kernel run this data: the flat paired layout with
+    a non-empty structural block, no soft rows (the tiled kernels do not
+    carry the damp column, as tpu_gpad's do not), and one scenario's wd and
+    zhat within a block's shared memory?"""
+    return (data.paired and data.n_struct is not None and data.n_struct > 0
+            and data.soft_damp is None
+            and pick_flat_tiled_tiles(data.m_half, data.n_z) is not None)
 
 
 def paired_fits_smem(data: GPADData) -> bool:
@@ -233,9 +292,11 @@ def gpad_fixed_dense_torch(
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the launchers in csrc/gpad_paired_flat.cu (both
-# instances) and csrc/gpad_dense.cu
+# instances), csrc/gpad_dense.cu and csrc/gpad_flat_tiled.cu
 _PAIRED_ARGTYPES = [_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 6 + [_PTR] * 4 + [_INT, _PTR]
 _DENSE_ARGTYPES = [_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 5 + [_PTR] * 4 + [_INT, _PTR]
+_FLAT_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 3 + [_INT] * 6 + [_PTR] * 5
+                        + [_INT, _PTR])
 
 
 def _launch_fn(library: str, symbol: str, argtypes):
@@ -308,6 +369,14 @@ def _outputs(B: int, n_z: int, dual_shape, diagnostics: bool, device):
     if not diagnostics:
         return z, y, None, None
     return z, y, torch.empty_like(y), torch.empty_like(z)
+
+
+def _refuse_soft(data: GPADData, what: str) -> None:
+    """The tiled kernels do not carry the damp column, as tpu_gpad's
+    streamed kernels do not."""
+    if data.soft_damp is not None:
+        raise ValueError(f"{what} does not carry soft (dual-damped) rows; "
+                         "use engine='torch'")
 
 
 def _need_cuda(g_P) -> None:
@@ -394,6 +463,58 @@ def gpad_fixed_paired(
     return out
 
 
+def gpad_fixed_flat_tiled(
+    data: GPADData, g_P, p_D, y0=None, *, iterations: int,
+    diagnostics: bool = True, log2_tile: int | None = None,
+):
+    """``gpad_fixed_paired_flat``'s contract for flat stacks too large for
+    it: both operands are read from device memory on every iteration (the
+    counterpart of ``tpu_gpad.solver.kernels.gpad_pallas_fixed_flat_tiled``).
+    Fixed mode, no restart; soft rows and an empty structural block are
+    refused. ``log2_tile`` overrides the scenarios per block (for sweeps).
+    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
+    version, ``gpad_fixed_paired_flat_torch``."""
+    global FLAT_TILED_LAUNCHES
+    _refuse_soft(data, "the flat tiled kernel")
+    if data.n_struct == 0:
+        raise ValueError("the flat tiled kernel needs a non-empty structural "
+                         "block (GPADData.n_struct > 0)")
+    _check_inputs(data, g_P, p_D, y0, iterations)
+    if g_P.device.type == "cpu":
+        return gpad_fixed_paired_flat_torch(
+            data, g_P, p_D, y0, iterations=iterations, diagnostics=diagnostics
+        )
+    _need_cuda(g_P)
+    B, m_h, n_z, n_s = g_P.shape[0], data.m_half, data.n_z, data.n_struct
+    if log2_tile is None:
+        log2_tile = pick_flat_tiled_tiles(m_h, n_z, B)
+        if log2_tile is None:
+            raise _too_big("flat tiled", f"m_half={m_h}, n_z={n_z}")
+    if log2_tile not in _TILED_LOG2_TILES:
+        raise ValueError(f"log2_tile {log2_tile} outside {_TILED_LOG2_TILES}")
+    fn = _launch_fn("gpad_flat_tiled", "gpad_flat_tiled_launch",
+                    _FLAT_TILED_ARGTYPES)
+    y0_rows = None if y0 is None else _norm_y0(y0, B, m_h)
+    y0_stride = 0 if y0_rows is None or y0_rows.shape[0] == 1 else 2 * m_h
+    # the state lives in device memory: y_prev and, without diagnostics,
+    # w and zhat are the kernel's scratch
+    z, y, w, zhat = _outputs(B, n_z, (2, m_h), True, g_P.device)
+    y_prev = torch.empty_like(y)
+    with torch.cuda.device(g_P.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_ptr(data.MG_T), _ptr(data.GL_T), _ptr(g_P), _ptr(p_D),
+                 _ptr(y0_rows), y0_stride, _ptr(data.theta), _ptr(data.beta),
+                 _ptr(data.L), B, m_h, n_z, n_s, iterations, log2_tile,
+                 _ptr(z), _ptr(y), _ptr(y_prev), _ptr(w), _ptr(zhat),
+                 _flat_tiled_smem_bytes(m_h, n_z, log2_tile), stream)
+    if err != 0:
+        raise RuntimeError(f"gpad_flat_tiled launch failed: CUDA error {err}")
+    FLAT_TILED_LAUNCHES += 1
+    if not diagnostics:
+        return z, y, None, None
+    return z, y, w, zhat
+
+
 def gpad_fixed_dense(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     diagnostics: bool = True,
@@ -461,14 +582,19 @@ def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
     # leading batch dims, as tpu_gpad's solve_batch_pallas does
     y0 = None if y0 is None else y0.contiguous()
     kw = dict(iterations=config.iterations, diagnostics=config.diagnostics)
-    if kernel == "dual_chunk":
+    if kernel in ("dual_chunk", "dual_tiled_chunk"):
         res = dual_kernels.gpad_eps_dual(data, gP2, pD2, config, y0)
     else:
         if kernel == "dual":
             z, y, w, zhat = dual_kernels.gpad_fixed_dual(
                 data, gP2, pD2, y0, restart=config.restart, **kw)
+        elif kernel == "dual_tiled":
+            z, y, w, zhat = dual_kernels.gpad_fixed_dual_tiled(
+                data, gP2, pD2, y0, restart=config.restart, **kw)
         elif kernel == "paired_flat":
             z, y, w, zhat = gpad_fixed_paired_flat(data, gP2, pD2, y0, **kw)
+        elif kernel == "flat_tiled":
+            z, y, w, zhat = gpad_fixed_flat_tiled(data, gP2, pD2, y0, **kw)
         elif kernel == "paired":
             z, y, w, zhat = gpad_fixed_paired(data, gP2, pD2, y0, **kw)
         elif kernel == "dense":

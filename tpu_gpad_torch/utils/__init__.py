@@ -1,3 +1,4 @@
+from tpu_gpad_torch.utils.flops import solve_flops
 from tpu_gpad_torch.utils.timing import device_time_per_call
 
-__all__ = ["device_time_per_call"]
+__all__ = ["device_time_per_call", "solve_flops"]
