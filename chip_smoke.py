@@ -33,7 +33,12 @@ prints no result.
     python3 chip_smoke.py --sweep
 
 builds the kernels and times the stage-wise and the tiled kernels by tile
-instead.
+(and the tiled dual kernel by cluster size) instead;
+
+    python3 chip_smoke.py --profile
+
+builds the stage-wise kernels with per-phase cycle counters and prints
+where a streamed and a resident solve spend their time.
 """
 
 from __future__ import annotations
@@ -963,8 +968,10 @@ def phase_tiled_kernels_vs_plain(torch, tg, kernels, dual_kernels, core):
     """Each tiled kernel against its plain version: the flagship at B 1, 5,
     33 and 256 (cold, warm per scenario and shared, restart, diagnostics
     off), battery n5 N30 (m_h 330) and n3 N10 at the narrowest and widest
-    tile (1 and 8 scenarios per block); the chunk kernel on a window of 10 from k0 = 30, and ten windows
-    against one whole launch."""
+    tile (1 and 8 scenarios per block); the dual kernel also at B 300 (a
+    partial last tile) and on clusters of 16, 1 and 2 blocks; the chunk
+    kernel on a window of 10 from k0 = 30, and ten windows against one
+    whole launch."""
     _, flag = flagship(tg)
     _, mid = flagship(tg, TILED_MID)
     _, small = headline(tg)
@@ -984,13 +991,14 @@ def phase_tiled_kernels_vs_plain(torch, tg, kernels, dual_kernels, core):
                   "diagnostics=False returned w/zhat")
 
     def run(name, d, B, y0=None, rs=False, diagnostics=True, tile=None,
-            kinds=("dual", "flat")):
+            kinds=("dual", "flat"), cluster=None):
         g, p = core.affine_params(d, flag_x0(torch, d.n_x, B, seed=B)[1])
         kw = dict(iterations=ITERS, diagnostics=diagnostics)
         outs = {}
         if "dual" in kinds:
             out_k = dual_kernels.gpad_fixed_dual_tiled(d, g, p, y0, restart=rs,
-                                                       log2_tile=tile, **kw)
+                                                       log2_tile=tile,
+                                                       cluster=cluster, **kw)
             out_p = dual_kernels.gpad_fixed_dual_torch(d, g, p, y0, restart=rs,
                                                        **kw)
             torch.cuda.synchronize()
@@ -1030,6 +1038,15 @@ def phase_tiled_kernels_vs_plain(torch, tg, kernels, dual_kernels, core):
     for tile in (0, 3):  # 1 and 8 scenarios per block
         run(f"n3_N10_tile{1 << tile}", small, 33, warm(small, 33), tile=tile)
         run(f"restart_n3_N10_tile{1 << tile}", small, 33, rs=True, tile=tile)
+    # the dual kernels' clusters: 300 leaves a partial last tile; 16
+    # scenarios on clusters of 16 and 1 on clusters of 1 and 2
+    run("B300", flag, 300, warm(flag, 300), kinds=("dual",))
+    run("restart_B300", flag, 300, rs=True, kinds=("dual",))
+    for tile, cl in ((4, 16), (0, 1), (1, 2)):
+        run(f"n3_N10_tile{1 << tile}_cluster{cl}", small, 33, warm(small, 33),
+            tile=tile, cluster=cl, kinds=("dual",))
+        run(f"restart_n3_N10_tile{1 << tile}_cluster{cl}", small, 33, rs=True,
+            tile=tile, cluster=cl, kinds=("dual",))
     # the chunk kernel: one window, and ten windows against a whole solve
     g, p = core.affine_params(flag, flag_x0(torch, flag.n_x, B, seed=51)[1])
     c = dual_kernels.relu_offsets(flag, g, p)
@@ -1343,6 +1360,8 @@ def phase_tiled_timing(torch, tg, kernels, dual_kernels, core, smi):
           "window": 10, "shape": [n_z, m_h, n_s],
           "log2_tile": {"dual": dual_kernels.pick_tiled_tiles(m_h, B),
                         "flat": kernels.pick_flat_tiled_tiles(m_h, n_z, B)},
+          "dual_cluster": dual_kernels.pick_tiled_cluster(
+              dual_kernels.pick_tiled_tiles(m_h, B), B),
           "dual_bound": med["dual_bound"], "flat_bound": med["flat_bound"],
           "window_bound": med["window_bound"],
           "ms_median_of_5_per_turn": ms,
@@ -1356,26 +1375,40 @@ def phase_tiled_timing(torch, tg, kernels, dual_kernels, core, smi):
 
 def sweep_tiled(torch, tg, kernels, dual_kernels, core, smi):
     """``python3 chip_smoke.py --sweep``: each tiled kernel's time by tile
-    (2**log2 scenarios per block) at the flagship, B 256 and 1024, 100
-    fixed iterations. CUDA events, median of 3 calls after one warm-up."""
+    at the flagship, 100 fixed iterations: the dual kernel by scenarios
+    per cluster (2**log2) and blocks per cluster at B 1, 64, 256 and 1024,
+    the flat one by scenarios per block (2**log2) at B 256 and 1024. CUDA
+    events, median of 3 calls after one warm-up."""
     from tpu_gpad_torch.utils import device_time_per_call
 
     _, flag = flagship(tg)
     m_h, n_z = flag.m_half, flag.n_z
-    for B in (FLAG_BATCH, 1024):
+    for B in (1, SW_SERVE_PLANTS, FLAG_BATCH, 1024):
         g, p = core.affine_params(flag, flag_x0(torch, flag.n_x, B, seed=54)[1])
-        for name, fn, pick in (
-                ("dual_tiled", dual_kernels.gpad_fixed_dual_tiled,
-                 dual_kernels.pick_tiled_tiles(m_h, B)),
-                ("flat_tiled", kernels.gpad_fixed_flat_tiled,
-                 kernels.pick_flat_tiled_tiles(m_h, n_z, B))):
-            row = {log2: device_time_per_call(
-                lambda: fn(flag, g, p, iterations=ITERS, log2_tile=log2),
-                warmup=1, repeats=3) * 1e3
-                for log2 in kernels._TILED_LOG2_TILES}
-            emit({"phase": "tiled_tile_sweep", "gpu": smi, "kernel": name,
-                  "batch": B, "iterations": ITERS, "default_log2_tile": pick,
-                  "ms_by_log2_tile": row})
+        row = {}
+        for log2 in range(dual_kernels.DUAL_TILED_MAX_LOG2_TILE + 1):
+            if log2 and 1 << (log2 - 1) >= B:
+                continue  # no scenario of the tile's upper half exists
+            for cl in (4, 8, 16):
+                row[f"{log2}/{cl}"] = device_time_per_call(
+                    lambda: dual_kernels.gpad_fixed_dual_tiled(
+                        flag, g, p, iterations=ITERS, log2_tile=log2,
+                        cluster=cl), warmup=1, repeats=3) * 1e3
+        pick = dual_kernels.pick_tiled_tiles(m_h, B)
+        emit({"phase": "tiled_tile_sweep", "gpu": smi, "kernel": "dual_tiled",
+              "batch": B, "iterations": ITERS,
+              "default": f"{pick}/{dual_kernels.pick_tiled_cluster(pick, B)}",
+              "ms_by_log2_tile_per_cluster": row})
+        if B < FLAG_BATCH:
+            continue
+        row = {log2: device_time_per_call(
+            lambda: kernels.gpad_fixed_flat_tiled(flag, g, p, iterations=ITERS,
+                                                  log2_tile=log2),
+            warmup=1, repeats=3) * 1e3 for log2 in kernels._TILED_LOG2_TILES}
+        emit({"phase": "tiled_tile_sweep", "gpu": smi, "kernel": "flat_tiled",
+              "batch": B, "iterations": ITERS,
+              "default_log2_tile": kernels.pick_flat_tiled_tiles(m_h, n_z, B),
+              "ms_by_log2_tile": row})
 
 
 # ---------------------------------------------------------------------------
@@ -1748,6 +1781,63 @@ def sweep_stagewise(torch, tg, sk, ss, smi):
               "ms_by_log2_tile": row})
 
 
+# the profile build's eight counters (csrc/gpad_stagewise.cu)
+SW_PHASES = ("decision", "P1", "P1b", "CB", "P3", "CF", "P4", "epilogue")
+
+
+def profile_stagewise(torch, tg, sk, ss, smi):
+    """``python3 chip_smoke.py --profile``: where a stage-wise kernel's time
+    goes. A build with -DGPAD_SW_PROFILE sums each block's clock64() cycles
+    between the barriers that end the phases of an iteration; printed as
+    each phase's share and its cycles per block and iteration, beside the
+    launch's CUDA-event time (the build's marks cost a few per cent)."""
+    import ctypes
+    from tpu_gpad_torch import cuda_build
+
+    lib = cuda_build.load("gpad_stagewise", ("GPAD_SW_PROFILE",))
+    read = lib.gpad_stagewise_profile_read
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    plain_fns = sk._launch_fns
+    sk._launch_fns = lambda: plain_fns(("GPAD_SW_PROFILE",))
+    d30 = sw_data(tg, SW_FULL, SW_FULL_ITERS)
+    d8 = sw_data(tg, SW_RES, SW_RES_ITERS)
+    X30 = sw_x0(torch, SW_FULL_BATCH, d30.n_x, seed=31)
+    X8 = sw_x0(torch, SW_WAVE_BATCH, d8.n_x, seed=32)
+    sms = sk.sm_count(DEVICE)
+    cases = (("stream", ss.solve_stagewise_stream, d30, X30, SW_FULL_ITERS),
+             ("stream", ss.solve_stagewise_stream, d30,
+              X30[:SW_SERVE_PLANTS].contiguous(), SW_SERVE_ITERS),
+             ("resident", sk.solve_stagewise_cuda, d8, X8, SW_RES_ITERS))
+    try:
+        for kernel, fn, data, X, iters in cases:
+            B = X.shape[0]
+            fn(data, X, iters)  # warm-up
+            torch.cuda.synchronize()
+            out = (ctypes.c_ulonglong * len(SW_PHASES))()
+            check(read(out) == 0, "profile read")
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            start.record()
+            fn(data, X, iters)
+            end.record()
+            torch.cuda.synchronize()
+            check(read(out) == 0, "profile read")
+            log2 = (ss.stream_layout(data, B, sms)[0] if kernel == "stream"
+                    else sk._pick_log2_tile(data, B))
+            blocks = -(-B // (1 << log2))
+            cycles = dict(zip(SW_PHASES, out))
+            total = max(sum(cycles.values()), 1)
+            emit({"phase": "stagewise_profile", "gpu": smi, "kernel": kernel,
+                  "battery": [data.n_x, data.horizon], "batch": B,
+                  "iterations": iters, "log2_tile": log2, "blocks": blocks,
+                  "ms": start.elapsed_time(end),
+                  "share": {k: c / total for k, c in cycles.items()},
+                  "cycles_per_block_iteration": {
+                      k: c / (blocks * max(iters, 1))
+                      for k, c in cycles.items()}})
+    finally:
+        sk._launch_fns = plain_fns
+
+
 def main() -> int:
     import torch
 
@@ -1761,6 +1851,9 @@ def main() -> int:
     from tpu_gpad_torch.solver import core, dual_kernels, kernels, reference
 
     smi, name = phase_device(torch)
+    if sys.argv[1:] == ["--profile"]:
+        profile_stagewise(torch, tg, sk, ss, smi)
+        return 0
     phase_build()
     if sys.argv[1:] == ["--sweep"]:
         sweep_stagewise(torch, tg, sk, ss, smi)

@@ -9,6 +9,7 @@ import torch
 
 import tpu_gpad
 from tpu_gpad import problems as jp
+from tpu_gpad.solver import SolverConfig
 
 import tpu_gpad_torch
 from tpu_gpad_torch import problems as tp
@@ -74,9 +75,41 @@ def test_controller_parameter_layouts():
 
 def test_controller_unported_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpu_gpad_torch.Controller(tp.battery(3, 6), polish=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpu_gpad_torch.Controller(tp.battery(3, 6), device="cpu").gain()
+
+
+# Polished moves are the float64 active-set optimum of the same QP in both
+# packages; they part only where the fp32 hints pick another active set,
+# which they do not here. 1e-6 is tpu_gpad's own bound against the exact QP
+# (tests/test_closed_loop.py::test_controller_with_polish_is_exact).
+POLISH_TOL = 1e-6
+
+
+def test_controller_polish_matches_tpu_gpad():
+    from tpu_gpad_torch.solver.qp import solve_condensed_qp
+
+    config = dict(iterations=60, restart=True)
+    c_j = tpu_gpad.Controller(jp.battery(3, 6), iterations=60, polish=True,
+                              config=SolverConfig(**config))
+    c_t = tpu_gpad_torch.Controller(
+        tp.battery(3, 6), iterations=60, polish=True, device="cpu",
+        config=tpu_gpad_torch.SolverConfig(**config))
+    A = np.asarray(c_j.problem.A, np.float64)
+    Bm = np.asarray(c_j.problem.B, np.float64)
+    X = _states(4, 3, seed=8).astype(np.float64)
+    for _ in range(5):
+        u_j = c_j.step(X.astype(np.float32))
+        u_t = c_t.step(X.astype(np.float32))
+        assert u_t.dtype == np.float32 and u_t.shape == (4, 3)
+        np.testing.assert_allclose(u_t, u_j, atol=POLISH_TOL, rtol=0)
+        for b in range(X.shape[0]):
+            exact = solve_condensed_qp(c_t.qp, X[b].astype(np.float32)).z
+            np.testing.assert_allclose(u_t[b], exact[: c_t.qp.n_u],
+                                       atol=POLISH_TOL, rtol=0)
+        X = X @ A.T + u_t.astype(np.float64) @ Bm.T
+    with pytest.raises(ValueError, match="polish"):
+        tpu_gpad_torch.Controller(tp.battery(3, 6), polish=True,
+                                  data=c_t.data, device="cpu")
 
 
 @pytest.mark.parametrize("warm_start", [False, True])

@@ -352,41 +352,55 @@ def _tiled_data(dev, n, N):
 
 
 TILED_CASES = {
-    # case: (battery shape, B, warm start, restart, diagnostics, tile)
-    "flagship_cold": ((30, 30), 256, None, False, True, None),
-    "flagship_warm": ((30, 30), 256, "per_scenario", False, True, None),
-    "flagship_warm_shared": ((30, 30), 33, "shared", False, True, None),
-    "flagship_restart": ((30, 30), 256, None, True, True, None),
+    # case: (battery shape, B, warm start, restart, diagnostics, tile,
+    # blocks per cluster of the dual kernel; None: the picks)
+    "flagship_cold": ((30, 30), 256, None, False, True, None, None),
+    "flagship_warm": ((30, 30), 256, "per_scenario", False, True, None, None),
+    "flagship_warm_shared": ((30, 30), 33, "shared", False, True, None, None),
+    "flagship_restart": ((30, 30), 256, None, True, True, None, None),
     "flagship_no_diagnostics": ((30, 30), 33, "per_scenario", False, False,
-                                None),
-    "flagship_B1": ((30, 30), 1, "per_scenario", False, True, None),
-    "flagship_B5": ((30, 30), 5, None, True, True, None),
-    "flagship_B33": ((30, 30), 33, None, False, True, None),
-    "n5N30": ((5, 30), 256, None, False, True, None),
-    "n5N30_restart": ((5, 30), 256, "per_scenario", True, True, None),
-    "n3N10_tile1": ((3, 10), 33, None, False, True, 0),
-    "n3N10_tile8": ((3, 10), 33, "per_scenario", True, True, 3),
+                                None, None),
+    "flagship_B1": ((30, 30), 1, "per_scenario", False, True, None, None),
+    "flagship_B1_restart": ((30, 30), 1, "per_scenario", True, True, None,
+                            None),
+    "flagship_B5": ((30, 30), 5, None, True, True, None, None),
+    "flagship_B33": ((30, 30), 33, None, False, True, None, None),
+    # 300 = 18 x 16 + 12: the last cluster's tile is partial
+    "flagship_B300_warm_restart": ((30, 30), 300, "per_scenario", True, True,
+                                   None, None),
+    "flagship_B300_cluster16": ((30, 30), 300, None, False, True, None, 16),
+    "n5N30": ((5, 30), 256, None, False, True, None, None),
+    "n5N30_restart": ((5, 30), 256, "per_scenario", True, True, None, None),
+    "n3N10_tile1": ((3, 10), 33, None, False, True, 0, None),
+    "n3N10_tile8": ((3, 10), 33, "per_scenario", True, True, 3, None),
+    # m_h 70: some blocks of a cluster own no columns
+    "n3N10_tile16_cluster16": ((3, 10), 33, "per_scenario", False, True, 4,
+                               16),
+    "n3N10_tile1_cluster1": ((3, 10), 33, None, True, True, 0, 1),
+    "n3N10_tile2_cluster2": ((3, 10), 33, "shared", False, True, 1, 2),
 }
 
 
 def _tiled_args(dev, case):
-    shape, B, warm, restart, diagnostics, tile = TILED_CASES[case]
+    shape, B, warm, restart, diagnostics, tile, cluster = TILED_CASES[case]
     data = _tiled_data(dev, *shape)
     g_P, p_D = _inputs(data, B, seed=B + 7)
     y0 = None
     if warm is not None:
         rows = B if warm == "per_scenario" else 1
         y0 = torch.rand((rows, 2, data.m_half), device=dev) * 0.5
-    return data, g_P, p_D, y0, restart, diagnostics, tile
+    return data, g_P, p_D, y0, restart, diagnostics, tile, cluster
 
 
 @pytest.mark.parametrize("case", list(TILED_CASES))
 def test_dual_tiled_kernel_matches_plain(dev, case):
-    data, g_P, p_D, y0, restart, diagnostics, tile = _tiled_args(dev, case)
+    data, g_P, p_D, y0, restart, diagnostics, tile, cluster = _tiled_args(
+        dev, case)
     kw = dict(iterations=ITERS, restart=restart, diagnostics=diagnostics)
     before = dual_kernels.DUAL_TILED_LAUNCHES
     out_k = dual_kernels.gpad_fixed_dual_tiled(data, g_P, p_D, y0,
-                                               log2_tile=tile, **kw)
+                                               log2_tile=tile, cluster=cluster,
+                                               **kw)
     assert dual_kernels.DUAL_TILED_LAUNCHES == before + 1
     out_p = dual_kernels.gpad_fixed_dual_torch(data, g_P, p_D, y0, **kw)
     torch.cuda.synchronize()
@@ -412,9 +426,9 @@ def _assert_restart_close(a, b):
 
 
 @pytest.mark.parametrize("case", [c for c, v in TILED_CASES.items()
-                                  if not v[3]])
+                                  if not v[3] and v[6] is None])
 def test_flat_tiled_kernel_matches_plain(dev, case):
-    data, g_P, p_D, y0, _, diagnostics, tile = _tiled_args(dev, case)
+    data, g_P, p_D, y0, _, diagnostics, tile, _ = _tiled_args(dev, case)
     kw = dict(iterations=ITERS, diagnostics=diagnostics)
     before = kernels.FLAT_TILED_LAUNCHES
     out_k = kernels.gpad_fixed_flat_tiled(data, g_P, p_D, y0, log2_tile=tile,
@@ -446,16 +460,19 @@ def test_tiled_kernels_zero_iterations(dev):
         torch.testing.assert_close(y, y0, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("B", [256, 1, 300])
 @pytest.mark.parametrize("restart", [False, True], ids=["plain", "restart"])
-def test_dual_tiled_chunks(dev, restart):
+def test_dual_tiled_chunks(dev, restart, B):
     """One window of 10 from k0 = 30 against the plain version, and ten
-    windows against one whole launch (bit for bit: the same body)."""
+    windows against one whole launch (bit for bit: the same body), from a
+    warm start; B 1 runs one scenario per cluster, B 300 a partial last
+    tile."""
     data = _tiled_data(dev, 30, 30)
-    g_P, p_D = _inputs(data, 256, seed=4)
+    g_P, p_D = _inputs(data, B, seed=4)
     c = dual_kernels.relu_offsets(data, g_P, p_D)
-    zero = torch.zeros((256, 2, data.m_half), device=dev)
-    start = (zero, zero, torch.zeros((256, data.m_half), device=dev),
-             torch.ones((256, 2), device=dev))
+    y0 = torch.rand((B, 2, data.m_half), device=dev) * 0.5
+    start = (y0, y0, torch.zeros((B, data.m_half), device=dev),
+             torch.ones((B, 2), device=dev))
     state = dual_kernels.gpad_dual_chunk_torch(data, c, *start, k0=0, chunk=30,
                                                restart=restart)[:4]
     before = dual_kernels.DUAL_TILED_CHUNK_LAUNCHES
@@ -475,7 +492,7 @@ def test_dual_tiled_chunks(dev, restart):
         *state, w = dual_kernels.gpad_dual_tiled_chunk(data, c, *state, k0=k0,
                                                        chunk=10,
                                                        restart=restart)
-    z, y, w_f, _ = dual_kernels.gpad_fixed_dual_tiled(data, g_P, p_D,
+    z, y, w_f, _ = dual_kernels.gpad_fixed_dual_tiled(data, g_P, p_D, y0,
                                                       iterations=ITERS,
                                                       restart=restart)
     torch.cuda.synchronize()
@@ -577,6 +594,33 @@ def test_stagewise_kernel_matches_plain(dev, kernel, case):
         assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
         if case != "restart" or name in ("u0", "zu"):
             torch.testing.assert_close(a, b, atol=tol, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("case", ["cold", "warm", "restart", "B1", "B67"])
+def test_stream_kernel_at_full_width(dev, case):
+    """The streamed kernel at battery n30 N200, the serving batch (64
+    plants) cold, warm and under restart, one plant, and 67 (a partial
+    last tile)."""
+    data = _sw_data(dev, 30, 200)
+    B = {"B1": 1, "B67": 67}.get(case, 64)
+    x0 = torch.as_tensor(np.random.default_rng(B).uniform(-0.4, 0.4, (B, 30)),
+                         dtype=torch.float32, device=dev)
+    y0 = None
+    if case in ("warm", "B1", "B67"):
+        y0 = ss.solve_stagewise_stream(data, 0.9 * x0, SW_ITERS)[2]
+    before = ss.STAGEWISE_STREAM_LAUNCHES
+    out_k, out_p = _sw_both(ss.solve_stagewise_stream, data, x0, y0,
+                            restart=case == "restart")
+    assert ss.STAGEWISE_STREAM_LAUNCHES == before + 1
+    if case == "restart":
+        assert all(bool(torch.isfinite(t).all()) for t in out_k)
+        _assert_restart_close(out_k[1].flatten(1), out_p[1].flatten(1))
+        return
+    for name, a, b in zip(("u0", "zu", "y", "residual", "gap"), out_k, out_p):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        # the gap sums 24,400 rows: its rounding grows with its size
+        rtol = 1e-4 if name == "gap" else 0
+        torch.testing.assert_close(a, b, atol=TOL, rtol=rtol, msg=name)
 
 
 def test_stagewise_routes_through_kernels(dev):

@@ -138,7 +138,11 @@ def test_shared_memory_guard():
     assert sk._smem_floats(d8, 8) == (shared, 4 * 60 * 8 * 8, 60 * 34 * 8)
     assert sk._smem_bytes(d8, 8, True, True) == 4 * (
         shared + 4 * 60 * 64 + 2 * 60 * 34 * 8) == 202800
-    assert sk._smem_bytes(d30, 2, False, True) == 215344  # n30 N200, T = 2
+    # n30 N200, T = 2, the streamed kernel: its chains' ring adds 16
+    # mbarrier words (4 x 8), 8 slots of 32 x 32 and 8 addend rows of 32
+    # per chain warp
+    assert sk._smem_bytes(d30, 2, False, True) == 215344 + 4 * (
+        32 + 8 * 32 * 32 + 8 * 32 * 2)
     assert sk.stagewise_fits_smem(d8, 8) and not sk.stagewise_fits_smem(d8, 16)
     # 8 per block fits (one block per SM), 4 leaves room for a second
     assert sk.blocks_per_sm(sk._smem_bytes(d8, 4, True, True)) == 2
@@ -152,10 +156,13 @@ def test_shared_memory_guard():
     # idle), the slope/plan slabs in device memory, two blocks per SM
     log2, aux_smem, smem = ss.stream_layout(d30, 1024, 132)
     assert (log2, aux_smem) == (2, False) and sk.blocks_per_sm(smem) == 2
-    # 64 plants: one scenario per block, whose slabs (115 KB) leave room
-    # for a second block on the SM; two scenarios' (215 KB) would not
+    # 64 plants: one scenario per block, whose slabs and ring (146 KB) take
+    # one block per SM, the grid still one wave; two scenarios' would not
+    # fit a block
     assert ss.stream_layout(d30, 64, 132)[:2] == (0, True)
-    assert sk.blocks_per_sm(sk._smem_bytes(d30, 2, False, True)) == 1
+    assert sk.blocks_per_sm(sk._smem_bytes(d30, 1, False, True)) == 1
+    assert ss.stream_layout(d30, 256, 132)[:2] == (0, False)  # two waves
+    assert sk._smem_bytes(d30, 2, False, True) > 227 * 1024
     # n8 N60 B4096: 8 scenarios per block, slabs in shared memory, and the
     # streamed kernel holds 16 scenarios per SM to the resident kernel's 8
     log2, aux_smem, smem = ss.stream_layout(d8, 4096, 132)

@@ -247,13 +247,44 @@ def test_tiled_guards():
     assert kernels.pick_flat_tiled_tiles(1830, 900) == 0
     assert dual_kernels.pick_tiled_tiles(60000) is None
     assert kernels.pick_flat_tiled_tiles(60000, 30000) is None
-    # the widest tile that keeps each kernel's minimum of blocks, at most 8
-    assert [dual_kernels.pick_tiled_tiles(1830, B)
-            for B in (1, 5, 255, 256, 1024, 4096)] == [0, 0, 2, 2, 3, 3]
+    # the dual kernels: the widest tile (at most 16 scenarios per cluster)
+    # the batch fills, on clusters of 16 blocks up to 16 clusters, else of
+    # 8; the flat one: the widest (at most 8 per block) that keeps 128
+    # blocks
+    Bs = (1, 2, 3, 5, 9, 17, 256, 257, 1024)
+    tiles = [dual_kernels.pick_tiled_tiles(1830, B) for B in Bs]
+    assert tiles == [0, 1, 2, 3, 4, 4, 4, 4, 4]
+    assert [dual_kernels.pick_tiled_cluster(t, B) for t, B in zip(tiles, Bs)
+            ] == [16] * 7 + [8, 8]
+    assert dual_kernels.pick_tiled_tiles(20000, 256) == 1  # 16 x wd too big
     assert [kernels.pick_flat_tiled_tiles(1830, 900, B)
             for B in (1, 33, 256, 1024)] == [0, 0, 1, 3]
-    assert dual_kernels._dual_tiled_smem_bytes(1830, 2) == 4 * (1830 + 16) * 4
+    # csrc carve-up by hand: wd of T scenarios (rows padded to 4), the row
+    # groups' partial sums (1024 columns x T), 16 cluster partials per
+    # scenario and 16 warp partials
+    assert dual_kernels._dual_tiled_smem_bytes(1830, 2) == 4 * (
+        4 * (1832 + 1024 + 16) + 16)
+    assert dual_kernels._dual_tiled_smem_bytes(1830, 4) == 183872
     assert kernels._flat_tiled_smem_bytes(1830, 900, 3) == 4 * 2730 * 8
+
+
+def test_tiled_launch_choices():
+    """The tiled dual wrappers' tile and cluster: the picks, or overrides
+    the kernels take (a tile up to 16 that fits, a cluster of 1 to 16
+    blocks, a power of two)."""
+    pick = dual_kernels._tiled_tile_or_raise
+    assert pick(1830, 256, None, None) == (4, 16)
+    assert pick(1830, 1024, None, None) == (4, 8)
+    assert pick(1830, 1, None, 8) == (0, 8)
+    assert pick(70, 33, 2, 1) == (2, 1)
+    for tile, cluster, match in ((5, None, "log2_tile"), (0, 3, "cluster"),
+                                 (0, 32, "cluster"), (-1, None, "log2_tile")):
+        with pytest.raises(ValueError, match=match):
+            pick(1830, 256, tile, cluster)
+    with pytest.raises(ValueError, match="shared memory"):
+        pick(20000, 256, 4, None)  # 16 scenarios' wd past 227 KB
+    with pytest.raises(ValueError, match="engine='torch'"):
+        pick(60000, 1, None, None)
 
 
 def test_tiled_fits_refusals(pair, flagship):

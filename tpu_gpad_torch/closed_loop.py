@@ -16,6 +16,7 @@ import torch
 
 from tpu_gpad_torch.condense import condense, dualize
 from tpu_gpad_torch.solver.core import SolverConfig, solve_batch
+from tpu_gpad_torch.solver.qp import polish_batch
 from tpu_gpad_torch.types import GPADData, LinearMPCProblem
 
 
@@ -146,8 +147,10 @@ class Controller:
     (``warm_start=True``). ``config`` takes any ``SolverConfig``: e.g.
     ``SolverConfig(iterations=60, restart=True)`` serves through the dual
     kernel on a CUDA device, and ``mode="eps"`` stops each sample at its
-    tolerance. ``reset()`` drops the warm start. ``polish`` and ``gain``
-    need ``solver/qp.py`` and ``diff.py``, not yet ported."""
+    tolerance. ``reset()`` drops the warm start. ``polish=True`` refines
+    each step's u* to the exact QP optimum on the host
+    (``solver.qp.polish_batch``, float64 NumPy), as ``tpu_gpad`` does;
+    ``gain`` needs ``diff.py``, not yet ported."""
 
     def __init__(
         self,
@@ -164,11 +167,6 @@ class Controller:
         polish: bool = False,
         device="cuda",
     ):
-        if polish:
-            raise NotImplementedError(
-                "polish=True needs solver/qp.py, not yet ported to "
-                "tpu_gpad_torch (ROADMAP Queue 1, item 5)"
-            )
         config = _with_iterations(config, iterations)
         if data is not None and (
             soft_state is not None or tracking or input_reference
@@ -178,6 +176,14 @@ class Controller:
                 "pass either a prebuilt `data` or soft_state/tracking, not "
                 "both: the controller cannot soften or re-parametrize a QP "
                 "that is already dualized"
+            )
+        if data is not None and polish:
+            raise ValueError(
+                "polish=True needs the controller's own condensed QP; with "
+                "a prebuilt `data` (e.g. move-blocked) the internally "
+                "condensed QP would not match the solved one: polish the "
+                "results yourself with solver.qp.polish_batch and the "
+                "matching QP"
             )
         self.qp = condense(
             problem,
@@ -198,6 +204,7 @@ class Controller:
         self.data = data
         self.config = config
         self.warm_start = warm_start
+        self.polish = polish
         self._y = None
         self._u_prev = None  # last applied move (rate-limited problems)
         self.last_result = None
@@ -287,9 +294,14 @@ class Controller:
         res = solve_batch(self.data, p, config=self.config, y0=y0)
         self._y = res.y
         self.last_result = res
-        u = res.u.cpu().numpy().astype(np.float32)
+        u_applied = res.u
+        if self.polish:  # the exact optimum, refined on the host in float64
+            Z, _ = polish_batch(self.qp, p.cpu().numpy(), res.z.cpu().numpy())
+            u_applied = torch.as_tensor(Z[:, : self.data.n_u],
+                                        dtype=torch.float32, device=p.device)
+        u = u_applied.cpu().numpy().astype(np.float32)
         if self.rate:
-            self._u_prev = res.u
+            self._u_prev = u_applied
         return u[0] if single else u
 
     def gain(self, tol: float = 1e-7, ridge: float = 0.0) -> np.ndarray:

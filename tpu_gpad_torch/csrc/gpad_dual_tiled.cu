@@ -23,37 +23,62 @@
 //
 // What bounds it: at the flagship an iteration is 2 m_h^2 = 6.7 MFLOP per
 // scenario, so B = 256 x 100 iterations is 171.5 GFLOP, 2.56 ms at the
-// card's FP32 rate. Each block reads all of D once per iteration, 13.4 MB
-// from L2 (D and the state fit the 50 MB L2), and does 2 T FLOP per D word
-// read: at small T the L2-to-SM traffic bounds it, at large T the FMA rate
-// of the few SMs that have a block.
+// card's FP32 rate. Every D word read from L2 feeds T FMAs per scenario
+// tile, so the L2-to-SM traffic is 4 m_h^2 B/T bytes per iteration: with
+// few scenarios per D word L2 bounds it, with many the FMA rate.
 //
-// Design: one block of 512 threads owns T scenarios (T a power of two
-// <= 8) for the whole launch, so the restart test, a sum over all of a
-// scenario's rows, stays inside the block and no grid-wide sync is needed.
-// The state (y, y_prev, w, s) lives in device memory, updated in place in
-// the output tensors; column i of every per-scenario array belongs to
-// thread i mod 512 in both phases, so a thread rereads only what it wrote.
-// Only wd, laid out [row][scenario], sits in shared memory. Phase A forms
-// w, wd and s; phase B runs the product with each thread holding up to 4
-// columns x T scenarios of accumulators in registers, so one coalesced D
-// load feeds T FMAs and one shared-memory read of wd feeds up to 4, then
-// projects its columns and sums its restart partials. The partials go
-// through a warp shuffle and one word per warp and scenario in shared
-// memory; after the barrier that ends the iteration every thread adds the
-// same 16 partials in the same order and reaches the same decision.
-// Products are plain fp32 FMA (precision "highest"). Staging D chunks with
-// TMA, clusters that share one D stream, and tensor cores are later work.
+// Design: a thread-block cluster of C blocks (512 threads each) owns a tile
+// of T scenarios (T a power of two <= 16) for the whole launch. Block r of
+// the cluster owns a slice of about m_h / C of the state's columns: it forms
+// w, wd and s for those rows, and computes d and the projection for those
+// columns, so it reads only its m_h x m_h / C slice of D per iteration.
+// Each block pushes its wd rows into every peer's shared memory (distributed
+// shared memory); after a cluster barrier every block holds the whole wd,
+// [row][scenario], and runs its product: the block's threads form groups
+// that split the rows j, each thread holding kCols columns x T scenarios
+// of accumulators, so one coalesced D load feeds T FMAs and one broadcast
+// shared-memory read of wd feeds kCols; the next rows' D words are in
+// flight meanwhile. The groups' partial sums meet in shared memory, in one order,
+// and the epilogue projects each column. Restart: each block's partials go
+// to every peer; after the second cluster barrier of the iteration every
+// thread adds the C block partials in the same order and every block
+// reaches the same decision. The state (y, y_prev, w, s) lives in device
+// memory (L2), updated in place in the output tensors; a block touches only
+// its own columns. Two cluster barriers per iteration: wd complete before
+// the products, wd consumed (and the restart partials in) before the next
+// iteration writes them. Products are plain fp32 FMA (precision "highest").
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "tiled_product.cuh"
+namespace cg = cooperative_groups;
 
 namespace {
 
-using gpad_tiled::kThreads;
-using gpad_tiled::kWarps;
-using gpad_tiled::product;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 16;
+// Columns of the product per thread and pass, and the D rows a thread
+// keeps in flight in registers. Neither 4 columns at 8 scenarios nor 8
+// rows at 16 was faster on an H100 80GB HBM3 at 700 W (PERF.md, the
+// tiled dual kernel's probes).
+constexpr int kCols = 2;
+template <int T>
+__host__ __device__ constexpr int rows_in_flight() {
+    return T >= 8 ? 4 : 8;
+}
+// the row groups' partial sums of one pass: groups x threads x kCols x T
+constexpr int kRedCols = kCols * kThreads;
+
+__host__ __device__ constexpr int up4(int x) { return (x + 3) & ~3; }
+
+// Floats of shared memory a block needs (mirrored by dual_kernels.py::
+// _dual_tiled_smem_bytes): the whole wd [row][t] (rows padded to 4), the
+// groups' partial sums, the cluster's restart partials [rank][t] and one
+// partial per warp.
+__host__ __device__ inline long long smem_floats(int m_h, int T) {
+    return (long long)T * (up4(m_h) + kRedCols + kMaxCluster) + kWarps;
+}
 
 // The block's view of the state: per-scenario arrays in device memory, the
 // (B, 2, m_h) pairs and (B, m_h) s, updated in place.
@@ -65,140 +90,260 @@ struct State {
     float* s;
 };
 
-// `n` iterations from schedule index k0 on the block's T scenarios (the
-// body shared by both kernels). th/thp are the scenarios' restart
-// recursions, held by every thread alike; on return the state holds the
-// state after iteration n - 1 with its restart decision applied, and w that
-// iteration's extrapolated point.
+// The block's share of its cluster's tile: rows [plo, phi) of wd, which it
+// writes and pushes (multiples of 4 up to m_h rounded to 4, so every
+// block's rows are whole float4s of wd), and of them the rows and columns
+// [lo, hi) of the state, those below m_h.
+struct Slice {
+    int rank, C, plo, phi, lo, hi;
+};
+
+__device__ Slice make_slice(int m_h, const cg::cluster_group& cl) {
+    Slice s;
+    s.rank = (int)cl.block_rank();
+    s.C = (int)cl.num_blocks();
+    const int m4 = up4(m_h);
+    const int W = up4((m4 + s.C - 1) / s.C);
+    s.plo = min(m4, s.rank * W);
+    s.phi = min(m4, s.plo + W);
+    s.lo = min(m_h, s.plo);
+    s.hi = min(m_h, s.phi);
+    return s;
+}
+
+// acc[q][t] = sum_{j in [j_lo, j_hi)} wd[j][t] D[j][col0 + q], ascending j,
+// for the CPT columns col0.. below c_end (zeros past it). The next U rows'
+// D words are loaded while the current U rows are multiplied.
+template <int T, int CPT, int U>
+__device__ __forceinline__ void product_rows(
+    const float* __restrict__ D, int m_h, int j_lo, int j_hi, int col0,
+    int c_end, const float* wd, float (&acc)[CPT][T])
+{
+    bool ok[CPT];
+    int col[CPT];
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) {
+        ok[q] = col0 + q < c_end;
+        col[q] = ok[q] ? col0 + q : 0;
+#pragma unroll
+        for (int t = 0; t < T; ++t) acc[q][t] = 0.0f;
+    }
+    const float* row = D + (long long)j_lo * m_h;
+    float next[U][CPT];
+    auto fetch = [&](int j0) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const bool in = j0 + u < j_hi;
+#pragma unroll
+            for (int q = 0; q < CPT; ++q)
+                next[u][q] = ok[q] && in
+                                 ? __ldg(row + (long long)u * m_h + col[q]) : 0.0f;
+        }
+    };
+    fetch(j_lo);
+    for (int j0 = j_lo; j0 < j_hi; j0 += U) {
+        float cur[U][CPT];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+            for (int q = 0; q < CPT; ++q) cur[u][q] = next[u][q];
+        row += (long long)U * m_h;
+        fetch(j0 + U);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int j = j0 + u;
+            if (j >= j_hi) break;
+            float vj[T];
+            if constexpr (T >= 4) {
+#pragma unroll
+                for (int t = 0; t < T; t += 4) {
+                    const float4 x =
+                        *reinterpret_cast<const float4*>(wd + j * T + t);
+                    vj[t] = x.x; vj[t + 1] = x.y; vj[t + 2] = x.z; vj[t + 3] = x.w;
+                }
+            } else {
+#pragma unroll
+                for (int t = 0; t < T; ++t) vj[t] = wd[j * T + t];
+            }
+#pragma unroll
+            for (int q = 0; q < CPT; ++q)
+#pragma unroll
+                for (int t = 0; t < T; ++t)
+                    acc[q][t] = fmaf(vj[t], cur[u][q], acc[q][t]);
+        }
+    }
+}
+
+// `n` iterations from schedule index k0 on the cluster's T scenarios (the
+// body shared by both kernels). Thread tid works on scenario t = tid /
+// (512 / T) in the elementwise phases; th/thp are that scenario's restart
+// recursion, held alike by every block of the cluster. On return the state
+// holds the state after iteration n - 1 with its restart decision applied,
+// and w that iteration's extrapolated point.
 template <int T>
 __device__ void dual_tiled_iterations(
     const float* __restrict__ D, const State& st, int B, int m_h, long long b0,
     int k0, int n, const float* __restrict__ theta,
-    const float* __restrict__ beta, bool restart, float (&th)[T],
-    float (&thp)[T], float* wd, float* rpart)
+    const float* __restrict__ beta, bool restart, float& th, float& thp,
+    float* smem, const Slice& sl, const cg::cluster_group& cl)
 {
+    constexpr int tps = kThreads / T;  // threads per scenario
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int t = tid / tps, lc = tid - t * tps;
+    float* wd = smem;                                 // [row][t]
+    float* red = wd + (long long)up4(m_h) * T;        // [group][t][column]
+    float* rcl = red + kRedCols * T;                  // [rank][t]
+    float* rpart = rcl + kMaxCluster * T;             // [warp]
     const long long h = 2LL * m_h;
-    int nv = (int)(B - b0);  // valid scenarios of the tile
-    if (nv > T) nv = T;
+    const bool valid = b0 + t < B;
+    const long long o = (b0 + t) * h, os = (b0 + t) * m_h;
+    // the product's groups: the fewest threads whose kCols columns each
+    // cover the block's columns in one pass, the rest split the rows j
+    const int W = sl.hi - sl.lo;
+    int tpg = 32;
+    while (tpg < kThreads && kCols * tpg < W) tpg <<= 1;
+    const int groups = kThreads / tpg, g = tid / tpg, lt = tid - g * tpg;
+    const int jr = (m_h + groups - 1) / groups;
+    const int j_lo = min(m_h, g * jr), j_hi = min(m_h, j_lo + jr);
     for (int k = 0; k <= n; ++k) {
-        // (A) iteration k - 1's restart decisions, then w, wd and s
-        bool reset[T];
-#pragma unroll
-        for (int t = 0; t < T; ++t) {
-            reset[t] = false;
-            if (restart && k > 0) {
-                float r = 0.0f;
-                for (int wp = 0; wp < kWarps; ++wp) r += rpart[wp * T + t];
-                reset[t] = r > 0.0f;
-                if (reset[t]) {
-                    th[t] = 1.0f;
-                    thp[t] = 1.0f;
-                } else {
-                    const float next = th[t] * (sqrtf(th[t] * th[t] + 4.0f) - th[t]) * 0.5f;
-                    thp[t] = th[t];
-                    th[t] = next;
-                }
+        // (A) iteration k - 1's restart decision, then w, wd and s
+        bool reset = false;
+        if (restart && k > 0) {
+            float r = 0.0f;
+            for (int q = 0; q < sl.C; ++q) r += rcl[q * T + t];
+            reset = r > 0.0f;
+            if (reset) {
+                th = 1.0f;
+                thp = 1.0f;
+            } else {
+                const float nx = th * (sqrtf(th * th + 4.0f) - th) * 0.5f;
+                thp = th;
+                th = nx;
             }
         }
         if (k == n) {  // the last decision: restarted scenarios take y_prev = y
-#pragma unroll
-            for (int t = 0; t < T; ++t) {
-                if (t >= nv || !reset[t]) continue;
-                const long long o = (b0 + t) * h;
-                for (int i = tid; i < m_h; i += kThreads) {
+            if (valid && reset)
+                for (int i = sl.lo + lc; i < sl.hi; i += tps) {
                     st.yprev[o + i] = st.y[o + i];
                     st.yprev[o + m_h + i] = st.y[o + m_h + i];
                 }
-            }
             break;
         }
-#pragma unroll
-        for (int t = 0; t < T; ++t) {
-            float theta_k, beta_k;
-            if (restart) {
-                theta_k = th[t];
-                beta_k = th[t] * (1.0f / thp[t] - 1.0f);
-            } else {
-                theta_k = theta[k0 + k];
-                beta_k = beta[k0 + k];
+        float theta_k, beta_k;
+        if (restart) {
+            theta_k = th;
+            beta_k = th * (1.0f / thp - 1.0f);
+        } else {
+            theta_k = theta[k0 + k];
+            beta_k = beta[k0 + k];
+        }
+        for (int i = sl.plo + lc; i < sl.phi; i += tps) {
+            if (!valid || i >= m_h) {
+                wd[i * T + t] = 0.0f;
+                continue;
             }
-            const long long o = (b0 + t) * h, os = (b0 + t) * m_h;
-            for (int i = tid; i < m_h; i += kThreads) {
-                if (t >= nv) {
-                    wd[i * T + t] = 0.0f;
-                    continue;
+            const float yp = st.y[o + i], ym = st.y[o + m_h + i];
+            const float ypp = reset ? yp : st.yprev[o + i];
+            const float ymp = reset ? ym : st.yprev[o + m_h + i];
+            const float wp = yp + beta_k * (yp - ypp);
+            const float wm = ym + beta_k * (ym - ymp);
+            st.w[o + i] = wp;
+            st.w[o + m_h + i] = wm;
+            const float d = wp - wm;
+            wd[i * T + t] = d;
+            const float sv = st.s[os + i];
+            st.s[os + i] = sv + theta_k * (d - sv);
+        }
+        __syncthreads();
+        {  // push the block's wd rows to every peer
+            const int n4 = (sl.phi - sl.plo) * T / 4;
+            float4* src = reinterpret_cast<float4*>(wd + (long long)sl.plo * T);
+            for (int e = tid; e < (sl.C - 1) * n4; e += kThreads) {
+                const int q = e / n4, x = e - q * n4;
+                const int peer = (sl.rank + 1 + q) % sl.C;
+                cl.map_shared_rank(src, peer)[x] = src[x];
+            }
+        }
+        cl.sync();
+        // (B) d = -(wd D) for the block's columns, projection, y_prev = y,
+        // restart partials
+        float rsum = 0.0f;
+        const int cpp = kCols * tpg;  // columns per pass
+        for (int p0 = sl.lo; p0 < sl.hi; p0 += cpp) {
+            const int pend = min(sl.hi, p0 + cpp);
+            float acc[kCols][T];
+            product_rows<T, kCols, rows_in_flight<T>()>(
+                D, m_h, j_lo, j_hi, p0 + kCols * lt, pend, wd, acc);
+#pragma unroll
+            for (int tt = 0; tt < T; ++tt)
+#pragma unroll
+                for (int q = 0; q < kCols; ++q)
+                    red[(g * T + tt) * cpp + kCols * lt + q] = acc[q][tt];
+            __syncthreads();
+            if (valid)
+                for (int i = p0 + lc; i < pend; i += tps) {
+                    const int x = i - p0;
+                    float a = 0.0f;
+                    for (int gg = 0; gg < groups; ++gg)
+                        a += red[(gg * T + t) * cpp + x];
+                    const float wp = st.w[o + i], wm = st.w[o + m_h + i];
+                    const float yp = st.y[o + i], ym = st.y[o + m_h + i];
+                    const float ypn = fmaxf(wp - a + st.c[o + i], 0.0f);
+                    const float ymn = fmaxf(wm + a + st.c[o + m_h + i], 0.0f);
+                    rsum += (wp - ypn) * (ypn - yp) + (wm - ymn) * (ymn - ym);
+                    st.yprev[o + i] = yp;
+                    st.yprev[o + m_h + i] = ym;
+                    st.y[o + i] = ypn;
+                    st.y[o + m_h + i] = ymn;
                 }
-                const float yp = st.y[o + i], ym = st.y[o + m_h + i];
-                const float ypp = reset[t] ? yp : st.yprev[o + i];
-                const float ymp = reset[t] ? ym : st.yprev[o + m_h + i];
-                const float wp = yp + beta_k * (yp - ypp);
-                const float wm = ym + beta_k * (ym - ymp);
-                st.w[o + i] = wp;
-                st.w[o + m_h + i] = wm;
-                const float d = wp - wm;
-                wd[i * T + t] = d;
-                const float sv = st.s[os + i];
-                st.s[os + i] = sv + theta_k * (d - sv);
+            __syncthreads();  // red is rewritten by the next pass
+        }
+        if (restart) {  // the block's partial per scenario, then to every peer
+            for (int off = 16; off > 0; off >>= 1)
+                rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+            if (lane == 0) rpart[warp] = rsum;
+            __syncthreads();
+            if (tid < T) {
+                constexpr int wps = kWarps / T;  // warps per scenario
+                float bp = 0.0f;
+                for (int q = 0; q < wps; ++q) bp += rpart[tid * wps + q];
+                for (int q = 0; q < sl.C; ++q)
+                    *cl.map_shared_rank(rcl + sl.rank * T + tid, q) = bp;
             }
         }
-        __syncthreads();
-        // (B) d = -(wd D), projection, y_prev = y, restart partials
-        float rsum[T];
-#pragma unroll
-        for (int t = 0; t < T; ++t) rsum[t] = 0.0f;
-        auto project = [&](int i, const float (&acc)[T]) {
-#pragma unroll
-            for (int t = 0; t < T; ++t) {
-                if (t >= nv) continue;
-                const long long o = (b0 + t) * h;
-                const float wp = st.w[o + i], wm = st.w[o + m_h + i];
-                const float yp = st.y[o + i], ym = st.y[o + m_h + i];
-                const float ypn = fmaxf(wp - acc[t] + st.c[o + i], 0.0f);
-                const float ymn = fmaxf(wm + acc[t] + st.c[o + m_h + i], 0.0f);
-                rsum[t] += (wp - ypn) * (ypn - yp) + (wm - ymn) * (ymn - ym);
-                st.yprev[o + i] = yp;
-                st.yprev[o + m_h + i] = ym;
-                st.y[o + i] = ypn;
-                st.y[o + m_h + i] = ymn;
-            }
-        };
-        product<T>(D, m_h, m_h, m_h, wd, project);
-        if (restart) {  // uniform over the block: every lane shuffles
-#pragma unroll
-            for (int t = 0; t < T; ++t) {
-                float r = rsum[t];
-                for (int off = 16; off > 0; off >>= 1)
-                    r += __shfl_xor_sync(0xffffffffu, r, off);
-                if (lane == 0) rpart[warp * T + t] = r;
-            }
-        }
-        __syncthreads();
+        cl.sync();
     }
-    __syncthreads();
 }
 
-// Copy (B, 2, m_h) rows of the tile from src (stride 0: one row shared by
-// every scenario; null: zeros) into dst.
+// Copy the block's columns of the tile's (B, 2, m_h) rows from src (stride
+// 0: one row shared by every scenario; null: zeros) into dst.
 __device__ void fill_pairs(float* dst, const float* __restrict__ src,
-                           long long stride, int m_h, long long b0, int nv)
+                           long long stride, int m_h, long long b0, int nv,
+                           const Slice& sl)
 {
+    const int W = sl.hi - sl.lo;
     const long long h = 2LL * m_h;
-    for (int idx = threadIdx.x; idx < nv * 2 * m_h; idx += kThreads) {
-        const int t = idx / (2 * m_h), r = idx - t * 2 * m_h;
-        dst[(b0 + t) * h + r] = src ? src[(b0 + t) * stride + r] : 0.0f;
+    for (int idx = threadIdx.x; idx < nv * 2 * W; idx += kThreads) {
+        const int t = idx / (2 * W), r = idx - t * 2 * W;
+        const int half = r / W, i = sl.lo + r - half * W;
+        const long long off = half * (long long)m_h + i;
+        dst[(b0 + t) * h + off] = src ? src[(b0 + t) * stride + off] : 0.0f;
     }
 }
 
 __device__ void fill_rows(float* dst, const float* __restrict__ src, int m_h,
-                          long long b0, int nv)
+                          long long b0, int nv, const Slice& sl)
 {
-    for (int idx = threadIdx.x; idx < nv * m_h; idx += kThreads)
-        dst[b0 * m_h + idx] = src ? src[b0 * m_h + idx] : 0.0f;
+    const int W = sl.hi - sl.lo;
+    for (int idx = threadIdx.x; idx < nv * W; idx += kThreads) {
+        const int t = idx / W, i = sl.lo + idx - t * W;
+        const long long off = (b0 + t) * m_h + i;
+        dst[off] = src ? src[off] : 0.0f;
+    }
 }
 
 template <int T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 gpad_dual_tiled_kernel(
     const float* __restrict__ D,      // (m_h, m_h)
     const float* __restrict__ c,      // (B, 2, m_h) relu offsets c+-
@@ -212,26 +357,25 @@ gpad_dual_tiled_kernel(
     float* yprev_buf,                 // (B, 2, m_h) scratch
     float* w_out)                     // (B, 2, m_h): the last w (or scratch)
 {
-    extern __shared__ float smem[];
-    float* wd = smem;                  // [i][t], m_h * T
-    float* rpart = wd + m_h * T;       // [warp][t], kWarps * T
-    const long long b0 = (long long)blockIdx.x * T;
+    extern __shared__ float4 smem4[];
+    const cg::cluster_group cl = cg::this_cluster();
+    const Slice sl = make_slice(m_h, cl);
+    const long long b0 = (long long)(blockIdx.x / sl.C) * T;
     const int nv = (int)min((long long)T, B - b0);
-    fill_pairs(y_out, y0, y0_stride, m_h, b0, nv);
-    fill_pairs(yprev_buf, y0, y0_stride, m_h, b0, nv);  // y_prev = y0
-    fill_pairs(w_out, nullptr, 0, m_h, b0, nv);          // an empty loop's w
-    fill_rows(s_out, nullptr, m_h, b0, nv);
-    __syncthreads();
-    float th[T], thp[T];
-#pragma unroll
-    for (int t = 0; t < T; ++t) th[t] = thp[t] = 1.0f;
+    fill_pairs(y_out, y0, y0_stride, m_h, b0, nv, sl);
+    fill_pairs(yprev_buf, y0, y0_stride, m_h, b0, nv, sl);  // y_prev = y0
+    fill_pairs(w_out, nullptr, 0, m_h, b0, nv, sl);          // an empty loop's w
+    fill_rows(s_out, nullptr, m_h, b0, nv, sl);
+    cl.sync();  // every block of the cluster has started (its wd exists)
+    float th = 1.0f, thp = 1.0f;
     const State st{c, y_out, yprev_buf, w_out, s_out};
     dual_tiled_iterations<T>(D, st, B, m_h, b0, 0, iterations, theta, beta,
-                             restart != 0, th, thp, wd, rpart);
+                             restart != 0, th, thp,
+                             reinterpret_cast<float*>(smem4), sl, cl);
 }
 
 template <int T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 gpad_dual_tiled_chunk_kernel(
     const float* __restrict__ D, const float* __restrict__ c,
     const float* __restrict__ y_in,      // (B, 2, m_h)
@@ -245,95 +389,98 @@ gpad_dual_tiled_chunk_kernel(
     float* __restrict__ mom_out,         // (B, 2)
     float* w_out)                        // (B, 2, m_h)
 {
-    extern __shared__ float smem[];
-    float* wd = smem;
-    float* rpart = wd + m_h * T;
-    const long long b0 = (long long)blockIdx.x * T;
+    extern __shared__ float4 smem4[];
+    const cg::cluster_group cl = cg::this_cluster();
+    const Slice sl = make_slice(m_h, cl);
+    const long long b0 = (long long)(blockIdx.x / sl.C) * T;
     const int nv = (int)min((long long)T, B - b0);
-    fill_pairs(y_out, y_in, 2LL * m_h, m_h, b0, nv);
-    fill_pairs(yprev_out, yprev_in, 2LL * m_h, m_h, b0, nv);
-    fill_pairs(w_out, nullptr, 0, m_h, b0, nv);
-    fill_rows(s_out, s_in, m_h, b0, nv);
-    __syncthreads();
-    float th[T], thp[T];
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-        th[t] = t < nv ? mom_in[2 * (b0 + t)] : 1.0f;
-        thp[t] = t < nv ? mom_in[2 * (b0 + t) + 1] : 1.0f;
-    }
+    fill_pairs(y_out, y_in, 2LL * m_h, m_h, b0, nv, sl);
+    fill_pairs(yprev_out, yprev_in, 2LL * m_h, m_h, b0, nv, sl);
+    fill_pairs(w_out, nullptr, 0, m_h, b0, nv, sl);
+    fill_rows(s_out, s_in, m_h, b0, nv, sl);
+    cl.sync();
+    const int t = threadIdx.x / (kThreads / T);
+    const bool valid = t < nv;
+    float th = valid ? mom_in[2 * (b0 + t)] : 1.0f;
+    float thp = valid ? mom_in[2 * (b0 + t) + 1] : 1.0f;
     const State st{c, y_out, yprev_out, w_out, s_out};
     dual_tiled_iterations<T>(D, st, B, m_h, b0, k0, chunk, theta, beta,
-                             restart != 0, th, thp, wd, rpart);
-    if (threadIdx.x == 0)
-        for (int t = 0; t < nv; ++t) {
-            mom_out[2 * (b0 + t)] = th[t];
-            mom_out[2 * (b0 + t) + 1] = thp[t];
-        }
+                             restart != 0, th, thp,
+                             reinterpret_cast<float*>(smem4), sl, cl);
+    if (sl.rank == 0 && valid && threadIdx.x % (kThreads / T) == 0) {
+        mom_out[2 * (b0 + t)] = th;
+        mom_out[2 * (b0 + t) + 1] = thp;
+    }
 }
 
-template <int T>
-int launch_fixed(const float* D, const float* c, const float* y0,
-                 long long y0_stride, const float* theta, const float* beta,
-                 int B, int m_h, int iterations, int restart, float* s_out,
-                 float* y_out, float* yprev_buf, float* w_out, int smem,
-                 cudaStream_t stream)
+// Launch `kernel` on clusters of `cluster` blocks, one cluster per tile of
+// T scenarios.
+template <typename... P, typename... A>
+int launch(void (*kernel)(P...), int B, int T, int cluster, int smem,
+           cudaStream_t stream, A... args)
 {
     cudaError_t err = cudaFuncSetAttribute(
-        gpad_dual_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess && cluster > 8)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
-    gpad_dual_tiled_kernel<T><<<(B + T - 1) / T, kThreads, (size_t)smem,
-                                stream>>>(
-        D, c, y0, y0_stride, theta, beta, B, m_h, iterations, restart, s_out,
-        y_out, yprev_buf, w_out);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(((B + T - 1) / T) * cluster));
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 
-template <int T>
-int launch_chunk(const float* D, const float* c, const float* y_in,
-                 const float* yprev_in, const float* s_in, const float* mom_in,
-                 const float* theta, const float* beta, int B, int m_h, int k0,
-                 int chunk, int restart, float* y_out, float* yprev_out,
-                 float* s_out, float* mom_out, float* w_out, int smem,
-                 cudaStream_t stream)
+bool bad_launch(int B, int m_h, int log2_tile, int cluster, int smem)
 {
-    cudaError_t err = cudaFuncSetAttribute(
-        gpad_dual_tiled_chunk_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    gpad_dual_tiled_chunk_kernel<T><<<(B + T - 1) / T, kThreads, (size_t)smem,
-                                      stream>>>(
-        D, c, y_in, yprev_in, s_in, mom_in, theta, beta, B, m_h, k0, chunk,
-        restart, y_out, yprev_out, s_out, mom_out, w_out);
-    return (int)cudaGetLastError();
+    if (B < 1 || m_h < 1 || log2_tile < 0 || log2_tile > 4) return true;
+    if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)))
+        return true;
+    return 4 * smem_floats(m_h, 1 << log2_tile) > smem;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Both launchers run on `stream` and return cudaGetLastError() (0 on
-// success). `smem` is the block's dynamic shared memory in bytes, computed
-// by the caller (dual_kernels.py::_dual_tiled_smem_bytes) so the routing
-// guard and the launch agree; log2_tile must be in [0, 3].
+// Both launchers run on `stream` and return a cudaError_t (0 on success):
+// cudaErrorInvalidValue for a tile outside [0, 4], a cluster that is not a
+// power of two up to 16, or `smem` below the carve-up's need, else the
+// launch's error. `smem` is the block's dynamic shared memory in bytes,
+// computed by the caller (dual_kernels.py::_dual_tiled_smem_bytes) so the
+// routing guard and the launch agree. A cluster of `cluster` blocks owns
+// 2**log2_tile scenarios.
 
 int gpad_dual_tiled_launch(
     const float* D, const float* c, const float* y0, long long y0_stride,
     const float* theta, const float* beta, int B, int m_h, int iterations,
-    int restart, int log2_tile, float* s_out, float* y_out, float* yprev_buf,
-    float* w_out, int smem, void* stream)
+    int restart, int log2_tile, int cluster, float* s_out, float* y_out,
+    float* yprev_buf, float* w_out, int smem, void* stream)
 {
+    if (bad_launch(B, m_h, log2_tile, cluster, smem))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
 #define GPAD_FIXED(T)                                                         \
-    return launch_fixed<T>(D, c, y0, y0_stride, theta, beta, B, m_h,          \
-                           iterations, restart, s_out, y_out, yprev_buf,      \
-                           w_out, smem, st)
+    return launch(gpad_dual_tiled_kernel<T>, B, T, cluster, smem, st, D, c,   \
+                  y0, y0_stride, theta, beta, B, m_h, iterations, restart,    \
+                  s_out, y_out, yprev_buf, w_out)
     switch (log2_tile) {
         case 0: GPAD_FIXED(1);
         case 1: GPAD_FIXED(2);
         case 2: GPAD_FIXED(4);
         case 3: GPAD_FIXED(8);
-        default: return (int)cudaErrorInvalidValue;
+        default: GPAD_FIXED(16);
     }
 #undef GPAD_FIXED
 }
@@ -342,20 +489,22 @@ int gpad_dual_tiled_chunk_launch(
     const float* D, const float* c, const float* y_in, const float* yprev_in,
     const float* s_in, const float* mom_in, const float* theta,
     const float* beta, int B, int m_h, int k0, int chunk, int restart,
-    int log2_tile, float* y_out, float* yprev_out, float* s_out,
+    int log2_tile, int cluster, float* y_out, float* yprev_out, float* s_out,
     float* mom_out, float* w_out, int smem, void* stream)
 {
+    if (bad_launch(B, m_h, log2_tile, cluster, smem))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
 #define GPAD_CHUNK(T)                                                         \
-    return launch_chunk<T>(D, c, y_in, yprev_in, s_in, mom_in, theta, beta,   \
-                           B, m_h, k0, chunk, restart, y_out, yprev_out,      \
-                           s_out, mom_out, w_out, smem, st)
+    return launch(gpad_dual_tiled_chunk_kernel<T>, B, T, cluster, smem, st,   \
+                  D, c, y_in, yprev_in, s_in, mom_in, theta, beta, B, m_h,    \
+                  k0, chunk, restart, y_out, yprev_out, s_out, mom_out, w_out)
     switch (log2_tile) {
         case 0: GPAD_CHUNK(1);
         case 1: GPAD_CHUNK(2);
         case 2: GPAD_CHUNK(4);
         case 3: GPAD_CHUNK(8);
-        default: return (int)cudaErrorInvalidValue;
+        default: GPAD_CHUNK(16);
     }
 #undef GPAD_CHUNK
 }

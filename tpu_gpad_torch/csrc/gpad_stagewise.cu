@@ -41,12 +41,12 @@
 // at N200 B1024 x 200 iterations) and about 2.1 kFLOP at n8 (52 GFLOP, about
 // 0.8 ms, at N60 B4096 x 100). The bytes a solve must move once are a few
 // hundred MB at most (under 0.1 ms), so the roofline says operation-bound.
-// What binds in practice: the two chains of N dependent stage steps per
-// iteration. On an H100 80GB HBM3 at 700 W (PERF.md, chip_smoke.py) the
-// streamed kernel took 339 ms at n30 N200 B1024 x 200, 19x its bound, and
-// the resident one 8.2 ms at n8 N60 B1024 x 100, 42x. The streamed
-// kernel's dual slabs also cross HBM every iteration (about 0.5 GB per
-// iteration at n30 N200 B1024, not measured). What the design does:
+// What binds in practice: latency, not throughput. Every phase walks its
+// stages with loads from L2 that wait one after another, and the two
+// chains of N dependent stage steps per iteration run on one warp per
+// scenario (chip_smoke.py --profile splits a solve by phase; PERF.md).
+// The streamed kernel's dual slabs also cross HBM every iteration (about
+// 0.5 GB per iteration at n30 N200 B1024). What the design does:
 //   - a block holds a tile of T <= 8 scenarios; every per-scenario slab is
 //     laid out [stage][row][scenario], so the T values of one row sit side
 //     by side (one vector access) and a warp's lanes walk consecutive rows
@@ -58,9 +58,12 @@
 //     coalesced, through L2 (about 6 MB at n30 N200, far under its 50 MB);
 //   - the chains keep the carried vector in registers, one warp per
 //     scenario, lane i owning row i and reading the others by shuffle, so a
-//     chain step needs no barrier; the next step's matrix rows are loaded
-//     while the current step runs, and those 8 steps on are prefetched into
-//     L1 (a step waits on nothing slower than L1);
+//     chain step needs no barrier. In the resident kernel the next step's
+//     matrix rows are loaded while the current step runs, and those 8 steps
+//     on are prefetched into L1; in the streamed kernel the matrices come
+//     through a ring of 8 stage blocks in shared memory that the bulk-copy
+//     engine fills 8 steps ahead (chain_ring), so a step waits on shared
+//     memory only;
 //   - the dual slabs in device memory stream with evict-first hints, so
 //     the constants stay in L2; each phase prefetches its warp's next stage;
 //   - seven block barriers per iteration.
@@ -84,6 +87,34 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLoadBatch = 4;  // device-memory loads a lane keeps in flight
 constexpr int kAhead = 8;      // stages a chain prefetches ahead into L1
+
+// Built with -DGPAD_SW_PROFILE (chip_smoke.py --profile), thread 0 of every
+// block adds the clock64() cycles between the block barriers that end the
+// phases of an iteration into g_phase_cycles: decision, P1, P1b, CB, P3,
+// CF, P4, then the epilogue; gpad_stagewise_profile_read() returns and
+// clears them. Without it the marks compile to nothing.
+constexpr int kPhases = 8;
+#ifdef GPAD_SW_PROFILE
+__device__ unsigned long long g_phase_cycles[kPhases];
+#define SW_CLOCK long long clk_t_ = clock64(), clk_acc_[kPhases] = {}
+#define SW_MARK(i)                                                     \
+    do {                                                               \
+        const long long now_ = clock64();                              \
+        clk_acc_[i] += now_ - clk_t_;                                  \
+        clk_t_ = now_;                                                 \
+    } while (0)
+#define SW_FLUSH()                                                     \
+    do {                                                               \
+        if (threadIdx.x == 0)                                          \
+            for (int i_ = 0; i_ < kPhases; ++i_)                       \
+                atomicAdd(&g_phase_cycles[i_],                         \
+                          (unsigned long long)clk_acc_[i_]);           \
+    } while (0)
+#else
+#define SW_CLOCK
+#define SW_MARK(i) ((void)0)
+#define SW_FLUSH() ((void)0)
+#endif
 
 // Bring the line holding `p` into L1. Generic addressing: on a shared-memory
 // address the prefetch does nothing.
@@ -250,10 +281,16 @@ struct Consts {
     const float* __restrict__ V;    // (N, 3, n)      dtl, qoff, c
     const float* __restrict__ theta;
     const float* __restrict__ beta;
+    // streamed kernel: (2, N, n, 32) the chains' matrices, rows padded to
+    // 128 bytes: [0][k] the E' block of R'_{k+1}, [1][k] the E block of M'_k
+    const float* __restrict__ chainE;
 };
 
 struct Shared {
     float *Gx, *Gu, *x0, *wbuf, *rpart, *vpart, *mom;
+    // streamed kernel: the chains' ring (see chain_ring)
+    unsigned long long* mbar;
+    float *ring, *aring;
 };
 
 template <int T>
@@ -376,6 +413,124 @@ __device__ void chain(const State<T>& S, int s, const float* __restrict__ base,
     }
 }
 
+// The streamed kernel's chains read their matrices from a ring of kRing
+// stage blocks in shared memory, filled by the bulk-copy (TMA) engine
+// kRing steps ahead: a "full" mbarrier per slot says its block landed, an
+// "empty" one that every chain warp has read it. Addends that live in
+// device memory come through a per-warp ring filled by cp.async. A step
+// waits on shared memory only.
+constexpr int kRing = 8;
+constexpr int kRingBlock = 32 * 32;  // floats of a slot: n <= 32 rows of 32
+
+__host__ __device__ inline int ring_floats(int T) {
+    return up4(4 * kRing) + kRing * kRingBlock + kRing * 32 * T;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ float lds(const float* p) {
+    float v;
+    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(smem_addr(p)));
+    return v;
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n"
+        "WAIT_%=:\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+        "@!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+        "r"(parity) : "memory");
+}
+
+// One chain over the horizon for scenario s (one warp; lane i owns row i),
+// as chain() computes it, with the matrix of step t at
+// blocks + stage(t) * n * 32 through the ring. The chain warps 0..T-1 walk
+// the same stages; thread 0 refills the slot of step t - 1 once every
+// chain warp has released it. `use` counts the ring's slots consumed so
+// far, alike in every chain thread.
+template <int T, int NMAX>
+__device__ void chain_ring(const State<T>& S, const Shared& sh, int s,
+                           const float* __restrict__ blocks, const Dims& d,
+                           bool backward, float v, unsigned& use) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n = d.n, N = d.N;
+    const bool own = lane < n;
+    const int steps = backward ? N - 1 : N;
+    const unsigned bytes = (unsigned)(n * 32 * 4);
+    unsigned long long* full = sh.mbar;
+    unsigned long long* empty = sh.mbar + kRing;
+    auto stage = [&](int t) { return backward ? N - 2 - t : t; };
+    auto issue = [&](int t) {  // thread 0: the block of step t
+        const unsigned slot = (use + t) % kRing;
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                smem_addr(full + slot)), "r"(bytes) : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];" ::"r"(smem_addr(sh.ring + slot * kRingBlock)),
+            "l"(blocks + (long long)stage(t) * n * 32), "r"(bytes),
+            "r"(smem_addr(full + slot)) : "memory");
+    };
+    // addends in shared memory are read in place; in device memory they
+    // come through the warp's ring, one cp.async group per step
+    const bool st_global = !__isShared(S.st.p);
+    float* aring = sh.aring + warp * kRing * 32;
+    auto addend = [&](int t) {
+        if (!st_global) return;
+        if (t < steps && own) {
+            const unsigned slot = (use + t) % kRing;
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                             smem_addr(aring + slot * 32 + lane)),
+                         "l"(S.st.at(stage(t), lane) + s));
+        }
+        asm volatile("cp.async.commit_group;" ::);
+    };
+    for (int t = 0; t < kRing; ++t) {
+        if (threadIdx.x == 0 && t < steps) issue(t);
+        addend(t);
+    }
+    for (int t = 0; t < steps; ++t) {
+        const unsigned g = use + t, slot = g % kRing;
+        mbar_wait(full + slot, (g / kRing) & 1);
+        float a = 0.0f;
+        if (st_global) {
+            asm volatile("cp.async.wait_group %0;" ::"n"(kRing - 1));
+            __syncwarp();
+            if (own) a = aring[slot * 32 + lane];
+        } else if (own) {
+            a = S.st.at(stage(t), lane)[s];
+        }
+        // every lane shuffles every row: a shuffle under a condition the
+        // compiler cannot prove uniform costs a reconvergence per row
+        const float* e = sh.ring + slot * kRingBlock + lane;
+        float acc[4] = {a, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < NMAX; ++j) {
+            const float vj = __shfl_sync(kFull, v, j);
+            acc[j & 3] = fmaf(own && j < n ? lds(e + j * 32) : 0.0f, vj,
+                              acc[j & 3]);
+        }
+        v = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        __syncwarp();  // the warp's reads of the slot are done
+        if (lane == 0)
+            asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                             smem_addr(empty + slot)) : "memory");
+        if (own) S.st.at(stage(t), lane)[s] = v;
+        if (threadIdx.x == 0 && t >= 1 && t - 1 + kRing < steps) {
+            const unsigned gp = g - 1;  // refill step t - 1's slot
+            mbar_wait(empty + gp % kRing, (gp / kRing) & 1);
+            issue(t - 1 + kRing);
+        }
+        addend(t + kRing);
+    }
+    if (st_global) asm volatile("cp.async.wait_group 0;" ::: "memory");
+    use += steps;
+}
+
 // gg = row r of G [x; u] for the tile: a state row of Gx against x, or an
 // input row of Gu against u, both [j][s] with T scenarios per entry.
 template <int T, int NMAX>
@@ -413,7 +568,9 @@ __device__ void stagewise_iterations(const State<T>& S, const Shared& sh,
     const int N = d.N, n = d.n, p = d.p, m = d.m, m_x = d.m_x, m_u = d.m_u;
     const int np = d.np;
     float* wb = sh.wbuf + warp * d.wb;
+    unsigned ring_use = 0;        // the streamed chains' ring slots consumed
     float th = 1.0f, thp = 1.0f;  // scenario tid's recursion (tid < T)
+    SW_CLOCK;
     for (int it = 0; it < iterations; ++it) {
         if (tid < T) {
             bool reset = false;
@@ -435,6 +592,7 @@ __device__ void stagewise_iterations(const State<T>& S, const Shared& sh,
             sh.mom[2 * T + tid] = reset ? 1.0f : 0.0f;
         }
         __syncthreads();
+        SW_MARK(0);
         float theta[T], beta[T], keep[T];  // keep = 0 where y_prev reads as y
 #pragma unroll
         for (int s = 0; s < T; ++s) {
@@ -497,6 +655,7 @@ __device__ void stagewise_iterations(const State<T>& S, const Shared& sh,
             }
         }
         __syncthreads();
+        SW_MARK(1);
         // P1b: st_k += -K'_{k+1} ru_{k+1}, rows n.. of R'_{k+1}
         for (int k = warp; k < N - 1; k += kWarps) {
             const float* Kk = c.RT + ((long long)(k + 1) * np + n) * n;
@@ -524,12 +683,17 @@ __device__ void stagewise_iterations(const State<T>& S, const Shared& sh,
             }
         }
         __syncthreads();
+        SW_MARK(2);
         // CB: the backward chain through the E' block of R'_{k+1}
         if (warp < T) {
             const float v = lane < n ? S.st.at(N - 1, lane)[warp] : 0.0f;
-            chain<T, NMAX>(S, warp, c.RT, (long long)np * n, n, d, true, v);
+            if constexpr (kGY)
+                chain_ring<T, NMAX>(S, sh, warp, c.chainE, d, true, v, ring_use);
+            else
+                chain<T, NMAX>(S, warp, c.RT, (long long)np * n, n, d, true, v);
         }
         __syncthreads();
+        SW_MARK(3);
         // P3: kff_k = HB_k [st_k + dtl_k; ru_k], st_k <- M_k [0; kff_k]_top + c_k
         for (int k = warp; k < N; k += kWarps) {
             const float* HBk = c.HBT + (long long)k * np * p;
@@ -591,12 +755,19 @@ __device__ void stagewise_iterations(const State<T>& S, const Shared& sh,
             __syncwarp();
         }
         __syncthreads();
+        SW_MARK(4);
         // CF: the forward chain through the E block of M', from x0
         if (warp < T) {
             const float v = lane < n ? sh.x0[lane * T + warp] : 0.0f;
-            chain<T, NMAX>(S, warp, c.MT, (long long)np * np, np, d, false, v);
+            if constexpr (kGY)
+                chain_ring<T, NMAX>(S, sh, warp,
+                                    c.chainE + (long long)d.N * n * 32, d,
+                                    false, v, ring_use);
+            else
+                chain<T, NMAX>(S, warp, c.MT, (long long)np * np, np, d, false, v);
         }
         __syncthreads();
+        SW_MARK(5);
         // P4: u_k = M_k [x_k; kff_k]_bottom, averaging, the dual step
         float rsum[T];
         zeroT(rsum);
@@ -667,7 +838,9 @@ __device__ void stagewise_iterations(const State<T>& S, const Shared& sh,
             }
         }
         __syncthreads();
+        SW_MARK(6);
     }
+    SW_FLUSH();
 }
 
 // Residual max(G z - h, 0) and gap -y'(G z - h) on the averaged plan rolled
@@ -679,6 +852,7 @@ __device__ void epilogue(const State<T>& S, const Shared& sh, const Consts& c,
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int N = d.N, n = d.n, p = d.p, m = d.m;
     const int np = d.np;
+    SW_CLOCK;
     if (warp < T) {  // rollout, one warp per scenario, x_{k+1} into st_k
         const int s = warp;
         float x = lane < n ? sh.x0[lane * T + s] : 0.0f;
@@ -756,6 +930,8 @@ __device__ void epilogue(const State<T>& S, const Shared& sh, const Consts& c,
         residual[b0 + tid] = fmaxf(vm, 0.0f);
         gap[b0 + tid] = -gs;
     }
+    SW_MARK(7);
+    SW_FLUSH();
 }
 
 // A slab of the tile's scenarios out to public (B, N * W) storage.
@@ -827,9 +1003,27 @@ gpad_stagewise_stream_kernel(Args a) {
     const long long ys = dual_floats(d, T);
     S.y = {a.y_work + blockIdx.x * ys, d.m};
     S.yp = {a.yp_work + blockIdx.x * ys, d.m};
-    carve_aux<T>(S, a.aux ? a.aux + blockIdx.x * (long long)aux_floats(d, T)
-                          : smem + shared_floats(d, T), d);
-    solve_tile<T, NMAX, true>(a, S, sh, b0);
+    float* next = smem + shared_floats(d, T);
+    if (a.aux) {
+        carve_aux<T>(S, a.aux + blockIdx.x * (long long)aux_floats(d, T), d);
+    } else {
+        carve_aux<T>(S, next, d);
+        next += aux_floats(d, T);
+    }
+    Shared shr = sh;
+    shr.mbar = reinterpret_cast<unsigned long long*>(next);  // full, empty
+    shr.ring = next + up4(4 * kRing);
+    shr.aring = shr.ring + kRing * kRingBlock;
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < kRing; ++i) {
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                             smem_addr(shr.mbar + i)) : "memory");
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                             smem_addr(shr.mbar + kRing + i)), "r"(T) : "memory");
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    solve_tile<T, NMAX, true>(a, S, shr, b0);
 }
 
 int nmax_of(int n, int p) {
@@ -878,13 +1072,14 @@ cudaError_t launch_stream(const Args& a, int T, int nmax, int smem,
 #undef GPAD_SW_LAUNCH
 
 Args make_args(const float* RT, const float* HBT, const float* MT,
+               const float* chainE,
                const float* Gx, const float* Gu, const float* h,
                const float* V, const float* theta, const float* beta,
                const float* L, const float* x0, const float* y0,
                long long y0_stride, int B, int N, int n, int p, int m_x,
                int m_u, int iterations, int restart, int log2_tile) {
     Args a{};
-    a.c = {RT, HBT, MT, h, V, theta, beta};
+    a.c = {RT, HBT, MT, h, V, theta, beta, chainE};
     a.Gx = Gx;
     a.Gu = Gu;
     a.L = L;
@@ -924,9 +1119,9 @@ int gpad_stagewise_launch(
 {
     if (bad_shape(B, N, n, p, m_x, m_u, log2_tile))
         return (int)cudaErrorInvalidValue;
-    Args a = make_args(RT, HBT, MT, Gx, Gu, h, V, theta, beta, L, x0, y0,
-                       y0_stride, B, N, n, p, m_x, m_u, iterations, restart,
-                       log2_tile);
+    Args a = make_args(RT, HBT, MT, nullptr, Gx, Gu, h, V, theta, beta, L,
+                       x0, y0, y0_stride, B, N, n, p, m_x, m_u, iterations,
+                       restart, log2_tile);
     const int T = 1 << log2_tile;
     const long long need = 4LL * (shared_floats(a.d, T) + aux_floats(a.d, T) +
                                   2LL * dual_floats(a.d, T));
@@ -942,9 +1137,11 @@ int gpad_stagewise_launch(
 // y_work and yp_work hold dual_floats(T) floats per block of T scenarios
 // (the kernel's own layout); y_out is the public (B, N, m) result. `aux` is
 // null (st, zu, ru, kff in shared memory) or aux_floats(T) floats of device
-// memory per block.
+// memory per block. `chainE`, the first argument, holds the chains'
+// matrices, (2, N, n, 32).
 int gpad_stagewise_stream_launch(
-    const float* RT, const float* HBT, const float* MT, const float* Gx,
+    const float* chainE, const float* RT, const float* HBT, const float* MT,
+    const float* Gx,
     const float* Gu, const float* h, const float* V, const float* theta,
     const float* beta, const float* L, const float* x0, const float* y0,
     long long y0_stride, int B, int N, int n, int p, int m_x, int m_u,
@@ -954,11 +1151,11 @@ int gpad_stagewise_stream_launch(
 {
     if (bad_shape(B, N, n, p, m_x, m_u, log2_tile))
         return (int)cudaErrorInvalidValue;
-    Args a = make_args(RT, HBT, MT, Gx, Gu, h, V, theta, beta, L, x0, y0,
-                       y0_stride, B, N, n, p, m_x, m_u, iterations, restart,
-                       log2_tile);
+    Args a = make_args(RT, HBT, MT, chainE, Gx, Gu, h, V, theta, beta, L,
+                       x0, y0, y0_stride, B, N, n, p, m_x, m_u, iterations,
+                       restart, log2_tile);
     const int T = 1 << log2_tile;
-    const long long need = 4LL * (shared_floats(a.d, T) +
+    const long long need = 4LL * (shared_floats(a.d, T) + ring_floats(T) +
                                   (aux ? 0LL : (long long)aux_floats(a.d, T)));
     if (need > smem) return (int)cudaErrorInvalidValue;
     a.y_work = y_work;
@@ -971,5 +1168,18 @@ int gpad_stagewise_stream_launch(
     return (int)launch_stream(a, T, nmax_of(n, p), smem,
                               (cudaStream_t)stream);
 }
+
+#ifdef GPAD_SW_PROFILE
+// The phases' cycles summed over the blocks since the last read, into
+// out[kPhases]; clears them.
+int gpad_stagewise_profile_read(unsigned long long* out)
+{
+    cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_cycles,
+                                           sizeof(g_phase_cycles));
+    if (err != cudaSuccess) return (int)err;
+    const unsigned long long zero[kPhases] = {};
+    return (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-// The product of the streamed GPAD kernels (csrc/gpad_dual_tiled.cu,
-// csrc/gpad_flat_tiled.cu): v M for a block's T scenarios, with M a
-// row-major operand read from device memory (L2) and v in shared memory.
+// The product of the flat tiled GPAD kernel (csrc/gpad_flat_tiled.cu): v M
+// for a block's T scenarios, with M a row-major operand read from device
+// memory (L2) and v in shared memory.
 //
 // Each of the block's kThreads threads owns the output columns
 // c = tid (mod kThreads) and holds up to kMaxCols of them x T scenarios of

@@ -49,43 +49,48 @@ def _nvcc() -> str:
     return found
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
-    return load_all([name])[0]
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if needed and return the loaded library.
+    ``defines`` are preprocessor macros (e.g. a profiling build); each set
+    builds a library of its own."""
+    return load_all([name], defines)[0]
 
 
-def load_all(names) -> list[ctypes.CDLL]:
+def load_all(names, defines: tuple = ()) -> list[ctypes.CDLL]:
     """Compile every named source that needs it, one ``nvcc`` each, all
     started together, then load them in order."""
     pending = []
-    for name in names:
-        if name in _LIBS:
+    suffix = "".join(f"+{d}" for d in defines)
+    keys = [name + suffix for name in names]
+    for name, key in zip(names, keys):
+        if key in _LIBS:
             continue
         src = CSRC / f"{name}.cu"
         # the shared headers count too: an edited header rebuilds
         digest = hashlib.sha256(b"".join(
             p.read_bytes() for p in [src, *sorted(CSRC.glob("*.cuh"))]
-        )).hexdigest()[:16]
+        ) + suffix.encode()).hexdigest()[:16]
         out = BUILD_DIR / f"lib{name}-{digest}.so"
-        BUILD_SECONDS[name] = 0.0
+        BUILD_SECONDS[key] = 0.0
         if not out.exists():
             BUILD_DIR.mkdir(exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                   "-o", str(tmp), str(src)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
-            pending.append((name, src, out, tmp, proc, time.perf_counter()))
+            pending.append((key, src, out, tmp, proc, time.perf_counter()))
         else:
-            _LIBS[name] = ctypes.CDLL(str(out))
+            _LIBS[key] = ctypes.CDLL(str(out))
     # wait for every nvcc before raising for any, so none outlives the call
     errs = [proc.communicate()[1] for *_, proc, _ in pending]
-    for (name, src, out, tmp, proc, t0), err in zip(pending, errs):
+    for (key, src, out, tmp, proc, t0), err in zip(pending, errs):
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {src.name} (rc {proc.returncode}):\n{err}"
             )
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = err
-        _LIBS[name] = ctypes.CDLL(str(out))
-    return [_LIBS[name] for name in names]
+        BUILD_SECONDS[key] = time.perf_counter() - t0
+        BUILD_LOG[key] = err
+        _LIBS[key] = ctypes.CDLL(str(out))
+    return [_LIBS[key] for key in keys]

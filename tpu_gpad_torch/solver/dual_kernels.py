@@ -43,7 +43,23 @@ DUAL_TILED_CHUNK_LAUNCHES = 0
 EPS_SYNCS = 0
 
 _WARPS = 8  # kWarps of csrc/gpad_dual.cu: one restart partial per warp
-_TILED_WARPS = 16  # kWarps of csrc/tiled_product.cuh
+# csrc/gpad_dual_tiled.cu: 512 threads per block, clusters of up to 16
+_TILED_THREADS = 512
+_TILED_WARPS = _TILED_THREADS // 32
+_MAX_CLUSTER = 16
+_TILED_COLS = 2  # kCols: product columns per thread
+# The tiled dual kernels' grid (PERF.md, the tiled tile and cluster sweep,
+# H100 80GB HBM3 at 700 W, flagship x 100 iterations): a cluster owns the
+# widest tile, up to 16 scenarios, that the batch fills, since a D word
+# read from L2 then feeds the most FMAs (B64: 16 per cluster 4.4-4.7 ms, 8
+# per cluster 6.5-6.9, 4 per cluster 8.9); clusters of 16 blocks (the
+# non-portable size) while the grid has at most 16 clusters, of 8 beyond
+# (B256: 12.96-14.2 ms on 16, 15.7-17.2 on 8; B1024: 43.1-47.0 on 16,
+# 39.9-43.4 on 8; B1: 2.65-3.06 on 16, 4.7-5.6 on 8).
+DUAL_TILED_MAX_LOG2_TILE = 4
+DUAL_TILED_WIDE_CLUSTER = 16
+DUAL_TILED_CLUSTER = 8
+DUAL_TILED_MAX_WIDE_CLUSTERS = 16
 
 
 def _dual_smem_bytes(m_h: int, log2_tile: int) -> int:
@@ -69,19 +85,35 @@ def dual_fits_smem(data: GPADData) -> bool:
 
 def _dual_tiled_smem_bytes(m_h: int, log2_tile: int) -> int:
     """Shared memory of one block of either tiled dual kernel (csrc
-    carve-up): wd of 2**log2_tile scenarios and one restart partial per
-    warp and scenario; D and the state stay in device memory."""
+    carve-up): the whole wd of 2**log2_tile scenarios (rows padded to 4),
+    the row groups' partial sums (2 columns per thread), the cluster's
+    restart partials (up to 16 blocks) and one partial per warp; D and the
+    state stay in device memory. The cluster size does not change it."""
     T = 1 << log2_tile
-    return 4 * (m_h * T + _TILED_WARPS * T)
+    return 4 * (T * (-(-m_h // 4) * 4 + _TILED_COLS * _TILED_THREADS
+                     + _MAX_CLUSTER) + _TILED_WARPS)
 
 
 def pick_tiled_tiles(m_half: int, B: int = 1) -> int | None:
-    """log2 of the tiled dual kernels' scenarios per block for B scenarios,
-    or None when not even one scenario's wd fits a block's shared memory
-    (see ``kernels._tiled_tile``)."""
-    return kernels._tiled_tile(
-        lambda log2: _dual_tiled_smem_bytes(m_half, log2), B,
-        kernels.DUAL_TILED_MIN_BLOCKS)
+    """log2 of the tiled dual kernels' scenarios per cluster for B
+    scenarios: the widest, at most 16 and at most B rounded up to a power
+    of two, whose block fits shared memory; None when not even one
+    scenario's wd fits."""
+    log2 = min(DUAL_TILED_MAX_LOG2_TILE, max(B - 1, 0).bit_length())
+    while log2 >= 0:
+        if _dual_tiled_smem_bytes(m_half, log2) <= kernels.SMEM_LIMIT_BYTES:
+            return log2
+        log2 -= 1
+    return None
+
+
+def pick_tiled_cluster(log2_tile: int, B: int) -> int:
+    """Blocks per cluster of the tiled dual kernels for B scenarios at
+    2**log2_tile per cluster: 16 while the grid has at most 16 clusters,
+    else 8 (see DUAL_TILED_CLUSTER)."""
+    clusters = -(-B // (1 << log2_tile))
+    return (DUAL_TILED_WIDE_CLUSTER if clusters <= DUAL_TILED_MAX_WIDE_CLUSTERS
+            else DUAL_TILED_CLUSTER)
 
 
 def dual_tiled_fits(data: GPADData) -> bool:
@@ -189,8 +221,8 @@ def _tiled_launch_fns():
     lib = cuda_build.load("gpad_dual_tiled")
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fixed, chunk = lib.gpad_dual_tiled_launch, lib.gpad_dual_tiled_chunk_launch
-    fixed.argtypes = [P, P, P, LL, P, P, I, I, I, I, I, P, P, P, P, I, P]
-    chunk.argtypes = [P] * 8 + [I] * 6 + [P] * 5 + [I, P]
+    fixed.argtypes = [P, P, P, LL, P, P, I, I, I, I, I, I, P, P, P, P, I, P]
+    chunk.argtypes = [P] * 8 + [I] * 7 + [P] * 5 + [I, P]
     fixed.restype = chunk.restype = I
     return fixed, chunk
 
@@ -307,7 +339,9 @@ def gpad_fixed_dual(
     return z, y, w, zhat
 
 
-def _tiled_tile_or_raise(m_h: int, B: int, log2_tile) -> int:
+def _tiled_tile_or_raise(m_h: int, B: int, log2_tile, cluster) -> tuple:
+    """(log2_tile, cluster) of a tiled launch: the picks, or the caller's
+    overrides checked."""
     if log2_tile is None:
         log2_tile = pick_tiled_tiles(m_h, B)
         if log2_tile is None:
@@ -316,23 +350,31 @@ def _tiled_tile_or_raise(m_h: int, B: int, log2_tile) -> int:
                 f"kernels' shared memory ({kernels.SMEM_LIMIT_BYTES} bytes); "
                 "use engine='torch'"
             )
-    if not 0 <= log2_tile <= kernels._TILED_LOG2_TILES[-1]:
+    if not 0 <= log2_tile <= DUAL_TILED_MAX_LOG2_TILE:
         raise ValueError(f"log2_tile {log2_tile} outside the tiled kernels' "
-                         f"{kernels._TILED_LOG2_TILES}")
-    return log2_tile
+                         f"0..{DUAL_TILED_MAX_LOG2_TILE}")
+    if _dual_tiled_smem_bytes(m_h, log2_tile) > kernels.SMEM_LIMIT_BYTES:
+        raise ValueError(f"tile 2**{log2_tile} exceeds shared memory at "
+                         f"m_half={m_h}")
+    if cluster is None:
+        cluster = pick_tiled_cluster(log2_tile, B)
+    if cluster not in (1, 2, 4, 8, 16):
+        raise ValueError(f"cluster {cluster} is not a power of two <= 16")
+    return log2_tile, cluster
 
 
 def gpad_fixed_dual_tiled(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     restart: bool = False, diagnostics: bool = True,
-    log2_tile: int | None = None,
+    log2_tile: int | None = None, cluster: int | None = None,
 ):
     """``gpad_fixed_dual``'s contract for duals too large for it: D is read
     from device memory on every iteration (the counterpart of
     ``tpu_gpad.solver.kernels.gpad_pallas_fixed_dual_tiled``). Soft rows
-    are refused. ``log2_tile`` overrides the scenarios per block (for
-    sweeps). CUDA tensors launch the kernel (or raise); CPU tensors run the
-    plain version, ``gpad_fixed_dual_torch``."""
+    are refused. ``log2_tile`` and ``cluster`` override the scenarios per
+    cluster and the blocks per cluster (for sweeps). CUDA tensors launch
+    the kernel (or raise); CPU tensors run the plain version,
+    ``gpad_fixed_dual_torch``."""
     global DUAL_TILED_LAUNCHES
     kernels._refuse_soft(data, "the tiled dual kernels")
     _check_fixed(data, g_P, p_D, y0, iterations, restart)
@@ -341,7 +383,7 @@ def gpad_fixed_dual_tiled(
                                      restart=restart, diagnostics=diagnostics)
     fixed, _ = _tiled_launch_fns()
     B, m_h = g_P.shape[0], data.m_half
-    log2_tile = _tiled_tile_or_raise(m_h, B, log2_tile)
+    log2_tile, cluster = _tiled_tile_or_raise(m_h, B, log2_tile, cluster)
     c = relu_offsets(data, g_P, p_D)
     y0_rows, y0_stride = _warm_rows(y0, B, m_h)
     # the state lives in device memory: y_prev and, without diagnostics,
@@ -354,7 +396,8 @@ def gpad_fixed_dual_tiled(
         stream = torch.cuda.current_stream().cuda_stream
         err = fixed(ptr(data.D), ptr(c), ptr(y0_rows), y0_stride,
                     ptr(data.theta), ptr(data.beta), B, m_h, iterations,
-                    int(restart), log2_tile, ptr(s), ptr(y), ptr(y_prev),
+                    int(restart), log2_tile, cluster, ptr(s), ptr(y),
+                    ptr(y_prev),
                     ptr(w), _dual_tiled_smem_bytes(m_h, log2_tile), stream)
     if err != 0:
         raise RuntimeError(f"gpad_dual_tiled launch failed: CUDA error {err}")
@@ -402,7 +445,8 @@ def gpad_dual_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
 
 def gpad_dual_tiled_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
                           chunk: int, restart: bool = False,
-                          log2_tile: int | None = None):
+                          log2_tile: int | None = None,
+                          cluster: int | None = None):
     """``gpad_dual_chunk``'s contract for duals too large for it, with D
     read from device memory on every iteration (the chunk form of
     ``gpad_fixed_dual_tiled``; ``_dual_tiled_call`` in tpu_gpad). Soft
@@ -416,14 +460,15 @@ def gpad_dual_tiled_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
                                      chunk=chunk, restart=restart)
     _, launch = _tiled_launch_fns()
     B, m_h = c.shape[0], data.m_half
-    log2_tile = _tiled_tile_or_raise(m_h, B, log2_tile)
+    log2_tile, cluster = _tiled_tile_or_raise(m_h, B, log2_tile, cluster)
     out = [torch.empty_like(t) for t in (y, y_prev, s, mom, y)]
     ptr = kernels._ptr
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(ptr(data.D), ptr(c), ptr(y), ptr(y_prev), ptr(s),
                      ptr(mom), ptr(data.theta), ptr(data.beta), B, m_h, k0,
-                     chunk, int(restart), log2_tile, *(ptr(t) for t in out),
+                     chunk, int(restart), log2_tile, cluster,
+                     *(ptr(t) for t in out),
                      _dual_tiled_smem_bytes(m_h, log2_tile), stream)
     if err != 0:
         raise RuntimeError(

@@ -77,16 +77,14 @@ def _widest_tile(smem_bytes, B: int) -> int | None:
     return None
 
 
-# The tiled kernels (csrc/gpad_dual_tiled.cu, csrc/gpad_flat_tiled.cu) take
-# 1 to 8 scenarios per block, the widest tile that keeps a kernel's minimum
-# of blocks in the grid. On an H100 at the flagship (battery 30x30)
-# B = 256 x 100 iterations, the dual kernel ran 56.0 / 38.3 / 34.1 / 45.5 /
-# 78.8 ms at 1 / 2 / 4 / 8 / 16 per block (64 blocks best) and the flat one
-# 32.7 / 16.7 / 28.7 / 32.0 / 52.1 ms (128 blocks best); at B = 1024 both
-# were fastest at 8, and 16 was never best (PERF.md, the tiled tile sweep).
+# The flat tiled kernel (csrc/gpad_flat_tiled.cu) takes 1 to 8 scenarios
+# per block, the widest tile that keeps 128 blocks in the grid. On an H100
+# at the flagship (battery 30x30) B = 256 x 100 iterations it ran 32.7 /
+# 16.7 / 28.7 / 32.0 / 52.1 ms at 1 / 2 / 4 / 8 / 16 per block; at B = 1024
+# 8 was fastest, and 16 was never best (PERF.md, the tiled tile sweep). The
+# tiled dual kernels pick their tiles and clusters in dual_kernels.py.
 _TILED_LOG2_TILES = (0, 1, 2, 3)
 _TILED_MAX_LOG2_TILE = 3
-DUAL_TILED_MIN_BLOCKS = 64
 FLAT_TILED_MIN_BLOCKS = 128
 
 

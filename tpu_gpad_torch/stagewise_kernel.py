@@ -44,6 +44,10 @@ _MAX_STATE = 32  # n_x, n_u <= 32: a chain keeps one row per lane of a warp
 _SM_SMEM_BYTES = 228 * 1024
 _BLOCK_RESERVED_BYTES = 1024
 _MAX_BLOCKS_PER_SM = 2
+# The streamed kernel's chain ring (kRing of csrc/gpad_stagewise.cu): 16
+# mbarriers (full and empty per slot), 8 slots of 32 x 32 floats, and 8
+# addend rows of 32 per chain warp (one per scenario).
+_RING_SLOTS = 8
 
 
 @dataclass(frozen=True)
@@ -130,10 +134,13 @@ def _smem_floats(data, T: int) -> tuple:
 def _smem_bytes(data, T: int, y_in_smem: bool, aux_in_smem: bool) -> int:
     """Shared memory of one block of either kernel: the stage-invariant
     part, then the st/zu/ru/kff slabs (``aux_in_smem``) and y, y_prev
-    (``y_in_smem``)."""
+    (``y_in_smem``: the resident kernel) or the chains' ring (the streamed
+    kernel)."""
     shared, aux, dual = _smem_floats(data, T)
+    ring = (_up4(4 * _RING_SLOTS) + _RING_SLOTS * 32 * 32
+            + _RING_SLOTS * 32 * T)
     return 4 * (shared + (aux if aux_in_smem else 0)
-                + (2 * dual if y_in_smem else 0))
+                + (2 * dual if y_in_smem else ring))
 
 
 def stagewise_fits_smem(data, tile: int) -> bool:
@@ -280,16 +287,17 @@ def stagewise_plain(pack: StagewisePack, x0, y0=None, *, iterations: int,
     return zu[:, 0].contiguous(), zu, y, residual, gap
 
 
-def _launch_fns():
-    """The kernels' C launchers, built and loaded at first use."""
+def _launch_fns(defines: tuple = ()):
+    """The kernels' C launchers, built and loaded at first use (``defines``:
+    a build of its own, e.g. ``("GPAD_SW_PROFILE",)``)."""
     from tpu_gpad_torch import cuda_build
 
-    lib = cuda_build.load("gpad_stagewise")
+    lib = cuda_build.load("gpad_stagewise", defines)
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     head = [P] * 12 + [LL] + [I] * 9
     resident, stream = lib.gpad_stagewise_launch, lib.gpad_stagewise_stream_launch
     resident.argtypes = head + [P] * 4 + [I, P]
-    stream.argtypes = head + [P] * 7 + [I, P]
+    stream.argtypes = [P] + head + [P] * 7 + [I, P]  # chainE first
     resident.restype = stream.restype = I
     return resident, stream
 

@@ -30,17 +30,21 @@ def stream_layout(data, B: int, sms: int, log2_tile: int | None = None):
     ``sms`` SMs. The tile is the widest (at most 8) that still gives every
     SM a block: a wider tile reads each stage's constants once for more
     scenarios, but a grid short of the SMs leaves some idle. The slope/plan/
-    feedforward slabs go to shared memory only where two blocks still fit
-    on an SM; else to device memory (PERF.md, stage-wise tile sweep on an H100
-    80GB HBM3 at 700 W, n30 N200 B1024 x 200: 4 per block 340 ms, 2 per
-    block 577 ms, 1 per block with the slabs in shared memory 958 ms)."""
+    feedforward slabs go to shared memory where the grid still runs in one
+    wave with them (two blocks on an SM, or one where the grid has no more
+    blocks than SMs); else to device memory (PERF.md, stage-wise tile sweep
+    on an H100 80GB HBM3 at 700 W, n30 N200 B1024 x 200: 4 per block 340 ms,
+    2 per block 577 ms, 1 per block with the slabs in shared memory 958
+    ms)."""
     if log2_tile is None:
         log2_tile = sk._MAX_LOG2_TILE
         while log2_tile > 0 and -(-B // (1 << log2_tile)) < sms:
             log2_tile -= 1
     T = 1 << log2_tile
     smem = sk._smem_bytes(data, T, False, True)
-    if sk.blocks_per_sm(smem) == sk._MAX_BLOCKS_PER_SM:
+    if smem <= kernels.SMEM_LIMIT_BYTES and (
+            sk.blocks_per_sm(smem) == sk._MAX_BLOCKS_PER_SM
+            or -(-B // T) <= sms * sk.blocks_per_sm(smem)):
         return log2_tile, True, smem
     return log2_tile, False, sk._smem_bytes(data, T, False, False)
 
@@ -89,10 +93,17 @@ def solve_stagewise_stream(data, x0, iterations: int, restart: bool = False,
     zu = torch.empty((B, N, data.n_u), **f32)
     residual = torch.empty((B,), **f32)
     gap = torch.empty((B,), **f32)
+    # the chains' matrices, rows padded to 128 bytes for the bulk copies:
+    # [0][k] the E' rows of R'_{k+1}, [1][k] the E rows of M'_k
+    n = data.n_x
+    chain_e = torch.zeros((2, N, n, 32), **f32)
+    chain_e[0, :N - 1, :, :n] = pack.RT[1:, :n]
+    chain_e[1, :, :, :n] = pack.MT[:, :n, :n]
     ptr = kernels._ptr
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = stream_fn(*sk.launch_head(pack, data, x0, y0, iterations,
+        err = stream_fn(ptr(chain_e),
+                        *sk.launch_head(pack, data, x0, y0, iterations,
                                         restart, log2_tile),
                         ptr(y_work), ptr(yp_work), ptr(aux), ptr(y), ptr(zu),
                         ptr(residual), ptr(gap), smem, stream)
