@@ -30,10 +30,18 @@ non-zero. The last line is ``{"ok": true, "device": {...}}``. It imports
 neither jax nor ``tpu_gpad``. Without a CUDA device it exits non-zero and
 prints no result.
 
-    python3 chip_smoke.py --sweep
+    python3 chip_smoke.py --sweep [resident] [stagewise] [tiled]
 
-builds the kernels and times the stage-wise and the tiled kernels by tile
-(and the tiled dual kernel by cluster size) instead;
+builds the kernels and times, instead, the resident dense and dual
+kernels by tile and split-K parts at B 256 and 4096, the stage-wise and
+the tiled kernels by tile (and the tiled dual kernel by cluster size), or
+the families named;
+
+    python3 chip_smoke.py --times
+
+times the resident dense, dual and chunk kernels at B 256 and 4096 through
+their public arguments only, so that a checkout of an earlier design can
+be timed beside this one: copy this script into its root and run it there;
 
     python3 chip_smoke.py --profile
 
@@ -44,6 +52,7 @@ where a streamed and a resident solve spend their time.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -180,10 +189,19 @@ def phase_build():
     names = ["gpad_paired_flat", "gpad_dense", "gpad_dual", "gpad_stagewise",
              "gpad_dual_tiled", "gpad_flat_tiled"]
     cuda_build.load_all(names)  # every nvcc run at once
+    logs = {n: cuda_build.BUILD_LOG.get(n, "").splitlines() for n in names}
+    # ptxas's spill lines of each kernel, those that spill anything
+    spills = {n: [ln.strip() for ln in log if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+              for n, log in logs.items()}
     emit({"phase": "build",
           "build_s": {n: cuda_build.BUILD_SECONDS[n] for n in names},
-          "ptxas": {n: [ln.strip() for ln in cuda_build.BUILD_LOG.get(n, "")
-                        .splitlines() if "ptxas info" in ln] for n in names}})
+          "ptxas": {n: [ln.strip() for ln in log if "ptxas info" in ln]
+                    for n, log in logs.items()},
+          "spills": {n: v for n, v in spills.items() if v}})
+    # the register-tiled kernels are sized to keep their tiles in registers
+    check(not spills["gpad_dense"] and not spills["gpad_dual"],
+          f"the dense or dual kernel spills registers: {spills}")
 
 
 def phase_kernel_vs_plain(torch, tg, kernels, core):
@@ -404,11 +422,11 @@ def phase_dual_kernel_vs_plain(torch, tg, dual_kernels, core):
                   "diagnostics=False returned w/zhat")
         y_err = (out_k[1] - out_p[1]).abs().max().item()
         if restart:  # u and z only (u is a slice of z)
-            return max_err(out_k[:1], out_p[:1]), y_err, out_k
-        return max_err(out_k, out_p), y_err, out_k
+            return max_err(out_k[:1], out_p[:1]), y_err, out_k, out_p
+        return max_err(out_k, out_p), y_err, out_k, out_p
 
     cases, y_errs = {}, {}
-    cases["cold"], y_errs["cold"], (_, y_cold, _, _) = run()
+    cases["cold"], y_errs["cold"], (_, y_cold, _, _), _ = run()
     soft = dataclasses.replace(data, soft_damp=torch.as_tensor(
         rng.uniform(0.0, 0.2, data.m_half).astype(np.float32), device=DEVICE))
     for name, kw in {
@@ -416,17 +434,29 @@ def phase_dual_kernel_vs_plain(torch, tg, dual_kernels, core):
         "warm_shared": dict(y0=y_cold[0].contiguous()),
         "no_diagnostics": dict(y0=y_cold, diagnostics=False),
         "soft": dict(d=soft),
+        "B256": dict(B=SERVE_PLANTS, y0=y_cold[:SERVE_PLANTS].contiguous()),
         "B5": dict(B=5, y0=y_cold[:5].contiguous()),
         "B1": dict(B=1, y0=y_cold[:1].contiguous()),
         "restart_cold": dict(restart=True),
         "restart_warm": dict(restart=True, y0=y_cold),
     }.items():
-        cases[name], y_errs[name], _ = run(**kw)
+        cases[name], y_errs[name], _, _ = run(**kw)
+    # the serving batch's tile with soft rows under restart, held per
+    # scenario: at most 1% may part by a flipped restart decision
+    B = SERVE_PLANTS
+    _, y_errs["restart_B256_soft"], (z_k, *_), (z_p, *_) = run(
+        restart=True, B=B, d=soft)
+    parting = restart_parting(torch, soft, g_P[:B].contiguous(),
+                              p_D[:B].contiguous(), None, z_k, z_p)
+    cases["restart_B256_soft"] = parting["u_z"]
     plain = {k: v for k, v in cases.items() if not k.startswith("restart")}
     restart = {k: v for k, v in cases.items() if k.startswith("restart")}
     emit({"phase": "dual_kernel_vs_plain", "shape": [BATCH, data.m_half],
           "max_abs_err": cases, "max_abs_err_y": y_errs,
+          "restart_B256_soft_parting": parting,
           "tol": KERNEL_TOL, "restart_tol_u_z": RESTART_TOL})
+    check(parting["parted"] <= parting["parted_max"],
+          f"restart parted {parting}")
     check(max(plain.values()) <= KERNEL_TOL, f"dual kernel vs plain: {plain}")
     check(max(restart.values()) <= RESTART_TOL, f"restart u/z: {restart}")
     return max(max(plain.values()), max(restart.values()))
@@ -442,17 +472,22 @@ def phase_dual_chunk_vs_plain(torch, tg, dual_kernels, core):
     s0 = torch.zeros((BATCH, data.m_half), device=DEVICE)
     mom0 = torch.ones((BATCH, 2), device=DEVICE)
     errs, y_errs = {}, {}
-    for restart in (False, True):
+    # B4096, the serving batch, a ragged few
+    for B, restart in itertools.product((BATCH, SERVE_PLANTS, 5),
+                                        (False, True)):
+        cut = [t[:B].contiguous() for t in (c, zero, s0, mom0)]
         state = dual_kernels.gpad_dual_chunk_torch(
-            data, c, zero, zero, s0, mom0, k0=0, chunk=30, restart=restart)[:4]
-        out_k = dual_kernels.gpad_dual_chunk(data, c, *state, k0=30, chunk=10,
-                                             restart=restart)
-        out_p = dual_kernels.gpad_dual_chunk_torch(data, c, *state, k0=30,
+            data, cut[0], cut[1], cut[1], *cut[2:], k0=0, chunk=30,
+            restart=restart)[:4]
+        out_k = dual_kernels.gpad_dual_chunk(data, cut[0], *state, k0=30,
+                                             chunk=10, restart=restart)
+        out_p = dual_kernels.gpad_dual_chunk_torch(data, cut[0], *state, k0=30,
                                                    chunk=10, restart=restart)
         torch.cuda.synchronize()
         for t in out_k:
             check(bool(torch.isfinite(t).all()), "chunk kernel output not finite")
-        key = "restart" if restart else "plain"
+        key = ("restart" if restart else "plain") + (
+            "" if B == BATCH else f"_B{B}")
         y_errs[key] = (out_k[0] - out_p[0]).abs().max().item()
         if restart:  # the recovered z, as for the whole-solve kernel
             errs[key] = ((out_k[2] - out_p[2]) @ data.MG_T).abs().max().item()
@@ -469,10 +504,12 @@ def phase_dual_chunk_vs_plain(torch, tg, dual_kernels, core):
     emit({"phase": "dual_chunk_vs_plain", "shape": [BATCH, data.m_half],
           "k0": 30, "chunk": 10, "max_abs_err": errs, "max_abs_err_y": y_errs,
           "tol": KERNEL_TOL, "restart_tol_z": RESTART_TOL})
-    check(errs["plain"] <= KERNEL_TOL, f"chunk kernel vs plain {errs}")
-    check(errs["restart"] <= RESTART_TOL, f"restart chunk z {errs}")
+    plain = [v for k, v in errs.items() if k.startswith("plain")]
+    restart = [v for k, v in errs.items() if k.startswith("restart")]
+    check(max(plain) <= KERNEL_TOL, f"chunk kernel vs plain {errs}")
+    check(max(restart) <= RESTART_TOL, f"restart chunk z {errs}")
     check(errs["ten_chunks_vs_whole"] <= KERNEL_TOL, f"chunks vs whole {errs}")
-    return max(errs["plain"], errs["restart"])
+    return max(plain + restart)
 
 
 def phase_restart_serving(torch, tg, dual_kernels):
@@ -574,59 +611,232 @@ def phase_eps_path(torch, tg, dual_kernels, core, reference):
     return launches
 
 
-def phase_dual_timing(torch, tg, dual_kernels, core, smi):
+def phase_dual_timing(torch, tg, kernels, dual_kernels, core, smi):
+    """CUDA events, median of 20 calls per turn, two turns in opposite
+    orders: the dual kernel (100 restart iterations) and the chunk kernel
+    (one 10-iteration restart window) at the serving batch (256) and at
+    B4096, their plain versions, ``solve_to_accuracy`` and the torch
+    engine's restart solve and 10-iteration restart solve at B4096; then
+    the kernels' device time from the profiler."""
     from tpu_gpad_torch.utils import device_time_per_call
 
     _, data = headline(tg)
     X0 = torch.as_tensor(np.random.default_rng(9).uniform(
         -0.4, 0.4, (BATCH, data.n_x)).astype(np.float32), device=DEVICE)
-    g_P, p_D = core.affine_params(data, X0)
-    c = dual_kernels.relu_offsets(data, g_P, p_D)
-    state = dual_kernels.gpad_dual_chunk_torch(
-        data, c, torch.zeros((BATCH, 2, data.m_half), device=DEVICE),
-        torch.zeros((BATCH, 2, data.m_half), device=DEVICE),
-        torch.zeros((BATCH, data.m_half), device=DEVICE),
-        torch.ones((BATCH, 2), device=DEVICE), k0=0, chunk=30, restart=True)[:4]
-    chunk_kw = dict(k0=30, chunk=10, restart=True)
-    runs = {
-        "dual": lambda: dual_kernels.gpad_fixed_dual(
-            data, g_P, p_D, iterations=ITERS, restart=True),
-        "dual_plain": lambda: dual_kernels.gpad_fixed_dual_torch(
-            data, g_P, p_D, iterations=ITERS, restart=True),
-        "chunk": lambda: dual_kernels.gpad_dual_chunk(data, c, *state, **chunk_kw),
-        "chunk_plain": lambda: dual_kernels.gpad_dual_chunk_torch(
-            data, c, *state, **chunk_kw),
+    runs, bounds = {}, {}
+    for B in RESIDENT_BATCHES:
+        r, b = resident_runs(torch, tg, kernels, dual_kernels, core, B,
+                             seed=9, which=("dual", "chunk"))
+        runs.update(r)
+        bounds.update(b)
+    S = tg.SolverConfig
+    runs.update({
         "eps_auto": lambda: tg.solve_to_accuracy(data, X0, tol=EPS_TOL),
         "eps_torch": lambda: tg.solve_to_accuracy(data, X0, tol=EPS_TOL,
                                                   engine="torch"),
-    }
+        # the torch engine on the kernels' configurations at B4096: 100
+        # restart iterations, and a window's 10
+        "dual_torch_engine": lambda: tg.solve_batch(
+            data, X0, S(restart=True, engine="torch")),
+        "chunk_torch_engine": lambda: tg.solve_batch(
+            data, X0, S(iterations=10, restart=True, form="dual",
+                        engine="torch")),
+    })
     ms = {k: [] for k in runs}
     order = list(runs)
     for turn in (order, order[::-1]):
         for k in turn:
             ms[k].append(device_time_per_call(runs[k], warmup=3, repeats=20) * 1e3)
     med = {k: float(np.mean(v)) for k, v in ms.items()}
-    # the loop's product w D per scenario and iteration (2 m_h^2), plus the
-    # offsets g_P GL_T and the recovery s MG_T once per solve
-    m_h, n_z = data.m_half, data.n_z
-    dual_io = 4 * BATCH * (2 * n_z + 4 * m_h)  # z, y, w, zhat
-    chunk_io = nbytes(*state) + 4 * BATCH * 2 * m_h  # the state back, and w
-    med["bound"] = bound(
-        BATCH * (ITERS * 2.0 * m_h * m_h + 4.0 * m_h * n_z),
-        nbytes(data.D, data.GL_T, data.MG_T, g_P, p_D) + dual_io)
-    med["chunk_bound"] = bound(BATCH * 10 * 2.0 * m_h * m_h,
-                               nbytes(data.D, c, *state) + chunk_io)
-    emit({"phase": "dual_timing", "gpu": smi, "batch": BATCH,
+    med["device"] = {
+        k: profiled_ms(torch, runs[k], KERNEL_NAMES[k.split("@")[0]])
+        for k in runs if k.split("@")[0] in ("dual", "chunk")}
+    med["bounds"] = bounds
+    emit({"phase": "dual_timing", "gpu": smi, "batches": RESIDENT_BATCHES,
           "iterations": ITERS, "chunk": 10,
-          "dual_bound": med["bound"], "chunk_bound": med["chunk_bound"],
-          "ms_median_of_20_per_turn": ms,
+          "dual_plans": {B: dual_kernels._dual_plan(data.m_half, B)
+                         for B in RESIDENT_BATCHES},
+          "bounds": bounds, "ms_median_of_20_per_turn": ms,
+          "device_ms_profiler": med["device"],
           "note": "eps_* are CUDA-event times of whole solve_to_accuracy "
                   "calls, host syncs between windows included",
-          "solves_per_s": {"dual_kernel_restart": BATCH / med["dual"] * 1e3,
-                           "dual_plain_restart": BATCH / med["dual_plain"] * 1e3,
-                           "eps_auto": BATCH / med["eps_auto"] * 1e3,
-                           "eps_torch": BATCH / med["eps_torch"] * 1e3}})
+          "solves_per_s": {k: int(k.split("@")[1]) / med[k] * 1e3
+                           for k in runs if k.startswith("dual") and "@" in k}
+          | {k: BATCH / med[k] * 1e3 for k in ("eps_auto", "eps_torch",
+                                               "dual_torch_engine")}})
     return med
+
+
+# ---------------------------------------------------------------------------
+# the resident dense and dual kernels by batch
+# ---------------------------------------------------------------------------
+
+# the serving batch (256 plants) and the headline batch
+RESIDENT_BATCHES = (SERVE_PLANTS, BATCH)
+# each kernel's name as the profiler lists it (a prefix of its instances)
+KERNEL_NAMES = {"dense": "gpad_dense_kernel", "dual": "gpad_dual_kernel",
+                "chunk": "gpad_dual_chunk_kernel"}
+
+
+def profiled_ms(torch, fn, name, calls=10):
+    """Mean device time of one launch of the kernel whose name contains
+    ``name``, over ``calls`` calls of ``fn`` (each launches it once), from
+    ``torch.profiler``; None where it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for ev in prof.key_averages():
+            if name in ev.key:
+                total += getattr(ev, "device_time_total",
+                                 getattr(ev, "cuda_time_total", 0.0))
+                count += ev.count
+        if count:
+            return total / 1e3 / count
+    return None
+
+
+def resident_runs(torch, tg, kernels, dual_kernels, core, B, seed,
+                  which=("dense", "dual", "chunk"), plan=None):
+    """Timed calls at battery n3 N10, batch B, keyed "<kernel>@<B>" and
+    "<kernel>_plain@<B>": the dense kernel (100 iterations), the dual
+    kernel (100 restart iterations), the chunk kernel (a 10-iteration
+    restart window from the state 30 iterations left); and each one's
+    bound from these inputs. ``plan`` (log2_tile, split) overrides the
+    launch. Only the wrappers' public arguments are used without it, so a
+    checkout of an earlier design runs this too."""
+    _, dense = dense_headline(tg)
+    _, data = headline(tg)
+    X0 = torch.as_tensor(np.random.default_rng(seed).uniform(
+        -0.4, 0.4, (B, data.n_x)).astype(np.float32), device=DEVICE)
+    over = {} if plan is None else dict(log2_tile=plan[0], split=plan[1])
+    runs, bounds = {}, {}
+    m, n_z, m_h = dense.m, dense.n_z, data.m_half
+    if "dense" in which:
+        gd, pd = core.affine_params(dense, X0)
+        runs[f"dense@{B}"] = lambda: kernels.gpad_fixed_dense(
+            dense, gd, pd, iterations=ITERS, **over)
+        runs[f"dense_plain@{B}"] = lambda: kernels.gpad_fixed_dense_torch(
+            dense, gd, pd, iterations=ITERS)
+        # two products per scenario and iteration, 2 (m n_z) + 2 (n_z m);
+        # z, y, w, zhat written once
+        bounds[f"dense@{B}"] = bound(
+            B * ITERS * 4.0 * m * n_z,
+            nbytes(dense.MG_T, dense.GL_T, gd, pd, dense.theta[:ITERS],
+                   dense.beta[:ITERS]) + 4 * B * (2 * n_z + 2 * m))
+    g_P, p_D = core.affine_params(data, X0)
+    if "dual" in which:
+        kw = dict(iterations=ITERS, restart=True)
+        runs[f"dual@{B}"] = lambda: dual_kernels.gpad_fixed_dual(
+            data, g_P, p_D, **kw, **over)
+        runs[f"dual_plain@{B}"] = lambda: dual_kernels.gpad_fixed_dual_torch(
+            data, g_P, p_D, **kw)
+        # the product w D per scenario and iteration (2 m_h^2), the offsets
+        # g_P GL_T and the recovery s MG_T once; z, y, w, zhat written once
+        bounds[f"dual@{B}"] = bound(
+            B * (ITERS * 2.0 * m_h * m_h + 4.0 * m_h * n_z),
+            nbytes(data.D, data.GL_T, data.MG_T, g_P, p_D)
+            + 4 * B * (2 * data.n_z + 4 * m_h))
+    if "chunk" in which:
+        c = dual_kernels.relu_offsets(data, g_P, p_D)
+        zero = torch.zeros((B, 2, m_h), device=DEVICE)
+        state = dual_kernels.gpad_dual_chunk_torch(
+            data, c, zero, zero, torch.zeros((B, m_h), device=DEVICE),
+            torch.ones((B, 2), device=DEVICE), k0=0, chunk=30,
+            restart=True)[:4]
+        win = dict(k0=30, chunk=10, restart=True)
+        runs[f"chunk@{B}"] = lambda: dual_kernels.gpad_dual_chunk(
+            data, c, *state, **win, **over)
+        runs[f"chunk_plain@{B}"] = lambda: dual_kernels.gpad_dual_chunk_torch(
+            data, c, *state, **win)
+        # the state in and back, and w
+        bounds[f"chunk@{B}"] = bound(
+            B * 10 * 2.0 * m_h * m_h,
+            nbytes(data.D, c, *state) + nbytes(*state) + 4 * B * 2 * m_h)
+    return runs, bounds
+
+
+def times_resident(torch, tg, kernels, dual_kernels, core, smi):
+    """``python3 chip_smoke.py --times``: the resident dense, dual and
+    chunk kernels at B 256 and 4096, CUDA events (median of 20 calls) and
+    the profiler's device time, with each bound; and a warm dense and a
+    restart ``Controller`` on the serving fleet. Public arguments only,
+    so it also times an earlier design's checkout: copy this script into
+    that checkout's root and run it there."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    for B in RESIDENT_BATCHES:
+        runs, bounds = resident_runs(torch, tg, kernels, dual_kernels, core,
+                                     B, seed=61)
+        kern = [k for k in runs if "_plain" not in k]
+        emit({"phase": "resident_times", "gpu": smi, "batch": B,
+              "ms_events": {k: device_time_per_call(runs[k], warmup=3,
+                                                    repeats=20) * 1e3
+                            for k in kern},
+              "ms_device": {k: profiled_ms(torch, runs[k],
+                                           KERNEL_NAMES[k.split("@")[0]])
+                            for k in kern},
+              "bound_ms": {k: v["bound_ms"] for k, v in bounds.items()}})
+    emit({"phase": "resident_serving_times", "gpu": smi,
+          "plants": SERVE_PLANTS, "steps": SERVE_STEPS,
+          "step_ms_host_clock_median": {
+              "dense": serve_ms(tg, tg.SolverConfig(), paired=False),
+              "restart": serve_ms(tg, tg.SolverConfig(
+                  iterations=RESTART_ITERS, restart=True))}})
+
+
+def serve_ms(tg, config, paired="auto") -> float:
+    """Median host-clock ms of a warm ``Controller.step`` on the serving
+    fleet (battery n3 N10, 256 plants), over SERVE_STEPS steps after the
+    first."""
+    problem = tg.problems.battery(**HEADLINE)
+    ctl = tg.Controller(problem, config=config, paired=paired, device=DEVICE)
+    A = np.asarray(problem.A, dtype=np.float32)
+    Bm = np.asarray(problem.B, dtype=np.float32)
+    x = np.random.default_rng(2).uniform(
+        -0.4, 0.4, (SERVE_PLANTS, problem.n_x)).astype(np.float32)
+    step_ms = []
+    for _ in range(SERVE_STEPS + 1):
+        t0 = time.perf_counter()
+        u = ctl.step(x)  # returns host NumPy: the device work is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        x = x @ A.T + u @ Bm.T
+    return float(np.median(step_ms[1:]))
+
+
+def sweep_resident(torch, tg, kernels, dual_kernels, core, smi):
+    """``--sweep``: the resident dense, dual and chunk kernels' device time
+    (profiler, mean of 5 calls) by scenarios per block (2**log2) and
+    split-K cap at B 256 and 4096; each distinct launch once."""
+    _, dense = dense_headline(tg)
+    _, data = headline(tg)
+    for B in RESIDENT_BATCHES:
+        for name in ("dense", "dual", "chunk"):
+            row, seen = {}, set()
+            for log2 in range(6):
+                for cap in (None, 1, 2, 4, 8):
+                    launch = (kernels._dense_plan(dense.m, dense.n_z, B, log2, cap)
+                              if name == "dense" else
+                              dual_kernels._dual_plan(data.m_half, B, log2, cap))
+                    if launch is None or launch in seen:
+                        continue
+                    seen.add(launch)
+                    runs, _ = resident_runs(torch, tg, kernels, dual_kernels,
+                                            core, B, seed=62, which=(name,),
+                                            plan=(log2, cap))
+                    row["/".join(map(str, launch))] = profiled_ms(
+                        torch, runs[f"{name}@{B}"], KERNEL_NAMES[name], calls=5)
+            pick = (kernels._dense_plan(dense.m, dense.n_z, B) if name == "dense"
+                    else dual_kernels._dual_plan(data.m_half, B))
+            emit({"phase": "resident_sweep", "gpu": smi, "kernel": name,
+                  "batch": B, "default": "/".join(map(str, pick)),
+                  "ms_device_by_plan": row})
 
 
 # ---------------------------------------------------------------------------
@@ -655,22 +865,25 @@ def phase_dense_kernel_vs_plain(torch, tg, kernels, core):
     cases["warm_per_scenario"], _ = run(data, g_P, p_D, y_cold)
     cases["warm_shared"], _ = run(data, g_P, p_D, y_cold[0].contiguous())
     cases["no_diagnostics"], _ = run(data, g_P, p_D, y_cold, diagnostics=False)
-    for B in (4093, 5, 1):  # ragged last tile, a few, one scenario
+    # ragged last tile, the serving batch (a tile of its own), a few, one
+    for B in (4093, SERVE_PLANTS, 5, 1):
         cases[f"B{B}"], _ = run(data, g_P[:B].contiguous(), p_D[:B].contiguous(),
                                 y_cold[:B].contiguous())
     _, near = dense_headline(tg, DENSE_NEAR)
     Xn = torch.as_tensor(
         rng.uniform(-0.4, 0.4, (BATCH, near.n_x)).astype(np.float32), device=DEVICE)
     cases["near_guard_n3_N20"], _ = run(near, *core.affine_params(near, Xn))
-    log2 = kernels._pick_dense_log2_tile(near.m, near.n_z, BATCH)
+    plan = kernels._dense_plan(near.m, near.n_z, BATCH)
     worst = max(cases.values())
     emit({"phase": "dense_kernel_vs_plain", "shape": [BATCH, data.n_z, data.m],
-          "near_guard": {"n_z": near.n_z, "m": near.m, "log2_tile": log2,
+          "plans": {B: kernels._dense_plan(data.m, data.n_z, B)
+                    for B in (BATCH, SERVE_PLANTS, 1)},
+          "near_guard": {"n_z": near.n_z, "m": near.m, "plan": plan,
                          "smem_bytes": kernels._dense_smem_bytes(near.m, near.n_z,
-                                                                 log2)},
+                                                                 plan)},
           "max_abs_err": cases, "max_abs_y": y_cold.abs().max().item(),
           "tol": KERNEL_TOL})
-    check(log2 == 3, f"n3 N20 dense tile 2**{log2}, expected 8")
+    check(plan.log2_tile == 4, f"n3 N20 dense plan {plan}, expected 16 per block")
     check(worst <= KERNEL_TOL, f"dense kernel disagrees with plain version: {cases}")
     return worst
 
@@ -839,24 +1052,27 @@ def phase_paired_path(torch, tg, kernels, core, reference):
     return launched
 
 
-def phase_dense_timing(torch, tg, kernels, core, smi):
+def phase_dense_timing(torch, tg, kernels, dual_kernels, core, smi):
     """CUDA events, median of 20 calls per turn, two turns in opposite
-    orders: the dense and the full paired kernels at their main-path
-    shapes (B4096 x 100), their plain versions, the solves through
-    ``auto`` and ``engine="torch"``, and the flat kernel beside them."""
+    orders: the dense kernel at the serving batch (256) and at B4096 x
+    100, the full paired kernel at B4096 x 100, their plain versions, the
+    solves through ``auto`` and ``engine="torch"``, and the flat kernel
+    beside them; then the dense kernel's device time from the profiler."""
     from tpu_gpad_torch.utils import device_time_per_call
 
     _, dense = dense_headline(tg)
     _, paired = headline(tg)
     X0 = torch.as_tensor(np.random.default_rng(45).uniform(
         -0.4, 0.4, (BATCH, dense.n_x)).astype(np.float32), device=DEVICE)
-    gd, pd = core.affine_params(dense, X0)
     gp, pp = core.affine_params(paired, X0)
     mvp = tg.SolverConfig(form="mvp", flat="off")
-    runs = {
-        "dense": lambda: kernels.gpad_fixed_dense(dense, gd, pd, iterations=ITERS),
-        "dense_plain": lambda: kernels.gpad_fixed_dense_torch(
-            dense, gd, pd, iterations=ITERS),
+    runs, bounds = {}, {}
+    for B in RESIDENT_BATCHES:
+        r, b = resident_runs(torch, tg, kernels, dual_kernels, core, B,
+                             seed=45, which=("dense",))
+        runs.update(r)
+        bounds.update(b)
+    runs.update({
         "dense_auto": lambda: tg.solve_batch(dense, X0),
         "dense_torch": lambda: tg.solve_batch(dense, X0,
                                               tg.SolverConfig(engine="torch")),
@@ -869,32 +1085,33 @@ def phase_dense_timing(torch, tg, kernels, core, smi):
             paired, X0, dataclasses.replace(mvp, engine="torch")),
         "flat": lambda: kernels.gpad_fixed_paired_flat(paired, gp, pp,
                                                        iterations=ITERS),
-    }
+    })
     ms = {k: [] for k in runs}
     order = list(runs)
     for turn in (order, order[::-1]):
         for k in turn:
             ms[k].append(device_time_per_call(runs[k], warmup=3, repeats=20) * 1e3)
     med = {k: float(np.mean(v)) for k, v in ms.items()}
-    # the loop's two products per scenario and iteration over every row:
-    # dense 2 (m n_z) + 2 (n_z m), paired 2 (m_h n_z) + 2 (n_z m_h);
-    # z, y, w, zhat written once
-    m, n_z, m_h = dense.m, dense.n_z, paired.m_half
-    schedule = (dense.theta[:ITERS], dense.beta[:ITERS])
-    med["dense_bound"] = bound(
-        BATCH * ITERS * 4.0 * m * n_z,
-        nbytes(dense.MG_T, dense.GL_T, gd, pd, *schedule)
-        + 4 * BATCH * (2 * n_z + 2 * m))
+    med["device"] = {k: profiled_ms(torch, runs[k], KERNEL_NAMES["dense"])
+                     for k in runs if k.startswith("dense@")}
+    # the full paired loop's two products per scenario and iteration over
+    # every row, 2 (m_h n_z) + 2 (n_z m_h); z, y, w, zhat written once
+    n_z, m_h = paired.n_z, paired.m_half
+    med["bounds"] = bounds
     med["paired_bound"] = bound(
         BATCH * ITERS * 4.0 * m_h * n_z,
-        nbytes(paired.MG_T, paired.GL_T, gp, pp, *schedule)
-        + 4 * BATCH * (2 * n_z + 4 * m_h))
-    emit({"phase": "dense_timing", "gpu": smi, "batch": BATCH,
-          "iterations": ITERS, "dense_shape": [n_z, m],
-          "paired_shape": [n_z, m_h], "dense_bound": med["dense_bound"],
-          "paired_bound": med["paired_bound"],
+        nbytes(paired.MG_T, paired.GL_T, gp, pp, paired.theta[:ITERS],
+               paired.beta[:ITERS]) + 4 * BATCH * (2 * n_z + 4 * m_h))
+    emit({"phase": "dense_timing", "gpu": smi, "batches": RESIDENT_BATCHES,
+          "iterations": ITERS, "dense_shape": [dense.n_z, dense.m],
+          "paired_shape": [n_z, m_h],
+          "dense_plans": {B: kernels._dense_plan(dense.m, dense.n_z, B)
+                          for B in RESIDENT_BATCHES},
+          "dense_bounds": bounds, "paired_bound": med["paired_bound"],
           "ms_median_of_20_per_turn": ms,
-          "solves_per_s": {k: BATCH / med[k] * 1e3 for k in runs}})
+          "device_ms_profiler": med["device"],
+          "solves_per_s": {k: BATCH / med[k] * 1e3 for k in runs
+                           if not k.startswith("dense@")}})
     return med
 
 
@@ -922,8 +1139,8 @@ def flag_x0(torch, n_x, B, seed):
 
 
 def restart_parting(torch, data, g_P, p_D, y0, z_k, z_p):
-    """A restart run of the tiled dual kernel (z_k) against the plain
-    version (z_p), per scenario, and both against the plain version in
+    """A restart run of a dual kernel (z_k) against the plain version
+    (z_p), per scenario, and both against the plain version in
     float64. A restart decision is the sign of a sum that float32 rounding
     may flip where it is near 0; a scenario whose decision flipped parts
     from the other run by far more than RESTART_TOL. At most
@@ -1838,6 +2055,30 @@ def profile_stagewise(torch, tg, sk, ss, smi):
         sk._launch_fns = plain_fns
 
 
+def kernel_ms(med, kernel, B=BATCH) -> float:
+    """A resident kernel's time at batch B: the profiler's device time of
+    its launch, or where the profiler saw none, the CUDA-event time of its
+    wrapper (which holds the host's work around the launch too)."""
+    device = med["device"][f"{kernel}@{B}"]
+    return med[f"{kernel}@{B}"] if device is None else device
+
+
+def by_batch(med, kernel, launches) -> dict:
+    """A resident kernel's entries of the kernels line per batch: its
+    main-path launches at each batch, and at each timed batch its time
+    (``kernel_ms``), its wrapper's CUDA-event time, its plain version's
+    and its bound."""
+    timed = RESIDENT_BATCHES
+    return {"launches_by_batch": {str(B): n for B, n in launches.items()},
+            "ms_by_batch": {str(B): kernel_ms(med, kernel, B) for B in timed},
+            "wrapper_ms_by_batch": {str(B): med[f"{kernel}@{B}"]
+                                    for B in timed},
+            "plain_ms_by_batch": {str(B): med[f"{kernel}_plain@{B}"]
+                                  for B in timed},
+            "bound_ms_by_batch": {str(B): med["bounds"][f"{kernel}@{B}"][
+                "bound_ms"] for B in timed}}
+
+
 def main() -> int:
     import torch
 
@@ -1854,10 +2095,18 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_stagewise(torch, tg, sk, ss, smi)
         return 0
+    if sys.argv[1:] == ["--times"]:  # builds only what it launches
+        times_resident(torch, tg, kernels, dual_kernels, core, smi)
+        return 0
     phase_build()
-    if sys.argv[1:] == ["--sweep"]:
-        sweep_stagewise(torch, tg, sk, ss, smi)
-        sweep_tiled(torch, tg, kernels, dual_kernels, core, smi)
+    if sys.argv[1:2] == ["--sweep"]:
+        families = sys.argv[2:] or ["resident", "stagewise", "tiled"]
+        if "resident" in families:
+            sweep_resident(torch, tg, kernels, dual_kernels, core, smi)
+        if "stagewise" in families:
+            sweep_stagewise(torch, tg, sk, ss, smi)
+        if "tiled" in families:
+            sweep_tiled(torch, tg, kernels, dual_kernels, core, smi)
         return 0
     worst = phase_kernel_vs_plain(torch, tg, kernels, core)
     worst_dual = phase_dual_kernel_vs_plain(torch, tg, dual_kernels, core)
@@ -1875,17 +2124,24 @@ def main() -> int:
     check(launches == 1 + SERVE_STEPS, f"main path launched {launches}x")
     reset_counters(kernels, dual_kernels, sk, ss)
     phase_restart_serving(torch, tg, dual_kernels)
+    # launches by batch: 256 plants served, then the forms at B4096
+    dual_by_batch = {SERVE_PLANTS: dual_kernels.DUAL_LAUNCHES}
     phase_dual_forms(torch, tg, dual_kernels, core)
     dual_launches = dual_kernels.DUAL_LAUNCHES
+    dual_by_batch[BATCH] = dual_launches - dual_by_batch[SERVE_PLANTS]
     check(dual_launches == SERVE_STEPS + 2, f"dual path launched {dual_launches}x")
     reset_counters(kernels, dual_kernels, sk, ss)
     chunk_launches = phase_eps_path(torch, tg, dual_kernels, core, reference)
+    chunk_by_batch = {BATCH: chunk_launches}
     reset_counters(kernels, dual_kernels, sk, ss)
     phase_dataset_path(torch, tg, kernels, reference)
+    dense_by_batch = {1: kernels.DENSE_LAUNCHES}
     phase_multi_path(torch, tg, kernels, reference)
     phase_serving(torch, tg, kernels, paired=False, counter="DENSE_LAUNCHES",
                   phase="dense_serving")
+    dense_by_batch[SERVE_PLANTS] = kernels.DENSE_LAUNCHES - dense_by_batch[1]
     sweep_launches = phase_sweep_path(torch, tg, kernels)
+    dense_by_batch[SWEEP_CHUNK] = sweep_launches
     dense_launches = kernels.DENSE_LAUNCHES
     check(dense_launches == 1 + MULTI_PLANTS + SERVE_STEPS + sweep_launches,
           f"dense path launched {dense_launches}x")
@@ -1911,9 +2167,9 @@ def main() -> int:
     phase_stagewise_eps(torch, tg, sk, ss)
     phase_near_limit(torch, tg, kernels, core)
     med = phase_timing(torch, tg, kernels, core, smi)
-    dmed = phase_dual_timing(torch, tg, dual_kernels, core, smi)
+    dmed = phase_dual_timing(torch, tg, kernels, dual_kernels, core, smi)
     smed = phase_stagewise_timing(torch, tg, sk, ss, ts, smi)
-    dnmed = phase_dense_timing(torch, tg, kernels, core, smi)
+    dnmed = phase_dense_timing(torch, tg, kernels, dual_kernels, core, smi)
     tmed = phase_tiled_timing(torch, tg, kernels, dual_kernels, core, smi)
     # no single PyTorch call computes a GPAD solve loop
     no_library = {"library_ms": None}
@@ -1934,9 +2190,11 @@ def main() -> int:
         "replaces": "tpu_gpad/solver/kernels.py:456",
         "launches": dual_launches,
         "max_abs_err": worst_dual,
-        "ms": dmed["dual"],
-        "plain_ms": dmed["dual_plain"],
-        **dmed["bound"], **no_library,
+        "ms": kernel_ms(dmed, "dual"),
+        "plain_ms": dmed[f"dual_plain@{BATCH}"],
+        "torch_engine_ms": dmed["dual_torch_engine"],
+        **dmed["bounds"][f"dual@{BATCH}"], **no_library,
+        **by_batch(dmed, "dual", dual_by_batch),
     }, {
         "name": "gpad_dual_chunk",
         "route": "cuda",
@@ -1944,9 +2202,12 @@ def main() -> int:
         "replaces": "tpu_gpad/solver/kernels.py:655",
         "launches": chunk_launches,
         "max_abs_err": worst_chunk,
-        "ms": dmed["chunk"],
-        "plain_ms": dmed["chunk_plain"],
-        **dmed["chunk_bound"], **no_library,
+        "ms": kernel_ms(dmed, "chunk"),
+        "plain_ms": dmed[f"chunk_plain@{BATCH}"],
+        # 10 restart iterations on the torch engine
+        "torch_engine_ms": dmed["chunk_torch_engine"],
+        **dmed["bounds"][f"chunk@{BATCH}"], **no_library,
+        **by_batch(dmed, "chunk", chunk_by_batch),
     }, {
         "name": "gpad_stagewise_resident",
         "route": "cuda",
@@ -1974,9 +2235,10 @@ def main() -> int:
         "replaces": "tpu_gpad/solver/kernels.py:336",
         "launches": dense_launches,
         "max_abs_err": worst_dense,
-        "ms": dnmed["dense"],
-        "plain_ms": dnmed["dense_plain"],
-        **dnmed["dense_bound"], **no_library,
+        "ms": kernel_ms(dnmed, "dense"),
+        "plain_ms": dnmed[f"dense_plain@{BATCH}"],
+        **dnmed["bounds"][f"dense@{BATCH}"], **no_library,
+        **by_batch(dnmed, "dense", dense_by_batch),
     }, {
         "name": "gpad_paired",
         "route": "cuda",

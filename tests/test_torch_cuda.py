@@ -337,6 +337,129 @@ def test_restart_and_eps_route_through_dual_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# every launch plan of the register-tiled dense and dual kernels
+# ---------------------------------------------------------------------------
+
+# (log2_tile, split cap): each tile width the kernels instantiate, with the
+# split-K parts as picked and capped at 1 (the dense kernel's register
+# epilogue); None: the picks for the batch
+PLANS = [None, (0, None), (0, 1), (1, None), (2, None), (3, None), (3, 1),
+         (4, None), (5, None), (5, 1)]
+
+
+def _plan_id(plan):
+    return "pick" if plan is None else f"tile{1 << plan[0]}_split{plan[1]}"
+
+
+@pytest.mark.parametrize("plan", PLANS, ids=_plan_id)
+@pytest.mark.parametrize("shape,B", [((3, 10), 256), ((3, 10), 4096),
+                                     ((3, 7), 300)],
+                         ids=["n3N10_B256", "n3N10_B4096", "n3N7_B300"])
+def test_dense_kernel_plans_match_plain(dev, shape, B, plan):
+    """battery n3 N7 (m 98, n_z 21): rows not a multiple of 4, and a
+    ragged last tile at every width."""
+    data = _dense_data(dev, *shape)
+    g_P, p_D = _inputs(data, B, seed=B + 11)
+    y0 = torch.rand((B, data.m), device=dev) * 0.5
+    log2_tile, split = plan or (None, None)
+    kw = dict(iterations=ITERS, log2_tile=log2_tile, split=split)
+    out_k = kernels.gpad_fixed_dense(data, g_P, p_D, y0, **kw)
+    out_p = kernels.gpad_fixed_dense_torch(data, g_P, p_D, y0,
+                                           iterations=ITERS)
+    torch.cuda.synchronize()
+    _assert_close(out_k, out_p)
+
+
+def test_dense_kernel_unpadded_near_the_guard(dev):
+    """m 98, n_z 289: the first design's carve-up fits one block and the
+    padded one does not, so the kernel runs unpadded (vec 1)."""
+    base = _dense_data(dev)
+    rng = np.random.default_rng(12)
+    m, n_z = 98, 289
+    data = dataclasses.replace(
+        base, MG_T=torch.as_tensor(rng.uniform(-0.01, 0.01, (m, n_z)),
+                                   dtype=torch.float32, device=dev),
+        GL_T=torch.as_tensor(rng.uniform(-0.01, 0.01, (n_z, m)),
+                             dtype=torch.float32, device=dev))
+    assert kernels._dense_plan(m, n_z, 64) == kernels.DensePlan(0, 1, 1, 1)
+    g_P = torch.as_tensor(rng.uniform(-0.1, 0.1, (64, n_z)),
+                          dtype=torch.float32, device=dev)
+    p_D = torch.as_tensor(rng.uniform(-0.1, 0.1, (64, m)),
+                          dtype=torch.float32, device=dev)
+    out_k = kernels.gpad_fixed_dense(data, g_P, p_D, iterations=20)
+    out_p = kernels.gpad_fixed_dense_torch(data, g_P, p_D, iterations=20)
+    torch.cuda.synchronize()
+    _assert_close(out_k, out_p)
+
+
+# the dual kernels keep a thread's share of the state in registers: at m_h
+# 70, 32 scenarios per block is past it
+DUAL_PLANS = [p for p in PLANS if p is None or p[0] <= 4]
+
+
+@pytest.mark.parametrize("plan", DUAL_PLANS, ids=_plan_id)
+@pytest.mark.parametrize("case", ["n3N10_B256", "n3N10_B4096_restart",
+                                  "n3N7_B300_soft", "n3N7_B300_restart_soft"])
+def test_dual_kernel_plans_match_plain(dev, case, plan):
+    """battery n3 N7 (m_h 49): rows not a multiple of 4, a ragged last
+    tile at every width, soft rows and restart."""
+    data = _data(dev, 3, 7) if "n3N7" in case else _data(dev)
+    B = int(case.split("_B")[1].split("_")[0])
+    if "soft" in case:
+        data = dataclasses.replace(data, soft_damp=torch.rand(
+            data.m_half, device=dev) * 0.2)
+    restart = "restart" in case
+    g_P, p_D = _inputs(data, B, seed=B + 13)
+    y0 = torch.rand((B, 2, data.m_half), device=dev) * 0.5
+    log2_tile, split = plan or (None, None)
+    kw = dict(iterations=ITERS, restart=restart)
+    out_k = dual_kernels.gpad_fixed_dual(data, g_P, p_D, y0, log2_tile=log2_tile,
+                                         split=split, **kw)
+    out_p = dual_kernels.gpad_fixed_dual_torch(data, g_P, p_D, y0, **kw)
+    torch.cuda.synchronize()
+    if not restart:
+        _assert_close(out_k, out_p)
+        return
+    assert all(bool(torch.isfinite(t).all()) for t in out_k)
+    torch.testing.assert_close(out_k[0], out_p[0], atol=RESTART_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("plan", DUAL_PLANS, ids=_plan_id)
+@pytest.mark.parametrize("restart", [False, True], ids=["plain", "restart"])
+def test_dual_chunks_compose_at_every_plan(dev, restart, plan):
+    """Ten windows of 10 at B 300 (n3 N10) give the whole launch's state,
+    and a window holds its plain version."""
+    data = _data(dev)
+    B = 300
+    g_P, p_D = _inputs(data, B, seed=17)
+    c = dual_kernels.relu_offsets(data, g_P, p_D)
+    log2_tile, split = plan or (None, None)
+    over = dict(log2_tile=log2_tile, split=split)
+    y = torch.zeros((B, 2, data.m_half), device=dev)
+    state = (y, y, torch.zeros((B, data.m_half), device=dev),
+             torch.ones((B, 2), device=dev))
+    for k0 in range(0, ITERS, 10):
+        before = state
+        *state, w = dual_kernels.gpad_dual_chunk(data, c, *state, k0=k0,
+                                                 chunk=10, restart=restart,
+                                                 **over)
+        if k0 == 50 and not restart:
+            ref = dual_kernels.gpad_dual_chunk_torch(
+                data, c, *before, k0=k0, chunk=10)
+            for a, b in zip((*state, w), ref):
+                torch.testing.assert_close(a, b, atol=TOL, rtol=0)
+    z, y_f, w_f, _ = dual_kernels.gpad_fixed_dual(
+        data, g_P, p_D, iterations=ITERS, restart=restart, **over)
+    torch.cuda.synchronize()
+    z_c = -(state[2] @ data.MG_T) - g_P
+    torch.testing.assert_close(z_c, z, atol=RESTART_TOL if restart else TOL,
+                               rtol=0)
+    if not restart:
+        torch.testing.assert_close(state[0], y_f, atol=TOL, rtol=0)
+        torch.testing.assert_close(w, w_f, atol=TOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
 # the tiled kernels (csrc/gpad_dual_tiled.cu, csrc/gpad_flat_tiled.cu)
 # ---------------------------------------------------------------------------
 

@@ -159,8 +159,9 @@ def test_cuda_kernel_routing(dense, paired):
 
 def test_shared_memory_guards():
     """The dense guard admits battery n3 N10 and n3 N20 (n_z 60, m 280) at a
-    tile of 8 and refuses the reference's 30x30 flagship; the full paired
-    guard admits the headline shape."""
+    tile of 16 and refuses the reference's 30x30 flagship; the full paired
+    guard admits the headline shape. The dense tile shrinks at the serving
+    batch so that the grid fills the card."""
     def data(n, N, paired):
         return tg.dualize(tg.condense(tg.problems.battery(n, N)), iterations=5,
                           paired=paired, device="cpu")
@@ -168,9 +169,12 @@ def test_shared_memory_guards():
     n10, n20 = data(3, 10, False), data(3, 20, False)
     assert (n10.m, n10.n_z, n20.m, n20.n_z) == (140, 30, 280, 60)
     assert kernels.dense_fits_smem(n10) and kernels.dense_fits_smem(n20)
-    assert kernels._pick_dense_log2_tile(280, 60, 4096) == 3
-    assert kernels._dense_smem_bytes(280, 60, 3) <= kernels.SMEM_LIMIT_BYTES
-    assert kernels._pick_dense_log2_tile(140, 30, 3) == 2  # B rounds up to 4
+    near = kernels._dense_plan(280, 60, 4096)
+    assert near.log2_tile == 4 and near.vec == 4
+    assert kernels._dense_smem_bytes(280, 60, near) <= kernels.SMEM_LIMIT_BYTES
+    assert kernels._dense_plan(140, 30, 4096).log2_tile == 4
+    assert kernels._dense_plan(140, 30, 3).log2_tile == 0  # fills the card
+    assert kernels._dense_plan(140, 30, 256).log2_tile == 1  # 128 blocks
     assert not kernels.dense_fits_smem(data(30, 30, False))
     head = data(3, 10, "auto")
     assert kernels.paired_fits_smem(head) and not kernels.dense_fits_smem(head)

@@ -208,10 +208,15 @@ def test_shared_memory_guard():
     head, mid, flagship = data(3, 10), data(5, 20), data(30, 30)
     assert dual_kernels.dual_fits_smem(head) and dual_kernels.dual_fits_smem(mid)
     assert not dual_kernels.dual_fits_smem(flagship)
-    assert dual_kernels._pick_dual_tile(70, 4096) == 3
-    assert dual_kernels._pick_dual_tile(70, 1) == 0
-    assert dual_kernels._pick_dual_tile(220, 1024) == 2  # 229,808 bytes
-    assert dual_kernels._dual_smem_bytes(220, 3) > 227 * 1024
+    assert dual_kernels._dual_plan(70, 4096).log2_tile == 4
+    assert dual_kernels._dual_plan(70, 1).log2_tile == 0
+    assert dual_kernels._dual_plan(70, 256).log2_tile == 1  # 128 blocks
+    # 8 per block would hold 7 of a thread's elements in registers (at
+    # most 6)
+    wide = dual_kernels._dual_plan(220, 1024)
+    assert wide.log2_tile == 2
+    assert dual_kernels._dual_smem_bytes(220, wide) <= 227 * 1024
+    assert dual_kernels._dual_plan(220, 1024, log2_tile=3) is None
     dense = tpu_gpad_torch.dualize(
         tpu_gpad_torch.condense(tpu_gpad_torch.problems.battery(3, 4)),
         iterations=5, paired=False, device="cpu")

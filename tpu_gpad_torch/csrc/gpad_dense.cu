@@ -16,28 +16,44 @@
 //
 // What bounds it: at battery n3 N10 (n_z = 30, m = 140) an iteration is
 // 4 m n_z = 16.8 kFLOP per scenario, so a B = 4096, 100-iteration solve is
-// 6.9 GFLOP, about 0.1 ms at the card's FP32 rate. The operands are 34 KB.
-// As in gpad_paired_flat.cu, each multiply-add reads two shared-memory
-// words, so shared-memory traffic and the two barriers per iteration bound
-// it, not the FP32 rate or device memory.
+// 6.9 GFLOP, about 0.1 ms at the card's FP32 rate; the operands are 34 KB,
+// so device memory does not bound it. The first design read two
+// shared-memory words per multiply-add (an eighth of the FP32 rate at
+// best) and ran 140-long dependent chains. This one reads one 16-byte word
+// of each operand per 4 x 4 multiply-adds; what bounds it now is latency:
+// with 16 warps per SM and a barrier after each of its four phases, each
+// phase waits on its own loads and chains, and the products reach about a
+// quarter of the FP32 rate (on an H100, PERF.md: 0.45 ms at B = 4096,
+// 4.4x the bound; 0.15 ms at B = 256, where the grid has 128 blocks).
 //
-// Design (that of gpad_paired_flat.cu): one block per tile of T scenarios
-// (T a power of two <= 8, chosen by the wrapper from the carve-up below).
-// MG_T and GL_T are staged once into dynamic shared memory, row-major as
-// given; the per-scenario arrays are in shared memory laid out
-// [row][scenario], so a warp reads neighbouring scenarios of one row while
-// the operand word is a broadcast. Step 1 of iteration k+1 is fused into
-// the projection of iteration k, so y_prev is never stored and each
-// iteration is two phases with one barrier after each. Products are plain
-// fp32 FMA (precision "highest").
+// Design: one block of 256 threads per tile of T scenarios (T a power of
+// two <= 32, picked per batch by the wrapper so that the grid fills the
+// card: 2 at the serving batch B = 256, 16 at B = 4096). MG_T and GL_T are
+// staged once into dynamic shared memory with their rows padded to a
+// multiple of 4 (zeros), and the per-scenario arrays are laid out
+// [row][scenario] with zero padded rows. Both products are register-tiled
+// block products (block_product.cuh): a thread holds 4 rows x min(T, 4)
+// scenarios of sums, and the K of each product is split over S parts so
+// that short products fill the block. A phase with S > 1 adds its parts
+// in one fixed order after a barrier; with S = 1 its epilogue runs from
+// registers. The epilogues read and write min(T, 4) scenarios of a row
+// with one vector access each. Step 1 of iteration k+1 is fused into the
+// projection of iteration k, so y_prev is never stored. Where the padded
+// layout does not fit shared memory (shapes near the guard), V = 1 keeps
+// the operands unpadded at one scenario per block: the first design's
+// carve-up, so the guard admits what it did.
 
 #include <cuda_runtime.h>
+
+#include "block_product.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+using gpad_block::up4;
 
-__global__ void __launch_bounds__(kThreads)
+template <int V, int ST>
+__global__ void __launch_bounds__(kThreads, 2)
 gpad_dense_kernel(
     const float* __restrict__ MG,     // (m, n_z) row-major
     const float* __restrict__ GL,     // (n_z, m) row-major
@@ -47,92 +63,132 @@ gpad_dense_kernel(
     long long y0_stride,              // 0 (one y0 for all) or m
     const float* __restrict__ theta,  // (>= iterations,)
     const float* __restrict__ beta,
-    int B, int m, int n_z, int iterations, int log2_tile,
+    int B, int m, int n_z, int iterations, int log2T, int s1, int s2,
     float* __restrict__ z_out,        // (B, n_z)
     float* __restrict__ y_out,        // (B, m)
     float* __restrict__ w_out,        // (B, m) or null (no diagnostics)
     float* __restrict__ zhat_out)     // (B, n_z) or null
 {
-    extern __shared__ float smem[];
-    const int T = 1 << log2_tile;
-    const int tmask = T - 1;
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    const int T = 1 << log2T;
     const int tid = threadIdx.x;
     const long long b0 = (long long)blockIdx.x * T;
-    const int mT = m * T;
-    const int zT = n_z * T;
+    // row strides: padded to 4 for 16-byte loads (V = 4), or as given
+    const int mp = V == 4 ? up4(m) : m, np = V == 4 ? up4(n_z) : n_z;
+    const int mT = mp * T, zT = np * T;
 
-    float* sMG = smem;                 // m * n_z, [i][j]
-    float* sGL = sMG + m * n_z;        // n_z * m, [j][i]
-    float* sY = sGL + n_z * m;         // each dual array: [i][s], m * T
+    float* sMG = smem;                 // m * np, [i][j]
+    float* sGL = sMG + m * np;         // n_z * mp, [j][i]
+    float* sY = sGL + n_z * mp;        // each dual array: [i][s], mp * T
     float* sW = sY + mT;
     float* sP = sW + mT;
-    float* sG = sP + mT;               // each primal array: [j][s], n_z * T
+    float* sG = sP + mT;               // each primal array: [j][s], np * T
     float* sZ = sG + zT;
     float* sZh = sZ + zT;
+    // the phases' partial sums (only where S > 1) share one scratch
+    float* part1 = s1 > 1 ? sZh + zT : nullptr;
+    float* part2 = s2 > 1 ? sZh + zT : nullptr;
 
-    for (int idx = tid; idx < m * n_z; idx += kThreads) {
-        sMG[idx] = MG[idx];
-        sGL[idx] = GL[idx];
+    for (int idx = tid; idx < m * np; idx += kThreads) {
+        const int i = idx / np, j = idx - i * np;
+        sMG[idx] = j < n_z ? MG[i * n_z + j] : 0.0f;
     }
+    for (int idx = tid; idx < n_z * mp; idx += kThreads) {
+        const int j = idx / mp, i = idx - j * mp;
+        sGL[idx] = i < m ? GL[j * m + i] : 0.0f;
+    }
+    // padded rows stay zero: inert in every product and projection
+    for (int idx = tid; idx < 3 * (mT + zT); idx += kThreads) sY[idx] = 0.0f;
+    __syncthreads();
     // Per-scenario inputs, read with consecutive threads on consecutive
     // global addresses; scenarios past B (the ragged last tile) are zero.
-    for (int idx = tid; idx < zT; idx += kThreads) {
+    for (int idx = tid; idx < n_z * T; idx += kThreads) {
         const int s = idx / n_z, j = idx - s * n_z;
         const long long b = b0 + s;
-        const int o = j * T + s;
-        sG[o] = b < B ? gP[b * n_z + j] : 0.0f;
-        sZ[o] = 0.0f;
-        sZh[o] = 0.0f;
+        if (b < B) sG[j * T + s] = gP[b * n_z + j];
     }
-    for (int idx = tid; idx < mT; idx += kThreads) {
+    for (int idx = tid; idx < m * T; idx += kThreads) {
         const int s = idx / m, i = idx - s * m;
         const long long b = b0 + s;
-        const bool live = b < B;
+        if (b >= B) continue;
         const int o = i * T + s;
-        const float y = (live && y0) ? y0[b * y0_stride + i] : 0.0f;
-        sP[o] = live ? pD[b * m + i] : 0.0f;
+        const float y = y0 ? y0[b * y0_stride + i] : 0.0f;
+        sP[o] = pD[b * m + i];
         sY[o] = y;
         sW[o] = y;  // y_prev = y0, so w_0 = y0 whatever beta_0 is
     }
     __syncthreads();
 
+    const gpad_block::Product P1 = gpad_block::make_product<ST>(n_z, m, log2T, s1);
+    const gpad_block::Product P2 = gpad_block::make_product<ST>(m, n_z, log2T, s2);
     for (int k = 0; k < iterations; ++k) {
         const float th = theta[k];
-        // zhat = -MG_T' w - g_P ; z = (1 - th) z + th zhat
-        for (int idx = tid; idx < zT; idx += kThreads) {
-            const int j = idx >> log2_tile, s = idx & tmask;
-            float acc = 0.0f;
-            for (int i = 0; i < m; ++i)
-                acc = fmaf(sMG[i * n_z + j], sW[i * T + s], acc);
-            const float zh = -acc - sG[idx];
-            sZh[idx] = zh;
-            sZ[idx] = (1.0f - th) * sZ[idx] + th * zh;
+        // zhat = -MG_T' w - g_P ; z = (1 - th) z + th zhat, on ST
+        // consecutive scenarios of one row at idx
+        auto emit1 = [&](int idx, const float (&acc)[ST]) {
+            float g[ST], z[ST], zh[ST];
+            gpad_block::load_vec<ST>(sG + idx, g);
+            gpad_block::load_vec<ST>(sZ + idx, z);
+#pragma unroll
+            for (int e = 0; e < ST; ++e) {
+                zh[e] = -acc[e] - g[e];
+                z[e] = (1.0f - th) * z[e] + th * zh[e];
+            }
+            gpad_block::store_vec<ST>(sZh + idx, zh);
+            gpad_block::store_vec<ST>(sZ + idx, z);
+        };
+        gpad_block::block_product<V, ST, kThreads>(
+            sMG, np, sW, log2T, P1, part1,
+            [&](int j, int s0, const float (&v)[ST]) { emit1(j * T + s0, v); });
+        if (part1) {
+            __syncthreads();
+            for (int idx = tid * ST; idx < n_z * T; idx += kThreads * ST) {
+                float v[ST];
+                gpad_block::sum_parts<ST>(part1, up4(n_z) * T, s1, idx, v);
+                emit1(idx, v);
+            }
         }
         __syncthreads();
         // GL_T' zhat, projection, and the next iteration's w from (y_next, y)
         const bool more = k + 1 < iterations;
         const float bn = more ? beta[k + 1] : 0.0f;
-        for (int idx = tid; idx < mT; idx += kThreads) {
-            const int i = idx >> log2_tile, s = idx & tmask;
-            float q = 0.0f;
-            for (int j = 0; j < n_z; ++j)
-                q = fmaf(sGL[j * m + i], sZh[j * T + s], q);
-            const float y_old = sY[idx];
-            const float y = fmaxf(sW[idx] + q + sP[idx], 0.0f);
-            sY[idx] = y;
-            if (more) sW[idx] = y + bn * (y - y_old);
+        auto emit2 = [&](int idx, const float (&q)[ST]) {
+            float y[ST], w[ST], p[ST];
+            gpad_block::load_vec<ST>(sY + idx, y);
+            gpad_block::load_vec<ST>(sW + idx, w);
+            gpad_block::load_vec<ST>(sP + idx, p);
+#pragma unroll
+            for (int e = 0; e < ST; ++e) {
+                const float y_new = fmaxf(w[e] + q[e] + p[e], 0.0f);
+                w[e] = y_new + bn * (y_new - y[e]);
+                y[e] = y_new;
+            }
+            gpad_block::store_vec<ST>(sY + idx, y);
+            if (more) gpad_block::store_vec<ST>(sW + idx, w);
+        };
+        gpad_block::block_product<V, ST, kThreads>(
+            sGL, mp, sZh, log2T, P2, part2,
+            [&](int i, int s0, const float (&v)[ST]) { emit2(i * T + s0, v); });
+        if (part2) {
+            __syncthreads();
+            for (int idx = tid * ST; idx < m * T; idx += kThreads * ST) {
+                float v[ST];
+                gpad_block::sum_parts<ST>(part2, up4(m) * T, s2, idx, v);
+                emit2(idx, v);
+            }
         }
         __syncthreads();
     }
 
-    for (int idx = tid; idx < zT; idx += kThreads) {
+    for (int idx = tid; idx < n_z * T; idx += kThreads) {
         const int s = idx / n_z, j = idx - s * n_z;
         const long long b = b0 + s;
         if (b >= B) continue;
         z_out[b * n_z + j] = sZ[j * T + s];
         if (zhat_out) zhat_out[b * n_z + j] = sZh[j * T + s];
     }
-    for (int idx = tid; idx < mT; idx += kThreads) {
+    for (int idx = tid; idx < m * T; idx += kThreads) {
         const int s = idx / m, i = idx - s * m;
         const long long b = b0 + s;
         if (b >= B) continue;
@@ -147,25 +203,35 @@ gpad_dense_kernel(
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// `smem` is the block's dynamic shared memory in bytes,
-// 4 (2 m n_z + 3 m T + 3 n_z T), computed by the caller
-// (kernels.py::_dense_smem_bytes) so the routing guard and the launch agree.
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a plan the kernel does not take. `smem` is the
+// block's dynamic shared memory in bytes and (vec, s1, s2) the carve-up,
+// computed by the caller (kernels.py::_dense_smem_bytes) so the routing
+// guard and the launch agree: vec 4 (padded rows) or 1 (unpadded, one
+// scenario per block, no split), s1 and s2 the parts of the two products.
 int gpad_dense_launch(
     const float* MG, const float* GL, const float* gP, const float* pD,
     const float* y0, long long y0_stride, const float* theta,
     const float* beta, int B, int m, int n_z, int iterations, int log2_tile,
+    int vec, int s1, int s2,
     float* z_out, float* y_out, float* w_out, float* zhat_out,
     int smem, void* stream)
 {
+    if (log2_tile < 0 || log2_tile > 5 || s1 < 1 || s2 < 1
+        || (vec != 4 && (vec != 1 || log2_tile != 0 || s1 != 1 || s2 != 1)))
+        return (int)cudaErrorInvalidValue;
+    const auto kernel = vec == 1        ? gpad_dense_kernel<1, 1>
+                      : log2_tile == 0  ? gpad_dense_kernel<4, 1>
+                      : log2_tile == 1  ? gpad_dense_kernel<4, 2>
+                                        : gpad_dense_kernel<4, 4>;
     cudaError_t err = cudaFuncSetAttribute(
-        gpad_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const int T = 1 << log2_tile;
     const int grid = (B + T - 1) / T;
-    gpad_dense_kernel<<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
+    kernel<<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
         MG, GL, gP, pD, y0, y0_stride, theta, beta, B, m, n_z, iterations,
-        log2_tile, z_out, y_out, w_out, zhat_out);
+        log2_tile, s1, s2, z_out, y_out, w_out, zhat_out);
     return (int)cudaGetLastError();
 }
 

@@ -23,125 +23,142 @@
 // What bounds it: at the headline shape (battery n3 N10, m_h = 70) an
 // iteration is 2 m_h^2 = 9.8 kFLOP per scenario, so a B = 4096,
 // 100-iteration solve is 4 GFLOP, a few hundredths of a millisecond at the
-// card's FP32 rate; D is 19.6 KB. Each multiply-add reads two shared-memory
-// words (a D entry and a wd entry), so the kernel is bounded by
-// shared-memory traffic, the latency of the m_h-long dependent FMA chains
-// and the two barriers per iteration, not by the FP32 rate or device memory.
+// card's FP32 rate; D is 19.6 KB, so device memory does not bound it. The
+// first design read two shared-memory words per multiply-add (a D entry
+// and a wd entry), kept every state array in shared memory, ran m_h-long
+// dependent chains and spent a pass and a barrier on w alone. What bounds
+// this one is latency: 16 warps per SM (the register-held state allows two
+// blocks), a barrier after the product, the epilogue and, under restart,
+// the decision, each phase waiting on its own loads and chains; the
+// product reaches about a quarter of the FP32 rate (on an H100, PERF.md:
+// 0.39 ms at B = 4096 under restart, 6.4x the bound; 0.13 ms at B = 256).
 //
-// Design: one block of 256 threads per tile of T scenarios (T a power of two
-// <= 32; the wrapper takes at most 8, as for the flat kernel). D and od are
-// staged once into dynamic shared memory, and every per-scenario array lives
-// there too, laid out [row][scenario] so a warp reads neighbouring scenarios
-// of a few rows while the D words are broadcasts; c+- is staged once since
-// it is constant over the loop. Because 256 is a multiple of T, a thread
-// always works on the same scenario (tid mod T), so it keeps that scenario's
-// restart recursion (th, th_prev) in registers. The restart test is a
-// reduction over the scenario's 2 m_h rows that every row needs before the
-// next step 1: each thread sums its rows, the warp's lanes of one scenario
-// combine with shuffles, and one partial per warp goes to shared memory
-// before the barrier that ends the iteration. After it, every thread of the
-// scenario adds the same 8 partials in the same order, so all reach the
-// same decision without a third barrier. An iteration is two phases, each
-// ending in a barrier: (A) the previous iteration's restart decision and
-// w; (B) the product, projection, s update and restart partials. Products
-// are plain fp32 FMA (precision "highest"); TF32, tensor cores and register
-// blocking are later work.
+// Design: one block of 256 threads per tile of T scenarios (T a power of
+// two <= 32 with m_h T <= kMaxE 256, picked per batch by the wrapper so
+// that the grid fills the card: 2 at B = 256, 16 at B = 4096). D, its rows
+// padded to a multiple of 4 with zeros, is staged once into dynamic shared
+// memory beside wd, the only state the product reads, laid out
+// [row][scenario]. The product wd D is a register-tiled block
+// product (block_product.cuh): a thread holds 4 rows x min(T, 4)
+// scenarios of sums, one 16-byte load of D and of wd feeding up to 16
+// multiply-adds, and m_h is split over S parts whose sums meet in shared
+// memory and are added in one fixed order. The rest of the state lives in
+// registers: thread tid owns the elements idx = tid + q 256 (q < kMaxE) of
+// the [row][scenario] layout in every iteration, so it keeps their y+-,
+// y_prev+-, s, c+-, od and wd, reads only the product's parts, and writes
+// only the next wd to shared memory. w is never stored: the epilogue
+// recomputes it from (y, y_prev) and, without restart, forms the next
+// iteration's wd itself, so an iteration is the product and the epilogue,
+// each ending in a barrier; the last iteration's w goes straight to device
+// memory. Because 256 is a multiple of T, a thread's elements are all of
+// scenario tid mod T, so it keeps that scenario's restart recursion (th,
+// th_prev) in registers. The restart test is a reduction over the
+// scenario's 2 m_h rows that every row needs before the next w: each
+// thread sums its rows, the warp's lanes of one scenario combine with
+// shuffles, one partial per warp goes to shared memory, and after a
+// barrier every thread of the scenario adds the same 8 partials in the
+// same order, so all reach the same decision; it then forms the next wd (a
+// third barrier per iteration under restart). Products are plain fp32 FMA
+// (precision "highest").
 
 #include <cuda_runtime.h>
+
+#include "block_product.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// Elements a thread owns: the wrapper keeps m_h T <= kMaxE kThreads.
+constexpr int kMaxE = 6;
+using gpad_block::up4;
 
-// One block's shared memory: 4 (m_h^2 + m_h + 10 m_h T + kWarps T) bytes,
-// mirrored by dual_kernels.py::_dual_smem_bytes.
+// One block's shared memory, with mp = up4(m_h):
+// 4 (m_h mp + (1 + S) mp T + kWarps T) bytes, mirrored by
+// dual_kernels.py::_dual_smem_bytes.
 struct Tile {
-    float *D, *od, *cp, *cm, *yp, *ym, *ypp, *ymp, *wp, *wm, *wd, *s, *rpart;
+    float *D, *wd, *part, *rpart;
 };
 
-__device__ Tile carve(float* smem, int m_h, int T) {
-    const int hT = m_h * T;
+__device__ Tile carve(float* smem, int m_h, int T, int S) {
+    const int mp = up4(m_h);
     Tile t;
-    t.D = smem;                 // [j][i], m_h * m_h
-    t.od = t.D + m_h * m_h;     // m_h
-    t.cp = t.od + m_h;          // each dual array: [i][s], m_h * T
-    t.cm = t.cp + hT;
-    t.yp = t.cm + hT;
-    t.ym = t.yp + hT;
-    t.ypp = t.ym + hT;          // y_prev
-    t.ymp = t.ypp + hT;
-    t.wp = t.ymp + hT;
-    t.wm = t.wp + hT;
-    t.wd = t.wm + hT;
-    t.s = t.wd + hT;
-    t.rpart = t.s + hT;         // restart partials: [warp][s], kWarps * T
+    t.D = smem;                     // [j][i], m_h * mp
+    t.wd = t.D + m_h * mp;          // w+ - w- about to be multiplied, [i][s]
+    t.part = t.wd + mp * T;         // the product's partial sums, S * mp * T
+    t.rpart = t.part + S * mp * T;  // restart partials: [warp][s], kWarps * T
     return t;
 }
 
-// (B, 2, m_h) rows into [i][s] arrays (+ half into p, - half into m).
-// `stride` is 2 m_h, or 0 for one row shared by every scenario; a null
-// source and scenarios past B (the ragged last tile) read as zero.
-__device__ void load_pair(float* p, float* m, const float* __restrict__ src,
-                          long long stride, int B, int m_h, int log2T,
-                          long long b0) {
-    const int T = 1 << log2T;
-    for (int idx = threadIdx.x; idx < 2 * m_h * T; idx += kThreads) {
-        const int s = idx / (2 * m_h), r = idx - s * 2 * m_h;
-        const int side = r >= m_h, i = r - side * m_h;
-        const long long b = b0 + s;
-        const float v = (src && b < B) ? src[b * stride + r] : 0.0f;
-        (side ? m : p)[i * T + s] = v;
+// The extrapolated point's difference, w+ - w-, at momentum b (one
+// expression wherever wd is formed, so a window's first wd is the one a
+// whole solve forms at the same iteration).
+__device__ __forceinline__ float wdiff(float yp, float ypp, float ym,
+                                       float ymp, float b) {
+    return (yp + b * (yp - ypp)) - (ym + b * (ym - ymp));
+}
+
+// The state of the elements a thread owns, in registers.
+struct State {
+    float yp[kMaxE], ym[kMaxE], ypp[kMaxE], ymp[kMaxE], s[kMaxE],
+        cp[kMaxE], cm[kMaxE], od[kMaxE], wd[kMaxE];
+};
+
+// Where a thread's element q lives: row i of scenario b0 + (tid mod T).
+#define FOR_OWN(q, idx, i, hT, log2T)                                     \
+    _Pragma("unroll") for (int q = 0; q < kMaxE; ++q)                    \
+        if (const int idx = threadIdx.x + q * kThreads, i = idx >> log2T; \
+            idx < hT)
+
+// D (rows padded with zeros) and a zero wd in shared memory; od and c+- of
+// the thread's elements; y and y_prev from (., 2, m_h) rows at `stride`
+// (0: one row shared by every scenario; null: zero), s from (B, m_h) rows
+// (null: zero). Scenarios past B (the ragged last tile) hold zeros.
+__device__ __forceinline__ void stage(const Tile& t, State& st, const float* __restrict__ D,
+                      const float* __restrict__ od,
+                      const float* __restrict__ c,
+                      const float* __restrict__ y,
+                      const float* __restrict__ yprev, long long stride,
+                      const float* __restrict__ s_in, int B, int m_h,
+                      int log2T, long long b0) {
+    const int mp = up4(m_h), T = 1 << log2T, hT = m_h * T;
+    for (int idx = threadIdx.x; idx < m_h * mp; idx += kThreads) {
+        const int j = idx / mp, i = idx - j * mp;
+        t.D[idx] = i < m_h ? D[j * m_h + i] : 0.0f;
+    }
+    for (int idx = threadIdx.x; idx < mp * T; idx += kThreads)
+        t.wd[idx] = 0.0f;  // padded rows stay zero: inert in the product
+    const long long b = b0 + (threadIdx.x & (T - 1));
+    const bool live = b < B;
+    FOR_OWN(q, idx, i, hT, log2T) {
+        st.od[q] = od ? od[i] : 1.0f;
+        st.cp[q] = live ? c[b * 2 * m_h + i] : 0.0f;
+        st.cm[q] = live ? c[b * 2 * m_h + m_h + i] : 0.0f;
+        st.yp[q] = live && y ? y[b * stride + i] : 0.0f;
+        st.ym[q] = live && y ? y[b * stride + m_h + i] : 0.0f;
+        st.ypp[q] = live && yprev ? yprev[b * stride + i] : 0.0f;
+        st.ymp[q] = live && yprev ? yprev[b * stride + m_h + i] : 0.0f;
+        st.s[q] = live && s_in ? s_in[b * m_h + i] : 0.0f;
     }
 }
 
-__device__ void store_pair(float* __restrict__ dst, const float* p,
-                           const float* m, int B, int m_h, int log2T,
-                           long long b0) {
-    const int T = 1 << log2T;
-    for (int idx = threadIdx.x; idx < 2 * m_h * T; idx += kThreads) {
-        const int s = idx / (2 * m_h), r = idx - s * 2 * m_h;
-        const int side = r >= m_h, i = r - side * m_h;
-        const long long b = b0 + s;
-        if (b < B) dst[b * 2 * m_h + r] = (side ? m : p)[i * T + s];
-    }
-}
-
-// (B, m_h) rows into an [i][s] array and back.
-__device__ void load_rows(float* a, const float* __restrict__ src, int B,
-                          int m_h, int log2T, long long b0) {
-    const int T = 1 << log2T;
-    for (int idx = threadIdx.x; idx < m_h * T; idx += kThreads) {
-        const int s = idx / m_h, i = idx - s * m_h;
-        const long long b = b0 + s;
-        a[i * T + s] = (src && b < B) ? src[b * m_h + i] : 0.0f;
-    }
-}
-
-__device__ void store_rows(float* __restrict__ dst, const float* a, int B,
-                           int m_h, int log2T, long long b0) {
-    const int T = 1 << log2T;
-    for (int idx = threadIdx.x; idx < m_h * T; idx += kThreads) {
-        const int s = idx / m_h, i = idx - s * m_h;
-        const long long b = b0 + s;
-        if (b < B) dst[b * m_h + i] = a[i * T + s];
-    }
-}
-
-// D, od and c+- of the block's scenarios; w starts at zero (it is what an
-// empty loop returns).
-__device__ void stage_constants(const Tile& t, const float* __restrict__ D,
-                                const float* __restrict__ od,
-                                const float* __restrict__ c, int B, int m_h,
-                                int log2T, long long b0) {
-    for (int idx = threadIdx.x; idx < m_h * m_h; idx += kThreads)
-        t.D[idx] = D[idx];
-    for (int i = threadIdx.x; i < m_h; i += kThreads)
-        t.od[i] = od ? od[i] : 1.0f;
-    load_pair(t.cp, t.cm, c, 2LL * m_h, B, m_h, log2T, b0);
-    for (int idx = threadIdx.x; idx < m_h << log2T; idx += kThreads) {
-        t.wp[idx] = 0.0f;
-        t.wm[idx] = 0.0f;
+// The thread's elements back to (B, 2, m_h) / (B, m_h) rows (null: not
+// wanted).
+__device__ __forceinline__ void store_state(const State& st, float* __restrict__ y_out,
+                            float* __restrict__ yprev_out,
+                            float* __restrict__ s_out, int B, int m_h,
+                            int log2T, long long b0) {
+    const int hT = m_h << log2T;
+    const long long b = b0 + (threadIdx.x & ((1 << log2T) - 1));
+    if (b >= B) return;
+    FOR_OWN(q, idx, i, hT, log2T) {
+        y_out[b * 2 * m_h + i] = st.yp[q];
+        y_out[b * 2 * m_h + m_h + i] = st.ym[q];
+        if (yprev_out) {
+            yprev_out[b * 2 * m_h + i] = st.ypp[q];
+            yprev_out[b * 2 * m_h + m_h + i] = st.ymp[q];
+        }
+        s_out[b * m_h + i] = st.s[q];
     }
 }
 
@@ -164,67 +181,83 @@ __device__ __forceinline__ bool restart_step(const Tile& t, int T, int me,
 }
 
 // `n` iterations from schedule index k0 on the block's tile (the body shared
-// by both kernels). (th, thp) is this thread's scenario's restart
-// recursion; on return the state arrays, th and thp hold the state after
-// iteration n - 1 with its restart decision applied, and w that iteration's
-// extrapolated point. Ends with a barrier.
-__device__ void dual_iterations(const Tile& t, int m_h, int log2T, int k0,
-                                int n, const float* __restrict__ theta,
+// by both kernels), on the staged state after a barrier. (th, thp) is this
+// thread's scenario's restart recursion; on return `st`, th and thp hold
+// the state after iteration n - 1 with its restart decision applied, and
+// w_out (B, 2, m_h), if given, the extrapolated point of iteration n - 1
+// (zeros when n is 0).
+template <int ST>
+__device__ __forceinline__ void dual_iterations(const Tile& t, State& st, int m_h, int log2T,
+                                int S, int k0, int n,
+                                const float* __restrict__ theta,
                                 const float* __restrict__ beta, bool restart,
-                                float& th, float& thp) {
-    const int T = 1 << log2T, tmask = T - 1, hT = m_h * T;
+                                float& th, float& thp,
+                                float* __restrict__ w_out, int B,
+                                long long b0) {
+    const int T = 1 << log2T, hT = m_h * T, mp = up4(m_h);
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int me = tid & tmask;  // every row this thread touches is scenario me
-    for (int k = 0; k <= n; ++k) {
-        // (A) iteration k - 1's restart decision: y_prev = y where it fired
-        const bool reset = restart && k > 0 && restart_step(t, T, me, th, thp);
-        if (k == n) {
-            if (reset)
-                for (int idx = tid; idx < hT; idx += kThreads) {
-                    t.ypp[idx] = t.yp[idx];
-                    t.ymp[idx] = t.ym[idx];
-                }
-            break;
+    const int me = tid & (T - 1);  // every element this thread owns
+    const long long b = b0 + me;
+    const bool live_w = w_out && b < B;
+    const gpad_block::Product P =
+        gpad_block::make_product<ST>(m_h, m_h, log2T, S);
+    // wd at momentum bm of every element, y_prev = y first where reset
+    auto extrapolate = [&](float bm, bool reset) {
+        FOR_OWN(q, idx, i, hT, log2T) {
+            if (reset) {
+                st.ypp[q] = st.yp[q];
+                st.ymp[q] = st.ym[q];
+            }
+            st.wd[q] = wdiff(st.yp[q], st.ypp[q], st.ym[q], st.ymp[q], bm);
+            t.wd[idx] = st.wd[q];
         }
-        float theta_k, beta_k;
-        if (restart) {
-            theta_k = th;
-            beta_k = th * (1.0f / thp - 1.0f);
-        } else {
-            theta_k = theta[k0 + k];
-            beta_k = beta[k0 + k];
+    };
+    // iteration k0's extrapolated point: a window starts after its
+    // predecessor's last decision, so none is taken here
+    if (n > 0) {
+        extrapolate(restart ? th * (1.0f / thp - 1.0f) : beta[k0], false);
+    } else if (live_w) {
+        FOR_OWN(q, idx, i, hT, log2T) {
+            w_out[b * 2 * m_h + i] = 0.0f;
+            w_out[b * 2 * m_h + m_h + i] = 0.0f;
         }
-        for (int idx = tid; idx < hT; idx += kThreads) {
-            const float yp = t.yp[idx], ym = t.ym[idx];
-            const float ypp = reset ? yp : t.ypp[idx];
-            const float ymp = reset ? ym : t.ymp[idx];
-            const float wp = yp + beta_k * (yp - ypp);
-            const float wm = ym + beta_k * (ym - ymp);
-            t.wp[idx] = wp;
-            t.wm[idx] = wm;
-            t.wd[idx] = wp - wm;
-        }
+    }
+    __syncthreads();
+    for (int k = 0; k < n; ++k) {
+        const float theta_k = restart ? th : theta[k0 + k];
+        const float beta_k = restart ? th * (1.0f / thp - 1.0f) : beta[k0 + k];
+        const bool last = k + 1 == n;
+        const float b_next = restart || last ? 0.0f : beta[k0 + k + 1];
+        // d = -(wd D): each part's sums into t.part
+        gpad_block::block_product<4, ST, kThreads>(
+            t.D, mp, t.wd, log2T, P, t.part,
+            [](int, int, const float (&)[ST]) {});
         __syncthreads();
-        // (B) d = -(wd D), projection, s, and the restart partials
+        // projection, s, the restart partials, and (no restart) next wd
         float rsum = 0.0f;
-        for (int idx = tid; idx < hT; idx += kThreads) {
-            const int i = idx >> log2T, s = idx & tmask;
-            float acc = 0.0f;
-            for (int j = 0; j < m_h; ++j)
-                acc = fmaf(t.wd[j * T + s], t.D[j * m_h + i], acc);
-            const float o = t.od[i];
-            const float wp = t.wp[idx], wm = t.wm[idx];
-            const float yp = t.yp[idx], ym = t.ym[idx];
-            const float ypn = fmaxf(wp * o - acc + t.cp[idx], 0.0f);
-            const float ymn = fmaxf(wm * o + acc + t.cm[idx], 0.0f);
-            const float sv = t.s[idx];
-            t.s[idx] = sv + theta_k * (t.wd[idx] - sv);
+        FOR_OWN(q, idx, i, hT, log2T) {
+            float acc[1];
+            gpad_block::sum_parts<1>(t.part, mp * T, S, idx, acc);
+            const float yp = st.yp[q], ym = st.ym[q], o = st.od[q];
+            const float wp = yp + beta_k * (yp - st.ypp[q]);
+            const float wm = ym + beta_k * (ym - st.ymp[q]);
+            const float ypn = fmaxf(wp * o - acc[0] + st.cp[q], 0.0f);
+            const float ymn = fmaxf(wm * o + acc[0] + st.cm[q], 0.0f);
+            st.s[q] += theta_k * (st.wd[q] - st.s[q]);
             // the restart test keeps the undamped w
             rsum += (wp - ypn) * (ypn - yp) + (wm - ymn) * (ymn - ym);
-            t.ypp[idx] = yp;
-            t.ymp[idx] = ym;
-            t.yp[idx] = ypn;
-            t.ym[idx] = ymn;
+            st.ypp[q] = yp;
+            st.ymp[q] = ym;
+            st.yp[q] = ypn;
+            st.ym[q] = ymn;
+            if (last && live_w) {
+                w_out[b * 2 * m_h + i] = wp;
+                w_out[b * 2 * m_h + m_h + i] = wm;
+            }
+            if (!restart && !last) {
+                st.wd[q] = wdiff(ypn, yp, ymn, ym, b_next);
+                t.wd[idx] = st.wd[q];
+            }
         }
         if (restart) {  // uniform over the block: every lane shuffles
             for (int off = T; off < 32; off <<= 1)
@@ -232,11 +265,27 @@ __device__ void dual_iterations(const Tile& t, int m_h, int log2T, int k0,
             if (lane < T) t.rpart[warp * T + lane] = rsum;
         }
         __syncthreads();
+        if (restart) {
+            // this iteration's decision: y_prev = y where it fired; then
+            // the next iteration's wd
+            const bool reset = restart_step(t, T, me, th, thp);
+            if (last) {
+                FOR_OWN(q, idx, i, hT, log2T) {
+                    if (reset) {
+                        st.ypp[q] = st.yp[q];
+                        st.ymp[q] = st.ym[q];
+                    }
+                }
+            } else {
+                extrapolate(th * (1.0f / thp - 1.0f), reset);
+            }
+            __syncthreads();
+        }
     }
-    __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int ST>
+__global__ void __launch_bounds__(kThreads, 2)
 gpad_dual_kernel(
     const float* __restrict__ D,      // (m_h, m_h)
     const float* __restrict__ od,     // (m_h,) or null (no soft rows)
@@ -245,28 +294,26 @@ gpad_dual_kernel(
     long long y0_stride,              // 0 (one y0 for all) or 2 m_h
     const float* __restrict__ theta,  // (>= iterations,) unless restart
     const float* __restrict__ beta,
-    int B, int m_h, int iterations, int restart, int log2T,
+    int B, int m_h, int iterations, int restart, int log2T, int S,
     float* __restrict__ s_out,        // (B, m_h)
     float* __restrict__ y_out,        // (B, 2, m_h)
     float* __restrict__ w_out)        // (B, 2, m_h) or null (no diagnostics)
 {
-    extern __shared__ float smem[];
+    extern __shared__ float4 smem4[];
     const long long b0 = (long long)blockIdx.x << log2T;
-    const Tile t = carve(smem, m_h, 1 << log2T);
-    stage_constants(t, D, od, c, B, m_h, log2T, b0);
-    load_pair(t.yp, t.ym, y0, y0_stride, B, m_h, log2T, b0);
-    load_pair(t.ypp, t.ymp, y0, y0_stride, B, m_h, log2T, b0);  // y_prev = y0
-    load_rows(t.s, nullptr, B, m_h, log2T, b0);
+    const Tile t = carve(reinterpret_cast<float*>(smem4), m_h, 1 << log2T, S);
+    State st;
+    // y_prev = y0
+    stage(t, st, D, od, c, y0, y0, y0_stride, nullptr, B, m_h, log2T, b0);
     __syncthreads();
     float th = 1.0f, thp = 1.0f;
-    dual_iterations(t, m_h, log2T, 0, iterations, theta, beta, restart != 0,
-                    th, thp);
-    store_rows(s_out, t.s, B, m_h, log2T, b0);
-    store_pair(y_out, t.yp, t.ym, B, m_h, log2T, b0);
-    if (w_out) store_pair(w_out, t.wp, t.wm, B, m_h, log2T, b0);
+    dual_iterations<ST>(t, st, m_h, log2T, S, 0, iterations, theta, beta,
+                        restart != 0, th, thp, w_out, B, b0);
+    store_state(st, y_out, nullptr, s_out, B, m_h, log2T, b0);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int ST>
+__global__ void __launch_bounds__(kThreads, 2)
 gpad_dual_chunk_kernel(
     const float* __restrict__ D, const float* __restrict__ od,
     const float* __restrict__ c,
@@ -276,30 +323,26 @@ gpad_dual_chunk_kernel(
     const float* __restrict__ mom_in,    // (B, 2): (th, th_prev)
     const float* __restrict__ theta,     // (>= k0 + chunk,) unless restart
     const float* __restrict__ beta,
-    int B, int m_h, int k0, int chunk, int restart, int log2T,
+    int B, int m_h, int k0, int chunk, int restart, int log2T, int S,
     float* __restrict__ y_out, float* __restrict__ yprev_out,
     float* __restrict__ s_out, float* __restrict__ mom_out,
     float* __restrict__ w_out)           // (B, 2, m_h)
 {
-    extern __shared__ float smem[];
+    extern __shared__ float4 smem4[];
     const int T = 1 << log2T;
     const long long b0 = (long long)blockIdx.x << log2T;
-    const Tile t = carve(smem, m_h, T);
-    stage_constants(t, D, od, c, B, m_h, log2T, b0);
-    load_pair(t.yp, t.ym, y_in, 2LL * m_h, B, m_h, log2T, b0);
-    load_pair(t.ypp, t.ymp, yprev_in, 2LL * m_h, B, m_h, log2T, b0);
-    load_rows(t.s, s_in, B, m_h, log2T, b0);
+    const Tile t = carve(reinterpret_cast<float*>(smem4), m_h, T, S);
+    State st;
+    stage(t, st, D, od, c, y_in, yprev_in, 2LL * m_h, s_in, B, m_h, log2T,
+          b0);
     __syncthreads();
     const int tid = threadIdx.x;
     const long long b = b0 + (tid & (T - 1));
     float th = b < B ? mom_in[2 * b] : 1.0f;
     float thp = b < B ? mom_in[2 * b + 1] : 1.0f;
-    dual_iterations(t, m_h, log2T, k0, chunk, theta, beta, restart != 0, th,
-                    thp);
-    store_pair(y_out, t.yp, t.ym, B, m_h, log2T, b0);
-    store_pair(yprev_out, t.ypp, t.ymp, B, m_h, log2T, b0);
-    store_rows(s_out, t.s, B, m_h, log2T, b0);
-    store_pair(w_out, t.wp, t.wm, B, m_h, log2T, b0);
+    dual_iterations<ST>(t, st, m_h, log2T, S, k0, chunk, theta, beta,
+                        restart != 0, th, thp, w_out, B, b0);
+    store_state(st, y_out, yprev_out, s_out, B, m_h, log2T, b0);
     if (tid < T && b < B) {  // thread s holds scenario s's recursion
         mom_out[2 * b] = th;
         mom_out[2 * b + 1] = thp;
@@ -308,29 +351,48 @@ gpad_dual_chunk_kernel(
 
 int grid_of(int B, int log2T) { return (B + (1 << log2T) - 1) >> log2T; }
 
+// The instances for a thread's product tile of min(T, 4) scenarios.
+auto fixed_of(int log2T) {
+    return log2T == 0 ? gpad_dual_kernel<1>
+         : log2T == 1 ? gpad_dual_kernel<2> : gpad_dual_kernel<4>;
+}
+
+auto chunk_of(int log2T) {
+    return log2T == 0 ? gpad_dual_chunk_kernel<1>
+         : log2T == 1 ? gpad_dual_chunk_kernel<2> : gpad_dual_chunk_kernel<4>;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Both launchers run on `stream` and return cudaGetLastError() (0 on
-// success). `smem` is the block's dynamic shared memory in bytes, computed
-// by the caller (dual_kernels.py::_dual_smem_bytes) so the routing guard
-// and the launch agree; log2_tile must be in [0, 5].
+// success), or cudaErrorInvalidValue for a plan the kernels do not take.
+// `smem` is the block's dynamic shared memory in bytes and `split` the
+// product's parts, computed by the caller (dual_kernels.py::_dual_plan,
+// _dual_smem_bytes) so the routing guard and the launch agree; log2_tile
+// must be in [0, 5], split >= 1, and m_h 2**log2_tile <= kMaxE kThreads.
+
+static bool takes(int m_h, int log2_tile, int split) {
+    return log2_tile >= 0 && log2_tile <= 5 && split >= 1
+           && (long long)m_h << log2_tile <= (long long)kMaxE * kThreads;
+}
 
 int gpad_dual_launch(
     const float* D, const float* od, const float* c, const float* y0,
     long long y0_stride, const float* theta, const float* beta,
-    int B, int m_h, int iterations, int restart, int log2_tile,
+    int B, int m_h, int iterations, int restart, int log2_tile, int split,
     float* s_out, float* y_out, float* w_out, int smem, void* stream)
 {
-    if (log2_tile < 0 || log2_tile > 5) return (int)cudaErrorInvalidValue;
+    if (!takes(m_h, log2_tile, split)) return (int)cudaErrorInvalidValue;
+    const auto kernel = fixed_of(log2_tile);
     cudaError_t err = cudaFuncSetAttribute(
-        gpad_dual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    gpad_dual_kernel<<<grid_of(B, log2_tile), kThreads, (size_t)smem,
-                       (cudaStream_t)stream>>>(
+    kernel<<<grid_of(B, log2_tile), kThreads, (size_t)smem,
+             (cudaStream_t)stream>>>(
         D, od, c, y0, y0_stride, theta, beta, B, m_h, iterations, restart,
-        log2_tile, s_out, y_out, w_out);
+        log2_tile, split, s_out, y_out, w_out);
     return (int)cudaGetLastError();
 }
 
@@ -338,19 +400,20 @@ int gpad_dual_chunk_launch(
     const float* D, const float* od, const float* c, const float* y_in,
     const float* yprev_in, const float* s_in, const float* mom_in,
     const float* theta, const float* beta,
-    int B, int m_h, int k0, int chunk, int restart, int log2_tile,
+    int B, int m_h, int k0, int chunk, int restart, int log2_tile, int split,
     float* y_out, float* yprev_out, float* s_out, float* mom_out,
     float* w_out, int smem, void* stream)
 {
-    if (log2_tile < 0 || log2_tile > 5) return (int)cudaErrorInvalidValue;
+    if (!takes(m_h, log2_tile, split)) return (int)cudaErrorInvalidValue;
+    const auto kernel = chunk_of(log2_tile);
     cudaError_t err = cudaFuncSetAttribute(
-        gpad_dual_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    gpad_dual_chunk_kernel<<<grid_of(B, log2_tile), kThreads, (size_t)smem,
-                             (cudaStream_t)stream>>>(
+    kernel<<<grid_of(B, log2_tile), kThreads, (size_t)smem,
+             (cudaStream_t)stream>>>(
         D, od, c, y_in, yprev_in, s_in, mom_in, theta, beta, B, m_h, k0,
-        chunk, restart, log2_tile, y_out, yprev_out, s_out, mom_out, w_out);
+        chunk, restart, log2_tile, split, y_out, yprev_out, s_out, mom_out,
+        w_out);
     return (int)cudaGetLastError();
 }
 

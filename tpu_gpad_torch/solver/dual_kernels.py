@@ -25,6 +25,7 @@ and ``mom`` (B, 2), each scenario's restart recursion (theta, theta_prev).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -42,7 +43,8 @@ DUAL_TILED_CHUNK_LAUNCHES = 0
 # DUAL_TILED_CHUNK_LAUNCHES past dual_fits_smem).
 EPS_SYNCS = 0
 
-_WARPS = 8  # kWarps of csrc/gpad_dual.cu: one restart partial per warp
+# kWarps of csrc/gpad_dual.cu: one restart partial per warp
+_WARPS = kernels.BLOCK_THREADS // 32
 # csrc/gpad_dual_tiled.cu: 512 threads per block, clusters of up to 16
 _TILED_THREADS = 512
 _TILED_WARPS = _TILED_THREADS // 32
@@ -62,16 +64,61 @@ DUAL_TILED_CLUSTER = 8
 DUAL_TILED_MAX_WIDE_CLUSTERS = 16
 
 
-def _dual_smem_bytes(m_h: int, log2_tile: int) -> int:
-    """Shared memory of one block of either dual kernel (csrc carve-up): D,
-    the od column, 10 dual-row arrays of 2**log2_tile scenarios each, and
-    one restart partial per warp and scenario."""
-    T = 1 << log2_tile
-    return 4 * (m_h * m_h + m_h + 10 * m_h * T + _WARPS * T)
+class DualPlan(NamedTuple):
+    """A launch of the resident dual kernels: 2**log2_tile scenarios per
+    block and the split-K parts of the product wd D."""
+    log2_tile: int
+    split: int
 
 
-def _pick_dual_tile(m_h: int, B: int) -> int | None:
-    return kernels._widest_tile(lambda log2: _dual_smem_bytes(m_h, log2), B)
+# The resident dual kernels' grid: up to 16 scenarios per block, fewer
+# while the grid would have fewer than 128 blocks, with the split-K parts
+# of ``kernels.block_parts``. On an H100 80GB HBM3 at 700 W (PERF.md, §6,
+# ``chip_smoke.py --sweep resident``, device ms at battery n3 N10, 100
+# restart iterations): B256 1 / 2 / 8 / 16 per block 0.159 / 0.142 / 0.24
+# / 0.27; B4096 8 / 16 per block 0.72 / 0.39 (32 does not fit a thread's
+# registers); a 10-iteration window 0.018 ms at B256 (2 per block), 0.054
+# at B4096 (16).
+DUAL_MAX_LOG2_TILE = 4
+DUAL_MIN_BLOCKS = 128
+
+
+# Elements of the [row][scenario] state a thread keeps in registers
+# (kMaxE of csrc/gpad_dual.cu): a tile needs m_h 2**log2_tile <= 6 x 256.
+_MAX_ELEMENTS = 6
+
+
+def _dual_smem_bytes(m_h: int, plan: DualPlan) -> int:
+    """Shared memory of one block of either resident dual kernel (csrc
+    carve-up), rows padded to 4 (mp): D, wd and the product's parts of
+    2**log2_tile scenarios each, and one restart partial per warp and
+    scenario; the rest of the state is in registers."""
+    T = 1 << plan.log2_tile
+    mp = kernels._up4(m_h)
+    return 4 * (m_h * mp + (1 + plan.split) * mp * T + _WARPS * T)
+
+
+def _dual_plan(m_h: int, B: int, log2_tile: int | None = None,
+               split: int | None = None) -> DualPlan | None:
+    """The resident dual kernels' launch for B scenarios: the tile of
+    ``kernels.grid_tile`` (or ``log2_tile``), narrowed until a thread's
+    share of the state fits its registers, then it or its parts (at most
+    ``split``) halved until the block fits shared memory; None when not
+    even one scenario does."""
+    top = (kernels.grid_tile(B, DUAL_MAX_LOG2_TILE, DUAL_MIN_BLOCKS)
+           if log2_tile is None else log2_tile)
+    for log2 in range(top, -1 if log2_tile is None else top - 1, -1):
+        if m_h << log2 > _MAX_ELEMENTS * kernels.BLOCK_THREADS:
+            continue
+        parts = kernels.block_parts(m_h, log2, m_h, split)
+        while True:
+            plan = DualPlan(log2, parts)
+            if _dual_smem_bytes(m_h, plan) <= kernels.SMEM_LIMIT_BYTES:
+                return plan
+            if parts == 1:
+                break
+            parts //= 2
+    return None
 
 
 def dual_fits_smem(data: GPADData) -> bool:
@@ -80,7 +127,7 @@ def dual_fits_smem(data: GPADData) -> bool:
     one carve-up, so one guard serves the fixed and the eps path."""
     if not (data.paired and data.D is not None):
         return False
-    return _pick_dual_tile(data.m_half, 1) is not None
+    return _dual_plan(data.m_half, 1) is not None
 
 
 def _dual_tiled_smem_bytes(m_h: int, log2_tile: int) -> int:
@@ -207,8 +254,8 @@ def _launch_fns():
     lib = cuda_build.load("gpad_dual")
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fixed, chunk = lib.gpad_dual_launch, lib.gpad_dual_chunk_launch
-    fixed.argtypes = [P, P, P, P, LL, P, P, I, I, I, I, I, P, P, P, I, P]
-    chunk.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+    fixed.argtypes = [P, P, P, P, LL, P, P, I, I, I, I, I, I, P, P, P, I, P]
+    chunk.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                       P, P, P, P, P, I, P]
     fixed.restype = chunk.restype = I
     return fixed, chunk
@@ -227,14 +274,19 @@ def _tiled_launch_fns():
     return fixed, chunk
 
 
-def _tile_or_raise(m_h: int, B: int) -> int:
-    log2_tile = _pick_dual_tile(m_h, B)
-    if log2_tile is None:
+def _plan_or_raise(m_h: int, B: int, log2_tile, split) -> DualPlan:
+    if log2_tile is not None and not 0 <= log2_tile <= 5:
+        raise ValueError(f"log2_tile {log2_tile} outside 0..5")
+    plan = _dual_plan(m_h, B, log2_tile, split)
+    if plan is None and log2_tile is not None:
+        raise ValueError(f"the resident dual kernels take no tile of "
+                         f"2**{log2_tile} at m_half={m_h}")
+    if plan is None:
         raise ValueError(
             f"dual problem (m_half={m_h}) exceeds the kernels' shared memory "
             f"({kernels.SMEM_LIMIT_BYTES} bytes); use engine='torch'"
         )
-    return log2_tile
+    return plan
 
 
 def _device_or_raise(t) -> bool:
@@ -301,6 +353,7 @@ def _warm_rows(y0, B: int, m_h: int):
 def gpad_fixed_dual(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     restart: bool = False, diagnostics: bool = True,
+    log2_tile: int | None = None, split: int | None = None,
 ):
     """Fixed-budget dual-form GPAD for a batch: returns (z, y, w, zhat).
 
@@ -308,8 +361,10 @@ def gpad_fixed_dual(
     broadcasting to (B, 2, m_h). ``z`` is recovered after the loop from
     the running average s; ``w`` and ``zhat`` are the last iteration's and
     come back only with ``diagnostics`` (else None). Under ``restart`` the
-    budget may exceed the schedule. CUDA tensors launch the kernel (or
-    raise); CPU tensors run the plain version."""
+    budget may exceed the schedule. ``log2_tile`` and ``split`` override
+    the scenarios per block and cap the product's split-K parts (for
+    sweeps). CUDA tensors launch the kernel (or raise); CPU tensors run the
+    plain version."""
     global DUAL_LAUNCHES
     _check_fixed(data, g_P, p_D, y0, iterations, restart)
     if not _device_or_raise(g_P):
@@ -317,7 +372,7 @@ def gpad_fixed_dual(
                                      restart=restart, diagnostics=diagnostics)
     fixed, _ = _launch_fns()
     B, m_h = g_P.shape[0], data.m_half
-    log2_tile = _tile_or_raise(m_h, B)
+    plan = _plan_or_raise(m_h, B, log2_tile, split)
     c = relu_offsets(data, g_P, p_D)
     y0_rows, y0_stride = _warm_rows(y0, B, m_h)
     od = kernels._od(data)
@@ -329,8 +384,8 @@ def gpad_fixed_dual(
         stream = torch.cuda.current_stream().cuda_stream
         err = fixed(ptr(data.D), ptr(od), ptr(c), ptr(y0_rows), y0_stride,
                     ptr(data.theta), ptr(data.beta), B, m_h, iterations,
-                    int(restart), log2_tile, ptr(s), ptr(y), ptr(w),
-                    _dual_smem_bytes(m_h, log2_tile), stream)
+                    int(restart), *plan, ptr(s), ptr(y), ptr(w),
+                    _dual_smem_bytes(m_h, plan), stream)
     if err != 0:
         raise RuntimeError(f"gpad_dual launch failed: CUDA error {err}")
     DUAL_LAUNCHES += 1
@@ -410,15 +465,17 @@ def gpad_fixed_dual_tiled(
 
 
 def gpad_dual_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
-                    chunk: int, restart: bool = False):
+                    chunk: int, restart: bool = False,
+                    log2_tile: int | None = None, split: int | None = None):
     """``chunk`` dual-form iterations from schedule index ``k0``: returns
     the advanced (y, y_prev, s, mom) and the last iteration's w.
 
     ``c`` (B, 2, m_h) are the relu offsets (``relu_offsets``); y, y_prev
     (B, 2, m_h), s (B, m_h) and mom (B, 2) the state, which comes back in
-    new tensors. Consecutive chunks compose to one whole solve. CUDA
-    tensors launch the kernel (or raise); CPU tensors run the plain
-    version."""
+    new tensors. Consecutive chunks compose to one whole solve.
+    ``log2_tile`` and ``split`` override the launch, as for
+    ``gpad_fixed_dual``. CUDA tensors launch the kernel (or raise); CPU
+    tensors run the plain version."""
     global DUAL_CHUNK_LAUNCHES
     _check_chunk(data, c, y, y_prev, s, mom, k0, chunk, restart)
     if not _device_or_raise(c):
@@ -426,7 +483,7 @@ def gpad_dual_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
                                      chunk=chunk, restart=restart)
     _, launch = _launch_fns()
     B, m_h = c.shape[0], data.m_half
-    log2_tile = _tile_or_raise(m_h, B)
+    plan = _plan_or_raise(m_h, B, log2_tile, split)
     od = kernels._od(data)
     out = [torch.empty_like(t) for t in (y, y_prev, s, mom, y)]
     ptr = kernels._ptr
@@ -434,9 +491,9 @@ def gpad_dual_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(ptr(data.D), ptr(od), ptr(c), ptr(y), ptr(y_prev),
                      ptr(s), ptr(mom), ptr(data.theta), ptr(data.beta), B,
-                     m_h, k0, chunk, int(restart), log2_tile,
+                     m_h, k0, chunk, int(restart), *plan,
                      *(ptr(t) for t in out),
-                     _dual_smem_bytes(m_h, log2_tile), stream)
+                     _dual_smem_bytes(m_h, plan), stream)
     if err != 0:
         raise RuntimeError(f"gpad_dual_chunk launch failed: CUDA error {err}")
     DUAL_CHUNK_LAUNCHES += 1

@@ -32,6 +32,7 @@ is no padding, transposition or layout mapping around a launch.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -49,7 +50,8 @@ FLAT_TILED_LAUNCHES = 0
 # shapes are FASTER on the kernel than on the torch engine is unmeasured on
 # H100.
 SMEM_LIMIT_BYTES = 227 * 1024
-# At most 8 scenarios per block. On an H100 at battery n3 N10, 8 beat 4, 16
+# The paired kernels take at most 8 scenarios per block (the dense and dual
+# kernels pick their own, below). On an H100 at battery n3 N10, 8 beat 4, 16
 # and 32 at B = 4096 (0.611 vs 0.629, 0.638, 0.914 ms) and 32 at B = 16384:
 # more, smaller blocks put more warps on each SM to hide the latency of the
 # dependent shared-memory FMA chains (PERF.md, PR 1 findings).
@@ -88,16 +90,23 @@ _TILED_MAX_LOG2_TILE = 3
 FLAT_TILED_MIN_BLOCKS = 128
 
 
+def grid_tile(B: int, max_log2: int, min_blocks: int) -> int:
+    """log2 of the scenarios per block for B scenarios: the widest power of
+    two at most 2**max_log2 and at most B rounded up whose grid still has
+    ``min_blocks`` blocks (one scenario per block below that)."""
+    log2 = min(max_log2, max(B - 1, 0).bit_length())
+    while log2 > 0 and -(-B // (1 << log2)) < min_blocks:
+        log2 -= 1
+    return log2
+
+
 def _tiled_tile(smem_bytes, B: int, min_blocks: int) -> int | None:
     """log2 of a tiled kernel's scenarios per block for B scenarios: the
-    widest power of two at most 2**_TILED_MAX_LOG2_TILE whose grid still
-    has ``min_blocks`` blocks and whose block fits shared memory (one
-    scenario per block where B is below ``min_blocks``), or None when not
-    even one scenario fits; ``smem_bytes(log2_tile)`` is the kernel's
-    carve-up."""
-    log2 = _TILED_MAX_LOG2_TILE
-    while log2 > 0 and (-(-B // (1 << log2)) < min_blocks
-                        or smem_bytes(log2) > SMEM_LIMIT_BYTES):
+    ``grid_tile`` pick up to 2**_TILED_MAX_LOG2_TILE, narrowed until the
+    block fits shared memory, or None when not even one scenario fits;
+    ``smem_bytes(log2_tile)`` is the kernel's carve-up."""
+    log2 = grid_tile(B, _TILED_MAX_LOG2_TILE, min_blocks)
+    while log2 > 0 and smem_bytes(log2) > SMEM_LIMIT_BYTES:
         log2 -= 1
     return log2 if smem_bytes(log2) <= SMEM_LIMIT_BYTES else None
 
@@ -107,17 +116,91 @@ def _pick_log2_tile(m_h: int, n_z: int, n_s: int, B: int) -> int | None:
     return _widest_tile(lambda log2: _smem_bytes(m_h, n_z, n_s, log2), B)
 
 
-def _dense_smem_bytes(m: int, n_z: int, log2_tile: int) -> int:
-    """Shared memory of one block of the dense kernel (csrc carve-up): both
-    operands, 3 dual-row arrays and 3 primal arrays of 2**log2_tile
-    scenarios each."""
+# The resident dense and dual kernels (csrc/gpad_dense.cu, csrc/gpad_dual.cu)
+# run blocks of 256 threads over register-tiled block products
+# (csrc/block_product.cuh): tiles of 4 rows x min(T, 4) scenarios, each
+# split over K into parts of at least _MIN_PART_K steps.
+BLOCK_THREADS = 256
+_MIN_PART_K = 4
+
+
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def block_parts(rows: int, log2_tile: int, K: int,
+                cap: int | None = None) -> int:
+    """Split-K parts of a block product of ``rows`` output rows for
+    2**log2_tile scenarios over K: as many as leave every tile-part one
+    thread of the block, none shorter than _MIN_PART_K steps of k, and at
+    most ``cap``."""
     T = 1 << log2_tile
-    return 4 * (2 * m * n_z + 3 * m * T + 3 * n_z * T)
+    tiles = _up4(rows) // 4 * (T // min(T, 4))
+    parts = min(BLOCK_THREADS // tiles, -(-K // _MIN_PART_K))
+    if cap is not None:
+        parts = min(parts, cap)
+    return max(parts, 1)
 
 
-def _pick_dense_log2_tile(m: int, n_z: int, B: int) -> int | None:
-    """The dense kernel's tile for B scenarios (see ``_widest_tile``)."""
-    return _widest_tile(lambda log2: _dense_smem_bytes(m, n_z, log2), B)
+class DensePlan(NamedTuple):
+    """A launch of the dense kernel: 2**log2_tile scenarios per block, rows
+    padded to 4 (vec 4) or not (vec 1: one scenario per block, no split),
+    and the split-K parts of zhat's product (split1) and of GL_T' zhat's
+    (split2)."""
+    log2_tile: int
+    vec: int
+    split1: int
+    split2: int
+
+
+# The dense kernel's grid: up to 16 scenarios per block, fewer while the
+# grid would have fewer than 128 blocks, with the split-K parts of
+# ``block_parts``. On an H100 80GB HBM3 at 700 W (PERF.md, §6,
+# ``chip_smoke.py --sweep resident``, device ms of 100 iterations at
+# battery n3 N10): B256 2 per block 0.141-0.149 against 0.165-0.168 at 1
+# and over 0.17 at 4 or more; B4096 16 per block 0.43-0.47 against
+# 0.48-0.52 at 32 and 1.05-1.17 at 8 (before the 128-register cap).
+DENSE_MAX_LOG2_TILE = 4
+DENSE_MIN_BLOCKS = 128
+
+
+def _dense_smem_bytes(m: int, n_z: int, plan: DensePlan) -> int:
+    """Shared memory of one block of the dense kernel (csrc carve-up): both
+    operands with their rows padded to 4 (vec 4), 3 dual-row and 3
+    primal-row arrays of 2**log2_tile scenarios each, and the scratch of
+    the products' parts where either splits."""
+    T = 1 << plan.log2_tile
+    mp, np_ = (_up4(m), _up4(n_z)) if plan.vec == 4 else (m, n_z)
+    scratch = max([parts * _up4(rows) * T for parts, rows in
+                   ((plan.split1, n_z), (plan.split2, m)) if parts > 1],
+                  default=0)
+    return 4 * (m * np_ + n_z * mp + 3 * (mp + np_) * T + scratch)
+
+
+def _dense_plan(m: int, n_z: int, B: int, log2_tile: int | None = None,
+                split: int | None = None) -> DensePlan | None:
+    """The dense kernel's launch for B scenarios: the tile of ``grid_tile``
+    (or ``log2_tile``), narrowed, then its parts (at most ``split``)
+    halved, until the block fits shared memory; past that the unpadded
+    layout at one scenario per block (the carve-up of the kernel's first
+    design, so every shape it took still runs); None when nothing fits."""
+    top = (grid_tile(B, DENSE_MAX_LOG2_TILE, DENSE_MIN_BLOCKS)
+           if log2_tile is None else log2_tile)
+    for log2 in range(top, -1 if log2_tile is None else top - 1, -1):
+        s1 = block_parts(n_z, log2, m, split)
+        s2 = block_parts(m, log2, n_z, split)
+        while True:
+            plan = DensePlan(log2, 4, s1, s2)
+            if _dense_smem_bytes(m, n_z, plan) <= SMEM_LIMIT_BYTES:
+                return plan
+            if s1 == s2 == 1:
+                break
+            s1, s2 = max(s1 // 2, 1), max(s2 // 2, 1)
+    plan = DensePlan(0, 1, 1, 1)
+    if (log2_tile in (None, 0)
+            and _dense_smem_bytes(m, n_z, plan) <= SMEM_LIMIT_BYTES):
+        return plan
+    return None
 
 
 def flat_fits_smem(data: GPADData) -> bool:
@@ -169,7 +252,7 @@ def dense_fits_smem(data: GPADData) -> bool:
     torch engine here.)"""
     if data.paired or data.soft_damp is not None:
         return False
-    return _pick_dense_log2_tile(data.m, data.n_z, 1) is not None
+    return _dense_plan(data.m, data.n_z, 1) is not None
 
 
 def _norm_y0(y0, B: int, m_h: int):
@@ -292,7 +375,7 @@ _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the launchers in csrc/gpad_paired_flat.cu (both
 # instances), csrc/gpad_dense.cu and csrc/gpad_flat_tiled.cu
 _PAIRED_ARGTYPES = [_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 6 + [_PTR] * 4 + [_INT, _PTR]
-_DENSE_ARGTYPES = [_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 5 + [_PTR] * 4 + [_INT, _PTR]
+_DENSE_ARGTYPES = [_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 8 + [_PTR] * 4 + [_INT, _PTR]
 _FLAT_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 3 + [_INT] * 6 + [_PTR] * 5
                         + [_INT, _PTR])
 
@@ -515,7 +598,8 @@ def gpad_fixed_flat_tiled(
 
 def gpad_fixed_dense(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
-    diagnostics: bool = True,
+    diagnostics: bool = True, log2_tile: int | None = None,
+    split: int | None = None,
 ):
     """Fixed-budget dense (unpaired) GPAD for a batch: returns
     (z, y, w, zhat).
@@ -524,8 +608,10 @@ def gpad_fixed_dense(
     broadcasting to (B, m) (leading batch dims flattened). ``z``/``zhat``
     are (B, n_z), ``y``/``w`` (B, m); ``w`` and ``zhat`` are the last
     iteration's, and both are None when ``diagnostics`` is False. Soft rows
-    are refused, as by ``tpu_gpad``'s dense kernel. CUDA tensors launch the
-    kernel (or raise); CPU tensors run the plain version."""
+    are refused, as by ``tpu_gpad``'s dense kernel. ``log2_tile`` and
+    ``split`` override the scenarios per block and cap the split-K parts
+    (for sweeps). CUDA tensors launch the kernel (or raise); CPU tensors run
+    the plain version."""
     global DENSE_LAUNCHES
     if data.paired:
         raise ValueError("the dense kernel needs unpaired data")
@@ -543,8 +629,10 @@ def gpad_fixed_dense(
         )
     _need_cuda(g_P)
     B = g_P.shape[0]
-    log2_tile = _pick_dense_log2_tile(m, n_z, B)
-    if log2_tile is None:
+    if log2_tile is not None and not 0 <= log2_tile <= 5:
+        raise ValueError(f"log2_tile {log2_tile} outside 0..5")
+    plan = _dense_plan(m, n_z, B, log2_tile, split)
+    if plan is None:
         raise _too_big("dense", f"m={m}, n_z={n_z}")
     fn = _launch_fn("gpad_dense", "gpad_dense_launch", _DENSE_ARGTYPES)
     y0_rows = None if y0 is None else _norm_dense_y0(y0, B, m)
@@ -554,8 +642,8 @@ def gpad_fixed_dense(
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_ptr(data.MG_T), _ptr(data.GL_T), _ptr(g_P), _ptr(p_D),
                  _ptr(y0_rows), y0_stride, _ptr(data.theta), _ptr(data.beta),
-                 B, m, n_z, iterations, log2_tile, _ptr(z), _ptr(y), _ptr(w),
-                 _ptr(zhat), _dense_smem_bytes(m, n_z, log2_tile), stream)
+                 B, m, n_z, iterations, *plan, _ptr(z), _ptr(y), _ptr(w),
+                 _ptr(zhat), _dense_smem_bytes(m, n_z, plan), stream)
     if err != 0:
         raise RuntimeError(f"gpad_dense launch failed: CUDA error {err}")
     DENSE_LAUNCHES += 1
