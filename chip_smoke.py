@@ -18,8 +18,8 @@ over the reference's 28 plants, a dense ``Controller`` and a checkpointed
 ``run_sweep``; a paired mvp solve without the flat block (the full paired
 kernel); the reference's 30x30 flagship (the tiled kernels): restart and
 dual-form solves, a restart ``Controller``, ``solve_to_accuracy`` with the
-flat block off, a forced flat solve, the default solve (no kernel, as the
-JAX package routes it) and the CLI's ``closedloop`` and ``info``; and the
+flat block off, a forced flat solve, the default solve (the flat tiled
+kernel too) and the CLI's ``closedloop`` and ``info``; and the
 stage-wise O(N) engine at full width: ``auto_solver``
 at battery n30 N200 B1024 and n8 N60 B4096 (the streamed kernel) and n8
 N60 B1024 (the resident kernel), a warm ``StagewiseController`` and the
@@ -32,16 +32,20 @@ prints no result.
 
     python3 chip_smoke.py --sweep [resident] [stagewise] [tiled]
 
-builds the kernels and times, instead, the resident dense and dual
-kernels by tile and split-K parts at B 256 and 4096, the stage-wise and
-the tiled kernels by tile (and the tiled dual kernel by cluster size), or
-the families named;
+builds the kernels and times, instead, the resident dense, dual, chunk,
+flat and full paired kernels by tile and split-K parts at B 256 and 4096
+(``resident``, or any of ``dense``, ``dual``, ``chunk``, ``flat``,
+``paired`` alone), the stage-wise kernels by tile and the tiled kernels by
+tile and cluster size, or the families named;
 
     python3 chip_smoke.py --times
 
-times the resident dense, dual and chunk kernels at B 256 and 4096 through
-their public arguments only, so that a checkout of an earlier design can
-be timed beside this one: copy this script into its root and run it there;
+times the resident dense, dual, chunk and flat kernels at B 256 and 4096,
+the full paired kernel at B4096, the flat tiled kernel and the default
+fixed solve (flat tiled kernel against torch engine) at the flagship and
+at n5 N30, and a warm flat, dense and restart ``Controller``, through
+public arguments only, so that a checkout of an earlier design can be
+timed beside this one: copy this script into its root and run it there;
 
     python3 chip_smoke.py --profile
 
@@ -200,8 +204,9 @@ def phase_build():
                     for n, log in logs.items()},
           "spills": {n: v for n, v in spills.items() if v}})
     # the register-tiled kernels are sized to keep their tiles in registers
-    check(not spills["gpad_dense"] and not spills["gpad_dual"],
-          f"the dense or dual kernel spills registers: {spills}")
+    check(not any(spills[n] for n in ("gpad_dense", "gpad_dual",
+                                      "gpad_paired_flat")),
+          f"a register-tiled kernel spills registers: {spills}")
 
 
 def phase_kernel_vs_plain(torch, tg, kernels, core):
@@ -222,13 +227,21 @@ def phase_kernel_vs_plain(torch, tg, kernels, core):
     soft = dataclasses.replace(data, soft_damp=torch.as_tensor(
         rng.uniform(0.0, 0.2, data.m_half).astype(np.float32), device=DEVICE))
     cases["soft"], _ = kernel_vs_plain(kernels, soft, g_P, p_D)
-    for B in (5, 1):  # ragged last tile, single scenario
+    # the serving batch (its own plan), a partial last tile, a few, one
+    for B in (SERVE_PLANTS, 300, 5, 1):
         cases[f"B{B}"], _ = kernel_vs_plain(
             kernels, data, g_P[:B].contiguous(), p_D[:B].contiguous(),
             y_cold[:B].contiguous())
+    B = SERVE_PLANTS
+    cases[f"soft_B{B}"], _ = kernel_vs_plain(
+        kernels, soft, g_P[:B].contiguous(), p_D[:B].contiguous(),
+        y_cold[:B].contiguous())
     worst = max(cases.values())
     emit({"phase": "kernel_vs_plain", "shape": [BATCH, data.n_z, data.m_half,
-          data.n_struct], "max_abs_err": cases, "max_abs_y": y_cold.abs().max().item(),
+          data.n_struct], "plans": {
+              B: kernels._paired_plan(data.m_half, data.n_z, data.n_struct, B)
+              for B in (BATCH, SERVE_PLANTS, 300, 5, 1)},
+          "max_abs_err": cases, "max_abs_y": y_cold.abs().max().item(),
           "tol": KERNEL_TOL})
     check(worst <= KERNEL_TOL, f"kernel disagrees with plain version: {cases}")
     return worst
@@ -315,55 +328,66 @@ def phase_near_limit(torch, tg, kernels, core):
     torch.cuda.synchronize()
     out = {"phase": "near_limit", "shape": [1024, data.n_z, data.m_half,
            data.n_struct], "engine": engine,
-           "smem_bytes": kernels._smem_bytes(
-               data.m_half, data.n_z, data.n_struct,
-               kernels._pick_log2_tile(data.m_half, data.n_z, data.n_struct, 1024)),
            "residual_max": res.residual.max().item()}
     check(bool(torch.isfinite(res.u).all()), "near-limit u not finite")
     if engine == "cuda":
         g_P, p_D = core.affine_params(data, X0)
-        out["max_abs_err"], _ = kernel_vs_plain(kernels, data, g_P, p_D)
-        check(out["max_abs_err"] <= KERNEL_TOL, f"near-limit kernel {out}")
+        out["plans"], out["smem_bytes"], out["max_abs_err"] = {}, {}, {}
+        for B in (1024, SERVE_PLANTS, 1):
+            plan = kernels._paired_plan(data.m_half, data.n_z, data.n_struct, B)
+            out["plans"][B] = plan
+            out["smem_bytes"][B] = kernels._paired_smem_bytes(
+                data.m_half, data.n_z, data.n_struct, plan)
+            out["max_abs_err"][B], _ = kernel_vs_plain(
+                kernels, data, g_P[:B].contiguous(), p_D[:B].contiguous())
+        check(max(out["max_abs_err"].values()) <= KERNEL_TOL,
+              f"near-limit kernel {out}")
     emit(out)
 
 
-def phase_timing(torch, tg, kernels, core, smi):
+def phase_timing(torch, tg, kernels, dual_kernels, core, smi):
+    """CUDA events, median of 20 calls per turn, two turns in opposite
+    orders: the flat kernel at the serving batch (256) and at B4096 x 100,
+    its plain version, and the solves through ``auto`` and the torch
+    engine at B4096; then the kernel's device time from the profiler."""
     from tpu_gpad_torch.utils import device_time_per_call
 
     qp = tg.condense(tg.problems.battery(**HEADLINE))
     data = tg.dualize(qp, ITERS, paired="auto", device=DEVICE)
     X0 = torch.as_tensor(np.random.default_rng(4).uniform(
         -0.4, 0.4, (BATCH, qp.n_x)).astype(np.float32), device=DEVICE)
-    g_P, p_D = core.affine_params(data, X0)
-    runs = {
-        "kernel": lambda: kernels.gpad_fixed_paired_flat(
-            data, g_P, p_D, iterations=ITERS),
-        "plain": lambda: kernels.gpad_fixed_paired_flat_torch(
-            data, g_P, p_D, iterations=ITERS),
+    runs, bounds = {}, {}
+    for B in RESIDENT_BATCHES:
+        r, b = resident_runs(torch, tg, kernels, dual_kernels, core, B,
+                             seed=4, which=("flat",))
+        runs.update(r)
+        bounds.update(b)
+    runs.update({
         "solve_cuda": lambda: tg.solve_batch(data, X0, tg.SolverConfig()),
         "solve_torch": lambda: tg.solve_batch(
             data, X0, tg.SolverConfig(engine="torch", form="mvp")),
-    }
+    })
     ms = {k: [] for k in runs}
-    for order in (("plain", "kernel", "solve_torch", "solve_cuda"),
-                  ("solve_cuda", "solve_torch", "kernel", "plain")):
-        for k in order:
+    order = list(runs)
+    for turn in (order, order[::-1]):
+        for k in turn:
             ms[k].append(device_time_per_call(runs[k], warmup=3, repeats=20) * 1e3)
     med = {k: float(np.mean(v)) for k, v in ms.items()}
-    # the loop's two products per scenario and iteration: MG_T (m_h, n_z)
-    # over all rows, GL_T's n_s struct columns; z, y, w, zhat written once
-    m_h, n_z, n_s = data.m_half, data.n_z, data.n_struct
-    med["bound"] = bound(
-        BATCH * ITERS * 2.0 * n_z * (m_h + n_s),
-        nbytes(data.MG_T, data.GL_T[:, :n_s], g_P, p_D, data.theta[:ITERS],
-               data.beta[:ITERS]) + 4 * BATCH * (2 * n_z + 4 * m_h))
-    emit({"phase": "timing", "gpu": smi, "batch": BATCH, "iterations": ITERS,
-          "kernel_bound": med["bound"],
-          "ms_median_of_20_per_turn": ms,
+    med["device"] = {k: profiled_ms(torch, runs[k], KERNEL_NAMES["flat"])
+                     for k in runs if k.startswith("flat@")}
+    med["bounds"] = bounds
+    emit({"phase": "timing", "gpu": smi, "batches": RESIDENT_BATCHES,
+          "iterations": ITERS,
+          "plans": {B: kernels._paired_plan(data.m_half, data.n_z,
+                                            data.n_struct, B)
+                    for B in RESIDENT_BATCHES},
+          "kernel_bounds": bounds, "ms_median_of_20_per_turn": ms,
+          "device_ms_profiler": med["device"],
           "solves_per_s": {"cuda_engine": BATCH / med["solve_cuda"] * 1e3,
                            "torch_engine": BATCH / med["solve_torch"] * 1e3,
-                           "kernel_only": BATCH / med["kernel"] * 1e3,
-                           "plain_only": BATCH / med["plain"] * 1e3}})
+                           "kernel_only": BATCH / kernel_ms(med, "flat") * 1e3,
+                           "plain_only": BATCH / med[f"flat_plain@{BATCH}"]
+                           * 1e3}})
     return med
 
 
@@ -675,7 +699,9 @@ def phase_dual_timing(torch, tg, kernels, dual_kernels, core, smi):
 RESIDENT_BATCHES = (SERVE_PLANTS, BATCH)
 # each kernel's name as the profiler lists it (a prefix of its instances)
 KERNEL_NAMES = {"dense": "gpad_dense_kernel", "dual": "gpad_dual_kernel",
-                "chunk": "gpad_dual_chunk_kernel"}
+                "chunk": "gpad_dual_chunk_kernel", "flat": "gpad_paired_kernel",
+                "paired": "gpad_paired_kernel",
+                "flat_tiled": "gpad_flat_tiled_kernel"}
 
 
 def profiled_ms(torch, fn, name, calls=10):
@@ -707,10 +733,11 @@ def resident_runs(torch, tg, kernels, dual_kernels, core, B, seed,
     """Timed calls at battery n3 N10, batch B, keyed "<kernel>@<B>" and
     "<kernel>_plain@<B>": the dense kernel (100 iterations), the dual
     kernel (100 restart iterations), the chunk kernel (a 10-iteration
-    restart window from the state 30 iterations left); and each one's
-    bound from these inputs. ``plan`` (log2_tile, split) overrides the
-    launch. Only the wrappers' public arguments are used without it, so a
-    checkout of an earlier design runs this too."""
+    restart window from the state 30 iterations left), the flat and the
+    full paired kernel (100 iterations); and each one's bound from these
+    inputs. ``plan`` (log2_tile, split) overrides the launch. Only the
+    wrappers' public arguments are used without it, so a checkout of an
+    earlier design runs this too."""
     _, dense = dense_headline(tg)
     _, data = headline(tg)
     X0 = torch.as_tensor(np.random.default_rng(seed).uniform(
@@ -743,6 +770,18 @@ def resident_runs(torch, tg, kernels, dual_kernels, core, B, seed,
             B * (ITERS * 2.0 * m_h * m_h + 4.0 * m_h * n_z),
             nbytes(data.D, data.GL_T, data.MG_T, g_P, p_D)
             + 4 * B * (2 * data.n_z + 4 * m_h))
+    for name in ("flat", "paired"):
+        if name not in which:
+            continue
+        kernel = "paired_flat" if name == "flat" else "paired"
+        fn = getattr(kernels, f"gpad_fixed_{kernel}")
+        plain = getattr(kernels, f"gpad_fixed_{kernel}_torch")
+        runs[f"{name}@{B}"] = lambda fn=fn: fn(data, g_P, p_D,
+                                               iterations=ITERS, **over)
+        runs[f"{name}_plain@{B}"] = lambda plain=plain: plain(
+            data, g_P, p_D, iterations=ITERS)
+        bounds[f"{name}@{B}"] = paired_bound(data, g_P, p_D, B,
+                                             full=name == "paired")
     if "chunk" in which:
         c = dual_kernels.relu_offsets(data, g_P, p_D)
         zero = torch.zeros((B, 2, m_h), device=DEVICE)
@@ -763,17 +802,22 @@ def resident_runs(torch, tg, kernels, dual_kernels, core, B, seed,
 
 
 def times_resident(torch, tg, kernels, dual_kernels, core, smi):
-    """``python3 chip_smoke.py --times``: the resident dense, dual and
-    chunk kernels at B 256 and 4096, CUDA events (median of 20 calls) and
-    the profiler's device time, with each bound; and a warm dense and a
-    restart ``Controller`` on the serving fleet. Public arguments only,
-    so it also times an earlier design's checkout: copy this script into
-    that checkout's root and run it there."""
+    """``python3 chip_smoke.py --times``: the resident dense, dual, chunk
+    and flat kernels at B 256 and 4096 and the full paired kernel at B4096,
+    CUDA events (median of 20 calls) and the profiler's device time, with
+    each bound; the flat tiled kernel at the flagship and at n5 N30, B256,
+    and the default fixed solve there on the torch engine and on the flat
+    tiled kernel, in turns; and a warm flat, dense and restart
+    ``Controller`` on the serving fleet.
+    Public arguments only, so it also times an earlier design's checkout:
+    copy this script into that checkout's root and run it there."""
     from tpu_gpad_torch.utils import device_time_per_call
 
     for B in RESIDENT_BATCHES:
+        which = ("dense", "dual", "chunk", "flat") + (
+            ("paired",) if B == BATCH else ())
         runs, bounds = resident_runs(torch, tg, kernels, dual_kernels, core,
-                                     B, seed=61)
+                                     B, seed=61, which=which)
         kern = [k for k in runs if "_plain" not in k]
         emit({"phase": "resident_times", "gpu": smi, "batch": B,
               "ms_events": {k: device_time_per_call(runs[k], warmup=3,
@@ -783,12 +827,50 @@ def times_resident(torch, tg, kernels, dual_kernels, core, smi):
                                            KERNEL_NAMES[k.split("@")[0]])
                             for k in kern},
               "bound_ms": {k: v["bound_ms"] for k, v in bounds.items()}})
+    for label, shape in (("flagship", FLAGSHIP), ("n5_N30", TILED_MID)):
+        _, d = flagship(tg, shape)
+        g, p = core.affine_params(d, flag_x0(torch, d.n_x, FLAG_BATCH,
+                                             seed=63)[1])
+        run = lambda: kernels.gpad_fixed_flat_tiled(d, g, p, iterations=ITERS)
+        emit({"phase": "flat_tiled_times", "gpu": smi, "shape": label,
+              "batch": FLAG_BATCH,
+              "ms_events": device_time_per_call(run, warmup=1, repeats=5) * 1e3,
+              "ms_device": profiled_ms(torch, run, KERNEL_NAMES["flat_tiled"],
+                                       calls=5),
+              "bound_ms": paired_bound(d, g, p, FLAG_BATCH)["bound_ms"]})
+    # auto's route for flat stacks past shared memory: the default fixed
+    # solve on the torch engine against the same solve on the flat tiled
+    # kernel, in turns (torch, kernel, kernel, torch)
+    for label, shape in (("flagship", FLAGSHIP), ("n5_N30", TILED_MID)):
+        _, d = flagship(tg, shape)
+        _, X0 = flag_x0(torch, d.n_x, FLAG_BATCH, seed=64)
+        runs = {"torch_engine": tg.SolverConfig(engine="torch"),
+                "flat_tiled": tg.SolverConfig(engine="cuda", form="mvp")}
+        ms = {k: [] for k in runs}
+        for k in ("torch_engine", "flat_tiled", "flat_tiled", "torch_engine"):
+            ms[k].append(device_time_per_call(
+                lambda: tg.solve_batch(d, X0, runs[k]), warmup=1,
+                repeats=5) * 1e3)
+        emit({"phase": "flat_route_times", "gpu": smi, "shape": label,
+              "batch": FLAG_BATCH, "ms_events_by_turn": ms})
     emit({"phase": "resident_serving_times", "gpu": smi,
           "plants": SERVE_PLANTS, "steps": SERVE_STEPS,
           "step_ms_host_clock_median": {
+              "flat": serve_ms(tg, tg.SolverConfig()),
               "dense": serve_ms(tg, tg.SolverConfig(), paired=False),
               "restart": serve_ms(tg, tg.SolverConfig(
                   iterations=RESTART_ITERS, restart=True))}})
+
+
+def paired_bound(d, g, p, B, full=False) -> dict:
+    """The paired loop's bound at B scenarios: its two products, MG_T over
+    every row and GL_T's n_s struct columns (the full loop: all m_h), per
+    scenario and iteration; z, y, w, zhat written once."""
+    m_h, n_z = d.m_half, d.n_z
+    n_s = m_h if full else d.n_struct
+    return bound(B * ITERS * 2.0 * n_z * (m_h + n_s),
+                 nbytes(d.MG_T, d.GL_T[:, :n_s], g, p, d.theta[:ITERS],
+                        d.beta[:ITERS]) + 4 * B * (2 * n_z + 4 * m_h))
 
 
 def serve_ms(tg, config, paired="auto") -> float:
@@ -810,20 +892,37 @@ def serve_ms(tg, config, paired="auto") -> float:
     return float(np.median(step_ms[1:]))
 
 
-def sweep_resident(torch, tg, kernels, dual_kernels, core, smi):
-    """``--sweep``: the resident dense, dual and chunk kernels' device time
-    (profiler, mean of 5 calls) by scenarios per block (2**log2) and
-    split-K cap at B 256 and 4096; each distinct launch once."""
+RESIDENT_FAMILIES = ("dense", "dual", "chunk", "flat", "paired")
+
+
+def resident_plan(kernels, dual_kernels, name, dense, data, B, log2=None,
+                  cap=None):
+    """A resident kernel's launch plan at battery n3 N10, batch B: the pick,
+    or the plan a sweep's (log2_tile, split cap) gives."""
+    if name == "dense":
+        return kernels._dense_plan(dense.m, dense.n_z, B, log2, cap)
+    if name in ("dual", "chunk"):
+        return dual_kernels._dual_plan(data.m_half, B, log2, cap)
+    n_s = data.n_struct if name == "flat" else data.m_half
+    return kernels._paired_plan(data.m_half, data.n_z, n_s, B, log2, cap)
+
+
+def sweep_resident(torch, tg, kernels, dual_kernels, core, smi,
+                   names=RESIDENT_FAMILIES):
+    """``--sweep``: the resident dense, dual, chunk, flat and full paired
+    kernels' device time (profiler, mean of 5 calls) by scenarios per block
+    (2**log2) and split-K cap at B 256 and 4096; each distinct launch
+    once."""
     _, dense = dense_headline(tg)
     _, data = headline(tg)
     for B in RESIDENT_BATCHES:
-        for name in ("dense", "dual", "chunk"):
+        for name in names:
             row, seen = {}, set()
-            for log2 in range(6):
+            top = 5 if name in ("dense", "dual", "chunk") else 4
+            for log2 in range(top + 1):
                 for cap in (None, 1, 2, 4, 8):
-                    launch = (kernels._dense_plan(dense.m, dense.n_z, B, log2, cap)
-                              if name == "dense" else
-                              dual_kernels._dual_plan(data.m_half, B, log2, cap))
+                    launch = resident_plan(kernels, dual_kernels, name, dense,
+                                           data, B, log2, cap)
                     if launch is None or launch in seen:
                         continue
                     seen.add(launch)
@@ -832,8 +931,7 @@ def sweep_resident(torch, tg, kernels, dual_kernels, core, smi):
                                             plan=(log2, cap))
                     row["/".join(map(str, launch))] = profiled_ms(
                         torch, runs[f"{name}@{B}"], KERNEL_NAMES[name], calls=5)
-            pick = (kernels._dense_plan(dense.m, dense.n_z, B) if name == "dense"
-                    else dual_kernels._dual_plan(data.m_half, B))
+            pick = resident_plan(kernels, dual_kernels, name, dense, data, B)
             emit({"phase": "resident_sweep", "gpu": smi, "kernel": name,
                   "batch": B, "default": "/".join(map(str, pick)),
                   "ms_device_by_plan": row})
@@ -890,7 +988,8 @@ def phase_dense_kernel_vs_plain(torch, tg, kernels, core):
 
 def phase_paired_kernel_vs_plain(torch, tg, kernels, core):
     """The full paired kernel against its plain version at the headline
-    paired shape: cold, warm, diagnostics off, soft rows, a ragged tile."""
+    paired shape: cold, warm, diagnostics off, soft rows, the serving
+    batch, a partial last tile, a few scenarios and one."""
     _, data = headline(tg)
     rng = np.random.default_rng(41)
     X0 = torch.as_tensor(
@@ -904,10 +1003,13 @@ def phase_paired_kernel_vs_plain(torch, tg, kernels, core):
     soft = dataclasses.replace(data, soft_damp=torch.as_tensor(
         rng.uniform(0.0, 0.2, data.m_half).astype(np.float32), device=DEVICE))
     cases["soft"], _ = run(soft, g_P, p_D)
-    cases["B5"], _ = run(data, g_P[:5].contiguous(), p_D[:5].contiguous(),
-                         y_cold[:5].contiguous())
+    for B in (SERVE_PLANTS, 300, 5, 1):
+        cases[f"B{B}"], _ = run(data, g_P[:B].contiguous(), p_D[:B].contiguous(),
+                                y_cold[:B].contiguous())
     worst = max(cases.values())
     emit({"phase": "paired_kernel_vs_plain", "shape": [BATCH, data.n_z, data.m_half],
+          "plans": {B: kernels._paired_plan(data.m_half, data.n_z, data.m_half, B)
+                    for B in (BATCH, SERVE_PLANTS, 300, 5, 1)},
           "max_abs_err": cases, "tol": KERNEL_TOL})
     check(worst <= KERNEL_TOL, f"paired kernel disagrees with plain version: {cases}")
     return worst
@@ -1054,37 +1156,30 @@ def phase_paired_path(torch, tg, kernels, core, reference):
 
 def phase_dense_timing(torch, tg, kernels, dual_kernels, core, smi):
     """CUDA events, median of 20 calls per turn, two turns in opposite
-    orders: the dense kernel at the serving batch (256) and at B4096 x
-    100, the full paired kernel at B4096 x 100, their plain versions, the
-    solves through ``auto`` and ``engine="torch"``, and the flat kernel
-    beside them; then the dense kernel's device time from the profiler."""
+    orders: the dense and the full paired kernel at the serving batch
+    (256) and at B4096 x 100, their plain versions, and the solves through
+    ``auto`` and ``engine="torch"`` at B4096; then the kernels' device
+    time from the profiler."""
     from tpu_gpad_torch.utils import device_time_per_call
 
     _, dense = dense_headline(tg)
     _, paired = headline(tg)
     X0 = torch.as_tensor(np.random.default_rng(45).uniform(
         -0.4, 0.4, (BATCH, dense.n_x)).astype(np.float32), device=DEVICE)
-    gp, pp = core.affine_params(paired, X0)
     mvp = tg.SolverConfig(form="mvp", flat="off")
     runs, bounds = {}, {}
     for B in RESIDENT_BATCHES:
         r, b = resident_runs(torch, tg, kernels, dual_kernels, core, B,
-                             seed=45, which=("dense",))
+                             seed=45, which=("dense", "paired"))
         runs.update(r)
         bounds.update(b)
     runs.update({
         "dense_auto": lambda: tg.solve_batch(dense, X0),
         "dense_torch": lambda: tg.solve_batch(dense, X0,
                                               tg.SolverConfig(engine="torch")),
-        "paired": lambda: kernels.gpad_fixed_paired(paired, gp, pp,
-                                                    iterations=ITERS),
-        "paired_plain": lambda: kernels.gpad_fixed_paired_torch(
-            paired, gp, pp, iterations=ITERS),
         "paired_auto": lambda: tg.solve_batch(paired, X0, mvp),
         "paired_torch": lambda: tg.solve_batch(
             paired, X0, dataclasses.replace(mvp, engine="torch")),
-        "flat": lambda: kernels.gpad_fixed_paired_flat(paired, gp, pp,
-                                                       iterations=ITERS),
     })
     ms = {k: [] for k in runs}
     order = list(runs)
@@ -1092,26 +1187,22 @@ def phase_dense_timing(torch, tg, kernels, dual_kernels, core, smi):
         for k in turn:
             ms[k].append(device_time_per_call(runs[k], warmup=3, repeats=20) * 1e3)
     med = {k: float(np.mean(v)) for k, v in ms.items()}
-    med["device"] = {k: profiled_ms(torch, runs[k], KERNEL_NAMES["dense"])
-                     for k in runs if k.startswith("dense@")}
-    # the full paired loop's two products per scenario and iteration over
-    # every row, 2 (m_h n_z) + 2 (n_z m_h); z, y, w, zhat written once
+    med["device"] = {k: profiled_ms(torch, runs[k],
+                                    KERNEL_NAMES[k.split("@")[0]])
+                     for k in runs if k.split("@")[0] in ("dense", "paired")}
     n_z, m_h = paired.n_z, paired.m_half
     med["bounds"] = bounds
-    med["paired_bound"] = bound(
-        BATCH * ITERS * 4.0 * m_h * n_z,
-        nbytes(paired.MG_T, paired.GL_T, gp, pp, paired.theta[:ITERS],
-               paired.beta[:ITERS]) + 4 * BATCH * (2 * n_z + 4 * m_h))
     emit({"phase": "dense_timing", "gpu": smi, "batches": RESIDENT_BATCHES,
           "iterations": ITERS, "dense_shape": [dense.n_z, dense.m],
           "paired_shape": [n_z, m_h],
           "dense_plans": {B: kernels._dense_plan(dense.m, dense.n_z, B)
                           for B in RESIDENT_BATCHES},
-          "dense_bounds": bounds, "paired_bound": med["paired_bound"],
-          "ms_median_of_20_per_turn": ms,
+          "paired_plans": {B: kernels._paired_plan(m_h, n_z, m_h, B)
+                           for B in RESIDENT_BATCHES},
+          "bounds": bounds, "ms_median_of_20_per_turn": ms,
           "device_ms_profiler": med["device"],
           "solves_per_s": {k: BATCH / med[k] * 1e3 for k in runs
-                           if not k.startswith("dense@")}})
+                           if "@" not in k}})
     return med
 
 
@@ -1183,12 +1274,11 @@ def eps_agreement(res, ref) -> dict:
 
 def phase_tiled_kernels_vs_plain(torch, tg, kernels, dual_kernels, core):
     """Each tiled kernel against its plain version: the flagship at B 1, 5,
-    33 and 256 (cold, warm per scenario and shared, restart, diagnostics
-    off), battery n5 N30 (m_h 330) and n3 N10 at the narrowest and widest
-    tile (1 and 8 scenarios per block); the dual kernel also at B 300 (a
-    partial last tile) and on clusters of 16, 1 and 2 blocks; the chunk
-    kernel on a window of 10 from k0 = 30, and ten windows against one
-    whole launch."""
+    33, 256 and 300 (a partial last tile; cold, warm per scenario and
+    shared, restart, diagnostics off), battery n5 N30 (m_h 330) and n3 N10
+    at the narrowest and widest tile (1 and 8 scenarios per cluster) and
+    on clusters of 16, 1 and 2 blocks; the chunk kernel on a window of 10
+    from k0 = 30, and ten windows against one whole launch."""
     _, flag = flagship(tg)
     _, mid = flagship(tg, TILED_MID)
     _, small = headline(tg)
@@ -1228,7 +1318,7 @@ def phase_tiled_kernels_vs_plain(torch, tg, kernels, dual_kernels, core):
             outs["dual"] = out_k
         if "flat" in kinds and not rs:
             out_k = kernels.gpad_fixed_flat_tiled(d, g, p, y0, log2_tile=tile,
-                                                  **kw)
+                                                  cluster=cluster, **kw)
             out_p = kernels.gpad_fixed_paired_flat_torch(d, g, p, y0, **kw)
             torch.cuda.synchronize()
             finite(out_k, diagnostics)
@@ -1255,13 +1345,13 @@ def phase_tiled_kernels_vs_plain(torch, tg, kernels, dual_kernels, core):
     for tile in (0, 3):  # 1 and 8 scenarios per block
         run(f"n3_N10_tile{1 << tile}", small, 33, warm(small, 33), tile=tile)
         run(f"restart_n3_N10_tile{1 << tile}", small, 33, rs=True, tile=tile)
-    # the dual kernels' clusters: 300 leaves a partial last tile; 16
-    # scenarios on clusters of 16 and 1 on clusters of 1 and 2
-    run("B300", flag, 300, warm(flag, 300), kinds=("dual",))
+    # the clusters: 300 leaves a partial last tile; 16 scenarios on
+    # clusters of 16 and 1 on clusters of 1 and 2
+    run("B300", flag, 300, warm(flag, 300))
     run("restart_B300", flag, 300, rs=True, kinds=("dual",))
     for tile, cl in ((4, 16), (0, 1), (1, 2)):
         run(f"n3_N10_tile{1 << tile}_cluster{cl}", small, 33, warm(small, 33),
-            tile=tile, cluster=cl, kinds=("dual",))
+            tile=tile, cluster=cl)
         run(f"restart_n3_N10_tile{1 << tile}_cluster{cl}", small, 33, rs=True,
             tile=tile, cluster=cl, kinds=("dual",))
     # the chunk kernel: one window, and ten windows against a whole solve
@@ -1303,7 +1393,7 @@ def phase_tiled_kernels_vs_plain(torch, tg, kernels, dual_kernels, core):
                      "n5_N30": [mid.n_z, mid.m_half, mid.n_struct],
                      "n3_N10": [small.n_z, small.m_half, small.n_struct]},
           "log2_tile": {"dual_B256": dual_kernels.pick_tiled_tiles(flag.m_half, B),
-                        "flat_B256": kernels.pick_flat_tiled_tiles(
+                        "flat_B256": kernels.pick_flat_tiled(
                             flag.m_half, flag.n_z, B)},
           "max_abs_err": {"dual": dual, "dual_restart_u_z": restart,
                           "flat": flat, "dual_chunk": chunk},
@@ -1328,8 +1418,7 @@ def phase_flagship_path(torch, tg, kernels, dual_kernels, core, reference, sk, s
     restart and dual-form solves (the tiled dual kernel), a restart
     ``Controller`` serving 256 plants, ``solve_to_accuracy`` with the flat
     block off (the tiled chunk kernel, one launch per window), a forced
-    flat solve (the flat tiled kernel), the default solve (no kernel: the
-    torch engine, as the JAX package runs XLA there on a TPU), and the
+    flat solve and the default solve (both the flat tiled kernel), and the
     CLI's ``closedloop`` and ``info`` in process. Returns the launches."""
     import contextlib
     import io as textio
@@ -1391,11 +1480,12 @@ def phase_flagship_path(torch, tg, kernels, dual_kernels, core, reference, sk, s
           f"flagship flat u* vs oracle {out['forced_mvp']}")
 
     cfg = tg.SolverConfig()
-    res = leg("default", lambda: tg.solve_batch(flag, X0, cfg), {})
+    res = leg("default", lambda: tg.solve_batch(flag, X0, cfg),
+              {"gpad_flat_tiled": 1})
     out["default"].update(
         engine=core.resolve_engine(flag, cfg), kernel=core.cuda_kernel(flag, cfg),
         form=core.resolve_form(flag, cfg), u_vs_oracle=oracle_err(res))
-    check(out["default"]["engine"] == "torch"
+    check(out["default"]["engine"] == "cuda"
           and max(out["default"]["u_vs_oracle"]) < ORACLE_TOL,
           f"flagship default solve {out['default']}")
 
@@ -1489,7 +1579,7 @@ def phase_flagship_path(torch, tg, kernels, dual_kernels, core, reference, sk, s
     out["info"].update(info)
     out["info_restart"].update(info_restart)
     check((info["resolved_engine"], info["resolved_form"], info["kernel"])
-          == ("torch", "mvp+flat", None), f"info routing {info}")
+          == ("cuda", "mvp+flat", "flat_tiled"), f"info routing {info}")
     check((info_restart["resolved_engine"], info_restart["resolved_form"],
            info_restart["kernel"]) == ("cuda", "dual", "dual_tiled"),
           f"info --restart routing {info_restart}")
@@ -1539,6 +1629,8 @@ def phase_tiled_timing(torch, tg, kernels, dual_kernels, core, smi):
         "forced_mvp": lambda: tg.solve_batch(flag, X0, S(engine="cuda",
                                                          form="mvp")),
         "default_auto": lambda: tg.solve_batch(flag, X0),
+        "default_torch_engine": lambda: tg.solve_batch(flag, X0,
+                                                       S(engine="torch")),
         "window": lambda: dual_kernels.gpad_dual_tiled_chunk(flag, c, *state,
                                                              **win),
         "window_plain": lambda: dual_kernels.gpad_dual_chunk_torch(
@@ -1566,17 +1658,14 @@ def phase_tiled_timing(torch, tg, kernels, dual_kernels, core, smi):
     med["dual_bound"] = bound(
         B * (ITERS * 2.0 * m_h * m_h + 4.0 * m_h * n_z),
         nbytes(flag.D, flag.GL_T, flag.MG_T, g, p) + dual_io)
-    med["flat_bound"] = bound(
-        B * ITERS * 2.0 * n_z * (m_h + n_s),
-        nbytes(flag.MG_T, flag.GL_T[:, :n_s], g, p, flag.theta[:ITERS],
-               flag.beta[:ITERS]) + dual_io)
+    med["flat_bound"] = paired_bound(flag, g, p, B)
     med["window_bound"] = bound(
         B * 10 * 2.0 * m_h * m_h,
         nbytes(flag.D, c, *state) + nbytes(*state) + 4 * B * 2 * m_h)
     emit({"phase": "tiled_timing", "gpu": smi, "batch": B, "iterations": ITERS,
           "window": 10, "shape": [n_z, m_h, n_s],
           "log2_tile": {"dual": dual_kernels.pick_tiled_tiles(m_h, B),
-                        "flat": kernels.pick_flat_tiled_tiles(m_h, n_z, B)},
+                        "flat": kernels.pick_flat_tiled(m_h, n_z, B)},
           "dual_cluster": dual_kernels.pick_tiled_cluster(
               dual_kernels.pick_tiled_tiles(m_h, B), B),
           "dual_bound": med["dual_bound"], "flat_bound": med["flat_bound"],
@@ -1584,7 +1673,7 @@ def phase_tiled_timing(torch, tg, kernels, dual_kernels, core, smi):
           "ms_median_of_5_per_turn": ms,
           "note": "eps_* are CUDA-event times of whole solve_to_accuracy "
                   "calls, host syncs between windows included; default_auto "
-                  "is the torch engine (no kernel serves it)",
+                  "runs the flat tiled kernel",
           "solves_per_s": {k: B / med[k] * 1e3 for k in runs
                            if not k.startswith("window")}})
     return med
@@ -1592,14 +1681,14 @@ def phase_tiled_timing(torch, tg, kernels, dual_kernels, core, smi):
 
 def sweep_tiled(torch, tg, kernels, dual_kernels, core, smi):
     """``python3 chip_smoke.py --sweep``: each tiled kernel's time by tile
-    at the flagship, 100 fixed iterations: the dual kernel by scenarios
-    per cluster (2**log2) and blocks per cluster at B 1, 64, 256 and 1024,
-    the flat one by scenarios per block (2**log2) at B 256 and 1024. CUDA
-    events, median of 3 calls after one warm-up."""
+    and cluster, 100 fixed iterations: the dual kernel by scenarios per
+    cluster (2**log2) and blocks per cluster at the flagship, B 1, 64, 256
+    and 1024; the flat one likewise at the flagship, B 1, 256 and 1024, and
+    at n5 N30, B256. CUDA events, median of 3 calls after one warm-up."""
     from tpu_gpad_torch.utils import device_time_per_call
 
     _, flag = flagship(tg)
-    m_h, n_z = flag.m_half, flag.n_z
+    m_h = flag.m_half
     for B in (1, SW_SERVE_PLANTS, FLAG_BATCH, 1024):
         g, p = core.affine_params(flag, flag_x0(torch, flag.n_x, B, seed=54)[1])
         row = {}
@@ -1616,16 +1705,30 @@ def sweep_tiled(torch, tg, kernels, dual_kernels, core, smi):
               "batch": B, "iterations": ITERS,
               "default": f"{pick}/{dual_kernels.pick_tiled_cluster(pick, B)}",
               "ms_by_log2_tile_per_cluster": row})
-        if B < FLAG_BATCH:
-            continue
-        row = {log2: device_time_per_call(
-            lambda: kernels.gpad_fixed_flat_tiled(flag, g, p, iterations=ITERS,
-                                                  log2_tile=log2),
-            warmup=1, repeats=3) * 1e3 for log2 in kernels._TILED_LOG2_TILES}
-        emit({"phase": "tiled_tile_sweep", "gpu": smi, "kernel": "flat_tiled",
-              "batch": B, "iterations": ITERS,
-              "default_log2_tile": kernels.pick_flat_tiled_tiles(m_h, n_z, B),
-              "ms_by_log2_tile": row})
+    # the flat tiled kernel by scenarios per cluster (2**log2) and blocks
+    # per cluster, at the flagship and at n5 N30
+    for shape, label, batches in ((FLAGSHIP, "flagship", (1, FLAG_BATCH, 1024)),
+                                  (TILED_MID, "n5_N30", (FLAG_BATCH,))):
+        _, d = flagship(tg, shape)
+        for B in batches:
+            g, p = core.affine_params(d, flag_x0(torch, d.n_x, B, seed=55)[1])
+            row = {}
+            for log2 in range(kernels.FLAT_TILED_MAX_LOG2_TILE + 1):
+                if log2 and 1 << (log2 - 1) >= B:
+                    continue
+                for cl in (4, 8, 16):
+                    if kernels.pick_flat_tiled(d.m_half, d.n_z, B, log2,
+                                               cl) is None:
+                        continue
+                    row[f"{log2}/{cl}"] = device_time_per_call(
+                        lambda: kernels.gpad_fixed_flat_tiled(
+                            d, g, p, iterations=ITERS, log2_tile=log2,
+                            cluster=cl), warmup=1, repeats=3) * 1e3
+            emit({"phase": "tiled_tile_sweep", "gpu": smi,
+                  "kernel": "flat_tiled", "shape": label, "batch": B,
+                  "iterations": ITERS,
+                  "default": kernels.pick_flat_tiled(d.m_half, d.n_z, B),
+                  "ms_by_log2_tile_per_cluster": row})
 
 
 # ---------------------------------------------------------------------------
@@ -2101,8 +2204,11 @@ def main() -> int:
     phase_build()
     if sys.argv[1:2] == ["--sweep"]:
         families = sys.argv[2:] or ["resident", "stagewise", "tiled"]
-        if "resident" in families:
-            sweep_resident(torch, tg, kernels, dual_kernels, core, smi)
+        resident = [n for n in RESIDENT_FAMILIES
+                    if "resident" in families or n in families]
+        if resident:
+            sweep_resident(torch, tg, kernels, dual_kernels, core, smi,
+                           resident)
         if "stagewise" in families:
             sweep_stagewise(torch, tg, sk, ss, smi)
         if "tiled" in families:
@@ -2119,8 +2225,10 @@ def main() -> int:
     # each path's launches are counted from 0, set just before it
     reset_counters(kernels, dual_kernels, sk, ss)
     phase_main_path(torch, tg, kernels, core, reference)
+    flat_by_batch = {BATCH: kernels.PAIRED_FLAT_LAUNCHES}
     phase_serving(torch, tg, kernels)
     launches = kernels.PAIRED_FLAT_LAUNCHES
+    flat_by_batch[SERVE_PLANTS] = launches - flat_by_batch[BATCH]
     check(launches == 1 + SERVE_STEPS, f"main path launched {launches}x")
     reset_counters(kernels, dual_kernels, sk, ss)
     phase_restart_serving(torch, tg, dual_kernels)
@@ -2166,7 +2274,7 @@ def main() -> int:
           f"stage-wise path launches {sw_launches}")
     phase_stagewise_eps(torch, tg, sk, ss)
     phase_near_limit(torch, tg, kernels, core)
-    med = phase_timing(torch, tg, kernels, core, smi)
+    med = phase_timing(torch, tg, kernels, dual_kernels, core, smi)
     dmed = phase_dual_timing(torch, tg, kernels, dual_kernels, core, smi)
     smed = phase_stagewise_timing(torch, tg, sk, ss, ts, smi)
     dnmed = phase_dense_timing(torch, tg, kernels, dual_kernels, core, smi)
@@ -2180,9 +2288,11 @@ def main() -> int:
         "replaces": "tpu_gpad/solver/kernels.py:1493",
         "launches": launches,
         "max_abs_err": worst,
-        "ms": med["kernel"],
-        "plain_ms": med["plain"],
-        **med["bound"], **no_library,
+        "ms": kernel_ms(med, "flat"),
+        "plain_ms": med[f"flat_plain@{BATCH}"],
+        "torch_engine_ms": med["solve_torch"],
+        **med["bounds"][f"flat@{BATCH}"], **no_library,
+        **by_batch(med, "flat", flat_by_batch),
     }, {
         "name": "gpad_dual",
         "route": "cuda",
@@ -2246,9 +2356,11 @@ def main() -> int:
         "replaces": "tpu_gpad/solver/kernels.py:1271",
         "launches": paired_launches,
         "max_abs_err": worst_paired,
-        "ms": dnmed["paired"],
-        "plain_ms": dnmed["paired_plain"],
-        **dnmed["paired_bound"], **no_library,
+        "ms": kernel_ms(dnmed, "paired"),
+        "plain_ms": dnmed[f"paired_plain@{BATCH}"],
+        "torch_engine_ms": dnmed["paired_torch"],
+        **dnmed["bounds"][f"paired@{BATCH}"], **no_library,
+        **by_batch(dnmed, "paired", {BATCH: paired_launches}),
     }, {
         # the flagship's main path runs it under restart
         "name": "gpad_dual_tiled",
@@ -2284,8 +2396,9 @@ def main() -> int:
         "max_abs_err": worst_tiled["flat"],
         "ms": tmed["flat"],
         "plain_ms": tmed["flat_plain"],
-        # the torch engine on the same configuration: what auto runs here
-        "torch_engine_ms": tmed["default_auto"],
+        # the torch engine on the same configuration, and auto's solve
+        "torch_engine_ms": tmed["default_torch_engine"],
+        "auto_solve_ms": tmed["default_auto"],
         **tmed["flat_bound"], **no_library,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

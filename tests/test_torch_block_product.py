@@ -66,14 +66,17 @@ def test_plans_by_batch(kernel, shape, B):
 
 def test_serving_and_headline_picks():
     """At battery n3 N10 the serving batch runs 2 scenarios per block (128
-    blocks) and B4096 runs 16 (256 blocks), for both kernels."""
+    blocks) and B4096 runs 16 (256 blocks), for every resident kernel."""
     assert kernels._dense_plan(140, 30, 256) == kernels.DensePlan(1, 4, 32, 7)
     assert kernels._dense_plan(140, 30, 4096) == kernels.DensePlan(4, 4, 8, 1)
     assert dual_kernels._dual_plan(70, 256) == dual_kernels.DualPlan(1, 14)
     assert dual_kernels._dual_plan(70, 4096) == dual_kernels.DualPlan(4, 3)
-    # the paired and flat kernels keep their rule: at most 8 per block
-    assert kernels._pick_log2_tile(70, 30, 40, 4096) == 3
-    assert kernels._pick_log2_tile(70, 30, 40, 256) == 3
+    # the flat and full paired kernels take the same grid
+    P = kernels.PairedPlan
+    assert kernels._paired_plan(70, 30, 40, 256) == P(1, 4, 8, 8)
+    assert kernels._paired_plan(70, 30, 40, 4096) == P(4, 4, 4, 4)
+    assert kernels._paired_plan(70, 30, 70, 256) == P(1, 4, 8, 8)
+    assert kernels._paired_plan(70, 30, 70, 4096) == P(4, 4, 4, 3)
 
 
 def test_dense_guard_admits_every_shape_it_admitted():

@@ -227,6 +227,115 @@ def test_paired_kernel_matches_plain(dev, case):
                                 diagnostics=case != "no_diagnostics"))
 
 
+# Launch plans of the paired kernels (log2_tile, split cap; None: the pick)
+PAIRED_PLANS = [(None, None), (0, None), (1, None), (2, None), (3, None),
+                (4, None), (4, 1), (1, 2), (0, 1)]
+PAIRED_CASES = {  # B, warm start, soft rows
+    "B4096_cold": (4096, None, False),
+    "B256_warm": (256, "per_scenario", False),
+    "B300_warm_shared": (300, "shared", False),
+    "B5_soft": (5, "per_scenario", True),
+    "B1": (1, "per_scenario", False),
+}
+
+
+def _paired_case(data, case, seed):
+    B, warm, soft = PAIRED_CASES[case]
+    g_P, p_D = _inputs(data, B, seed=B + seed)
+    rng = np.random.default_rng(seed)
+    y0 = None
+    if warm is not None:
+        rows = B if warm == "per_scenario" else 1
+        y0 = torch.as_tensor(rng.uniform(0, 0.5, (rows, 2, data.m_half)),
+                             dtype=torch.float32, device=data.device)
+    if soft:
+        data = dataclasses.replace(data, soft_damp=torch.as_tensor(
+            rng.uniform(0, 0.2, data.m_half), dtype=torch.float32,
+            device=data.device))
+    return data, g_P, p_D, y0
+
+
+@pytest.mark.parametrize("plan", PAIRED_PLANS, ids=lambda p: (
+    "pick" if p[0] is None else f"tile{1 << p[0]}_split{p[1]}"))
+@pytest.mark.parametrize("case", list(PAIRED_CASES))
+@pytest.mark.parametrize("kernel", ["paired_flat", "paired"])
+def test_paired_kernel_plans_match_plain(dev, kernel, case, plan):
+    """Both paired instances at every plan against the plain version: the
+    headline and serving batches, a partial last tile, soft rows, one
+    scenario."""
+    data, g_P, p_D, y0 = _paired_case(_data(dev), case, seed=8)
+    kw = dict(iterations=ITERS)
+    out_k = getattr(kernels, f"gpad_fixed_{kernel}")(
+        data, g_P, p_D, y0, log2_tile=plan[0], split=plan[1], **kw)
+    out_p = getattr(kernels, f"gpad_fixed_{kernel}_torch")(data, g_P, p_D, y0,
+                                                           **kw)
+    torch.cuda.synchronize()
+    _assert_close(out_k, out_p)
+
+
+@pytest.mark.parametrize("kernel", ["paired_flat", "paired"])
+def test_paired_kernels_diagnostics_off_and_zero_iterations(dev, kernel):
+    """diagnostics=False leaves z and y bit for bit; an empty loop returns
+    y0 and zeros, at the serving plan (2 per block)."""
+    data, g_P, p_D, y0 = _paired_case(_data(dev), "B256_warm", seed=9)
+    fn = getattr(kernels, f"gpad_fixed_{kernel}")
+    on = fn(data, g_P, p_D, y0, iterations=ITERS)
+    off = fn(data, g_P, p_D, y0, iterations=ITERS, diagnostics=False)
+    assert off[2] is None and off[3] is None
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+    z, y, w, zhat = fn(data, g_P, p_D, y0, iterations=0)
+    torch.cuda.synchronize()
+    assert not z.any() and not w.any() and not zhat.any()
+    torch.testing.assert_close(y, y0, rtol=0, atol=0)
+
+
+def _synthetic_paired(dev, m_h, n_z, n_s, seed):
+    """Paired data of any shape: battery n3 N10's schedule, L = 2 and
+    GL_T = MG_T', with MG_T random and small enough (spectral norm about
+    0.5) that the iteration stays bounded; a flat stack's rows [n_s:] are
+    its box rows, 0.5 I in MG_T, so that its q = zhat / L."""
+    rng = np.random.default_rng(seed)
+    MG = rng.uniform(-1.0, 1.0, (m_h, n_z))
+    MG *= 0.5 / np.linalg.norm(MG, 2)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    if n_s < m_h:  # the identity block of a flat stack, as I / L
+        MG[n_s:] = 0.5 * np.eye(n_z)
+    return dataclasses.replace(_data(dev), MG_T=as_t(MG),
+                               GL_T=as_t(np.ascontiguousarray(MG.T)),
+                               L=as_t(2.0), n_struct=n_s, D=None)
+
+
+@pytest.mark.parametrize("shape", [(1700, 8, 1692, "paired_flat"),
+                                   (1700, 8, 1700, "paired"),
+                                   (89, 317, 89, "paired")],
+                         ids=["flat_past_registers", "full_past_registers",
+                              "full_unpadded"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_paired_kernels_near_their_guards(dev, shape, B):
+    """Shapes only the fallbacks take: 1700 dual rows, past the block's
+    registers at one scenario (the rest of the state in device memory),
+    and the full instance at m_h 89, n_z 317, which fits shared memory
+    only unpadded."""
+    m_h, n_z, n_s, kernel = shape
+    data = _synthetic_paired(dev, m_h, n_z, n_s, seed=B)
+    plan = kernels._paired_plan(m_h, n_z, n_s, B)
+    assert plan.log2_tile == 0
+    assert (plan.vec == 1) == (shape[2:] == (89, "paired"))
+    rng = np.random.default_rng(B)
+    g_P = torch.as_tensor(rng.uniform(-0.2, 0.2, (B, n_z)),
+                          dtype=torch.float32, device=dev)
+    # both offsets negative: every box holds 0, so the duals stay bounded
+    p_D = torch.as_tensor(-rng.uniform(0.01, 0.2, (B, 2, m_h)),
+                          dtype=torch.float32, device=dev)
+    y0 = torch.rand((B, 2, m_h), device=dev) * 0.2
+    kw = dict(iterations=ITERS)
+    out_k = getattr(kernels, f"gpad_fixed_{kernel}")(data, g_P, p_D, y0, **kw)
+    out_p = getattr(kernels, f"gpad_fixed_{kernel}_torch")(data, g_P, p_D, y0,
+                                                           **kw)
+    torch.cuda.synchronize()
+    _assert_close(out_k, out_p)
+
+
 def test_dense_and_paired_solves_route_through_kernels(dev):
     dense = _dense_data(dev)
     X0 = torch.rand((64, dense.n_x), device=dev) * 0.8 - 0.4
@@ -476,7 +585,7 @@ def _tiled_data(dev, n, N):
 
 TILED_CASES = {
     # case: (battery shape, B, warm start, restart, diagnostics, tile,
-    # blocks per cluster of the dual kernel; None: the picks)
+    # blocks per cluster; None: the picks)
     "flagship_cold": ((30, 30), 256, None, False, True, None, None),
     "flagship_warm": ((30, 30), 256, "per_scenario", False, True, None, None),
     "flagship_warm_shared": ((30, 30), 33, "shared", False, True, None, None),
@@ -489,6 +598,7 @@ TILED_CASES = {
     "flagship_B5": ((30, 30), 5, None, True, True, None, None),
     "flagship_B33": ((30, 30), 33, None, False, True, None, None),
     # 300 = 18 x 16 + 12: the last cluster's tile is partial
+    "flagship_B300": ((30, 30), 300, "per_scenario", False, True, None, None),
     "flagship_B300_warm_restart": ((30, 30), 300, "per_scenario", True, True,
                                    None, None),
     "flagship_B300_cluster16": ((30, 30), 300, None, False, True, None, 16),
@@ -549,14 +659,37 @@ def _assert_restart_close(a, b):
 
 
 @pytest.mark.parametrize("case", [c for c, v in TILED_CASES.items()
-                                  if not v[3] and v[6] is None])
+                                  if not v[3]])
 def test_flat_tiled_kernel_matches_plain(dev, case):
-    data, g_P, p_D, y0, _, diagnostics, tile, _ = _tiled_args(dev, case)
+    data, g_P, p_D, y0, _, diagnostics, tile, cluster = _tiled_args(dev, case)
     kw = dict(iterations=ITERS, diagnostics=diagnostics)
     before = kernels.FLAT_TILED_LAUNCHES
     out_k = kernels.gpad_fixed_flat_tiled(data, g_P, p_D, y0, log2_tile=tile,
-                                          **kw)
+                                          cluster=cluster, **kw)
     assert kernels.FLAT_TILED_LAUNCHES == before + 1
+    out_p = kernels.gpad_fixed_paired_flat_torch(data, g_P, p_D, y0, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out_k, out_p)
+
+
+# The flat tiled kernel at every tile and cluster size (log2_tile, blocks
+# per cluster) at the flagship and at n5 N30
+FLAT_TILED_PLANS = [(t, c) for t in range(5) for c in (4, 8, 16)]
+
+
+@pytest.mark.parametrize("plan", FLAT_TILED_PLANS,
+                         ids=lambda p: f"tile{1 << p[0]}_cluster{p[1]}")
+@pytest.mark.parametrize("shape,B", [((30, 30), 256), ((30, 30), 1),
+                                     ((30, 30), 300), ((5, 30), 256)],
+                         ids=["flagship_B256", "flagship_B1", "flagship_B300",
+                              "n5N30_B256"])
+def test_flat_tiled_kernel_at_every_plan(dev, shape, B, plan):
+    data = _tiled_data(dev, *shape)
+    g_P, p_D = _inputs(data, B, seed=B + 11)
+    y0 = torch.rand((B, 2, data.m_half), device=dev) * 0.5
+    kw = dict(iterations=ITERS)
+    out_k = kernels.gpad_fixed_flat_tiled(data, g_P, p_D, y0, log2_tile=plan[0],
+                                          cluster=plan[1], **kw)
     out_p = kernels.gpad_fixed_paired_flat_torch(data, g_P, p_D, y0, **kw)
     torch.cuda.synchronize()
     _assert_close(out_k, out_p)
@@ -641,9 +774,11 @@ def test_flagship_routes_through_tiled_kernels(dev):
         else:
             torch.testing.assert_close(res.u, ref.u, atol=TOL, rtol=0)
     launches = (dual_kernels.DUAL_TILED_LAUNCHES, kernels.FLAT_TILED_LAUNCHES)
-    tg.solve_batch(data, X0)  # the torch engine, as tpu_gpad's XLA on a TPU
+    res = tg.solve_batch(data, X0)  # auto: the flat tiled kernel
     assert (dual_kernels.DUAL_TILED_LAUNCHES,
-            kernels.FLAT_TILED_LAUNCHES) == launches
+            kernels.FLAT_TILED_LAUNCHES) == (launches[0], launches[1] + 1)
+    ref = tg.solve_batch(data, X0, tg.SolverConfig(engine="torch"))
+    torch.testing.assert_close(res.u, ref.u, atol=TOL, rtol=0)
     before = dual_kernels.DUAL_TILED_CHUNK_LAUNCHES
     res = tg.solve_to_accuracy(data, X0, tol=1e-4, flat="off")
     windows = -(-int(res.iterations.max()) // 10)

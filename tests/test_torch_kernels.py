@@ -159,11 +159,14 @@ def test_shared_memory_guard():
 
     head, mid = data(3, 10), data(5, 20)
     assert kernels.flat_fits_smem(head) and kernels.flat_fits_smem(mid)
-    assert kernels._pick_log2_tile(70, 30, 40, 4096) == kernels._MAX_LOG2_TILE
-    assert kernels._pick_log2_tile(70, 30, 40, 3) == 2  # B rounds up to 4
-    assert kernels._pick_log2_tile(70, 30, 40, 1) == 0
-    assert kernels._pick_log2_tile(220, 100, 120, 1024) == 3
-    assert kernels._smem_bytes(70, 30, 40, 5) <= kernels.SMEM_LIMIT_BYTES
+    plan = kernels._paired_plan
+    assert plan(70, 30, 40, 4096).log2_tile == kernels.PAIRED_MAX_LOG2_TILE
+    assert plan(70, 30, 40, 3).log2_tile == 0  # 1 per block below 128 blocks
+    assert plan(70, 30, 40, 1).log2_tile == 0
+    # n5 N20 at B1024: 4 per block, where a thread's registers stop it
+    assert plan(220, 100, 120, 1024).log2_tile == 2
+    assert kernels._paired_smem_bytes(
+        70, 30, 40, plan(70, 30, 40, 4096)) <= kernels.SMEM_LIMIT_BYTES
     assert not kernels.flat_fits_smem(data(30, 30))
     dense = tpu_gpad_torch.dualize(
         tpu_gpad_torch.condense(tpu_gpad_torch.problems.battery(3, 4)),

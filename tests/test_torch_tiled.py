@@ -200,9 +200,11 @@ def test_eps_loop_takes_tiled_chunks_when_smem_declines(pair, monkeypatch,
 
 
 # The routing at battery(30, 30), paired="auto", as the card runs it: the
-# JAX package's routing on a TPU, with its XLA engine as the torch engine.
+# JAX package's routing on a TPU, with its XLA engine as the torch engine,
+# but for the default fixed solve, which the flat tiled kernel serves (it
+# beat the torch engine on an H100; PERF.md §5).
 FLAGSHIP_ROUTES = [
-    ("default", {}, None),
+    ("default", {}, "flat_tiled"),
     ("restart", dict(restart=True), "dual_tiled"),
     ("form_dual", dict(form="dual"), "dual_tiled"),
     ("forced", dict(engine="cuda"), "dual_tiled"),
@@ -244,28 +246,31 @@ def test_tiled_guards():
         log2 = dual_kernels.pick_tiled_tiles(m_h)
         assert log2 == 0
         assert dual_kernels._dual_tiled_smem_bytes(m_h, log2) <= 227 * 1024
-    assert kernels.pick_flat_tiled_tiles(1830, 900) == 0
+    assert kernels.pick_flat_tiled(1830, 900) == (0, 16, True)
     assert dual_kernels.pick_tiled_tiles(60000) is None
-    assert kernels.pick_flat_tiled_tiles(60000, 30000) is None
-    # the dual kernels: the widest tile (at most 16 scenarios per cluster)
-    # the batch fills, on clusters of 16 blocks up to 16 clusters, else of
-    # 8; the flat one: the widest (at most 8 per block) that keeps 128
-    # blocks
+    assert kernels.pick_flat_tiled(60000, 30000) is None
+    # both: the widest tile (at most 16 scenarios per cluster) the batch
+    # fills, on clusters of 16 blocks up to 16 clusters, else of 8
     Bs = (1, 2, 3, 5, 9, 17, 256, 257, 1024)
     tiles = [dual_kernels.pick_tiled_tiles(1830, B) for B in Bs]
     assert tiles == [0, 1, 2, 3, 4, 4, 4, 4, 4]
     assert [dual_kernels.pick_tiled_cluster(t, B) for t, B in zip(tiles, Bs)
             ] == [16] * 7 + [8, 8]
     assert dual_kernels.pick_tiled_tiles(20000, 256) == 1  # 16 x wd too big
-    assert [kernels.pick_flat_tiled_tiles(1830, 900, B)
-            for B in (1, 33, 256, 1024)] == [0, 0, 1, 3]
+    assert [tuple(kernels.pick_flat_tiled(1830, 900, B))
+            for B in (1, 33, 256, 300, 1024)] == [
+        (0, 16, True), (4, 16, True), (4, 16, True), (4, 8, True),
+        (4, 8, True)]
     # csrc carve-up by hand: wd of T scenarios (rows padded to 4), the row
     # groups' partial sums (1024 columns x T), 16 cluster partials per
     # scenario and 16 warp partials
     assert dual_kernels._dual_tiled_smem_bytes(1830, 2) == 4 * (
         4 * (1832 + 1024 + 16) + 16)
     assert dual_kernels._dual_tiled_smem_bytes(1830, 4) == 183872
-    assert kernels._flat_tiled_smem_bytes(1830, 900, 3) == 4 * 2730 * 8
+    # the flat one: wd and zhat of T scenarios and the groups' scratch
+    # (512 columns x T), or at one scenario wd and zhat alone
+    assert kernels._flat_tiled_smem_bytes(1830, 900, 4) == 4 * 16 * 3242
+    assert kernels._flat_tiled_smem_bytes(1830, 900, 0, False) == 4 * 2730
 
 
 def test_tiled_launch_choices():

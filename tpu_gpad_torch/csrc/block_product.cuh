@@ -1,5 +1,6 @@
-// The register-tiled block product of the resident dense and dual GPAD
-// kernels (csrc/gpad_dense.cu, csrc/gpad_dual.cu):
+// The register-tiled block product of the resident dense, dual and paired
+// GPAD kernels (csrc/gpad_dense.cu, csrc/gpad_dual.cu,
+// csrc/gpad_paired_flat.cu):
 //
 //   out[r][s] = sum_{k < K} A[k][r] X[k][s]      r < R, s < T
 //
@@ -89,7 +90,8 @@ __device__ Product make_product(int R, int K, int log2T, int S) {
     P.log2_per_row = log2T - (ST == 4 ? 2 : ST == 2 ? 1 : 0);
     P.NT = (up4(R) / kRows) << P.log2_per_row;
     P.items = P.NT * S;
-    P.first = item_of<ST>(P, threadIdx.x);
+    // a product with no rows (an empty structural block) has no items
+    P.first = P.NT ? item_of<ST>(P, threadIdx.x) : Item{0, 0, 0, 0, 0};
     return P;
 }
 

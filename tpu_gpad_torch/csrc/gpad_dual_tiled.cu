@@ -51,6 +51,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "tiled_product.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -109,69 +111,6 @@ __device__ Slice make_slice(int m_h, const cg::cluster_group& cl) {
     s.lo = min(m_h, s.plo);
     s.hi = min(m_h, s.phi);
     return s;
-}
-
-// acc[q][t] = sum_{j in [j_lo, j_hi)} wd[j][t] D[j][col0 + q], ascending j,
-// for the CPT columns col0.. below c_end (zeros past it). The next U rows'
-// D words are loaded while the current U rows are multiplied.
-template <int T, int CPT, int U>
-__device__ __forceinline__ void product_rows(
-    const float* __restrict__ D, int m_h, int j_lo, int j_hi, int col0,
-    int c_end, const float* wd, float (&acc)[CPT][T])
-{
-    bool ok[CPT];
-    int col[CPT];
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) {
-        ok[q] = col0 + q < c_end;
-        col[q] = ok[q] ? col0 + q : 0;
-#pragma unroll
-        for (int t = 0; t < T; ++t) acc[q][t] = 0.0f;
-    }
-    const float* row = D + (long long)j_lo * m_h;
-    float next[U][CPT];
-    auto fetch = [&](int j0) {
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const bool in = j0 + u < j_hi;
-#pragma unroll
-            for (int q = 0; q < CPT; ++q)
-                next[u][q] = ok[q] && in
-                                 ? __ldg(row + (long long)u * m_h + col[q]) : 0.0f;
-        }
-    };
-    fetch(j_lo);
-    for (int j0 = j_lo; j0 < j_hi; j0 += U) {
-        float cur[U][CPT];
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-#pragma unroll
-            for (int q = 0; q < CPT; ++q) cur[u][q] = next[u][q];
-        row += (long long)U * m_h;
-        fetch(j0 + U);
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const int j = j0 + u;
-            if (j >= j_hi) break;
-            float vj[T];
-            if constexpr (T >= 4) {
-#pragma unroll
-                for (int t = 0; t < T; t += 4) {
-                    const float4 x =
-                        *reinterpret_cast<const float4*>(wd + j * T + t);
-                    vj[t] = x.x; vj[t + 1] = x.y; vj[t + 2] = x.z; vj[t + 3] = x.w;
-                }
-            } else {
-#pragma unroll
-                for (int t = 0; t < T; ++t) vj[t] = wd[j * T + t];
-            }
-#pragma unroll
-            for (int q = 0; q < CPT; ++q)
-#pragma unroll
-                for (int t = 0; t < T; ++t)
-                    acc[q][t] = fmaf(vj[t], cur[u][q], acc[q][t]);
-        }
-    }
 }
 
 // `n` iterations from schedule index k0 on the cluster's T scenarios (the
@@ -272,7 +211,7 @@ __device__ void dual_tiled_iterations(
         for (int p0 = sl.lo; p0 < sl.hi; p0 += cpp) {
             const int pend = min(sl.hi, p0 + cpp);
             float acc[kCols][T];
-            product_rows<T, kCols, rows_in_flight<T>()>(
+            gpad_tiled::product_rows<T, kCols, rows_in_flight<T>()>(
                 D, m_h, j_lo, j_hi, p0 + kCols * lt, pend, wd, acc);
 #pragma unroll
             for (int tt = 0; tt < T; ++tt)

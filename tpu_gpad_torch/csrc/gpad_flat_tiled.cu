@@ -8,7 +8,7 @@
 // 30x30: MG_T is 1830 x 900 and GL_T's structural columns 900 x 930, 9.9 MB
 // together). Per scenario, for each iteration k < iterations:
 //
-//   w+-  = y+- + beta_k (y+- - y+-_prev)          every dual row first
+//   w+-  = y+- + beta_k (y+- - y+-_prev)
 //   zhat = -MG_T' (w+ - w-) - g_P                 MG_T (m_h, n_z)
 //   z    = (1 - theta_k) z + theta_k zhat         z starts at 0
 //   q    = [ GL_T[:, :n_s]' zhat ; zhat / L ]     box rows need no product
@@ -21,37 +21,169 @@
 //
 // What bounds it: at the flagship an iteration is 2 n_z (m_h + n_s) =
 // 4.97 MFLOP per scenario, so B = 256 x 100 iterations is 127.2 GFLOP,
-// 1.90 ms at the card's FP32 rate. Each block reads both operands once per
-// iteration, 9.9 MB from L2 (they and the state fit the 50 MB L2), and does
-// 2 T FLOP per operand word read: at small T the L2-to-SM traffic bounds
-// it, at large T the FMA rate of the few SMs that have a block.
+// 1.90 ms at the card's FP32 rate. Every operand word read from L2 feeds T
+// multiply-adds per scenario tile, so the L2-to-SM traffic is 9.9 MB B / T
+// per iteration. The first design ran one block per tile of up to 8
+// scenarios, and every block streamed both whole operands on every
+// iteration.
 //
-// Design: one block of 512 threads owns T scenarios (T a power of two
-// <= 8) for the whole launch: zhat needs every dual row of its scenario,
-// and every dual row needs all of zhat. The state (y, y_prev, w, z, zhat)
-// lives in device memory in the output tensors; dual row i belongs to
-// thread i mod 512 in step 1 and in the projection, primal entry c to
-// thread c mod 512 in step 2, so a thread rereads only what it wrote. Only
-// wd and zhat, laid out [row][scenario], sit in shared memory. Three
-// phases per iteration, two barriers: (A) w and wd; (B) the MG_T product
-// into zhat and z; (C) the GL_T product and the projection of the
-// structural rows, then the box rows. The products are those of
-// csrc/tiled_product.cuh: up to 4 columns x T scenarios of fp32 FMA
-// accumulators per thread (precision "highest"). Staging operand chunks
-// with TMA, clusters that share one stream, and tensor cores are later
-// work.
+// Design: a thread-block cluster of C blocks (512 threads each) owns a
+// tile of T scenarios (T a power of two <= 16) for the whole launch, as
+// the tiled dual kernel's clusters do (csrc/gpad_dual_tiled.cu). Block r
+// of the cluster owns about n_s / C structural rows and n_z / C box rows
+// of the dual state, and about n_z / C primal columns: it computes zhat
+// and z for its columns, reading only its m_h x n_z / C slice of MG_T, and
+// q, the projection and the next w and wd for its rows, reading only its
+// n_z x n_s / C slice of GL_T. wd and zhat, laid out [row][scenario], are
+// whole in every block's shared memory: each block pushes the entries it
+// formed to every peer (distributed shared memory), and a cluster barrier
+// follows each push, so an iteration is (1) the zhat product of the
+// block's columns, its zhat pushed, barrier; (2) the q product of its
+// structural rows and the projection of all its rows, fused with the next
+// iteration's w and wd, its wd pushed, barrier. A product (tiled_product.
+// cuh) splits the rows of A over groups of threads, each thread holding 2
+// columns x T scenarios of sums; the groups' sums meet in shared memory in
+// two rounds (the upper half's into a scratch, added to the lower half's
+// in place, then the halves in order), one fixed order. Where even that
+// scratch does not fit (shapes near the guard, one scenario), a single
+// group keeps each column's sums in its thread. The state (y, w, z) lives
+// in device memory in the output tensors: a block touches only its own
+// rows and columns of it. Products are plain fp32 FMA (precision
+// "highest").
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "tiled_product.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-using gpad_tiled::kThreads;
-using gpad_tiled::product;
+constexpr int kThreads = 512;
+constexpr int kMaxCluster = 16;
+// Columns of a product per thread and the A rows a thread keeps in flight
+// (the tiled dual kernel's choices).
+constexpr int kCols = 2;
+template <int T>
+__host__ __device__ constexpr int rows_in_flight() {
+    return T >= 8 ? 4 : 8;
+}
+// The groups' scratch: the upper half's sums, kThreads / 2 threads x kCols
+// columns per scenario.
+constexpr int kRedCols = kCols * kThreads / 2;
+
+// Floats of shared memory a block needs (mirrored by kernels.py::
+// _flat_tiled_smem_bytes): wd and zhat of T scenarios and, with grouped
+// products, the groups' scratch.
+__host__ __device__ inline long long smem_floats(int m_h, int n_z, int T,
+                                                 bool grouped) {
+    return (long long)T * (m_h + n_z + (grouped ? kRedCols : 0));
+}
+
+// The block's share of its cluster's tile: structural rows [slo, shi), box
+// rows [blo, bhi) and primal columns [zlo, zhi).
+struct Slice {
+    int rank, C, slo, shi, blo, bhi, zlo, zhi;
+};
+
+__device__ Slice make_slice(int m_h, int n_z, int n_s,
+                            const cg::cluster_group& cl) {
+    Slice s;
+    s.rank = (int)cl.block_rank();
+    s.C = (int)cl.num_blocks();
+    const int nb = m_h - n_s;
+    const int Ws = (n_s + s.C - 1) / s.C, Wb = (nb + s.C - 1) / s.C;
+    const int Wz = (n_z + s.C - 1) / s.C;
+    s.slo = min(n_s, s.rank * Ws);
+    s.shi = min(n_s, s.slo + Ws);
+    s.blo = n_s + min(nb, s.rank * Wb);
+    s.bhi = n_s + min(nb, s.rank * Wb + Wb);
+    s.zlo = min(n_z, s.rank * Wz);
+    s.zhi = min(n_z, s.zlo + Wz);
+    return s;
+}
+
+// Floats [a, b) of the block's shared memory `smem` (16-byte aligned) into
+// every peer's: 16-byte stores where aligned, single words at the ends.
+__device__ void push(const cg::cluster_group& cl, const Slice& sl,
+                     float* smem, int a, int b) {
+    if (sl.C == 1 || a >= b) return;
+    const int a4 = min(b, (a + 3) & ~3), b4 = max(a4, b & ~3);
+    const int n4 = (b4 - a4) >> 2, head = a4 - a, n1 = head + b - b4;
+    float4* src4 = reinterpret_cast<float4*>(smem + a4);
+    for (int e = threadIdx.x; e < (sl.C - 1) * n4; e += kThreads) {
+        const int q = e / n4, x = e - q * n4;
+        cl.map_shared_rank(src4, (sl.rank + 1 + q) % sl.C)[x] = src4[x];
+    }
+    for (int e = threadIdx.x; e < (sl.C - 1) * n1; e += kThreads) {
+        const int q = e / n1, x = e - q * n1;
+        const int f = x < head ? a + x : b4 + x - head;
+        *cl.map_shared_rank(smem + f, (sl.rank + 1 + q) % sl.C) = smem[f];
+    }
+}
+
+// The block's columns [lo, hi) of X' A (A row-major (K, lda), X [j][t] in
+// shared memory): epi(c, t, sum) once for each column c and scenario t,
+// each sum taken in one fixed order. Threads form G groups of tpg (the
+// fewest threads whose kCols columns cover the columns in one pass, G = 1
+// without `grouped`); group g sums its K / G rows of A.
+template <int T, typename Epi>
+__device__ __forceinline__ void product(
+    const float* __restrict__ A, int lda, int K, int lo, int hi,
+    const float* X, float* red, bool grouped, Epi&& epi)
+{
+    const int W = hi - lo;
+    if (W <= 0) return;  // the block's slice is empty (uniform)
+    const int tid = threadIdx.x;
+    int tpg = grouped ? 32 : kThreads;
+    while (tpg < kThreads && kCols * tpg < W) tpg <<= 1;
+    const int G = kThreads / tpg, H = G / 2, g = tid / tpg, lt = tid - g * tpg;
+    const int jr = (K + G - 1) / G;
+    const int j_lo = min(K, g * jr), j_hi = min(K, j_lo + jr);
+    const int cpp = kCols * tpg;  // columns per pass
+    for (int p0 = lo; p0 < hi; p0 += cpp) {
+        const int pend = min(hi, p0 + cpp), c0 = p0 + kCols * lt;
+        float acc[kCols][T];
+        gpad_tiled::product_rows<T, kCols, rows_in_flight<T>()>(
+            A, lda, j_lo, j_hi, c0, pend, X, acc);
+        if (G == 1) {  // each column's sums are whole in its thread
+#pragma unroll
+            for (int q = 0; q < kCols; ++q)
+                if (c0 + q < pend)
+#pragma unroll
+                    for (int t = 0; t < T; ++t) epi(c0 + q, t, acc[q][t]);
+            continue;
+        }
+        // group g >= H stores, then group g - H adds its own: slot h holds
+        // group h + group h + H, and the slots are added in order
+        float* slot = red + (long long)(g % H) * T * cpp + kCols * lt;
+        if (g >= H)
+#pragma unroll
+            for (int t = 0; t < T; ++t)
+#pragma unroll
+                for (int q = 0; q < kCols; ++q) slot[t * cpp + q] = acc[q][t];
+        __syncthreads();
+        if (g < H)
+#pragma unroll
+            for (int t = 0; t < T; ++t)
+#pragma unroll
+                for (int q = 0; q < kCols; ++q)
+                    slot[t * cpp + q] = acc[q][t] + slot[t * cpp + q];
+        __syncthreads();
+        const int Wp = pend - p0;
+        for (int e = tid; e < Wp * T; e += kThreads) {
+            const int t = e / Wp, x = e - t * Wp;
+            float s = 0.0f;
+            for (int h = 0; h < H; ++h) s += red[((long long)h * T + t) * cpp + x];
+            epi(p0 + x, t, s);
+        }
+        __syncthreads();  // the scratch is rewritten by the next pass
+    }
+}
 
 template <int T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 gpad_flat_tiled_kernel(
     const float* __restrict__ MG,     // (m_h, n_z) row-major
     const float* __restrict__ GL,     // (n_z, m_h) row-major; cols [:n_s] used
@@ -62,113 +194,134 @@ gpad_flat_tiled_kernel(
     const float* __restrict__ theta,  // (>= iterations,)
     const float* __restrict__ beta,
     const float* __restrict__ L,      // () Lipschitz constant
-    int B, int m_h, int n_z, int n_s, int iterations,
+    int B, int m_h, int n_z, int n_s, int iterations, int grouped,
     float* z,                         // (B, n_z)
     float* y,                         // (B, 2, m_h)
-    float* yprev,                     // (B, 2, m_h) scratch
     float* w,                         // (B, 2, m_h): the last w (or scratch)
-    float* zhat)                      // (B, n_z): the last zhat (or scratch)
+    float* zhat)                      // (B, n_z): the last zhat, or null
 {
-    extern __shared__ float smem[];
-    float* wd = smem;                 // [i][t], m_h * T
-    float* zh = wd + m_h * T;         // [c][t], n_z * T
+    extern __shared__ float4 smem4[];
+    float* wd = reinterpret_cast<float*>(smem4);  // [i][t], m_h * T
+    float* zh = wd + (long long)m_h * T;          // [c][t], n_z * T
+    float* red = zh + (long long)n_z * T;         // the groups' scratch
+    const cg::cluster_group cl = cg::this_cluster();
+    const Slice sl = make_slice(m_h, n_z, n_s, cl);
     const float inv_L = 1.0f / L[0];  // IEEE division, as torch's 1 / L
     const int tid = threadIdx.x;
-    const long long b0 = (long long)blockIdx.x * T;
+    const long long b0 = (long long)(blockIdx.x / sl.C) * T;
     const int nv = (int)min((long long)T, B - b0);
     const long long h = 2LL * m_h;
-    // y = y_prev = y0; z, w and zhat start at 0 (an empty loop's output)
-    for (int idx = tid; idx < nv * 2 * m_h; idx += kThreads) {
-        const int t = idx / (2 * m_h), r = idx - t * 2 * m_h;
-        const long long o = (b0 + t) * h + r;
-        const float v = y0 ? y0[(b0 + t) * y0_stride + r] : 0.0f;
-        y[o] = v;
-        yprev[o] = v;
-        w[o] = 0.0f;
-    }
-    for (int idx = tid; idx < nv * n_z; idx += kThreads) {
-        z[b0 * n_z + idx] = 0.0f;
-        zhat[b0 * n_z + idx] = 0.0f;
-    }
-    __syncthreads();
-    for (int k = 0; k < iterations; ++k) {
-        const float theta_k = theta[k], beta_k = beta[k];
-        // (A) w = y + beta (y - y_prev) for every dual row
-#pragma unroll
-        for (int t = 0; t < T; ++t) {
+    const int ns = sl.shi - sl.slo, nb = sl.bhi - sl.blo, nz = sl.zhi - sl.zlo;
+    // the block's dual rows: e < ns structural, the rest box
+    auto row_of = [&](int e) { return e < ns ? sl.slo + e : sl.blo + e - ns; };
+
+    // y = y0 and w_0 = y0 (zeros for an empty loop), wd of the block's rows
+    // (zeros past B); z = 0 and zhat = 0 of its columns
+    for (int e = tid; e < (ns + nb) * T; e += kThreads) {
+        const int t = e / (ns + nb), i = row_of(e - t * (ns + nb));
+        float vp = 0.0f, vm = 0.0f;
+        if (t < nv) {
             const long long o = (b0 + t) * h;
-            for (int i = tid; i < m_h; i += kThreads) {
-                if (t >= nv) {
-                    wd[i * T + t] = 0.0f;
-                    continue;
-                }
-                const float yp = y[o + i], ym = y[o + m_h + i];
-                const float wp = yp + beta_k * (yp - yprev[o + i]);
-                const float wm = ym + beta_k * (ym - yprev[o + m_h + i]);
+            if (y0) {
+                vp = y0[(b0 + t) * y0_stride + i];
+                vm = y0[(b0 + t) * y0_stride + m_h + i];
+            }
+            y[o + i] = vp;
+            y[o + m_h + i] = vm;
+            w[o + i] = iterations > 0 ? vp : 0.0f;
+            w[o + m_h + i] = iterations > 0 ? vm : 0.0f;
+        }
+        wd[i * T + t] = vp - vm;
+    }
+    for (int e = tid; e < nz * nv; e += kThreads) {
+        const int t = e / nz;
+        const long long o = (b0 + t) * n_z + sl.zlo + e - t * nz;
+        z[o] = 0.0f;
+        if (zhat) zhat[o] = 0.0f;
+    }
+    cl.sync();  // every block of the cluster has started
+    __syncthreads();
+    push(cl, sl, wd, sl.slo * T, sl.shi * T);
+    push(cl, sl, wd, sl.blo * T, sl.bhi * T);
+    cl.sync();
+    const int zoff = m_h * T;  // zhat's offset in shared memory
+
+    for (int k = 0; k < iterations; ++k) {
+        const float th = theta[k];
+        const bool more = k + 1 < iterations;
+        const float bn = more ? beta[k + 1] : 0.0f;
+        // (1) zhat = -(wd MG_T) - g_P and z for the block's columns
+        product<T>(MG, n_z, m_h, sl.zlo, sl.zhi, wd, red, grouped != 0,
+                   [&](int c, int t, float acc) {
+                       float v = 0.0f;
+                       if (t < nv) {
+                           const long long o = (b0 + t) * n_z + c;
+                           v = -acc - gP[o];
+                           z[o] = (1.0f - th) * z[o] + th * v;
+                           if (!more && zhat) zhat[o] = v;
+                       }
+                       zh[c * T + t] = v;
+                   });
+        __syncthreads();
+        push(cl, sl, wd, zoff + sl.zlo * T, zoff + sl.zhi * T);
+        cl.sync();
+        // (2) q = zhat GL_T[:, :n_s] on the structural rows, zhat / L on the
+        // box rows; projection, and the next iteration's w and wd
+        auto project = [&](int i, int t, float q) {
+            if (t >= nv) return;
+            const long long o = (b0 + t) * h;
+            const float yp = y[o + i], ym = y[o + m_h + i];
+            const float ypn = fmaxf(w[o + i] + q + pD[o + i], 0.0f);
+            const float ymn = fmaxf(w[o + m_h + i] - q + pD[o + m_h + i], 0.0f);
+            y[o + i] = ypn;
+            y[o + m_h + i] = ymn;
+            if (more) {
+                const float wp = ypn + bn * (ypn - yp);
+                const float wm = ymn + bn * (ymn - ym);
                 w[o + i] = wp;
                 w[o + m_h + i] = wm;
                 wd[i * T + t] = wp - wm;
             }
+        };
+        product<T>(GL, m_h, n_z, sl.slo, sl.shi, zh, red, grouped != 0,
+                   project);
+        for (int e = tid; e < nb * T; e += kThreads) {
+            const int t = e / nb, i = sl.blo + e - t * nb;
+            project(i, t, zh[(i - n_s) * T + t] * inv_L);
         }
         __syncthreads();
-        // (B) zhat = -(wd MG_T) - g_P, z = (1 - theta) z + theta zhat
-        auto primal = [&](int c, const float (&acc)[T]) {
-#pragma unroll
-            for (int t = 0; t < T; ++t) {
-                float v = 0.0f;
-                if (t < nv) {
-                    const long long o = (b0 + t) * n_z + c;
-                    v = -acc[t] - gP[o];
-                    zhat[o] = v;
-                    z[o] = (1.0f - theta_k) * z[o] + theta_k * v;
-                }
-                zh[c * T + t] = v;
-            }
-        };
-        product<T>(MG, n_z, m_h, n_z, wd, primal);
-        __syncthreads();
-        // (C) q = zhat GL_T[:, :n_s] on the structural rows, zhat / L on
-        // the box rows; projection, y_prev = y
-        auto project = [&](int i, float q, int t) {
-            const long long o = (b0 + t) * h;
-            const float yp = y[o + i], ym = y[o + m_h + i];
-            yprev[o + i] = yp;
-            yprev[o + m_h + i] = ym;
-            y[o + i] = fmaxf(w[o + i] + q + pD[o + i], 0.0f);
-            y[o + m_h + i] = fmaxf(w[o + m_h + i] - q + pD[o + m_h + i], 0.0f);
-        };
-        auto structural = [&](int i, const float (&acc)[T]) {
-#pragma unroll
-            for (int t = 0; t < T; ++t)
-                if (t < nv) project(i, acc[t], t);
-        };
-        product<T>(GL, m_h, n_z, n_s, zh, structural);
-        for (int i = tid; i < m_h; i += kThreads) {
-            if (i < n_s) continue;
-#pragma unroll
-            for (int t = 0; t < T; ++t)
-                if (t < nv) project(i, zh[(i - n_s) * T + t] * inv_L, t);
+        if (more) {
+            push(cl, sl, wd, sl.slo * T, sl.shi * T);
+            push(cl, sl, wd, sl.blo * T, sl.bhi * T);
         }
-        // the next phase A writes only wd, which phase B has read; phase
-        // C's zh reads end before the barrier that follows it
+        cl.sync();
     }
 }
 
-template <int T>
-int launch(const float* MG, const float* GL, const float* gP, const float* pD,
-           const float* y0, long long y0_stride, const float* theta,
-           const float* beta, const float* L, int B, int m_h, int n_z, int n_s,
-           int iterations, float* z, float* y, float* yprev, float* w,
-           float* zhat, int smem, cudaStream_t stream)
+template <typename... P, typename... A>
+int launch(void (*kernel)(P...), int B, int T, int cluster, int smem,
+           cudaStream_t stream, A... args)
 {
     cudaError_t err = cudaFuncSetAttribute(
-        gpad_flat_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess && cluster > 8)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
-    gpad_flat_tiled_kernel<T><<<(B + T - 1) / T, kThreads, (size_t)smem,
-                                stream>>>(
-        MG, GL, gP, pD, y0, y0_stride, theta, beta, L, B, m_h, n_z, n_s,
-        iterations, z, y, yprev, w, zhat);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(((B + T - 1) / T) * cluster));
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 
@@ -176,27 +329,37 @@ int launch(const float* MG, const float* GL, const float* gP, const float* pD,
 
 extern "C" {
 
-// Runs on `stream` and returns cudaGetLastError() (0 on success). `smem` is
-// the block's dynamic shared memory in bytes, computed by the caller
-// (kernels.py::_flat_tiled_smem_bytes) so the routing guard and the launch
-// agree; log2_tile must be in [0, 3].
+// Runs on `stream` and returns a cudaError_t (0 on success):
+// cudaErrorInvalidValue for a tile outside [0, 4], a cluster that is not a
+// power of two up to 16, or `smem` below the carve-up's need, else the
+// launch's error. `smem` is the block's dynamic shared memory in bytes and
+// (log2_tile, cluster, grouped) the plan, computed by the caller
+// (kernels.py::pick_flat_tiled, _flat_tiled_smem_bytes) so the routing
+// guard and the launch agree. A cluster of `cluster` blocks owns
+// 2**log2_tile scenarios. `w` is the state (the last w on return);
+// `zhat` may be null.
 int gpad_flat_tiled_launch(
     const float* MG, const float* GL, const float* gP, const float* pD,
     const float* y0, long long y0_stride, const float* theta,
     const float* beta, const float* L, int B, int m_h, int n_z, int n_s,
-    int iterations, int log2_tile, float* z, float* y, float* yprev, float* w,
-    float* zhat, int smem, void* stream)
+    int iterations, int log2_tile, int cluster, int grouped, float* z,
+    float* y, float* w, float* zhat, int smem, void* stream)
 {
+    if (B < 1 || log2_tile < 0 || log2_tile > 4 || cluster < 1
+        || cluster > kMaxCluster || (cluster & (cluster - 1))
+        || 4 * smem_floats(m_h, n_z, 1 << log2_tile, grouped != 0) > smem)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
 #define GPAD_FLAT(T)                                                          \
-    return launch<T>(MG, GL, gP, pD, y0, y0_stride, theta, beta, L, B, m_h,   \
-                     n_z, n_s, iterations, z, y, yprev, w, zhat, smem, st)
+    return launch(gpad_flat_tiled_kernel<T>, B, T, cluster, smem, st, MG, GL, \
+                  gP, pD, y0, y0_stride, theta, beta, L, B, m_h, n_z, n_s,    \
+                  iterations, grouped, z, y, w, zhat)
     switch (log2_tile) {
         case 0: GPAD_FLAT(1);
         case 1: GPAD_FLAT(2);
         case 2: GPAD_FLAT(4);
         case 3: GPAD_FLAT(8);
-        default: return (int)cudaErrorInvalidValue;
+        default: GPAD_FLAT(16);
     }
 #undef GPAD_FLAT
 }

@@ -17,11 +17,11 @@ dual kernel, one launch per check window. Each only where its state fits
 one block's shared memory. Past it (the reference's 30x30 flagship),
 dual-form solves without soft rows read D from device memory in the
 tiled dual kernels, fixed or one eps window at a time (eps only with
-``flat="off"`` or a forced ``engine="cuda"``), and a forced flat solve
-reads its operands so in the flat tiled kernel. Everything else (a
-default fixed solve at the flagship, unpaired restart or eps, soft rows
-past shared memory) runs the torch engine, as the JAX package sends what
-its kernels do not serve to XLA.
+``flat="off"`` or a forced ``engine="cuda"``), and a fixed flat solve
+(the default at the flagship) reads its operands so in the flat tiled
+kernel. Everything else (flat-on eps past shared memory, unpaired restart
+or eps, soft rows past shared memory) runs the torch engine, as the JAX
+package sends what its kernels do not serve to XLA.
 
 Eps mode (Algorithm 1) checks the stopping test every ``check_every``
 iterations and once more at a budget that is not a multiple of it; the
@@ -380,11 +380,15 @@ def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:
     "flat_tiled", "dual_chunk" or "dual_tiled_chunk" (eps mode), or None.
     Follows ``tpu_gpad.solver.core.resolve_engine`` and
     ``solve_batch_pallas``; like them, independent of ``diagnostics``, so
-    the flag never changes which loop runs. ``engine="auto"`` and a forced
-    ``"cuda"`` part ways where the JAX package's do: a flat stack past
-    shared memory (auto: the torch engine; forced: the flat tiled kernel)
-    and an eps solve past it with the flat block on (auto: the torch
-    engine; forced: the tiled chunk kernel)."""
+    the flag never changes which loop runs. A flat fixed solve past the
+    flat kernel's shared memory takes the flat tiled kernel, under
+    ``engine="auto"`` too, as JAX's auto takes its streamed kernel in the
+    mid band (on an H100 it beat the torch engine 13.0 against 22-51 ms at
+    the 30x30 flagship and 1.57 against 26-52 ms at battery n5 N30, B256;
+    PERF.md §5). ``engine="auto"`` and a forced ``"cuda"`` part ways
+    where the JAX package's do: an eps solve past shared memory with the
+    flat block on (auto: the torch engine; forced: the tiled chunk
+    kernel)."""
     from tpu_gpad_torch.solver import dual_kernels, kernels
 
     forced = config.engine == "cuda"
@@ -409,7 +413,7 @@ def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:
     flat = resolve_flat(data, config)
     if flat and kernels.flat_fits_smem(data):
         return "paired_flat"
-    if flat and forced and kernels.flat_tiled_fits(data):
+    if flat and kernels.flat_tiled_fits(data):
         return "flat_tiled"
     if data.paired:
         return "paired" if kernels.paired_fits_smem(data) else None

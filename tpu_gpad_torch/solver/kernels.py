@@ -50,46 +50,6 @@ FLAT_TILED_LAUNCHES = 0
 # shapes are FASTER on the kernel than on the torch engine is unmeasured on
 # H100.
 SMEM_LIMIT_BYTES = 227 * 1024
-# The paired kernels take at most 8 scenarios per block (the dense and dual
-# kernels pick their own, below). On an H100 at battery n3 N10, 8 beat 4, 16
-# and 32 at B = 4096 (0.611 vs 0.629, 0.638, 0.914 ms) and 32 at B = 16384:
-# more, smaller blocks put more warps on each SM to hide the latency of the
-# dependent shared-memory FMA chains (PERF.md, PR 1 findings).
-_MAX_LOG2_TILE = 3
-
-
-def _smem_bytes(m_h: int, n_z: int, n_s: int, log2_tile: int) -> int:
-    """Shared memory of one block of the paired kernels (csrc carve-up):
-    both operands (n_s used columns of GL_T; the full instance has
-    n_s = m_h), the od column, 7 dual-row arrays and 3 primal arrays of
-    2**log2_tile scenarios each."""
-    T = 1 << log2_tile
-    return 4 * (m_h * n_z + n_z * n_s + m_h + 7 * m_h * T + 3 * n_z * T)
-
-
-def _widest_tile(smem_bytes, B: int) -> int | None:
-    """log2 of the widest scenario tile (a power of two, at most
-    2**_MAX_LOG2_TILE and at most B rounded up) whose block fits shared
-    memory, or None; ``smem_bytes(log2_tile)`` is a kernel's carve-up."""
-    log2 = min(_MAX_LOG2_TILE, max(B - 1, 0).bit_length())
-    while log2 >= 0:
-        if smem_bytes(log2) <= SMEM_LIMIT_BYTES:
-            return log2
-        log2 -= 1
-    return None
-
-
-# The flat tiled kernel (csrc/gpad_flat_tiled.cu) takes 1 to 8 scenarios
-# per block, the widest tile that keeps 128 blocks in the grid. On an H100
-# at the flagship (battery 30x30) B = 256 x 100 iterations it ran 32.7 /
-# 16.7 / 28.7 / 32.0 / 52.1 ms at 1 / 2 / 4 / 8 / 16 per block; at B = 1024
-# 8 was fastest, and 16 was never best (PERF.md, the tiled tile sweep). The
-# tiled dual kernels pick their tiles and clusters in dual_kernels.py.
-_TILED_LOG2_TILES = (0, 1, 2, 3)
-_TILED_MAX_LOG2_TILE = 3
-FLAT_TILED_MIN_BLOCKS = 128
-
-
 def grid_tile(B: int, max_log2: int, min_blocks: int) -> int:
     """log2 of the scenarios per block for B scenarios: the widest power of
     two at most 2**max_log2 and at most B rounded up whose grid still has
@@ -98,22 +58,6 @@ def grid_tile(B: int, max_log2: int, min_blocks: int) -> int:
     while log2 > 0 and -(-B // (1 << log2)) < min_blocks:
         log2 -= 1
     return log2
-
-
-def _tiled_tile(smem_bytes, B: int, min_blocks: int) -> int | None:
-    """log2 of a tiled kernel's scenarios per block for B scenarios: the
-    ``grid_tile`` pick up to 2**_TILED_MAX_LOG2_TILE, narrowed until the
-    block fits shared memory, or None when not even one scenario fits;
-    ``smem_bytes(log2_tile)`` is the kernel's carve-up."""
-    log2 = grid_tile(B, _TILED_MAX_LOG2_TILE, min_blocks)
-    while log2 > 0 and smem_bytes(log2) > SMEM_LIMIT_BYTES:
-        log2 -= 1
-    return log2 if smem_bytes(log2) <= SMEM_LIMIT_BYTES else None
-
-
-def _pick_log2_tile(m_h: int, n_z: int, n_s: int, B: int) -> int | None:
-    """A paired kernel's tile for B scenarios (see ``_widest_tile``)."""
-    return _widest_tile(lambda log2: _smem_bytes(m_h, n_z, n_s, log2), B)
 
 
 # The resident dense and dual kernels (csrc/gpad_dense.cu, csrc/gpad_dual.cu)
@@ -203,28 +147,167 @@ def _dense_plan(m: int, n_z: int, B: int, log2_tile: int | None = None,
     return None
 
 
+class PairedPlan(NamedTuple):
+    """A launch of the paired kernels (flat and full instance):
+    2**log2_tile scenarios per block, rows padded to 4 (vec 4) or not (vec
+    1: one scenario per block, no split), and the split-K parts of zhat's
+    product (split1) and of q's (split2)."""
+    log2_tile: int
+    vec: int
+    split1: int
+    split2: int
+
+
+# The paired kernels' grid: up to 16 scenarios per block, fewer while the
+# grid would have fewer than 128 blocks, and fewer while a thread's share
+# of the state would not fit its registers (below), with the split-K parts
+# of ``block_parts``, at most 8 up to 4 per block and at most 4 from 8 per
+# block. On an H100 80GB HBM3 at 700 W (PERF.md, §6, ``chip_smoke.py
+# --sweep flat paired``, device ms of 100 iterations at battery n3 N10,
+# flat / full instance): B256 2 per block 0.140-0.143 / 0.145-0.151
+# against 0.148-0.150 at 1 and over 0.19 at 4 or more; B4096 16 per block
+# with at most 4 parts 0.373 / 0.417 against 0.454 / 0.462 with up to 8
+# and 0.68 / 0.68 at 8 per block.
+PAIRED_MAX_LOG2_TILE = 4
+PAIRED_MIN_BLOCKS = 128
+
+
+def _paired_split_cap(log2_tile: int) -> int:
+    """The paired kernels' most split-K parts at 2**log2_tile per block:
+    a wide tile's products already fill the block, and every part costs
+    its epilogue a read."""
+    return 8 if log2_tile <= 2 else 4
+
+
+# Dual and primal elements of the [row][scenario] state a thread keeps in
+# registers (kMaxE, kMaxP of csrc/gpad_paired_flat.cu); past them, at one
+# scenario per block, the kernel keeps the rest in device memory.
+_PAIRED_MAX_ELEMENTS = 6
+_PAIRED_MAX_PRIMAL = 2
+
+
+def _paired_smem_bytes(m_h: int, n_z: int, n_s: int, plan: PairedPlan) -> int:
+    """Shared memory of one block of the paired kernels (csrc carve-up):
+    MG_T and the n_s used columns of GL_T (the full instance has n_s =
+    m_h), their rows padded to 4 (vec 4), wd and zhat of 2**log2_tile
+    scenarios (rows padded to 4), and the products' parts (one scratch)."""
+    T = 1 << plan.log2_tile
+    np_, nsp = (_up4(n_z), _up4(n_s)) if plan.vec == 4 else (n_z, n_s)
+    scratch = max(plan.split1 * _up4(n_z), plan.split2 * _up4(n_s))
+    return 4 * (m_h * np_ + n_z * nsp + (_up4(m_h) + _up4(n_z) + scratch) * T)
+
+
+def _paired_overflows(m_h: int, log2_tile: int) -> bool:
+    """Does a tile's dual state pass the block's registers (the kernel then
+    keeps the rest in device memory, y_prev in a scratch)?"""
+    return m_h << log2_tile > _PAIRED_MAX_ELEMENTS * BLOCK_THREADS
+
+
+def _paired_plan(m_h: int, n_z: int, n_s: int, B: int,
+                 log2_tile: int | None = None,
+                 split: int | None = None) -> PairedPlan | None:
+    """The paired kernels' launch for B scenarios: the tile of
+    ``grid_tile`` (or ``log2_tile``), narrowed until a thread's share of
+    the state fits its registers, then it or its parts (at most ``split``)
+    halved until the block fits shared memory; past that the unpadded
+    layout at one scenario per block (so every shape the first design's
+    carve-up took still runs); None when nothing fits."""
+    top = (grid_tile(B, PAIRED_MAX_LOG2_TILE, PAIRED_MIN_BLOCKS)
+           if log2_tile is None else log2_tile)
+    for log2 in range(top, -1 if log2_tile is None else top - 1, -1):
+        if log2_tile is None and log2 and (
+                _paired_overflows(m_h, log2) or n_z << log2
+                > _PAIRED_MAX_PRIMAL * BLOCK_THREADS):
+            continue
+        cap = _paired_split_cap(log2) if split is None else split
+        s1 = block_parts(n_z, log2, m_h, cap)
+        s2 = block_parts(n_s, log2, n_z, cap) if n_s else 1
+        while True:
+            plan = PairedPlan(log2, 4, s1, s2)
+            if _paired_smem_bytes(m_h, n_z, n_s, plan) <= SMEM_LIMIT_BYTES:
+                return plan
+            if s1 == s2 == 1:
+                break
+            s1, s2 = max(s1 // 2, 1), max(s2 // 2, 1)
+    plan = PairedPlan(0, 1, 1, 1)
+    if (log2_tile in (None, 0)
+            and _paired_smem_bytes(m_h, n_z, n_s, plan) <= SMEM_LIMIT_BYTES):
+        return plan
+    return None
+
+
 def flat_fits_smem(data: GPADData) -> bool:
     """Can the flat kernel run this data: a flat paired layout whose
     operands and one scenario's state fit one block's shared memory?"""
     if not (data.paired and data.n_struct is not None):
         return False
-    return _pick_log2_tile(data.m_half, data.n_z, data.n_struct, 1) is not None
+    return _paired_plan(data.m_half, data.n_z, data.n_struct, 1) is not None
 
 
-def _flat_tiled_smem_bytes(m_h: int, n_z: int, log2_tile: int) -> int:
+class FlatTiledPlan(NamedTuple):
+    """A launch of the flat tiled kernel: clusters of ``cluster`` blocks,
+    each owning 2**log2_tile scenarios, and whether a product's groups of
+    threads meet in a shared scratch (``grouped``) or one group keeps each
+    column's sums in its thread (shapes near the guard)."""
+    log2_tile: int
+    cluster: int
+    grouped: bool
+
+
+# The flat tiled kernel (csrc/gpad_flat_tiled.cu): 512 threads per block;
+# a cluster owns the widest tile, up to 16 scenarios, that the batch fills
+# and that fits shared memory; clusters of up to 16 blocks (the
+# non-portable size) while the grid has at most 16 clusters, of up to 8
+# beyond, and no more blocks than leave each at least 32 of the n_z
+# primal columns (4 blocks at least). On an H100 80GB HBM3 at 700 W
+# (PERF.md, §6, ``chip_smoke.py --sweep tiled``, ms of 100 iterations):
+# the flagship (n_z 900) B256 12.82 ms on 16 x 16 against 13.09 on 16 x 4,
+# 14.30 on 16 x 8 and over 15.2 at 8 per cluster; B1024 35.8 on 8 blocks
+# against 40.1 on 4 and 42.7 on 16; B1 2.64 on 16 against 4.38 on 8;
+# n5 N30 (n_z 150) B256 1.49 on 16 x 4 against 2.72 on 8 and 4.08 on 16.
+FLAT_TILED_MAX_LOG2_TILE = 4
+FLAT_TILED_WIDE_CLUSTER = 16
+FLAT_TILED_CLUSTER = 8
+FLAT_TILED_MAX_WIDE_CLUSTERS = 16
+FLAT_TILED_MIN_CLUSTER = 4
+FLAT_TILED_MIN_COLUMNS = 32
+_FLAT_TILED_RED_COLS = 512  # kRedCols: the groups' scratch per scenario
+
+
+def _flat_tiled_smem_bytes(m_h: int, n_z: int, log2_tile: int,
+                           grouped: bool = True) -> int:
     """Shared memory of one block of the flat tiled kernel (csrc carve-up):
-    wd and zhat of 2**log2_tile scenarios; the operands and the state stay
-    in device memory."""
-    return 4 * (m_h + n_z) * (1 << log2_tile)
+    wd and zhat of 2**log2_tile scenarios and, with grouped products, the
+    groups' scratch; the operands and the state stay in device memory. The
+    cluster size does not change it."""
+    return 4 * (1 << log2_tile) * (
+        m_h + n_z + (_FLAT_TILED_RED_COLS if grouped else 0))
 
 
-def pick_flat_tiled_tiles(m_half: int, n_z: int, B: int = 1) -> int | None:
-    """log2 of the flat tiled kernel's scenarios per block for B scenarios,
-    or None when not even one scenario's wd and zhat fit a block's shared
-    memory (see ``_tiled_tile``); the operands, structural block included,
-    stay in device memory and do not bound it."""
-    return _tiled_tile(lambda log2: _flat_tiled_smem_bytes(m_half, n_z, log2),
-                       B, FLAT_TILED_MIN_BLOCKS)
+def pick_flat_tiled(m_half: int, n_z: int, B: int = 1,
+                    log2_tile: int | None = None,
+                    cluster: int | None = None) -> FlatTiledPlan | None:
+    """The flat tiled kernel's launch for B scenarios: the widest tile, at
+    most 2**FLAT_TILED_MAX_LOG2_TILE and at most B rounded up to a power of
+    two (or ``log2_tile``), narrowed until a block fits shared memory with
+    grouped products; past that one scenario without the groups' scratch;
+    None when not even that fits. The blocks per cluster follow the grid
+    and n_z (see FLAT_TILED_CLUSTER); ``cluster`` overrides them."""
+    top = (min(FLAT_TILED_MAX_LOG2_TILE, max(B - 1, 0).bit_length())
+           if log2_tile is None else log2_tile)
+    tiles = range(top, -1, -1) if log2_tile is None else (top,)
+    fallback = [(0, False)] if log2_tile in (None, 0) else []
+    for log2, grouped in [(t, True) for t in tiles] + fallback:
+        if _flat_tiled_smem_bytes(m_half, n_z, log2, grouped) > SMEM_LIMIT_BYTES:
+            continue
+        if cluster is None:
+            wide = -(-B // (1 << log2)) <= FLAT_TILED_MAX_WIDE_CLUSTERS
+            cluster = FLAT_TILED_WIDE_CLUSTER if wide else FLAT_TILED_CLUSTER
+            while (cluster > FLAT_TILED_MIN_CLUSTER
+                   and n_z < FLAT_TILED_MIN_COLUMNS * cluster):
+                cluster //= 2
+        return FlatTiledPlan(log2, cluster, grouped)
+    return None
 
 
 def flat_tiled_fits(data: GPADData) -> bool:
@@ -234,7 +317,7 @@ def flat_tiled_fits(data: GPADData) -> bool:
     zhat within a block's shared memory?"""
     return (data.paired and data.n_struct is not None and data.n_struct > 0
             and data.soft_damp is None
-            and pick_flat_tiled_tiles(data.m_half, data.n_z) is not None)
+            and pick_flat_tiled(data.m_half, data.n_z) is not None)
 
 
 def paired_fits_smem(data: GPADData) -> bool:
@@ -242,7 +325,7 @@ def paired_fits_smem(data: GPADData) -> bool:
     operands and one scenario's state fit one block's shared memory?"""
     if not data.paired:
         return False
-    return _pick_log2_tile(data.m_half, data.n_z, data.m_half, 1) is not None
+    return _paired_plan(data.m_half, data.n_z, data.m_half, 1) is not None
 
 
 def dense_fits_smem(data: GPADData) -> bool:
@@ -374,9 +457,10 @@ def gpad_fixed_dense_torch(
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the launchers in csrc/gpad_paired_flat.cu (both
 # instances), csrc/gpad_dense.cu and csrc/gpad_flat_tiled.cu
-_PAIRED_ARGTYPES = [_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 6 + [_PTR] * 4 + [_INT, _PTR]
+_PAIRED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 9 + [_PTR] * 5
+                    + [_INT, _PTR])
 _DENSE_ARGTYPES = [_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 8 + [_PTR] * 4 + [_INT, _PTR]
-_FLAT_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 3 + [_INT] * 6 + [_PTR] * 5
+_FLAT_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 3 + [_INT] * 8 + [_PTR] * 4
                         + [_INT, _PTR])
 
 
@@ -474,27 +558,33 @@ def _too_big(what: str, shape: str):
 
 
 def _launch_paired(data: GPADData, g_P, p_D, y0, iterations: int,
-                   diagnostics: bool, flat: bool):
+                   diagnostics: bool, flat: bool, log2_tile, split):
     """One launch of a paired kernel instance on CUDA tensors."""
     B, m_h, n_z = g_P.shape[0], data.m_half, data.n_z
     n_s = data.n_struct if flat else m_h
-    fn = _launch_fn("gpad_paired_flat", "gpad_paired_flat_launch" if flat
-                    else "gpad_paired_launch", _PAIRED_ARGTYPES)
-    log2_tile = _pick_log2_tile(m_h, n_z, n_s, B)
-    if log2_tile is None:
+    if log2_tile is not None and not 0 <= log2_tile <= PAIRED_MAX_LOG2_TILE:
+        raise ValueError(f"log2_tile {log2_tile} outside "
+                         f"0..{PAIRED_MAX_LOG2_TILE}")
+    plan = _paired_plan(m_h, n_z, n_s, B, log2_tile, split)
+    if plan is None:
         raise _too_big("flat" if flat else "paired",
                        f"m_half={m_h}, n_z={n_z}, n_struct={n_s}")
+    fn = _launch_fn("gpad_paired_flat", "gpad_paired_flat_launch" if flat
+                    else "gpad_paired_launch", _PAIRED_ARGTYPES)
     y0_rows = None if y0 is None else _norm_y0(y0, B, m_h)
     y0_stride = 0 if y0_rows is None or y0_rows.shape[0] == 1 else 2 * m_h
     od = _od(data)
     z, y, w, zhat = _outputs(B, n_z, (2, m_h), diagnostics, g_P.device)
+    # y_prev of the dual elements past the registers (large m_h only)
+    y_prev = (torch.empty_like(y) if _paired_overflows(m_h, plan.log2_tile)
+              else None)
     with torch.cuda.device(g_P.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_ptr(data.MG_T), _ptr(data.GL_T), _ptr(g_P), _ptr(p_D),
                  _ptr(y0_rows), y0_stride, _ptr(od), _ptr(data.theta),
                  _ptr(data.beta), _ptr(data.L), B, m_h, n_z, n_s, iterations,
-                 log2_tile, _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
-                 _smem_bytes(m_h, n_z, n_s, log2_tile), stream)
+                 *plan, _ptr(z), _ptr(y), _ptr(w), _ptr(zhat), _ptr(y_prev),
+                 _paired_smem_bytes(m_h, n_z, n_s, plan), stream)
     if err != 0:
         name = "gpad_paired_flat" if flat else "gpad_paired"
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -503,15 +593,18 @@ def _launch_paired(data: GPADData, g_P, p_D, y0, iterations: int,
 
 def gpad_fixed_paired_flat(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
-    diagnostics: bool = True,
+    diagnostics: bool = True, log2_tile: int | None = None,
+    split: int | None = None,
 ):
     """Fixed-budget flat paired GPAD for a batch: returns (z, y, w, zhat).
 
     ``g_P`` (B, n_z), ``p_D`` (B, 2, m_h), optional warm start ``y0``
     broadcasting to (B, 2, m_h). ``z``/``zhat`` are (B, n_z), ``y``/``w``
     (B, 2, m_h); ``w`` and ``zhat`` are the last iteration's, and both are
-    None when ``diagnostics`` is False. CUDA tensors launch the kernel (or
-    raise); CPU tensors run the plain version."""
+    None when ``diagnostics`` is False. ``log2_tile`` and ``split``
+    override the scenarios per block and cap the split-K parts (for
+    sweeps). CUDA tensors launch the kernel (or raise); CPU tensors run the
+    plain version."""
     global PAIRED_FLAT_LAUNCHES
     _check_inputs(data, g_P, p_D, y0, iterations)
     if g_P.device.type == "cpu":
@@ -519,14 +612,16 @@ def gpad_fixed_paired_flat(
             data, g_P, p_D, y0, iterations=iterations, diagnostics=diagnostics
         )
     _need_cuda(g_P)
-    out = _launch_paired(data, g_P, p_D, y0, iterations, diagnostics, flat=True)
+    out = _launch_paired(data, g_P, p_D, y0, iterations, diagnostics, True,
+                         log2_tile, split)
     PAIRED_FLAT_LAUNCHES += 1
     return out
 
 
 def gpad_fixed_paired(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
-    diagnostics: bool = True,
+    diagnostics: bool = True, log2_tile: int | None = None,
+    split: int | None = None,
 ):
     """Fixed-budget paired mvp GPAD with the full ``GL_T`` product (no
     identity block), soft rows carried: the contract of
@@ -539,7 +634,8 @@ def gpad_fixed_paired(
             data, g_P, p_D, y0, iterations=iterations, diagnostics=diagnostics
         )
     _need_cuda(g_P)
-    out = _launch_paired(data, g_P, p_D, y0, iterations, diagnostics, flat=False)
+    out = _launch_paired(data, g_P, p_D, y0, iterations, diagnostics, False,
+                         log2_tile, split)
     PAIRED_LAUNCHES += 1
     return out
 
@@ -547,14 +643,16 @@ def gpad_fixed_paired(
 def gpad_fixed_flat_tiled(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     diagnostics: bool = True, log2_tile: int | None = None,
+    cluster: int | None = None,
 ):
     """``gpad_fixed_paired_flat``'s contract for flat stacks too large for
     it: both operands are read from device memory on every iteration (the
     counterpart of ``tpu_gpad.solver.kernels.gpad_pallas_fixed_flat_tiled``).
     Fixed mode, no restart; soft rows and an empty structural block are
-    refused. ``log2_tile`` overrides the scenarios per block (for sweeps).
-    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
-    version, ``gpad_fixed_paired_flat_torch``."""
+    refused. ``log2_tile`` and ``cluster`` override the scenarios per
+    cluster and the blocks per cluster (for sweeps). CUDA tensors launch
+    the kernel (or raise); CPU tensors run the plain version,
+    ``gpad_fixed_paired_flat_torch``."""
     global FLAT_TILED_LAUNCHES
     _refuse_soft(data, "the flat tiled kernel")
     if data.n_struct == 0:
@@ -567,27 +665,30 @@ def gpad_fixed_flat_tiled(
         )
     _need_cuda(g_P)
     B, m_h, n_z, n_s = g_P.shape[0], data.m_half, data.n_z, data.n_struct
-    if log2_tile is None:
-        log2_tile = pick_flat_tiled_tiles(m_h, n_z, B)
-        if log2_tile is None:
-            raise _too_big("flat tiled", f"m_half={m_h}, n_z={n_z}")
-    if log2_tile not in _TILED_LOG2_TILES:
-        raise ValueError(f"log2_tile {log2_tile} outside {_TILED_LOG2_TILES}")
+    if log2_tile is not None and not 0 <= log2_tile <= FLAT_TILED_MAX_LOG2_TILE:
+        raise ValueError(f"log2_tile {log2_tile} outside "
+                         f"0..{FLAT_TILED_MAX_LOG2_TILE}")
+    if cluster is not None and (cluster not in (1, 2, 4, 8, 16)):
+        raise ValueError(f"cluster {cluster} is not a power of two up to 16")
+    plan = pick_flat_tiled(m_h, n_z, B, log2_tile, cluster)
+    if plan is None:
+        raise _too_big("flat tiled", f"m_half={m_h}, n_z={n_z}")
     fn = _launch_fn("gpad_flat_tiled", "gpad_flat_tiled_launch",
                     _FLAT_TILED_ARGTYPES)
     y0_rows = None if y0 is None else _norm_y0(y0, B, m_h)
     y0_stride = 0 if y0_rows is None or y0_rows.shape[0] == 1 else 2 * m_h
-    # the state lives in device memory: y_prev and, without diagnostics,
-    # w and zhat are the kernel's scratch
-    z, y, w, zhat = _outputs(B, n_z, (2, m_h), True, g_P.device)
-    y_prev = torch.empty_like(y)
+    # the state lives in device memory: w is the kernel's too
+    z, y, w, zhat = _outputs(B, n_z, (2, m_h), diagnostics, g_P.device)
+    if w is None:
+        w = torch.empty_like(y)
     with torch.cuda.device(g_P.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_ptr(data.MG_T), _ptr(data.GL_T), _ptr(g_P), _ptr(p_D),
                  _ptr(y0_rows), y0_stride, _ptr(data.theta), _ptr(data.beta),
-                 _ptr(data.L), B, m_h, n_z, n_s, iterations, log2_tile,
-                 _ptr(z), _ptr(y), _ptr(y_prev), _ptr(w), _ptr(zhat),
-                 _flat_tiled_smem_bytes(m_h, n_z, log2_tile), stream)
+                 _ptr(data.L), B, m_h, n_z, n_s, iterations, *plan,
+                 _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
+                 _flat_tiled_smem_bytes(m_h, n_z, plan.log2_tile, plan.grouped),
+                 stream)
     if err != 0:
         raise RuntimeError(f"gpad_flat_tiled launch failed: CUDA error {err}")
     FLAT_TILED_LAUNCHES += 1
