@@ -21,8 +21,8 @@ dual-form solves, a restart ``Controller``, ``solve_to_accuracy`` with the
 flat block off, a forced flat solve, the default solve (the flat tiled
 kernel too) and the CLI's ``closedloop`` and ``info``; and the
 stage-wise O(N) engine at full width: ``auto_solver``
-at battery n30 N200 B1024 and n8 N60 B4096 (the streamed kernel) and n8
-N60 B1024 (the resident kernel), a warm ``StagewiseController`` and the
+at battery n30 N200 B1024 (the streamed kernel) and n8 N60 B4096 and
+B1024 (the resident kernel), a warm ``StagewiseController`` and the
 long-horizon eps example (the torch engine). It times kernels and plain
 versions with CUDA events, computes each kernel's roofline bound from its
 shapes, and prints one JSON object per phase. Any failed check exits
@@ -35,22 +35,27 @@ prints no result.
 builds the kernels and times, instead, the resident dense, dual, chunk,
 flat and full paired kernels by tile and split-K parts at B 256 and 4096
 (``resident``, or any of ``dense``, ``dual``, ``chunk``, ``flat``,
-``paired`` alone), the stage-wise kernels by tile and the tiled kernels by
-tile and cluster size, or the families named;
+``paired`` alone), the stage-wise kernels by launch (the resident one by
+tile x warps per block, hence chain segments, x the chains' placement;
+the streamed one by tile) and the tiled kernels by tile and cluster size,
+or the families named;
 
-    python3 chip_smoke.py --times
+    python3 chip_smoke.py --times [resident] [stagewise]
 
 times the resident dense, dual, chunk and flat kernels at B 256 and 4096,
 the full paired kernel at B4096, the flat tiled kernel and the default
 fixed solve (flat tiled kernel against torch engine) at the flagship and
-at n5 N30, and a warm flat, dense and restart ``Controller``, through
-public arguments only, so that a checkout of an earlier design can be
-timed beside this one: copy this script into its root and run it there;
+at n5 N30, and a warm flat, dense and restart ``Controller``
+(``resident``); the resident stage-wise kernel at n8 N60 B1024 and B4096
+and the streamed one at n30 N200 B1024 (``stagewise``); both by default.
+Through public arguments only, so that a checkout of an earlier design
+can be timed beside this one: copy this script into its root and run it
+there;
 
     python3 chip_smoke.py --profile
 
-builds the stage-wise kernels with per-phase cycle counters and prints
-where a streamed and a resident solve spend their time.
+builds the stage-wise kernels with cycle counters and prints where a
+streamed solve spends its time by phase and a resident one by part.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -88,14 +94,16 @@ MULTI_PLANTS, MULTI_BATCH = 28, 256
 SWEEP_BATCH, SWEEP_CHUNK = 16384, 4096
 # The stage-wise engine at full width: battery n30 N200 (60 state and 62
 # input rows per stage) routes to the streamed kernel; n8 N60, stage-wise
-# at B >= 24 N, to the streamed kernel at B4096 and to the resident one at
-# B1024; the eps leg is examples/long_horizon_stagewise.py's call, battery
-# n30 N400.
+# at B >= 24 N, to the resident one at B4096 and at B1024; the eps leg is
+# examples/long_horizon_stagewise.py's call, battery n30 N400.
 SW_FULL, SW_FULL_BATCH, SW_FULL_ITERS = (30, 200), 1024, 200
 SW_RES, SW_RES_BATCH, SW_RES_ITERS = (8, 60), 4096, 100
 SW_CMP_BATCH = 64  # the streamed kernel against its plain version
-# the resident kernel against its plain version
-SW_RES_CMP_BATCH = 256
+SW_SMALL_BATCH = 256  # n8 N60 short of one wave: sweeps, torch executors
+# the sweep's shapes beside n8 N60, which the resident kernel's routing
+# weighs: a long horizon (two scenarios' chains still staged a block) and a
+# wide state (the chains read from device memory)
+SW_SWEEP_SHAPES = ((8, 200), (24, 60))
 # Under restart, the share of scenarios (at least one) whose kernel run may
 # part from the plain version's by a flipped restart decision (the plain
 # version in float32 parts from its float64 run in the same way; the phase
@@ -187,6 +195,51 @@ def phase_device(torch):
     return smi, name
 
 
+def instance_spills(log: str) -> dict:
+    """ptxas's stack-frame and spill line of each kernel instance that
+    keeps a frame or spills anything, keyed "name<T,NMAX>" (or the mangled
+    name where it has no such arguments)."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.rsplit(" ", 1)[-1]
+            m = re.search(r"(gpad_[a-z_]+?_kernel)ILi(\d+)ELi(\d+)E", fn)
+            fn = f"{m[1]}<{m[2]},{m[3]}>" if m else fn
+        elif "bytes stack frame" in ln and any(
+                int(v) for v in re.findall(r"(\d+) bytes", ln)):
+            out[fn] = ln.strip()
+    return out
+
+
+# The most stack frame and spill stores (bytes; None: not checked) an
+# instance may keep, by pattern over "source.cu: instance"; an instance no
+# pattern names is not checked. The register-tiled kernels keep their
+# tiles in registers: no spill. The resident stage-wise kernel at NMAX 8
+# and 16 (n_x, n_u <= 16; n8 N60 runs <8,8>) keeps a frame of at most 32
+# bytes (8-32 in the build timed in PERF.md section 6; an earlier build's
+# 96-byte frame cost a third of its time). Not checked: its instances at
+# NMAX 32 (200-488 bytes: a chain lane's two 32-wide matrix rows; n >= 17,
+# which routes to the streamed kernel unless forced), the streamed
+# kernel's (8-16 bytes, as its PR 6 design's) and the tiled dual kernels'
+# (8-16 bytes).
+SPILL_LIMITS = ((r"gpad_(dense|dual|paired_flat)\.cu", None, 0),
+                (r"gpad_stagewise_resident_kernel<\d+,(8|16)>", 32, None))
+
+
+def spills_past_limits(spills: dict) -> dict:
+    """The lines of ``{source: instance_spills(...)}`` past SPILL_LIMITS."""
+    bad = {}
+    for name, lines in spills.items():
+        for fn, ln in lines.items():
+            frame, stores = (int(v) for v in re.findall(r"(\d+) bytes", ln)[:2])
+            for pat, most_frame, most_stores in SPILL_LIMITS:
+                if re.search(pat, f"{name}.cu: {fn}") and (
+                        (most_frame is not None and frame > most_frame)
+                        or (most_stores is not None and stores > most_stores)):
+                    bad[f"{name}: {fn}"] = ln
+    return bad
+
+
 def phase_build():
     from tpu_gpad_torch import cuda_build
 
@@ -194,19 +247,15 @@ def phase_build():
              "gpad_dual_tiled", "gpad_flat_tiled"]
     cuda_build.load_all(names)  # every nvcc run at once
     logs = {n: cuda_build.BUILD_LOG.get(n, "").splitlines() for n in names}
-    # ptxas's spill lines of each kernel, those that spill anything
-    spills = {n: [ln.strip() for ln in log if "spill" in ln
-                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-              for n, log in logs.items()}
+    spills = {n: instance_spills(cuda_build.BUILD_LOG.get(n, ""))
+              for n in names}
     emit({"phase": "build",
           "build_s": {n: cuda_build.BUILD_SECONDS[n] for n in names},
           "ptxas": {n: [ln.strip() for ln in log if "ptxas info" in ln]
                     for n, log in logs.items()},
           "spills": {n: v for n, v in spills.items() if v}})
-    # the register-tiled kernels are sized to keep their tiles in registers
-    check(not any(spills[n] for n in ("gpad_dense", "gpad_dual",
-                                      "gpad_paired_flat")),
-          f"a register-tiled kernel spills registers: {spills}")
+    bad = spills_past_limits(spills)
+    check(not bad, f"a kernel instance spills past its limit: {bad}")
 
 
 def phase_kernel_vs_plain(torch, tg, kernels, core):
@@ -1817,8 +1866,10 @@ def sw_restart_compare(torch, sk, fn, data, x0, iterations):
 
 def phase_stagewise_kernels_vs_plain(torch, tg, sk, ss):
     """Each kernel against the plain version: cold, warm per-scenario y0,
-    restart, affine offsets with a fixed reference, and a ragged tile; the
-    streamed kernel also at its full batch against the torch engine."""
+    one y0 shared by every scenario, restart, affine offsets with a fixed
+    reference, and a ragged tile (the resident kernel at its main-path
+    batch, B1024); the streamed kernel also at its full batch against the
+    torch engine."""
     affine = tg.build_stagewise(
         dataclasses.replace(tg.problems.battery(3, 7),
                             c=np.array([0.02, -0.01, 0.015])),
@@ -1827,7 +1878,7 @@ def phase_stagewise_kernels_vs_plain(torch, tg, sk, ss):
     worst = {}
     for name, fn, data, B, iters in (
             ("resident", sk.solve_stagewise_cuda, sw_data(tg, SW_RES, SW_RES_ITERS),
-             SW_RES_CMP_BATCH, SW_RES_ITERS),
+             SW_WAVE_BATCH, SW_RES_ITERS),
             ("stream", ss.solve_stagewise_stream,
              sw_data(tg, SW_FULL, SW_FULL_ITERS), SW_CMP_BATCH, SW_FULL_ITERS)):
         x0 = sw_x0(torch, B, data.n_x, seed=11)
@@ -1835,6 +1886,8 @@ def phase_stagewise_kernels_vs_plain(torch, tg, sk, ss):
         cases = {
             "cold": sw_compare(torch, sk, fn, data, x0, iters),
             "warm": sw_compare(torch, sk, fn, data, x0, iters, y0=y_warm),
+            "shared_y0": sw_compare(torch, sk, fn, data, x0, iters,
+                                    y0=y_warm[0].contiguous()),
             "restart": sw_restart_compare(torch, sk, fn, data, x0, iters),
             "affine_x_ref": sw_compare(torch, sk, fn, affine, x_aff, SW_RES_ITERS),
             "B5": sw_compare(torch, sk, fn, data, x0[:5].contiguous(), iters,
@@ -1881,17 +1934,17 @@ def sw_limits_within_residual(torch, res, data):
 
 def phase_stagewise_main_path(torch, tg, sk, ss, ts):
     """``auto_solver`` at full width: battery n30 N200 B1024 routes to the
-    streamed kernel; n8 N60 (stage-wise at batch_hint 4096) to the
-    streamed kernel at B4096, where an SM holds 16 of its scenarios to the
-    resident kernel's 8, and to the resident kernel at B1024, one wave of
-    its blocks."""
+    streamed kernel (past the resident kernel's shared memory); n8 N60
+    (stage-wise at batch_hint 4096) to the resident kernel at B4096 and at
+    B1024 (``resident_preferred``: at 8 scenarios a block it beat the
+    streamed kernel at every batch measured)."""
     out = {"phase": "stagewise_main_path"}
     counters = {"stream": lambda: ss.STAGEWISE_STREAM_LAUNCHES,
                 "cuda": lambda: sk.STAGEWISE_LAUNCHES}
     for shape, iters, hint, legs in (
             (SW_FULL, SW_FULL_ITERS, None, ((SW_FULL_BATCH, "stream"),)),
             (SW_RES, SW_RES_ITERS, SW_RES_BATCH,
-             ((SW_RES_BATCH, "stream"), (SW_WAVE_BATCH, "cuda")))):
+             ((SW_RES_BATCH, "cuda"), (SW_WAVE_BATCH, "cuda")))):
         solve_fn, data, kind = tg.auto_solver(
             tg.problems.battery(*shape), iterations=iters, batch_hint=hint)
         check(kind == "stagewise", f"auto_solver at battery {shape}: {kind}")
@@ -1909,8 +1962,11 @@ def phase_stagewise_main_path(torch, tg, sk, ss, ts):
             vs_torch = max_err((res.u, res.z), (ref.u, ref.z))
             u_max, sum_max = sw_limits(res.z.reshape(B, data.horizon, data.n_u))
             over = sw_limits_within_residual(torch, res, data)
+            lay = sk.resident_layout(data, B, sk.sm_count(DEVICE))
             out[f"battery_n{shape[0]}_N{shape[1]}_B{B}"] = {
                 "iterations": iters, "kind": kind, "route": route,
+                "resident_launch": None if lay is None
+                else dataclasses.asdict(lay),
                 "launches": launched, "u_z_vs_torch_engine": vs_torch,
                 "residual_max": res.residual.max().item(),
                 "max_abs_u": u_max, "max_abs_sum_u": sum_max,
@@ -2009,7 +2065,9 @@ def phase_stagewise_timing(torch, tg, sk, ss, ts, smi):
     """CUDA events, median of 5 calls per turn, turns kernel, plain, plain,
     kernel: each kernel at its main-path shape against its plain version,
     both kernels at n8 N60 B4096 and B1024 (the routing rule's two sides),
-    and the torch engine at 10 iterations, per iteration."""
+    and the torch engine at 10 iterations: at the full width, and at n8
+    N60 B256 and B1024 with each of its executors (``scan="sequential"``
+    and ``"associative"``)."""
     from tpu_gpad_torch.utils import device_time_per_call
 
     d30 = sw_data(tg, SW_FULL, SW_FULL_ITERS)
@@ -2035,9 +2093,12 @@ def phase_stagewise_timing(torch, tg, sk, ss, ts, smi):
                                                      iterations=SW_RES_ITERS),
         "torch_engine_10_full": lambda: ts.solve_stagewise(
             d30, X30, iterations=10, engine="torch"),
-        "torch_engine_10_n8_B1024": lambda: ts.solve_stagewise(
-            d8, X8w, iterations=10, engine="torch"),
     }
+    for B in (SW_SMALL_BATCH, SW_WAVE_BATCH):
+        for scan in ("sequential", "associative"):
+            plains[f"torch_engine_10_n8_B{B}_{scan}"] = (
+                lambda B=B, scan=scan: ts.solve_stagewise(
+                    d8, X8[:B], iterations=10, engine="torch", scan=scan))
     runs = {**kernels, **plains}
     ms = {k: [] for k in runs}
     for order in (list(kernels) + list(plains), list(plains) + list(kernels)):
@@ -2050,90 +2111,156 @@ def phase_stagewise_timing(torch, tg, sk, ss, ts, smi):
     emit({"phase": "stagewise_timing", "gpu": smi, "sms": sms,
           "shapes": {"stream": [SW_FULL, SW_FULL_BATCH, SW_FULL_ITERS],
                      "resident": [SW_RES, SW_WAVE_BATCH, SW_RES_ITERS]},
-          "tiles_log2": {
+          "launches": {
               "stream": ss.stream_layout(d30, SW_FULL_BATCH, sms)[:2],
               "stream_n8_B4096": ss.stream_layout(d8, SW_RES_BATCH, sms)[:2],
-              "resident_n8_B1024": sk._pick_log2_tile(d8, SW_WAVE_BATCH),
-              "resident_n8_B4096": sk._pick_log2_tile(d8, SW_RES_BATCH)},
+              "resident_n8_B1024": dataclasses.asdict(
+                  sk.resident_layout(d8, SW_WAVE_BATCH, sms)),
+              "resident_n8_B4096": dataclasses.asdict(
+                  sk.resident_layout(d8, SW_RES_BATCH, sms))},
+          "torch_engine_scan_auto": {
+              B: ts.resolve_scan(d8, B) for B in (SW_SMALL_BATCH,
+                                                  SW_WAVE_BATCH)},
           "ms_median_of_5_per_turn": ms,
           "torch_engine_ms_per_iteration": {
-              "full": med["torch_engine_10_full"] / 10,
-              "n8_B1024": med["torch_engine_10_n8_B1024"] / 10},
+              k[len("torch_engine_10_"):]: med[k] / 10
+              for k in med if k.startswith("torch_engine_10_")},
           "stream_bound": med["stream_bound"],
           "resident_bound": med["resident_bound"]})
     return med
 
 
-def sweep_stagewise(torch, tg, sk, ss, smi):
+def times_stagewise(torch, tg, sk, ss, smi):
+    """``python3 chip_smoke.py --times``: the resident kernel at n8 N60 x
+    100, B1024 and B4096, and the streamed kernel at n30 N200 B1024 x 200:
+    the profiler's device time of the launch (mean of 5) and CUDA events
+    (median of 5), each with its bound. Public arguments only, so it also
+    times an earlier design's checkout."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    d8 = sw_data(tg, SW_RES, SW_RES_ITERS)
+    d30 = sw_data(tg, SW_FULL, SW_FULL_ITERS)
+    X8 = sw_x0(torch, SW_RES_BATCH, d8.n_x, seed=65)
+    X30 = sw_x0(torch, SW_FULL_BATCH, d30.n_x, seed=66)
+    cases = {f"resident_n8_B{B}": (
+        "gpad_stagewise_resident_kernel", d8, B, SW_RES_ITERS,
+        lambda B=B: sk.solve_stagewise_cuda(d8, X8[:B], SW_RES_ITERS))
+        for B in (SW_WAVE_BATCH, SW_RES_BATCH)}
+    cases["stream_n30_B1024"] = (
+        "gpad_stagewise_stream_kernel", d30, SW_FULL_BATCH, SW_FULL_ITERS,
+        lambda: ss.solve_stagewise_stream(d30, X30, SW_FULL_ITERS))
+    for label, (name, data, B, iters, run) in cases.items():
+        emit({"phase": "stagewise_times", "gpu": smi, "case": label,
+              "ms_device": profiled_ms(torch, run, name, calls=5),
+              "ms_events": device_time_per_call(run, warmup=1,
+                                                repeats=5) * 1e3,
+              "bound_ms": sw_bound(sk, data, B, iters)["bound_ms"]})
+
+
+def sweep_stagewise(torch, tg, sk, ss, ts, smi):
     """``python3 chip_smoke.py --sweep``: each stage-wise kernel's time by
-    tile (2**log2 scenarios per block; the streamed kernel's slab placement
-    as ``stream_layout`` picks it for that tile) at the shapes the routing
-    rule weighs. CUDA events, median of 3 calls after one warm-up."""
+    launch at the shapes the routing rule weighs, CUDA events, median of 3
+    calls after one warm-up: the resident kernel by tile (2**log2
+    scenarios per block) x warps per block (W, hence W chain segments) x
+    the chains' placement (matrices staged in shared memory or read from
+    device memory), every launch that fits; the streamed kernel by tile
+    (its slab placement as ``stream_layout`` picks it for that tile). n8
+    N60 and the ``SW_SWEEP_SHAPES`` at B 256, 1024 and 4096, each with the
+    route ``auto`` takes there."""
     from tpu_gpad_torch.utils import device_time_per_call
 
     d30 = sw_data(tg, SW_FULL, SW_FULL_ITERS)
-    d8 = sw_data(tg, SW_RES, SW_RES_ITERS)
     X30 = sw_x0(torch, SW_FULL_BATCH, d30.n_x, seed=31)
-    X8 = sw_x0(torch, SW_RES_BATCH, d8.n_x, seed=32)
     sms = sk.sm_count(DEVICE)
     cases = [("stream", d30, X30, SW_FULL_ITERS),
              ("stream", d30, X30[:SW_SERVE_PLANTS].contiguous(), SW_SERVE_ITERS)]
-    for B in (SW_RES_BATCH, SW_WAVE_BATCH):
-        for kernel in ("resident", "stream"):
-            cases.append((kernel, d8, X8[:B].contiguous(), SW_RES_ITERS))
+    for shape in (SW_RES, *SW_SWEEP_SHAPES):
+        data = sw_data(tg, shape, SW_RES_ITERS)
+        X = sw_x0(torch, SW_RES_BATCH, data.n_x, seed=32)
+        for B in (SW_RES_BATCH, SW_WAVE_BATCH, SW_SMALL_BATCH):
+            for kernel in ("resident", "stream"):
+                cases.append((kernel, data, X[:B].contiguous(), SW_RES_ITERS))
     for kernel, data, X, iters in cases:
-        fn = sk.solve_stagewise_cuda if kernel == "resident" else ss.solve_stagewise_stream
         B = X.shape[0]
         row = {}
         for log2 in range(sk._MAX_LOG2_TILE + 1):
-            if kernel == "resident" and not sk.stagewise_fits_smem(data, 1 << log2):
-                continue
-            ms = device_time_per_call(
-                lambda: fn(data, X, iters, log2_tile=log2), warmup=1, repeats=3)
-            row[log2] = {"ms": ms * 1e3}
             if kernel == "stream":
-                row[log2]["slabs_in_smem"] = ss.stream_layout(data, B, sms, log2)[1]
-        pick = (sk._pick_log2_tile(data, B) if kernel == "resident"
-                else ss.stream_layout(data, B, sms)[0])
+                ms = device_time_per_call(
+                    lambda: ss.solve_stagewise_stream(data, X, iters,
+                                                      log2_tile=log2),
+                    warmup=1, repeats=3)
+                row[str(log2)] = {"ms": ms * 1e3, "slabs_in_smem":
+                                  ss.stream_layout(data, B, sms, log2)[1]}
+                continue
+            for lay in sk.resident_layouts(data, log2):
+                kw = dict(log2_tile=log2, warps=lay.warps,
+                          chains_in_smem=lay.chains_in_smem)
+                ms = device_time_per_call(
+                    lambda: sk.solve_stagewise_cuda(data, X, iters, **kw),
+                    warmup=1, repeats=3)
+                row[f"{log2}/{lay.warps}/{int(lay.chains_in_smem)}"] = {
+                    "ms": ms * 1e3, "smem": lay.smem}
+        if kernel == "stream":
+            pick = ss.stream_layout(data, B, sms)[0]
+        else:
+            lay = sk.resident_layout(data, B, sms)
+            pick = f"{lay.log2_tile}/{lay.warps}/{int(lay.chains_in_smem)}"
         emit({"phase": "stagewise_tile_sweep", "gpu": smi, "kernel": kernel,
               "battery": [data.n_x, data.horizon], "batch": B,
-              "iterations": iters, "default_log2_tile": pick,
-              "ms_by_log2_tile": row})
+              "iterations": iters, "default": pick,
+              "route": ts.resolve_stagewise_engine(data, B),
+              "key": "log2_tile" if kernel == "stream"
+              else "log2_tile/warps/chains_in_smem", "ms_by_launch": row})
 
 
-# the profile build's eight counters (csrc/gpad_stagewise.cu)
+# the profile build's counters (csrc/gpad_stagewise.cu): the streamed
+# kernel's phases between its block barriers (thread 0 of each block), and
+# the resident kernel's parts (lane 0 of each warp; B1-B3 the waits at its
+# three barriers, CB23 and CF23 a chain's carry and rerun)
 SW_PHASES = ("decision", "P1", "P1b", "CB", "P3", "CF", "P4", "epilogue")
+RES_PHASES = ("prologue", "decision", "P1", "P1b", "CB1", "B1", "CB23", "P3",
+              "CF1", "B2", "CF23", "P4", "B3", "epilogue")
 
 
 def profile_stagewise(torch, tg, sk, ss, smi):
     """``python3 chip_smoke.py --profile``: where a stage-wise kernel's time
-    goes. A build with -DGPAD_SW_PROFILE sums each block's clock64() cycles
-    between the barriers that end the phases of an iteration; printed as
-    each phase's share and its cycles per block and iteration, beside the
-    launch's CUDA-event time (the build's marks cost a few per cent)."""
+    goes. A build with -DGPAD_SW_PROFILE sums clock64() cycles by part of
+    the solve: the streamed kernel's per block between the barriers that
+    end its phases, the resident kernel's per warp (its warps run their
+    own stages between three barriers). Printed as each part's share and
+    its cycles per block (streamed) or per warp (resident) and iteration,
+    beside the launch's CUDA-event time (the marks cost a few per cent)."""
     import ctypes
     from tpu_gpad_torch import cuda_build
 
     lib = cuda_build.load("gpad_stagewise", ("GPAD_SW_PROFILE",))
-    read = lib.gpad_stagewise_profile_read
-    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    reads = {}
+    for kernel, fn, names in (
+            ("stream", lib.gpad_stagewise_profile_read, SW_PHASES),
+            ("resident", lib.gpad_stagewise_resident_profile_read,
+             RES_PHASES)):
+        fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+        reads[kernel] = (fn, names)
     plain_fns = sk._launch_fns
     sk._launch_fns = lambda: plain_fns(("GPAD_SW_PROFILE",))
     d30 = sw_data(tg, SW_FULL, SW_FULL_ITERS)
     d8 = sw_data(tg, SW_RES, SW_RES_ITERS)
     X30 = sw_x0(torch, SW_FULL_BATCH, d30.n_x, seed=31)
-    X8 = sw_x0(torch, SW_WAVE_BATCH, d8.n_x, seed=32)
+    X8 = sw_x0(torch, SW_RES_BATCH, d8.n_x, seed=32)
     sms = sk.sm_count(DEVICE)
-    cases = (("stream", ss.solve_stagewise_stream, d30, X30, SW_FULL_ITERS),
+    cases = [("stream", ss.solve_stagewise_stream, d30, X30, SW_FULL_ITERS),
              ("stream", ss.solve_stagewise_stream, d30,
-              X30[:SW_SERVE_PLANTS].contiguous(), SW_SERVE_ITERS),
-             ("resident", sk.solve_stagewise_cuda, d8, X8, SW_RES_ITERS))
+              X30[:SW_SERVE_PLANTS].contiguous(), SW_SERVE_ITERS)]
+    for B in (SW_WAVE_BATCH, SW_RES_BATCH):
+        cases.append(("resident", sk.solve_stagewise_cuda, d8,
+                      X8[:B].contiguous(), SW_RES_ITERS))
     try:
         for kernel, fn, data, X, iters in cases:
             B = X.shape[0]
+            read, names = reads[kernel]
             fn(data, X, iters)  # warm-up
             torch.cuda.synchronize()
-            out = (ctypes.c_ulonglong * len(SW_PHASES))()
+            out = (ctypes.c_ulonglong * len(names))()
             check(read(out) == 0, "profile read")
             start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
             start.record()
@@ -2141,18 +2268,24 @@ def profile_stagewise(torch, tg, sk, ss, smi):
             end.record()
             torch.cuda.synchronize()
             check(read(out) == 0, "profile read")
-            log2 = (ss.stream_layout(data, B, sms)[0] if kernel == "stream"
-                    else sk._pick_log2_tile(data, B))
+            if kernel == "stream":
+                log2, per = ss.stream_layout(data, B, sms)[0], 1
+                launch = {"log2_tile": log2}
+            else:
+                lay = sk.resident_layout(data, B, sms)
+                log2, per = lay.log2_tile, lay.warps
+                launch = dataclasses.asdict(lay)
             blocks = -(-B // (1 << log2))
-            cycles = dict(zip(SW_PHASES, out))
+            cycles = dict(zip(names, out))
             total = max(sum(cycles.values()), 1)
             emit({"phase": "stagewise_profile", "gpu": smi, "kernel": kernel,
                   "battery": [data.n_x, data.horizon], "batch": B,
-                  "iterations": iters, "log2_tile": log2, "blocks": blocks,
+                  "iterations": iters, "launch": launch, "blocks": blocks,
                   "ms": start.elapsed_time(end),
                   "share": {k: c / total for k, c in cycles.items()},
-                  "cycles_per_block_iteration": {
-                      k: c / (blocks * max(iters, 1))
+                  ("cycles_per_block_iteration" if kernel == "stream" else
+                   "cycles_per_warp_iteration"): {
+                      k: c / (blocks * per * max(iters, 1))
                       for k, c in cycles.items()}})
     finally:
         sk._launch_fns = plain_fns
@@ -2198,8 +2331,12 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_stagewise(torch, tg, sk, ss, smi)
         return 0
-    if sys.argv[1:] == ["--times"]:  # builds only what it launches
-        times_resident(torch, tg, kernels, dual_kernels, core, smi)
+    if sys.argv[1:2] == ["--times"]:  # builds only what it launches
+        families = sys.argv[2:] or ["resident", "stagewise"]
+        if "resident" in families:
+            times_resident(torch, tg, kernels, dual_kernels, core, smi)
+        if "stagewise" in families:
+            times_stagewise(torch, tg, sk, ss, smi)
         return 0
     phase_build()
     if sys.argv[1:2] == ["--sweep"]:
@@ -2210,7 +2347,7 @@ def main() -> int:
             sweep_resident(torch, tg, kernels, dual_kernels, core, smi,
                            resident)
         if "stagewise" in families:
-            sweep_stagewise(torch, tg, sk, ss, smi)
+            sweep_stagewise(torch, tg, sk, ss, ts, smi)
         if "tiled" in families:
             sweep_tiled(torch, tg, kernels, dual_kernels, core, smi)
         return 0
@@ -2270,7 +2407,7 @@ def main() -> int:
     phase_stagewise_serving(torch, tg, ss)
     sw_launches = {"resident": sk.STAGEWISE_LAUNCHES,
                    "stream": ss.STAGEWISE_STREAM_LAUNCHES}
-    check(sw_launches == {"resident": 1, "stream": 2 + SW_SERVE_STEPS},
+    check(sw_launches == {"resident": 2, "stream": 1 + SW_SERVE_STEPS},
           f"stage-wise path launches {sw_launches}")
     phase_stagewise_eps(torch, tg, sk, ss)
     phase_near_limit(torch, tg, kernels, core)
@@ -2327,6 +2464,10 @@ def main() -> int:
         "max_abs_err": worst_sw["resident"],
         "ms": smed["resident"],
         "plain_ms": smed["resident_plain"],
+        "ms_n8_B4096": smed["resident_n8_B4096"],
+        # the torch engine on the same configuration, 10 iterations
+        "torch_engine_10_iterations_ms":
+            smed[f"torch_engine_10_n8_B{SW_WAVE_BATCH}_sequential"],
         **smed["resident_bound"], **no_library,
     }, {
         "name": "gpad_stagewise_stream",
@@ -2337,6 +2478,7 @@ def main() -> int:
         "max_abs_err": worst_sw["stream"],
         "ms": smed["stream"],
         "plain_ms": smed["stream_plain"],
+        "torch_engine_10_iterations_ms": smed["torch_engine_10_full"],
         **smed["stream_bound"], **no_library,
     }, {
         "name": "gpad_dense",

@@ -854,6 +854,103 @@ def test_stagewise_kernel_matches_plain(dev, kernel, case):
             torch.testing.assert_close(a, b, atol=tol, rtol=0, msg=name)
 
 
+# (battery n, N, B, y0, restart, chains in shared memory); at n >= 24 the
+# segment products alone (2 x 16 n^2 floats) crowd the slabs, so the
+# chains read their matrices from device memory; at n8 N60 one scenario a
+# block (B5) leaves the L1 room for them, and so does N = 1
+RESIDENT_CASES = {
+    "n8N60_B1024_cold": (8, 60, 1024, None, False, True),
+    "n8N60_B1024_warm": (8, 60, 1024, "per_scenario", False, True),
+    "n8N60_B1024_shared_y0": (8, 60, 1024, "shared", False, True),
+    "n8N60_B1024_restart": (8, 60, 1024, None, True, True),
+    "n8N60_B5": (8, 60, 5, "per_scenario", False, False),
+    "n8N60_B1025": (8, 60, 1025, None, False, True),
+    "n32": (32, 10, 64, None, False, False),  # every lane of a chain group
+    "n24N60": (24, 60, 64, "per_scenario", False, False),
+    "N1": (8, 1, 64, None, False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(RESIDENT_CASES))
+def test_resident_kernel_at_its_launches(dev, case):
+    """The resident kernel (segmented chains over 16 warps, each warp on
+    its own stages) against its plain version: the main-path shape cold,
+    warm, with one shared dual and under restart; ragged batches; n = 32
+    (every lane of a chain group) and n = 24, whose chains read their
+    matrices from device memory; N = 1."""
+    n, N, B, warm, restart, staged = RESIDENT_CASES[case]
+    data = _sw_data(dev, n, N)
+    x0 = torch.as_tensor(np.random.default_rng(B).uniform(-0.4, 0.4, (B, n)),
+                         dtype=torch.float32, device=dev)
+    lay = sk.resident_layout(data, B, sk.sm_count(dev))
+    assert lay.chains_in_smem == staged
+    y0 = None
+    if warm:
+        y0 = sk.solve_stagewise_cuda(data, 0.9 * x0, SW_ITERS)[2]
+        y0 = y0[0] if warm == "shared" else y0
+    before = sk.STAGEWISE_LAUNCHES
+    out_k, out_p = _sw_both(sk.solve_stagewise_cuda, data, x0, y0, restart)
+    assert sk.STAGEWISE_LAUNCHES == before + 1
+    assert all(bool(torch.isfinite(t).all()) for t in out_k)
+    if restart:
+        _assert_restart_close(out_k[1].flatten(1), out_p[1].flatten(1))
+        return
+    for name, a, b in zip(("u0", "zu", "y", "residual", "gap"), out_k, out_p):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, atol=TOL, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("log2", [0, 2, 3])
+def test_resident_kernel_every_block_and_placement(dev, log2):
+    """Every launch of a tile: 16 or 8 warps (16 or 8 chain segments), the
+    chains' matrices staged in shared memory or read from device memory."""
+    data = _sw_data(dev, 8, 24)
+    x0 = torch.as_tensor(np.random.default_rng(log2).uniform(
+        -0.4, 0.4, (40, 8)), dtype=torch.float32, device=dev)
+    ref = sk.stagewise_plain(sk.pack_stagewise_constants(data), x0,
+                             iterations=SW_ITERS)
+    lays = sk.resident_layouts(data, log2)
+    assert len(lays) == 4
+    for lay in lays:
+        out = sk.solve_stagewise_cuda(data, x0, SW_ITERS, log2_tile=log2,
+                                      warps=lay.warps,
+                                      chains_in_smem=lay.chains_in_smem)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("u0", "zu", "y", "residual", "gap"), out, ref):
+            torch.testing.assert_close(a, b, atol=TOL, rtol=0,
+                                       msg=f"{lay} {name}")
+
+
+@pytest.mark.parametrize("plant", ["double_integrator", "ltv_n2_p6",
+                                   "ltv_n12_p3"])
+def test_resident_kernel_with_unequal_state_and_input(dev, plant):
+    """n_x != n_u (a warp's scratch is laid out by max(n_x, n_u)): every
+    launch of one and of eight scenarios per block against the plain
+    version."""
+    problem = {
+        "double_integrator": lambda: tg.problems.double_integrator(horizon=40),
+        "ltv_n2_p6": lambda: tg.problems.random_ltv(n_x=2, n_u=6, horizon=30,
+                                                    seed=4),
+        "ltv_n12_p3": lambda: tg.problems.random_ltv(n_x=12, n_u=3,
+                                                     horizon=33, seed=5),
+    }[plant]()
+    data = tg.build_stagewise(problem, iterations=SW_ITERS, device=dev)
+    x0 = torch.as_tensor(np.random.default_rng(1).uniform(
+        -0.3, 0.3, (100, problem.n_x)), dtype=torch.float32, device=dev)
+    ref = sk.stagewise_plain(sk.pack_stagewise_constants(data), x0,
+                             iterations=SW_ITERS)
+    for log2 in (0, 3):
+        for lay in sk.resident_layouts(data, log2):
+            out = sk.solve_stagewise_cuda(data, x0, SW_ITERS, log2_tile=log2,
+                                          warps=lay.warps,
+                                          chains_in_smem=lay.chains_in_smem)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("u0", "zu", "y", "residual", "gap"), out,
+                                  ref):
+                torch.testing.assert_close(a, b, atol=TOL, rtol=0,
+                                           msg=f"{lay} {name}")
+
+
 @pytest.mark.parametrize("case", ["cold", "warm", "restart", "B1", "B67"])
 def test_stream_kernel_at_full_width(dev, case):
     """The streamed kernel at battery n30 N200, the serving batch (64

@@ -1,7 +1,8 @@
 """Port parity for the stage-wise O(N) engine: ``build_stagewise`` bit for
 bit, the routing rules, the torch engine against
 ``tpu_gpad.solve_stagewise(engine="xla", scan="sequential")`` on the same
-data and scenarios, ``auto_solver``, ``StagewiseController``, the
+data and scenarios (its parallel-prefix sweeps against ``scan=
+"associative"``), ``auto_solver``, ``StagewiseController``, the
 condensation wall's redirect and ``cli solve --engine stagewise`` (after
 tests/test_stagewise.py)."""
 
@@ -170,8 +171,13 @@ def test_eps_mode_matches_xla(restart):
 def test_config_and_argument_checks():
     d_t = ts.build_stagewise(tp.battery(3, 6), iterations=20, device="cpu")
     X0 = _x0(2, 3, seed=1)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        ts.solve_stagewise(d_t, X0, scan="associative")
+    # scan="associative" runs the torch engine's parallel-prefix sweeps
+    # (test_associative_scan_matches_xla); a forced kernel refuses it
+    res = ts.solve_stagewise(d_t, X0, iterations=10, scan="associative")
+    assert res.u.shape == (2, 3) and bool(torch.isfinite(res.z).all())
+    for engine in ("cuda", "stream"):
+        with pytest.raises(ValueError, match="imply sequential scan"):
+            ts.solve_stagewise(d_t, X0, engine=engine, scan="associative")
     with pytest.raises(ValueError, match="engine must be"):
         ts.solve_stagewise(d_t, X0, engine="pallas")
     with pytest.raises(ValueError, match="shipped schedule"):
@@ -191,6 +197,64 @@ def test_config_and_argument_checks():
     # batch dimensions beyond one are kept
     res = ts.solve_stagewise(d_t, np.stack([X0, X0]), iterations=10)
     assert res.u.shape == (2, 2, 3) and torch.equal(res.u[1], ref.u)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("variant", ["fixed", "restart", "eps",
+                                     "eps_restart", "runtime"])
+def test_associative_scan_matches_xla(case, variant):
+    """scan="associative": the torch engine's doubling prefixes against
+    tpu_gpad's ``associative_scan`` sweeps on JAX-CPU, same data and
+    scenarios; tolerances as the sequential engine's (the two compose the
+    stage maps in different trees, fp32)."""
+    iters = 200 if variant.startswith("eps") else ITERS
+    d_j, d_t = _pair(case, iterations=iters)
+    X0 = _x0(5, d_t.n_x, seed=17)
+    kw = {"iterations": iters}
+    if "restart" in variant:
+        kw["restart"] = True
+    if variant.startswith("eps"):
+        kw.update(mode="eps", eps_g=1e-4, eps_V=1e-4, check_every=10)
+    if variant == "runtime":
+        kw["q_lin"] = np.random.default_rng(5).normal(
+            0, 0.1, (5, d_t.horizon, d_t.n_x)).astype(np.float32)
+    jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()}
+    r_j = js.solve_stagewise(d_j, jnp.asarray(X0), engine="xla",
+                             scan="associative", **jkw)
+    r_t = ts.solve_stagewise(d_t, X0, engine="torch", scan="associative", **kw)
+    if variant.startswith("eps"):
+        it_j, it_t = np.asarray(r_j.iterations), r_t.iterations.numpy()
+        assert np.abs(it_j - it_t).max() <= 10  # within one window
+        _close(r_j.u, r_t.u, EPS_U_TOL, "u")
+        return
+    tol = RESTART_TOL if variant == "restart" else FIXED_TOL
+    _close(r_j.u, r_t.u, tol, "u")
+    _close(r_j.z, r_t.z, tol, "z")
+    if variant != "restart":
+        _close(r_j.y, r_t.y, Y_TOL, "y")
+        _close(r_j.residual, r_t.residual, FIXED_TOL, "residual")
+
+
+def test_scan_auto_rule_matches_tpu_gpad():
+    """scan="auto" picks the parallel prefixes where tpu_gpad does: n_x +
+    n_u <= 24 below a batch of 1024 (a TPU-measured rule)."""
+    for n, B, want in ((3, 5, "associative"), (12, 1023, "associative"),
+                       (12, 1024, "sequential"), (13, 8, "sequential")):
+        d_t = ts.build_stagewise(tp.battery(n, 4), iterations=5, L=1.0,
+                                 device="cpu")
+        assert ts.resolve_scan(d_t, B) == want, (n, B)
+        assert ts.resolve_scan(d_t, B, "sequential") == "sequential"
+    # the parallel prefixes of one affine chain, against the chain itself
+    rng = np.random.default_rng(2)
+    M = torch.as_tensor(rng.normal(0, 0.5, (11, 4, 4)))
+    b = torch.as_tensor(rng.normal(0, 1.0, (11, 3, 4)))
+    v0 = torch.as_tensor(rng.normal(0, 1.0, (3, 4)))
+    P, c = ts._affine_prefix(M, b)
+    v = v0
+    for t in range(11):
+        v = v @ M[t] + b[t]
+        torch.testing.assert_close(v0 @ P[t] + c[t], v, atol=1e-12, rtol=0)
 
 
 def test_auto_solver_kinds_agree():

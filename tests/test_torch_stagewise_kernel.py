@@ -129,25 +129,27 @@ def test_shared_memory_guard():
     d8 = ts.build_stagewise(tp.battery(8, 60), iterations=5, L=1.0, device="cpu")
     d30 = ts.build_stagewise(tp.battery(30, 200), iterations=5, L=1.0,
                              device="cpu")
-    # the carve-up of csrc/gpad_stagewise.cu by hand, in floats, for n8 N60
-    # at a tile of 8: G blocks with odd row strides (16 x 9, 18 x 9 -> 164),
-    # x0 (8 x 8), a scratch block of 34 rows x 8 per warp, two per-warp
-    # partials and 3 momentum words per scenario; then the st, zu, ru, kff
-    # slabs (60 x 8 x 8 each) and y, y_prev (60 x 34 x 8 each)
+    # the streamed kernel's carve-up of csrc/gpad_stagewise.cu by hand, in
+    # floats, for n8 N60 at a tile of 8: G blocks with odd row strides
+    # (16 x 9, 18 x 9 -> 164), x0 (8 x 8), a scratch block of 34 rows x 8
+    # per warp, two per-warp partials and 3 momentum words per scenario;
+    # then the st, zu, ru, kff slabs (60 x 8 x 8 each) and y (60 x 34 x 8)
     shared = 144 + 164 + 64 + 8 * 34 * 8 + 2 * 8 * 8 + 3 * 8
     assert sk._smem_floats(d8, 8) == (shared, 4 * 60 * 8 * 8, 60 * 34 * 8)
-    assert sk._smem_bytes(d8, 8, True, True) == 4 * (
-        shared + 4 * 60 * 64 + 2 * 60 * 34 * 8) == 202800
     # n30 N200, T = 2, the streamed kernel: its chains' ring adds 16
     # mbarrier words (4 x 8), 8 slots of 32 x 32 and 8 addend rows of 32
     # per chain warp
-    assert sk._smem_bytes(d30, 2, False, True) == 215344 + 4 * (
+    assert sk._smem_bytes(d30, 2, True) == 215344 + 4 * (
         32 + 8 * 32 * 32 + 8 * 32 * 2)
+    # the resident kernel (test_torch_stagewise_resident.py has its
+    # carve-up): 8 scenarios per block fit, 16 do not; one block of 16
+    # warps per SM at n8 N60
     assert sk.stagewise_fits_smem(d8, 8) and not sk.stagewise_fits_smem(d8, 16)
-    # 8 per block fits (one block per SM), 4 leaves room for a second
-    assert sk.blocks_per_sm(sk._smem_bytes(d8, 4, True, True)) == 2
-    assert sk._pick_log2_tile(d8, 4096) == 2 and sk._pick_log2_tile(d8, 3) == 2
-    assert sk._pick_log2_tile(d8, 1) == 0
+    lay = sk.resident_layout(d8, 4096, 132)
+    assert (lay.log2_tile, lay.warps, lay.chains_in_smem) == (3, 16, True)
+    assert sk.blocks_per_sm(lay.smem, lay.warps) == 1
+    assert sk.resident_layout(d8, 3, 132).log2_tile == 0
+    assert sk.resident_layout(d8, 1, 132).log2_tile == 0
     assert not sk.stagewise_fits_smem(d30, 1)
     assert sk.stagewise_kernel_compatible(d8) == (True, "")
     assert not sk.stagewise_kernel_compatible(d30)[0]
@@ -160,18 +162,16 @@ def test_shared_memory_guard():
     # one block per SM, the grid still one wave; two scenarios' would not
     # fit a block
     assert ss.stream_layout(d30, 64, 132)[:2] == (0, True)
-    assert sk.blocks_per_sm(sk._smem_bytes(d30, 1, False, True)) == 1
+    assert sk.blocks_per_sm(sk._smem_bytes(d30, 1, True)) == 1
     assert ss.stream_layout(d30, 256, 132)[:2] == (0, False)  # two waves
-    assert sk._smem_bytes(d30, 2, False, True) > 227 * 1024
-    # n8 N60 B4096: 8 scenarios per block, slabs in shared memory, and the
-    # streamed kernel holds 16 scenarios per SM to the resident kernel's 8
+    assert sk._smem_bytes(d30, 2, True) > 227 * 1024
+    # n8 N60 B4096: the streamed kernel takes 8 scenarios per block, slabs
+    # in shared memory, two blocks per SM; the resident kernel is
+    # preferred at every batch (measured at B256, B1024, B4096)
     log2, aux_smem, smem = ss.stream_layout(d8, 4096, 132)
     assert (log2, aux_smem, sk.blocks_per_sm(smem)) == (3, True, 2)
-    assert sk.blocks_per_sm(sk._smem_bytes(d8, 8, True, True)) == 1
-    assert not sk.resident_preferred(d8, 4096, 132)
-    # one wave of resident blocks (256 blocks of 4, two per SM on 132 SMs)
-    assert sk.resident_preferred(d8, 1024, 132)
-    assert sk.resident_preferred(d8, 64, 132)
+    for B in (64, 1024, 4096):
+        assert sk.resident_preferred(d8, B, 132)
     assert ss.stream_layout(d30, 1024, 132, 3)[1] is False  # forced tile
 
 

@@ -6,8 +6,8 @@
 //   tpu_gpad/stagewise_stream.py::_stream_kernel (solve_stagewise_stream):
 //     the same function for dual state past on-chip memory, the dual
 //     iterates streamed through device memory -> gpad_stagewise_stream_kernel.
-// Both run one iteration body, stagewise_iterations(); they differ only in
-// where the per-scenario slabs live.
+// Each has an iteration body of its own (resident_iterations,
+// stagewise_iterations) over the same phases and helpers.
 //
 // Per scenario and iteration, with w = y + beta (y - y_prev) per stage and the
 // packed per-stage constants R = [E'|-K'], HB = [HiB'|Hi], M = [[E,-B],[-K,-I]]
@@ -38,15 +38,15 @@
 //
 // What bounds it (H100 SXM: 67 TFLOP/s fp32, 3.35 TB/s): about 29 kFLOP
 // per stage, scenario and iteration at battery n30 (1.2 TFLOP, about 18 ms,
-// at N200 B1024 x 200 iterations) and about 2.1 kFLOP at n8 (52 GFLOP, about
-// 0.8 ms, at N60 B4096 x 100). The bytes a solve must move once are a few
-// hundred MB at most (under 0.1 ms), so the roofline says operation-bound.
-// What binds in practice: latency, not throughput. Every phase walks its
-// stages with loads from L2 that wait one after another, and the two
-// chains of N dependent stage steps per iteration run on one warp per
-// scenario (chip_smoke.py --profile splits a solve by phase; PERF.md).
-// The streamed kernel's dual slabs also cross HBM every iteration (about
-// 0.5 GB per iteration at n30 N200 B1024). What the design does:
+// at N200 B1024 x 200 iterations) and about 2.1 kFLOP at n8 (13 GFLOP,
+// about 0.19 ms, at N60 B1024 x 100). The bytes a solve must move once are
+// a few hundred MB at most (under 0.1 ms), so the roofline says
+// operation-bound. What binds in practice: latency, not throughput. Every
+// phase walks its stages with loads from L2 that wait one after another,
+// and the two chains are N dependent stage steps per iteration
+// (chip_smoke.py --profile splits a solve by phase; PERF.md). The streamed
+// kernel's dual slabs also cross HBM every iteration (about 0.5 GB per
+// iteration at n30 N200 B1024). What both designs do:
 //   - a block holds a tile of T <= 8 scenarios; every per-scenario slab is
 //     laid out [stage][row][scenario], so the T values of one row sit side
 //     by side (one vector access) and a warp's lanes walk consecutive rows
@@ -56,20 +56,20 @@
 //     the output is narrower than 32 and sum by shuffles), with the T
 //     scenarios in registers: a stage's constants are read once per tile,
 //     coalesced, through L2 (about 6 MB at n30 N200, far under its 50 MB);
-//   - the chains keep the carried vector in registers, one warp per
-//     scenario, lane i owning row i and reading the others by shuffle, so a
-//     chain step needs no barrier. In the resident kernel the next step's
-//     matrix rows are loaded while the current step runs, and those 8 steps
-//     on are prefetched into L1; in the streamed kernel the matrices come
-//     through a ring of 8 stage blocks in shared memory that the bulk-copy
-//     engine fills 8 steps ahead (chain_ring), so a step waits on shared
-//     memory only;
-//   - the dual slabs in device memory stream with evict-first hints, so
-//     the constants stay in L2; each phase prefetches its warp's next stage;
-//   - seven block barriers per iteration.
+//     each phase prefetches its warp's next stage;
+//   - a chain keeps the carried vector in registers, lane i owning row i
+//     and reading the others by shuffle, so a chain step needs no barrier.
+// The streamed kernel (256 threads): stages dealt to warps in turn; the two
+// chains one warp per scenario over all N stages, their matrices through a
+// ring of 8 stage blocks in shared memory that the bulk-copy engine fills 8
+// steps ahead (chain_ring); the dual slabs in device memory stream with
+// evict-first hints, so the constants stay in L2; seven block barriers per
+// iteration. The resident kernel (8 or 16 warps): contiguous stages per
+// warp, segmented chains over every warp, their matrices staged in shared
+// memory, three block barriers per iteration (see resident_iterations).
 // The stage-invariant G blocks sit in shared memory, rows padded to an odd
 // stride. Per-scenario slabs:
-//   resident: y, y_prev, st, zu, ru, kff all in shared memory;
+//   resident: y, y_prev, st, zu, ru (kff over ru) all in shared memory;
 //   streamed: y and y_prev in device memory (a work buffer per tile, the
 //   result copied out to the public (B, N, m) layout at the end); st, zu,
 //   ru, kff in shared memory when two blocks still fit on an SM, else in
@@ -86,7 +86,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLoadBatch = 4;  // device-memory loads a lane keeps in flight
-constexpr int kAhead = 8;      // stages a chain prefetches ahead into L1
 
 // Built with -DGPAD_SW_PROFILE (chip_smoke.py --profile), thread 0 of every
 // block adds the clock64() cycles between the block barriers that end the
@@ -323,16 +322,16 @@ template <int T>
 __device__ void stage_shared(const Shared& sh, const float* __restrict__ Gx,
                              const float* __restrict__ Gu,
                              const float* __restrict__ x0, int B, long long b0,
-                             const Dims& d) {
-    for (int idx = threadIdx.x; idx < d.m_x * d.n; idx += kThreads) {
+                             const Dims& d, int nthreads = kThreads) {
+    for (int idx = threadIdx.x; idx < d.m_x * d.n; idx += nthreads) {
         const int r = idx / d.n;
         sh.Gx[r * d.gx_ld + idx - r * d.n] = Gx[idx];
     }
-    for (int idx = threadIdx.x; idx < d.m_u * d.p; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < d.m_u * d.p; idx += nthreads) {
         const int r = idx / d.p;
         sh.Gu[r * d.gu_ld + idx - r * d.p] = Gu[idx];
     }
-    for (int idx = threadIdx.x; idx < d.n * T; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < d.n * T; idx += nthreads) {
         const int i = idx / T, s = idx - i * T;  // [i][s]
         sh.x0[idx] = (b0 + s < B) ? x0[(b0 + s) * d.n + i] : 0.0f;
     }
@@ -342,75 +341,17 @@ __device__ void stage_shared(const Shared& sh, const float* __restrict__ Gx,
 template <int T>
 __device__ void init_state(const State<T>& S, const float* __restrict__ y0,
                            long long y0_stride, int B, long long b0,
-                           const Dims& d) {
+                           const Dims& d, int nthreads = kThreads) {
     const int rows = d.N * d.m;
-    for (int e = threadIdx.x; e < rows * T; e += kThreads) {
+    for (int e = threadIdx.x; e < rows * T; e += nthreads) {
         const int s = e & (T - 1), row = e / T;  // row = k * m + r
         const float v =
             (y0 && b0 + s < B) ? y0[(b0 + s) * y0_stride + row] : 0.0f;
         S.y.p[e] = v;
         S.yp.p[e] = v;
     }
-    for (int e = threadIdx.x; e < d.N * d.p * T; e += kThreads) S.zu.p[e] = 0.0f;
-}
-
-// One chain over the horizon for scenario s (one warp; lane i owns row i):
-// v_k = st_k + sum_j Mat_k[j * ld + i] v_prev[j], written over st_k.
-// Backward (CB): Mat_k = rows j < n of R'_{k+1} (its E' block), v_{N-1} =
-// st_{N-1}, k = N-2..0. Forward (CF): Mat_k = rows j < n of M'_k (its E
-// block), v_{-1} = x0, k = 0..N-1. The next step's rows and addend are
-// loaded during the current one, and those kAhead steps on prefetched
-// into L1.
-template <int T, int NMAX>
-__device__ void chain(const State<T>& S, int s, const float* __restrict__ base,
-                      long long kstride, int ld, const Dims& d, bool backward,
-                      float v) {
-    const int lane = threadIdx.x & 31;
-    const int n = d.n, N = d.N;
-    const bool own = lane < n;
-    const int dk = backward ? -1 : 1;
-    const int kend = backward ? -1 : N;
-    int k = backward ? N - 2 : 0;
-    if (k == kend) return;
-    auto mat = [&](int kk) { return base + (backward ? kk + 1 : kk) * kstride; };
-    auto prefetch = [&](int kk) {
-        if (own && kk >= 0 && kk < N - (backward ? 1 : 0)) {
-            const float* row = mat(kk) + lane * ld;
-            prefetch_l1(row);
-            prefetch_l1(row + n - 1);
-            prefetch_l1(S.st.at(kk, lane) + s);
-        }
-    };
-    for (int a = 1; a <= kAhead; ++a) prefetch(k + a * dk);
-    float e[NMAX], en[NMAX];
-    const float* M0 = mat(k);
-#pragma unroll
-    for (int j = 0; j < NMAX; ++j) {
-        e[j] = (own && j < n) ? __ldg(M0 + j * ld + lane) : 0.0f;
-        en[j] = 0.0f;
-    }
-    float a = own ? S.st.at(k, lane)[s] : 0.0f;
-    for (; k != kend; k += dk) {
-        const int kn = k + dk;
-        float an = 0.0f;
-        if (kn != kend) {  // the next step's rows and addend
-            const float* Mn = mat(kn);
-#pragma unroll
-            for (int j = 0; j < NMAX; ++j)
-                en[j] = (own && j < n) ? __ldg(Mn + j * ld + lane) : 0.0f;
-            an = own ? S.st.at(kn, lane)[s] : 0.0f;
-            prefetch(kn + kAhead * dk);
-        }
-        float acc[4] = {a, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int j = 0; j < NMAX; ++j)
-            acc[j & 3] = fmaf(e[j], __shfl_sync(kFull, v, j), acc[j & 3]);
-        v = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-        if (own) S.st.at(k, lane)[s] = v;
-#pragma unroll
-        for (int j = 0; j < NMAX; ++j) e[j] = en[j];
-        a = an;
-    }
+    for (int e = threadIdx.x; e < d.N * d.p * T; e += nthreads)
+        S.zu.p[e] = 0.0f;
 }
 
 // The streamed kernel's chains read their matrices from a ring of kRing
@@ -554,14 +495,16 @@ __device__ __forceinline__ void row_dot(float (&gg)[T], int r,
     }
 }
 
-// `iterations` GPAD iterations on the block's tile. Phases give each warp
-// whole stages (k = warp, warp + 8, ...); lane = g * NMAX + i works on
-// output row i and inputs j = g (mod 32 / NMAX). Ends with a barrier.
-template <int T, int NMAX, bool kGY>
+// The streamed kernel's `iterations` GPAD iterations on the block's tile.
+// Phases give each warp whole stages (k = warp, warp + 8, ...); lane =
+// g * NMAX + i works on output row i and inputs j = g (mod 32 / NMAX).
+// Ends with a barrier.
+template <int T, int NMAX>
 __device__ void stagewise_iterations(const State<T>& S, const Shared& sh,
                                      const Consts& c, const Dims& d,
                                      float inv_L, int iterations,
                                      bool restart) {
+    constexpr bool kGY = true;  // the dual slabs live in device memory
     constexpr int G = 32 / NMAX;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane / NMAX, i = lane - g * NMAX;
@@ -687,10 +630,7 @@ __device__ void stagewise_iterations(const State<T>& S, const Shared& sh,
         // CB: the backward chain through the E' block of R'_{k+1}
         if (warp < T) {
             const float v = lane < n ? S.st.at(N - 1, lane)[warp] : 0.0f;
-            if constexpr (kGY)
-                chain_ring<T, NMAX>(S, sh, warp, c.chainE, d, true, v, ring_use);
-            else
-                chain<T, NMAX>(S, warp, c.RT, (long long)np * n, n, d, true, v);
+            chain_ring<T, NMAX>(S, sh, warp, c.chainE, d, true, v, ring_use);
         }
         __syncthreads();
         SW_MARK(3);
@@ -759,12 +699,9 @@ __device__ void stagewise_iterations(const State<T>& S, const Shared& sh,
         // CF: the forward chain through the E block of M', from x0
         if (warp < T) {
             const float v = lane < n ? sh.x0[lane * T + warp] : 0.0f;
-            if constexpr (kGY)
-                chain_ring<T, NMAX>(S, sh, warp,
-                                    c.chainE + (long long)d.N * n * 32, d,
-                                    false, v, ring_use);
-            else
-                chain<T, NMAX>(S, warp, c.MT, (long long)np * np, np, d, false, v);
+            chain_ring<T, NMAX>(S, sh, warp,
+                                c.chainE + (long long)d.N * n * 32, d,
+                                false, v, ring_use);
         }
         __syncthreads();
         SW_MARK(5);
@@ -848,7 +785,8 @@ __device__ void stagewise_iterations(const State<T>& S, const Shared& sh,
 template <int T, int NMAX, bool kGY>
 __device__ void epilogue(const State<T>& S, const Shared& sh, const Consts& c,
                          const Dims& d, float* __restrict__ residual,
-                         float* __restrict__ gap, int B, long long b0) {
+                         float* __restrict__ gap, int B, long long b0,
+                         int W = kWarps) {
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int N = d.N, n = d.n, p = d.p, m = d.m;
     const int np = d.np;
@@ -891,7 +829,7 @@ __device__ void epilogue(const State<T>& S, const Shared& sh, const Consts& c,
         vmax[s] = -INFINITY;
         gsum[s] = 0.0f;
     }
-    for (int k = warp; k < N; k += kWarps) {
+    for (int k = warp; k < N; k += W) {
         const float* xn = S.st.at(k, 0);
         const float* zk = S.zu.at(k, 0);
         for (int r = lane; r < m; r += 32) {
@@ -923,7 +861,7 @@ __device__ void epilogue(const State<T>& S, const Shared& sh, const Consts& c,
     __syncthreads();
     if (tid < T && b0 + tid < B) {
         float vm = -INFINITY, gs = 0.0f;
-        for (int w = 0; w < kWarps; ++w) {
+        for (int w = 0; w < W; ++w) {
             vm = fmaxf(vm, sh.vpart[w * T + tid]);
             gs += sh.rpart[w * T + tid];
         }
@@ -937,9 +875,10 @@ __device__ void epilogue(const State<T>& S, const Shared& sh, const Consts& c,
 // A slab of the tile's scenarios out to public (B, N * W) storage.
 template <int T>
 __device__ void store_rows(float* __restrict__ dst, const Slab<T>& src,
-                           int N, int B, long long b0) {
+                           int N, int B, long long b0,
+                           int nthreads = kThreads) {
     const int rows = N * src.W;
-    for (int idx = threadIdx.x; idx < T * rows; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < T * rows; idx += nthreads) {
         const int s = idx / rows, row = idx - s * rows;
         if (b0 + s < B) dst[(b0 + s) * rows + row] = src.p[row * T + s];
     }
@@ -958,37 +897,773 @@ struct Args {
     float *y_out, *zu_out, *residual, *gap;
     // streamed kernel only
     float *y_work, *yp_work, *aux;
+    // resident kernel only: a per-block scratch for the segment products
+    // where they are not in shared memory
+    int chains_in_smem;
+    float* qscratch;
 };
 
-template <int T, int NMAX, bool kGY>
+template <int T, int NMAX>
 __device__ void solve_tile(const Args& a, const State<T>& S, const Shared& sh,
                            long long b0) {
     stage_shared<T>(sh, a.Gx, a.Gu, a.x0, a.B, b0, a.d);
     init_state<T>(S, a.y0, a.y0_stride, a.B, b0, a.d);
     __syncthreads();
     const float inv_L = 1.0f / a.L[0];
-    stagewise_iterations<T, NMAX, kGY>(S, sh, a.c, a.d, inv_L, a.iterations,
-                                       a.restart != 0);
-    epilogue<T, NMAX, kGY>(S, sh, a.c, a.d, a.residual, a.gap, a.B, b0);
+    stagewise_iterations<T, NMAX>(S, sh, a.c, a.d, inv_L, a.iterations,
+                                  a.restart != 0);
+    epilogue<T, NMAX, true>(S, sh, a.c, a.d, a.residual, a.gap, a.B, b0);
     store_rows<T>(a.zu_out, S.zu, a.d.N, a.B, b0);
     store_rows<T>(a.y_out, S.y, a.d.N, a.B, b0);
 }
 
+// ---------------------------------------------------------------------------
+// The resident kernel's own iteration body
+// ---------------------------------------------------------------------------
+//
+// A block of W = 8 or 16 warps (blockDim.x = 32 W) keeps every slab of its
+// tile in shared memory. Warp w owns the contiguous stages [k0, k1) =
+// [w N / W, (w + 1) N / W) in every phase and one segment of each chain,
+// so nothing of a warp's phases waits on another warp before its own chain
+// segment. A chain (CB: v_k = st_k + E'_{k+1} v_{k+1}; CF: x_{k+1} = d_k +
+// E_k x_k) runs in three passes, a parallel prefix cut to one level:
+//   1. each warp runs its segment's steps from a zero entry for every
+//      scenario of the tile: a group of NMAX lanes per scenario, lane i
+//      owning row i, 32 / NMAX groups a warp, and each lane interleaving
+//      the chains of R = T / (32 / NMAX) scenarios (rounded up), which
+//      share each step's matrix rows; it leaves the segment's last value
+//      l_j in its scratch; the segment whose entry is known (st_{N-1} for
+//      CB, x0 for CF) runs from it and writes its values;
+//   2. after a block barrier each warp carries its entry through the
+//      segments between the known one and its own, e <- l_j + Q_j e, with
+//      Q_j the product of segment j's step matrices (computed once per
+//      solve, in the prologue);
+//   3. it reruns its segment's steps from that entry, writing the values.
+// A chain's depth falls from N steps to 2 N / W + W - 1. Each warp copies
+// its segment's step matrices (n x n each) into a staging block of shared
+// memory with cp.async during the phase before the chain (CB's during P1,
+// CF's during P3), so a step waits on shared memory only; where the staging
+// blocks and the segment products do not fit beside the tile's slabs, the
+// steps read the matrices from device memory and Q lives in a per-block
+// scratch there (`chains_in_smem` 0). Three block barriers per iteration:
+//   [decision, P1, P1b, CB pass 1] B1 [CB passes 2-3, P3, CF pass 1] B2
+//   [CF passes 2-3, P4] B3.
+// Every warp takes the restart decision alike from the per-warp partial
+// sums of r, added in warp order. kff_k overwrites ru_k, whose last reader
+// is P3 at stage k. A warp's scratch block (wb floats, [row][scenario])
+// holds in turn: P1's w rows [0, m T) and then ru_{k1} [0, p T); CB's l_j
+// [0, n T) until B2; CF's l_j at [max(p, n) T, + n T) until B3; CF's entry
+// x_{k0} [0, n T) for P4, whose u rows follow at [0, p T).
+
+constexpr int kResMaxThreads = 512;  // W <= 16 warps
+
+// Built with -DGPAD_SW_PROFILE, lane 0 of every warp adds the clock64()
+// cycles of each part of the resident kernel into g_res_cycles:
+// gpad_stagewise_resident_profile_read() returns and clears them.
+constexpr int kResPhases = 14;  // prologue, decision, P1, P1b, CB1, B1,
+                                // CB23, P3, CF1, B2, CF23, P4, B3, epilogue
+#ifdef GPAD_SW_PROFILE
+__device__ unsigned long long g_res_cycles[kResPhases];
+#define RES_CLOCK long long rclk_t_ = clock64(), rclk_acc_[kResPhases] = {}
+#define RES_MARK(i)                                                    \
+    do {                                                               \
+        const long long now_ = clock64();                              \
+        rclk_acc_[i] += now_ - rclk_t_;                                \
+        rclk_t_ = now_;                                                \
+    } while (0)
+#define RES_FLUSH()                                                    \
+    do {                                                               \
+        if ((threadIdx.x & 31) == 0)                                   \
+            for (int i_ = 0; i_ < kResPhases; ++i_)                    \
+                atomicAdd(&g_res_cycles[i_],                           \
+                          (unsigned long long)rclk_acc_[i_]);          \
+    } while (0)
+#else
+#define RES_CLOCK
+#define RES_MARK(i) ((void)0)
+#define RES_FLUSH() ((void)0)
+#endif
+
+// A warp's scratch block: P1's w rows, or the chains' values.
+__host__ __device__ inline int res_wb(const Dims& d, int T) {
+    const int q = (d.p > d.n ? d.p : d.n) + d.n;
+    return (d.m > q ? d.m : q) * T;
+}
+// The longest segment, in stages.
+__host__ __device__ inline int res_ls(const Dims& d, int W) {
+    return (d.N + W - 1) / W;
+}
+// The segment products of both chains, W blocks of n x n each.
+__host__ __device__ inline int res_q_floats(const Dims& d, int W) {
+    return up4(2 * W * d.n * d.n);
+}
+
+// Floats of a resident block's shared memory (mirrored by stagewise_kernel.
+// py::_resident_floats): the G blocks, x0, W scratch blocks, two per-warp
+// partials per scenario; with `cs` the segment products and W staging
+// blocks of res_ls step matrices; then the st, zu, ru slabs and y, y_prev.
+// Every region starts 16-byte aligned.
+__host__ __device__ inline long long res_floats(const Dims& d, int T, int W,
+                                                bool cs) {
+    long long f = up4(d.m_x * d.gx_ld) + up4(d.m_u * d.gu_ld) + up4(d.n * T) +
+                  up4(W * res_wb(d, T)) + up4(2 * W * T);
+    if (cs) f += res_q_floats(d, W) + up4(W * res_ls(d, W) * d.n * d.n);
+    return f + up4(d.N * d.n * T) + 2LL * up4(d.N * d.p * T) +
+           2LL * up4(d.N * d.m * T);
+}
+
+struct ResShared {
+    Shared s;  // Gx, Gu, x0, wbuf, rpart, vpart
+    float* Q;    // [chain][warp] segment products, column j at j * n
+    float* stg;  // W staging blocks of res_ls step matrices, or null
+    int wb, W, ls;
+};
+
+// First stage of warp w's segment.
+__device__ __forceinline__ int seg_lo(int w, int N, int W) {
+    return (w * N) / W;
+}
+
+// Step k's chain matrix: row j (what multiplies v_j) at at(k, j), lane i
+// reading element i. In device memory (R' or M' in place) or in a staging
+// block (first step k0, n x n per step).
+struct ChainMat {
+    const float* p;
+    int k0;
+    long long kstride;
+    int ld;
+    __device__ __forceinline__ const float* at(int k, int j) const {
+        return p + (k - k0) * kstride + (long long)j * ld;
+    }
+};
+
+// Copy the step matrices of steps [ka, kb) into a staging block with
+// cp.async, as one commit group of the calling lanes.
+__device__ void stage_chain(float* dst, const ChainMat& src, int ka, int kb,
+                            int n, int lane) {
+    const int nn = n * n, total = (kb - ka) * nn;
+    for (int e = lane; e < total; e += 32) {
+        const int s = e / nn, r = e - s * nn, j = r / n, i = r - j * n;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                         smem_addr(dst + e)), "l"(src.at(ka + s, j) + i)
+                     : "memory");
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void stage_wait() {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncwarp();
+}
+
+// One group's chains over cnt steps k = kb, kb + dk, ...: RR independent
+// chains per lane (chain r of scenario sc[r], where live[r]), interleaved so
+// that their latencies overlap and they share each step's matrix rows:
+// v <- a_k + C_k v, a_k = st_k's column sc when `addend`, else 0; v written
+// over st_k when `store`. Lane i of the group holds row i; lanes past n and
+// chains not live carry zeros. Every lane shuffles: the groups of a warp
+// run in lockstep. The next step's rows and addends load during the
+// current one.
+template <int T, int NMAX, int RR>
+__device__ void seg_chain(const ChainMat& C, const Slab<T>& st,
+                          const int (&sc)[RR], const bool (&live)[RR], int kb,
+                          int dk, int cnt, float (&v)[RR], bool addend,
+                          bool store, int n) {
+    const int i = threadIdx.x & (NMAX - 1);
+    const bool row = i < n;
+    bool own[RR];
+#pragma unroll
+    for (int r = 0; r < RR; ++r) own[r] = live[r] && row;
+    if (cnt <= 0) return;
+    float e[NMAX], en[NMAX], a[RR], an[RR];
+    int k = kb;
+#pragma unroll
+    for (int j = 0; j < NMAX; ++j) {
+        e[j] = (row && j < n) ? C.at(k, j)[i] : 0.0f;
+        en[j] = 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < RR; ++r)
+        a[r] = (own[r] && addend) ? st.at(k, i)[sc[r]] : 0.0f;
+    for (int t = 0; t < cnt; ++t) {
+        const int kn = k + dk;
+#pragma unroll
+        for (int r = 0; r < RR; ++r) an[r] = 0.0f;
+        if (t + 1 < cnt) {
+#pragma unroll
+            for (int j = 0; j < NMAX; ++j)
+                en[j] = (row && j < n) ? C.at(kn, j)[i] : 0.0f;
+#pragma unroll
+            for (int r = 0; r < RR; ++r)
+                an[r] = (own[r] && addend) ? st.at(kn, i)[sc[r]] : 0.0f;
+        }
+        float acc[RR][4];
+#pragma unroll
+        for (int r = 0; r < RR; ++r) {
+            acc[r][0] = a[r];
+            acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < NMAX; ++j)
+#pragma unroll
+            for (int r = 0; r < RR; ++r)
+                acc[r][j & 3] = fmaf(e[j], __shfl_sync(kFull, v[r], j, NMAX),
+                                     acc[r][j & 3]);
+#pragma unroll
+        for (int r = 0; r < RR; ++r) {
+            v[r] = (acc[r][0] + acc[r][1]) + (acc[r][2] + acc[r][3]);
+            if (store && own[r]) st.at(k, i)[sc[r]] = v[r];
+            a[r] = an[r];
+        }
+#pragma unroll
+        for (int j = 0; j < NMAX; ++j) e[j] = en[j];
+        k = kn;
+    }
+}
+
+// One carry step of a group's RR chains: e <- l + Q e, Q's column j at
+// Q + j * n.
+template <int NMAX, int RR>
+__device__ __forceinline__ void carry_step(const float* Q, float (&e)[RR],
+                                           const float (&l)[RR], int n) {
+    const int i = threadIdx.x & (NMAX - 1);
+    float acc[RR][4];
+#pragma unroll
+    for (int r = 0; r < RR; ++r) {
+        acc[r][0] = l[r];
+        acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < NMAX; ++j) {
+        const float q = (i < n && j < n) ? Q[j * n + i] : 0.0f;
+#pragma unroll
+        for (int r = 0; r < RR; ++r)
+            acc[r][j & 3] = fmaf(q, __shfl_sync(kFull, e[r], j, NMAX),
+                                 acc[r][j & 3]);
+    }
+#pragma unroll
+    for (int r = 0; r < RR; ++r)
+        e[r] = (acc[r][0] + acc[r][1]) + (acc[r][2] + acc[r][3]);
+}
+
+// `iterations` GPAD iterations on the block's tile, the resident way (see
+// above). lane = g * NMAX + i works on output row i and inputs j = g
+// (mod 32 / NMAX) in the phases, and on row i of scenario sc = round * G +
+// g in the chains. Ends with a barrier.
 template <int T, int NMAX>
-__global__ void __launch_bounds__(kThreads, 2)
+__device__ void resident_iterations(const State<T>& S, const ResShared& rs,
+                                    const Consts& c, const Dims& d,
+                                    float inv_L, int iterations,
+                                    bool restart) {
+    constexpr int G = 32 / NMAX;
+    constexpr int R = (T + G - 1) / G;  // chain rounds over the tile
+    const Shared& sh = rs.s;
+    const int W = rs.W;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane / NMAX, i = lane - g * NMAX;
+    const int N = d.N, n = d.n, p = d.p, m = d.m, m_x = d.m_x, m_u = d.m_u;
+    const int np = d.np;
+    const int k0 = seg_lo(warp, N, W), k1 = seg_lo(warp + 1, N, W);
+    const int kcb = k1 < N - 1 ? k1 : N - 1;  // end of the warp's CB steps
+    const bool top = k1 == N;    // CB's segment with a known entry
+    const bool first = k0 == 0;  // CF's segment with a known entry
+    const bool mine = k0 < k1;   // the warp owns stages (N < W leaves some idle)
+    float* wb = sh.wbuf + warp * rs.wb;
+    const int lcf = (p > n ? p : n) * T;  // CF's l_j in the scratch block
+    const long long nn = (long long)n * n;
+    float* stg = rs.stg ? rs.stg + warp * rs.ls * nn : nullptr;
+    const ChainMat gcb{c.RT + (long long)np * n, 0, (long long)np * n, n};
+    const ChainMat gcf{c.MT, 0, (long long)np * np, np};
+    const ChainMat scm{stg, k0, nn, n};
+    const ChainMat cb = stg ? scm : gcb;
+    const ChainMat cf = stg ? scm : gcf;
+    RES_CLOCK;
+    // prologue: the segment products, column j the chain from unit vector j
+    auto products = [&](const ChainMat& C, int kb, int dk, int cnt,
+                        float* Qw) {
+        for (int rr = 0; rr * G < n; ++rr) {
+            const int jc = rr * G + g, sc[1] = {0};
+            const bool live[1] = {jc < n};
+            float v[1] = {(live[0] && i == jc) ? 1.0f : 0.0f};
+            seg_chain<T, NMAX, 1>(C, S.st, sc, live, kb, dk, cnt, v, false,
+                                  false, n);
+            if (live[0] && i < n) Qw[jc * n + i] = v[0];
+        }
+    };
+    // the tile's scenarios in the chains: chain r of group g runs sc[r]
+    int sc[R];
+    bool live[R], own[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        sc[r] = r * G + g;
+        live[r] = sc[r] < T;
+        own[r] = live[r] && i < n;
+    }
+    if (stg && kcb > k0) {
+        stage_chain(stg, gcb, k0, kcb, n, lane);
+        stage_wait();
+    }
+    if (!top && mine) products(cb, kcb - 1, -1, kcb - k0, rs.Q + warp * nn);
+    __syncwarp();
+    if (stg && mine) {
+        stage_chain(stg, gcf, k0, k1, n, lane);
+        stage_wait();
+    }
+    if (!first && mine)
+        products(cf, k0, 1, k1 - k0, rs.Q + (W + warp) * nn);
+    __syncwarp();
+    if (stg && kcb > k0) stage_chain(stg, gcb, k0, kcb, n, lane);
+    __syncthreads();
+    RES_MARK(0);
+    float th = 1.0f, thp = 1.0f;  // lane s < T: scenario s's recursion
+    for (int it = 0; it < iterations; ++it) {
+        // the decision: lane s adds scenario s's partials in warp order
+        float theta[T], beta[T], keep[T];  // keep = 0 where y_prev reads as y
+        if (restart) {
+            float rpart = 0.0f;
+            if (it > 0 && lane < T)
+                for (int w = 0; w < W; ++w) rpart += sh.rpart[w * T + lane];
+            const bool reset = rpart > 0.0f;
+            if (reset) {
+                th = 1.0f;
+                thp = 1.0f;
+            } else if (it > 0) {
+                const float next = th * (sqrtf(th * th + 4.0f) - th) * 0.5f;
+                thp = th;
+                th = next;
+            }
+            const float b = th * (1.0f / thp - 1.0f), kp = reset ? 0.0f : 1.0f;
+#pragma unroll
+            for (int s = 0; s < T; ++s) {
+                theta[s] = __shfl_sync(kFull, th, s);
+                beta[s] = __shfl_sync(kFull, b, s);
+                keep[s] = __shfl_sync(kFull, kp, s);
+            }
+        } else {
+            const float t0 = c.theta[it], b0 = c.beta[it];
+#pragma unroll
+            for (int s = 0; s < T; ++s) {
+                theta[s] = t0;
+                beta[s] = b0;
+                keep[s] = 1.0f;
+            }
+        }
+        RES_MARK(1);
+        // P1: st_k = Gx' wx_k + qoff_k and ru_k = Gu' wu_k on the warp's
+        // stages, then ru_{k1} for P1b's last stage
+        {
+            const int sl = lane & (T - 1);  // 32 % T == 0: a lane's scenario
+            float bl = 0.0f, kl = 1.0f;
+#pragma unroll
+            for (int s = 0; s < T; ++s)
+                if (sl == s) {
+                    bl = beta[s];
+                    kl = keep[s];
+                }
+            const bool rl = kl == 0.0f;
+            auto load_w = [&](int k, int row0) {  // w rows [row0, m) into wb
+                const float* yk = S.y.at(k, 0);
+                const float* ypk = S.yp.at(k, 0);
+                for (int e0 = row0 * T + lane; e0 < m * T;
+                     e0 += 32 * kLoadBatch) {
+                    float y[kLoadBatch], yp[kLoadBatch];
+#pragma unroll
+                    for (int u = 0; u < kLoadBatch; ++u) {
+                        const int e = e0 + 32 * u;
+                        y[u] = e < m * T ? yk[e] : 0.0f;
+                        yp[u] = e < m * T && !rl ? ypk[e] : y[u];
+                    }
+#pragma unroll
+                    for (int u = 0; u < kLoadBatch; ++u)
+                        if (e0 + 32 * u < m * T)
+                            wb[e0 + 32 * u] = y[u] + bl * (y[u] - yp[u]);
+                }
+                __syncwarp();
+            };
+            auto gu_w = [&](float (&rr)[T]) {  // ru = Gu' wu from wb
+                float wv[T];
+                zeroT(rr);
+                if (i < p)
+#pragma unroll 4
+                    for (int q = g; q < m_u; q += G) {
+                        const float gv = sh.Gu[q * d.gu_ld + i];
+                        ldT(wv, wb + (m_x + q) * T);
+#pragma unroll
+                        for (int s = 0; s < T; ++s) rr[s] = fmaf(gv, wv[s], rr[s]);
+                    }
+                group_sum<T, NMAX>(rr);
+            };
+            for (int k = k0; k < k1; ++k) {
+                const float qo =
+                    (g == 0 && i < n) ? __ldg(c.V + (k * 3 + 1) * n + i) : 0.0f;
+                load_w(k, 0);
+                float q[T], rr[T], wv[T];
+                zeroT(q);
+                if (i < n)
+#pragma unroll 4
+                    for (int q2 = g; q2 < m_x; q2 += G) {
+                        const float gv = sh.Gx[q2 * d.gx_ld + i];
+                        ldT(wv, wb + q2 * T);
+#pragma unroll
+                        for (int s = 0; s < T; ++s) q[s] = fmaf(gv, wv[s], q[s]);
+                    }
+                group_sum<T, NMAX>(q);
+                gu_w(rr);
+                if (g == 0 && i < n) {
+#pragma unroll
+                    for (int s = 0; s < T; ++s) q[s] += qo;
+                    stT(S.st.at(k, i), q);
+                }
+                if (g == 0 && i < p) stT(S.ru.at(k, i), rr);
+                __syncwarp();
+            }
+            if (mine && k1 < N) {
+                load_w(k1, m_x);
+                float rr[T];
+                gu_w(rr);
+                __syncwarp();
+                if (g == 0 && i < p) stT(wb + i * T, rr);
+                __syncwarp();
+            }
+        }
+        RES_MARK(2);
+        // P1b: st_k += -K'_{k+1} ru_{k+1}, rows n.. of R'_{k+1}
+        for (int k = k0; k < kcb; ++k) {
+            const float* Kk = c.RT + ((long long)(k + 1) * np + n) * n;
+            if (k + 1 < kcb) prefetch_block(Kk + (long long)np * n, p * n, lane);
+            const float* ru1 = k + 1 < k1 ? S.ru.at(k + 1, 0) : wb;  // [j][s]
+            float a[T], v[T];
+            zeroT(a);
+            if (i < n)
+#pragma unroll
+                for (int t = 0; t < NMAX / G; ++t) {
+                    const int jj = g + G * t;
+                    if (jj < p) {
+                        const float kv = __ldg(Kk + jj * n + i);
+                        ldT(v, ru1 + jj * T);
+#pragma unroll
+                        for (int s = 0; s < T; ++s) a[s] = fmaf(kv, v[s], a[s]);
+                    }
+                }
+            group_sum<T, NMAX>(a);
+            if (g == 0 && i < n) {
+                ldT(v, S.st.at(k, i));
+#pragma unroll
+                for (int s = 0; s < T; ++s) v[s] += a[s];
+                stT(S.st.at(k, i), v);
+            }
+        }
+        __syncwarp();
+        if (stg && kcb > k0) stage_wait();
+        RES_MARK(3);
+        // CB pass 1: the segment from zero (the top one from st_{N-1})
+        if (mine) {
+            float v[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                v[r] = (top && own[r]) ? S.st.at(N - 1, i)[sc[r]] : 0.0f;
+            seg_chain<T, NMAX, R>(cb, S.st, sc, live, kcb - 1, -1, kcb - k0,
+                                  v, true, top, n);
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                if (own[r]) wb[i * T + sc[r]] = v[r];
+        }
+        RES_MARK(4);
+        __syncthreads();
+        RES_MARK(5);
+        // CB passes 2 and 3: carry the entry v_{k1} down from the top
+        // segment, then rerun the segment from it
+        if (!top && mine) {
+            float e[R], l[R];
+            for (int j = W - 1; j > warp; --j) {
+                if (seg_lo(j, N, W) == seg_lo(j + 1, N, W)) continue;
+#pragma unroll
+                for (int r = 0; r < R; ++r)
+                    l[r] = own[r] ? sh.wbuf[j * rs.wb + i * T + sc[r]] : 0.0f;
+                if (j == W - 1) {
+#pragma unroll
+                    for (int r = 0; r < R; ++r) e[r] = l[r];
+                } else {
+                    carry_step<NMAX, R>(rs.Q + j * nn, e, l, n);
+                }
+            }
+            seg_chain<T, NMAX, R>(cb, S.st, sc, live, kcb - 1, -1, kcb - k0,
+                                  e, true, true, n);
+        }
+        __syncwarp();
+        if (stg && mine) stage_chain(stg, gcf, k0, k1, n, lane);
+        RES_MARK(6);
+        // P3: kff_k = HB_k [st_k + dtl_k; ru_k] over ru_k,
+        // st_k <- M_k [0; kff_k]_top + c_k. Every constant of the stage is
+        // loaded first, so the stage waits on one L2 round trip
+        for (int k = k0; k < k1; ++k) {
+            const float* HBk = c.HBT + (long long)k * np * p;
+            const float* MTk = c.MT + (long long)k * np * np;
+            if (k + 1 < k1) {  // the warp's next stage
+                prefetch_block(HBk + (long long)np * p, np * p, lane);
+                prefetch_block(MTk + (long long)np * np + n * np, p * np, lane);
+            }
+            // a lane's J inputs of each product, loaded up front where they
+            // fit its registers (NMAX / G <= 8), else where they are used
+            constexpr int J = NMAX / G;
+            constexpr bool kAll = J <= 8;
+            float hs[kAll ? J : 1], dl[kAll ? J : 1], hr[kAll ? J : 1],
+                mt[kAll ? J : 1];
+            auto ld_hs = [&](int j) { return __ldg(HBk + j * p + i); };
+            auto ld_dl = [&](int j) { return __ldg(c.V + k * 3 * n + j); };
+            auto ld_hr = [&](int j) { return __ldg(HBk + (n + j) * p + i); };
+            auto ld_mt = [&](int j) { return __ldg(MTk + (n + j) * np + i); };
+            if constexpr (kAll) {
+#pragma unroll
+                for (int t = 0; t < J; ++t) {
+                    const int j = g + G * t;
+                    hs[t] = i < p && j < n ? ld_hs(j) : 0.0f;
+                    dl[t] = i < p && j < n ? ld_dl(j) : 0.0f;
+                    hr[t] = i < p && j < p ? ld_hr(j) : 0.0f;
+                    mt[t] = i < n && j < p ? ld_mt(j) : 0.0f;
+                }
+            }
+            const float ck = g == 0 && i < n ? __ldg(c.V + (k * 3 + 2) * n + i)
+                                             : 0.0f;
+            float kf[T], v[T];
+            zeroT(kf);
+            if (i < p) {
+#pragma unroll
+                for (int t = 0; t < J; ++t) {
+                    const int j = g + G * t;
+                    if (j < n) {
+                        float h1, d1;
+                        if constexpr (kAll) {
+                            h1 = hs[t];
+                            d1 = dl[t];
+                        } else {
+                            h1 = ld_hs(j);
+                            d1 = ld_dl(j);
+                        }
+                        ldT(v, S.st.at(k, j));
+#pragma unroll
+                        for (int s = 0; s < T; ++s)
+                            kf[s] = fmaf(h1, v[s] + d1, kf[s]);
+                    }
+                }
+#pragma unroll
+                for (int t = 0; t < J; ++t) {
+                    const int j = g + G * t;
+                    if (j < p) {
+                        float h1;
+                        if constexpr (kAll) h1 = hr[t];
+                        else h1 = ld_hr(j);
+                        ldT(v, S.ru.at(k, j));
+#pragma unroll
+                        for (int s = 0; s < T; ++s) kf[s] = fmaf(h1, v[s], kf[s]);
+                    }
+                }
+            }
+            group_sum<T, NMAX>(kf);
+            __syncwarp();  // every lane has read ru_k
+            if (g == 0 && i < p) stT(S.kff.at(k, i), kf);
+            __syncwarp();
+            float dd[T];
+            zeroT(dd);
+            if (i < n)
+#pragma unroll
+                for (int t = 0; t < J; ++t) {
+                    const int j = g + G * t;
+                    if (j < p) {
+                        float m1;
+                        if constexpr (kAll) m1 = mt[t];
+                        else m1 = ld_mt(j);
+                        ldT(v, S.kff.at(k, j));
+#pragma unroll
+                        for (int s = 0; s < T; ++s) dd[s] = fmaf(m1, v[s], dd[s]);
+                    }
+                }
+            group_sum<T, NMAX>(dd);
+            if (g == 0 && i < n) {
+#pragma unroll
+                for (int s = 0; s < T; ++s) dd[s] += ck;
+                stT(S.st.at(k, i), dd);
+            }
+            __syncwarp();
+        }
+        if (stg && mine) stage_wait();
+        RES_MARK(7);
+        // CF pass 1: the segment from zero (the first one from x0)
+        if (mine) {
+            float v[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                v[r] = (first && own[r]) ? sh.x0[i * T + sc[r]] : 0.0f;
+            seg_chain<T, NMAX, R>(cf, S.st, sc, live, k0, 1, k1 - k0, v, true,
+                                  first, n);
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                if (own[r]) wb[lcf + i * T + sc[r]] = v[r];
+        }
+        RES_MARK(8);
+        __syncthreads();
+        RES_MARK(9);
+        // CF passes 2 and 3: carry the entry x_{k0} up from the first
+        // segment, keep it for P4, rerun the segment from it
+        if (!first && mine) {
+            float e[R], l[R];
+            for (int j = 0; j < warp; ++j) {
+                const int j0 = seg_lo(j, N, W);
+                if (j0 == seg_lo(j + 1, N, W)) continue;
+#pragma unroll
+                for (int r = 0; r < R; ++r)
+                    l[r] = own[r] ? sh.wbuf[j * rs.wb + lcf + i * T + sc[r]]
+                                  : 0.0f;
+                if (j0 == 0) {
+#pragma unroll
+                    for (int r = 0; r < R; ++r) e[r] = l[r];
+                } else {
+                    carry_step<NMAX, R>(rs.Q + (W + j) * nn, e, l, n);
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                if (own[r]) wb[i * T + sc[r]] = e[r];
+            seg_chain<T, NMAX, R>(cf, S.st, sc, live, k0, 1, k1 - k0, e, true,
+                                  true, n);
+        }
+        __syncwarp();
+        if (stg && kcb > k0 && it + 1 < iterations)  // the next iteration's CB
+            stage_chain(stg, gcb, k0, kcb, n, lane);
+        RES_MARK(10);
+        // P4: u_k = M_k [x_k; kff_k]_bottom, averaging, the dual step
+        float rsum[T];
+        zeroT(rsum);
+        for (int k = k0; k < k1; ++k) {
+            const float* MTk = c.MT + (long long)k * np * np;
+            if (k + 1 < k1)  // the warp's next stage
+                prefetch_block(MTk + (long long)np * np, n * np, lane);
+            // x_k, [j][s]: x0, the carried entry, or CF's value at k - 1
+            const float* xk = k > k0 ? S.st.at(k - 1, 0) : first ? sh.x0 : wb;
+            float u[T], v[T];
+            zeroT(u);
+            if (i < p)
+#pragma unroll
+                for (int t = 0; t < NMAX / G; ++t) {
+                    const int j = g + G * t;
+                    if (j < n) {
+                        const float mt = __ldg(MTk + j * np + n + i);
+                        ldT(v, xk + j * T);
+#pragma unroll
+                        for (int s = 0; s < T; ++s) u[s] = fmaf(mt, v[s], u[s]);
+                    }
+                }
+            group_sum<T, NMAX>(u);
+            __syncwarp();  // every lane has read x_k
+            if (g == 0 && i < p) {  // u = -K x - kff: M's -I block
+                float kf[T], z[T];
+                ldT(kf, S.kff.at(k, i));
+                ldT(z, S.zu.at(k, i));
+#pragma unroll
+                for (int s = 0; s < T; ++s) {
+                    u[s] -= kf[s];
+                    z[s] = (1.0f - theta[s]) * z[s] + theta[s] * u[s];
+                }
+                stT(S.zu.at(k, i), z);
+                stT(wb + i * T, u);
+            }
+            __syncwarp();
+            const float* xn = S.st.at(k, 0);  // x_{k+1}, [j][s]
+            for (int rw = lane; rw < m; rw += 32) {
+                float gg[T], y[T], yp[T];
+                float* yr = S.y.at(k, rw);
+                float* ypr = S.yp.at(k, rw);
+                ldT(y, yr);
+                ldT(yp, ypr);
+                const float hr = __ldg(c.h + k * m + rw);
+                row_dot<T, NMAX>(gg, rw, xn, wb, sh, d);
+#pragma unroll
+                for (int s = 0; s < T; ++s) {
+                    const float ys = y[s];
+                    const float w = ys + beta[s] * (ys - (keep[s] * yp[s] +
+                                                          (1.0f - keep[s]) * ys));
+                    const float yn = fmaxf(w + (gg[s] - hr) * inv_L, 0.0f);
+                    rsum[s] = fmaf(w - yn, yn - ys, rsum[s]);
+                    yp[s] = ys;
+                    y[s] = yn;
+                }
+                stT(ypr, yp);
+                stT(yr, y);
+            }
+            __syncwarp();
+        }
+        if (restart) {
+            warp_reduce<T>(rsum, false);
+            if (lane < T) {
+                float v = rsum[0];
+#pragma unroll
+                for (int s = 1; s < T; ++s)
+                    if (lane == s) v = rsum[s];
+                sh.rpart[warp * T + lane] = v;
+            }
+        }
+        RES_MARK(11);
+        __syncthreads();
+        RES_MARK(12);
+    }
+    if (stg) stage_wait();
+    RES_FLUSH();
+}
+
+template <int T, int NMAX>
+__global__ void __launch_bounds__(kResMaxThreads, 1)
 gpad_stagewise_resident_kernel(Args a) {
     extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
+    float* f = reinterpret_cast<float*>(smem4);
     const Dims& d = a.d;
+    const int W = blockDim.x >> 5, nt = blockDim.x;
     const long long b0 = (long long)blockIdx.x * T;
-    const Shared sh = carve_shared(smem, d, T);
+    ResShared r;
+    r.W = W;
+    r.wb = res_wb(d, T);
+    r.ls = res_ls(d, W);
+    Shared& sh = r.s;
+    sh = Shared{};
+    sh.Gx = f;
+    f += up4(d.m_x * d.gx_ld);
+    sh.Gu = f;
+    f += up4(d.m_u * d.gu_ld);
+    sh.x0 = f;
+    f += up4(d.n * T);
+    sh.wbuf = f;
+    f += up4(W * r.wb);
+    sh.rpart = f;
+    sh.vpart = f + W * T;
+    f += up4(2 * W * T);
+    if (a.chains_in_smem) {
+        r.Q = f;
+        f += res_q_floats(d, W);
+        r.stg = f;
+        f += up4(W * r.ls * d.n * d.n);
+    } else {
+        r.Q = a.qscratch + blockIdx.x * (long long)res_q_floats(d, W);
+        r.stg = nullptr;
+    }
     State<T> S;
-    float* next = smem + shared_floats(d, T);
-    carve_aux<T>(S, next, d);
-    next += aux_floats(d, T);
-    S.y = {next, d.m};
-    S.yp = {next + dual_floats(d, T), d.m};
-    solve_tile<T, NMAX, false>(a, S, sh, b0);
+    S.st = {f, d.n};
+    f += up4(d.N * d.n * T);
+    S.zu = {f, d.p};
+    f += up4(d.N * d.p * T);
+    S.ru = {f, d.p};
+    S.kff = S.ru;  // kff_k overwrites ru_k in P3
+    f += up4(d.N * d.p * T);
+    S.y = {f, d.m};
+    S.yp = {f + up4(d.N * d.m * T), d.m};
+    stage_shared<T>(sh, a.Gx, a.Gu, a.x0, a.B, b0, d, nt);
+    init_state<T>(S, a.y0, a.y0_stride, a.B, b0, d, nt);
+    resident_iterations<T, NMAX>(S, r, a.c, d, 1.0f / a.L[0], a.iterations,
+                                 a.restart != 0);
+    RES_CLOCK;
+    epilogue<T, NMAX, false>(S, sh, a.c, d, a.residual, a.gap, a.B, b0, W);
+    store_rows<T>(a.zu_out, S.zu, d.N, a.B, b0, nt);
+    store_rows<T>(a.y_out, S.y, d.N, a.B, b0, nt);
+    RES_MARK(13);
+    RES_FLUSH();
 }
 
 template <int T, int NMAX>
@@ -1023,7 +1698,7 @@ gpad_stagewise_stream_kernel(Args a) {
         }
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
-    solve_tile<T, NMAX, true>(a, S, shr, b0);
+    solve_tile<T, NMAX>(a, S, shr, b0);
 }
 
 int nmax_of(int n, int p) {
@@ -1032,40 +1707,42 @@ int nmax_of(int n, int p) {
 }
 
 template <typename K>
-cudaError_t launch(K kernel, const Args& a, int T, int smem, cudaStream_t st) {
+cudaError_t launch(K kernel, const Args& a, int T, int smem, cudaStream_t st,
+                   int threads) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const int grid = (a.B + T - 1) / T;
-    kernel<<<grid, kThreads, (size_t)smem, st>>>(a);
+    kernel<<<grid, threads, (size_t)smem, st>>>(a);
     return cudaGetLastError();
 }
 
 // Every (T, NMAX) instance of KERNEL, by T * 100 + NMAX.
-#define GPAD_SW_LAUNCH(KERNEL)                                      \
-    switch (T * 100 + nmax) {                                       \
-        case 108: return launch(KERNEL<1, 8>, a, T, smem, st);      \
-        case 116: return launch(KERNEL<1, 16>, a, T, smem, st);     \
-        case 132: return launch(KERNEL<1, 32>, a, T, smem, st);     \
-        case 208: return launch(KERNEL<2, 8>, a, T, smem, st);      \
-        case 216: return launch(KERNEL<2, 16>, a, T, smem, st);     \
-        case 232: return launch(KERNEL<2, 32>, a, T, smem, st);     \
-        case 408: return launch(KERNEL<4, 8>, a, T, smem, st);      \
-        case 416: return launch(KERNEL<4, 16>, a, T, smem, st);     \
-        case 432: return launch(KERNEL<4, 32>, a, T, smem, st);     \
-        case 808: return launch(KERNEL<8, 8>, a, T, smem, st);      \
-        case 816: return launch(KERNEL<8, 16>, a, T, smem, st);     \
-        case 832: return launch(KERNEL<8, 32>, a, T, smem, st);     \
-        default: return cudaErrorInvalidValue;                      \
+#define GPAD_SW_LAUNCH(KERNEL)                                              \
+    switch (T * 100 + nmax) {                                               \
+        case 108: return launch(KERNEL<1, 8>, a, T, smem, st, threads);     \
+        case 116: return launch(KERNEL<1, 16>, a, T, smem, st, threads);    \
+        case 132: return launch(KERNEL<1, 32>, a, T, smem, st, threads);    \
+        case 208: return launch(KERNEL<2, 8>, a, T, smem, st, threads);     \
+        case 216: return launch(KERNEL<2, 16>, a, T, smem, st, threads);    \
+        case 232: return launch(KERNEL<2, 32>, a, T, smem, st, threads);    \
+        case 408: return launch(KERNEL<4, 8>, a, T, smem, st, threads);     \
+        case 416: return launch(KERNEL<4, 16>, a, T, smem, st, threads);    \
+        case 432: return launch(KERNEL<4, 32>, a, T, smem, st, threads);    \
+        case 808: return launch(KERNEL<8, 8>, a, T, smem, st, threads);     \
+        case 816: return launch(KERNEL<8, 16>, a, T, smem, st, threads);    \
+        case 832: return launch(KERNEL<8, 32>, a, T, smem, st, threads);    \
+        default: return cudaErrorInvalidValue;                              \
     }
 
 cudaError_t launch_resident(const Args& a, int T, int nmax, int smem,
-                            cudaStream_t st) {
+                            cudaStream_t st, int threads) {
     GPAD_SW_LAUNCH(gpad_stagewise_resident_kernel)
 }
 
 cudaError_t launch_stream(const Args& a, int T, int nmax, int smem,
                           cudaStream_t st) {
+    const int threads = kThreads;
     GPAD_SW_LAUNCH(gpad_stagewise_stream_kernel)
 }
 
@@ -1106,32 +1783,38 @@ extern "C" {
 // cudaErrorInvalidValue for a shape they do not take or `smem` below the
 // carve-up's need, else cudaGetLastError() after the launch. `smem` is the
 // block's dynamic shared memory in bytes, computed by the caller
-// (stagewise_kernel.py::_smem_bytes) so the routing guard and the launch
-// agree; a block holds 2**log2_tile scenarios, log2_tile in [0, 3].
+// (stagewise_kernel.py) so the routing guard and the launch agree; a block
+// holds 2**log2_tile scenarios, log2_tile in [0, 3].
 
+// The resident kernel on blocks of `warps` (8 or 16) warps. With
+// `chains_in_smem` 0 the chains read their matrices from device memory and
+// `qscratch` holds res_q_floats floats per block for the segment products.
 int gpad_stagewise_launch(
     const float* RT, const float* HBT, const float* MT, const float* Gx,
     const float* Gu, const float* h, const float* V, const float* theta,
     const float* beta, const float* L, const float* x0, const float* y0,
     long long y0_stride, int B, int N, int n, int p, int m_x, int m_u,
-    int iterations, int restart, int log2_tile, float* y_out, float* zu_out,
+    int iterations, int restart, int log2_tile, int warps,
+    int chains_in_smem, float* qscratch, float* y_out, float* zu_out,
     float* residual, float* gap, int smem, void* stream)
 {
-    if (bad_shape(B, N, n, p, m_x, m_u, log2_tile))
+    if (bad_shape(B, N, n, p, m_x, m_u, log2_tile) ||
+        (warps != 8 && warps != 16) || (!chains_in_smem && !qscratch))
         return (int)cudaErrorInvalidValue;
     Args a = make_args(RT, HBT, MT, nullptr, Gx, Gu, h, V, theta, beta, L,
                        x0, y0, y0_stride, B, N, n, p, m_x, m_u, iterations,
                        restart, log2_tile);
     const int T = 1 << log2_tile;
-    const long long need = 4LL * (shared_floats(a.d, T) + aux_floats(a.d, T) +
-                                  2LL * dual_floats(a.d, T));
-    if (need > smem) return (int)cudaErrorInvalidValue;
+    if (4LL * res_floats(a.d, T, warps, chains_in_smem != 0) > smem)
+        return (int)cudaErrorInvalidValue;
+    a.chains_in_smem = chains_in_smem;
+    a.qscratch = qscratch;
     a.y_out = y_out;
     a.zu_out = zu_out;
     a.residual = residual;
     a.gap = gap;
     return (int)launch_resident(a, T, nmax_of(n, p), smem,
-                                (cudaStream_t)stream);
+                                (cudaStream_t)stream, 32 * warps);
 }
 
 // y_work and yp_work hold dual_floats(T) floats per block of T scenarios
@@ -1170,8 +1853,8 @@ int gpad_stagewise_stream_launch(
 }
 
 #ifdef GPAD_SW_PROFILE
-// The phases' cycles summed over the blocks since the last read, into
-// out[kPhases]; clears them.
+// The streamed kernel's phase cycles summed over the blocks since the last
+// read, into out[kPhases]; clears them.
 int gpad_stagewise_profile_read(unsigned long long* out)
 {
     cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_cycles,
@@ -1179,6 +1862,17 @@ int gpad_stagewise_profile_read(unsigned long long* out)
     if (err != cudaSuccess) return (int)err;
     const unsigned long long zero[kPhases] = {};
     return (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+}
+
+// The resident kernel's part cycles summed over every warp since the last
+// read, into out[kResPhases]; clears them.
+int gpad_stagewise_resident_profile_read(unsigned long long* out)
+{
+    cudaError_t err = cudaMemcpyFromSymbol(out, g_res_cycles,
+                                           sizeof(g_res_cycles));
+    if (err != cudaSuccess) return (int)err;
+    const unsigned long long zero[kResPhases] = {};
+    return (int)cudaMemcpyToSymbol(g_res_cycles, zero, sizeof(zero));
 }
 #endif
 

@@ -16,25 +16,28 @@ Executors behind ``solve_stagewise``:
 
 - ``engine="torch"``: a loop of tensor ops with the batch written out
   (JAX vmaps a ``lax.scan``). Everything that does not depend on the
-  previous stage is hoisted out of the two sweeps as one batched product,
-  so each stage step is one ``addmm``;
+  previous stage is hoisted out of the two sweeps as one batched product.
+  ``scan="sequential"`` runs each sweep one ``addmm`` per stage;
+  ``scan="associative"`` (JAX's parallel-prefix sweeps) composes the
+  sweep's affine stage maps by doubling, ceil(log2 N) rounds of batched
+  products; ``scan="auto"`` takes the latter where JAX does (per-stage
+  size n_x + n_u <= 24 below a batch of 1024, a TPU-measured rule);
 - ``engine="cuda"``: the resident kernel (``stagewise_kernel``, the
   counterpart of JAX's whole-VMEM Pallas kernel, ``engine="pallas"``);
 - ``engine="stream"``: the streamed kernel (``stagewise_stream``) for dual
   state too large for one block's shared memory;
 - ``engine="auto"``: on a CUDA device, fixed mode without runtime
   ``q_lin``/``c`` takes a kernel: the streamed one where
-  ``stagewise_fits_smem`` admits no tile of the resident one, and also
-  where the batch spans more than one wave of resident blocks and an SM
-  holds more scenarios of the streamed kernel
-  (``stagewise_kernel.resident_preferred``, after the H100 timings in
-  PERF.md, §6); else the resident one. Everything else (eps mode,
-  runtime parameters, CPU data) runs the torch engine.
+  ``stagewise_fits_smem`` admits no tile of the resident one, else
+  ``stagewise_kernel.resident_preferred`` decides (the resident one where
+  its tile could stage the chains in shared memory and its grid runs in
+  one wave or holds 8 scenarios a block; after the H100 timings in
+  PERF.md, §6). Everything else (eps mode, runtime parameters,
+  ``scan="associative"``, CPU data) runs the torch engine.
 
-``scan="associative"`` (JAX's parallel-prefix sweeps) is not ported; see
-``ROADMAP.md`` Queue 1, item 7. ``stack_stagewise``,
-``solve_stagewise_multi`` and ``solve_stagewise_jit`` are not ported either
-(PyTorch runs eagerly, so a jitted entry has no counterpart).
+``stack_stagewise``, ``solve_stagewise_multi`` and ``solve_stagewise_jit``
+are not ported (PyTorch runs eagerly, so a jitted entry has no
+counterpart).
 
 Internally the engine keeps per-stage tensors stage-major, (N, B, ...), so
 each stage is a contiguous (B, ...) slice; the public layouts are those of
@@ -419,6 +422,11 @@ AUTO_STAGEWISE_ABOVE_MB = 256.0
 AUTO_STAGEWISE_HORIZON = 170
 # large-batch branch: stage-wise from this horizon when batch >= 24 N
 AUTO_STAGEWISE_MIN_HORIZON_BATCHED = 60
+# the torch engine's scan="auto": parallel-prefix sweeps for per-stage size
+# n_x + n_u at most this, below this batch (tpu_gpad.stagewise.
+# solve_stagewise's rule, from the TPU's STAGEWISE.json ladder)
+AUTO_ASSOC_MAX_STATE = 24
+AUTO_ASSOC_MAX_BATCH = 1024
 
 
 def stagewise_preferred(
@@ -535,15 +543,16 @@ class _Consts:
     qoff: torch.Tensor
     c: torch.Tensor
     inv_L: torch.Tensor
+    assoc: bool = False  # the sweeps as parallel prefixes (_lqr_solve_assoc)
 
 
-def _consts(data: StagewiseData, dtl, qoff, c) -> _Consts:
+def _consts(data: StagewiseData, dtl, qoff, c, assoc: bool = False) -> _Consts:
     tr = lambda a: a.transpose(1, 2).contiguous()
     return _Consts(
         A=data.A_seq, Gx=data.Gx, Gu=data.Gu, hx=data.hx[:, None], hu=data.hu[:, None],
         E=data.E, ET=tr(data.E), K=data.K, KT=tr(data.K), HiT=tr(data.Hi),
         B=data.B_seq, BT=tr(data.B_seq), dtl=dtl, qoff=qoff, c=c,
-        inv_L=1.0 / data.L,
+        inv_L=1.0 / data.L, assoc=assoc,
     )
 
 
@@ -576,12 +585,51 @@ def _lqr_solve(cs: _Consts, qx, ru, x0):
     return xs, us
 
 
+def _affine_prefix(M, b):
+    """Inclusive prefixes of the affine maps v -> v @ M_t + b_t (row
+    vectors), t = 0..L-1, ``M`` (L, n, n) shared by the batch and ``b``
+    (L, B, n): returns (P, c) with v_t = v_{-1} @ P_t + c_t. Hillis-Steele
+    doubling, map t composed after map t - d for d = 1, 2, 4, ...: ceil(log2
+    L) rounds of two batched products (JAX's ``associative_scan`` over
+    ``_affine_combine`` composes the same maps in another tree)."""
+    P, c = M, b
+    d = 1
+    while d < M.shape[0]:
+        c = torch.cat([c[:d], torch.baddbmm(c[d:], c[:-d], P[d:])])
+        P = torch.cat([P[:d], torch.matmul(P[:-d], P[d:])])
+        d *= 2
+    return P, c
+
+
+def _lqr_solve_assoc(cs: _Consts, qx, ru, x0):
+    """``_lqr_solve`` with both sweeps as parallel prefixes (the torch
+    counterpart of ``tpu_gpad.stagewise._lqr_solve_assoc``): the backward
+    sweep s_k = a_k + s_{k+1} E_{k+1} read from the tail and the forward
+    one x_{k+1} = x_k E_k' + d_k are affine recurrences whose stage maps
+    compose associatively, so each takes ceil(log2 N) rounds of batched
+    products in place of N dependent steps."""
+    N = qx.shape[0]
+    st = torch.empty_like(qx)
+    st[N - 1] = qx[N - 1]
+    if N > 1:
+        a = torch.baddbmm(qx[:-1], ru[1:], cs.K[1:], alpha=-1.0)
+        P, c = _affine_prefix(cs.E[1:].flip(0), a.flip(0))
+        st[:-1] = (torch.matmul(qx[N - 1], P) + c).flip(0)
+    kff = torch.bmm(torch.baddbmm(ru, st + cs.dtl, cs.B), cs.HiT)
+    d = torch.baddbmm(cs.c.expand_as(st), kff, cs.BT, alpha=-1.0)
+    P, c = _affine_prefix(cs.ET, d)
+    xs = torch.matmul(x0, P) + c
+    x_lin = torch.cat([x0[None], xs[:-1]], dim=0)
+    us = torch.baddbmm(kff, x_lin, cs.KT).neg_()
+    return xs, us
+
+
 def _oracle(cs: _Consts, w, x0, m_x: int):
     """zhat(w) and the dual gradient g(w) = G zhat - h, stage-major:
     returns (xs, us, g) with g (N, B, m_x + m_u)."""
     qx = torch.matmul(w[..., :m_x], cs.Gx) + cs.qoff
     ru = torch.matmul(w[..., m_x:], cs.Gu)
-    xs, us = _lqr_solve(cs, qx, ru, x0)
+    xs, us = (_lqr_solve_assoc if cs.assoc else _lqr_solve)(cs, qx, ru, x0)
     return xs, us, _rows(cs, xs, us)
 
 
@@ -770,12 +818,23 @@ def _kernel_route(data: StagewiseData, B: int, engine: str):
 
 
 def resolve_stagewise_engine(data: StagewiseData, B: int, engine: str = "auto",
-                             mode: str = "fixed", runtime: bool = False) -> str:
+                             mode: str = "fixed", runtime: bool = False,
+                             scan: str = "auto") -> str:
     """The executor ``solve_stagewise`` runs: "cuda" (resident kernel),
     "stream" (streamed kernel) or "torch"."""
-    if engine == "torch" or mode != "fixed" or runtime:
+    if engine == "torch" or mode != "fixed" or runtime or scan == "associative":
         return "torch"
     return _kernel_route(data, B, engine) or "torch"
+
+
+def resolve_scan(data: StagewiseData, B: int, scan: str = "auto") -> str:
+    """The torch engine's sweeps: "associative" or "sequential"; "auto"
+    takes the parallel prefixes for n_x + n_u <= AUTO_ASSOC_MAX_STATE below
+    a batch of AUTO_ASSOC_MAX_BATCH, as ``tpu_gpad`` does (TPU-measured)."""
+    if scan != "auto":
+        return scan
+    small = data.n_x + data.n_u <= AUTO_ASSOC_MAX_STATE
+    return "associative" if small and B < AUTO_ASSOC_MAX_BATCH else "sequential"
 
 
 def solve_stagewise(
@@ -807,9 +866,11 @@ def solve_stagewise(
     ``engine``: "auto" | "torch" | "cuda" (the resident kernel) | "stream"
     (the streamed kernel); see the module docstring for the routing. The
     kernels take fixed mode without runtime parameters on CUDA data;
-    forcing one elsewhere raises. ``scan``: "auto" and "sequential" are the
-    port's one executor; "associative" raises ``NotImplementedError``.
-    ``unroll`` is accepted for parity and has no effect.
+    forcing one elsewhere raises. ``scan`` picks the torch engine's sweeps:
+    "sequential" (one step per stage), "associative" (parallel prefixes;
+    it implies the torch engine, and a forced kernel raises) or "auto"
+    (``resolve_scan``). ``unroll`` is accepted for parity and has no
+    effect.
 
     ``q_lin`` / ``c`` (broadcastable to (..., N, n_x)) are per-solve runtime
     parameters: a linear state-cost term per stage and an affine dynamics
@@ -828,11 +889,8 @@ def solve_stagewise(
     if scan not in ("auto", "sequential", "associative"):
         raise ValueError(
             f"scan must be 'auto', 'sequential' or 'associative': {scan!r}")
-    if scan == "associative":
-        raise NotImplementedError(
-            "scan='associative' (parallel-prefix sweeps) is not ported to "
-            "tpu_gpad_torch (ROADMAP.md Queue 1, item 7: only if an H100 "
-            "measurement shows it wins); use scan='sequential'")
+    if scan == "associative" and engine in ("cuda", "stream"):
+        raise ValueError("stagewise kernels imply sequential scan")
     if mode not in ("fixed", "eps"):
         raise ValueError(f"mode must be 'fixed' or 'eps': {mode!r}")
     n_iters = int(iterations) if iterations is not None else data.max_iters
@@ -861,7 +919,7 @@ def solve_stagewise(
         raise ValueError(
             "stagewise kernels cover mode='fixed' only; eps mode rides the "
             "torch engine (engine='torch'/'auto')")
-    route = resolve_stagewise_engine(data, B, engine, mode, has_runtime)
+    route = resolve_stagewise_engine(data, B, engine, mode, has_runtime, scan)
     rs = lambda a: a.reshape(batch_shape + tuple(a.shape[1:]))
     if route in ("cuda", "stream"):
         from tpu_gpad_torch import stagewise_kernel, stagewise_stream
@@ -883,7 +941,8 @@ def solve_stagewise(
         dtl, qoff, cc = _runtime_consts(data, B, batch_shape, q_lin, c)
     else:
         dtl, qoff, cc = (a[:, None] for a in (data.dtl, data.qoff, data.c_seq))
-    cs = _consts(data, dtl, qoff, cc)
+    cs = _consts(data, dtl, qoff, cc,
+                 assoc=resolve_scan(data, B, scan) == "associative")
     y = (torch.zeros((N, B, m), dtype=torch.float32, device=dev) if y0 is None
          else y0.transpose(0, 1).contiguous())
     if mode == "eps":

@@ -41,12 +41,12 @@ def stream_layout(data, B: int, sms: int, log2_tile: int | None = None):
         while log2_tile > 0 and -(-B // (1 << log2_tile)) < sms:
             log2_tile -= 1
     T = 1 << log2_tile
-    smem = sk._smem_bytes(data, T, False, True)
+    smem = sk._smem_bytes(data, T, True)
     if smem <= kernels.SMEM_LIMIT_BYTES and (
             sk.blocks_per_sm(smem) == sk._MAX_BLOCKS_PER_SM
             or -(-B // T) <= sms * sk.blocks_per_sm(smem)):
         return log2_tile, True, smem
-    return log2_tile, False, sk._smem_bytes(data, T, False, False)
+    return log2_tile, False, sk._smem_bytes(data, T, False)
 
 
 def stagewise_stream_compatible(data) -> tuple:
@@ -54,7 +54,7 @@ def stagewise_stream_compatible(data) -> tuple:
     ok, why = sk._shape_ok(data)
     if not ok:
         return ok, why
-    if sk._smem_bytes(data, 1, False, False) > kernels.SMEM_LIMIT_BYTES:
+    if sk._smem_bytes(data, 1, False) > kernels.SMEM_LIMIT_BYTES:
         return False, "the constraint blocks exceed a block's shared memory"
     return True, ""
 
