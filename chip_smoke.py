@@ -23,9 +23,17 @@ kernel too) and the CLI's ``closedloop`` and ``info``; and the
 stage-wise O(N) engine at full width: ``auto_solver``
 at battery n30 N200 B1024 (the streamed kernel) and n8 N60 B4096 and
 B1024 (the resident kernel), a warm ``StagewiseController`` and the
-long-horizon eps example (the torch engine). It times kernels and plain
-versions with CUDA events, computes each kernel's roofline bound from its
-shapes, and prints one JSON object per phase. Any failed check exits
+long-horizon eps example (the torch engine); and the estimation and
+robust stacks: a ``scenario_qp`` stack of three actuator realizations
+served through ``Controller.from_qp`` (a fixed solve, warm restart steps
+and ``solve_to_accuracy``: the flat, dual and chunk kernels), its
+stage-wise twin (the resident and the streamed kernel), moving-horizon
+estimation (a window of 180 on the tiled dual kernel, a stream at window
+60 on the dual kernel, and a big-state window on the stage-wise torch
+engine against a float64 host solve) and the offset-free controller (the
+dual kernel), each leg's launches counted from 0. It times kernels and
+plain versions with CUDA events, computes each kernel's roofline bound
+from its shapes, and prints one JSON object per phase. Any failed check exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``. It imports
 neither jax nor ``tpu_gpad``. Without a CUDA device it exits non-zero and
 prints no result.
@@ -124,6 +132,29 @@ TILED_MID = dict(n_cells=5, horizon=30)
 FLAG_SERVE_STEPS, FLAG_SERVE_SETTLE = 20, 5
 FLAG_EPS_TOL = 1e-4
 FLAG_CLI_STEPS = 5
+# The robust stack: three actuator realizations (B x 0.8, 1.0, 1.2) of
+# battery n3 N10 as one scenario_qp stack served to the 256 plants, its
+# stage-wise twin at n3 N10 and n8 N60 (B256 x 200), converged at 2000
+ROBUST = (3, 10)
+ROBUST_SCALES = (0.8, 1.0, 1.2)
+ROBUST_STEPS = 20
+ROBUST_TWIN_ITERS, ROBUST_TWIN_CONVERGED = 200, 2000
+ROBUST_TWIN_TOL = 1e-3  # converged first moves, twin against condensed
+# MHE: the double integrator (dt 0.1) over MHE_STAGEWISE.json's window of
+# 180 on 256 streams x 400 restart iterations, with state and disturbance
+# boxes; a stream at window 60; tools/bench_mhe_stagewise.py's big-state
+# plant past the 256 MB backstop (the stage-wise engine)
+MHE_WINDOW, MHE_BATCH, MHE_ITERS = 180, 256, 400
+MHE_KW = dict(W=np.diag([1e-4, 4e-3]), V=np.array([[1e-2]]),
+              x_min=np.array([-1.2, -0.8]), x_max=np.array([1.2, 0.8]),
+              w_min=np.full(2, -0.05), w_max=np.full(2, 0.05))
+MHE_STREAM_WINDOW, MHE_STREAM_UPDATES = 60, 30
+MHE_BIG = dict(n_x=30, n_u=8, n_y=15, window=120, batch=64, iterations=200)
+MHE_REF_WINDOWS = 8
+MHE_TOL = 1e-4  # |x_hat - reference| relative to the reference's scale
+# examples/offset_free_mpc.py: bias 0.08, setpoint 1.5, 120 steps
+OFFSET_STEPS, OFFSET_ITERS, OFFSET_BIAS, OFFSET_R, OFFSET_TOL = (
+    120, 80, 0.08, 1.5, 1e-3)
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 outside the tensor
 # cores, and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -472,6 +503,20 @@ def launch_counts(kernels, dual_kernels, sk, ss) -> dict:
         "gpad_stagewise_stream": ss.STAGEWISE_STREAM_LAUNCHES,
     }
     return {k: v for k, v in counts.items() if v}
+
+
+def counted(torch, ctr, fn, want, what):
+    """Run ``fn`` with every launch count at 0 and return (its result, the
+    launches it made); ``want`` is the launches it must make, or a function
+    of the result that gives them. ``ctr`` = (kernels, dual_kernels, sk,
+    ss)."""
+    reset_counters(*ctr)
+    res = fn()
+    torch.cuda.synchronize()
+    got = launch_counts(*ctr)
+    want = want(res) if callable(want) else want
+    check(got == want, f"{what}: launches {got}, expected {want}")
+    return res, got
 
 
 def phase_dual_kernel_vs_plain(torch, tg, dual_kernels, core):
@@ -1278,6 +1323,11 @@ def flag_x0(torch, n_x, B, seed):
     return X0np, torch.as_tensor(X0np, device=DEVICE)
 
 
+def parted_max(B: int) -> int:
+    """How many of B scenarios a flipped restart decision may part."""
+    return max(1, int(SW_RESTART_PARTED_SHARE * B))
+
+
 def restart_parting(torch, data, g_P, p_D, y0, z_k, z_p):
     """A restart run of a dual kernel (z_k) against the plain version
     (z_p), per scenario, and both against the plain version in
@@ -1302,7 +1352,7 @@ def restart_parting(torch, data, g_P, p_D, y0, z_k, z_p):
     parted = e_k > RESTART_TOL
     return {"u_z": e_k[~parted].max().item() if not parted.all() else None,
             "parted": int(parted.sum()),
-            "parted_max": max(1, int(SW_RESTART_PARTED_SHARE * z_k.shape[0])),
+            "parted_max": parted_max(z_k.shape[0]),
             "u_z_parted_max": e_k.max().item(),
             "parted_vs_float64": int((e_k64 > RESTART_TOL).sum()),
             "plain_parted_vs_float64": int((e_p64 > RESTART_TOL).sum())}
@@ -1481,15 +1531,10 @@ def phase_flagship_path(torch, tg, kernels, dual_kernels, core, reference, sk, s
     total = {}
 
     def leg(name, fn, expect):
-        """Run ``fn`` with every count at 0; ``expect`` maps the result to
-        the launches it must have made."""
-        reset_counters(kernels, dual_kernels, sk, ss)
-        res = fn()
-        torch.cuda.synchronize()
-        got = launch_counts(kernels, dual_kernels, sk, ss)
-        want = expect(res) if callable(expect) else expect
+        """Run ``fn`` with every count at 0 (``counted``)."""
+        res, got = counted(torch, (kernels, dual_kernels, sk, ss), fn, expect,
+                           f"flagship {name}")
         out[name] = {"launches": got}
-        check(got == want, f"flagship {name}: launches {got}, expected {want}")
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
         return res
@@ -1508,8 +1553,7 @@ def phase_flagship_path(torch, tg, kernels, dual_kernels, core, reference, sk, s
         kernel=core.cuda_kernel(flag, cfg), residual_max=res.residual.max().item(),
         u_vs_torch_engine=du[~parted].max().item() if not parted.all() else None,
         parted=int(parted.sum()), u_parted_max=du.max().item())
-    check(out["restart"]["parted"] <= max(1, int(SW_RESTART_PARTED_SHARE
-                                                 * FLAG_BATCH))
+    check(out["restart"]["parted"] <= parted_max(FLAG_BATCH)
           and bool(torch.isfinite(res.u).all()),
           f"flagship restart u vs torch engine {out['restart']}")
 
@@ -1894,15 +1938,14 @@ def phase_stagewise_kernels_vs_plain(torch, tg, sk, ss):
                              y0=y_warm[:5].contiguous()),
         }
         fixed = max(v["u_z"] for k, v in cases.items() if k != "restart")
-        parted_max = max(1, int(SW_RESTART_PARTED_SHARE * B))
         emit({"phase": "stagewise_kernels_vs_plain", "kernel": name,
               "shape": {"n_x": data.n_x, "horizon": data.horizon, "batch": B,
                         "iterations": iters}, "max_abs_err": cases,
               "tol_u_z": KERNEL_TOL, "restart_tol_u_z": RESTART_TOL,
-              "restart_parted_max": parted_max})
+              "restart_parted_max": parted_max(B)})
         check(fixed <= KERNEL_TOL, f"{name} kernel vs plain: {cases}")
         rs = cases["restart"]
-        check(rs["parted"] <= parted_max and rs["u_z"] is not None
+        check(rs["parted"] <= parted_max(B) and rs["u_z"] is not None
               and rs["u_z"] <= RESTART_TOL,
               f"{name} kernel vs plain under restart: {rs}")
         worst[name] = max(fixed, rs["u_z"])
@@ -2291,6 +2334,475 @@ def profile_stagewise(torch, tg, sk, ss, smi):
         sk._launch_fns = plain_fns
 
 
+# ---------------------------------------------------------------------------
+# the estimation and robust stacks
+# ---------------------------------------------------------------------------
+
+
+def rate(fn, per_call: int, repeats: int = 10) -> dict:
+    """CUDA-event time of ``fn()`` after warm-up (median of ``repeats``),
+    and the rate of ``per_call`` solves or windows a call."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    s = device_time_per_call(fn, warmup=2, repeats=repeats)
+    return {"ms": s * 1e3, "per_s": per_call / s}
+
+
+def robust_variants(tg, shape):
+    """Battery ``shape`` with three actuator realizations, B x 0.8, 1.0 and
+    1.2 (``scenario_problem_variants``)."""
+    nominal = tg.problems.battery(*shape)
+    return tg.scenario_problem_variants(
+        nominal, B_list=[np.asarray(nominal.B) * s for s in ROBUST_SCALES])
+
+
+def phase_robust_path(torch, tg, ctr, reference, smi):
+    """The robust scenario stack: ``scenario_qp`` of three actuator
+    realizations of battery n3 N10 (n_z 84, paired, n_struct 118) served
+    through ``Controller.from_qp`` to 256 plants, each leg counted from 0:
+    a fixed solve (the flat kernel), 20 warm restart steps (the dual
+    kernel) and ``solve_to_accuracy(1e-5)`` (the chunk kernel, one launch
+    per window). Each against the torch engine on the same data (restart
+    per scenario); every scenario's plan applies the shared first move.
+    Returns the launches by leg."""
+    from tpu_gpad_torch import robust
+    from tpu_gpad_torch.solver import core
+
+    variants = robust_variants(tg, ROBUST)
+    S, (n_x, N) = len(variants), ROBUST
+    qp = tg.scenario_qp([tg.condense(p) for p in variants])
+    cfg_r = tg.SolverConfig(iterations=ITERS, restart=True)
+    ctl = tg.Controller.from_qp(qp, config=cfg_r, device=DEVICE)
+    data = ctl.data
+    X0np = np.random.default_rng(61).uniform(
+        -0.4, 0.4, (SERVE_PLANTS, n_x)).astype(np.float32)
+    X0 = torch.as_tensor(X0np, device=DEVICE)
+    out = {"phase": "robust_path", "scenarios": S, "plants": SERVE_PLANTS,
+           "shape": {"n_z": data.n_z, "m_half": data.m_half,
+                     "n_struct": data.n_struct}}
+    launches = {}
+
+    def shared_move(z, u) -> float:
+        """max over scenarios of |scenario s's first planned move - u|."""
+        u = u.cpu().numpy()
+        return max(float(np.abs(robust.scenario_plan(z, s, n_x, N, S)[:, 0]
+                                - u).max()) for s in range(S))
+
+    cfg_f = tg.SolverConfig(iterations=ITERS)
+    res, launches["fixed"] = counted(
+        torch, ctr, lambda: tg.solve_batch(data, X0, cfg_f),
+        {"gpad_paired_flat": 1}, "robust fixed solve")
+    ref = tg.solve_batch(data, X0, dataclasses.replace(cfg_f, engine="torch"))
+    oracle = [float(np.abs(res.u[i].cpu().numpy() - reference.gpad_solve_qp(
+        qp, X0np[i].astype(np.float64), ITERS).u).max()) for i in range(4)]
+    out["fixed"] = {"kernel": core.cuda_kernel(data, cfg_f),
+                    "u_vs_torch_engine": (res.u - ref.u).abs().max().item(),
+                    "u_vs_oracle": oracle,
+                    "shared_move": shared_move(res.z, res.u)}
+    check(bool(torch.isfinite(res.z).all())
+          and out["fixed"]["u_vs_torch_engine"] <= ORACLE_TOL
+          and max(oracle) < ORACLE_TOL, f"robust fixed solve {out['fixed']}")
+    check(out["fixed"]["shared_move"] == 0.0,
+          f"a scenario's plan left the shared move {out['fixed']}")
+
+    A = np.asarray(variants[1].A, dtype=np.float32)  # the nominal plant
+    Bm = np.asarray(variants[1].B, dtype=np.float32)
+
+    def serve():
+        x, steps, step_ms = X0np.copy(), [], []
+        for _ in range(ROBUST_STEPS):
+            y0 = ctl._y
+            t0 = time.perf_counter()
+            u = ctl.step(x)  # host NumPy: the device work is done
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            res = ctl.last_result
+            ref = tg.solve_batch(data, x, dataclasses.replace(
+                cfg_r, engine="torch"), y0=y0)
+            du = (res.u - ref.u).abs().amax(dim=1)
+            parted = du > RESTART_TOL  # a restart decision flipped near 0
+            steps.append({
+                "parted": int(parted.sum()),
+                "u_vs_torch_engine": du[~parted].max().item()
+                if not parted.all() else None,
+                "shared_move": shared_move(res.z, res.u),
+                "max_abs_u": float(np.abs(u).max()),
+                "max_abs_sum_u": float(np.abs(u.sum(1)).max())})
+            x = x @ A.T + u @ Bm.T
+        return steps, step_ms
+
+    (steps, step_ms), launches["restart_steps"] = counted(
+        torch, ctr, serve, {"gpad_dual": ROBUST_STEPS}, "robust restart steps")
+    worst = lambda k: max(s[k] for s in steps if s[k] is not None)
+    out["restart_steps"] = {
+        "steps": ROBUST_STEPS, "iterations": ITERS,
+        "kernel": core.cuda_kernel(data, cfg_r),
+        "parted_per_step": [s["parted"] for s in steps],
+        "parted_max": parted_max(SERVE_PLANTS),
+        "u_vs_torch_engine": worst("u_vs_torch_engine"),
+        "shared_move": worst("shared_move"), "max_abs_u": worst("max_abs_u"),
+        "max_abs_sum_u": worst("max_abs_sum_u"),
+        "step_ms_host_clock": {"median": float(np.median(step_ms[1:])),
+                               "first": step_ms[0]}}
+    rs = out["restart_steps"]
+    check(max(rs["parted_per_step"]) <= rs["parted_max"]
+          and rs["u_vs_torch_engine"] <= RESTART_TOL,
+          f"robust restart steps vs torch engine {rs}")
+    check(rs["shared_move"] == 0.0 and rs["max_abs_u"] <= 0.3 + 1e-2
+          and rs["max_abs_sum_u"] <= 1e-2, f"robust moves {rs}")
+
+    res, launches["eps"] = counted(
+        torch, ctr, lambda: tg.solve_to_accuracy(data, X0, tol=EPS_TOL),
+        lambda r: {"gpad_dual_chunk": -(-int(r.iterations.max()) // 10)},
+        "robust solve_to_accuracy")
+    ref = tg.solve_to_accuracy(data, X0, tol=EPS_TOL, engine="torch")
+    agree = eps_agreement(res, ref)
+    out["eps"] = {"tol": EPS_TOL, "iterations_max": int(res.iterations.max()),
+                  "converged_all": bool(res.converged.all()),
+                  "residual_max": res.residual.max().item(),
+                  "vs_torch_engine": agree}
+    check(bool(res.converged.all())
+          and res.residual.max().item() <= EPS_TOL + EPS_SLACK,
+          f"robust eps {out['eps']}")
+    check(agree["agree"] >= agree["batch"] - parted_max(agree["batch"]),
+          f"robust eps vs torch engine {agree}")
+    out["launches"] = launches
+    # solves/s through the entry points, after warm-up (CUDA events)
+    out["solves_per_s"] = {
+        "gpu": smi, "batch": SERVE_PLANTS,
+        "fixed": rate(lambda: tg.solve_batch(data, X0, cfg_f), SERVE_PLANTS),
+        "restart": rate(lambda: tg.solve_batch(data, X0, cfg_r), SERVE_PLANTS),
+        "solve_to_accuracy": rate(lambda: tg.solve_to_accuracy(
+            data, X0, tol=EPS_TOL), SERVE_PLANTS, repeats=5)}
+    emit(out)
+    return launches
+
+
+def phase_robust_stagewise_path(torch, tg, ts, ctr, smi):
+    """The stage-wise twin of the robust stack (``scenario_stagewise_
+    problem``: the three realizations as one block plant, the shared first
+    move as equality rows at stage 0): at n3 N10 (n_x = n_u = 9, the
+    resident kernel) and battery n8 N60 (n_x = n_u = 24, the streamed
+    kernel), B256 x 200 fixed iterations, each against the torch engine.
+    Once converged (2000 restart iterations, the same kernel), the
+    non-anticipativity rows hold within KERNEL_TOL; at n3 N10 the first
+    move also agrees with the condensed ``scenario_qp`` solve (the dual
+    kernel). Returns the launches by leg."""
+    from tpu_gpad_torch import robust
+
+    out = {"phase": "robust_stagewise_path", "batch": SERVE_PLANTS,
+           "iterations": ROBUST_TWIN_ITERS}
+    launches, rates = {}, {"gpu": smi, "batch": SERVE_PLANTS}
+    counter = {"cuda": "gpad_stagewise_resident",
+               "stream": "gpad_stagewise_stream"}
+    cfg = tg.SolverConfig(iterations=ROBUST_TWIN_CONVERGED, restart=True)
+
+    def gap(z, S, n_u, N) -> float:
+        """max over the batch and scenarios of |u^s_0 - u^1_0|."""
+        plans = robust.scenario_stagewise_plans(z, S, n_u, N)
+        return float(np.abs(plans[:, :, 0] - plans[:, :1, 0]).max())
+
+    for shape, expect in ((ROBUST, "cuda"), (SW_RES, "stream")):
+        variants = robust_variants(tg, shape)
+        S, (n_u, N) = len(variants), shape
+        data = tg.build_stagewise(robust.scenario_stagewise_problem(variants),
+                                  iterations=ROBUST_TWIN_ITERS, device=DEVICE)
+        X0np = np.random.default_rng(62).uniform(
+            -0.4, 0.4, (SERVE_PLANTS, n_u)).astype(np.float32)
+        X = torch.as_tensor(robust.scenario_stagewise_x0(X0np, S),
+                            device=DEVICE)
+        route = ts.resolve_stagewise_engine(data, SERVE_PLANTS)
+        key = f"battery_n{shape[0]}_N{shape[1]}"
+        res, launches[key] = counted(
+            torch, ctr, lambda: tg.solve_stagewise(data, X),
+            {counter[expect]: 1}, f"twin {key}")
+        ref = tg.solve_stagewise(data, X, engine="torch")
+        out[key] = {"n_x": data.n_x, "n_u": data.n_u, "m_x": data.m_x,
+                    "m_u": data.m_u, "route": route,
+                    "u_z_vs_torch_engine": max_err((res.u, res.z),
+                                                   (ref.u, ref.z)),
+                    "residual_max": res.residual.max().item(),
+                    "non_anticipativity_max": gap(res.z, S, n_u, N)}
+        check(route == expect, f"twin {key} routed to {route}")
+        check(out[key]["u_z_vs_torch_engine"] <= KERNEL_TOL,
+              f"twin {key} vs torch engine {out[key]}")
+        rates[key] = rate(lambda: tg.solve_stagewise(data, X), SERVE_PLANTS)
+
+        # converged: the shared first move holds; at n3 N10 it is the
+        # condensed stack's first move
+        leg, want, cond = f"{key}_converged", {counter[expect]: 1}, None
+        if shape == ROBUST:
+            qp = tg.scenario_qp([tg.condense(p) for p in variants])
+            cond = tg.dualize(qp, ITERS, paired="auto", device=DEVICE)
+            want["gpad_dual"] = 1
+        both = lambda: (tg.solve_stagewise(data, X, config=cfg),
+                        None if cond is None
+                        else tg.solve_batch(cond, X0np, cfg))
+        (tw, cd), launches[leg] = counted(torch, ctr, both, want,
+                                          f"twin {key} converged")
+        out[leg] = {"iterations": ROBUST_TWIN_CONVERGED,
+                    "residual_max": tw.residual.max().item(),
+                    "non_anticipativity_max": gap(tw.z, S, n_u, N)}
+        if cd is not None:
+            out[leg]["condensed_residual_max"] = cd.residual.max().item()
+            out[leg]["first_move_vs_condensed"] = (
+                tw.u[:, :n_u] - cd.u).abs().max().item()
+        cv = out[leg]
+        check(cv["non_anticipativity_max"] <= KERNEL_TOL
+              and cv.get("first_move_vs_condensed", 0.0) <= ROBUST_TWIN_TOL,
+              f"twin {key} converged {cv}")
+    out["launches"] = launches
+    out["solves_per_s"] = rates
+    emit(out)
+    return launches
+
+
+def mhe_streams(A, B, C, batch, steps, seed):
+    """``batch`` measurement streams of ``steps`` samples from the double
+    integrator: a known input (a sine and a stabilizing feedback), process
+    noise inside the w box, position measured with noise of std 0.1.
+    Returns Y (batch, steps, 1), U (batch, steps, 1) and the states."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.0, 1.0, (batch, 2)) * [0.8, 0.2]
+    phase = rng.uniform(0.0, 6.0, (batch, 1))
+    ys, us, xs = [], [], []
+    for k in range(steps):
+        ys.append(x @ C.T + rng.normal(0.0, 0.1, (batch, 1)))
+        xs.append(x)
+        u = 0.4 * np.sin(0.11 * k + phase) - x @ np.array([[0.5], [1.0]])
+        us.append(u)
+        x = x @ A.T + u @ B.T + np.clip(
+            rng.normal(0.0, [0.01, 0.063], (batch, 2)), -0.05, 0.05)
+    return (np.stack(ys, 1).astype(np.float32),
+            np.stack(us, 1).astype(np.float32), np.stack(xs, 1))
+
+
+def mhe_big_plant():
+    """tools/bench_mhe_stagewise.py's big-state plant and windows (its
+    generator, seed 7): n_x 30, n_u 8, n_y 15, window 120, 64 windows."""
+    n, p, q, T, B = (MHE_BIG[k] for k in ("n_x", "n_u", "n_y", "window",
+                                          "batch"))
+    rng = np.random.default_rng(7)
+    A = rng.normal(0, 1.0, (n, n)) / np.sqrt(n)
+    A *= 0.92 / max(abs(np.linalg.eigvals(A)))
+    Bm = rng.normal(0, 0.3, (n, p))
+    C = rng.normal(0, 1.0, (q, n)) / np.sqrt(n)
+    kw = dict(W=np.eye(n) * 1e-2, V=np.eye(q) * 1e-2,
+              x_min=-4.0 * np.ones(n), x_max=4.0 * np.ones(n),
+              w_min=-0.4 * np.ones(n), w_max=0.4 * np.ones(n),
+              iterations=MHE_BIG["iterations"])
+    X = rng.uniform(-0.5, 0.5, (B, n))
+    U = rng.uniform(-0.5, 0.5, (B, T - 1, p)).astype(np.float32)
+    Ys = []
+    x = X.copy()
+    for k in range(T):
+        Ys.append(x @ C.T + rng.normal(0, 0.05, (B, q)))
+        if k < T - 1:
+            w = np.clip(rng.normal(0, 0.05, (B, n)), -0.4, 0.4)
+            x = x @ A.T + U[:, k] @ Bm.T + w
+    Y = np.stack(Ys, axis=1).astype(np.float32)
+    x_bar = (X + rng.normal(0, 0.1, (B, n))).astype(np.float32)
+    return (A, Bm, C, kw), (x_bar, Y, U)
+
+
+def phase_mhe_path(torch, tg, ctr, smi):
+    """Moving-horizon estimation, each leg counted from 0. Condensed: the
+    double integrator (n_x 2) over a window of 180 with state and
+    disturbance boxes (n_z 360, m 1436), 256 windows x 400 restart
+    iterations through ``solve_window`` (the tiled dual kernel), against
+    the torch engine per window; then 30 streaming ``update`` calls on one
+    stream at window 60 (the dual kernel at B1, warm across slides).
+    Stage-wise: the big-state plant (n_x 30, window 120) where ``auto``
+    takes the stage-wise engine, 64 windows x 200 iterations on the torch
+    engine, 8 of them against the same solve in float64 on the host.
+    Returns the launches by leg."""
+    import copy
+
+    from tpu_gpad_torch.solver import core
+    from tpu_gpad_torch.stagewise import STAGEWISE_TENSOR_FIELDS
+
+    di = tg.problems.double_integrator(dt=0.1)
+    A, Bm, C = np.asarray(di.A), np.asarray(di.B), np.array([[1.0, 0.0]])
+    out = {"phase": "mhe_path"}
+    launches, rates = {}, {"gpu": smi}
+
+    def torch_engine(est):
+        """The same estimator on the torch engine."""
+        ref = copy.copy(est)
+        ref.config = dataclasses.replace(est.config, engine="torch")
+        return ref
+
+    def per_window(x_hat, x_ref, B):
+        """x_hat against a reference per window, relative to its scale; a
+        window whose restart decision flipped parts from it."""
+        x_hat, x_ref = x_hat.double().cpu(), x_ref.double().cpu()
+        scale = x_ref.abs().max().item()
+        e = (x_hat - x_ref).abs().amax(dim=1)
+        parted = e > MHE_TOL * scale
+        return {"scale": scale, "parted": int(parted.sum()),
+                "parted_max": parted_max(B),
+                "rel_err": e[~parted].max().item() / scale
+                if not parted.all() else None}
+
+    def held(d):
+        return (d["parted"] <= d["parted_max"] and d["rel_err"] is not None
+                and d["rel_err"] <= MHE_TOL)
+
+    # condensed, window 180 on 256 streams
+    est = tg.MovingHorizonEstimator(A, Bm, C, MHE_WINDOW, **MHE_KW,
+                                    iterations=MHE_ITERS, device=DEVICE)
+    Y, U, X = mhe_streams(A, Bm, C, MHE_BATCH, MHE_WINDOW, seed=63)
+    args = (X[:, 0] + np.random.default_rng(64).normal(0, 0.1, (MHE_BATCH, 2)),
+            Y, U[:, :-1])
+    (x_hat, res), launches["window_180"] = counted(
+        torch, ctr, lambda: est.solve_window(*args), {"gpad_dual_tiled": 1},
+        "MHE window 180")
+    x_ref, _ = torch_engine(est).solve_window(*args)
+    d = per_window(x_hat, x_ref, MHE_BATCH)
+    out["window_180"] = {
+        "engine": est.engine, "kernel": core.cuda_kernel(est.data, est.config),
+        "n_z": est.data.n_z, "m": est.data.m, "batch": MHE_BATCH,
+        "iterations": MHE_ITERS, "residual_max": res.residual.max().item(),
+        "x_hat_vs_torch_engine": d,
+        "x_hat_vs_true_state": float(np.abs(x_hat.cpu().numpy()
+                                            - X[:, -1]).max())}
+    check(est.engine == "condensed" and bool(torch.isfinite(x_hat).all()),
+          f"MHE window 180 {out['window_180']}")
+    check(held(d), f"MHE window 180 x_hat vs torch engine {d}")
+    rates["condensed_window_180"] = rate(lambda: est.solve_window(*args),
+                                         MHE_BATCH)
+
+    # streaming at window 60: a Kalman fill, then one solve a sample
+    T = MHE_STREAM_WINDOW
+    kw = dict(**MHE_KW, iterations=MHE_ITERS, device=DEVICE)
+    stream = tg.MovingHorizonEstimator(A, Bm, C, T, **kw)
+    plain = tg.MovingHorizonEstimator(A, Bm, C, T, **kw, config=tg.SolverConfig(
+        iterations=MHE_ITERS, restart=True, engine="torch"))
+    Ys, Us, _ = mhe_streams(A, Bm, C, 1, T - 1 + MHE_STREAM_UPDATES, seed=65)
+    feed = lambda est, k: est.update(Ys[0, k], Us[0, k - 1] if k else None)
+    for k in range(T - 1):
+        feed(stream, k)
+        feed(plain, k)
+
+    def updates():
+        return [(feed(stream, k), feed(plain, k))
+                for k in range(T - 1, T - 1 + MHE_STREAM_UPDATES)]
+
+    pairs, launches["stream_60"] = counted(
+        torch, ctr, updates, {"gpad_dual": MHE_STREAM_UPDATES},
+        "MHE streaming updates")
+    d = per_window(torch.as_tensor(np.stack([a for a, _ in pairs])),
+                   torch.as_tensor(np.stack([b for _, b in pairs])),
+                   MHE_STREAM_UPDATES)
+    out["stream_60"] = {
+        "updates": MHE_STREAM_UPDATES,
+        "kernel": core.cuda_kernel(stream.data, stream.config),
+        "warm_dual": None if stream._y0 is None else list(stream._y0.shape),
+        "x_hat_vs_torch_engine": d}
+    check(held(d) and stream._y0 is not None,
+          f"MHE streaming updates {out['stream_60']}")
+
+    # stage-wise: the big-state plant past the 256 MB backstop
+    (Ab, Bb, Cb, kwb), argsb = mhe_big_plant()
+    t0 = time.perf_counter()
+    big = tg.MovingHorizonEstimator(Ab, Bb, Cb, MHE_BIG["window"], **kwb,
+                                    device=DEVICE)
+    build_s = time.perf_counter() - t0
+    (xb, resb), launches["stagewise_120"] = counted(
+        torch, ctr, lambda: big.solve_window(*argsb), {},
+        "stage-wise MHE (the torch engine)")
+    d64 = dataclasses.replace(big.data, **{
+        f: getattr(big.data, f).double().cpu() for f in STAGEWISE_TENSOR_FIELDS})
+    big64 = copy.copy(big)
+    big64.data = d64
+    big64.structure = dataclasses.replace(big.structure, data=d64)
+    k = MHE_REF_WINDOWS
+    x64, _ = big64.solve_window(*(a[:k] for a in argsb))
+    d = per_window(xb[:k], x64, k)
+    out["stagewise_120"] = {
+        "engine": big.engine, "n_x": MHE_BIG["n_x"],
+        "window": MHE_BIG["window"], "batch": MHE_BIG["batch"],
+        "iterations": MHE_BIG["iterations"],
+        "projected_condensed_mb": tg.mhe.condensed_window_mb(
+            MHE_BIG["window"], MHE_BIG["n_x"]),
+        "build_s_host_clock": build_s,
+        "residual_max": resb.residual.max().item(),
+        "x_hat_vs_float64_host": d}
+    check(big.engine == "stagewise" and bool(torch.isfinite(xb).all()),
+          f"stage-wise MHE {out['stagewise_120']}")
+    check(held(d), f"stage-wise MHE vs float64 {d}")
+    rates["stagewise_window_120"] = rate(lambda: big.solve_window(*argsb),
+                                         MHE_BIG["batch"], repeats=3)
+    out["launches"] = launches
+    out["windows_per_s"] = rates
+    emit(out)
+    return launches
+
+
+def phase_estimator_path(torch, tg, ctr):
+    """examples/offset_free_mpc.py on the card: the double integrator N10,
+    only the position measured, an unknown actuator bias of 0.08, setpoint
+    1.5; ``OffsetFreeController`` (Kalman filter, steady-state target,
+    restart ``Controller``, 80 iterations: the dual kernel) for 120 steps.
+    Each step's solve against the torch engine on the same parameter and
+    warm start (restart parting allowed in parted_max of the steps); the
+    output settles on the setpoint and the bias is identified. Returns the
+    launches."""
+    from tpu_gpad_torch.solver import core
+
+    problem = tg.problems.double_integrator(horizon=10)
+    C = np.array([[1.0, 0.0]])
+    cfg = tg.SolverConfig(iterations=OFFSET_ITERS, restart=True)
+    off = tg.OffsetFreeController(problem, C, disturbance="input", config=cfg,
+                                  device=DEVICE)
+    ctl, cfg_t = off.controller, dataclasses.replace(cfg, engine="torch")
+    A, Bm = np.asarray(problem.A), np.asarray(problem.B)
+    r = np.array([OFFSET_R])
+    f32 = lambda a: np.asarray(a, dtype=np.float32)
+
+    def run():
+        x, step_ms, du, active = np.zeros(2), [], [], 0
+        for _ in range(OFFSET_STEPS):
+            y0 = ctl._y
+            t0 = time.perf_counter()
+            u = off.step(C @ x, r)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            # the step's parameter: the estimate, the target and the
+            # disturbance (input bias: Bd = B)
+            x_ss, u_ss = off.last_target
+            p = ctl._parameter(f32(off.x_hat)[None], f32(x_ss), f32(u_ss),
+                               f32(Bm @ off.d_hat))
+            ref = tg.solve_batch(ctl.data, p, cfg_t, y0=y0)
+            du.append((ctl.last_result.u - ref.u).abs().max().item())
+            active += bool((ctl.last_result.y > 0).any())
+            x = A @ x + Bm @ (u.astype(np.float64) + OFFSET_BIAS)
+        return x, step_ms, np.array(du), active
+
+    (x, step_ms, du, active), launches = counted(
+        torch, ctr, run, {"gpad_dual": OFFSET_STEPS}, "offset-free steps")
+    parted = du > RESTART_TOL  # a restart decision flipped near 0
+    out = {"phase": "estimator_path", "steps": OFFSET_STEPS,
+           "kernel": core.cuda_kernel(ctl.data, cfg),
+           "launches": launches,
+           "u_vs_torch_engine": {
+               "parted": int(parted.sum()),
+               "parted_max": parted_max(OFFSET_STEPS),
+               "max": float(du[~parted].max()) if not parted.all() else None},
+           # steps whose solve left a constraint active (dual > 0)
+           "dual_active_steps": active,
+           "output_error": float(abs(C @ x - r)[0]),
+           "d_hat": float(off.d_hat[0]), "bias": OFFSET_BIAS,
+           "step_ms_host_clock": {"median": float(np.median(step_ms[1:])),
+                                  "first": step_ms[0]}}
+    emit(out)
+    vs = out["u_vs_torch_engine"]
+    check(vs["parted"] <= vs["parted_max"] and vs["max"] is not None
+          and vs["max"] <= RESTART_TOL, f"offset-free steps vs torch engine {out}")
+    check(out["output_error"] < OFFSET_TOL, f"offset-free output {out}")
+    check(abs(out["d_hat"] - OFFSET_BIAS) < OFFSET_TOL,
+          f"offset-free bias estimate {out}")
+    return launches
+
+
 def kernel_ms(med, kernel, B=BATCH) -> float:
     """A resident kernel's time at batch B: the profiler's device time of
     its launch, or where the profiler saw none, the CUDA-event time of its
@@ -2411,6 +2923,16 @@ def main() -> int:
           f"stage-wise path launches {sw_launches}")
     phase_stagewise_eps(torch, tg, sk, ss)
     phase_near_limit(torch, tg, kernels, core)
+    # the estimation and robust stacks, each leg counted from 0
+    ctr = (kernels, dual_kernels, sk, ss)
+    stacks = {
+        "robust_path": phase_robust_path(torch, tg, ctr, reference, smi),
+        "robust_stagewise_path": phase_robust_stagewise_path(torch, tg, ts,
+                                                             ctr, smi),
+        "mhe_path": phase_mhe_path(torch, tg, ctr, smi),
+        "estimator_path": {"offset_free": phase_estimator_path(torch, tg,
+                                                               ctr)},
+    }
     med = phase_timing(torch, tg, kernels, dual_kernels, core, smi)
     dmed = phase_dual_timing(torch, tg, kernels, dual_kernels, core, smi)
     smed = phase_stagewise_timing(torch, tg, sk, ss, ts, smi)
@@ -2418,7 +2940,7 @@ def main() -> int:
     tmed = phase_tiled_timing(torch, tg, kernels, dual_kernels, core, smi)
     # no single PyTorch call computes a GPAD solve loop
     no_library = {"library_ms": None}
-    emit({"kernels": [{
+    line = [{
         "name": "gpad_paired_flat",
         "route": "cuda",
         "source": "tpu_gpad_torch/csrc/gpad_paired_flat.cu",
@@ -2542,7 +3064,23 @@ def main() -> int:
         "torch_engine_ms": tmed["default_torch_engine"],
         "auto_solve_ms": tmed["default_auto"],
         **tmed["flat_bound"], **no_library,
-    }]})
+    }]
+    # each kernel's launches: its earlier paths, then the legs of the
+    # estimation and robust stacks that launched it
+    by_kernel = {}
+    for phase, legs in stacks.items():
+        for leg, got in legs.items():
+            for kernel, n in got.items():
+                by_kernel.setdefault(kernel, {})[f"{phase}.{leg}"] = n
+    check(set(by_kernel) == {"gpad_paired_flat", "gpad_dual", "gpad_dual_chunk",
+                             "gpad_dual_tiled", "gpad_stagewise_resident",
+                             "gpad_stagewise_stream"},
+          f"the estimation and robust stacks launched {by_kernel}")
+    for k in line:
+        legs = by_kernel.get(k["name"], {})
+        k["launches_by_path"] = {"earlier_paths": k["launches"], **legs}
+        k["launches"] += sum(legs.values())
+    emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1003,6 +1003,19 @@ def test_stagewise_routes_through_kernels(dev):
         ts.solve_stagewise(big, torch.zeros((4, 30), device=dev), engine="cuda")
 
 
+def test_stagewise_float64_on_the_card_raises_on_kernel_routes(dev):
+    small = _sw_data(dev, 8, 24)
+    d64 = dataclasses.replace(small, **{
+        f: getattr(small, f).double() for f in ts.STAGEWISE_TENSOR_FIELDS})
+    X0 = torch.rand((8, small.n_x), device=dev, dtype=torch.float64)
+    for engine in ("auto", "cuda", "stream"):
+        with pytest.raises(ValueError, match="device='cpu'"):
+            ts.solve_stagewise(d64, X0, engine=engine)
+    # the torch engine, asked for by name, runs float64 where the data is
+    res = ts.solve_stagewise(d64, X0, engine="torch")
+    assert res.z.dtype == torch.float64 and bool(torch.isfinite(res.z).all())
+
+
 def test_stagewise_controller_serves_through_a_kernel(dev):
     ctl = tg.StagewiseController(tg.problems.battery(8, 24), iterations=SW_ITERS,
                                  device=dev)
@@ -1012,3 +1025,90 @@ def test_stagewise_controller_serves_through_a_kernel(dev):
         u = ctl.step(x)
     assert sk.STAGEWISE_LAUNCHES == before + 3
     assert u.shape == (16, 8) and np.isfinite(u).all()
+
+
+# --------------------------------------------------------------------------
+# the estimation and robust stacks on the kernels
+
+
+def _mhe_window(dev, window, engine="torch"):
+    """The double integrator (dt 0.1) over one window with state and
+    disturbance boxes: 64 windows of noisy position measurements."""
+    from tpu_gpad_torch import mhe
+
+    di = tg.problems.double_integrator(dt=0.1)
+    A, B, C = np.asarray(di.A), np.asarray(di.B), np.array([[1.0, 0.0]])
+    est = mhe.MovingHorizonEstimator(
+        A, B, C, window, W=np.diag([1e-4, 4e-3]), V=np.array([[1e-2]]),
+        x_min=np.array([-1.2, -0.8]), x_max=np.array([1.2, 0.8]),
+        w_min=np.full(2, -0.05), w_max=np.full(2, 0.05), iterations=400,
+        device=dev)
+    rng = np.random.default_rng(window)
+    x = rng.uniform(-0.5, 0.5, (64, 2)) * [1.0, 0.2]
+    ys, us = [], []
+    for k in range(window):
+        ys.append(x @ C.T + rng.normal(0, 0.1, (64, 1)))
+        u = 0.4 * np.sin(0.11 * k) - x @ np.array([[0.5], [1.0]])
+        us.append(u)
+        x = x @ A.T + u @ B.T
+    return est, (np.zeros((64, 2)), np.stack(ys, 1), np.stack(us, 1)[:, :-1])
+
+
+def test_mhe_window_180_on_the_tiled_dual_kernel(dev):
+    est, args = _mhe_window(dev, 180)
+    assert core.cuda_kernel(est.data, est.config) == "dual_tiled"
+    before = dual_kernels.DUAL_TILED_LAUNCHES
+    x_k, _ = est.solve_window(*args)
+    torch.cuda.synchronize()
+    assert dual_kernels.DUAL_TILED_LAUNCHES == before + 1
+    est.config = dataclasses.replace(est.config, engine="torch")
+    x_t, _ = est.solve_window(*args)
+    # restart runs converge to one optimum; x_hat within 1e-4 of its scale
+    scale = x_t.abs().max().item()
+    torch.testing.assert_close(x_k, x_t, atol=1e-4 * scale, rtol=0)
+
+
+def test_robust_twin_n8_N60_on_the_streamed_kernel(dev):
+    from tpu_gpad_torch import robust, stagewise, stagewise_stream
+
+    nominal = tg.problems.battery(8, 60)
+    variants = robust.scenario_problem_variants(
+        nominal, B_list=[np.asarray(nominal.B) * s for s in (0.8, 1.0, 1.2)])
+    data = tg.build_stagewise(robust.scenario_stagewise_problem(variants),
+                              iterations=200, device=dev)
+    X = robust.scenario_stagewise_x0(np.random.default_rng(3).uniform(
+        -0.4, 0.4, (64, 8)).astype(np.float32), 3)
+    assert stagewise.resolve_stagewise_engine(data, 64) == "stream"
+    before = stagewise_stream.STAGEWISE_STREAM_LAUNCHES
+    r_k = tg.solve_stagewise(data, X)
+    torch.cuda.synchronize()
+    assert stagewise_stream.STAGEWISE_STREAM_LAUNCHES == before + 1
+    r_t = tg.solve_stagewise(data, X, engine="torch")
+    torch.testing.assert_close(r_k.z, r_t.z, atol=TOL, rtol=0)
+
+
+def test_from_qp_restart_serving_on_the_dual_kernel(dev):
+    from tpu_gpad_torch import robust
+
+    nominal = tg.problems.battery(3, 10)
+    variants = robust.scenario_problem_variants(
+        nominal, B_list=[np.asarray(nominal.B) * s for s in (0.8, 1.0, 1.2)])
+    qp = robust.scenario_qp([tg.condense(p) for p in variants])
+    cfg = tg.SolverConfig(iterations=ITERS, restart=True)
+    ctl = tg.Controller.from_qp(qp, config=cfg, device=dev)
+    assert core.cuda_kernel(ctl.data, cfg) == "dual"
+    x = np.random.default_rng(4).uniform(-0.4, 0.4, (256, 3)).astype(np.float32)
+    A, Bm = np.asarray(nominal.A), np.asarray(nominal.B)
+    for _ in range(5):
+        y0 = ctl._y
+        before = dual_kernels.DUAL_LAUNCHES
+        u = ctl.step(x)
+        assert dual_kernels.DUAL_LAUNCHES == before + 1
+        ref = tg.solve_batch(ctl.data, x, dataclasses.replace(
+            cfg, engine="torch"), y0=y0)
+        du = (ctl.last_result.u - ref.u).abs().amax(dim=1)
+        # a restart decision near r = 0 may flip in about 1% of the
+        # scenarios (2 of 256) and part them from the torch engine's run
+        parted = du > RESTART_TOL
+        assert int(parted.sum()) <= 2 and du[~parted].max() <= RESTART_TOL
+        x = (x @ A.T + u @ Bm.T).astype(np.float32)

@@ -47,6 +47,40 @@ def _auto_solver():
     return tg.auto_solver(_small(), iterations=5)[1].L
 
 
+def _from_qp():
+    from tpu_gpad_torch.robust import scenario_problem_variants, scenario_qp
+
+    variants = scenario_problem_variants(
+        _small(), B_list=[_small().B * s for s in (0.8, 1.2)])
+    qp = scenario_qp([tg.condense(p) for p in variants])
+    return tg.Controller.from_qp(qp, iterations=5).data.MG_T
+
+
+_MHE = dict(A=np.array([[1.0, 0.1], [0.0, 0.97]]), B=np.array([[0.005], [0.1]]),
+            C=np.array([[1.0, 0.0]]), window=4, w_max=np.ones(2))
+
+
+def _mhe(engine):
+    def call():
+        est = tg.MovingHorizonEstimator(**_MHE, iterations=5, engine=engine)
+        return est.data.E if engine == "stagewise" else est.data.MG_T
+    return call
+
+
+def _offset_free():
+    problem = tp.double_integrator(horizon=4)
+    off = tg.OffsetFreeController(problem, np.array([[1.0, 0.0]]),
+                                  disturbance="input", iterations=5)
+    return off.controller.data.MG_T
+
+
+def _ekf():
+    ekf = tg.ExtendedKalmanFilter(lambda x, u: x + u, lambda x: x[:1], n_x=1,
+                                  n_y=1)
+    ekf.update(np.zeros(1), np.zeros(1))  # its Jacobians run on ekf.device
+    return torch.empty(0, device=ekf.device)
+
+
 def _gpad_data_from_numpy():
     d = tg.dualize(tg.condense(_small()), iterations=5, device="cpu")
     fields = {k: None if getattr(d, k) is None else getattr(d, k).numpy()
@@ -101,6 +135,11 @@ ENTRY_POINTS = {
     "auto_solver": _auto_solver,
     "gpad_data_from_numpy": _gpad_data_from_numpy,
     "stagewise_data_from_numpy": _stagewise_data_from_numpy,
+    "Controller.from_qp": _from_qp,
+    "MovingHorizonEstimator": _mhe("condensed"),
+    "MovingHorizonEstimator_stagewise": _mhe("stagewise"),
+    "OffsetFreeController": _offset_free,
+    "ExtendedKalmanFilter": _ekf,
 }
 # entry points that read a file, written on the CPU into the test's tmp_path
 FILE_ENTRY_POINTS = {

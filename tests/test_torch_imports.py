@@ -39,7 +39,8 @@ def test_port_imports_no_jax():
     assert "tpu_gpad_torch.solver.kernels" in out["imported"]
     assert "tpu_gpad_torch.cuda_build" in out["imported"]
     for name in ("stagewise", "stagewise_kernel", "stagewise_stream", "io",
-                 "solver.multi", "sweep"):
+                 "solver.multi", "sweep", "robust", "estimator", "mhe",
+                 "analysis", "utils.debug"):
         assert f"tpu_gpad_torch.{name}" in out["imported"]
     assert out["bad"] == []
 

@@ -14,12 +14,22 @@ by slice. It carries the condensed serving path:
 - the reference's dataset files and the native ``.npz`` format
   (``tpu_gpad_torch.io``), and the checkpointed scenario sweep
   (``tpu_gpad_torch.sweep``),
-- the warm-started serving ``Controller`` and batched ``simulate``,
+- the warm-started serving ``Controller`` and batched ``simulate``;
+  ``Controller.from_qp`` serves a prebuilt QP,
+- robust MPC (``robust``: the ``scenario_qp`` stack of model
+  realizations, its stage-wise twin, tube tightening with ``lqr_gain``),
+- estimation (``estimator``: Kalman filter, steady-state targets,
+  offset-free output-feedback control, the EKF; ``mhe``: the
+  ``MovingHorizonEstimator``, condensed or stage-wise),
 - the stage-wise O(N) engine past the condensation wall
   (``build_stagewise``, ``solve_stagewise``, ``StagewiseController``,
   ``auto_solver``): a loop of torch ops and two CUDA kernels, one with the
   whole solve's state in shared memory and one that streams the dual
-  iterates through device memory,
+  iterates through device memory; ``stack_stagewise`` and
+  ``solve_stagewise_multi`` solve plants with different dynamics in one
+  call,
+- per-iteration convergence traces (``analysis``) and checked solves
+  (``utils.debug``),
 - the ``solve`` (``--dataset`` and ``--engine stagewise`` included),
   ``sweep`` and ``export`` CLI commands.
 
@@ -39,8 +49,25 @@ from tpu_gpad_torch.stagewise import (
     auto_solver,
     build_stagewise,
     solve_stagewise,
+    solve_stagewise_multi,
+    stack_stagewise,
     stagewise_compatible,
     stagewise_preferred,
+)
+from tpu_gpad_torch.robust import (
+    lqr_gain,
+    scenario_plan,
+    scenario_problem_variants,
+    scenario_qp,
+    tube_tightened_problem,
+)
+from tpu_gpad_torch.mhe import MovingHorizonEstimator
+from tpu_gpad_torch.estimator import (
+    ExtendedKalmanFilter,
+    KalmanFilter,
+    OffsetFreeController,
+    TargetCalculator,
+    kalman_gain,
 )
 from tpu_gpad_torch.convert import (
     gpad_data_from_numpy,
@@ -69,8 +96,21 @@ __all__ = [
     "StagewiseController",
     "build_stagewise",
     "solve_stagewise",
+    "solve_stagewise_multi",
+    "stack_stagewise",
     "stagewise_compatible",
     "stagewise_preferred",
+    "scenario_qp",
+    "scenario_plan",
+    "scenario_problem_variants",
+    "tube_tightened_problem",
+    "lqr_gain",
+    "MovingHorizonEstimator",
+    "ExtendedKalmanFilter",
+    "KalmanFilter",
+    "OffsetFreeController",
+    "TargetCalculator",
+    "kalman_gain",
     "gpad_data_from_numpy",
     "solve_result_to_numpy",
     "stagewise_data_from_numpy",

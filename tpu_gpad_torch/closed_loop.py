@@ -17,7 +17,7 @@ import torch
 from tpu_gpad_torch.condense import condense, dualize
 from tpu_gpad_torch.solver.core import SolverConfig, solve_batch
 from tpu_gpad_torch.solver.qp import polish_batch
-from tpu_gpad_torch.types import GPADData, LinearMPCProblem
+from tpu_gpad_torch.types import CondensedQP, GPADData, LinearMPCProblem
 
 
 @dataclass(frozen=True)
@@ -150,7 +150,8 @@ class Controller:
     tolerance. ``reset()`` drops the warm start. ``polish=True`` refines
     each step's u* to the exact QP optimum on the host
     (``solver.qp.polish_batch``, float64 NumPy), as ``tpu_gpad`` does;
-    ``gain`` needs ``diff.py``, not yet ported."""
+    ``gain`` needs ``diff.py``, not yet ported. ``from_qp`` serves a
+    prebuilt ``CondensedQP``, e.g. a ``robust.scenario_qp`` stack."""
 
     def __init__(
         self,
@@ -208,6 +209,59 @@ class Controller:
         self._y = None
         self._u_prev = None  # last applied move (rate-limited problems)
         self.last_result = None
+
+    @classmethod
+    def from_qp(
+        cls,
+        qp: CondensedQP,
+        iterations: int = 100,
+        config: SolverConfig | None = None,
+        warm_start: bool = True,
+        paired: bool | str = "auto",
+        tracking: bool | str = False,
+        input_reference: bool = False,
+        process_disturbance: bool = False,
+        rate: bool = False,
+        problem: LinearMPCProblem | None = None,
+        polish: bool = False,
+        device="cuda",
+    ) -> "Controller":
+        """Serve a prebuilt ``CondensedQP`` (e.g. a ``robust.scenario_qp``
+        stack) with the full Controller contract: dual warm starts across
+        samples, batching, optional active-set polish. As
+        ``tpu_gpad.Controller.from_qp``; ``device`` places the data, the
+        card by default.
+
+        The flags describe how the QP's parameter is laid out and must
+        match how it was condensed: ``tracking``/``input_reference``/
+        ``process_disturbance`` append [r], [u_ref], [d] as in
+        ``condense``; ``rate`` appends the previous applied move (its size
+        comes off the dualized data). ``tracking="preview"`` and
+        ``process_disturbance`` need ``problem`` (e.g. the per-scenario
+        nominal) for the stage and state dimensions."""
+        config = _with_iterations(config, iterations)
+        if problem is None and (tracking == "preview" or process_disturbance):
+            raise ValueError(
+                "tracking='preview' and process_disturbance need `problem` "
+                "for the stage/state dimensions"
+            )
+        self = cls.__new__(cls)
+        self.qp = qp
+        self.tracking = tracking
+        self.preview = tracking == "preview"
+        self.input_reference = input_reference
+        self.process_disturbance = process_disturbance
+        self.rate = rate
+        self.data = dualize(qp, iterations=config.iterations, paired=paired,
+                            device=device)
+        self.problem = problem
+        self.config = config
+        self.warm_start = warm_start
+        self.polish = polish
+        self._y = None
+        self._u_prev = None
+        self.last_result = None
+        return self
 
     def _parameter(self, x: np.ndarray, x_ref, u_ref, d) -> np.ndarray:
         """The QP parameter [x; r?; u_ref?; d?] for the configured layout."""
@@ -307,8 +361,8 @@ class Controller:
     def gain(self, tol: float = 1e-7, ridge: float = 0.0) -> np.ndarray:
         """Not yet ported: the feedback gain needs ``diff.py``."""
         raise NotImplementedError(
-            "Controller.gain needs diff.py, not yet ported to tpu_gpad_torch "
-            "(ROADMAP Queue 1, item 10)"
+            "Controller.gain needs diff.py (implicit differentiation), not "
+            "yet ported to tpu_gpad_torch (see ROADMAP)"
         )
 
     def reset(self, u_prev=None) -> None:

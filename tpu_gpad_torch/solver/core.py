@@ -82,18 +82,19 @@ def _check_ported(config: SolverConfig) -> None:
         raise ValueError(f"unknown mode: {config.mode!r}")
     if config.model_axis is not None or config.collective_axes:
         raise NotImplementedError(
-            "model_axis/collective_axes are not yet ported to "
-            "tpu_gpad_torch (ROADMAP Queue 1, item 11: torch.distributed)"
+            "model_axis/collective_axes need parallel/distrib.py "
+            "(torch.distributed), not yet ported to tpu_gpad_torch (see "
+            "ROADMAP)"
         )
     if config.precision != "highest":
         raise NotImplementedError(
-            f"precision={config.precision!r} is not yet ported to "
-            "tpu_gpad_torch (ROADMAP Queue 1, item 3: precision tiers)"
+            f"precision={config.precision!r} needs the precision tiers, "
+            "not yet ported to tpu_gpad_torch (see ROADMAP)"
         )
     if config.matmul_dtype != "float32":
         raise NotImplementedError(
-            f"matmul_dtype={config.matmul_dtype!r} is not yet ported to "
-            "tpu_gpad_torch (ROADMAP Queue 1, item 3: precision tiers)"
+            f"matmul_dtype={config.matmul_dtype!r} needs the precision "
+            "tiers, not yet ported to tpu_gpad_torch (see ROADMAP)"
         )
     if config.engine not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown engine: {config.engine!r}")

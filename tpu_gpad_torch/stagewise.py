@@ -33,11 +33,16 @@ Executors behind ``solve_stagewise``:
   its tile could stage the chains in shared memory and its grid runs in
   one wave or holds 8 scenarios a block; after the H100 timings in
   PERF.md, §6). Everything else (eps mode, runtime parameters,
-  ``scan="associative"``, CPU data) runs the torch engine.
+  ``scan="associative"``, CPU data) runs the torch engine, in the data's
+  dtype. The kernels take float32: float64 data on a CUDA device raises
+  on a kernel route (float64 solves run with ``device="cpu"``).
 
-``stack_stagewise``, ``solve_stagewise_multi`` and ``solve_stagewise_jit``
-are not ported (PyTorch runs eagerly, so a jitted entry has no
-counterpart).
+``stack_stagewise`` stacks same-shape builds along a leading plant axis P
+and ``solve_stagewise_multi`` solves them in one call on the torch engine,
+batched over P and each plant's batch with batched products; the kernels
+assume constants shared by the batch, so no kernel runs there (JAX vmaps
+its XLA executors there). ``solve_stagewise_jit`` has no counterpart:
+PyTorch runs eagerly, so there is nothing to trace once.
 
 Internally the engine keeps per-stage tensors stage-major, (N, B, ...), so
 each stage is a contiguous (B, ...) slice; the public layouts are those of
@@ -97,13 +102,15 @@ class StagewiseData:
     horizon: int = 0
     name: str = "stagewise"
 
+    # m_x, m_u and max_iters read trailing dimensions, so they hold on a
+    # stack_stagewise build too, whose every tensor has a leading plant axis
     @property
     def m_x(self) -> int:
-        return self.Gx.shape[0]
+        return self.Gx.shape[-2]
 
     @property
     def m_u(self) -> int:
-        return self.Gu.shape[0]
+        return self.Gu.shape[-2]
 
     @property
     def m(self) -> int:
@@ -112,7 +119,7 @@ class StagewiseData:
 
     @property
     def max_iters(self) -> int:
-        return self.theta.shape[0]
+        return self.theta.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -525,7 +532,11 @@ def auto_solver(
 @dataclass(frozen=True)
 class _Consts:
     """Per-solve stage constants of the torch engine, stage-major. ``dtl``,
-    ``qoff`` and ``c`` are (N, 1, n), or (N, B, n) with runtime q_lin/c."""
+    ``qoff`` and ``c`` are (N, 1, n), or (N, B, n) with runtime q_lin/c.
+    On a ``stack_stagewise`` build each stage tensor carries the plant axis
+    after the stage axis, (N, P, ...), the rows Gx/Gu (P, m, .), and the
+    batch of a stage is (P, B); ``theta``/``beta`` are then (iters, P, 1, 1)
+    and ``inv_L`` (P, 1, 1), so that they broadcast against it."""
 
     A: torch.Tensor
     Gx: torch.Tensor
@@ -543,17 +554,57 @@ class _Consts:
     qoff: torch.Tensor
     c: torch.Tensor
     inv_L: torch.Tensor
+    theta: torch.Tensor  # the momentum schedule, indexed by iteration
+    beta: torch.Tensor
+    m_x: int
     assoc: bool = False  # the sweeps as parallel prefixes (_lqr_solve_assoc)
 
 
 def _consts(data: StagewiseData, dtl, qoff, c, assoc: bool = False) -> _Consts:
-    tr = lambda a: a.transpose(1, 2).contiguous()
+    """The engine's constants of ``data``, a single build or a stack."""
+    tr = lambda a: a.transpose(-1, -2).contiguous()
+    if data.E.ndim == 4:  # a stack: (P, N, ...) -> stage-major (N, P, ...)
+        sm = lambda a: a.transpose(0, 1).contiguous()
+        A, E, K, Hi, B = (sm(a) for a in (data.A_seq, data.E, data.K,
+                                            data.Hi, data.B_seq))
+        hx, hu = sm(data.hx)[:, :, None], sm(data.hu)[:, :, None]
+        inv_L = (1.0 / data.L)[:, None, None]
+        theta, beta = (a.T[:, :, None, None] for a in (data.theta, data.beta))
+    else:
+        A, E, K, Hi, B = data.A_seq, data.E, data.K, data.Hi, data.B_seq
+        hx, hu = data.hx[:, None], data.hu[:, None]
+        inv_L, theta, beta = 1.0 / data.L, data.theta, data.beta
     return _Consts(
-        A=data.A_seq, Gx=data.Gx, Gu=data.Gu, hx=data.hx[:, None], hu=data.hu[:, None],
-        E=data.E, ET=tr(data.E), K=data.K, KT=tr(data.K), HiT=tr(data.Hi),
-        B=data.B_seq, BT=tr(data.B_seq), dtl=dtl, qoff=qoff, c=c,
-        inv_L=1.0 / data.L, assoc=assoc,
+        A=A, Gx=data.Gx, Gu=data.Gu, hx=hx, hu=hu, E=E, ET=tr(E), K=K,
+        KT=tr(K), HiT=tr(Hi), B=B, BT=tr(B), dtl=dtl, qoff=qoff, c=c,
+        inv_L=inv_L, theta=theta, beta=beta, m_x=data.m_x, assoc=assoc,
     )
+
+
+def _baddbmm(inp, b1, b2, alpha: float = 1.0):
+    """inp + alpha * b1 @ b2, batched over the stage axis, and over the
+    plant axis after it on a stack (4-d operands, flattened for one
+    ``baddbmm``)."""
+    if b1.ndim == 3:
+        return torch.baddbmm(inp, b1, b2, alpha=alpha)
+    lead = b1.shape[:2]
+    out = torch.baddbmm(inp.expand(lead + inp.shape[2:]).flatten(0, 1),
+                        b1.flatten(0, 1), b2.flatten(0, 1), alpha=alpha)
+    return out.view(lead + out.shape[1:])
+
+
+def _bmm(b1, b2):
+    """b1 @ b2 batched as in ``_baddbmm``."""
+    if b1.ndim == 3:
+        return torch.bmm(b1, b2)
+    out = torch.bmm(b1.flatten(0, 1), b2.flatten(0, 1))
+    return out.view(b1.shape[:2] + out.shape[1:])
+
+
+def _addmm(bias, x, M, out):
+    """One stage of a sweep into ``out``: bias + x @ M, with x (B, n) and M
+    (n, n), or on a stack x (P, B, n) and M (P, n, n)."""
+    return (torch.addmm if x.ndim == 2 else torch.baddbmm)(bias, x, M, out=out)
 
 
 def _lqr_solve(cs: _Consts, qx, ru, x0):
@@ -570,18 +621,18 @@ def _lqr_solve(cs: _Consts, qx, ru, x0):
     st = torch.empty_like(qx)
     st[N - 1] = qx[N - 1]
     if N > 1:
-        a = torch.baddbmm(qx[:-1], ru[1:], cs.K[1:], alpha=-1.0)
+        a = _baddbmm(qx[:-1], ru[1:], cs.K[1:], alpha=-1.0)
         for k in range(N - 2, -1, -1):
-            torch.addmm(a[k], st[k + 1], cs.E[k + 1], out=st[k])
+            _addmm(a[k], st[k + 1], cs.E[k + 1], out=st[k])
     # the feedforward sees stilde + Ptilde_{k+1} c_k
-    kff = torch.bmm(torch.baddbmm(ru, st + cs.dtl, cs.B), cs.HiT)
-    d = torch.baddbmm(cs.c.expand_as(st), kff, cs.BT, alpha=-1.0)
+    kff = _bmm(_baddbmm(ru, st + cs.dtl, cs.B), cs.HiT)
+    d = _baddbmm(cs.c.expand_as(st), kff, cs.BT, alpha=-1.0)
     xs = torch.empty_like(st)
     x = x0
     for k in range(N):
-        x = torch.addmm(d[k], x, cs.ET[k], out=xs[k])
+        x = _addmm(d[k], x, cs.ET[k], out=xs[k])
     x_lin = torch.cat([x0[None], xs[:-1]], dim=0)
-    us = torch.baddbmm(kff, x_lin, cs.KT).neg_()
+    us = _baddbmm(kff, x_lin, cs.KT).neg_()
     return xs, us
 
 
@@ -595,7 +646,7 @@ def _affine_prefix(M, b):
     P, c = M, b
     d = 1
     while d < M.shape[0]:
-        c = torch.cat([c[:d], torch.baddbmm(c[d:], c[:-d], P[d:])])
+        c = torch.cat([c[:d], _baddbmm(c[d:], c[:-d], P[d:])])
         P = torch.cat([P[:d], torch.matmul(P[:-d], P[d:])])
         d *= 2
     return P, c
@@ -612,62 +663,63 @@ def _lqr_solve_assoc(cs: _Consts, qx, ru, x0):
     st = torch.empty_like(qx)
     st[N - 1] = qx[N - 1]
     if N > 1:
-        a = torch.baddbmm(qx[:-1], ru[1:], cs.K[1:], alpha=-1.0)
+        a = _baddbmm(qx[:-1], ru[1:], cs.K[1:], alpha=-1.0)
         P, c = _affine_prefix(cs.E[1:].flip(0), a.flip(0))
         st[:-1] = (torch.matmul(qx[N - 1], P) + c).flip(0)
-    kff = torch.bmm(torch.baddbmm(ru, st + cs.dtl, cs.B), cs.HiT)
-    d = torch.baddbmm(cs.c.expand_as(st), kff, cs.BT, alpha=-1.0)
+    kff = _bmm(_baddbmm(ru, st + cs.dtl, cs.B), cs.HiT)
+    d = _baddbmm(cs.c.expand_as(st), kff, cs.BT, alpha=-1.0)
     P, c = _affine_prefix(cs.ET, d)
     xs = torch.matmul(x0, P) + c
     x_lin = torch.cat([x0[None], xs[:-1]], dim=0)
-    us = torch.baddbmm(kff, x_lin, cs.KT).neg_()
+    us = _baddbmm(kff, x_lin, cs.KT).neg_()
     return xs, us
 
 
-def _oracle(cs: _Consts, w, x0, m_x: int):
+def _oracle(cs: _Consts, w, x0):
     """zhat(w) and the dual gradient g(w) = G zhat - h, stage-major:
     returns (xs, us, g) with g (N, B, m_x + m_u)."""
-    qx = torch.matmul(w[..., :m_x], cs.Gx) + cs.qoff
-    ru = torch.matmul(w[..., m_x:], cs.Gu)
+    qx = torch.matmul(w[..., :cs.m_x], cs.Gx) + cs.qoff
+    ru = torch.matmul(w[..., cs.m_x:], cs.Gu)
     xs, us = (_lqr_solve_assoc if cs.assoc else _lqr_solve)(cs, qx, ru, x0)
     return xs, us, _rows(cs, xs, us)
 
 
 def _rows(cs: _Consts, xs, us):
     """G z - h per stage, (N, B, m_x + m_u), state rows first."""
-    gx = torch.matmul(xs, cs.Gx.T) - cs.hx
-    gu = torch.matmul(us, cs.Gu.T) - cs.hu
+    gx = torch.matmul(xs, cs.Gx.mT) - cs.hx
+    gu = torch.matmul(us, cs.Gu.mT) - cs.hu
     return torch.cat([gx, gu], dim=-1)
 
 
 def _max_rows(g):
-    """max over every stage row of each scenario: (B,)."""
-    return torch.amax(g, dim=(0, 2))
+    """max over every stage row of each scenario: (B,), or (P, B)."""
+    return torch.amax(g, dim=(0, -1))
 
 
 def _restart_reset(th, th_prev, y, y_next, w):
     """O'Donoghue-Candes adaptive restart per scenario (as
     ``tpu_gpad.stagewise._restart_reset``): reset the momentum recursion iff
     (w - y+) . (y+ - y) > 0. Returns (y_prev', th', th_prev')."""
-    r = torch.sum((w - y_next) * (y_next - y), dim=(0, 2))
+    r = torch.sum((w - y_next) * (y_next - y), dim=(0, -1))
     mask = r > 0.0
     th_next = torch.where(mask, 1.0, th * (torch.sqrt(th * th + 4.0) - th) * 0.5)
     th_prev_next = torch.where(mask, 1.0, th)
-    y_prev = torch.where(mask[None, :, None], y_next, y)
+    y_prev = torch.where(mask[None, ..., None], y_next, y)
     return y_prev, th_next, th_prev_next
 
 
 class _State:
-    """The loop state of a batch, stage-major."""
+    """The loop state of a batch, stage-major; ``batch`` is (B,), or (P, B)
+    on a stack."""
 
-    def __init__(self, y, N, B, n, p):
-        f32 = dict(dtype=torch.float32, device=y.device)
+    def __init__(self, y, N, batch, n, p):
+        like = dict(dtype=y.dtype, device=y.device)
         self.y = y
         self.y_prev = y
-        self.zx = torch.zeros((N, B, n), **f32)
-        self.zu = torch.zeros((N, B, p), **f32)
-        self.th = torch.ones((B,), **f32)
-        self.th_prev = torch.ones((B,), **f32)
+        self.zx = torch.zeros((N, *batch, n), **like)
+        self.zu = torch.zeros((N, *batch, p), **like)
+        self.th = torch.ones(batch, **like)
+        self.th_prev = torch.ones(batch, **like)
 
     def fields(self):
         return ("y", "y_prev", "zx", "zu", "th", "th_prev")
@@ -677,12 +729,12 @@ def _iteration(data, cs, st: _State, x0, k: int, restart: bool):
     """One GPAD iteration of the whole batch, in place on ``st``; returns
     the oracle's (w, xs, us, g) for the eps test."""
     if restart:
-        th = st.th[None, :, None]
-        b = (st.th * (1.0 / st.th_prev - 1.0))[None, :, None]
+        th = st.th[None, ..., None]
+        b = (st.th * (1.0 / st.th_prev - 1.0))[None, ..., None]
     else:
-        th, b = data.theta[k], data.beta[k]
+        th, b = cs.theta[k], cs.beta[k]
     w = st.y + b * (st.y - st.y_prev)
-    xs, us, g = _oracle(cs, w, x0, data.m_x)
+    xs, us, g = _oracle(cs, w, x0)
     st.zx = (1.0 - th) * st.zx + th * xs
     st.zu = (1.0 - th) * st.zu + th * us
     y_next = torch.clamp_min(w + cs.inv_L * g, 0.0)
@@ -697,28 +749,28 @@ def _iteration(data, cs, st: _State, x0, k: int, restart: bool):
 
 def _solve_fixed(data, cs, x0, y, n_iters: int, restart: bool):
     """Fixed budget; diagnostics on the averaged primal (zx, zu)."""
-    N, B = data.horizon, x0.shape[0]
-    st = _State(y, N, B, data.n_x, data.n_u)
+    batch = tuple(x0.shape[:-1])
+    st = _State(y, data.horizon, batch, data.n_x, data.n_u)
     for k in range(n_iters):
         _iteration(data, cs, st, x0, k, restart)
     g = _rows(cs, st.zx, st.zu)
     residual = torch.clamp_min(_max_rows(g), 0.0)
-    gap = -torch.sum(st.y * g, dim=(0, 2))
-    conv = torch.ones((B,), dtype=torch.bool, device=x0.device)
-    iters = torch.full((B,), n_iters, dtype=torch.int32, device=x0.device)
+    gap = -torch.sum(st.y * g, dim=(0, -1))
+    conv = torch.ones(batch, dtype=torch.bool, device=x0.device)
+    iters = torch.full(batch, n_iters, dtype=torch.int32, device=x0.device)
     return st.zu, st.y, iters, residual, gap, conv, st.zu[0]
 
 
 def _rollout(cs: _Consts, us, x0):
     """States x_1..x_N from inputs ``us`` (N, B, p): x_{k+1} = A_k x_k +
     B_k u_k + c_k, exact (as ``tpu_gpad.stagewise._rollout``)."""
-    xs = torch.empty(us.shape[:2] + (x0.shape[-1],), dtype=us.dtype,
+    xs = torch.empty(us.shape[:-1] + (x0.shape[-1],), dtype=us.dtype,
                      device=us.device)
-    bu = torch.baddbmm(cs.c.expand_as(xs), us, cs.BT)
-    AT = cs.A.transpose(1, 2)
+    bu = _baddbmm(cs.c.expand_as(xs), us, cs.BT)
+    AT = cs.A.mT
     x = x0
     for k in range(us.shape[0]):
-        x = torch.addmm(bu[k], x, AT[k], out=xs[k])
+        x = _addmm(bu[k], x, AT[k], out=xs[k])
     return xs
 
 
@@ -730,10 +782,10 @@ def _solve_eps(data, cs, x0, y, n_iters: int, restart: bool, eps_g: float,
     (its state is frozen, as under JAX's vmapped ``while_loop``) and keeps
     the point it converged at. The host learns "all converged" with one
     sync per check and then stops."""
-    N, B, dev = data.horizon, x0.shape[0], x0.device
-    st = _State(y, N, B, data.n_x, data.n_u)
-    conv = torch.zeros((B,), dtype=torch.bool, device=dev)
-    it = torch.full((B,), n_iters, dtype=torch.int32, device=dev)
+    batch, dev = tuple(x0.shape[:-1]), x0.device
+    st = _State(y, data.horizon, batch, data.n_x, data.n_u)
+    conv = torch.zeros(batch, dtype=torch.bool, device=dev)
+    it = torch.full(batch, n_iters, dtype=torch.int32, device=dev)
     zu_out = torch.zeros_like(st.zu)
     window = [getattr(st, f) for f in st.fields()]
     for k in range(n_iters):
@@ -744,25 +796,25 @@ def _solve_eps(data, cs, x0, y, n_iters: int, restart: bool, eps_g: float,
         live = ~conv
         for f, old in zip(st.fields(), window):
             new = getattr(st, f)
-            m = live if new.ndim == 1 else live[None, :, None]
+            m = live if new.ndim == live.ndim else live[None, ..., None]
             setattr(st, f, torch.where(m, new, old))
         viol_zhat = _max_rows(g)
-        gap = -torch.sum(w * g, dim=(0, 2))
+        gap = -torch.sum(w * g, dim=(0, -1))
         viol_z = _max_rows(_rows(cs, st.zx, st.zu))
         ok_z = viol_z <= eps_g
         ok = ok_z | ((viol_zhat <= eps_g) & (gap <= eps_V))
         newly = ok & live
         it = torch.where(newly, k + 1, it)
-        zu_sel = torch.where(ok_z[None, :, None], st.zu, us)
-        zu_out = torch.where(newly[None, :, None], zu_sel, zu_out)
+        zu_sel = torch.where(ok_z[None, ..., None], st.zu, us)
+        zu_out = torch.where(newly[None, ..., None], zu_sel, zu_out)
         conv = conv | ok
         window = [getattr(st, f) for f in st.fields()]
         if k + 1 < n_iters and bool(conv.all()):
             break
-    zu_f = torch.where(conv[None, :, None], zu_out, st.zu)
+    zu_f = torch.where(conv[None, ..., None], zu_out, st.zu)
     g = _rows(cs, _rollout(cs, zu_f, x0), zu_f)
     residual = torch.clamp_min(_max_rows(g), 0.0)
-    gap = -torch.sum(st.y * g, dim=(0, 2))
+    gap = -torch.sum(st.y * g, dim=(0, -1))
     return zu_f, st.y, it, residual, gap, conv, zu_f[0]
 
 
@@ -771,13 +823,13 @@ def _runtime_consts(data: StagewiseData, B: int, batch_shape, q_lin, c):
     per scenario, as ``tpu_gpad`` folds them: dtl_k += Ptilde_{k+1} c_k,
     qoff_k += E_{k+1}' dtl_{k+1} + q_lin_k, c_k += c."""
     N, n = data.horizon, data.n_x
-    dev = data.device
+    dev, dt = data.device, data.E.dtype
 
     def bt(a):
-        a = torch.as_tensor(a, dtype=torch.float32, device=dev)
+        a = torch.as_tensor(a, dtype=dt, device=dev)
         return a.broadcast_to((*batch_shape, N, n)).reshape(B, N, n)
 
-    zeros = torch.zeros((B, N, n), dtype=torch.float32, device=dev)
+    zeros = torch.zeros((B, N, n), dtype=dt, device=dev)
     ce = bt(c) if c is not None else zeros
     qe = bt(q_lin) if q_lin is not None else zeros
     dtl_e = torch.einsum("kij,bkj->bki", data.Pt, ce)
@@ -801,6 +853,10 @@ def _kernel_route(data: StagewiseData, B: int, engine: str):
         raise ValueError(
             f"engine={engine!r} needs the data on a CUDA device; got "
             f"{data.device} (engine='torch' runs anywhere)")
+    if data.device.type == "cuda" and data.E.dtype != torch.float32:
+        raise ValueError(
+            f"the stagewise kernels take float32 data; got {data.E.dtype} on "
+            f"{data.device} (float64 solves run with device='cpu')")
     if engine == "cuda":
         if not ok:
             raise ValueError(f"stagewise kernel cannot take this: {why}")
@@ -835,6 +891,31 @@ def resolve_scan(data: StagewiseData, B: int, scan: str = "auto") -> str:
         return scan
     small = data.n_x + data.n_u <= AUTO_ASSOC_MAX_STATE
     return "associative" if small and B < AUTO_ASSOC_MAX_BATCH else "sequential"
+
+
+def _settings(data: StagewiseData, config, iterations, mode, eps_g, eps_V,
+              check_every, restart, scan) -> tuple:
+    """The solve's settings, a ``SolverConfig``'s where one is given, each
+    checked: (iteration budget, mode, eps_g, eps_V, check_every, restart).
+    The budget is ``iterations`` or the shipped schedule's length; past it
+    only under restart (schedule-free momentum)."""
+    if config is not None:
+        iterations, mode = config.iterations, config.mode
+        eps_g, eps_V = config.eps_g, config.eps_V
+        check_every, restart = config.check_every, config.restart
+    if scan not in ("auto", "sequential", "associative"):
+        raise ValueError(
+            f"scan must be 'auto', 'sequential' or 'associative': {scan!r}")
+    if mode not in ("fixed", "eps"):
+        raise ValueError(f"mode must be 'fixed' or 'eps': {mode!r}")
+    n_iters = int(iterations) if iterations is not None else data.max_iters
+    if n_iters > data.max_iters and not restart:
+        raise ValueError(
+            f"asked for {n_iters} iterations but the shipped schedule has "
+            f"{data.max_iters}; rebuild with a longer one (or use "
+            f"restart=True, whose momentum recursion is schedule-free)"
+        )
+    return n_iters, mode, eps_g, eps_V, check_every, restart
 
 
 def solve_stagewise(
@@ -875,39 +956,28 @@ def solve_stagewise(
     ``q_lin`` / ``c`` (broadcastable to (..., N, n_x)) are per-solve runtime
     parameters: a linear state-cost term per stage and an affine dynamics
     offset, composed with the build-time constants."""
-    if config is not None:
-        iterations = config.iterations
-        mode = config.mode
-        eps_g, eps_V = config.eps_g, config.eps_V
-        check_every = config.check_every
-        restart = config.restart
-        if engine == "auto" and config.engine in ("torch", "cuda", "stream"):
-            engine = config.engine
+    if (config is not None and engine == "auto"
+            and config.engine in ("torch", "cuda", "stream")):
+        engine = config.engine
     if engine not in ("auto", "torch", "cuda", "stream"):
         raise ValueError(
             f"engine must be 'auto', 'torch', 'cuda' or 'stream': {engine!r}")
-    if scan not in ("auto", "sequential", "associative"):
-        raise ValueError(
-            f"scan must be 'auto', 'sequential' or 'associative': {scan!r}")
     if scan == "associative" and engine in ("cuda", "stream"):
         raise ValueError("stagewise kernels imply sequential scan")
-    if mode not in ("fixed", "eps"):
-        raise ValueError(f"mode must be 'fixed' or 'eps': {mode!r}")
-    n_iters = int(iterations) if iterations is not None else data.max_iters
-    if n_iters > data.max_iters and not restart:
-        raise ValueError(
-            f"asked for {n_iters} iterations but the shipped schedule has "
-            f"{data.max_iters}; rebuild with a longer one (or use "
-            f"restart=True, whose momentum recursion is schedule-free)"
-        )
-    dev = data.device
-    x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    if data.E.ndim == 4:
+        raise ValueError("a stack_stagewise build is solved by "
+                         "solve_stagewise_multi")
+    n_iters, mode, eps_g, eps_V, check_every, restart = _settings(
+        data, config, iterations, mode, eps_g, eps_V, check_every, restart,
+        scan)
+    dev, dt = data.device, data.E.dtype
+    x0 = torch.as_tensor(x0, dtype=dt, device=dev)
     batch_shape = tuple(x0.shape[:-1])
     xb = x0.reshape(-1, data.n_x).contiguous()
     B = xb.shape[0]
     N, m = data.horizon, data.m_x + data.m_u
     if y0 is not None:
-        y0 = torch.as_tensor(y0, dtype=torch.float32, device=dev)
+        y0 = torch.as_tensor(y0, dtype=dt, device=dev)
         y0 = y0.broadcast_to((*batch_shape, N, m)).reshape(B, N, m)
 
     has_runtime = q_lin is not None or c is not None
@@ -943,7 +1013,7 @@ def solve_stagewise(
         dtl, qoff, cc = (a[:, None] for a in (data.dtl, data.qoff, data.c_seq))
     cs = _consts(data, dtl, qoff, cc,
                  assoc=resolve_scan(data, B, scan) == "associative")
-    y = (torch.zeros((N, B, m), dtype=torch.float32, device=dev) if y0 is None
+    y = (torch.zeros((N, B, m), dtype=dt, device=dev) if y0 is None
          else y0.transpose(0, 1).contiguous())
     if mode == "eps":
         out = _solve_eps(data, cs, xb, y, n_iters, restart, eps_g, eps_V,
@@ -954,6 +1024,92 @@ def solve_stagewise(
     bm = lambda a: a.transpose(0, 1)  # (N, B, .) -> (B, N, .)
     return SolveResult(
         u=rs(u0), z=rs(bm(zu).reshape(B, -1)), y=rs(bm(y).contiguous()),
+        iterations=rs(iters), residual=rs(residual), gap=rs(gap),
+        converged=rs(conv),
+    )
+
+
+def stack_stagewise(datas) -> StagewiseData:
+    """Stack same-shape ``StagewiseData`` builds along a leading plant axis
+    (as ``tpu_gpad.stagewise.stack_stagewise``, the stage-wise twin of
+    ``solver.multi.stack_data``): every tensor gains a leading P dimension,
+    the Lipschitz constants too; the meta fields are the first build's.
+    Consumed by ``solve_stagewise_multi``: plants with different dynamics
+    solved in one call."""
+    if len(datas) == 0:
+        raise ValueError("stack_stagewise needs at least one build")
+    d0 = datas[0]
+    key = lambda d: (d.n_x, d.n_u, d.horizon, d.m_x, d.m_u, d.max_iters)
+    for d in datas[1:]:
+        if key(d) != key(d0):
+            raise ValueError(
+                f"stack_stagewise needs identical shapes: {d.name} "
+                f"{key(d)} vs {d0.name} {key(d0)} (n_x, n_u, horizon, m_x, "
+                "m_u, max_iters)")
+    return dataclasses.replace(d0, **{
+        f: torch.stack([getattr(d, f) for d in datas])
+        for f in STAGEWISE_TENSOR_FIELDS})
+
+
+def solve_stagewise_multi(
+    data: StagewiseData,
+    x0,
+    iterations: Optional[int] = None,
+    y0=None,
+    scan: str = "auto",
+    mode: str = "fixed",
+    eps_g: float = 1e-6,
+    eps_V: float = 1e-6,
+    check_every: int = 10,
+    restart: bool = False,
+    config=None,
+) -> SolveResult:
+    """Solve P stage-wise problems with different dynamics and costs (one
+    ``stack_stagewise`` build) in one call, as
+    ``tpu_gpad.stagewise.solve_stagewise_multi``.
+
+    ``x0`` is (P, n_x), one state per plant, or (P, B, n_x) for a batch per
+    plant; ``y0`` broadcasts to (P[, B], N, m_x + m_u). The torch engine
+    runs over P and the batch with batched products (the kernels assume
+    constants shared by the batch); ``scan="auto"`` follows
+    ``resolve_scan`` with the per-plant batch. A ``SolverConfig`` as
+    ``config`` supplies iterations/mode/eps_g/eps_V/check_every/restart."""
+    if data.E.ndim != 4:
+        raise ValueError("solve_stagewise_multi takes a stack_stagewise build")
+    n_iters, mode, eps_g, eps_V, check_every, restart = _settings(
+        data, config, iterations, mode, eps_g, eps_V, check_every, restart,
+        scan)
+    dev, dt = data.device, data.E.dtype
+    x0 = torch.as_tensor(x0, dtype=dt, device=dev)
+    P = data.E.shape[0]
+    if x0.ndim < 2 or x0.shape[0] != P:
+        raise ValueError(
+            f"x0 must be (P, n_x) or (P, B, n_x) with P = {P}; got "
+            f"{tuple(x0.shape)}")
+    inner = tuple(x0.shape[1:-1])
+    N, m = data.horizon, data.m_x + data.m_u
+    xb = x0.reshape(P, -1, data.n_x)
+    B = xb.shape[1]
+    if y0 is None:
+        y = torch.zeros((N, P, B, m), dtype=dt, device=dev)
+    else:
+        y0 = torch.as_tensor(y0, dtype=dt, device=dev)
+        y0 = y0.broadcast_to((P, *inner, N, m)).reshape(P, B, N, m)
+        y = y0.permute(2, 0, 1, 3).contiguous()
+    dtl, qoff, c = (a.transpose(0, 1)[:, :, None]
+                    for a in (data.dtl, data.qoff, data.c_seq))
+    cs = _consts(data, dtl, qoff, c,
+                 assoc=resolve_scan(data, B, scan) == "associative")
+    if mode == "eps":
+        out = _solve_eps(data, cs, xb, y, n_iters, restart, eps_g, eps_V,
+                         check_every)
+    else:
+        out = _solve_fixed(data, cs, xb, y, n_iters, restart)
+    zu, y, iters, residual, gap, conv, u0 = out
+    pm = lambda a: a.permute(1, 2, 0, 3)  # (N, P, B, .) -> (P, B, N, .)
+    rs = lambda a: a.reshape((P, *inner) + tuple(a.shape[2:]))
+    return SolveResult(
+        u=rs(u0), z=rs(pm(zu).reshape(P, B, -1)), y=rs(pm(y).contiguous()),
         iterations=rs(iters), residual=rs(residual), gap=rs(gap),
         converged=rs(conv),
     )
