@@ -31,7 +31,14 @@ stage-wise twin (the resident and the streamed kernel), moving-horizon
 estimation (a window of 180 on the tiled dual kernel, a stream at window
 60 on the dual kernel, and a big-state window on the stage-wise torch
 engine against a float64 host solve) and the offset-free controller (the
-dual kernel), each leg's launches counted from 0. It times kernels and
+dual kernel); and the NMPC layer at tools/bench_nmpc_device.py's swing-up
+(80 samples host-condensed, device-condensed and as one loop on the card,
+a 64-plant ``plan_batch``: the dual kernel, its data condensed on the card
+held against the plain version too), ``RobustNMPC`` at
+tools/bench_robust_device.py's configuration (host and device), and a
+short ``NMPC(engine="stagewise")`` leg (the resident stage-wise kernel;
+its ``plan_batch`` on the torch engine), each leg's launches counted from
+0. It times kernels and
 plain versions with CUDA events, computes each kernel's roofline bound
 from its shapes, and prints one JSON object per phase. Any failed check exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``. It imports
@@ -155,6 +162,31 @@ MHE_TOL = 1e-4  # |x_hat - reference| relative to the reference's scale
 # examples/offset_free_mpc.py: bias 0.08, setpoint 1.5, 120 steps
 OFFSET_STEPS, OFFSET_ITERS, OFFSET_BIAS, OFFSET_R, OFFSET_TOL = (
     120, 80, 0.08, 1.5, 1e-3)
+# NMPC: tools/bench_nmpc_device.py's pendulum swing-up (rk4, dt 0.05,
+# horizon 25, 200 restart iterations, 2 SQP passes a sample) for 80 samples
+# on each leg, and one planning pass over a fleet of 64 plants
+NMPC_KW = dict(n_x=2, n_u=1, horizon=25, Q=np.diag([10.0, 1.0]),
+               R=np.diag([0.1]), u_min=np.array([-11.0]),
+               u_max=np.array([11.0]), iterations=200, sqp_iters=2)
+NMPC_X0 = np.array([2.07, 0.0], dtype=np.float32)
+NMPC_SAMPLES, NMPC_FLEET = 80, 64
+NMPC_SETTLE = 0.05  # |theta - pi| at the last sample: the tool's gate
+NMPC_TRAJ_TOL = 5e-2  # legs' trajectories and the fleet's first moves
+# a short stage-wise leg: the swing-up with tools/bench_robust_device.py's
+# state box (the stage-wise kernels need state rows), 10 samples, and a
+# plan_batch over 8 plants (each pass builds every plant's constants on the
+# host, about 0.3 s a build)
+NMPC_SW_SAMPLES, NMPC_SW_FLEET = 10, 8
+NMPC_BOX = dict(x_min=np.array([-10.0, -12.0]), x_max=np.array([10.0, 12.0]))
+# tools/bench_robust_device.py: three gravities, horizon 12, state boxes,
+# 150 restart iterations, 60 samples against the g = 10.8 plant
+ROBUST_NMPC_GS = (8.8, 9.81, 10.8)
+ROBUST_NMPC_KW = dict(n_x=2, n_u=1, horizon=12, Q=np.diag([10.0, 1.0]),
+                      R=0.1 * np.eye(1), u_min=np.array([-11.0]),
+                      u_max=np.array([11.0]), iterations=150, sqp_iters=1,
+                      **NMPC_BOX)
+ROBUST_NMPC_X0 = np.array([2.2, 0.0], dtype=np.float32)
+ROBUST_NMPC_SAMPLES = 60
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 outside the tensor
 # cores, and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -1328,7 +1360,7 @@ def parted_max(B: int) -> int:
     return max(1, int(SW_RESTART_PARTED_SHARE * B))
 
 
-def restart_parting(torch, data, g_P, p_D, y0, z_k, z_p):
+def restart_parting(torch, data, g_P, p_D, y0, z_k, z_p, iterations=ITERS):
     """A restart run of a dual kernel (z_k) against the plain version
     (z_p), per scenario, and both against the plain version in
     float64. A restart decision is the sign of a sum that float32 rounding
@@ -1345,8 +1377,8 @@ def restart_parting(torch, data, g_P, p_D, y0, z_k, z_p):
     y64 = (torch.zeros_like(p_D, dtype=torch.float64) if y0 is None
            else y0.double())
     z64 = dual_kernels.gpad_fixed_dual_torch(
-        d64, g_P.double(), p_D.double(), y64, iterations=ITERS, restart=True,
-        diagnostics=False)[0]
+        d64, g_P.double(), p_D.double(), y64, iterations=iterations,
+        restart=True, diagnostics=False)[0]
     per = lambda a, b: (a.double() - b.double()).abs().amax(dim=1)
     e_k, e_k64, e_p64 = per(z_k, z_p), per(z_k, z64), per(z_p, z64)
     parted = e_k > RESTART_TOL
@@ -2803,6 +2835,380 @@ def phase_estimator_path(torch, tg, ctr):
     return launches
 
 
+def pendulum(tg):
+    """tools/bench_nmpc_device.py's plant: the damped pendulum, rk4 at
+    dt 0.05."""
+    return tg.rk4(tg.problems.pendulum_dynamics(), 0.05)
+
+
+def gravity_pendulum(torch, tg, g):
+    """tools/bench_robust_device.py's model of gravity g."""
+    def f_cont(x, u):
+        return torch.stack([x[1], g * torch.sin(x[0]) - 0.1 * x[1] + u[0]])
+
+    return tg.rk4(f_cont, 0.05)
+
+
+def nmpc_fleet():
+    """The fleet's states: the swing-up start plus U(-0.1, 0.1), seed 0."""
+    rng = np.random.default_rng(0)
+    return (NMPC_X0 + rng.uniform(-0.1, 0.1, (NMPC_FLEET, 2))).astype(
+        np.float32)
+
+
+def phase_nmpc_dual_vs_plain(torch, tg, dual_kernels, core):
+    """The dual kernel against its plain version on data condensed and
+    dualized on the card (``dualize_ltv_device``, ``dualize_scenario_device``:
+    L, D and the maps come from the device), at the NMPC path's shapes:
+    the swing-up's linearization at its start (m_h 25), one plant (B1) and
+    the fleet's 64 parameters (B64), fixed and restart (held per scenario),
+    and the robust stack of three models (m_h 106). Errors are relative to
+    the largest plain output (the moves reach the 11 N m limit)."""
+    from tpu_gpad_torch.device_condense import dualize_scenario_device
+    from tpu_gpad_torch.problems.pendulum import UPRIGHT
+
+    f = pendulum(tg)
+    N, iters = NMPC_KW["horizon"], NMPC_KW["iterations"]
+    x0 = torch.as_tensor(NMPC_X0, device=DEVICE)
+    us = torch.zeros((N, 1), device=DEVICE)
+    xs = tg.nonlinear.rollout(f, x0, us)
+    A, B, c = tg.nonlinear.linearize(f, torch.cat([x0[None], xs[:-1]]), us)
+    kw = {k: NMPC_KW[k] for k in ("Q", "R", "u_min", "u_max")}
+    data = tg.dualize_ltv_device(A, B, c, iterations=iters, **kw)
+    check(data.device.type == "cuda" and core.cuda_kernel(
+        data, tg.SolverConfig(iterations=iters, restart=True)) == "dual",
+        "device-condensed data is not served by the dual kernel")
+    P = torch.as_tensor(np.concatenate(
+        [nmpc_fleet(), np.tile(UPRIGHT, (NMPC_FLEET, 1))], axis=1),
+        dtype=torch.float32, device=DEVICE)
+
+    def run(d, B, restart=False, y0=None, iterations=iters):
+        g_P, p_D = (t[:B].contiguous() for t in core.affine_params(d, P[:, :d.n_x]))
+        kw = dict(iterations=iterations, restart=restart)
+        out_k = dual_kernels.gpad_fixed_dual(d, g_P, p_D, y0, **kw)
+        out_p = dual_kernels.gpad_fixed_dual_torch(d, g_P, p_D, y0, **kw)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in out_k),
+              "dual kernel output not finite on device-condensed data")
+        scale = max(1.0, max(t.abs().max().item() for t in out_p))
+        if restart:
+            parting = restart_parting(torch, d, g_P, p_D, y0, out_k[0],
+                                      out_p[0], iterations)
+            return parting, out_k
+        return max_err(out_k, out_p) / scale, out_k
+
+    cases = {}
+    cases["ltv_B1"], _ = run(data, 1)
+    cases["ltv_B64"], (_, y64, _, _) = run(data, NMPC_FLEET)
+    parting = {"ltv_B64_restart": run(data, NMPC_FLEET, restart=True)[0],
+               "ltv_B64_restart_warm": run(data, NMPC_FLEET, restart=True,
+                                           y0=y64)[0]}
+    gs, rkw = ROBUST_NMPC_GS, ROBUST_NMPC_KW
+    lins = []
+    for g in gs:
+        fg = gravity_pendulum(torch, tg, g)
+        u0 = torch.zeros((rkw["horizon"], 1), device=DEVICE)
+        x = torch.as_tensor(ROBUST_NMPC_X0, device=DEVICE)
+        xs = tg.nonlinear.rollout(fg, x, u0)
+        lins.append(tg.nonlinear.linearize(
+            fg, torch.cat([x[None], xs[:-1]]), u0))
+    A, B, c = (torch.stack(t) for t in zip(*lins))
+    scen = dualize_scenario_device(
+        A, B, c, rkw["Q"], rkw["R"], rkw["u_min"], rkw["u_max"],
+        iterations=rkw["iterations"], x_min=rkw["x_min"], x_max=rkw["x_max"])
+    cases["scenario_B1"], _ = run(scen, 1, iterations=rkw["iterations"])
+    parting["scenario_B64_restart"] = run(scen, NMPC_FLEET, restart=True,
+                                          iterations=rkw["iterations"])[0]
+    emit({"phase": "nmpc_dual_kernel_vs_plain",
+          "m_half": {"ltv": data.m_half, "scenario": scen.m_half},
+          "L": {"ltv": data.L.item(), "scenario": scen.L.item()},
+          "rel_err": cases, "restart_parting": parting,
+          "tol": KERNEL_TOL, "restart_tol_u_z": RESTART_TOL})
+    check(max(cases.values()) <= KERNEL_TOL,
+          f"dual kernel vs plain on device-condensed data: {cases}")
+    for name, p in parting.items():
+        check(p["parted"] <= p["parted_max"] and p["u_z"] is not None
+              and p["u_z"] <= RESTART_TOL, f"{name}: {p}")
+    return max(max(cases.values()), max(p["u_z"] for p in parting.values()))
+
+
+def timed(torch, fn):
+    """(fn's result, its host-clock seconds up to a device sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def without_host_sync(torch, fn):
+    """Run ``fn`` with PyTorch's sync debug mode at "error": any call that
+    waits for the card on the host (a copy back, ``.item()``, a status
+    read) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def pass_breakdown(torch, tg, f, ctrls, x, us, p, y, rounds=21) -> dict:
+    """Where one SQP pass of the swing-up spends its time, ms a call: the
+    rollout, rollout and Jacobians, the device and the host condensation,
+    the dual-kernel solve, and the whole device and host passes. Each is
+    timed once a round (host clock between device syncs), the pieces in
+    turns so that the host's drift spreads over all of them; the median
+    of ``rounds`` after a warm-up round."""
+    from tpu_gpad_torch.device_condense import dualize_ltv
+
+    dev, host = ctrls["device"], ctrls["host"]
+
+    A, B, c = tg.nonlinear.linearize(
+        f, torch.cat([x[None], tg.nonlinear.rollout(f, x, us)[:-1]]), us)
+    data = dualize_ltv(dev._consts, A, B, c)
+    problem = host._linearized_problem(us, x)
+    cfg = dev.config
+    pieces = {
+        "rollout": lambda: tg.nonlinear.rollout(f, x, us),
+        "rollout_and_jacobians": lambda: tg.nonlinear._linearize_along(
+            f, x, us),
+        "device_condensation": lambda: dualize_ltv(dev._consts, A, B, c),
+        "host_condensation": lambda: host._dualize(problem),
+        "dual_kernel_solve": lambda: tg.solve_batch(
+            data, p[None], config=cfg, y0=y[None]),
+        "device_pass": lambda: dev._device_pass(x, us, p, y),
+        "host_pass": lambda: tg.solve_batch(
+            host._dualize(host._linearized_problem(us, x)), p[None],
+            config=cfg, y0=None),
+    }
+    times = {name: [] for name in pieces}
+    for r in range(rounds + 1):
+        for name, fn in pieces.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if r:  # round 0 warms up
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def phase_nmpc_path(torch, tg, ctr, smi):
+    """The NMPC layer on the card at tools/bench_nmpc_device.py's
+    configuration, each leg counted from 0 after a warm-up call: 80
+    samples of the swing-up with host condensation (``NMPC``), with device
+    condensation (``NMPC(device_condense=True)``) and as one loop on the
+    card (``simulate_nonlinear_device``), each 2 dual-kernel launches a
+    sample; then one ``plan_batch`` over 64 plants, host and device, 64
+    launches a pass. Each leg settles upright, the legs' trajectories and
+    the fleet's first moves agree. Returns the launches by leg."""
+    from tpu_gpad_torch.problems.pendulum import UPRIGHT
+
+    f = pendulum(tg)
+    n, sqp = NMPC_SAMPLES, NMPC_KW["sqp_iters"]
+    per_leg = {"gpad_dual": n * sqp}
+    out = {"phase": "nmpc_path", "gpu": smi, "samples": n,
+           "horizon": NMPC_KW["horizon"], "iterations": NMPC_KW["iterations"],
+           "sqp_iters": sqp}
+    launches, trajs = {}, {}
+    ctrls = {"host": tg.NMPC(f, **NMPC_KW, device=DEVICE),
+             "device": tg.NMPC(f, **NMPC_KW, device_condense=True,
+                               device=DEVICE)}
+    for label, ctrl in ctrls.items():
+        ctrl.step(NMPC_X0, UPRIGHT)  # warm-up, then a fresh start
+        ctrl.reset()
+        ((X, U), secs), launches[label] = counted(
+            torch, ctr, lambda: timed(torch, lambda: tg.simulate_nonlinear(
+                f, ctrl, NMPC_X0, n, x_ref=UPRIGHT)), per_leg, f"nmpc {label}")
+        trajs[label] = X
+        out[label] = {"ms_per_sample": secs / n * 1e3,
+                      "theta_err_final": float(abs(X[-1, 0] - np.pi)),
+                      "max_abs_u": float(np.abs(U).max())}
+    dev = ctrls["device"]
+    # one device pass, single and for the fleet, with no host sync in it
+    x = torch.as_tensor(NMPC_X0, device=DEVICE)
+    us = torch.zeros((NMPC_KW["horizon"], 1), device=DEVICE)
+    p = torch.cat([x, torch.as_tensor(UPRIGHT, dtype=torch.float32,
+                                      device=DEVICE)])
+    y = torch.zeros((2, dev._m_h), device=DEVICE)
+    F = NMPC_FLEET
+
+    def passes():
+        dev._device_pass(x, us, p, y)
+        dev._device_pass(x.expand(F, 2), us.expand(F, -1, -1),
+                         p.expand(F, -1), y.expand(F, -1, -1))
+
+    passes()  # the batched pass's first call outside the check
+    torch.cuda.synchronize()
+    without_host_sync(torch, passes)
+    torch.cuda.synchronize()
+    out["device_pass_host_syncs"] = 0
+    out["pass_breakdown_ms"] = pass_breakdown(torch, tg, f, ctrls, x, us, p, y)
+    tg.simulate_nonlinear_device(f, dev, NMPC_X0, 2, x_ref=UPRIGHT)  # warm-up
+    ((X, U), secs), launches["scanned"] = counted(
+        torch, ctr, lambda: timed(torch, lambda: tg.simulate_nonlinear_device(
+            f, dev, NMPC_X0, n, x_ref=UPRIGHT)), per_leg, "nmpc scanned")
+    trajs["scanned"] = X
+    out["scanned"] = {"ms_per_sample": secs / n * 1e3,
+                      "theta_err_final": float(abs(X[-1, 0] - np.pi)),
+                      "max_abs_u": float(np.abs(U).max())}
+    for a, b in (("host", "device"), ("device", "scanned"),
+                 ("host", "scanned")):
+        out[f"traj_max_abs_diff_{a}_vs_{b}"] = float(
+            np.abs(trajs[a] - trajs[b]).max())
+
+    X0 = nmpc_fleet()
+    plans = {}
+    out["plan_batch"] = {"plants": NMPC_FLEET}
+    for label, ctrl in ctrls.items():
+        ctrl.plan_batch(X0, UPRIGHT)  # warm-up, then a fresh start
+        ctrl.reset()
+        (U0, secs), launches[f"plan_batch_{label}"] = counted(
+            torch, ctr, lambda: timed(torch, lambda: ctrl.plan_batch(
+                X0, UPRIGHT)), {"gpad_dual": NMPC_FLEET * sqp},
+            f"nmpc plan_batch {label}")
+        plans[label] = U0[:, 0]
+        out["plan_batch"][f"{label}_ms"] = secs * 1e3
+    out["plan_batch"]["u0_max_abs_diff"] = float(
+        np.abs(plans["host"] - plans["device"]).max())
+    out["launches"] = launches
+    emit(out)
+    for label in ("host", "device", "scanned"):
+        check(out[label]["theta_err_final"] < NMPC_SETTLE
+              and out[label]["max_abs_u"] <= 11.0 + 1e-3,
+              f"nmpc {label} leg {out[label]}")
+    for key in ("traj_max_abs_diff_host_vs_device",
+                "traj_max_abs_diff_device_vs_scanned"):
+        check(out[key] < NMPC_TRAJ_TOL, f"nmpc {key} {out[key]}")
+    check(out["plan_batch"]["u0_max_abs_diff"] < NMPC_TRAJ_TOL,
+          f"nmpc plan_batch {out['plan_batch']}")
+    return launches
+
+
+def phase_robust_nmpc_path(torch, tg, ctr, smi):
+    """``RobustNMPC`` at tools/bench_robust_device.py's configuration (three
+    gravities, horizon 12, state boxes, 150 restart iterations) for 60
+    samples against the g = 10.8 plant, host and device condensation, each
+    leg counted from 0 after a warm-up step: one dual-kernel launch a
+    sample. Both settle and follow the same trajectory, every scenario's
+    plan keeps the shared first move. Returns the launches by leg."""
+    models = [gravity_pendulum(torch, tg, g) for g in ROBUST_NMPC_GS]
+    plant, n = models[-1], ROBUST_NMPC_SAMPLES
+    ref = np.array([np.pi, 0.0], dtype=np.float32)
+    out = {"phase": "robust_nmpc_path", "gpu": smi, "samples": n,
+           "models": len(models), "horizon": ROBUST_NMPC_KW["horizon"],
+           "iterations": ROBUST_NMPC_KW["iterations"]}
+    launches, trajs = {}, {}
+    for label, dev in (("host", False), ("device", True)):
+        ctrl = tg.RobustNMPC(models, device_condense=dev, **ROBUST_NMPC_KW,
+                             device=DEVICE)
+        ctrl.step(ROBUST_NMPC_X0, ref)  # warm-up, then a fresh start
+        ctrl.reset()
+        if dev:  # one robust device pass, with no host sync in it
+            x = torch.as_tensor(ROBUST_NMPC_X0, device=DEVICE)
+            args = (x, torch.zeros((len(models), ROBUST_NMPC_KW["horizon"], 1),
+                                   device=DEVICE),
+                    torch.cat([x, torch.as_tensor(ref, device=DEVICE)]),
+                    torch.zeros((2, ctrl._m_h), device=DEVICE))
+            without_host_sync(torch, lambda: ctrl._device_pass(*args))
+            torch.cuda.synchronize()
+            out["device_pass_host_syncs"] = 0
+
+        def loop():
+            x, X, shared = torch.as_tensor(ROBUST_NMPC_X0, device=DEVICE), [], 0.0
+            X.append(x.cpu().numpy())
+            for _ in range(n):
+                u = ctrl.step(X[-1], ref)
+                shared = max(shared, float(np.ptp(ctrl.plans[:, 0])))
+                x = plant(x, torch.as_tensor(u, device=DEVICE))
+                X.append(x.cpu().numpy())
+            return np.stack(X), shared
+
+        ((X, shared), secs), launches[label] = counted(
+            torch, ctr, lambda: timed(torch, loop), {"gpad_dual": n},
+            f"robust nmpc {label}")
+        trajs[label] = X
+        out[label] = {"ms_per_sample": secs / n * 1e3,
+                      "theta_err_final": float(abs(X[-1, 0] - np.pi)),
+                      "shared_first_move_spread": shared}
+    out["traj_max_abs_diff"] = float(np.abs(trajs["host"] - trajs["device"]).max())
+    out["launches"] = launches
+    emit(out)
+    for label in ("host", "device"):
+        check(out[label]["theta_err_final"] < NMPC_SETTLE
+              and out[label]["shared_first_move_spread"] == 0.0,
+              f"robust nmpc {label} {out[label]}")
+    check(out["traj_max_abs_diff"] < NMPC_TRAJ_TOL,
+          f"robust nmpc host vs device {out['traj_max_abs_diff']}")
+    return launches
+
+
+def phase_nmpc_stagewise_path(torch, tg, ts, ctr, smi):
+    """``NMPC(engine="stagewise")`` on the swing-up with a state box, each
+    leg counted from 0 after a warm-up: 10 samples, each pass built on the
+    host and solved by ``solve_stagewise`` on the route ``auto`` takes at
+    these shapes (recorded; the resident kernel at one scenario on 132
+    SMs), against the condensed controller's loop; then ``plan_batch``
+    through ``stack_stagewise`` + ``solve_stagewise_multi`` (the
+    torch engine, no kernel) over the fleet's first 8 plants, against the
+    condensed ``plan_batch``; and ``solve_stagewise_multi`` alone, timed
+    at 8 and 64 plants."""
+    from tpu_gpad_torch.problems.pendulum import UPRIGHT
+
+    f = pendulum(tg)
+    kw = dict(NMPC_KW, **NMPC_BOX)
+    n, sqp = NMPC_SW_SAMPLES, kw["sqp_iters"]
+    sw = tg.NMPC(f, engine="stagewise", **kw, device=DEVICE)
+    cond = tg.NMPC(f, **kw, device=DEVICE)
+    problem = sw._linearized_problem(
+        torch.zeros((kw["horizon"], 1), device=DEVICE),
+        torch.as_tensor(NMPC_X0, device=DEVICE))
+    data = tg.build_stagewise(problem, iterations=kw["iterations"],
+                              x_ref=UPRIGHT, device=DEVICE)
+    route = ts.resolve_stagewise_engine(data, 1)
+    check(route == "cuda", f"stage-wise NMPC route {route}")
+    out = {"phase": "nmpc_stagewise_path", "gpu": smi, "samples": n,
+           "route": route, "m": data.m_x + data.m_u}
+    launches = {}
+    for ctrl in (sw, cond):
+        ctrl.step(NMPC_X0, UPRIGHT)
+        ctrl.reset()
+    ((X, U), secs), launches["plan"] = counted(
+        torch, ctr, lambda: timed(torch, lambda: tg.simulate_nonlinear(
+            f, sw, NMPC_X0, n, x_ref=UPRIGHT)),
+        {"gpad_stagewise_resident": n * sqp}, "stage-wise nmpc")
+    X_c, _ = tg.simulate_nonlinear(f, cond, NMPC_X0, n, x_ref=UPRIGHT)
+    out["ms_per_sample"] = secs / n * 1e3
+    out["traj_max_abs_diff_vs_condensed"] = float(np.abs(X - X_c).max())
+    X0 = nmpc_fleet()[:NMPC_SW_FLEET]
+    for ctrl in (sw, cond):
+        ctrl.plan_batch(X0, UPRIGHT)
+        ctrl.reset()
+    (U_sw, secs), launches["plan_batch"] = counted(
+        torch, ctr, lambda: timed(torch, lambda: sw.plan_batch(X0, UPRIGHT)),
+        {}, "stage-wise nmpc plan_batch")
+    U_c = cond.plan_batch(X0, UPRIGHT)
+    out["plan_batch"] = {"plants": NMPC_SW_FLEET, "ms": secs * 1e3,
+                         "u0_max_abs_diff_vs_condensed": float(
+                             np.abs(U_sw[:, 0] - U_c[:, 0]).max())}
+    # solve_stagewise_multi alone (the torch engine, CUDA events): the
+    # swing-up's stage-wise build stacked for 8 and 64 plants, B1 each
+    X_all = torch.as_tensor(nmpc_fleet(), device=DEVICE)
+    out["solve_stagewise_multi"] = {}
+    for P in (NMPC_SW_FLEET, NMPC_FLEET):
+        stacked = tg.stack_stagewise([data] * P)
+        out["solve_stagewise_multi"][str(P)] = rate(
+            lambda: tg.solve_stagewise_multi(stacked, X_all[:P],
+                                             config=sw.config), P, repeats=3)
+    out["launches"] = launches
+    emit(out)
+    check(out["traj_max_abs_diff_vs_condensed"] < NMPC_TRAJ_TOL,
+          f"stage-wise nmpc vs condensed {out}")
+    check(out["plan_batch"]["u0_max_abs_diff_vs_condensed"] < NMPC_TRAJ_TOL,
+          f"stage-wise nmpc plan_batch {out['plan_batch']}")
+    return launches
+
+
 def kernel_ms(med, kernel, B=BATCH) -> float:
     """A resident kernel's time at batch B: the profiler's device time of
     its launch, or where the profiler saw none, the CUDA-event time of its
@@ -2871,6 +3277,7 @@ def main() -> int:
     worst_paired = phase_paired_kernel_vs_plain(torch, tg, kernels, core)
     worst_tiled = phase_tiled_kernels_vs_plain(torch, tg, kernels, dual_kernels,
                                                core)
+    worst_nmpc = phase_nmpc_dual_vs_plain(torch, tg, dual_kernels, core)
     # each path's launches are counted from 0, set just before it
     reset_counters(kernels, dual_kernels, sk, ss)
     phase_main_path(torch, tg, kernels, core, reference)
@@ -2932,6 +3339,11 @@ def main() -> int:
         "mhe_path": phase_mhe_path(torch, tg, ctr, smi),
         "estimator_path": {"offset_free": phase_estimator_path(torch, tg,
                                                                ctr)},
+        # the NMPC layer (pendulum swing-up, fleet, robust, stage-wise)
+        "nmpc_path": phase_nmpc_path(torch, tg, ctr, smi),
+        "robust_nmpc_path": phase_robust_nmpc_path(torch, tg, ctr, smi),
+        "nmpc_stagewise_path": phase_nmpc_stagewise_path(torch, tg, ts, ctr,
+                                                         smi),
     }
     med = phase_timing(torch, tg, kernels, dual_kernels, core, smi)
     dmed = phase_dual_timing(torch, tg, kernels, dual_kernels, core, smi)
@@ -2959,6 +3371,8 @@ def main() -> int:
         "replaces": "tpu_gpad/solver/kernels.py:456",
         "launches": dual_launches,
         "max_abs_err": worst_dual,
+        # on data condensed on the card (relative to the output's scale)
+        "max_err_device_condensed": worst_nmpc,
         "ms": kernel_ms(dmed, "dual"),
         "plain_ms": dmed[f"dual_plain@{BATCH}"],
         "torch_engine_ms": dmed["dual_torch_engine"],

@@ -1112,3 +1112,91 @@ def test_from_qp_restart_serving_on_the_dual_kernel(dev):
         parted = du > RESTART_TOL
         assert int(parted.sum()) <= 2 and du[~parted].max() <= RESTART_TOL
         x = (x @ A.T + u @ Bm.T).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# the NMPC layer: device condensation on the card, its dual-kernel solves
+# ---------------------------------------------------------------------------
+
+NMPC_KW = dict(n_x=2, n_u=1, horizon=25, Q=np.diag([10.0, 1.0]),
+               R=np.diag([0.1]), u_min=np.array([-11.0]),
+               u_max=np.array([11.0]), iterations=200, sqp_iters=2)
+UPRIGHT = np.array([np.pi, 0.0])
+# plans from float32 condensation on two devices (cuSOLVER and cuBLAS
+# against the host's LAPACK and BLAS), 200 dual-form iterations a pass
+NMPC_PLAN_TOL = 1e-3
+
+
+def _pendulum_linearization(dev, x0=(2.07, 0.0)):
+    f = tg.rk4(tg.problems.pendulum_dynamics(), 0.05)
+    x = torch.tensor(x0, device=dev)
+    us = torch.zeros((NMPC_KW["horizon"], 1), device=dev)
+    xs = tg.nonlinear.rollout(f, x, us)
+    return tg.nonlinear.linearize(f, torch.cat([x[None], xs[:-1]]), us)
+
+
+def test_device_pass_on_the_card_matches_the_cpu(dev):
+    """The condensed data and the plans of the device-condensed controller
+    on the card against the same on the CPU."""
+    kw = {k: NMPC_KW[k] for k in ("Q", "R", "u_min", "u_max")}
+    on = {d: tg.dualize_ltv_device(*_pendulum_linearization(d), iterations=200,
+                                   **kw) for d in (dev, torch.device("cpu"))}
+    for f in ("MG_T", "GL_T", "gP_map", "pD_map", "pD_const", "D", "L"):
+        torch.testing.assert_close(getattr(on[dev], f).cpu(),
+                                   getattr(on[torch.device("cpu")], f),
+                                   atol=TOL, rtol=1e-4, msg=f)
+    # the dual form without restart: no restart decision to flip between
+    # the card's and the host's sums
+    cfg = tg.SolverConfig(iterations=200, form="dual")
+    f = tg.rk4(tg.problems.pendulum_dynamics(), 0.05)
+    card = tg.NMPC(f, **NMPC_KW, config=cfg, device_condense=True, device=dev)
+    host = tg.NMPC(f, **NMPC_KW, config=cfg, device_condense=True,
+                   device="cpu")
+    x = np.array([2.07, 0.0], np.float32)
+    for _ in range(3):
+        before = dual_kernels.DUAL_LAUNCHES
+        u_card = card.plan(x, UPRIGHT)
+        assert dual_kernels.DUAL_LAUNCHES == before + NMPC_KW["sqp_iters"]
+        np.testing.assert_allclose(u_card, host.plan(x, UPRIGHT),
+                                   atol=NMPC_PLAN_TOL, rtol=0)
+        x = f(torch.as_tensor(x), torch.as_tensor(u_card[0])).numpy()
+
+
+@pytest.mark.parametrize("B", [1, 64])
+def test_dual_kernel_on_device_condensed_data(dev, B):
+    kw = {k: NMPC_KW[k] for k in ("Q", "R", "u_min", "u_max")}
+    data = tg.dualize_ltv_device(*_pendulum_linearization(dev), iterations=200,
+                                 **kw)
+    assert core.cuda_kernel(data, tg.SolverConfig(iterations=200,
+                                                  restart=True)) == "dual"
+    rng = np.random.default_rng(8)
+    P = np.concatenate([np.array([2.07, 0.0]) + rng.uniform(-0.1, 0.1, (B, 2)),
+                        np.tile(UPRIGHT, (B, 1))], axis=1)
+    g_P, p_D = core.affine_params(data, torch.as_tensor(
+        P, dtype=torch.float32, device=dev))
+    out_k, out_p = _dual_both(data, g_P, p_D, iterations=200)
+    scale = max(1.0, max(t.abs().max().item() for t in out_p))
+    for name, a, b in zip(("z", "y", "w", "zhat"), out_k, out_p):
+        torch.testing.assert_close(a / scale, b / scale, atol=TOL, rtol=0,
+                                   msg=name)
+    out_k, out_p = _dual_both(data, g_P, p_D, iterations=200, restart=True)
+    du = (out_k[0] - out_p[0]).abs().amax(dim=1)
+    parted = du > RESTART_TOL  # a restart decision flipped near r = 0
+    assert int(parted.sum()) <= max(1, B // 100)
+    if not parted.all():
+        assert du[~parted].max() <= RESTART_TOL
+
+
+@pytest.mark.parametrize("device_condense", [False, True],
+                         ids=["host", "device"])
+def test_plan_batch_launches_one_dual_kernel_per_plant(dev, device_condense):
+    f = tg.rk4(tg.problems.pendulum_dynamics(), 0.05)
+    ctrl = tg.NMPC(f, **{**NMPC_KW, "sqp_iters": 1},
+                   device_condense=device_condense, device=dev)
+    X = np.array([2.07, 0.0]) + np.random.default_rng(0).uniform(
+        -0.1, 0.1, (8, 2))
+    for _ in range(2):  # cold, then warm
+        before = dual_kernels.DUAL_LAUNCHES
+        U = ctrl.plan_batch(X, UPRIGHT)
+        assert dual_kernels.DUAL_LAUNCHES == before + 8
+        assert U.shape == (8, 25, 1) and np.isfinite(U).all()

@@ -81,6 +81,25 @@ def _ekf():
     return torch.empty(0, device=ekf.device)
 
 
+def _nmpc(device_condense):
+    def call():
+        ctrl = tg.NMPC(lambda x, u: x + 0.1 * u, 1, 1, 4, np.eye(1), np.eye(1),
+                       u_min=-np.ones(1), u_max=np.ones(1), iterations=5,
+                       device_condense=device_condense)
+        ctrl.step(np.ones(1))
+        return ctrl._us
+    return call
+
+
+def _robust_nmpc():
+    f = lambda x, u: x + 0.1 * u
+    ctrl = tg.RobustNMPC([f, f], 1, 1, 4, np.eye(1), np.eye(1),
+                         u_min=-np.ones(1), u_max=np.ones(1), iterations=5,
+                         device_condense=True)
+    ctrl.step(np.ones(1))
+    return ctrl._y
+
+
 def _gpad_data_from_numpy():
     d = tg.dualize(tg.condense(_small()), iterations=5, device="cpu")
     fields = {k: None if getattr(d, k) is None else getattr(d, k).numpy()
@@ -140,6 +159,9 @@ ENTRY_POINTS = {
     "MovingHorizonEstimator_stagewise": _mhe("stagewise"),
     "OffsetFreeController": _offset_free,
     "ExtendedKalmanFilter": _ekf,
+    "NMPC": _nmpc(False),
+    "NMPC_device_condense": _nmpc(True),
+    "RobustNMPC": _robust_nmpc,
 }
 # entry points that read a file, written on the CPU into the test's tmp_path
 FILE_ENTRY_POINTS = {

@@ -1,5 +1,6 @@
 """The port and chip_smoke.py import neither jax nor tpu_gpad (the machine
-with the card has no jax), and chip_smoke.py refuses to run without a card."""
+with the card has no jax), chip_smoke.py refuses to run without a card,
+and the port exports every public name of tpu_gpad that it has ported."""
 
 import json
 import os
@@ -40,7 +41,8 @@ def test_port_imports_no_jax():
     assert "tpu_gpad_torch.cuda_build" in out["imported"]
     for name in ("stagewise", "stagewise_kernel", "stagewise_stream", "io",
                  "solver.multi", "sweep", "robust", "estimator", "mhe",
-                 "analysis", "utils.debug"):
+                 "analysis", "utils.debug", "nonlinear", "device_condense",
+                 "problems.pendulum", "problems.point_mass"):
         assert f"tpu_gpad_torch.{name}" in out["imported"]
     assert out["bad"] == []
 
@@ -53,3 +55,41 @@ def test_chip_smoke_fails_without_a_card():
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
     assert "no CUDA device" in proc.stderr
+
+
+# Public names of tpu_gpad that the port does not carry yet, each with the
+# module (ROADMAP Queue 1) that brings it; the set shrinks with each slice.
+UNPORTED = {
+    "feedback_gain": "diff.py",
+    "make_data_differentiable_solver": "diff.py",
+    "make_differentiable_solver": "diff.py",
+    "sensitivity": "diff.py",
+    "device_time_percentiles": "utils/timing.py",
+    "device_time_stats": "utils/timing.py",
+    "interleaved_ab": "utils/timing.py",
+    "matmul_peak_tflops": "utils/timing.py",
+    "wall_times": "utils/timing.py",
+    # no counterpart: the port runs eagerly (tpu_gpad_torch/stagewise.py)
+    "solve_stagewise_jit": "none, eager port",
+}
+
+
+def test_port_exports_what_tpu_gpad_exports():
+    """Every name in the __all__ of tpu_gpad, tpu_gpad.solver,
+    tpu_gpad.utils and tpu_gpad.problems is in the port's counterpart, or
+    in UNPORTED; nothing in UNPORTED is exported by the port already."""
+    import importlib
+
+    missing, stale = {}, set()
+    for sub in ("", ".solver", ".utils", ".problems"):
+        ref = importlib.import_module("tpu_gpad" + sub)
+        port = importlib.import_module("tpu_gpad_torch" + sub)
+        gap = set(ref.__all__) - set(port.__all__)
+        missing[sub] = sorted(gap - set(UNPORTED))
+        stale |= set(UNPORTED) & set(port.__all__)
+        for name in port.__all__:
+            assert hasattr(port, name), f"tpu_gpad_torch{sub}.{name}"
+    assert all(not v for v in missing.values()), missing
+    assert not stale, stale
+    from tpu_gpad_torch import polish, polish_batch  # noqa: F401
+    from tpu_gpad_torch.solver import solve_multi, stack_data  # noqa: F401

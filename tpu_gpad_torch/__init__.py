@@ -28,6 +28,13 @@ by slice. It carries the condensed serving path:
   iterates through device memory; ``stack_stagewise`` and
   ``solve_stagewise_multi`` solve plants with different dynamics in one
   call,
+- successive-linearization nonlinear MPC (``nonlinear``: ``NMPC``,
+  ``RobustNMPC``, ``rk4``, ``simulate_nonlinear``): each sample's
+  linearization (``torch.func.jacfwd``) condensed on the host in float64,
+  or with ``device_condense=True`` on the card in float32
+  (``dualize_ltv_device``), so that a pass, and with
+  ``simulate_nonlinear_device`` a whole closed loop, stays on the card;
+  the pendulum and point-mass plants in ``problems``,
 - per-iteration convergence traces (``analysis``) and checked solves
   (``utils.debug``),
 - the ``solve`` (``--dataset`` and ``--engine stagewise`` included),
@@ -42,7 +49,16 @@ from tpu_gpad_torch.condense import condense, dualize
 from tpu_gpad_torch.schedule import momentum_schedule
 from tpu_gpad_torch import io, problems
 from tpu_gpad_torch.solver import SolverConfig, solve, solve_batch, solve_to_accuracy
+from tpu_gpad_torch.solver.qp import polish, polish_batch
 from tpu_gpad_torch.closed_loop import Controller, simulate
+from tpu_gpad_torch.nonlinear import (
+    NMPC,
+    RobustNMPC,
+    rk4,
+    simulate_nonlinear,
+    simulate_nonlinear_device,
+)
+from tpu_gpad_torch.device_condense import dualize_ltv_device
 from tpu_gpad_torch.stagewise import (
     StagewiseController,
     StagewiseData,
@@ -91,6 +107,14 @@ __all__ = [
     "solve_to_accuracy",
     "Controller",
     "simulate",
+    "NMPC",
+    "RobustNMPC",
+    "rk4",
+    "simulate_nonlinear",
+    "simulate_nonlinear_device",
+    "dualize_ltv_device",
+    "polish",
+    "polish_batch",
     "StagewiseData",
     "auto_solver",
     "StagewiseController",

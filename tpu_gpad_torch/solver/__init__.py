@@ -19,5 +19,7 @@ from tpu_gpad_torch.solver.core import (
     solve_batch,
     solve_to_accuracy,
 )
+from tpu_gpad_torch.solver.multi import solve_multi, stack_data
 
-__all__ = ["SolverConfig", "solve", "solve_batch", "solve_to_accuracy"]
+__all__ = ["SolverConfig", "solve", "solve_batch", "solve_multi",
+           "solve_to_accuracy", "stack_data"]
