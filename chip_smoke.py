@@ -38,7 +38,13 @@ held against the plain version too), ``RobustNMPC`` at
 tools/bench_robust_device.py's configuration (host and device), and a
 short ``NMPC(engine="stagewise")`` leg (the resident stage-wise kernel;
 its ``plan_batch`` on the torch engine), each leg's launches counted from
-0. It times kernels and
+0; and implicit differentiation (``diff``): gradients through the flat and
+the dual kernel at the headline against the torch engine's and the exact
+QP's differences, Cholesky against CG, the weight-learning gradient
+through ``dualize_ltv_device`` (the dual kernel), ``Controller.gain``, the
+stage-wise gain (the resident kernel) against the condensed one and a VJP
+at n30 N200 (the streamed kernel), then their times in turns. It times
+kernels and
 plain versions with CUDA events, computes each kernel's roofline bound
 from its shapes, and prints one JSON object per phase. Any failed check exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``. It imports
@@ -187,6 +193,46 @@ ROBUST_NMPC_KW = dict(n_x=2, n_u=1, horizon=12, Q=np.diag([10.0, 1.0]),
                       **NMPC_BOX)
 ROBUST_NMPC_X0 = np.array([2.2, 0.0], dtype=np.float32)
 ROBUST_NMPC_SAMPLES = 60
+# Implicit differentiation (diff_path): gradients of 0.5 |u*|^2 through
+# make_differentiable_solver at the headline, fixed (the flat kernel) and
+# under restart (the dual kernel), held against the same function on the
+# torch engine within DIFF_GRAD_RTOL of the gradients' scale; DIFF_FD
+# scenarios of the restart leg against central differences of the float64
+# exact QP (tests/test_diff.py's bound); sensitivity by "chol" and "cg"
+# on one dual, element by element (tests/test_diff.py's bound; CG exits at
+# a 1e-5 residual reduction, and the batch's slowest scenario sets how many
+# iterations all take)
+DIFF_GRAD_RTOL = 1e-4
+DIFF_FD, DIFF_FD_TOL, DIFF_FD_H = 8, 2e-3, 1e-5
+DIFF_CG_RTOL, DIFF_CG_ATOL = 1e-4, 1e-5
+# tests/test_diff_data.py's weight-learning composition: Q.grad through
+# dualize_ltv_device against central differences
+DIFF_Q_H, DIFF_Q_ABS, DIFF_Q_REL = 1e-3, 2e-3, 2e-2
+# the stage-wise adjoint: the gain at n8 N60 B64 (the resident kernel),
+# held at n3 N10 against the condensed sensitivity
+# (tests/test_diff_stagewise.py's 5e-4), and one directional VJP at n30
+# N200 B8 (the streamed kernel) against directional differences of the
+# forward
+DIFF_SW_ITERS, DIFF_SW_TOL = 400, 5e-4
+DIFF_SW_RES, DIFF_SW_RES_BATCH = (8, 60), 64
+# its states: uniform in +-0.1. From +-0.3 up, some scenarios' active sets
+# hold more rows than the 480 inputs (up to 559 at +-0.4: every input of a
+# stage on its box and the coupling row), the masked system is singular,
+# and the adjoint's CG runs to its cap without converging (NaN), in the
+# JAX package's algorithm as in the port's (PERF.md section 6, PR 13)
+DIFF_SW_X0 = 0.1
+DIFF_SW_CMP, DIFF_SW_CMP_BATCH = (3, 10), 8
+DIFF_SW_STREAM, DIFF_SW_STREAM_BATCH, DIFF_SW_STREAM_ITERS = (30, 200), 8, 600
+# the VJP's direction differences per scenario at two steps; within
+# tests/test_diff_stagewise.py's 10% of max(0.5, |difference|) where smooth,
+# and at least DIFF_SW_SMOOTH_MIN of the 8 scenarios smooth
+DIFF_SW_FD_H, DIFF_SW_FD_REL, DIFF_SW_SMOOTH_MIN = (0.001, 0.002), 0.1, 6
+# DIFF_BENCH.json's two configurations (100 restart iterations, fp32),
+# timed with the headline's fixed solve; rounds of the timing in turns
+DIFF_BENCH_CASES = (((3, 10), 4096), ((3, 50), 1024))
+DIFF_ROUNDS = 5
+# the backward's Cholesky against CG by m_h (battery n3 at these horizons)
+DIFF_CROSS_HORIZONS, DIFF_CROSS_BATCHES = (10, 20, 30, 40, 50), (1024, 4096)
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): float32 outside the tensor
 # cores, and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -3209,6 +3255,373 @@ def phase_nmpc_stagewise_path(torch, tg, ts, ctr, smi):
     return launches
 
 
+def grad_of_loss(f, p):
+    """(u*, the gradient of 0.5 |u*|^2 at ``p``) through the solver ``f``."""
+    p = p.detach().clone().requires_grad_(True)
+    u = f(p)
+    (0.5 * (u * u).sum()).backward()
+    return u.detach(), p.grad
+
+
+def exact_loss_grad(qp, p, h=DIFF_FD_H):
+    """Central differences of 0.5 |u*|^2 of the float64 exact QP at ``p``."""
+    from tpu_gpad_torch.solver.qp import solve_condensed_qp
+
+    def loss(x):
+        sol = solve_condensed_qp(qp, x)
+        check(sol.status == "optimal", f"exact QP at {x}: {sol.status}")
+        return 0.5 * float(np.sum(sol.z[:qp.n_u] ** 2))
+
+    p = np.asarray(p, np.float64)
+    return np.array([(loss(p + h * e) - loss(p - h * e)) / (2 * h)
+                     for e in np.eye(p.size)])
+
+
+def in_turns(fns: dict, rounds=DIFF_ROUNDS, repeats=5) -> dict:
+    """CUDA-event ms a call of each of ``fns``, in turns: every round times
+    each function (median of ``repeats`` calls after one warm-up call), so
+    that the card's drift spreads over all of them; the median over the
+    rounds and the range."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    ms = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            ms[k].append(device_time_per_call(fn, warmup=1, repeats=repeats)
+                         * 1e3)
+    return {k: {"ms": float(np.median(v)), "ms_min": min(v), "ms_max": max(v)}
+            for k, v in ms.items()}
+
+
+SW_KERNEL = {"cuda": "gpad_stagewise_resident", "stream": "gpad_stagewise_stream"}
+
+
+def diff_condensed_legs(torch, tg, diff, ctr, out, launches):
+    """The headline legs of ``phase_diff_path``: the fixed and restart
+    gradients, the exact QP's differences, chol against cg."""
+    qp, data = headline(tg)
+    X0np, X0 = flag_x0(torch, data.n_x, BATCH, seed=31)
+    legs = (("fixed", tg.SolverConfig(), "gpad_paired_flat"),
+            ("restart", tg.SolverConfig(iterations=ITERS, restart=True),
+             "gpad_dual"))
+    grads, duals = {}, {}
+    for leg, cfg, kernel in legs:
+        f = tg.make_differentiable_solver(data, cfg)
+        (u_k, g_k), launches[leg] = counted(
+            torch, ctr, lambda: grad_of_loss(f, X0), {kernel: 1}, f"diff {leg}")
+        plain = dataclasses.replace(cfg, engine="torch")
+        u_t, g_t = grad_of_loss(tg.make_differentiable_solver(data, plain), X0)
+        grads[leg] = g_k
+        duals[leg] = y_k = tg.solve_batch(data, X0, cfg).y
+        m_k = diff.active_signs(data, y_k)[0]
+        m_t = diff.active_signs(data, tg.solve_batch(data, X0, plain).y)[0]
+        scale = g_t.abs().max().item()
+        err = (g_k - g_t).abs().amax(dim=-1)
+        parted = (m_k != m_t).any(dim=-1) | (err > DIFF_GRAD_RTOL * scale)
+        out[leg] = {
+            "kernel": kernel, "batch": BATCH, "grad_scale": scale,
+            "grad_max_err": err.max().item(),
+            "mask_rows_differing": int((m_k != m_t).sum()),
+            "active_rows": int(m_k.sum()),
+            "scenarios_parted": int(parted.sum()),
+            "parted_max": parted_max(BATCH),
+            "grad_max_err_not_parted": None if parted.all()
+            else err[~parted].max().item(),
+            "u_max_err": (u_k - u_t).abs().max().item()}
+    # the restart leg's (converged) first scenarios against the exact QP
+    g = grads["restart"].cpu().numpy()
+    out["restart"]["vs_exact_qp_fd"] = [
+        float(np.abs(g[i] - exact_loss_grad(qp, X0np[i])).max())
+        for i in range(DIFF_FD)]
+    before = diff.CG_ITERATIONS
+    K_ch = diff.sensitivity(data, duals["restart"], method="chol")[0]
+    K_cg = diff.sensitivity(data, duals["restart"], method="cg")[0]
+    outside = ((K_cg - K_ch).abs() - DIFF_CG_ATOL
+               - DIFF_CG_RTOL * K_ch.abs()).amax(dim=(1, 2)) > 0
+    out["sensitivity"] = {
+        "auto": diff.resolve_method(data, BATCH), "batch": BATCH,
+        "chol_finite": bool(torch.isfinite(K_ch).all()),
+        "scale": K_ch.abs().max().item(),
+        "chol_vs_cg_max_err": (K_cg - K_ch).abs().max().item(),
+        "scenarios_outside_test_bound": int(outside.sum()),
+        "cg_iterations": diff.CG_ITERATIONS - before,
+        "test_bound": {"rtol": DIFF_CG_RTOL, "atol": DIFF_CG_ATOL}}
+
+
+def diff_data_leg(torch, tg, ctr, out, launches):
+    """tests/test_diff_data.py's weight-learning composition on the card:
+    ``dualize_ltv_device`` with a tensor Q, then
+    ``make_data_differentiable_solver`` under restart (the dual kernel);
+    Q.grad against central differences."""
+    N = 6
+    A = torch.tensor([[[1.0, 0.1], [0.0, 0.95]]] * N, device=DEVICE)
+    Bm = torch.tensor([[[0.005], [0.1]]] * N, device=DEVICE)
+    c = torch.zeros((N, 2), device=DEVICE)
+    P = torch.tensor([[1.2, -0.4, 0.0, 0.0], [0.6, 0.3, 0.0, 0.0]],
+                     device=DEVICE)
+    f = tg.make_data_differentiable_solver(
+        tg.SolverConfig(iterations=250, restart=True))
+
+    def loss(q):
+        d = tg.dualize_ltv_device(A, Bm, c, torch.diag(q), 0.4 * np.eye(1),
+                                  np.full(1, -0.5), np.full(1, 0.5),
+                                  iterations=300)
+        return 0.5 * (f(d, P) ** 2).sum()
+
+    q0 = torch.tensor([1.0, 0.6], device=DEVICE)
+
+    def grad():
+        q = q0.clone().requires_grad_(True)
+        loss(q).backward()
+        return q.grad
+
+    g, launches["data_path"] = counted(torch, ctr, grad, {"gpad_dual": 1},
+                                       "diff data path")
+    with torch.no_grad():
+        fd = [(loss(q0 + DIFF_Q_H * e) - loss(q0 - DIFF_Q_H * e)).item()
+              / (2 * DIFF_Q_H) for e in torch.eye(2, device=DEVICE)]
+    g = g.cpu().tolist()
+    out["data_path"] = {
+        "q_grad": g, "q_grad_fd": fd,
+        "excess_over_tol": max(abs(a - b) - max(DIFF_Q_ABS, DIFF_Q_REL * abs(b))
+                               for a, b in zip(g, fd))}
+
+
+def diff_gain_leg(torch, tg, diff, ctr, out, launches):
+    """``Controller.gain`` after a restart step on 256 plants (one dual
+    kernel launch, the gain none), against ``feedback_gain`` of the same
+    dual in float64. Returns the controller for the timing."""
+    from tpu_gpad_torch.types import GPAD_TENSOR_FIELDS
+
+    ctrl = tg.Controller(tg.problems.battery(**HEADLINE), iterations=ITERS,
+                         config=tg.SolverConfig(iterations=ITERS, restart=True),
+                         device=DEVICE)
+    X = flag_x0(torch, 3, SERVE_PLANTS, seed=33)[0]
+    K, launches["controller_gain"] = counted(
+        torch, ctr, lambda: (ctrl.step(X), ctrl.gain())[1], {"gpad_dual": 1},
+        "diff Controller.gain")
+    d64 = dataclasses.replace(ctrl.data, **{
+        f: getattr(ctrl.data, f).double() for f in GPAD_TENSOR_FIELDS
+        if getattr(ctrl.data, f) is not None})
+    K64 = diff.feedback_gain(d64, ctrl.last_result).cpu().numpy()
+    out["controller_gain"] = {
+        "plants": SERVE_PLANTS, "shape": list(K.shape),
+        "finite": bool(np.isfinite(K).all()),
+        "max_err_vs_float64": float(np.abs(K - K64).max()),
+        "scale": float(np.abs(K64).max())}
+    return ctrl, X
+
+
+def diff_stagewise_legs(torch, tg, diff, ts, ctr, out, launches):
+    """The stage-wise adjoint legs of ``phase_diff_path``. Returns what the
+    timing reuses."""
+    from tpu_gpad_torch.condense import lipschitz_constant
+
+    cfg = tg.SolverConfig(iterations=DIFF_SW_ITERS, restart=True)
+    # the gain at n8 N60 B64: the resident kernel
+    d8 = sw_data(tg, DIFF_SW_RES, SW_RES_ITERS)
+    X8 = torch.as_tensor(np.random.default_rng(35).uniform(
+        -DIFF_SW_X0, DIFF_SW_X0, (DIFF_SW_RES_BATCH, d8.n_x)).astype(
+            np.float32), device=DEVICE)
+    route = ts.resolve_stagewise_engine(d8, DIFF_SW_RES_BATCH)
+    check(route == "cuda", f"diff stage-wise n8 N60 B64 routes to {route}")
+    before = diff.CG_ITERATIONS
+    (K8, secs), launches["stagewise_gain"] = counted(
+        torch, ctr, lambda: timed(torch, lambda: diff.stagewise_feedback_gain(
+            d8, X8, config=cfg)), {SW_KERNEL[route]: 1}, "diff stage-wise gain")
+    out["stagewise_gain"] = {
+        "shape": list(K8.shape), "route": route, "iterations": DIFF_SW_ITERS,
+        "finite": bool(torch.isfinite(K8).all()),
+        "cg_iterations": diff.CG_ITERATIONS - before,
+        "cg_cap": d8.horizon * d8.n_u + 40, "first_call_s": secs}
+    # the same adjoint against the condensed one at n3 N10
+    prob = tg.problems.battery(*DIFF_SW_CMP)
+    qp = tg.condense(prob)
+    L = lipschitz_constant(qp)
+    d3 = tg.build_stagewise(prob, iterations=DIFF_SW_ITERS, L=L, device=DEVICE)
+    d3c = tg.dualize(qp, DIFF_SW_ITERS, paired="auto", L=L, device=DEVICE)
+    X3 = 0.75 * sw_x0(torch, DIFF_SW_CMP_BATCH, 3, seed=37)
+    route3 = ts.resolve_stagewise_engine(d3, DIFF_SW_CMP_BATCH)
+    check(route3 in SW_KERNEL, f"diff stage-wise n3 N10 routes to {route3}")
+    (K_s, K_c), launches["stagewise_vs_condensed"] = counted(
+        torch, ctr, lambda: (
+            diff.stagewise_feedback_gain(d3, X3, config=cfg),
+            diff.sensitivity(d3c, tg.solve_batch(d3c, X3, cfg).y)[0]),
+        {SW_KERNEL[route3]: 1, "gpad_dual": 1}, "diff stage-wise vs condensed")
+    out["stagewise_vs_condensed"] = {
+        "route": route3, "batch": DIFF_SW_CMP_BATCH,
+        "max_err": (K_s - K_c).abs().max().item(), "tol": DIFF_SW_TOL}
+    # one directional VJP at n30 N200 B8: the streamed kernel
+    d30 = sw_data(tg, SW_FULL, SW_FULL_ITERS)
+    f30 = diff.make_differentiable_stagewise_solver(d30, config=dataclasses.replace(
+        cfg, iterations=DIFF_SW_STREAM_ITERS))
+    x30 = torch.as_tensor(np.random.default_rng(4).uniform(
+        -0.04, 0.04, (DIFF_SW_STREAM_BATCH, d30.n_x)).astype(np.float32),
+        device=DEVICE)
+    route30 = ts.resolve_stagewise_engine(d30, DIFF_SW_STREAM_BATCH)
+    check(route30 == "stream", f"diff stage-wise n30 N200 routes to {route30}")
+    loss = lambda x: (f30(x) ** 2).sum()
+
+    def vjp():
+        x = x30.clone().requires_grad_(True)
+        loss(x).backward()
+        return x.grad
+
+    before = diff.CG_ITERATIONS
+    (g30, secs30), launches["stagewise_stream_vjp"] = counted(
+        torch, ctr, lambda: timed(torch, vjp), {"gpad_stagewise_stream": 1},
+        "diff stage-wise stream VJP")
+    cg30 = diff.CG_ITERATIONS - before
+    # u*(x0) is piecewise affine with many facets here, and the loss is
+    # quadratic on each: a scenario's central difference is its oracle where
+    # it holds across two steps and the one-sided differences agree (no
+    # facet at x0: there the mask picks one side's slope, by design)
+    v = torch.as_tensor(np.random.default_rng(0).normal(
+        size=tuple(x30.shape)).astype(np.float32), device=DEVICE)
+    v = v / v.norm()
+    per = lambda x: (f30(x) ** 2).sum(dim=-1)
+    h1, h2 = DIFF_SW_FD_H
+    with torch.no_grad():
+        l0 = per(x30)
+        lp = {h: per(x30 + h * v) for h in (h1, h2)}
+        lm = {h: per(x30 - h * v) for h in (h1, h2)}
+    c1, c2 = ((lp[h] - lm[h]) / (2 * h) for h in (h1, h2))
+    one_sided = ((lp[h1] - l0) - (l0 - lm[h1])).abs() / h1
+    room = DIFF_SW_FD_REL * torch.clamp_min(c1.abs(), 0.5)
+    smooth = ((c1 - c2).abs() <= room) & (one_sided <= room)
+    vjp_b = (g30 * v).sum(dim=-1)
+    err = (vjp_b - c1).abs()
+    out["stagewise_stream_vjp"] = {
+        "route": route30, "batch": DIFF_SW_STREAM_BATCH,
+        "iterations": DIFF_SW_STREAM_ITERS, "cg_iterations": cg30,
+        "cg_cap": d30.horizon * d30.n_u + 40, "seconds": secs30,
+        "vjp": vjp_b.tolist(), "fd_central": c1.tolist(),
+        "fd_central_2h": c2.tolist(), "one_sided_gap": one_sided.tolist(),
+        "smooth": smooth.tolist(),
+        "max_rel_err_smooth": (err / torch.clamp_min(c1.abs(), 0.5))[
+            smooth].max().item() if bool(smooth.any()) else None,
+        "ok": bool((err <= room)[smooth].all())}
+    return d8, X8, cfg
+
+
+def phase_diff_path(torch, tg, ctr, smi):
+    """Implicit differentiation (``tpu_gpad_torch.diff``) on the card, each
+    leg counted from 0. At the headline B4096, gradients of 0.5 |u*|^2
+    through ``make_differentiable_solver``, fixed (one flat kernel launch)
+    and under restart (one dual kernel launch), each against the same
+    function on the torch engine (fixed: the same active sets everywhere;
+    restart: scenario by scenario, at most ``parted_max`` parted), the
+    restart leg's first DIFF_FD scenarios against central differences of
+    the float64 exact QP, and ``sensitivity`` by "chol" against "cg" on
+    its dual; the weight-learning composition through ``dualize_ltv_device``
+    (the dual kernel) against central differences; ``Controller.gain``
+    after a restart step on 256 plants against a float64 gain; the
+    stage-wise adjoint: the gain at n8 N60 B64 (the resident kernel), at
+    n3 N10 against the condensed one, one VJP at n30 N200 B8 (the streamed
+    kernel) against directional differences. Then the times, in turns
+    (``diff_timing``). Returns the launches by leg."""
+    from tpu_gpad_torch import diff
+    from tpu_gpad_torch import stagewise as ts
+
+    out = {"phase": "diff_path", "gpu": smi}
+    launches = {}
+    diff_condensed_legs(torch, tg, diff, ctr, out, launches)
+    diff_data_leg(torch, tg, ctr, out, launches)
+    ctrl, X = diff_gain_leg(torch, tg, diff, ctr, out, launches)
+    d8, X8, sw_cfg = diff_stagewise_legs(torch, tg, diff, ts, ctr, out,
+                                         launches)
+    out["launches"] = launches
+    emit(out)
+    for leg in ("fixed", "restart"):
+        r = out[leg]
+        # fixed: the same active sets, gradients within DIFF_GRAD_RTOL of
+        # their scale; restart: a flipped restart decision may part a
+        # scenario's run, so at most parted_max of them
+        check(r["scenarios_parted"] <= (0 if leg == "fixed" else r["parted_max"]),
+              f"diff {leg}: {r}")
+    check(max(out["restart"]["vs_exact_qp_fd"]) <= DIFF_FD_TOL,
+          f"diff restart vs the exact QP {out['restart']['vs_exact_qp_fd']}")
+    sens = out["sensitivity"]
+    check(sens["chol_finite"] and sens["scenarios_outside_test_bound"] == 0,
+          f"diff sensitivity chol vs cg {sens}")
+    check(out["data_path"]["excess_over_tol"] <= 0,
+          f"diff data path {out['data_path']}")
+    cg = out["controller_gain"]
+    check(cg["finite"] and cg["shape"] == [SERVE_PLANTS, 3, 3]
+          and cg["max_err_vs_float64"] <= DIFF_GRAD_RTOL * cg["scale"],
+          f"diff Controller.gain {cg}")
+    swg = out["stagewise_gain"]
+    check(swg["finite"] and swg["cg_iterations"] < swg["cg_cap"],
+          f"diff stage-wise gain {swg}")
+    sw = out["stagewise_vs_condensed"]
+    check(sw["max_err"] <= DIFF_SW_TOL, f"diff stage-wise vs condensed {sw}")
+    vj = out["stagewise_stream_vjp"]
+    check(vj["ok"] and sum(vj["smooth"]) >= DIFF_SW_SMOOTH_MIN,
+          f"diff stage-wise stream VJP {vj}")
+    phase_diff_timing(torch, tg, diff, smi, ctrl, X, d8, X8, sw_cfg)
+    return launches
+
+
+def phase_diff_timing(torch, tg, diff, smi, ctrl, X, d8, X8, sw_cfg):
+    """CUDA-event ms a call, in turns: at DIFF_BENCH.json's configurations
+    (100 restart iterations) and the headline's fixed solve, the forward
+    alone (the differentiable solver under no_grad), forward and backward
+    with "chol" and with "cg", and ``sensitivity`` by each; the stage-wise
+    forward against the gain at n8 N60 B64; a restart ``Controller.step``
+    on 256 plants against ``Controller.gain``."""
+    from tpu_gpad_torch.solver import core
+
+    out = {"phase": "diff_timing", "gpu": smi}
+    cases = [(shape, B, "restart", tg.SolverConfig(iterations=ITERS,
+                                                   restart=True))
+             for shape, B in DIFF_BENCH_CASES]
+    cases.append(((HEADLINE["n_cells"], HEADLINE["horizon"]), BATCH, "fixed",
+                  tg.SolverConfig()))
+    for (n, N), B, label, cfg in cases:
+        _, data = flagship(tg, dict(n_cells=n, horizon=N))
+        Xb = flag_x0(torch, data.n_x, B, seed=39)[1]
+        f = {m: tg.make_differentiable_solver(data, cfg, method=m)
+             for m in ("chol", "cg")}
+        y = tg.solve_batch(data, Xb, cfg).y
+
+        def forward():
+            with torch.no_grad():
+                return f["chol"](Xb)
+
+        t = in_turns({
+            "forward": forward,
+            "grad_chol": lambda: grad_of_loss(f["chol"], Xb),
+            "grad_cg": lambda: grad_of_loss(f["cg"], Xb),
+            "sensitivity_chol": lambda: diff.sensitivity(data, y, method="chol"),
+            "sensitivity_cg": lambda: diff.sensitivity(data, y, method="cg")})
+        fwd = t["forward"]["ms"]
+        out[f"battery_n{n}_N{N}_B{B}_{label}"] = {
+            "kernel": core.cuda_kernel(data, cfg), "m_half": data.m_half, **t,
+            "grad_over_forward_chol": t["grad_chol"]["ms"] / fwd,
+            "grad_over_forward_cg": t["grad_cg"]["ms"] / fwd}
+    # where the backward's methods cross (diff.AUTO_CG_MIN_SYSTEM): battery
+    # n3 N10-N50 (m_h 70-350) at two batches, 100 restart iterations
+    cross = out["method_crossover"] = {}
+    for N, B in itertools.product(DIFF_CROSS_HORIZONS, DIFF_CROSS_BATCHES):
+        _, data = flagship(tg, dict(n_cells=3, horizon=N))
+        cfg = tg.SolverConfig(iterations=ITERS, restart=True)
+        Xb = flag_x0(torch, data.n_x, B, seed=39)[1]
+        f = {m: tg.make_differentiable_solver(data, cfg, method=m)
+             for m in ("chol", "cg")}
+        t = in_turns({m: lambda m=m: grad_of_loss(f[m], Xb) for m in f},
+                     rounds=3)
+        cross[f"n3_N{N}_B{B}"] = {
+            "m_half": data.m_half, "auto": diff.resolve_method(data, B),
+            **{f"grad_{m}_ms": v["ms"] for m, v in t.items()}}
+    out["stagewise_n8_N60_B64"] = in_turns({
+        "forward": lambda: tg.solve_stagewise(d8, X8, config=sw_cfg),
+        "gain": lambda: diff.stagewise_feedback_gain(d8, X8, config=sw_cfg)},
+        rounds=3, repeats=2)
+    out["controller_256"] = in_turns({"step": lambda: ctrl.step(X),
+                                      "gain": ctrl.gain})
+    emit(out)
+
+
 def kernel_ms(med, kernel, B=BATCH) -> float:
     """A resident kernel's time at batch B: the profiler's device time of
     its launch, or where the profiler saw none, the CUDA-event time of its
@@ -3344,6 +3757,8 @@ def main() -> int:
         "robust_nmpc_path": phase_robust_nmpc_path(torch, tg, ctr, smi),
         "nmpc_stagewise_path": phase_nmpc_stagewise_path(torch, tg, ts, ctr,
                                                          smi),
+        # implicit differentiation through the solves (and its times)
+        "diff_path": phase_diff_path(torch, tg, ctr, smi),
     }
     med = phase_timing(torch, tg, kernels, dual_kernels, core, smi)
     dmed = phase_dual_timing(torch, tg, kernels, dual_kernels, core, smi)

@@ -74,8 +74,19 @@ def test_controller_parameter_layouts():
 
 
 def test_controller_unported_raise():
-    with pytest.raises(NotImplementedError, match=r"diff\.py.*ROADMAP"):
-        tpu_gpad_torch.Controller(tp.battery(3, 6), device="cpu").gain()
+    """Controller.gain (ported with diff.py) raises before any step, then
+    gives the explicit-MPC gain of the last step: in the interior the
+    unconstrained -(H^-1 F')[:n_u] (tests/test_diff.py::
+    test_controller_gain_convenience)."""
+    ctrl = tpu_gpad_torch.Controller(
+        tp.double_integrator(horizon=6), iterations=200, device="cpu",
+        config=tpu_gpad_torch.SolverConfig(iterations=200, restart=True))
+    with pytest.raises(ValueError, match="step"):
+        ctrl.gain()
+    ctrl.step(np.array([0.01, 0.0], np.float32))
+    K = ctrl.gain()
+    assert isinstance(K, np.ndarray) and K.shape == (1, 2)
+    np.testing.assert_allclose(K, -ctrl.data.gP_map.mT[:1].numpy(), atol=1e-6)
 
 
 # Polished moves are the float64 active-set optimum of the same QP in both

@@ -511,15 +511,18 @@ DUAL_PLANS = [p for p in PLANS if p is None or p[0] <= 4]
                                   "n3N7_B300_soft", "n3N7_B300_restart_soft"])
 def test_dual_kernel_plans_match_plain(dev, case, plan):
     """battery n3 N7 (m_h 49): rows not a multiple of 4, a ragged last
-    tile at every width, soft rows and restart."""
+    tile at every width, soft rows and restart. The warm start and the
+    soft damping come from a seeded generator; restart runs are held
+    scenario by scenario (_assert_restart_close)."""
     data = _data(dev, 3, 7) if "n3N7" in case else _data(dev)
     B = int(case.split("_B")[1].split("_")[0])
+    gen = torch.Generator(device=dev).manual_seed(B + 17)
     if "soft" in case:
         data = dataclasses.replace(data, soft_damp=torch.rand(
-            data.m_half, device=dev) * 0.2)
+            data.m_half, device=dev, generator=gen) * 0.2)
     restart = "restart" in case
     g_P, p_D = _inputs(data, B, seed=B + 13)
-    y0 = torch.rand((B, 2, data.m_half), device=dev) * 0.5
+    y0 = torch.rand((B, 2, data.m_half), device=dev, generator=gen) * 0.5
     log2_tile, split = plan or (None, None)
     kw = dict(iterations=ITERS, restart=restart)
     out_k = dual_kernels.gpad_fixed_dual(data, g_P, p_D, y0, log2_tile=log2_tile,
@@ -530,7 +533,7 @@ def test_dual_kernel_plans_match_plain(dev, case, plan):
         _assert_close(out_k, out_p)
         return
     assert all(bool(torch.isfinite(t).all()) for t in out_k)
-    torch.testing.assert_close(out_k[0], out_p[0], atol=RESTART_TOL, rtol=0)
+    _assert_restart_close(out_k[0], out_p[0])
 
 
 @pytest.mark.parametrize("plan", DUAL_PLANS, ids=_plan_id)

@@ -402,3 +402,52 @@ def test_validation_messages_match_tpu_gpad():
         td.dualize_scenario_device(A[None], B[None], c[None], np.eye(3),
                                    np.eye(2), iterations=50, weights=(1.0, 2.0),
                                    **box)
+
+
+# Q.grad through the condensation: the same float32 algebra in both
+# packages, the power method's L included, relative to the gradient's scale
+WEIGHT_GRAD_RTOL = 1e-4
+
+
+def test_tensor_weights_keep_the_graph_and_match_tpu_gpad():
+    """Cost weights as tensors that require grad (a learned Q, per-stage R
+    and a terminal weight) give exactly the NumPy weights' operands, and
+    the gradient of a weighted sum of every operand reaches them equal to
+    jax.grad through tpu_gpad's dualize_ltv_device (the composition
+    diff.make_data_differentiable_solver exists for)."""
+    A, B, c = _ltv()
+    rng = np.random.default_rng(11)
+    Q0 = np.diag([1.0, 0.6, 0.8]).astype(np.float32)
+    R0 = np.stack([0.5 * np.eye(2) + 0.05 * k * np.eye(2)
+                   for k in range(6)]).astype(np.float32)
+    Qf0 = 3.0 * np.eye(3, dtype=np.float32)
+    kw = dict(x_min=BOUNDS["x_min"], x_max=BOUNDS["x_max"], iterations=100)
+    u_box = (BOUNDS["u_min"], BOUNDS["u_max"])
+    fields = ("MG_T", "GL_T", "gP_map", "gP_const", "pD_map", "pD_const", "D",
+              "L")
+    ref = td.dualize_ltv_device(*_t(A, B, c), Q0, R0, *u_box, Q_terminal=Qf0,
+                                **kw)
+    W = {f: rng.standard_normal(np.shape(getattr(ref, f))).astype(np.float32)
+         for f in fields}
+    Q, R, Qf = (torch.tensor(a, requires_grad=True) for a in (Q0, R0, Qf0))
+    dev = td.dualize_ltv_device(*_t(A, B, c), Q, R, *u_box, Q_terminal=Qf,
+                                **kw)
+    for f in fields:
+        torch.testing.assert_close(getattr(dev, f).detach(), getattr(ref, f),
+                                   atol=0, rtol=0)
+    loss = sum((getattr(dev, f) * torch.as_tensor(W[f])).sum() for f in fields)
+    loss.backward()
+
+    def jax_loss(q, r, qf):
+        d = jd.dualize_ltv_device(*_j(A, B, c), q, r, *u_box, Q_terminal=qf,
+                                  **kw)
+        return sum(jnp.sum(getattr(d, f) * W[f]) for f in fields)
+
+    import jax
+
+    grads = jax.grad(jax_loss, argnums=(0, 1, 2))(*_j(Q0, R0, Qf0))
+    for got, want in zip((Q.grad, R.grad, Qf.grad), grads):
+        want = np.asarray(want)
+        assert np.abs(want).max() > 1e-3
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=WEIGHT_GRAD_RTOL * np.abs(want).max())

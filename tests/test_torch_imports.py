@@ -42,7 +42,7 @@ def test_port_imports_no_jax():
     for name in ("stagewise", "stagewise_kernel", "stagewise_stream", "io",
                  "solver.multi", "sweep", "robust", "estimator", "mhe",
                  "analysis", "utils.debug", "nonlinear", "device_condense",
-                 "problems.pendulum", "problems.point_mass"):
+                 "problems.pendulum", "problems.point_mass", "diff"):
         assert f"tpu_gpad_torch.{name}" in out["imported"]
     assert out["bad"] == []
 
@@ -60,10 +60,6 @@ def test_chip_smoke_fails_without_a_card():
 # Public names of tpu_gpad that the port does not carry yet, each with the
 # module (ROADMAP Queue 1) that brings it; the set shrinks with each slice.
 UNPORTED = {
-    "feedback_gain": "diff.py",
-    "make_data_differentiable_solver": "diff.py",
-    "make_differentiable_solver": "diff.py",
-    "sensitivity": "diff.py",
     "device_time_percentiles": "utils/timing.py",
     "device_time_stats": "utils/timing.py",
     "interleaved_ab": "utils/timing.py",

@@ -37,6 +37,11 @@ by slice. It carries the condensed serving path:
   the pendulum and point-mass plants in ``problems``,
 - per-iteration convergence traces (``analysis``) and checked solves
   (``utils.debug``),
+- implicit differentiation through the solve (``diff``: ``sensitivity``,
+  ``feedback_gain``, ``Controller.gain``, and ``torch.autograd.Function``s
+  whose forward is the production solve, condensed or stage-wise, and
+  whose backward is one masked KKT solve; ``dualize_ltv_device`` takes
+  tensor cost weights, so a loss reaches them),
 - the ``solve`` (``--dataset`` and ``--engine stagewise`` included),
   ``sweep`` and ``export`` CLI commands.
 
@@ -84,6 +89,12 @@ from tpu_gpad_torch.estimator import (
     OffsetFreeController,
     TargetCalculator,
     kalman_gain,
+)
+from tpu_gpad_torch.diff import (
+    feedback_gain,
+    make_data_differentiable_solver,
+    make_differentiable_solver,
+    sensitivity,
 )
 from tpu_gpad_torch.convert import (
     gpad_data_from_numpy,
@@ -135,6 +146,10 @@ __all__ = [
     "OffsetFreeController",
     "TargetCalculator",
     "kalman_gain",
+    "sensitivity",
+    "feedback_gain",
+    "make_differentiable_solver",
+    "make_data_differentiable_solver",
     "gpad_data_from_numpy",
     "solve_result_to_numpy",
     "stagewise_data_from_numpy",

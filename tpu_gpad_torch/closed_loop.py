@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from tpu_gpad_torch.condense import condense, dualize
+from tpu_gpad_torch.diff import feedback_gain
 from tpu_gpad_torch.solver.core import SolverConfig, solve_batch
 from tpu_gpad_torch.solver.qp import polish_batch
 from tpu_gpad_torch.types import CondensedQP, GPADData, LinearMPCProblem
@@ -359,11 +360,16 @@ class Controller:
         return u[0] if single else u
 
     def gain(self, tol: float = 1e-7, ridge: float = 0.0) -> np.ndarray:
-        """Not yet ported: the feedback gain needs ``diff.py``."""
-        raise NotImplementedError(
-            "Controller.gain needs diff.py (implicit differentiation), not "
-            "yet ported to tpu_gpad_torch (see ROADMAP)"
-        )
+        """Local feedback gain du*/dp at the last ``step``'s solution, as
+        ``tpu_gpad.Controller.gain``: the explicit-MPC gain of the active
+        region that solve landed in (``diff.sensitivity``), p the whole QP
+        parameter as configured. (n_u, n_p) after a one-plant step,
+        (B, n_u, n_p) batched. Raises before any ``step``."""
+        if self.last_result is None:
+            raise ValueError("gain() needs a prior step() call")
+        K = feedback_gain(self.data, self.last_result, tol=tol,
+                          ridge=ridge).cpu().numpy()
+        return K[0] if K.shape[0] == 1 else K
 
     def reset(self, u_prev=None) -> None:
         """Drop the warm-start state (e.g. after a setpoint change).

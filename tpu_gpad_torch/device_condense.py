@@ -155,26 +155,27 @@ def _stage_box(v, N: int, n: int, what: str) -> np.ndarray:
     return arr.ravel()
 
 
-def _stage_weights(Q, R, Q_terminal, N: int, n_x: int, n_u: int):
+def _stage_weights(Q, R, Q_terminal, N: int, n_x: int, n_u: int, device):
     """Per-stage Q (N, n_x, n_x) with the terminal weight at stage N, and
-    the block-diagonal Rbar (N n_u, N n_u), float32; Q/R constant or
-    per-stage, shapes checked as the JAX package does."""
-    Q_arr = np.asarray(Q, np.float32)
-    if Q_arr.shape not in ((n_x, n_x), (N, n_x, n_x)):
+    the block-diagonal Rbar (N n_u, N n_u), float32 tensors on ``device``;
+    Q/R constant or per-stage, shapes checked as the JAX package does.
+
+    Q, R and Q_terminal may be arrays or tensors; a tensor keeps its
+    autograd graph, so a loss through the solve reaches learned weights
+    (``diff.make_data_differentiable_solver``)."""
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    Q_t = f32(Q)
+    if tuple(Q_t.shape) not in ((n_x, n_x), (N, n_x, n_x)):
         raise ValueError(f"Q must be ({n_x},{n_x}) or ({N},{n_x},{n_x}); "
-                         f"got {Q_arr.shape}")
-    Qs = np.array(np.broadcast_to(Q_arr, (N, n_x, n_x)))
+                         f"got {tuple(Q_t.shape)}")
+    Qs = Q_t.broadcast_to((N, n_x, n_x)).clone()
     if Q_terminal is not None:
-        Qs[-1] = np.asarray(Q_terminal, np.float32)
-    R_arr = np.asarray(R, np.float32)
-    if R_arr.shape not in ((n_u, n_u), (N, n_u, n_u)):
+        Qs[-1] = f32(Q_terminal)
+    R_t = f32(R)
+    if tuple(R_t.shape) not in ((n_u, n_u), (N, n_u, n_u)):
         raise ValueError(f"R must be ({n_u},{n_u}) or ({N},{n_u},{n_u}); "
-                         f"got {R_arr.shape}")
-    R3 = np.broadcast_to(R_arr, (N, n_u, n_u))
-    Rbar = np.zeros((N * n_u, N * n_u), np.float32)
-    for k in range(N):
-        Rbar[k * n_u:(k + 1) * n_u, k * n_u:(k + 1) * n_u] = R3[k]
-    return Qs, Rbar
+                         f"got {tuple(R_t.shape)}")
+    return Qs, torch.block_diag(*R_t.broadcast_to((N, n_u, n_u)).unbind(0))
 
 
 def _check_soft(soft_state, have_xbox: bool) -> None:
@@ -252,7 +253,7 @@ def ltv_constants(
         raise ValueError("device path needs input boxes (they form the "
                          "paired stack's identity block)")
     n_z = N * n_u
-    Qs, Rbar = _stage_weights(Q, R, Q_terminal, N, n_x, n_u)
+    Qs, Rbar = _stage_weights(Q, R, Q_terminal, N, n_x, n_u, device)
     have_rate = du_min is not None or du_max is not None
     if (du_min is None) != (du_max is None):
         raise ValueError("device path needs both du_min and du_max "
@@ -325,7 +326,7 @@ def ltv_constants(
                                device=device)
 
     return LTVConstants(
-        N=N, n_x=n_x, n_u=n_u, n_p=n_p, Qs=t(Qs), Rbar=t(Rbar),
+        N=N, n_x=n_x, n_u=n_u, n_p=n_p, Qs=Qs, Rbar=Rbar,
         ones_kron=None if preview else t(np.tile(np.eye(n_x), (N, 1))),
         x_max=t(f.get("x_max")), x_min=t(f.get("x_min")),
         K_rows=t(f.get("K_rows")), rate=t(f.get("rate")),
@@ -521,10 +522,12 @@ def dualize_ltv_device(
     ``A``, as ``tpu_gpad.device_condense.dualize_ltv_device``.
 
     ``A``/``B``/``c`` are tensors (..., N, n_x, n_x) / (..., N, n_x, n_u) /
-    (..., N, n_x), e.g. straight from ``nonlinear.linearize``; the cost and
-    box constants are NumPy. The result is a paired, flat ``GPADData`` on
-    that device, rows [state box | K_u coupling | rate | H_x | H_u | input
-    box identity]. Parameters ``p = [x0; r]`` (r of n_x or, with
+    (..., N, n_x), e.g. straight from ``nonlinear.linearize``; the box
+    constants are NumPy; the cost weights ``Q``, ``R``, ``Q_terminal`` are
+    NumPy or tensors, and a tensor's autograd graph reaches every operand
+    (learned weights: ``diff.make_data_differentiable_solver``). The
+    result is a paired, flat ``GPADData`` on that device, rows [state box
+    | K_u coupling | rate | H_x | H_u | input box identity]. Parameters ``p = [x0; r]`` (r of n_x or, with
     ``preview``, N n_x entries), plus a trailing ``u_prev`` (n_u) with
     ``du_min``/``du_max``. Matches ``dualize(condense(problem, tracking=...),
     paired=True)`` up to float32 arithmetic and the power-method L.
@@ -605,7 +608,7 @@ def scenario_constants(
         if w.shape != (S,) or (w <= 0).any():
             raise ValueError("weights must be S positive floats")
         w = (w / w.sum()).astype(np.float32)
-    Qs, Rbar = _stage_weights(Q, R, Q_terminal, N, n_x, n_u)
+    Qs, Rbar = _stage_weights(Q, R, Q_terminal, N, n_x, n_u, device)
     ref_dim = N * n_x if preview else n_x
     _check_soft(soft_state, have_xbox)
     blocks = []  # (rows, 1/rho_effective) per block
@@ -635,7 +638,7 @@ def scenario_constants(
             np.ascontiguousarray(a), dtype=torch.float32, device=device)
 
     return ScenarioConstants(
-        S=S, N=N, n_x=n_x, n_u=n_u, weights=w, Qs=t(Qs), Rbar=t(Rbar),
+        S=S, N=N, n_x=n_x, n_u=n_u, weights=w, Qs=Qs, Rbar=Rbar,
         ones_kron=None if preview else t(np.tile(np.eye(n_x), (N, 1))),
         x_max=t(f.get("x_max")), x_min=t(f.get("x_min")),
         b0p_id=t(b0p_id), b0m_id=t(b0m_id), soft_inv_rho=t(soft),
