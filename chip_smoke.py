@@ -43,7 +43,14 @@ the dual kernel at the headline against the torch engine's and the exact
 QP's differences, Cholesky against CG, the weight-learning gradient
 through ``dualize_ltv_device`` (the dual kernel), ``Controller.gain``, the
 stage-wise gain (the resident kernel) against the condensed one and a VJP
-at n30 N200 (the streamed kernel), then their times in turns. It times
+at n30 N200 (the streamed kernel), then their times in turns; and the
+sharded solves across processes (``tpu_gpad_torch.parallel`` through
+``parallel.mp_worker``): one nccl rank at the headline, then two gloo
+ranks sharing the card (DP fixed, restart, eps with the collective exit:
+the flat paired, dual and chunk kernels; TP at the flagship and at an m
+that 2 does not divide: the torch engine; 28 plants through
+``solve_multi_sharded``: the dense kernel), with the sharded and
+unsharded times in turns. It times
 kernels and
 plain versions with CUDA events, computes each kernel's roofline bound
 from its shapes, and prints one JSON object per phase. Any failed check exits
@@ -3622,6 +3629,137 @@ def phase_diff_timing(torch, tg, diff, smi, ctrl, X, d8, X8, sw_cfg):
     emit(out)
 
 
+PARALLEL_TP_TOL = 1e-4  # |u| of TP against the unsharded torch engine
+PARALLEL_TIMEOUT = {1: 180.0, 2: 300.0}  # seconds a launch of n ranks may take
+
+
+def parallel_launches(report) -> dict:
+    """Each case's launches by kernel, summed over the ranks."""
+    legs = {}
+    for by_case in report["launches_by_rank"]:
+        for case, got in by_case.items():
+            leg = legs.setdefault(case, {})
+            for kernel, n in got.items():
+                leg[kernel] = leg.get(kernel, 0) + n
+    return {case: got for case, got in legs.items() if got}
+
+
+def phase_parallel_path(torch, smi):
+    """The sharded solves (``tpu_gpad_torch.parallel``) across processes,
+    one per rank, through ``mp_worker``: one rank on nccl at the headline
+    (B4096; equal to ``solve_batch`` exactly, one flat paired launch),
+    then two gloo ranks sharing the card: DP fixed (the flat paired kernel
+    on each rank's 2048 rows, equal to ``solve_batch`` on them), with
+    restart (the dual kernel, held by the restart parting rule), eps (the
+    chunk kernel: each rank runs until the last scenario of both has
+    converged, its iterations and u equal to its rows solved alone; the
+    rows ordered so that one rank's own scenarios converge windows
+    earlier) and
+    eps with restart and a budget of 195; TP over 1x2 at the flagship and
+    at a dense m of 165 (inert rows pad it; the torch engine) against the
+    unsharded torch engine; ``solve_multi_sharded`` over the 28 plants (14
+    dense launches a rank) equal to ``solve_multi``. Each rank checks a
+    sample of its headline rows against the NumPy oracle. With two ranks
+    on one card the times measure the collectives' cost, not a speed-up.
+    Returns each case's launches, summed over the ranks."""
+    from tpu_gpad_torch.parallel import mp_worker
+
+    t0 = time.perf_counter()
+    one, rep1 = mp_worker.run_multiprocess_check(
+        1, "headline", "cuda", "nccl", timeout_s=PARALLEL_TIMEOUT[1])
+    two, rep2 = mp_worker.run_multiprocess_check(
+        2, "card", "cuda", "gloo", timeout_s=PARALLEL_TIMEOUT[2])
+    wall_s = time.perf_counter() - t0
+    B = mp_worker.HEADLINE_BATCH
+
+    def equal(arrays, case, fields):
+        return all(np.array_equal(arrays[f"{case}_{f}"],
+                                  arrays[f"{case}_{f}_alone"]) for f in fields)
+
+    def parted(case):
+        e = np.abs(two[f"{case}_u"] - two[f"{case}_u_alone"]).max(axis=1)
+        return int((e > RESTART_TOL).sum())
+
+    per_rank = rep2["launches_by_rank"]
+    own_windows = [int(np.ceil(it.max() / 10)) for it in np.split(
+        two["dp_eps_iterations_alone"], len(per_rank))]
+    got = {
+        "one_rank_nccl_equal": equal(one, "dp_fixed", ("u", "y")),
+        "one_rank_nccl_launches": rep1["launches_by_rank"][0]["dp_fixed"],
+        "dp_fixed_equal": equal(two, "dp_fixed", ("u", "y")),
+        "dp_restart_parted": parted("dp_restart"),
+        "dp_eps_converged": int(two["dp_eps_converged"].sum()),
+        "dp_eps_equal": equal(two, "dp_eps", ("u", "iterations")),
+        # the collective exit: both ranks run the windows of the slower
+        "dp_eps_windows_by_rank": [r["dp_eps"]["gpad_dual_chunk"]
+                                   for r in per_rank],
+        "dp_eps_own_windows_by_rank": own_windows,
+        "dp_eps_restart_converged": int(two["dp_eps_restart_converged"].sum()),
+        "dp_eps_restart_parted": parted("dp_eps_restart"),
+        "parted_max": parted_max(B),
+        "tp_flagship_u_err": float(np.abs(two["tp_u"]
+                                          - two["tp_u_unsharded"]).max()),
+        "tp_odd_u_err": float(np.abs(two["tp_odd_u"]
+                                     - two["tp_odd_u_unsharded"]).max()),
+        "tp_odd_y_shape": list(two["tp_odd_y"].shape),
+        "multi_equal": bool(np.array_equal(two["multi_u"],
+                                           two["multi_u_unsharded"])),
+    }
+    legs = {"one_rank_nccl": parallel_launches(rep1)["dp_fixed"],
+            **parallel_launches(rep2)}
+    emit({"phase": "parallel_path", "batch": B, **got, "launches": legs,
+          "tol": {"restart": RESTART_TOL, "tp": PARALLEL_TP_TOL},
+          "wall_s": wall_s, "nvidia_smi": smi,
+          # CUDA events on rank 0, medians of sharded/unsharded in turns;
+          # two ranks share the card: the collectives' cost, no speed-up
+          "ms": rep2["ms"],
+          "worker_s": [o.strip().splitlines()[-1] for o in rep1["outputs"]
+                       + rep2["outputs"]]})
+    check(got["one_rank_nccl_equal"], "one-rank nccl solve != solve_batch")
+    check(got["one_rank_nccl_launches"] == {"gpad_paired_flat": 1},
+          f"one-rank nccl launches {got['one_rank_nccl_launches']}")
+    check(got["dp_fixed_equal"], "DP fixed != solve_batch on the rank's rows")
+    check(got["dp_restart_parted"] <= got["parted_max"],
+          f"DP restart parted {got['dp_restart_parted']} scenarios")
+    check(got["dp_eps_converged"] == B, "DP eps left scenarios unconverged")
+    check(got["dp_eps_equal"], "DP eps != its rows solved alone")
+    check(len(set(got["dp_eps_windows_by_rank"])) == 1
+          and got["dp_eps_windows_by_rank"][0] == max(own_windows),
+          "DP eps ranks did not leave together")
+    check(min(own_windows) < max(own_windows),
+          f"DP eps rows did not part the ranks' own windows {own_windows}")
+    check(got["dp_eps_restart_converged"] == B,
+          "DP eps restart left scenarios unconverged")
+    check(got["dp_eps_restart_parted"] <= got["parted_max"],
+          f"DP eps restart parted {got['dp_eps_restart_parted']} scenarios")
+    check(got["tp_flagship_u_err"] < PARALLEL_TP_TOL,
+          f"TP flagship u err {got['tp_flagship_u_err']}")
+    check(got["tp_odd_u_err"] < PARALLEL_TP_TOL,
+          f"TP odd m u err {got['tp_odd_u_err']}")
+    check(got["tp_odd_y_shape"] == [mp_worker.FLAG_BATCH, 165],
+          f"TP odd m y shape {got['tp_odd_y_shape']}")
+    check(got["multi_equal"], "solve_multi_sharded != solve_multi")
+    for name in ("u", "y"):
+        check(bool(np.isfinite(two[f"dp_fixed_{name}"]).all()),
+              f"DP {name} not finite")
+    for case, kernel in (("dp_fixed", "gpad_paired_flat"),
+                         ("dp_restart", "gpad_dual"),
+                         ("multi", "gpad_dense")):
+        want = {"dp_fixed": 1, "dp_restart": 1,
+                "multi": mp_worker.MULTI_PLANTS // 2}[case]
+        check(all(r[case] == {kernel: want} for r in per_rank),
+              f"{case} launches by rank {[r[case] for r in per_rank]}")
+    check(all(r["dp_eps"].keys() == {"gpad_dual_chunk"} for r in per_rank),
+          "DP eps did not run the chunk kernel")
+    check(all(not r.get(c) for r in per_rank for c in ("tp", "tp_odd")),
+          "TP launched a kernel")
+    kernels_seen = {k for leg in legs.values() for k in leg}
+    check({"gpad_paired_flat", "gpad_dual", "gpad_dual_chunk",
+           "gpad_dense"} <= kernels_seen,
+          f"the parallel path launched {kernels_seen}")
+    return legs
+
+
 def kernel_ms(med, kernel, B=BATCH) -> float:
     """A resident kernel's time at batch B: the profiler's device time of
     its launch, or where the profiler saw none, the CUDA-event time of its
@@ -3759,6 +3897,8 @@ def main() -> int:
                                                          smi),
         # implicit differentiation through the solves (and its times)
         "diff_path": phase_diff_path(torch, tg, ctr, smi),
+        # the sharded solves across processes (tpu_gpad_torch.parallel)
+        "parallel": phase_parallel_path(torch, smi),
     }
     med = phase_timing(torch, tg, kernels, dual_kernels, core, smi)
     dmed = phase_dual_timing(torch, tg, kernels, dual_kernels, core, smi)
@@ -3903,8 +4043,8 @@ def main() -> int:
                 by_kernel.setdefault(kernel, {})[f"{phase}.{leg}"] = n
     check(set(by_kernel) == {"gpad_paired_flat", "gpad_dual", "gpad_dual_chunk",
                              "gpad_dual_tiled", "gpad_stagewise_resident",
-                             "gpad_stagewise_stream"},
-          f"the estimation and robust stacks launched {by_kernel}")
+                             "gpad_stagewise_stream", "gpad_dense"},
+          f"the stacks and the parallel path launched {by_kernel}")
     for k in line:
         legs = by_kernel.get(k["name"], {})
         k["launches_by_path"] = {"earlier_paths": k["launches"], **legs}

@@ -41,13 +41,33 @@ def test_solve_matches_jax_cli(capsys):
     assert abs(out_t["residual_max"] - out_j["residual_max"]) < 2e-5
 
 
+def test_sweep_sharded_one_rank_equals_sweep(tmp_path):
+    """Started alone, ``sweep --sharded`` runs a one-rank group on
+    --device (as tpu_gpad's make_mesh() takes the devices of its one
+    process), the ragged last chunk padded to the mesh and sliced back:
+    the same U as the unsharded sweep (tests/test_cli.py's check)."""
+    argv = ["sweep", "--cells", "3", "--horizon", "4", "--iterations", "40",
+            "--batch", "44", "--chunk-size", "16", "--device", "cpu"]
+    outs = {}
+    for name, extra in (("sharded", ["--sharded"]), ("direct", [])):
+        path = tmp_path / f"{name}.npz"
+        proc = _torch_cli(*argv, *extra, "--out", str(path))
+        assert proc.returncode == 0, proc.stderr
+        (summary, saved) = [json.loads(ln) for ln in
+                            proc.stdout.strip().splitlines()]
+        assert summary["scenarios"] == 44 and summary["chunks"] == 3
+        assert saved == {"results": str(path)}
+        with np.load(path) as f:
+            outs[name] = f["U"]
+    assert outs["sharded"].shape == (44, 3)
+    np.testing.assert_array_equal(outs["sharded"], outs["direct"])
+
+
 @pytest.mark.parametrize(
     "argv,msg",
     [(["export", "--aot", "--out", "unused.pt2", "--device", "cpu"],
-      "export --aot"),
-     (["sweep", "--sharded", "--batch", "4", "--device", "cpu"],
-      "sweep --sharded")],
-    ids=["export_aot", "sweep_sharded"],
+      "export --aot")],
+    ids=["export_aot"],
 )
 def test_unported_commands_say_so(argv, msg):
     from tpu_gpad_torch.cli import main

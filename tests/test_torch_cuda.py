@@ -1203,3 +1203,32 @@ def test_plan_batch_launches_one_dual_kernel_per_plant(dev, device_condense):
         U = ctrl.plan_batch(X, UPRIGHT)
         assert dual_kernels.DUAL_LAUNCHES == before + 8
         assert U.shape == (8, 25, 1) and np.isfinite(U).all()
+
+
+def test_one_rank_nccl_sharded_solve_is_solve_batch(dev, tmp_path):
+    """A one-rank nccl group on the card: solve_batch_sharded at the
+    headline (B4096) equals solve_batch exactly, through one launch of the
+    flat paired kernel."""
+    import torch.distributed as dist
+
+    from tpu_gpad_torch.parallel import (make_mesh, shard_batch,
+                                         solve_batch_sharded)
+
+    data = _data(dev)
+    X0 = np.random.default_rng(1).uniform(-0.4, 0.4, (4096, 3)).astype(
+        np.float32)
+    cfg = tg.SolverConfig(iterations=ITERS)
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        before = kernels.PAIRED_FLAT_LAUNCHES
+        out = solve_batch_sharded(data, shard_batch(mesh, X0), cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        assert kernels.PAIRED_FLAT_LAUNCHES == before + 1
+        ref = tg.solve_batch(data, X0, cfg)
+        for f in ("u", "z", "y", "residual", "gap"):
+            assert torch.equal(getattr(out, f).full_tensor(), getattr(ref, f)), f
+    finally:
+        dist.destroy_process_group()

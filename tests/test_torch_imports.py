@@ -42,7 +42,8 @@ def test_port_imports_no_jax():
     for name in ("stagewise", "stagewise_kernel", "stagewise_stream", "io",
                  "solver.multi", "sweep", "robust", "estimator", "mhe",
                  "analysis", "utils.debug", "nonlinear", "device_condense",
-                 "problems.pendulum", "problems.point_mass", "diff"):
+                 "problems.pendulum", "problems.point_mass", "diff",
+                 "parallel", "parallel.distrib", "parallel.mp_worker"):
         assert f"tpu_gpad_torch.{name}" in out["imported"]
     assert out["bad"] == []
 
@@ -72,12 +73,13 @@ UNPORTED = {
 
 def test_port_exports_what_tpu_gpad_exports():
     """Every name in the __all__ of tpu_gpad, tpu_gpad.solver,
-    tpu_gpad.utils and tpu_gpad.problems is in the port's counterpart, or
-    in UNPORTED; nothing in UNPORTED is exported by the port already."""
+    tpu_gpad.utils, tpu_gpad.problems and tpu_gpad.parallel is in the
+    port's counterpart, or in UNPORTED; nothing in UNPORTED is exported by
+    the port already."""
     import importlib
 
     missing, stale = {}, set()
-    for sub in ("", ".solver", ".utils", ".problems"):
+    for sub in ("", ".solver", ".utils", ".problems", ".parallel"):
         ref = importlib.import_module("tpu_gpad" + sub)
         port = importlib.import_module("tpu_gpad_torch" + sub)
         gap = set(ref.__all__) - set(port.__all__)
@@ -89,3 +91,8 @@ def test_port_exports_what_tpu_gpad_exports():
     assert not stale, stale
     from tpu_gpad_torch import polish, polish_batch  # noqa: F401
     from tpu_gpad_torch.solver import solve_multi, stack_data  # noqa: F401
+    from tpu_gpad_torch.parallel import solve_stagewise_multi_sharded  # noqa: F401
+    import tpu_gpad.parallel as jpar
+    import tpu_gpad_torch.parallel as tpar
+
+    assert tpar.__all__ == jpar.__all__

@@ -220,13 +220,33 @@ def test_sweep_cli_matches_jax(tmp_path, capsys):
         np.testing.assert_allclose(ft["U"], fj["U"], atol=TOL, rtol=0)
 
 
+def test_sweep_sharded_cli_matches_jax(tmp_path, capsys):
+    """``sweep --sharded`` in this process (a one-rank group on the CPU,
+    made and destroyed by the command) against tpu_gpad's ``sweep
+    --sharded`` over its virtual 8-device mesh, a ragged last chunk on
+    both."""
+    import torch.distributed as dist
+
+    argv = ["sweep", "--batch", "44", "--chunk-size", "16", "--iterations",
+            "40", "--cells", "3", "--horizon", "4", "--sharded"]
+    assert jax_main(argv + ["--out", str(tmp_path / "jax.npz")]) == 0
+    capsys.readouterr()
+    assert cli.main(argv + ["--out", str(tmp_path / "torch.npz"), "--device",
+                            "cpu"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[0])
+    assert summary["scenarios"] == 44 and summary["chunks"] == 3
+    assert not dist.is_initialized()  # the command's group is gone
+    with np.load(tmp_path / "jax.npz") as fj, np.load(tmp_path / "torch.npz") as ft:
+        assert ft["U"].shape == (44, 3)
+        np.testing.assert_allclose(ft["U"], fj["U"], atol=TOL, rtol=0)
+
+
 @pytest.mark.parametrize(
     "argv,msg",
     [(["export", "--aot", "--out", "x.bin"], "--aot"),
-     (["sweep", "--sharded"], "--sharded"),
      (["solve", "--engine", "stagewise", "--dataset", "x.txt"],
       "not supported by `solve --dataset`")],
-    ids=["export_aot", "sweep_sharded", "dataset_stagewise"],
+    ids=["export_aot", "dataset_stagewise"],
 )
 def test_unported_options_say_so(argv, msg):
     with pytest.raises(SystemExit, match=msg):

@@ -136,18 +136,54 @@ def test_too_many_iterations_raises(paired_pair):
             d_t, np.zeros((1, 3), np.float32), SolverConfig(iterations=ITERS + 1))
 
 
+@pytest.fixture(scope="module")
+def one_rank_group(tmp_path_factory):
+    """A one-rank gloo group on the CPU, destroyed after the module."""
+    import torch.distributed as dist
+
+    store = tmp_path_factory.mktemp("pg") / "store"
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(mode="eps", collective_axes=("data",)),
+     dict(restart=True, model_axis="model"),
+     dict(model_axis="model"),
+     dict(collective_axes=("data",))],
+    ids=["eps", "restart", "model_axis", "collective_axes"],
+)
+def test_sharding_axes_need_a_bound_group(paired_pair, one_rank_group, kw):
+    """Mesh axis names reduce over the process group bound to them
+    (parallel.solve_batch_sharded binds them): unbound they raise and name
+    solve_batch_sharded; bound to a one-rank group every reduction is the
+    identity, so the solve equals the unsharded one in its form."""
+    _, _, d_t = paired_pair
+    x0 = np.random.default_rng(3).uniform(-0.4, 0.4, (8, 3)).astype(np.float32)
+    cfg = SolverConfig(**kw)
+    with pytest.raises(ValueError, match="solve_batch_sharded"):
+        tpu_gpad_torch.solve_batch(d_t, x0, cfg)
+    with core.bind_axes({"data": one_rank_group, "model": one_rank_group}):
+        got = tpu_gpad_torch.solve_batch(d_t, x0, cfg)
+    plain = dataclasses.replace(cfg, model_axis=None, collective_axes=())
+    if cfg.model_axis is not None:  # TP runs the mvp form, flat block off
+        plain = dataclasses.replace(plain, form="mvp", flat="off")
+    ref = tpu_gpad_torch.solve_batch(d_t, x0, plain)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), f.name
+
+
 @pytest.mark.parametrize(
     "kw, missing",
-    # eps mode and restart are ported; with sharding they still raise. Each
-    # message names what is still to be ported and points at the ROADMAP.
-    [(dict(mode="eps", collective_axes=("data",)), r"parallel/distrib\.py"),
-     (dict(restart=True, model_axis="model"), r"parallel/distrib\.py"),
-     (dict(model_axis="model"), r"parallel/distrib\.py"),
-     (dict(collective_axes=("data",)), r"parallel/distrib\.py"),
-     (dict(precision="high"), "precision tiers"),
+    # each message names what is still to be ported and points at the ROADMAP
+    [(dict(precision="high"), "precision tiers"),
      (dict(matmul_dtype="bfloat16"), "precision tiers")],
-    ids=["eps", "restart", "model_axis", "collective_axes", "precision",
-         "matmul_dtype"],
+    ids=["precision", "matmul_dtype"],
 )
 def test_unported_modes_raise(paired_pair, kw, missing):
     _, _, d_t = paired_pair

@@ -10,16 +10,21 @@ configuration). ``solve --dataset`` solves a reference-format dataset file
 (``input_%d.txt``, see ``tpu_gpad_torch.io``), ``export`` writes one,
 ``sweep`` is the checkpointed large-batch runner and ``closedloop`` the
 reference's controller loop (``gpad.m``). ``--engine stagewise`` solves on
-the stage-wise O(N) engine (``tpu_gpad_torch.stagewise``). ``export
---aot`` and ``sweep --sharded`` are not yet ported and say so.
+the stage-wise O(N) engine (``tpu_gpad_torch.stagewise``). ``sweep
+--sharded`` spreads each chunk over the ranks of a process group
+(``torchrun``), or over a one-rank group on ``--device`` when started
+alone. ``export --aot`` is not yet ported and says so.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import sys
+import tempfile
 
 import numpy as np
 
@@ -243,24 +248,95 @@ def cmd_closedloop(args) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def _process_group(device: str):
+    """The process group of a sharded sweep: under ``torchrun`` its
+    ``env://`` rendezvous (each rank on the card of its ``LOCAL_RANK``),
+    started alone a one-rank group on ``device``, as ``tpu_gpad``'s
+    ``make_mesh()`` takes every device of its one process. Yields (the
+    rank's device, its rank); destroys the group it made."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory(prefix="gpad_pg_") as tmp:
+        if dist.is_initialized():
+            yield dev, dist.get_rank()
+            return
+        torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+        if torchrun:
+            init = dict(init_method="env://")
+        else:
+            init = dict(init_method=f"file://{tmp}/store", rank=0,
+                        world_size=1)
+        if dev.type == "cuda":
+            if dev.index is None:
+                dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                                   if torchrun else torch.cuda.current_device())
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, **init)
+        try:
+            yield dev, dist.get_rank()
+        finally:
+            dist.destroy_process_group()
+
+
+def _sharded_solve_fn(device_type: str):
+    """``run_sweep``'s ``solve_fn`` over every rank on data: each chunk
+    padded to the mesh width (the ragged last one), sharded, solved and
+    gathered whole on every rank."""
+    from tpu_gpad_torch.parallel import make_mesh, solve_batch_sharded
+    from tpu_gpad_torch.types import SolveResult
+
+    mesh = make_mesh(device_type=device_type)
+    n_data = mesh.shape[0]
+
+    def solve_fn(d, x, c):
+        pad = (-x.shape[0]) % n_data
+        xp = np.pad(x, ((0, pad), (0, 0))) if pad else x
+        res = solve_batch_sharded(d, xp, c, mesh=mesh)
+        return SolveResult(**{
+            f.name: getattr(res, f.name).full_tensor()[: x.shape[0]]
+            for f in dataclasses.fields(SolveResult)})
+
+    return solve_fn
+
+
 def cmd_sweep(args) -> int:
+    _reject_stagewise(args, "sweep")
+    if not args.sharded:
+        return _sweep(args, args.device)
+    with _process_group(args.device) as (device, rank):
+        import torch.distributed as dist
+
+        if dist.get_world_size() > 1 and args.checkpoint:
+            # a rank that resumed alone would gather another chunk's rows
+            raise SystemExit(
+                "sweep --sharded --checkpoint resumes within one process; "
+                "drop --checkpoint or run one rank")
+        return _sweep(args, device, _sharded_solve_fn(device.type),
+                      emit=rank == 0)
+
+
+def _sweep(args, device, solve_fn=None, emit: bool = True) -> int:
     import tpu_gpad_torch
     from tpu_gpad_torch.solver.core import resolve_engine
     from tpu_gpad_torch.sweep import run_sweep
 
-    _reject_stagewise(args, "sweep")
-    if args.sharded:
-        raise SystemExit(f"sweep --sharded {_NOT_PORTED}")
     problem = _build_problem(args)
     data = tpu_gpad_torch.dualize(
         tpu_gpad_torch.condense(problem), iterations=args.iterations,
-        paired=_paired(args), device=args.device)
+        paired=_paired(args), device=device)
     X0 = _scenarios(args, problem.n_x)
     config = _solver_config(args)
     out = run_sweep(
         data, X0, config, chunk_size=args.chunk_size,
-        checkpoint=args.checkpoint, progress=args.progress,
+        checkpoint=args.checkpoint, solve_fn=solve_fn,
+        progress=args.progress and emit,
     )
+    if not emit:  # the other ranks of a sharded sweep: rank 0 reports
+        return 0
     _emit({
         "problem": data.name,
         "scenarios": int(X0.shape[0]),
@@ -435,8 +511,8 @@ def main(argv=None) -> int:
     p.add_argument("--x0", help="text file of initial states")
     p.add_argument("--chunk-size", type=int, default=4096)
     p.add_argument("--sharded", action="store_true",
-                   help="spread each chunk over all visible devices (not "
-                        "yet ported)")
+                   help="spread each chunk over the ranks of a process "
+                        "group (torchrun), or a one-rank group on --device")
     p.add_argument("--checkpoint", help="npz checkpoint path (resume if exists)")
     p.add_argument("--out", help="write result arrays to this npz")
     p.add_argument("--progress", action="store_true")

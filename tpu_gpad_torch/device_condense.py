@@ -51,11 +51,7 @@ import numpy as np
 import torch
 
 from tpu_gpad_torch.schedule import momentum_schedule
-from tpu_gpad_torch.types import GPADData
-
-# RHS of an inert row: its dual projects to exactly 0 every iteration
-# (tpu_gpad.types.PAD_BIG)
-PAD_BIG = 1e20
+from tpu_gpad_torch.types import PAD_BIG, GPADData
 
 
 @contextlib.contextmanager

@@ -27,10 +27,19 @@ Eps mode (Algorithm 1) checks the stopping test every ``check_every``
 iterations and once more at a budget that is not a multiple of it; the
 loop stops when every scenario has converged, which the host learns with
 one sync per check.
+
+Sharded solves (``tpu_gpad_torch.parallel``) run this module on each
+rank's rows and dual slice. ``SolverConfig.model_axis`` and
+``collective_axes`` stay mesh axis names, as in the JAX package, where
+``lax.psum`` resolves them inside ``shard_map``: ``bind_axes`` binds each
+name to its process group while the sharded solve runs, and the
+reductions here look the name up (``_all_reduce``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from dataclasses import dataclass
 
@@ -53,10 +62,15 @@ class SolverConfig:
     and beta are computed on the fly, so the budget may exceed the shipped
     schedule.
 
-    Not yet ported (raise ``NotImplementedError``):
-    ``model_axis``/``collective_axes``, ``precision`` other than "highest"
-    and ``matmul_dtype`` other than "float32". ``unroll`` is accepted for
-    parity and has no effect on the eager loop.
+    ``model_axis`` (the dual dimension sharded over that mesh axis) and
+    ``collective_axes`` (the axes the eps loop's all-converged count is
+    summed over) name axes that ``parallel.solve_batch_sharded`` binds;
+    outside it they raise ``ValueError``. The torch engine serves
+    ``model_axis``, as XLA does in the JAX package.
+
+    Not yet ported (raise ``NotImplementedError``): ``precision`` other
+    than "highest" and ``matmul_dtype`` other than "float32". ``unroll`` is
+    accepted for parity and has no effect on the eager loop.
     """
 
     iterations: int | None = None  # None: the full shipped schedule
@@ -76,16 +90,67 @@ class SolverConfig:
     restart: bool = False
 
 
+# The process group bound to each mesh axis name while a sharded solve
+# runs: the counterpart of shard_map's axis environment.
+_AXIS_GROUPS: contextvars.ContextVar[dict] = contextvars.ContextVar(
+    "gpad_axis_groups", default={})
+
+
+@contextlib.contextmanager
+def bind_axes(groups: dict):
+    """Bind mesh axis names to ``torch.distributed`` process groups for the
+    solves inside the block (``parallel.solve_batch_sharded`` binds its
+    mesh's ``data`` and ``model`` axes)."""
+    token = _AXIS_GROUPS.set({**_AXIS_GROUPS.get(), **groups})
+    try:
+        yield
+    finally:
+        _AXIS_GROUPS.reset(token)
+
+
+def _check_axes(config: SolverConfig) -> None:
+    """Raise for an axis name that no sharded solve has bound: a solve that
+    ignored it would give a wrong answer, one that waited for it would hang."""
+    names = tuple(config.collective_axes)
+    if config.model_axis is not None:
+        names += (config.model_axis,)
+    unbound = [n for n in names if n not in _AXIS_GROUPS.get()]
+    if unbound:
+        raise ValueError(
+            f"mesh axis {unbound} is not bound: model_axis and "
+            "collective_axes name axes of a mesh, which "
+            "parallel.solve_batch_sharded binds to their process groups "
+            "while its local solve runs; call solve_batch_sharded"
+        )
+
+
+def _all_reduce(t, axis, op: str = "sum"):
+    """``lax.psum`` (``op="sum"``) or ``lax.pmax`` (``"max"``) of ``t`` over
+    the named mesh axis, in place; ``axis=None`` returns ``t`` as it is."""
+    if axis is None:
+        return t
+    import torch.distributed as dist
+
+    red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+    dist.all_reduce(t, op=red, group=_AXIS_GROUPS.get()[axis])
+    return t
+
+
+def _all_converged(converged, config: SolverConfig) -> bool:
+    """Whether every scenario has converged on every rank: the unconverged
+    count summed over each of ``config.collective_axes``, so that every
+    rank takes the same branch (a rank that left the loop alone would hang
+    the others at their next collective)."""
+    n = (~converged).sum()
+    for axis in config.collective_axes:
+        n = _all_reduce(n, axis)
+    return int(n) == 0
+
+
 def _check_ported(config: SolverConfig) -> None:
     """Raise for the configuration values the port does not carry yet."""
     if config.mode not in ("fixed", "eps"):
         raise ValueError(f"unknown mode: {config.mode!r}")
-    if config.model_axis is not None or config.collective_axes:
-        raise NotImplementedError(
-            "model_axis/collective_axes need parallel/distrib.py "
-            "(torch.distributed), not yet ported to tpu_gpad_torch (see "
-            "ROADMAP)"
-        )
     if config.precision != "highest":
         raise NotImplementedError(
             f"precision={config.precision!r} needs the precision tiers, "
@@ -153,14 +218,17 @@ def _expand_to(v, like):
 
 
 def _iteration(data: GPADData, g_P, p_D, theta_k, beta_k, y, y_prev, z,
-               flat: bool = False):
+               flat: bool = False, model_axis=None):
     """One GPAD iteration (steps 1-4), batched. ``theta_k``/``beta_k`` are
-    schedule scalars, or per-scenario rows under restart."""
+    schedule scalars, or per-scenario rows under restart. With the dual
+    dimension sharded over ``model_axis``, step 2's partial product is
+    summed over it before ``g_P`` enters (once, not once a rank)."""
     w = y + _expand_to(beta_k, y) * (y - y_prev)
     if data.paired:
-        zhat = -((w[..., 0, :] - w[..., 1, :]) @ data.MG_T) - g_P
+        zhat_partial = (w[..., 0, :] - w[..., 1, :]) @ data.MG_T
     else:
-        zhat = -(w @ data.MG_T) - g_P
+        zhat_partial = w @ data.MG_T
+    zhat = -_all_reduce(zhat_partial, model_axis) - g_P
     theta_z = _expand_to(theta_k, z)
     z = (1.0 - theta_z) * z + theta_z * zhat
     w_s = w if data.soft_damp is None else w * (1.0 - data.soft_damp)
@@ -173,10 +241,12 @@ def _iteration(data: GPADData, g_P, p_D, theta_k, beta_k, y, y_prev, z,
 
 
 def _residuals(data: GPADData, g_P, p_D, z, zhat, w, flat: bool = False,
-               y=None):
+               y=None, model_axis=None):
     """Primal violation max(G z - b) and gap surrogate -w' g(zhat),
     recovered from the scaled operands as g(z) = L (G_L z + p_D); soft rows
-    are measured against the recovered slack (see tpu_gpad.solver.core)."""
+    are measured against the recovered slack (see tpu_gpad.solver.core).
+    With the dual dimension sharded over ``model_axis``, the maxima are
+    taken and the gap summed over it."""
     if data.paired:
         gz = data.L * (_pm(_step4_product(data, z, flat)) + p_D)
         gzh = data.L * (_pm(_step4_product(data, zhat, flat)) + p_D)
@@ -188,9 +258,9 @@ def _residuals(data: GPADData, g_P, p_D, z, zhat, w, flat: bool = False,
             gz = gz - (data.L * data.soft_damp) * y
         gzh = gzh - (data.L * data.soft_damp) * w
     dims = (-2, -1) if data.paired else (-1,)
-    viol_z = torch.amax(gz, dim=dims)
-    viol_zhat = torch.amax(gzh, dim=dims)
-    gap = -torch.sum(w * gzh, dim=dims)
+    viol_z = _all_reduce(torch.amax(gz, dim=dims), model_axis, "max")
+    viol_zhat = _all_reduce(torch.amax(gzh, dim=dims), model_axis, "max")
+    gap = -_all_reduce(torch.sum(w * gzh, dim=dims), model_axis)
     return viol_z, viol_zhat, gap
 
 
@@ -202,11 +272,14 @@ def _momentum(config: SolverConfig, data: GPADData, k, th, th_prev):
     return th, th * (1.0 / th_prev - 1.0)
 
 
-def _restart_update(th, th_prev, y, y_next, w):
+def _restart_update(th, th_prev, y, y_next, w, model_axis=None):
     """Advance the momentum recursion, resetting the scenarios whose
     momentum opposes the projected-gradient step (O'Donoghue-Candes):
-    restart iff (w - y+) . (y+ - y) > 0. Returns (y_prev', th', th_prev')."""
-    r = torch.sum((w - y_next) * (y_next - y), dim=tuple(range(th.ndim, y.ndim)))
+    restart iff (w - y+) . (y+ - y) > 0, the product summed over
+    ``model_axis`` where the dual is sharded. Returns (y_prev', th',
+    th_prev')."""
+    r = _all_reduce(torch.sum((w - y_next) * (y_next - y),
+                              dim=tuple(range(th.ndim, y.ndim))), model_axis)
     mask = r > 0.0
     th_next = torch.where(mask, 1.0, th * (torch.sqrt(th * th + 4.0) - th) * 0.5)
     th_prev_next = torch.where(mask, 1.0, th)
@@ -237,7 +310,8 @@ def _finish(data: GPADData, g_P, p_D, z, zhat, w, y, config, flat):
     """Residual/gap recovery and the SolveResult of a fixed-budget solve."""
     batch_shape = g_P.shape[:-1]
     if config.diagnostics:
-        viol_z, _, gap = _residuals(data, g_P, p_D, z, zhat, w, flat, y=y)
+        viol_z, _, gap = _residuals(data, g_P, p_D, z, zhat, w, flat, y=y,
+                                    model_axis=config.model_axis)
         residual = torch.clamp_min(viol_z, 0.0)
     else:
         residual = torch.full(batch_shape, float("nan"), dtype=torch.float32,
@@ -262,13 +336,15 @@ def _solve_fixed(data: GPADData, g_P, p_D, config: SolverConfig,
     y, y_prev, z, w, zhat = _init_state(data, g_P.shape[:-1], y0)
     th = th_prev = torch.ones(g_P.shape[:-1], dtype=torch.float32,
                               device=g_P.device)
+    ma = config.model_axis
     for k in range(config.iterations):
         theta_k, beta_k = _momentum(config, data, k, th, th_prev)
         w, zhat, z, y_next = _iteration(
-            data, g_P, p_D, theta_k, beta_k, y, y_prev, z, flat
+            data, g_P, p_D, theta_k, beta_k, y, y_prev, z, flat, ma
         )
         if config.restart:
-            y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w)
+            y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w,
+                                                  ma)
         else:
             y_prev = y
         y = y_next
@@ -318,7 +394,8 @@ def _eps_test(data: GPADData, g_P, p_D, config: SolverConfig, k_now: int,
     the gap branch, where zhat is exactly optimal for the Lagrangian at w
     while the averaged z may still be infeasible). Returns the updated
     (converged, iters, z_out)."""
-    viol_z, viol_zhat, gap = _residuals(data, g_P, p_D, z, zhat, w, flat, y=y)
+    viol_z, viol_zhat, gap = _residuals(data, g_P, p_D, z, zhat, w, flat, y=y,
+                                        model_axis=config.model_axis)
     ok_z = viol_z <= config.eps_g
     ok = ok_z | ((viol_zhat <= config.eps_g) & (gap <= config.eps_V))
     newly = ok & ~converged
@@ -328,11 +405,12 @@ def _eps_test(data: GPADData, g_P, p_D, config: SolverConfig, k_now: int,
 
 
 def _eps_result(data: GPADData, g_P, p_D, z, zhat, w, y, converged, iters,
-               z_out, flat: bool = False) -> SolveResult:
+               z_out, flat: bool = False, model_axis=None) -> SolveResult:
     """The SolveResult of an eps solve: the captured point where a scenario
     converged, the last iterate elsewhere."""
     z_final = torch.where(converged[..., None], z_out, z)
-    viol_z, _, gap = _residuals(data, g_P, p_D, z_final, zhat, w, flat, y=y)
+    viol_z, _, gap = _residuals(data, g_P, p_D, z_final, zhat, w, flat, y=y,
+                                model_axis=model_axis)
     return SolveResult(
         u=z_final[..., : data.n_u], z=z_final, y=y, iterations=iters,
         residual=torch.clamp_min(viol_z, 0.0), gap=gap, converged=converged,
@@ -353,13 +431,15 @@ def _solve_eps(data: GPADData, g_P, p_D, config: SolverConfig,
     iters = torch.full(batch_shape, config.iterations, dtype=torch.int32,
                        device=g_P.device)
     z_out = z
+    ma = config.model_axis
     for k in range(config.iterations):
         theta_k, beta_k = _momentum(config, data, k, th, th_prev)
         w, zhat, z, y_next = _iteration(
-            data, g_P, p_D, theta_k, beta_k, y, y_prev, z, flat
+            data, g_P, p_D, theta_k, beta_k, y, y_prev, z, flat, ma
         )
         if config.restart:
-            y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w)
+            y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w,
+                                                  ma)
         else:
             y_prev = y
         y = y_next
@@ -369,10 +449,10 @@ def _solve_eps(data: GPADData, g_P, p_D, config: SolverConfig,
             data, g_P, p_D, config, k + 1, z, zhat, w, y, converged, iters,
             z_out, flat,
         )
-        if k + 1 < config.iterations and bool(converged.all()):
+        if k + 1 < config.iterations and _all_converged(converged, config):
             break
     return _eps_result(data, g_P, p_D, z, zhat, w, y, converged, iters, z_out,
-                      flat)
+                      flat, ma)
 
 
 def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:
@@ -392,6 +472,8 @@ def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:
     kernel)."""
     from tpu_gpad_torch.solver import dual_kernels, kernels
 
+    if config.model_axis is not None:
+        return None  # a sharded dual dimension rides the torch engine
     forced = config.engine == "cuda"
     dual_ok = data.paired and data.D is not None and config.form != "mvp"
     if config.restart and not dual_ok:
@@ -427,11 +509,17 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
 
     "auto" keys on the device of the data tensors (the counterpart of the
     JAX package's ``jax.default_backend() == "tpu"`` test); a warm start
-    never changes the choice. Forcing "cuda" where no kernel serves the
-    case raises."""
+    never changes the choice. A sharded dual dimension (``model_axis``)
+    runs the torch engine, as it runs XLA in the JAX package. Forcing
+    "cuda" where no kernel serves the case raises."""
     if config.engine == "torch":
         return "torch"
     if config.engine == "cuda":
+        if config.model_axis is not None:
+            raise ValueError(
+                "engine='cuda' does not support dual-dimension tensor "
+                "parallelism; use engine='torch' for model-axis sharding"
+            )
         if data.device.type != "cuda":
             raise ValueError(
                 "engine='cuda' needs the data on a CUDA device; got "
@@ -524,6 +612,7 @@ def solve_batch(
             "test needs the residual/gap diagnostics)"
         )
     _check_ported(config)
+    _check_axes(config)
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=data.device)
     if y0 is not None:
         y0 = torch.as_tensor(y0, dtype=torch.float32, device=data.device)

@@ -545,10 +545,14 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
     partial window to the budget's end. After each window the host runs
     the residual/gap test (``core._eps_test``, soft rows against the
     recovered slack), captures each newly converged scenario's point, and
-    stops once every scenario has converged: one host sync per window. It
-    skips the partial window too when all have converged, where
-    ``tpu_gpad`` runs it anyway (the captured points are the same; y and
-    the gap are then those of the stopping window)."""
+    stops once every scenario has converged: one host sync per window.
+    Under a sharded solve the unconverged count is summed over
+    ``config.collective_axes`` first, so every rank runs until the last
+    scenario of all of them has converged. It skips the partial window too
+    when all have converged, where ``tpu_gpad`` runs it anyway (the
+    captured points are the same; y and the gap are then those of the
+    stopping window); with the summed count every rank skips it or none
+    does."""
     global EPS_SYNCS
     from tpu_gpad_torch.solver import core
 
@@ -580,7 +584,7 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
         )
         if i + 1 < len(windows):
             EPS_SYNCS += 1
-            if bool(converged.all()):
+            if core._all_converged(converged, config):
                 break
     z, zhat = _primal(data, g_P, s, w, 1.0)
     return core._eps_result(data, g_P, p_D, z, zhat, w, y, converged, iters,

@@ -96,6 +96,14 @@ class CondensedQP:
         return self.G.shape[0]
 
 
+# RHS of an inert dual row: a vacuous bound whose projected dual stays
+# exactly 0 every iteration, finite so the residual and gap recovery stays
+# NaN-free (tpu_gpad.types.PAD_BIG). Used by the model-axis row padding
+# (parallel.pad_dual_rows) and by one-sided polytope rows condensed on the
+# device (device_condense.py).
+PAD_BIG = 1e20
+
+
 def _move(obj, device):
     """Copy of a tensor dataclass with every tensor field on ``device``."""
     return dataclasses.replace(
