@@ -50,7 +50,10 @@ ranks sharing the card (DP fixed, restart, eps with the collective exit:
 the flat paired, dual and chunk kernels; TP at the flagship and at an m
 that 2 does not divide: the torch engine; 28 plants through
 ``solve_multi_sharded``: the dense kernel), with the sharded and
-unsharded times in turns. It times
+unsharded times in turns; and AOT export (``tpu_gpad_torch.aot``): every
+kernel's route exported at a concrete batch and one symbolic artifact of
+each solver, loaded in a fresh process, each loaded call launching the
+live call's kernel as many times and equal to it. It times
 kernels and
 plain versions with CUDA events, computes each kernel's roofline bound
 from its shapes, and prints one JSON object per phase. Any failed check exits
@@ -3760,6 +3763,258 @@ def phase_parallel_path(torch, smi):
     return legs
 
 
+# Each kernel's launch counter: (module, attribute), as a process that
+# loaded artifacts reads it (the modules ``aot.load_solver`` imports)
+COUNTERS = {
+    "gpad_paired_flat": ("tpu_gpad_torch.solver.kernels", "PAIRED_FLAT_LAUNCHES"),
+    "gpad_paired": ("tpu_gpad_torch.solver.kernels", "PAIRED_LAUNCHES"),
+    "gpad_dense": ("tpu_gpad_torch.solver.kernels", "DENSE_LAUNCHES"),
+    "gpad_flat_tiled": ("tpu_gpad_torch.solver.kernels", "FLAT_TILED_LAUNCHES"),
+    "gpad_dual": ("tpu_gpad_torch.solver.dual_kernels", "DUAL_LAUNCHES"),
+    "gpad_dual_chunk": ("tpu_gpad_torch.solver.dual_kernels",
+                        "DUAL_CHUNK_LAUNCHES"),
+    "gpad_dual_tiled": ("tpu_gpad_torch.solver.dual_kernels",
+                        "DUAL_TILED_LAUNCHES"),
+    "gpad_dual_tiled_chunk": ("tpu_gpad_torch.solver.dual_kernels",
+                              "DUAL_TILED_CHUNK_LAUNCHES"),
+    "gpad_stagewise_resident": ("tpu_gpad_torch.stagewise_kernel",
+                                "STAGEWISE_LAUNCHES"),
+    "gpad_stagewise_stream": ("tpu_gpad_torch.stagewise_stream",
+                              "STAGEWISE_STREAM_LAUNCHES"),
+}
+# the symbolic artifacts' batches, and the rounds of loaded against live
+AOT_SYMBOLIC_BATCHES = (1, 37, BATCH)
+AOT_ROUNDS, AOT_REPEATS = 3, 2
+AOT_FIELDS = ("u", "z", "y", "iterations", "residual", "gap", "converged")
+
+# A process that imports torch and tpu_gpad_torch.aot only, loads each
+# artifact the parent saved, runs it on the parent's x0 and saves what it
+# returns, with the launches each leg made (counters read from the modules
+# load_solver imported)
+AOT_CHILD = r"""
+import json, pathlib, sys
+import torch
+from tpu_gpad_torch import aot
+tmp = pathlib.Path(sys.argv[1])
+plan = json.loads((tmp / "legs.json").read_text())
+launches = {}
+for name, batches in plan["legs"].items():
+    solve = aot.load_solver(tmp / f"{name}.pt2")
+    counters = {k: (sys.modules[m], a) for k, (m, a) in plan["counters"].items()}
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    for B in batches:
+        out = solve(torch.load(tmp / f"{name}.x0.{B}.pt"))
+        torch.cuda.synchronize()
+        torch.save({k: v.cpu() for k, v in out.items()},
+                   tmp / f"{name}.out.{B}.pt")
+    launches[name] = {k: getattr(mod, attr)
+                      for k, (mod, attr) in counters.items()
+                      if getattr(mod, attr)}
+print(json.dumps({"launches": launches, "tpu_gpad_torch_imports": sorted(
+    m for m in sys.modules if m.startswith("tpu_gpad_torch"))}))
+"""
+
+
+def aot_legs(torch, tg):
+    """The artifacts of the AOT phase, each at a shape the earlier phases
+    drive: name -> (kernel or None, export function, data, config, batches,
+    x0 seed). Concrete legs route as the live call; the symbolic ones pin
+    the torch engine."""
+    _, head = headline(tg)
+    dense = tg.dualize(tg.condense(tg.problems.battery(**HEADLINE)), ITERS,
+                       paired=False, device=DEVICE)
+    _, flag = flagship(tg)
+    from tpu_gpad_torch import aot
+
+    ex, ex_sw = aot.export_solver, aot.export_stagewise_solver
+    eps = dict(mode="eps", check_every=10, iterations=2000, restart=True)
+    return {
+        "paired_flat": ("gpad_paired_flat", ex, head,
+                        tg.SolverConfig(iterations=ITERS), (BATCH,), 61),
+        "dual": ("gpad_dual", ex, head,
+                 tg.SolverConfig(iterations=ITERS, restart=True),
+                 (SERVE_PLANTS,), 62),
+        # phase_eps_path's solve_to_accuracy
+        "dual_chunk": ("gpad_dual_chunk", ex, head, tg.SolverConfig(
+            eps_g=EPS_TOL, eps_V=EPS_TOL, **eps), (BATCH,), 8),
+        "dual_tiled": ("gpad_dual_tiled", ex, flag,
+                       tg.SolverConfig(iterations=ITERS, restart=True),
+                       (FLAG_BATCH,), 52),
+        # the flagship path's solve_to_accuracy(flat="off")
+        "dual_tiled_chunk": ("gpad_dual_tiled_chunk", ex, flag,
+                             tg.SolverConfig(eps_g=FLAG_EPS_TOL,
+                                             eps_V=FLAG_EPS_TOL, flat="off",
+                                             **eps), (FLAG_BATCH,), 52),
+        "flat_tiled": ("gpad_flat_tiled", ex, flag,
+                       tg.SolverConfig(iterations=ITERS, form="mvp"),
+                       (FLAG_BATCH,), 53),
+        "paired": ("gpad_paired", ex, head,
+                   tg.SolverConfig(iterations=ITERS, form="mvp", flat="off"),
+                   (BATCH,), 63),
+        "dense": ("gpad_dense", ex, dense, tg.SolverConfig(iterations=ITERS),
+                  (BATCH,), 64),
+        "stagewise_resident": (
+            "gpad_stagewise_resident", ex_sw,
+            sw_data(tg, SW_RES, SW_RES_ITERS),
+            tg.SolverConfig(iterations=SW_RES_ITERS), (SW_WAVE_BATCH,), 21),
+        "stagewise_stream": (
+            "gpad_stagewise_stream", ex_sw,
+            sw_data(tg, SW_FULL, SW_FULL_ITERS),
+            tg.SolverConfig(iterations=SW_FULL_ITERS), (SW_FULL_BATCH,), 21),
+        "symbolic": (None, ex, head, tg.SolverConfig(iterations=ITERS),
+                     AOT_SYMBOLIC_BATCHES, 65),
+        # the robust twin's stage-wise shape (robust_stagewise_path)
+        "symbolic_stagewise": (None, ex_sw, sw_data(tg, ROBUST, ITERS),
+                               tg.SolverConfig(iterations=ITERS),
+                               AOT_SYMBOLIC_BATCHES, 66),
+    }
+
+
+def aot_live(tg, kernel, export, data, config, x0):
+    """The live call an artifact is held to: the solve as a user calls it,
+    or for a symbolic artifact (``kernel`` None) the torch engine it
+    pins."""
+    from tpu_gpad_torch import aot
+
+    if export is aot.export_stagewise_solver:
+        kw = {} if kernel else dict(engine="torch", scan="sequential")
+        return tg.solve_stagewise(data, x0, config=config, **kw)
+    if not kernel:
+        config = dataclasses.replace(config, engine="torch")
+    return tg.solve_batch(data, x0, config)
+
+
+def aot_graph_ops(blob) -> tuple:
+    """(nodes of the artifact's graphs, nested ones included; the ops of
+    the tpu_gpad_torch namespace it calls)."""
+    import io
+
+    import torch
+
+    program = torch.export.load(io.BytesIO(blob))
+    graphs = [m.graph for m in program.graph_module.modules()
+              if isinstance(m, torch.fx.GraphModule)]
+    ops = sorted({str(n.target) for g in graphs for n in g.nodes
+                  if str(n.target).startswith("tpu_gpad_torch.")})
+    return sum(len(g.nodes) for g in graphs), ops
+
+
+def phase_aot_path(torch, tg, ctr, smi):
+    """AOT export (``tpu_gpad_torch.aot``): each kernel's route exported at
+    a concrete batch on the card (the headline B4096 on the flat kernel,
+    restart B256 on the dual one, phase_eps_path's eps solve on the chunk
+    kernel, the flagship's restart, eps and mvp solves on the tiled ones,
+    the full paired and the dense kernel at B4096, the stage-wise n8 N60
+    B1024 and n30 N200 B1024 on the resident and the streamed one) and one
+    symbolic artifact of each solver (the torch engine), saved to a
+    temporary directory and loaded in a fresh process that imports torch
+    and ``tpu_gpad_torch.aot`` alone. Each loaded call must launch the live
+    call's kernel as many times, nothing else, and equal the live call bit
+    for bit (a kernel whose live call does not repeat itself bit for bit
+    is held to its *_vs_plain tolerance instead, and the phase says so);
+    eps legs their iterations and converged flags. Then loaded against
+    live ms, CUDA events, in turns."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from tpu_gpad_torch import aot
+
+    t_phase = time.perf_counter()
+    legs = aot_legs(torch, tg)
+    out = {"phase": "aot_path", "smi": smi}
+    tmp = Path(tempfile.mkdtemp(prefix="gpad_aot_"))
+    try:
+        live, solves = {}, {}
+        for name, (kernel, export, data, cfg, batches, seed) in legs.items():
+            X0 = {B: sw_x0(torch, B, data.n_x, seed) for B in batches}
+            runs = []
+            for _ in range(2):  # does the live call repeat itself?
+                reset_counters(*ctr)
+                runs.append({B: aot_live(tg, kernel, export, data, cfg,
+                                         X0[B]) for B in batches})
+                torch.cuda.synchronize()
+                launched = launch_counts(*ctr)
+            live[name] = runs[0], launched, all(
+                torch.equal(getattr(runs[0][B], f), getattr(runs[1][B], f))
+                for B in batches for f in AOT_FIELDS)
+            reset_counters(*ctr)
+            t0 = time.perf_counter()
+            blob = export(data, cfg, batch_size=batches[0] if kernel else None,
+                          path=tmp / f"{name}.pt2")
+            export_s = time.perf_counter() - t0
+            check(launch_counts(*ctr) == {}, f"aot {name}: export launched")
+            nodes, ops = aot_graph_ops(blob)
+            for B in batches:
+                torch.save(X0[B].cpu(), tmp / f"{name}.x0.{B}.pt")
+            solves[name] = aot.load_solver(blob), X0
+            out[name] = {"kernel": kernel, "batches": list(batches),
+                         "export_s": export_s, "bytes": len(blob),
+                         "nodes": nodes, "graph_ops": ops,
+                         "live_launches": launched,
+                         "deterministic": live[name][2]}
+            check(launched == ({kernel: launched.get(kernel, 0)} if kernel
+                               else {}) and (kernel is None
+                                             or launched[kernel] >= 1),
+                  f"aot {name}: live call launched {launched}")
+        (tmp / "legs.json").write_text(json.dumps({
+            "counters": COUNTERS,
+            "legs": {n: list(leg[4]) for n, leg in legs.items()}}))
+        t_child = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", AOT_CHILD, str(tmp)],
+                              cwd=str(Path(__file__).resolve().parent),
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"aot child failed: {proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["child_s"] = time.perf_counter() - t_child
+        out["child_imports"] = len(child["tpu_gpad_torch_imports"])
+        for name, (kernel, _, data, cfg, batches, _) in legs.items():
+            runs, launched, deterministic = live[name]
+            loaded = child["launches"][name]
+            leg = out[name]
+            leg["loaded_launches"] = loaded
+            check(loaded == launched, f"aot {name}: loaded artifact launched "
+                  f"{loaded}, the live call {launched}")
+            errs, same = {}, True
+            for B in batches:
+                got = torch.load(tmp / f"{name}.out.{B}.pt")
+                ref = runs[B]
+                for f in AOT_FIELDS:
+                    a, b = got[f], getattr(ref, f).cpu()
+                    same &= torch.equal(a, b)
+                    if a.dtype.is_floating_point:
+                        errs[f] = max(errs.get(f, 0.0),
+                                      (a - b).abs().max().item())
+                    else:
+                        check(torch.equal(a, b), f"aot {name} B{B}: {f} "
+                              "differs from the live call")
+            leg.update(bit_equal=same, max_abs_err=errs)
+            if deterministic:
+                check(same, f"aot {name}: loaded differs from the live call "
+                      f"({errs})")
+            else:
+                tol = RESTART_TOL if cfg.restart else KERNEL_TOL
+                leg["held_to"] = tol
+                check(errs["u"] <= tol, f"aot {name}: u off by {errs['u']} "
+                      "(a kernel that does not repeat itself bit for bit)")
+        for name, (kernel, export, data, cfg, batches, _) in legs.items():
+            solve, X0 = solves[name]
+            x0 = X0[batches[-1]]
+            t = in_turns({"live": lambda: aot_live(tg, kernel, export, data,
+                                                   cfg, x0),
+                          "loaded": lambda: solve(x0)},
+                         rounds=AOT_ROUNDS, repeats=AOT_REPEATS)
+            out[name].update(timed_batch=batches[-1],
+                             live_ms=t["live"], loaded_ms=t["loaded"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return {name: out[name]["loaded_launches"] for name in legs
+            if legs[name][0]}
+
+
 def kernel_ms(med, kernel, B=BATCH) -> float:
     """A resident kernel's time at batch B: the profiler's device time of
     its launch, or where the profiler saw none, the CUDA-event time of its
@@ -3900,6 +4155,8 @@ def main() -> int:
         # the sharded solves across processes (tpu_gpad_torch.parallel)
         "parallel": phase_parallel_path(torch, smi),
     }
+    # AOT artifacts, every kernel's route loaded in a fresh process
+    aot_launches = phase_aot_path(torch, tg, ctr, smi)
     med = phase_timing(torch, tg, kernels, dual_kernels, core, smi)
     dmed = phase_dual_timing(torch, tg, kernels, dual_kernels, core, smi)
     smed = phase_stagewise_timing(torch, tg, sk, ss, ts, smi)
@@ -4045,6 +4302,12 @@ def main() -> int:
                              "gpad_dual_tiled", "gpad_stagewise_resident",
                              "gpad_stagewise_stream", "gpad_dense"},
           f"the stacks and the parallel path launched {by_kernel}")
+    # and the launches of the loaded artifacts (phase_aot_path)
+    for got in aot_launches.values():
+        for kernel, n in got.items():
+            by_kernel.setdefault(kernel, {})["aot"] = n
+    check(all("aot" in by_kernel.get(k["name"], {}) for k in line),
+          f"the AOT path launched {aot_launches}")
     for k in line:
         legs = by_kernel.get(k["name"], {})
         k["launches_by_path"] = {"earlier_paths": k["launches"], **legs}

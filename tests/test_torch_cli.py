@@ -12,6 +12,9 @@ import torch
 
 from tpu_gpad.cli import main as jax_main
 
+import tpu_gpad_torch as tg
+from tpu_gpad_torch import aot
+
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -63,18 +66,33 @@ def test_sweep_sharded_one_rank_equals_sweep(tmp_path):
     np.testing.assert_array_equal(outs["sharded"], outs["direct"])
 
 
-@pytest.mark.parametrize(
-    "argv,msg",
-    [(["export", "--aot", "--out", "unused.pt2", "--device", "cpu"],
-      "export --aot")],
-    ids=["export_aot"],
-)
-def test_unported_commands_say_so(argv, msg):
-    from tpu_gpad_torch.cli import main
-
-    with pytest.raises(SystemExit, match="not yet ported") as exc:
-        main(argv)
-    assert msg in str(exc.value)
+@pytest.mark.parametrize("batch", [None, 5], ids=["symbolic", "batch5"])
+def test_export_aot_artifact(tmp_path, batch):
+    """``export --aot`` (tests/test_cli.py's case) writes a torch.export
+    artifact with tpu_gpad's keys plus ``device`` and ``route``; it reloads
+    and solves, equal to the live solve, symbolic at any batch or at the
+    ``--aot-batch`` it was exported for."""
+    path = tmp_path / "solver.pt2"
+    argv = ["export", "--cells", "3", "--horizon", "4", "--iterations", "40",
+            "--aot", "--out", str(path), "--device", "cpu"]
+    if batch is not None:
+        argv += ["--aot-batch", str(batch)]
+    proc = _torch_cli(*argv)
+    assert proc.returncode == 0, proc.stderr
+    (out,) = [json.loads(ln) for ln in proc.stdout.strip().splitlines()]
+    assert set(out) == {"artifact", "bytes", "batch", "n_x", "n_u", "device",
+                        "route"}
+    assert out["bytes"] == path.stat().st_size > 0
+    assert out["batch"] == (batch or "symbolic")
+    assert (out["n_x"], out["n_u"], out["device"], out["route"]) == (
+        3, 3, "cpu", "torch")
+    res = aot.load_solver(path)(np.zeros((batch or 5, 3), dtype=np.float32))
+    assert res["u"].shape == (batch or 5, 3)
+    data = tg.dualize(tg.condense(tg.problems.battery(3, 4)), 40,
+                      paired="auto", device="cpu")
+    live = tg.solve_batch(data, np.zeros((batch or 5, 3), np.float32),
+                          tg.SolverConfig(iterations=40))
+    assert torch.equal(res["u"], live.u)
 
 
 def test_time_needs_a_card():

@@ -1232,3 +1232,113 @@ def test_one_rank_nccl_sharded_solve_is_solve_batch(dev, tmp_path):
             assert torch.equal(getattr(out, f).full_tensor(), getattr(ref, f)), f
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the kernels as registered ops, and AOT artifacts (tpu_gpad_torch.aot)
+# ---------------------------------------------------------------------------
+
+_COUNTERS = {"paired_flat": (kernels, "PAIRED_FLAT_LAUNCHES"),
+             "dual": (dual_kernels, "DUAL_LAUNCHES"),
+             "dual_chunk": (dual_kernels, "DUAL_CHUNK_LAUNCHES"),
+             "resident": (sk, "STAGEWISE_LAUNCHES")}
+
+
+def _launches(route):
+    module, name = _COUNTERS[route]
+    return getattr(module, name)
+
+
+@pytest.mark.parametrize("route", sorted(_COUNTERS))
+def test_loaded_artifact_launches_as_the_live_call(dev, route):
+    """A concrete artifact exported on the card, saved and loaded: it
+    launches the live call's kernel as many times (one per eps window for
+    the chunk kernel) and equals the live call; exporting launches
+    nothing."""
+    from tpu_gpad_torch import aot
+
+    B = 64
+    X0 = torch.as_tensor(np.random.default_rng(5).uniform(
+        -0.4, 0.4, (B, 3)).astype(np.float32), device=dev)
+    if route == "resident":
+        data = tg.build_stagewise(tg.problems.battery(3, 10),
+                                  iterations=SW_ITERS, device=dev)
+        cfg = tg.SolverConfig(iterations=SW_ITERS)
+        live_fn = lambda: ts.solve_stagewise(data, X0, config=cfg)
+        export = aot.export_stagewise_solver
+    else:
+        data = _data(dev)
+        cfg = {"paired_flat": tg.SolverConfig(iterations=ITERS),
+               "dual": tg.SolverConfig(iterations=ITERS, restart=True),
+               "dual_chunk": tg.SolverConfig(
+                   mode="eps", eps_g=1e-5, eps_V=1e-5, iterations=ITERS,
+                   restart=True)}[route]
+        live_fn = lambda: tg.solve_batch(data, X0, cfg)
+        export = aot.export_solver
+    before = _launches(route)
+    live = live_fn()
+    torch.cuda.synchronize()
+    want = _launches(route) - before
+    assert want >= 1
+    blob = export(data, cfg, batch_size=B)
+    assert _launches(route) - before == want
+    solve = aot.load_solver(blob)
+    out = solve(X0)
+    torch.cuda.synchronize()
+    assert _launches(route) - before == 2 * want
+    for k in ("u", "z", "y", "iterations", "residual", "gap", "converged"):
+        assert torch.equal(out[k], getattr(live, k)), k
+
+
+def test_wrappers_on_the_card_never_run_the_plain_versions(dev, monkeypatch):
+    """Each wrapper on CUDA tensors launches its kernel: with every plain
+    loop replaced by one that raises, all ten still run."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for module, name in ((kernels, "_paired_loop"), (kernels, "_dense_loop"),
+                         (dual_kernels, "_dual_loop"),
+                         (sk, "stagewise_plain")):
+        monkeypatch.setattr(module, name, refuse)
+    data = _data(dev)
+    dense = tg.dualize(tg.condense(tg.problems.battery(3, 10)), ITERS,
+                       paired=False, device=dev)
+    g_P, p_D = _inputs(data, 8)
+    gd, pd = _inputs(dense, 8)
+    kw = dict(iterations=ITERS)
+    kernels.gpad_fixed_paired_flat(data, g_P, p_D, **kw)
+    kernels.gpad_fixed_paired(data, g_P, p_D, **kw)
+    kernels.gpad_fixed_flat_tiled(data, g_P, p_D, **kw)
+    kernels.gpad_fixed_dense(dense, gd, pd, **kw)
+    dual_kernels.gpad_fixed_dual(data, g_P, p_D, **kw)
+    dual_kernels.gpad_fixed_dual_tiled(data, g_P, p_D, **kw)
+    c = dual_kernels.relu_offsets(data, g_P, p_D)
+    y = torch.zeros_like(p_D)
+    s = torch.zeros((8, data.m_half), device=dev)
+    mom = torch.ones((8, 2), device=dev)
+    dual_kernels.gpad_dual_chunk(data, c, y, y, s, mom, k0=0, chunk=10)
+    dual_kernels.gpad_dual_tiled_chunk(data, c, y, y, s, mom, k0=0, chunk=10)
+    sw = _sw_data(dev, 3, 10)
+    x0 = torch.full((8, 3), 0.1, device=dev)
+    sk.solve_stagewise_cuda(sw, x0, SW_ITERS)
+    ss.solve_stagewise_stream(sw, x0, SW_ITERS)
+    torch.cuda.synchronize()
+
+
+def test_a_refused_launch_raises_and_counts_nothing(dev):
+    """An op called with a launch plan past shared memory: the launch is
+    refused, the op raises with the CUDA error, and no launch is counted."""
+    data = _data(dev)
+    g_P, p_D = _inputs(data, 8)
+    before = kernels.PAIRED_FLAT_LAUNCHES
+    with pytest.raises(RuntimeError, match="gpad_paired_flat launch failed"):
+        kernels.paired_flat_op(
+            data.MG_T, data.GL_T, g_P, p_D, None, None, data.theta, data.beta,
+            data.L, data.n_struct, ITERS, 10, 4, 1, 1, True)
+    assert kernels.PAIRED_FLAT_LAUNCHES == before
+    before = dual_kernels.DUAL_LAUNCHES
+    c = dual_kernels.relu_offsets(data, g_P, p_D)
+    with pytest.raises(RuntimeError, match="gpad_dual launch failed"):
+        dual_kernels.dual_op(data.D, None, c, None, data.theta, data.beta,
+                             ITERS, False, 10, 1, True)
+    assert dual_kernels.DUAL_LAUNCHES == before

@@ -43,7 +43,7 @@ def test_port_imports_no_jax():
                  "solver.multi", "sweep", "robust", "estimator", "mhe",
                  "analysis", "utils.debug", "nonlinear", "device_condense",
                  "problems.pendulum", "problems.point_mass", "diff",
-                 "parallel", "parallel.distrib", "parallel.mp_worker"):
+                 "parallel", "parallel.distrib", "parallel.mp_worker", "aot"):
         assert f"tpu_gpad_torch.{name}" in out["imported"]
     assert out["bad"] == []
 

@@ -243,10 +243,9 @@ def test_sweep_sharded_cli_matches_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize(
     "argv,msg",
-    [(["export", "--aot", "--out", "x.bin"], "--aot"),
-     (["solve", "--engine", "stagewise", "--dataset", "x.txt"],
+    [(["solve", "--engine", "stagewise", "--dataset", "x.txt"],
       "not supported by `solve --dataset`")],
-    ids=["export_aot", "dataset_stagewise"],
+    ids=["dataset_stagewise"],
 )
 def test_unported_options_say_so(argv, msg):
     with pytest.raises(SystemExit, match=msg):

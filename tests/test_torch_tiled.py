@@ -162,19 +162,19 @@ def test_tiled_chunks_compose_to_whole_solve(pair, restart):
 def test_eps_loop_takes_tiled_chunks_when_smem_declines(pair, monkeypatch,
                                                         restart):
     """With the resident guard declining, the eps loop runs the tiled chunk
-    wrapper window by window, as tpu_gpad's eps loop runs its tiled chunk
-    kernel when the whole-VMEM guard declines (tests/test_tiled.py)."""
+    kernel's op window by window, as tpu_gpad's eps loop runs its tiled
+    chunk kernel when the whole-VMEM guard declines (tests/test_tiled.py)."""
     d_j, d_t = pair
     g_P, p_D = _inputs(d_j, 4, seed=13 + restart)
     monkeypatch.setattr(dual_kernels, "dual_fits_smem", lambda d: False)
     calls = []
-    orig = dual_kernels.gpad_dual_tiled_chunk
+    orig = dual_kernels.dual_tiled_chunk_op
 
-    def spy(*a, **kw):
-        calls.append(kw["k0"])
-        return orig(*a, **kw)
+    def spy(*a):
+        calls.append(a[8])  # k0
+        return orig(*a)
 
-    monkeypatch.setattr(dual_kernels, "gpad_dual_tiled_chunk", spy)
+    monkeypatch.setattr(dual_kernels, "dual_tiled_chunk_op", spy)
     tol = 1e-5 if restart else 1e-4
     kw = dict(mode="eps", eps_g=tol, eps_V=tol, check_every=10,
               iterations=200 if restart else 100, restart=restart)

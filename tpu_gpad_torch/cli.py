@@ -13,7 +13,8 @@ reference's controller loop (``gpad.m``). ``--engine stagewise`` solves on
 the stage-wise O(N) engine (``tpu_gpad_torch.stagewise``). ``sweep
 --sharded`` spreads each chunk over the ranks of a process group
 (``torchrun``), or over a one-rank group on ``--device`` when started
-alone. ``export --aot`` is not yet ported and says so.
+alone. ``export --aot`` writes a ``torch.export`` solver artifact
+(``tpu_gpad_torch.aot``) and reports its ``route``.
 """
 
 from __future__ import annotations
@@ -27,9 +28,6 @@ import sys
 import tempfile
 
 import numpy as np
-
-_NOT_PORTED = "is not yet ported to tpu_gpad_torch (see ROADMAP.md Queue 1)"
-
 
 def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -358,14 +356,34 @@ def _sweep(args, device, solve_fn=None, emit: bool = True) -> int:
 
 def cmd_export(args) -> int:
     """Write a reference-format dataset file (``input_%d.txt`` layout) of
-    the problem at the first scenario's x0, in the dense layout."""
+    the problem at the first scenario's x0, in the dense layout, or with
+    ``--aot`` a serialized solver artifact (``tpu_gpad_torch.aot``): a
+    symbolic batch on the torch engine, or ``--aot-batch B`` routed as a
+    live solve on ``--device`` (its ``route``: the kernel, or "torch")."""
     import tpu_gpad_torch
     from tpu_gpad_torch.io import SolverDataset, write_solver_dataset
     from tpu_gpad_torch.schedule import momentum_schedule
 
-    if args.aot:
-        raise SystemExit(f"export --aot {_NOT_PORTED}")
     problem = _build_problem(args)
+    if args.aot:
+        from tpu_gpad_torch.aot import export_solver
+        from tpu_gpad_torch.solver import SolverConfig, core
+
+        data = tpu_gpad_torch.dualize(
+            tpu_gpad_torch.condense(problem), iterations=args.iterations,
+            paired="auto", device=args.device)
+        config = SolverConfig(iterations=args.iterations)
+        blob = export_solver(data, config, batch_size=args.aot_batch,
+                             path=args.out)
+        route = "torch"
+        if args.aot_batch is not None and core.resolve_engine(
+                data, config) == "cuda":
+            route = core.cuda_kernel(data, config)
+        _emit({"artifact": args.out, "bytes": len(blob),
+               "batch": args.aot_batch or "symbolic",
+               "n_x": data.n_x, "n_u": data.n_u,
+               "device": str(data.device), "route": route})
+        return 0
     data = tpu_gpad_torch.dualize(tpu_gpad_torch.condense(problem),
                                   iterations=args.iterations, device=args.device)
     host = {k: getattr(data, k).cpu().numpy()
@@ -519,7 +537,8 @@ def main(argv=None) -> int:
     _add_device_arg(p)
     p.set_defaults(fn=cmd_sweep)
 
-    p = sub.add_parser("export", help="write a reference-format dataset file")
+    p = sub.add_parser("export", help="write a reference-format dataset file "
+                       "or, with --aot, a solver artifact")
     _add_problem_args(p)
     p.add_argument("--iterations", type=int, default=100)
     p.add_argument("--seed", type=int, default=0)
@@ -527,9 +546,9 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--out", required=True)
     p.add_argument("--aot", action="store_true",
-                   help="a serialized solver artifact (not yet ported)")
+                   help="write a serialized solver artifact (torch.export)")
     p.add_argument("--aot-batch", type=int, default=None,
-                   help="concrete batch size for --aot (not yet ported)")
+                   help="concrete batch size for --aot (default: symbolic)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_export)
 

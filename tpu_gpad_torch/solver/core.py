@@ -41,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -272,6 +273,13 @@ def _momentum(config: SolverConfig, data: GPADData, k, th, th_prev):
     return th, th * (1.0 / th_prev - 1.0)
 
 
+def _schedule_at(data: GPADData, config: SolverConfig, k: int):
+    """The shipped schedule's (theta_k, beta_k) for a loop's step; none
+    under restart, whose momentum the step carries itself (and whose budget
+    may pass the schedule)."""
+    return (None, None) if config.restart else (data.theta[k], data.beta[k])
+
+
 def _restart_update(th, th_prev, y, y_next, w, model_axis=None):
     """Advance the momentum recursion, resetting the scenarios whose
     momentum opposes the projected-gradient step (O'Donoghue-Candes):
@@ -285,6 +293,78 @@ def _restart_update(th, th_prev, y, y_next, w, model_axis=None):
     th_prev_next = torch.where(mask, 1.0, th)
     y_prev_next = torch.where(_expand_to(mask, y), y_next, y)
     return y_prev_next, th_next, th_prev_next
+
+
+def _schedule_window(theta, beta, k0, n: int):
+    """The schedule's entries k0 .. k0 + n - 1: sliced for an integer
+    ``k0``, gathered on the device for a tensor one (a window of a loop
+    that torch.export traces)."""
+    if isinstance(k0, torch.Tensor):
+        idx = k0 + torch.arange(n, device=k0.device)
+        return theta.index_select(0, idx), beta.index_select(0, idx)
+    return theta[k0:k0 + n], beta[k0:k0 + n]
+
+
+def _export_scan(step, carry, theta, beta, k0, iterations: int,
+                 restart: bool):
+    """``iterations`` applications of ``step(carry, theta_k, beta_k) ->
+    carry`` from schedule index ``k0`` as torch.export traces them: one
+    ``scan`` over the schedule's window (under restart, whose momentum is
+    the carry's own, over placeholders, since the budget may pass the
+    schedule), so that the graph holds one copy of the body whatever the
+    budget."""
+    from torch._higher_order_ops import scan
+
+    if restart:
+        theta = beta = torch.zeros(iterations, dtype=torch.float32,
+                                   device=carry[0].device)
+    else:
+        theta, beta = _schedule_window(theta, beta, k0, iterations)
+    carry, _ = scan(lambda c, x: (_unaliased(step(c, x[0], x[1]), c), []),
+                    _unaliased(carry), (theta, beta))
+    return carry
+
+
+def _unaliased(outs, ins=()) -> tuple:
+    """``outs`` with each tensor that is one of ``ins`` or an earlier one of
+    ``outs`` cloned (y_prev = y, a momentum that does not move): a
+    higher-order op's body may not return its inputs, and its tracer would
+    merge two carries that start as one tensor."""
+    res = []
+    for o in outs:
+        if any(o is t for t in (*ins, *res)):
+            o = o.clone()
+        res.append(o)
+    return tuple(res)
+
+
+def _export_windows(window, state, converged_at: int, n_full: int, C: int,
+                    rem: int):
+    """An eps solve's check windows as torch.export traces them:
+    ``window(k0, chunk, state) -> state`` for the full windows of ``C``
+    iterations in a ``while_loop`` (``k0`` a tensor there), then the
+    partial window of ``rem`` in a second one of at most one turn; each
+    leaves once every scenario has converged (``state[converged_at]``), at
+    the same check as the eager loop."""
+    from torch._higher_order_ops import while_loop
+
+    def cond(i, *s):
+        return (i < n_full) & ~s[converged_at].all()
+
+    def body(i, *s):
+        return (i + 1, *_unaliased(window(i * C, C, s), s))
+
+    start = torch.zeros((), dtype=torch.int64, device=state[0].device)
+    _, *state = while_loop(cond, body, (start, *_unaliased(state)))
+    if rem:
+        def cond_rem(i, *s):
+            return (i < 1) & ~s[converged_at].all()
+
+        def body_rem(i, *s):
+            return (i + 1, *_unaliased(window(n_full * C, rem, s), s))
+
+        _, *state = while_loop(cond_rem, body_rem, (start, *state))
+    return tuple(state)
 
 
 def _init_y(data: GPADData, batch_shape, y0, device):
@@ -329,6 +409,26 @@ def _finish(data: GPADData, g_P, p_D, z, zhat, w, y, config, flat):
     )
 
 
+def _mvp_step(data: GPADData, g_P, p_D, config: SolverConfig, flat: bool,
+              carry, theta_k, beta_k):
+    """One iteration of the mvp loop on its carry (y, y_prev, z, w, zhat,
+    th, th_prev), at the schedule's (theta_k, beta_k) or, under restart,
+    the carry's own momentum: the body both the eager loop and the loop
+    torch.export traces run."""
+    y, y_prev, z, w, zhat, th, th_prev = carry
+    ma = config.model_axis
+    if config.restart:
+        theta_k, beta_k = th, th * (1.0 / th_prev - 1.0)
+    w, zhat, z, y_next = _iteration(
+        data, g_P, p_D, theta_k, beta_k, y, y_prev, z, flat, ma
+    )
+    if config.restart:
+        y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w, ma)
+    else:
+        y_prev = y
+    return y_next, y_prev, z, w, zhat, th, th_prev
+
+
 def _solve_fixed(data: GPADData, g_P, p_D, config: SolverConfig,
                  y0=None) -> SolveResult:
     """Fixed-budget mvp loop (flat or dense products, paired or dense)."""
@@ -336,18 +436,15 @@ def _solve_fixed(data: GPADData, g_P, p_D, config: SolverConfig,
     y, y_prev, z, w, zhat = _init_state(data, g_P.shape[:-1], y0)
     th = th_prev = torch.ones(g_P.shape[:-1], dtype=torch.float32,
                               device=g_P.device)
-    ma = config.model_axis
-    for k in range(config.iterations):
-        theta_k, beta_k = _momentum(config, data, k, th, th_prev)
-        w, zhat, z, y_next = _iteration(
-            data, g_P, p_D, theta_k, beta_k, y, y_prev, z, flat, ma
-        )
-        if config.restart:
-            y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w,
-                                                  ma)
-        else:
-            y_prev = y
-        y = y_next
+    step = functools.partial(_mvp_step, data, g_P, p_D, config, flat)
+    carry = (y, y_prev, z, w, zhat, th, th_prev)
+    if torch.compiler.is_exporting():
+        carry = _export_scan(step, carry, data.theta, data.beta, 0,
+                             config.iterations, config.restart)
+    else:
+        for k in range(config.iterations):
+            carry = step(carry, *_schedule_at(data, config, k))
+    y, _, z, w, zhat, _, _ = carry
     return _finish(data, g_P, p_D, z, zhat, w, y, config, flat)
 
 
@@ -360,14 +457,16 @@ def _solve_fixed_dual(data: GPADData, g_P, p_D, config: SolverConfig,
     theta_0 = 1 makes a_K = 1 under restart too."""
     batch_shape = g_P.shape[:-1]
     y = _init_y(data, batch_shape, y0, g_P.device)
-    y_prev = y
     w = torch.zeros_like(y)
     s = torch.zeros(tuple(batch_shape) + (data.m_half,), dtype=torch.float32,
                     device=g_P.device)
     th = th_prev = torch.ones(batch_shape, dtype=torch.float32, device=g_P.device)
     e = g_P @ data.GL_T  # (B, m_h), hoisted out of the loop
-    for k in range(config.iterations):
-        theta_k, beta_k = _momentum(config, data, k, th, th_prev)
+
+    def step(carry, theta_k, beta_k):
+        y, y_prev, w, s, th, th_prev = carry
+        if config.restart:
+            theta_k, beta_k = th, th * (1.0 / th_prev - 1.0)
         w = y + _expand_to(beta_k, y) * (y - y_prev)
         wd = w[..., 0, :] - w[..., 1, :]
         q = -(wd @ data.D) - e
@@ -379,7 +478,16 @@ def _solve_fixed_dual(data: GPADData, g_P, p_D, config: SolverConfig,
             y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w)
         else:
             y_prev = y
-        y = y_next
+        return y_next, y_prev, w, s, th, th_prev
+
+    carry = (y, y, w, s, th, th_prev)
+    if torch.compiler.is_exporting():
+        carry = _export_scan(step, carry, data.theta, data.beta, 0,
+                             config.iterations, config.restart)
+    else:
+        for k in range(config.iterations):
+            carry = step(carry, *_schedule_at(data, config, k))
+    y, _, w, s, _, _ = carry
     a = 1.0 - torch.prod(1.0 - data.theta[: config.iterations])
     z = -(s @ data.MG_T) - a * g_P
     wd = w[..., 0, :] - w[..., 1, :]
@@ -430,29 +538,38 @@ def _solve_eps(data: GPADData, g_P, p_D, config: SolverConfig,
     converged = torch.zeros(batch_shape, dtype=torch.bool, device=g_P.device)
     iters = torch.full(batch_shape, config.iterations, dtype=torch.int32,
                        device=g_P.device)
-    z_out = z
-    ma = config.model_axis
-    for k in range(config.iterations):
-        theta_k, beta_k = _momentum(config, data, k, th, th_prev)
-        w, zhat, z, y_next = _iteration(
-            data, g_P, p_D, theta_k, beta_k, y, y_prev, z, flat, ma
-        )
-        if config.restart:
-            y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w,
-                                                  ma)
-        else:
-            y_prev = y
-        y = y_next
-        if (k + 1) % config.check_every and k + 1 < config.iterations:
-            continue
-        converged, iters, z_out = _eps_test(
-            data, g_P, p_D, config, k + 1, z, zhat, w, y, converged, iters,
-            z_out, flat,
-        )
-        if k + 1 < config.iterations and _all_converged(converged, config):
-            break
+    step = functools.partial(_mvp_step, data, g_P, p_D, config, flat)
+
+    def test(k_now, carry, converged, iters, z_out):
+        y, _, z, w, zhat, _, _ = carry
+        return _eps_test(data, g_P, p_D, config, k_now, z, zhat, w, y,
+                         converged, iters, z_out, flat)
+
+    carry = (y, y_prev, z, w, zhat, th, th_prev)
+    if torch.compiler.is_exporting():
+        def window(k0, chunk, state):
+            carry = _export_scan(step, state[:7], data.theta, data.beta, k0,
+                                 chunk, config.restart)
+            return (*carry, *test(k0 + chunk, carry, *state[7:]))
+
+        C = max(min(config.check_every, config.iterations), 1)
+        n_full, rem = divmod(config.iterations, C)
+        state = _export_windows(window, (*carry, converged, iters, z), 7,
+                                n_full, C, rem)
+        carry, (converged, iters, z_out) = state[:7], state[7:]
+    else:
+        z_out = z
+        for k in range(config.iterations):
+            carry = step(carry, *_schedule_at(data, config, k))
+            if (k + 1) % config.check_every and k + 1 < config.iterations:
+                continue
+            converged, iters, z_out = test(k + 1, carry, converged, iters,
+                                           z_out)
+            if k + 1 < config.iterations and _all_converged(converged, config):
+                break
+    y, _, z, w, zhat, _, _ = carry
     return _eps_result(data, g_P, p_D, z, zhat, w, y, converged, iters, z_out,
-                      flat, ma)
+                      flat, config.model_axis)
 
 
 def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:

@@ -25,9 +25,10 @@ and ``mom`` (B, 2), each scenario's restart recursion (theta, theta_prev).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+from torch import Tensor
 
 from tpu_gpad_torch.solver import kernels
 from tpu_gpad_torch.types import GPADData, SolveResult
@@ -180,11 +181,16 @@ def relu_offsets(data: GPADData, g_P, p_D):
 
 def _init_state(data: GPADData, B: int, y0, device):
     """Cold or warm y (y_prev starts equal to it), s = 0, mom = 1."""
-    m_h = data.m_half
+    rows = None if y0 is None else kernels._norm_y0(y0, B, data.m_half)
+    return _init_rows(B, data.m_half, rows, device)
+
+
+def _init_rows(B: int, m_h: int, y0, device):
+    """``_init_state`` of a warm start already in rows (1 or B), or None."""
     if y0 is None:
         y = torch.zeros((B, 2, m_h), dtype=torch.float32, device=device)
     else:
-        y = kernels._norm_y0(y0, B, m_h).expand(B, 2, m_h).contiguous()
+        y = y0.expand(B, 2, m_h).contiguous()
     s = torch.zeros((B, m_h), dtype=torch.float32, device=device)
     mom = torch.ones((B, 2), dtype=torch.float32, device=device)
     return y, s, mom
@@ -210,9 +216,15 @@ def gpad_dual_chunk_torch(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
     """The kernels' iteration body in torch ops, on any device: the plain
     version of the chunk kernel (same contract as ``gpad_dual_chunk``),
     and, from k0 = 0, of the whole-solve kernel's loop."""
+    return _dual_loop(data.D, kernels._od(data), data.theta, data.beta, c, y,
+                      y_prev, s, mom, k0, chunk, restart)
+
+
+def _dual_loop(D, od, theta, beta, c, y, y_prev, s, mom, k0: int, chunk: int,
+               restart: bool):
+    """``gpad_dual_chunk_torch`` on the operands themselves."""
     from tpu_gpad_torch.solver import core
 
-    od = kernels._od(data)
     th, thp = mom[:, 0], mom[:, 1]
     w = torch.zeros_like(y)
     for i in range(chunk):
@@ -220,10 +232,10 @@ def gpad_dual_chunk_torch(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
             theta_k = th[:, None]
             beta_k = (th * (1.0 / thp - 1.0))[:, None, None]
         else:
-            theta_k, beta_k = data.theta[k0 + i], data.beta[k0 + i]
+            theta_k, beta_k = theta[k0 + i], beta[k0 + i]
         w = y + beta_k * (y - y_prev)
         wd = w[:, 0] - w[:, 1]
-        d = -(wd @ data.D)
+        d = -(wd @ D)
         w_s = w if od is None else w * od
         y_next = torch.clamp_min(w_s + torch.stack([d, -d], dim=1) + c, 0.0)
         s = s + theta_k * (wd - s)
@@ -289,13 +301,6 @@ def _plan_or_raise(m_h: int, B: int, log2_tile, split) -> DualPlan:
     return plan
 
 
-def _device_or_raise(t) -> bool:
-    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {t.device}")
-    return t.device.type == "cuda"
-
-
 def gpad_fixed_dual_torch(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     restart: bool = False, diagnostics: bool = True,
@@ -328,9 +333,11 @@ def _check_fixed(data: GPADData, g_P, p_D, y0, iterations: int,
 
 def _check_chunk(data: GPADData, c, y, y_prev, s, mom, k0: int, chunk: int,
                  restart: bool) -> None:
-    """Raise on anything the chunk kernels do not take."""
+    """Raise on anything the chunk kernels do not take (a tensor ``k0``
+    gathers its window of the schedule: see ``_window_schedule``)."""
     _check_data(data)
-    _check_schedule(data, k0 + chunk, restart)
+    if not isinstance(k0, torch.Tensor):
+        _check_schedule(data, k0 + chunk, restart)
     B, m_h = c.shape[0], data.m_half
     for name, t, shape in (("c", c, (B, 2, m_h)), ("y", y, (B, 2, m_h)),
                            ("y_prev", y_prev, (B, 2, m_h)),
@@ -341,13 +348,148 @@ def _check_chunk(data: GPADData, c, y, y_prev, s, mom, k0: int, chunk: int,
                            mom, data.soft_damp], c.device)
 
 
-def _warm_rows(y0, B: int, m_h: int):
-    """A warm start as (rows, 2, m_h) and its row stride for a launch (0:
-    one row shared by every scenario)."""
-    if y0 is None:
-        return None, 0
-    rows = kernels._norm_y0(y0, B, m_h)
-    return rows, 0 if rows.shape[0] == 1 else 2 * m_h
+# The kernels as ops of the tpu_gpad_torch namespace (see the note above
+# kernels._register): the CPU implementations are the plain versions, the
+# CUDA ones launch and count; the fake ones allocate the outputs.
+def _dual_cpu(D: Tensor, od: Optional[Tensor], c: Tensor, y0: Optional[Tensor],
+              theta: Tensor, beta: Tensor, iterations: int, restart: bool,
+              log2_tile: int, split: int, diagnostics: bool,
+              ) -> tuple[Tensor, Tensor, Tensor]:
+    y, s, mom = _init_rows(c.shape[0], c.shape[2], y0, c.device)
+    y, _, s, _, w = _dual_loop(D, od, theta, beta, c, y, y, s, mom, 0,
+                               iterations, restart)
+    return kernels._fresh((s, y, w if diagnostics else kernels._empty(s)),
+                          (c, y0))
+
+
+def _dual_cuda(D, od, c, y0, theta, beta, iterations, restart, log2_tile,
+               split, diagnostics):
+    global DUAL_LAUNCHES
+    fixed, _ = _launch_fns()
+    B, m_h = c.shape[0], c.shape[2]
+    plan = DualPlan(log2_tile, split)
+    y0_stride = 0 if y0 is None or y0.shape[0] == 1 else 2 * m_h
+    s, y = c.new_empty((B, m_h)), c.new_empty(c.shape)
+    w = c.new_empty(c.shape) if diagnostics else None
+    ptr = kernels._ptr
+    kernels._launch("gpad_dual", fixed, c.device, ptr(D), ptr(od), ptr(c),
+                    ptr(y0), y0_stride, ptr(theta), ptr(beta), B, m_h,
+                    iterations, int(restart), *plan, ptr(s), ptr(y), ptr(w),
+                    _dual_smem_bytes(m_h, plan))
+    DUAL_LAUNCHES += 1
+    return s, y, w if diagnostics else kernels._empty(s)
+
+
+def _whole_fake(c, diagnostics):
+    s, y = c.new_empty((c.shape[0], c.shape[2])), c.new_empty(c.shape)
+    return s, y, c.new_empty(c.shape) if diagnostics else kernels._empty(s)
+
+
+dual_op = kernels._register(
+    "dual", _dual_cpu, _dual_cuda,
+    lambda D, od, c, y0, theta, beta, iterations, restart, log2_tile, split,
+    diagnostics: _whole_fake(c, diagnostics))
+
+
+def _dual_tiled_cpu(D: Tensor, c: Tensor, y0: Optional[Tensor], theta: Tensor,
+                    beta: Tensor, iterations: int, restart: bool,
+                    log2_tile: int, cluster: int, diagnostics: bool,
+                    ) -> tuple[Tensor, Tensor, Tensor]:
+    return _dual_cpu(D, None, c, y0, theta, beta, iterations, restart,
+                     log2_tile, 0, diagnostics)
+
+
+def _dual_tiled_cuda(D, c, y0, theta, beta, iterations, restart, log2_tile,
+                     cluster, diagnostics):
+    global DUAL_TILED_LAUNCHES
+    fixed, _ = _tiled_launch_fns()
+    B, m_h = c.shape[0], c.shape[2]
+    y0_stride = 0 if y0 is None or y0.shape[0] == 1 else 2 * m_h
+    # the state lives in device memory: y_prev and, without diagnostics,
+    # w are the kernel's scratch
+    s = c.new_empty((B, m_h))
+    y, y_prev, w = (c.new_empty(c.shape) for _ in range(3))
+    ptr = kernels._ptr
+    kernels._launch("gpad_dual_tiled", fixed, c.device, ptr(D), ptr(c),
+                    ptr(y0), y0_stride, ptr(theta), ptr(beta), B, m_h,
+                    iterations, int(restart), log2_tile, cluster, ptr(s),
+                    ptr(y), ptr(y_prev), ptr(w),
+                    _dual_tiled_smem_bytes(m_h, log2_tile))
+    DUAL_TILED_LAUNCHES += 1
+    return s, y, w if diagnostics else kernels._empty(s)
+
+
+dual_tiled_op = kernels._register(
+    "dual_tiled", _dual_tiled_cpu, _dual_tiled_cuda,
+    lambda D, c, y0, theta, beta, iterations, restart, log2_tile, cluster,
+    diagnostics: _whole_fake(c, diagnostics))
+
+
+def _chunk_cpu(D: Tensor, od: Optional[Tensor], c: Tensor, y: Tensor,
+               y_prev: Tensor, s: Tensor, mom: Tensor, theta: Tensor,
+               beta: Tensor, k0: int, chunk: int, restart: bool,
+               log2_tile: int, split: int,
+               ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    return kernels._fresh(
+        _dual_loop(D, od, theta, beta, c, y, y_prev, s, mom, k0, chunk,
+                   restart), (c, y, y_prev, s, mom))
+
+
+def _chunk_cuda(D, od, c, y, y_prev, s, mom, theta, beta, k0, chunk, restart,
+                log2_tile, split):
+    global DUAL_CHUNK_LAUNCHES
+    _, launch = _launch_fns()
+    B, m_h = c.shape[0], c.shape[2]
+    plan = DualPlan(log2_tile, split)
+    out = [torch.empty_like(t) for t in (y, y_prev, s, mom, y)]
+    ptr = kernels._ptr
+    kernels._launch("gpad_dual_chunk", launch, c.device, ptr(D), ptr(od),
+                    ptr(c), ptr(y), ptr(y_prev), ptr(s), ptr(mom), ptr(theta),
+                    ptr(beta), B, m_h, k0, chunk, int(restart), *plan,
+                    *(ptr(t) for t in out), _dual_smem_bytes(m_h, plan))
+    DUAL_CHUNK_LAUNCHES += 1
+    return tuple(out)
+
+
+def _chunk_fake(c, y, y_prev, s, mom):
+    return tuple(t.new_empty(t.shape) for t in (y, y_prev, s, mom, y))
+
+
+dual_chunk_op = kernels._register(
+    "dual_chunk", _chunk_cpu, _chunk_cuda,
+    lambda D, od, c, y, y_prev, s, mom, theta, beta, k0, chunk, restart,
+    log2_tile, split: _chunk_fake(c, y, y_prev, s, mom))
+
+
+def _tiled_chunk_cpu(D: Tensor, c: Tensor, y: Tensor, y_prev: Tensor,
+                     s: Tensor, mom: Tensor, theta: Tensor, beta: Tensor,
+                     k0: int, chunk: int, restart: bool, log2_tile: int,
+                     cluster: int,
+                     ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    return _chunk_cpu(D, None, c, y, y_prev, s, mom, theta, beta, k0, chunk,
+                      restart, log2_tile, 0)
+
+
+def _tiled_chunk_cuda(D, c, y, y_prev, s, mom, theta, beta, k0, chunk,
+                      restart, log2_tile, cluster):
+    global DUAL_TILED_CHUNK_LAUNCHES
+    _, launch = _tiled_launch_fns()
+    B, m_h = c.shape[0], c.shape[2]
+    out = [torch.empty_like(t) for t in (y, y_prev, s, mom, y)]
+    ptr = kernels._ptr
+    kernels._launch("gpad_dual_tiled_chunk", launch, c.device, ptr(D), ptr(c),
+                    ptr(y), ptr(y_prev), ptr(s), ptr(mom), ptr(theta),
+                    ptr(beta), B, m_h, k0, chunk, int(restart), log2_tile,
+                    cluster, *(ptr(t) for t in out),
+                    _dual_tiled_smem_bytes(m_h, log2_tile))
+    DUAL_TILED_CHUNK_LAUNCHES += 1
+    return tuple(out)
+
+
+dual_tiled_chunk_op = kernels._register(
+    "dual_tiled_chunk", _tiled_chunk_cpu, _tiled_chunk_cuda,
+    lambda D, c, y, y_prev, s, mom, theta, beta, k0, chunk, restart,
+    log2_tile, cluster: _chunk_fake(c, y, y_prev, s, mom))
 
 
 def gpad_fixed_dual(
@@ -365,30 +507,16 @@ def gpad_fixed_dual(
     the scenarios per block and cap the product's split-K parts (for
     sweeps). CUDA tensors launch the kernel (or raise); CPU tensors run the
     plain version."""
-    global DUAL_LAUNCHES
     _check_fixed(data, g_P, p_D, y0, iterations, restart)
-    if not _device_or_raise(g_P):
-        return gpad_fixed_dual_torch(data, g_P, p_D, y0, iterations=iterations,
-                                     restart=restart, diagnostics=diagnostics)
-    fixed, _ = _launch_fns()
     B, m_h = g_P.shape[0], data.m_half
-    plan = _plan_or_raise(m_h, B, log2_tile, split)
+    plan = DualPlan(0, 0)
+    if kernels.on_card(g_P):
+        plan = _plan_or_raise(m_h, B, log2_tile, split)
     c = relu_offsets(data, g_P, p_D)
-    y0_rows, y0_stride = _warm_rows(y0, B, m_h)
-    od = kernels._od(data)
-    s = torch.empty((B, m_h), dtype=torch.float32, device=g_P.device)
-    y = torch.empty((B, 2, m_h), dtype=torch.float32, device=g_P.device)
-    w = torch.empty_like(y) if diagnostics else None
-    ptr = kernels._ptr
-    with torch.cuda.device(g_P.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fixed(ptr(data.D), ptr(od), ptr(c), ptr(y0_rows), y0_stride,
-                    ptr(data.theta), ptr(data.beta), B, m_h, iterations,
-                    int(restart), *plan, ptr(s), ptr(y), ptr(w),
-                    _dual_smem_bytes(m_h, plan), stream)
-    if err != 0:
-        raise RuntimeError(f"gpad_dual launch failed: CUDA error {err}")
-    DUAL_LAUNCHES += 1
+    y0_rows = None if y0 is None else kernels._norm_y0(y0, B, m_h)
+    s, y, w = dual_op(data.D, kernels._od(data), c, y0_rows, data.theta,
+                      data.beta, iterations, restart, *plan, diagnostics)
+    w = w if diagnostics else None
     z, zhat = _primal(data, g_P, s, w, recovery_weight(data, iterations),
                       diagnostics)
     return z, y, w, zhat
@@ -430,38 +558,34 @@ def gpad_fixed_dual_tiled(
     cluster and the blocks per cluster (for sweeps). CUDA tensors launch
     the kernel (or raise); CPU tensors run the plain version,
     ``gpad_fixed_dual_torch``."""
-    global DUAL_TILED_LAUNCHES
     kernels._refuse_soft(data, "the tiled dual kernels")
     _check_fixed(data, g_P, p_D, y0, iterations, restart)
-    if not _device_or_raise(g_P):
-        return gpad_fixed_dual_torch(data, g_P, p_D, y0, iterations=iterations,
-                                     restart=restart, diagnostics=diagnostics)
-    fixed, _ = _tiled_launch_fns()
     B, m_h = g_P.shape[0], data.m_half
-    log2_tile, cluster = _tiled_tile_or_raise(m_h, B, log2_tile, cluster)
+    log2_tile, cluster = ((0, 0) if not kernels.on_card(g_P) else
+                          _tiled_tile_or_raise(m_h, B, log2_tile, cluster))
     c = relu_offsets(data, g_P, p_D)
-    y0_rows, y0_stride = _warm_rows(y0, B, m_h)
-    # the state lives in device memory: y_prev and, without diagnostics,
-    # w are the kernel's scratch
-    s = torch.empty((B, m_h), dtype=torch.float32, device=g_P.device)
-    y, y_prev, w = (torch.empty((B, 2, m_h), dtype=torch.float32,
-                                device=g_P.device) for _ in range(3))
-    ptr = kernels._ptr
-    with torch.cuda.device(g_P.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fixed(ptr(data.D), ptr(c), ptr(y0_rows), y0_stride,
-                    ptr(data.theta), ptr(data.beta), B, m_h, iterations,
-                    int(restart), log2_tile, cluster, ptr(s), ptr(y),
-                    ptr(y_prev),
-                    ptr(w), _dual_tiled_smem_bytes(m_h, log2_tile), stream)
-    if err != 0:
-        raise RuntimeError(f"gpad_dual_tiled launch failed: CUDA error {err}")
-    DUAL_TILED_LAUNCHES += 1
-    if not diagnostics:
-        w = None
+    y0_rows = None if y0 is None else kernels._norm_y0(y0, B, m_h)
+    s, y, w = dual_tiled_op(data.D, c, y0_rows, data.theta, data.beta,
+                            iterations, restart, log2_tile, cluster,
+                            diagnostics)
+    w = w if diagnostics else None
     z, zhat = _primal(data, g_P, s, w, recovery_weight(data, iterations),
                       diagnostics)
     return z, y, w, zhat
+
+
+def _window_schedule(data: GPADData, k0, chunk: int, restart: bool):
+    """(theta, beta, k0) of a chunk launch. A tensor ``k0`` (a window of the
+    eps loop as torch.export traces it, ``core._export_windows``) gathers
+    the window's schedule on the device and launches from offset 0; under
+    restart the schedule is not read."""
+    from tpu_gpad_torch.solver import core
+
+    if not isinstance(k0, torch.Tensor):
+        return data.theta, data.beta, k0
+    if restart:
+        return data.theta, data.beta, 0
+    return (*core._schedule_window(data.theta, data.beta, k0, chunk), 0)
 
 
 def gpad_dual_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
@@ -475,29 +599,11 @@ def gpad_dual_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
     new tensors. Consecutive chunks compose to one whole solve.
     ``log2_tile`` and ``split`` override the launch, as for
     ``gpad_fixed_dual``. CUDA tensors launch the kernel (or raise); CPU
-    tensors run the plain version."""
-    global DUAL_CHUNK_LAUNCHES
+    tensors run the plain version (the op ``tpu_gpad_torch::dual_chunk``)."""
     _check_chunk(data, c, y, y_prev, s, mom, k0, chunk, restart)
-    if not _device_or_raise(c):
-        return gpad_dual_chunk_torch(data, c, y, y_prev, s, mom, k0=k0,
-                                     chunk=chunk, restart=restart)
-    _, launch = _launch_fns()
-    B, m_h = c.shape[0], data.m_half
-    plan = _plan_or_raise(m_h, B, log2_tile, split)
-    od = kernels._od(data)
-    out = [torch.empty_like(t) for t in (y, y_prev, s, mom, y)]
-    ptr = kernels._ptr
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(ptr(data.D), ptr(od), ptr(c), ptr(y), ptr(y_prev),
-                     ptr(s), ptr(mom), ptr(data.theta), ptr(data.beta), B,
-                     m_h, k0, chunk, int(restart), *plan,
-                     *(ptr(t) for t in out),
-                     _dual_smem_bytes(m_h, plan), stream)
-    if err != 0:
-        raise RuntimeError(f"gpad_dual_chunk launch failed: CUDA error {err}")
-    DUAL_CHUNK_LAUNCHES += 1
-    return tuple(out)
+    plan = _chunk_plan(data, c, False, log2_tile, split)
+    return _launch_chunk(data, False, plan, c, y, y_prev, s, mom, k0, chunk,
+                         restart)
 
 
 def gpad_dual_tiled_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
@@ -508,30 +614,34 @@ def gpad_dual_tiled_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
     read from device memory on every iteration (the chunk form of
     ``gpad_fixed_dual_tiled``; ``_dual_tiled_call`` in tpu_gpad). Soft
     rows are refused. CUDA tensors launch the kernel (or raise); CPU
-    tensors run the plain version, ``gpad_dual_chunk_torch``."""
-    global DUAL_TILED_CHUNK_LAUNCHES
+    tensors run the plain version, ``gpad_dual_chunk_torch`` (the op
+    ``tpu_gpad_torch::dual_tiled_chunk``)."""
     kernels._refuse_soft(data, "the tiled dual kernels")
     _check_chunk(data, c, y, y_prev, s, mom, k0, chunk, restart)
-    if not _device_or_raise(c):
-        return gpad_dual_chunk_torch(data, c, y, y_prev, s, mom, k0=k0,
-                                     chunk=chunk, restart=restart)
-    _, launch = _tiled_launch_fns()
-    B, m_h = c.shape[0], data.m_half
-    log2_tile, cluster = _tiled_tile_or_raise(m_h, B, log2_tile, cluster)
-    out = [torch.empty_like(t) for t in (y, y_prev, s, mom, y)]
-    ptr = kernels._ptr
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(ptr(data.D), ptr(c), ptr(y), ptr(y_prev), ptr(s),
-                     ptr(mom), ptr(data.theta), ptr(data.beta), B, m_h, k0,
-                     chunk, int(restart), log2_tile, cluster,
-                     *(ptr(t) for t in out),
-                     _dual_tiled_smem_bytes(m_h, log2_tile), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"gpad_dual_tiled_chunk launch failed: CUDA error {err}")
-    DUAL_TILED_CHUNK_LAUNCHES += 1
-    return tuple(out)
+    plan = _chunk_plan(data, c, True, log2_tile, cluster)
+    return _launch_chunk(data, True, plan, c, y, y_prev, s, mom, k0, chunk,
+                         restart)
+
+
+def _chunk_plan(data: GPADData, c, tiled: bool, log2_tile, split_or_cluster):
+    """A chunk kernel's launch for the batch of ``c``: (log2_tile, split),
+    or for the tiled one (log2_tile, cluster); zeros for CPU tensors."""
+    if not kernels.on_card(c):
+        return 0, 0
+    pick = _tiled_tile_or_raise if tiled else _plan_or_raise
+    return tuple(pick(data.m_half, c.shape[0], log2_tile, split_or_cluster))
+
+
+def _launch_chunk(data: GPADData, tiled: bool, plan, c, y, y_prev, s, mom,
+                  k0, chunk: int, restart: bool):
+    """One window on a chunk kernel's op, its inputs checked and its
+    ``plan`` fixed by the caller."""
+    theta, beta, k0 = _window_schedule(data, k0, chunk, restart)
+    if tiled:
+        return dual_tiled_chunk_op(data.D, c, y, y_prev, s, mom, theta, beta,
+                                   k0, chunk, restart, *plan)
+    return dual_chunk_op(data.D, kernels._od(data), c, y, y_prev, s, mom,
+                         theta, beta, k0, chunk, restart, *plan)
 
 
 def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
@@ -557,35 +667,55 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
     from tpu_gpad_torch.solver import core
 
     B, dev = g_P.shape[0], g_P.device
-    if chunk_fn is None:
-        chunk_fn = gpad_dual_chunk
-        if not dual_fits_smem(data) and dual_tiled_fits(data):
-            chunk_fn = gpad_dual_tiled_chunk
     iterations = config.iterations
     C = max(min(config.check_every, iterations), 1)
     n_full, rem = divmod(iterations, C)
-    windows = [C] * n_full + ([rem] if rem else [])
     c = relu_offsets(data, g_P, p_D)
     y, s, mom = _init_state(data, B, y0, dev)
-    y_prev, w = y, torch.zeros_like(y)
-    converged = torch.zeros((B,), dtype=torch.bool, device=dev)
-    iters = torch.full((B,), iterations, dtype=torch.int32, device=dev)
-    z_out = torch.zeros((B, data.n_z), dtype=torch.float32, device=dev)
-    k0 = 0
-    for i, chunk in enumerate(windows):
+    if chunk_fn is None:
+        # the kernel's checks and launch plan once, for every window: sizes
+        # are symbols in the body of a loop that torch.export traces, and a
+        # plan cannot branch on them there
+        tiled = not dual_fits_smem(data) and dual_tiled_fits(data)
+        if tiled:
+            kernels._refuse_soft(data, "the tiled dual kernels")
+        _check_chunk(data, c, y, y, s, mom, 0, iterations, config.restart)
+        plan = _chunk_plan(data, c, tiled, None, None)
+
+        def chunk_fn(data, c, y, y_prev, s, mom, *, k0, chunk, restart):
+            return _launch_chunk(data, tiled, plan, c, y, y_prev, s, mom, k0,
+                                 chunk, restart)
+
+    def window(k0, chunk, state):
+        """One check window from schedule index ``k0`` and its test."""
+        y, y_prev, s, mom, w, converged, iters, z_out = state
         y, y_prev, s, mom, w = chunk_fn(
             data, c, y, y_prev, s, mom, k0=k0, chunk=chunk,
             restart=config.restart,
         )
-        k0 += chunk
         z, zhat = _primal(data, g_P, s, w, 1.0)  # a = 1: theta_0 = 1
         converged, iters, z_out = core._eps_test(
-            data, g_P, p_D, config, k0, z, zhat, w, y, converged, iters, z_out
-        )
-        if i + 1 < len(windows):
-            EPS_SYNCS += 1
-            if core._all_converged(converged, config):
-                break
+            data, g_P, p_D, config, k0 + chunk, z, zhat, w, y, converged,
+            iters, z_out)
+        return y, y_prev, s, mom, w, converged, iters, z_out
+
+    state = (y, y.clone(), s, mom, torch.zeros_like(y),
+             torch.zeros((B,), dtype=torch.bool, device=dev),
+             torch.full((B,), iterations, dtype=torch.int32, device=dev),
+             torch.zeros((B, data.n_z), dtype=torch.float32, device=dev))
+    if torch.compiler.is_exporting():
+        state = core._export_windows(window, state, 5, n_full, C, rem)
+    else:
+        windows = [C] * n_full + ([rem] if rem else [])
+        k0 = 0
+        for i, chunk in enumerate(windows):
+            state = window(k0, chunk, state)
+            k0 += chunk
+            if i + 1 < len(windows):
+                EPS_SYNCS += 1
+                if core._all_converged(state[5], config):
+                    break
+    y, _, s, _, w, converged, iters, z_out = state
     z, zhat = _primal(data, g_P, s, w, 1.0)
     return core._eps_result(data, g_P, p_D, z, zhat, w, y, converged, iters,
                            z_out)

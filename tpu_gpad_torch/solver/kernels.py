@@ -32,9 +32,10 @@ is no padding, transposition or layout mapping around a launch.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+from torch import Tensor
 
 from tpu_gpad_torch.types import GPADData, SolveResult
 
@@ -376,16 +377,16 @@ def _od(data: GPADData):
     return 1.0 - data.soft_damp.to(torch.float32)
 
 
-def _paired_plain(data: GPADData, g_P, p_D, y0, iterations: int,
-                  diagnostics: bool, flat: bool):
-    """The paired kernels' loop in torch ops, on any device. ``flat``
-    replaces the identity block's product by a division, as the flat
-    kernel does."""
-    B, m_h = g_P.shape[0], data.m_half
-    n_s = data.n_struct if flat else m_h
-    GLs = data.GL_T[:, :n_s]
-    inv_L = 1.0 / data.L
-    od = _od(data)
+def _paired_loop(MG_T, GL_T, theta, beta, L, od, g_P, p_D, y0,
+                 iterations: int, diagnostics: bool, n_s: int, flat: bool):
+    """The paired kernels' loop in torch ops, on any device, on the
+    operands themselves (``_paired_plain`` takes them from the data).
+    ``flat`` replaces the identity block's product by a division, as the
+    flat kernel does; ``n_s`` is the columns of ``GL_T`` the product
+    uses."""
+    B, m_h = g_P.shape[0], p_D.shape[-1]
+    GLs = GL_T[:, :n_s]
+    inv_L = 1.0 / L
     if y0 is None:
         y = torch.zeros((B, 2, m_h), dtype=torch.float32, device=g_P.device)
     else:
@@ -395,9 +396,9 @@ def _paired_plain(data: GPADData, g_P, p_D, y0, iterations: int,
     w = torch.zeros_like(y)
     zhat = torch.zeros_like(g_P)
     for k in range(iterations):
-        w = y + data.beta[k] * (y - y_prev)
-        zhat = -((w[:, 0] - w[:, 1]) @ data.MG_T) - g_P
-        z = (1.0 - data.theta[k]) * z + data.theta[k] * zhat
+        w = y + beta[k] * (y - y_prev)
+        zhat = -((w[:, 0] - w[:, 1]) @ MG_T) - g_P
+        z = (1.0 - theta[k]) * z + theta[k] * zhat
         q = zhat @ GLs
         if flat:
             q = torch.cat([q, zhat * inv_L], dim=-1)
@@ -406,6 +407,15 @@ def _paired_plain(data: GPADData, g_P, p_D, y0, iterations: int,
     if not diagnostics:
         return z, y, None, None
     return z, y, w, zhat
+
+
+def _paired_plain(data: GPADData, g_P, p_D, y0, iterations: int,
+                  diagnostics: bool, flat: bool):
+    """The paired kernels' loop in torch ops, on any device."""
+    n_s = data.n_struct if flat else data.m_half
+    return _paired_loop(data.MG_T, data.GL_T, data.theta, data.beta, data.L,
+                        _od(data), g_P, p_D, y0, iterations, diagnostics,
+                        n_s, flat)
 
 
 def gpad_fixed_paired_flat_torch(
@@ -435,7 +445,14 @@ def gpad_fixed_dense_torch(
     """The dense kernel's loop in torch ops, on any device: the plain
     version the kernel is checked against. Same contract as
     ``gpad_fixed_dense``."""
-    B, m = g_P.shape[0], data.m
+    return _dense_loop(data.MG_T, data.GL_T, data.theta, data.beta, g_P, p_D,
+                       y0, iterations, diagnostics)
+
+
+def _dense_loop(MG_T, GL_T, theta, beta, g_P, p_D, y0, iterations: int,
+                diagnostics: bool):
+    """``gpad_fixed_dense_torch`` on the operands themselves."""
+    B, m = g_P.shape[0], p_D.shape[-1]
     if y0 is None:
         y = torch.zeros((B, m), dtype=torch.float32, device=g_P.device)
     else:
@@ -445,10 +462,10 @@ def gpad_fixed_dense_torch(
     w = torch.zeros_like(y)
     zhat = torch.zeros_like(g_P)
     for k in range(iterations):
-        w = y + data.beta[k] * (y - y_prev)
-        zhat = -(w @ data.MG_T) - g_P
-        z = (1.0 - data.theta[k]) * z + data.theta[k] * zhat
-        y_prev, y = y, torch.clamp_min(w + zhat @ data.GL_T + p_D, 0.0)
+        w = y + beta[k] * (y - y_prev)
+        zhat = -(w @ MG_T) - g_P
+        z = (1.0 - theta[k]) * z + theta[k] * zhat
+        y_prev, y = y, torch.clamp_min(w + zhat @ GL_T + p_D, 0.0)
     if not diagnostics:
         return z, y, None, None
     return z, y, w, zhat
@@ -526,14 +543,42 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _outputs(B: int, n_z: int, dual_shape, diagnostics: bool, device):
-    """Empty (z, y, w, zhat) for a launch; w/zhat None without
+def _empty(like):
+    """The placeholder of an output a launch leaves out (w and zhat without
+    diagnostics): a registered op returns tensors, never None."""
+    return like.new_empty((0,))
+
+
+def _none_if_empty(w, zhat, diagnostics: bool):
+    """An op's (w, zhat) as the wrappers return them: None without
     diagnostics."""
-    z = torch.empty((B, n_z), dtype=torch.float32, device=device)
-    y = torch.empty((B,) + tuple(dual_shape), dtype=torch.float32, device=device)
-    if not diagnostics:
-        return z, y, None, None
-    return z, y, torch.empty_like(y), torch.empty_like(z)
+    return (w, zhat) if diagnostics else (None, None)
+
+
+def _fresh(outs, ins):
+    """A CPU implementation's outputs as a registered op must return them:
+    none an alias of an input or of another output (the plain loops hand
+    back an input where a budget runs no iteration), each contiguous."""
+    seen = {t.untyped_storage().data_ptr() for t in ins
+            if t is not None and t.numel()}
+    res = []
+    for t in outs:
+        if t.numel() and (t.untyped_storage().data_ptr() in seen
+                          or not t.is_contiguous()):
+            t = t.clone(memory_format=torch.contiguous_format)
+        if t.numel():
+            seen.add(t.untyped_storage().data_ptr())
+        res.append(t)
+    return tuple(res)
+
+
+def _launch(name: str, fn, device, *args) -> None:
+    """Call a C launcher on ``device``'s current stream; raise on a CUDA
+    error."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def _refuse_soft(data: GPADData, what: str) -> None:
@@ -544,10 +589,12 @@ def _refuse_soft(data: GPADData, what: str) -> None:
                          "use engine='torch'")
 
 
-def _need_cuda(g_P) -> None:
-    """Raise for tensors on a device without these kernels."""
-    if g_P.device.type != "cuda":
-        raise ValueError(f"no kernel for device {g_P.device}")
+def on_card(t) -> bool:
+    """True for a CUDA tensor (the op launches its kernel), False for a CPU
+    one (the op runs its plain version); raise for any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {t.device}")
+    return t.device.type == "cuda"
 
 
 def _too_big(what: str, shape: str):
@@ -557,38 +604,190 @@ def _too_big(what: str, shape: str):
     )
 
 
-def _launch_paired(data: GPADData, g_P, p_D, y0, iterations: int,
-                   diagnostics: bool, flat: bool, log2_tile, split):
-    """One launch of a paired kernel instance on CUDA tensors."""
+# Each kernel is the CUDA implementation of an op registered in the
+# tpu_gpad_torch namespace (torch.library.custom_op): its CPU
+# implementation is the plain version, its fake one allocates the outputs,
+# so that torch.export traces a solve through the op and a loaded artifact
+# launches the kernel. A launch plan is the wrapper's, passed as integers
+# and read on the card only (CPU calls pass zeros). The counters count the
+# CUDA implementation's launches: live calls and loaded artifacts alike,
+# tracing none.
+def _paired_fake(MG_T, GL_T, g_P, p_D, y0, od, theta, beta, L, n_s,
+                 iterations, log2_tile, vec, split1, split2, diagnostics):
+    z, y = g_P.new_empty(g_P.shape), p_D.new_empty(p_D.shape)
+    if not diagnostics:
+        return z, y, _empty(z), _empty(z)
+    return z, y, p_D.new_empty(p_D.shape), g_P.new_empty(g_P.shape)
+
+
+def _paired_cpu(flat: bool):
+    """The CPU implementation (the plain version) of a paired kernel's op,
+    typed: its signature is the op's schema."""
+    def impl(MG_T: Tensor, GL_T: Tensor, g_P: Tensor, p_D: Tensor,
+             y0: Optional[Tensor], od: Optional[Tensor], theta: Tensor,
+             beta: Tensor, L: Tensor, n_s: int, iterations: int,
+             log2_tile: int, vec: int, split1: int, split2: int,
+             diagnostics: bool) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+        z, y, w, zhat = _paired_loop(MG_T, GL_T, theta, beta, L, od, g_P, p_D,
+                                     y0, iterations, diagnostics, n_s, flat)
+        if not diagnostics:
+            w, zhat = _empty(z), _empty(z)
+        return _fresh((z, y, w, zhat), (g_P, p_D, y0))
+    return impl
+
+
+def _paired_cuda(flat: bool):
+    def impl(MG_T, GL_T, g_P, p_D, y0, od, theta, beta, L, n_s, iterations,
+             log2_tile, vec, split1, split2, diagnostics):
+        global PAIRED_FLAT_LAUNCHES, PAIRED_LAUNCHES
+        B, m_h, n_z = g_P.shape[0], p_D.shape[2], g_P.shape[1]
+        plan = PairedPlan(log2_tile, vec, split1, split2)
+        z, y = g_P.new_empty(g_P.shape), p_D.new_empty(p_D.shape)
+        w = p_D.new_empty(p_D.shape) if diagnostics else None
+        zhat = g_P.new_empty(g_P.shape) if diagnostics else None
+        # y_prev of the dual elements past the registers (large m_h only)
+        y_prev = (p_D.new_empty(p_D.shape)
+                  if _paired_overflows(m_h, log2_tile) else None)
+        y0_stride = 0 if y0 is None or y0.shape[0] == 1 else 2 * m_h
+        name = "gpad_paired_flat" if flat else "gpad_paired"
+        fn = _launch_fn("gpad_paired_flat", f"{name}_launch", _PAIRED_ARGTYPES)
+        _launch(name, fn, g_P.device, _ptr(MG_T), _ptr(GL_T), _ptr(g_P),
+                _ptr(p_D), _ptr(y0), y0_stride, _ptr(od), _ptr(theta),
+                _ptr(beta), _ptr(L), B, m_h, n_z, n_s, iterations, *plan,
+                _ptr(z), _ptr(y), _ptr(w), _ptr(zhat), _ptr(y_prev),
+                _paired_smem_bytes(m_h, n_z, n_s, plan))
+        if flat:
+            PAIRED_FLAT_LAUNCHES += 1
+        else:
+            PAIRED_LAUNCHES += 1
+        if not diagnostics:
+            w, zhat = _empty(z), _empty(z)
+        return z, y, w, zhat
+    return impl
+
+
+def _register(name: str, cpu, cuda, fake):
+    """Register ``tpu_gpad_torch::<name>``: ``cpu`` (a typed function, the
+    plain version) defines its schema, ``cuda`` launches the kernel."""
+    op = torch.library.custom_op(f"tpu_gpad_torch::{name}", cpu,
+                                 mutates_args=(), device_types="cpu")
+    op.register_kernel("cuda", cuda)
+    op.register_fake(fake)
+    return op
+
+
+paired_flat_op = _register("paired_flat", _paired_cpu(True),
+                           _paired_cuda(True), _paired_fake)
+paired_op = _register("paired", _paired_cpu(False), _paired_cuda(False),
+                      _paired_fake)
+
+
+def _flat_tiled_cpu(MG_T: Tensor, GL_T: Tensor, g_P: Tensor, p_D: Tensor,
+                    y0: Optional[Tensor], theta: Tensor, beta: Tensor,
+                    L: Tensor, n_s: int, iterations: int, log2_tile: int,
+                    cluster: int, grouped: bool, diagnostics: bool,
+                    ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    z, y, w, zhat = _paired_loop(MG_T, GL_T, theta, beta, L, None, g_P, p_D,
+                                 y0, iterations, diagnostics, n_s, True)
+    if not diagnostics:
+        w, zhat = _empty(z), _empty(z)
+    return _fresh((z, y, w, zhat), (g_P, p_D, y0))
+
+
+def _flat_tiled_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, L, n_s,
+                     iterations, log2_tile, cluster, grouped, diagnostics):
+    global FLAT_TILED_LAUNCHES
+    B, m_h, n_z = g_P.shape[0], p_D.shape[2], g_P.shape[1]
+    z, y = g_P.new_empty(g_P.shape), p_D.new_empty(p_D.shape)
+    # the state lives in device memory: w is the kernel's too
+    w = p_D.new_empty(p_D.shape)
+    zhat = g_P.new_empty(g_P.shape) if diagnostics else None
+    y0_stride = 0 if y0 is None or y0.shape[0] == 1 else 2 * m_h
+    fn = _launch_fn("gpad_flat_tiled", "gpad_flat_tiled_launch",
+                    _FLAT_TILED_ARGTYPES)
+    _launch("gpad_flat_tiled", fn, g_P.device, _ptr(MG_T), _ptr(GL_T),
+            _ptr(g_P), _ptr(p_D), _ptr(y0), y0_stride, _ptr(theta),
+            _ptr(beta), _ptr(L), B, m_h, n_z, n_s, iterations, log2_tile,
+            cluster, grouped, _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
+            _flat_tiled_smem_bytes(m_h, n_z, log2_tile, grouped))
+    FLAT_TILED_LAUNCHES += 1
+    if not diagnostics:
+        return z, y, _empty(z), _empty(z)
+    return z, y, w, zhat
+
+
+def _flat_tiled_fake(MG_T, GL_T, g_P, p_D, y0, theta, beta, L, n_s,
+                     iterations, log2_tile, cluster, grouped, diagnostics):
+    return _paired_fake(MG_T, GL_T, g_P, p_D, y0, None, theta, beta, L, n_s,
+                        iterations, log2_tile, 0, 0, 0, diagnostics)
+
+
+flat_tiled_op = _register("flat_tiled", _flat_tiled_cpu, _flat_tiled_cuda,
+                          _flat_tiled_fake)
+
+
+def _dense_cpu(MG_T: Tensor, GL_T: Tensor, g_P: Tensor, p_D: Tensor,
+               y0: Optional[Tensor], theta: Tensor, beta: Tensor,
+               iterations: int, log2_tile: int, vec: int, split1: int,
+               split2: int, diagnostics: bool,
+               ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    z, y, w, zhat = _dense_loop(MG_T, GL_T, theta, beta, g_P, p_D, y0,
+                                iterations, diagnostics)
+    if not diagnostics:
+        w, zhat = _empty(z), _empty(z)
+    return _fresh((z, y, w, zhat), (g_P, p_D, y0))
+
+
+def _dense_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations,
+                log2_tile, vec, split1, split2, diagnostics):
+    global DENSE_LAUNCHES
+    B, m, n_z = g_P.shape[0], p_D.shape[1], g_P.shape[1]
+    plan = DensePlan(log2_tile, vec, split1, split2)
+    z, y = g_P.new_empty(g_P.shape), p_D.new_empty(p_D.shape)
+    w = p_D.new_empty(p_D.shape) if diagnostics else None
+    zhat = g_P.new_empty(g_P.shape) if diagnostics else None
+    y0_stride = 0 if y0 is None or y0.shape[0] == 1 else m
+    fn = _launch_fn("gpad_dense", "gpad_dense_launch", _DENSE_ARGTYPES)
+    _launch("gpad_dense", fn, g_P.device, _ptr(MG_T), _ptr(GL_T), _ptr(g_P),
+            _ptr(p_D), _ptr(y0), y0_stride, _ptr(theta), _ptr(beta), B, m,
+            n_z, iterations, *plan, _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
+            _dense_smem_bytes(m, n_z, plan))
+    DENSE_LAUNCHES += 1
+    if not diagnostics:
+        w, zhat = _empty(z), _empty(z)
+    return z, y, w, zhat
+
+
+def _dense_fake(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations,
+                log2_tile, vec, split1, split2, diagnostics):
+    return _paired_fake(MG_T, GL_T, g_P, p_D, y0, None, theta, beta, None, 0,
+                        iterations, log2_tile, vec, split1, split2,
+                        diagnostics)
+
+
+dense_op = _register("dense", _dense_cpu, _dense_cuda, _dense_fake)
+
+
+def _paired(data: GPADData, g_P, p_D, y0, iterations: int, diagnostics: bool,
+            flat: bool, log2_tile, split):
+    """A paired kernel instance's op: the kernel on CUDA tensors, the plain
+    version on CPU ones."""
     B, m_h, n_z = g_P.shape[0], data.m_half, data.n_z
     n_s = data.n_struct if flat else m_h
-    if log2_tile is not None and not 0 <= log2_tile <= PAIRED_MAX_LOG2_TILE:
-        raise ValueError(f"log2_tile {log2_tile} outside "
-                         f"0..{PAIRED_MAX_LOG2_TILE}")
-    plan = _paired_plan(m_h, n_z, n_s, B, log2_tile, split)
-    if plan is None:
-        raise _too_big("flat" if flat else "paired",
-                       f"m_half={m_h}, n_z={n_z}, n_struct={n_s}")
-    fn = _launch_fn("gpad_paired_flat", "gpad_paired_flat_launch" if flat
-                    else "gpad_paired_launch", _PAIRED_ARGTYPES)
+    plan = PairedPlan(0, 0, 0, 0)
+    if on_card(g_P):
+        if log2_tile is not None and not 0 <= log2_tile <= PAIRED_MAX_LOG2_TILE:
+            raise ValueError(f"log2_tile {log2_tile} outside "
+                             f"0..{PAIRED_MAX_LOG2_TILE}")
+        plan = _paired_plan(m_h, n_z, n_s, B, log2_tile, split)
+        if plan is None:
+            raise _too_big("flat" if flat else "paired",
+                           f"m_half={m_h}, n_z={n_z}, n_struct={n_s}")
     y0_rows = None if y0 is None else _norm_y0(y0, B, m_h)
-    y0_stride = 0 if y0_rows is None or y0_rows.shape[0] == 1 else 2 * m_h
-    od = _od(data)
-    z, y, w, zhat = _outputs(B, n_z, (2, m_h), diagnostics, g_P.device)
-    # y_prev of the dual elements past the registers (large m_h only)
-    y_prev = (torch.empty_like(y) if _paired_overflows(m_h, plan.log2_tile)
-              else None)
-    with torch.cuda.device(g_P.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_ptr(data.MG_T), _ptr(data.GL_T), _ptr(g_P), _ptr(p_D),
-                 _ptr(y0_rows), y0_stride, _ptr(od), _ptr(data.theta),
-                 _ptr(data.beta), _ptr(data.L), B, m_h, n_z, n_s, iterations,
-                 *plan, _ptr(z), _ptr(y), _ptr(w), _ptr(zhat), _ptr(y_prev),
-                 _paired_smem_bytes(m_h, n_z, n_s, plan), stream)
-    if err != 0:
-        name = "gpad_paired_flat" if flat else "gpad_paired"
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    return z, y, w, zhat
+    z, y, w, zhat = (paired_flat_op if flat else paired_op)(
+        data.MG_T, data.GL_T, g_P, p_D, y0_rows, _od(data), data.theta,
+        data.beta, data.L, n_s, iterations, *plan, diagnostics)
+    return (z, y, *_none_if_empty(w, zhat, diagnostics))
 
 
 def gpad_fixed_paired_flat(
@@ -604,18 +803,10 @@ def gpad_fixed_paired_flat(
     None when ``diagnostics`` is False. ``log2_tile`` and ``split``
     override the scenarios per block and cap the split-K parts (for
     sweeps). CUDA tensors launch the kernel (or raise); CPU tensors run the
-    plain version."""
-    global PAIRED_FLAT_LAUNCHES
+    plain version (the op ``tpu_gpad_torch::paired_flat``)."""
     _check_inputs(data, g_P, p_D, y0, iterations)
-    if g_P.device.type == "cpu":
-        return gpad_fixed_paired_flat_torch(
-            data, g_P, p_D, y0, iterations=iterations, diagnostics=diagnostics
-        )
-    _need_cuda(g_P)
-    out = _launch_paired(data, g_P, p_D, y0, iterations, diagnostics, True,
-                         log2_tile, split)
-    PAIRED_FLAT_LAUNCHES += 1
-    return out
+    return _paired(data, g_P, p_D, y0, iterations, diagnostics, True,
+                   log2_tile, split)
 
 
 def gpad_fixed_paired(
@@ -626,18 +817,11 @@ def gpad_fixed_paired(
     """Fixed-budget paired mvp GPAD with the full ``GL_T`` product (no
     identity block), soft rows carried: the contract of
     ``gpad_fixed_paired_flat`` on any paired data. CUDA tensors launch the
-    kernel (or raise); CPU tensors run the plain version."""
-    global PAIRED_LAUNCHES
+    kernel (or raise); CPU tensors run the plain version (the op
+    ``tpu_gpad_torch::paired``)."""
     _check_inputs(data, g_P, p_D, y0, iterations, flat=False)
-    if g_P.device.type == "cpu":
-        return gpad_fixed_paired_torch(
-            data, g_P, p_D, y0, iterations=iterations, diagnostics=diagnostics
-        )
-    _need_cuda(g_P)
-    out = _launch_paired(data, g_P, p_D, y0, iterations, diagnostics, False,
-                         log2_tile, split)
-    PAIRED_LAUNCHES += 1
-    return out
+    return _paired(data, g_P, p_D, y0, iterations, diagnostics, False,
+                   log2_tile, split)
 
 
 def gpad_fixed_flat_tiled(
@@ -652,49 +836,28 @@ def gpad_fixed_flat_tiled(
     refused. ``log2_tile`` and ``cluster`` override the scenarios per
     cluster and the blocks per cluster (for sweeps). CUDA tensors launch
     the kernel (or raise); CPU tensors run the plain version,
-    ``gpad_fixed_paired_flat_torch``."""
-    global FLAT_TILED_LAUNCHES
+    ``gpad_fixed_paired_flat_torch`` (the op ``tpu_gpad_torch::flat_tiled``)."""
     _refuse_soft(data, "the flat tiled kernel")
     if data.n_struct == 0:
         raise ValueError("the flat tiled kernel needs a non-empty structural "
                          "block (GPADData.n_struct > 0)")
     _check_inputs(data, g_P, p_D, y0, iterations)
-    if g_P.device.type == "cpu":
-        return gpad_fixed_paired_flat_torch(
-            data, g_P, p_D, y0, iterations=iterations, diagnostics=diagnostics
-        )
-    _need_cuda(g_P)
     B, m_h, n_z, n_s = g_P.shape[0], data.m_half, data.n_z, data.n_struct
-    if log2_tile is not None and not 0 <= log2_tile <= FLAT_TILED_MAX_LOG2_TILE:
-        raise ValueError(f"log2_tile {log2_tile} outside "
-                         f"0..{FLAT_TILED_MAX_LOG2_TILE}")
-    if cluster is not None and (cluster not in (1, 2, 4, 8, 16)):
-        raise ValueError(f"cluster {cluster} is not a power of two up to 16")
-    plan = pick_flat_tiled(m_h, n_z, B, log2_tile, cluster)
-    if plan is None:
-        raise _too_big("flat tiled", f"m_half={m_h}, n_z={n_z}")
-    fn = _launch_fn("gpad_flat_tiled", "gpad_flat_tiled_launch",
-                    _FLAT_TILED_ARGTYPES)
+    plan = FlatTiledPlan(0, 0, False)
+    if on_card(g_P):
+        if log2_tile is not None and not 0 <= log2_tile <= FLAT_TILED_MAX_LOG2_TILE:
+            raise ValueError(f"log2_tile {log2_tile} outside "
+                             f"0..{FLAT_TILED_MAX_LOG2_TILE}")
+        if cluster is not None and (cluster not in (1, 2, 4, 8, 16)):
+            raise ValueError(f"cluster {cluster} is not a power of two up to 16")
+        plan = pick_flat_tiled(m_h, n_z, B, log2_tile, cluster)
+        if plan is None:
+            raise _too_big("flat tiled", f"m_half={m_h}, n_z={n_z}")
     y0_rows = None if y0 is None else _norm_y0(y0, B, m_h)
-    y0_stride = 0 if y0_rows is None or y0_rows.shape[0] == 1 else 2 * m_h
-    # the state lives in device memory: w is the kernel's too
-    z, y, w, zhat = _outputs(B, n_z, (2, m_h), diagnostics, g_P.device)
-    if w is None:
-        w = torch.empty_like(y)
-    with torch.cuda.device(g_P.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_ptr(data.MG_T), _ptr(data.GL_T), _ptr(g_P), _ptr(p_D),
-                 _ptr(y0_rows), y0_stride, _ptr(data.theta), _ptr(data.beta),
-                 _ptr(data.L), B, m_h, n_z, n_s, iterations, *plan,
-                 _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
-                 _flat_tiled_smem_bytes(m_h, n_z, plan.log2_tile, plan.grouped),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"gpad_flat_tiled launch failed: CUDA error {err}")
-    FLAT_TILED_LAUNCHES += 1
-    if not diagnostics:
-        return z, y, None, None
-    return z, y, w, zhat
+    z, y, w, zhat = flat_tiled_op(
+        data.MG_T, data.GL_T, g_P, p_D, y0_rows, data.theta, data.beta,
+        data.L, n_s, iterations, *plan, diagnostics)
+    return (z, y, *_none_if_empty(w, zhat, diagnostics))
 
 
 def gpad_fixed_dense(
@@ -712,8 +875,7 @@ def gpad_fixed_dense(
     are refused, as by ``tpu_gpad``'s dense kernel. ``log2_tile`` and
     ``split`` override the scenarios per block and cap the split-K parts
     (for sweeps). CUDA tensors launch the kernel (or raise); CPU tensors run
-    the plain version."""
-    global DENSE_LAUNCHES
+    the plain version (the op ``tpu_gpad_torch::dense``)."""
     if data.paired:
         raise ValueError("the dense kernel needs unpaired data")
     if data.soft_damp is not None:
@@ -724,31 +886,19 @@ def gpad_fixed_dense(
         )
     m, n_z = data.m, data.n_z
     _check_common(data, g_P, p_D, (m,), iterations, [y0])
-    if g_P.device.type == "cpu":
-        return gpad_fixed_dense_torch(
-            data, g_P, p_D, y0, iterations=iterations, diagnostics=diagnostics
-        )
-    _need_cuda(g_P)
     B = g_P.shape[0]
-    if log2_tile is not None and not 0 <= log2_tile <= 5:
-        raise ValueError(f"log2_tile {log2_tile} outside 0..5")
-    plan = _dense_plan(m, n_z, B, log2_tile, split)
-    if plan is None:
-        raise _too_big("dense", f"m={m}, n_z={n_z}")
-    fn = _launch_fn("gpad_dense", "gpad_dense_launch", _DENSE_ARGTYPES)
+    plan = DensePlan(0, 0, 0, 0)
+    if on_card(g_P):
+        if log2_tile is not None and not 0 <= log2_tile <= 5:
+            raise ValueError(f"log2_tile {log2_tile} outside 0..5")
+        plan = _dense_plan(m, n_z, B, log2_tile, split)
+        if plan is None:
+            raise _too_big("dense", f"m={m}, n_z={n_z}")
     y0_rows = None if y0 is None else _norm_dense_y0(y0, B, m)
-    y0_stride = 0 if y0_rows is None or y0_rows.shape[0] == 1 else m
-    z, y, w, zhat = _outputs(B, n_z, (m,), diagnostics, g_P.device)
-    with torch.cuda.device(g_P.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_ptr(data.MG_T), _ptr(data.GL_T), _ptr(g_P), _ptr(p_D),
-                 _ptr(y0_rows), y0_stride, _ptr(data.theta), _ptr(data.beta),
-                 B, m, n_z, iterations, *plan, _ptr(z), _ptr(y), _ptr(w),
-                 _ptr(zhat), _dense_smem_bytes(m, n_z, plan), stream)
-    if err != 0:
-        raise RuntimeError(f"gpad_dense launch failed: CUDA error {err}")
-    DENSE_LAUNCHES += 1
-    return z, y, w, zhat
+    z, y, w, zhat = dense_op(data.MG_T, data.GL_T, g_P, p_D, y0_rows,
+                             data.theta, data.beta, iterations, *plan,
+                             diagnostics)
+    return (z, y, *_none_if_empty(w, zhat, diagnostics))
 
 
 def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:

@@ -686,8 +686,10 @@ def _oracle(cs: _Consts, w, x0):
 
 def _rows(cs: _Consts, xs, us):
     """G z - h per stage, (N, B, m_x + m_u), state rows first."""
-    gx = torch.matmul(xs, cs.Gx.mT) - cs.hx
-    gu = torch.matmul(us, cs.Gu.mT) - cs.hu
+    # transpose(), not .mT: a loop body that torch.export traces may not
+    # read a view of its constants as an input of its own
+    gx = torch.matmul(xs, cs.Gx.transpose(-1, -2)) - cs.hx
+    gu = torch.matmul(us, cs.Gu.transpose(-1, -2)) - cs.hu
     return torch.cat([gx, gu], dim=-1)
 
 
@@ -712,6 +714,8 @@ class _State:
     """The loop state of a batch, stage-major; ``batch`` is (B,), or (P, B)
     on a stack."""
 
+    FIELDS = ("y", "y_prev", "zx", "zu", "th", "th_prev")
+
     def __init__(self, y, N, batch, n, p):
         like = dict(dtype=y.dtype, device=y.device)
         self.y = y
@@ -721,18 +725,28 @@ class _State:
         self.th = torch.ones(batch, **like)
         self.th_prev = torch.ones(batch, **like)
 
-    def fields(self):
-        return ("y", "y_prev", "zx", "zu", "th", "th_prev")
+    @classmethod
+    def of(cls, values) -> "_State":
+        """A state from ``values()``'s tuple (a loop's carry)."""
+        st = cls.__new__(cls)
+        for f, v in zip(cls.FIELDS, values):
+            setattr(st, f, v)
+        return st
+
+    def values(self) -> tuple:
+        return tuple(getattr(self, f) for f in self.FIELDS)
 
 
-def _iteration(data, cs, st: _State, x0, k: int, restart: bool):
-    """One GPAD iteration of the whole batch, in place on ``st``; returns
-    the oracle's (w, xs, us, g) for the eps test."""
+def _iteration(data, cs, st: _State, x0, theta_k, beta_k, restart: bool):
+    """One GPAD iteration of the whole batch, in place on ``st``, at the
+    schedule's (theta_k, beta_k) (unused under restart, whose momentum
+    ``st`` carries); returns the oracle's (w, xs, us, g) for the eps
+    test."""
     if restart:
         th = st.th[None, ..., None]
         b = (st.th * (1.0 / st.th_prev - 1.0))[None, ..., None]
     else:
-        th, b = cs.theta[k], cs.beta[k]
+        th, b = theta_k, beta_k
     w = st.y + b * (st.y - st.y_prev)
     xs, us, g = _oracle(cs, w, x0)
     st.zx = (1.0 - th) * st.zx + th * xs
@@ -747,12 +761,30 @@ def _iteration(data, cs, st: _State, x0, k: int, restart: bool):
     return w, xs, us, g
 
 
+def _schedule_at(cs: _Consts, k: int, restart: bool):
+    """The schedule's (theta_k, beta_k); none under restart (its budget may
+    pass the schedule)."""
+    return (None, None) if restart else (cs.theta[k], cs.beta[k])
+
+
 def _solve_fixed(data, cs, x0, y, n_iters: int, restart: bool):
     """Fixed budget; diagnostics on the averaged primal (zx, zu)."""
+    from tpu_gpad_torch.solver.core import _export_scan
+
     batch = tuple(x0.shape[:-1])
     st = _State(y, data.horizon, batch, data.n_x, data.n_u)
-    for k in range(n_iters):
-        _iteration(data, cs, st, x0, k, restart)
+    if torch.compiler.is_exporting():
+        def step(carry, theta_k, beta_k):
+            st = _State.of(carry)
+            _iteration(data, cs, st, x0, theta_k, beta_k, restart)
+            return st.values()
+
+        st = _State.of(_export_scan(step, st.values(), cs.theta, cs.beta, 0,
+                                    n_iters, restart))
+    else:
+        for k in range(n_iters):
+            _iteration(data, cs, st, x0, *_schedule_at(cs, k, restart),
+                       restart)
     g = _rows(cs, st.zx, st.zu)
     residual = torch.clamp_min(_max_rows(g), 0.0)
     gap = -torch.sum(st.y * g, dim=(0, -1))
@@ -782,19 +814,20 @@ def _solve_eps(data, cs, x0, y, n_iters: int, restart: bool, eps_g: float,
     (its state is frozen, as under JAX's vmapped ``while_loop``) and keeps
     the point it converged at. The host learns "all converged" with one
     sync per check and then stops."""
+    from tpu_gpad_torch.solver.core import _export_scan, _export_windows
+
     batch, dev = tuple(x0.shape[:-1]), x0.device
     st = _State(y, data.horizon, batch, data.n_x, data.n_u)
     conv = torch.zeros(batch, dtype=torch.bool, device=dev)
     it = torch.full(batch, n_iters, dtype=torch.int32, device=dev)
     zu_out = torch.zeros_like(st.zu)
-    window = [getattr(st, f) for f in st.fields()]
-    for k in range(n_iters):
-        w, xs, us, g = _iteration(data, cs, st, x0, k, restart)
-        if not ((k + 1) % check_every == 0 or k + 1 == n_iters):
-            continue
-        # freeze the scenarios that had converged before this window
+
+    def test(k_now, st, window, w, us, g, conv, it, zu_out):
+        """Freeze, in place on ``st``, the scenarios that had converged
+        before this window (``window``: the state at its start), then the
+        test at iteration ``k_now``: the updated (conv, it, zu_out)."""
         live = ~conv
-        for f, old in zip(st.fields(), window):
+        for f, old in zip(st.FIELDS, window):
             new = getattr(st, f)
             m = live if new.ndim == live.ndim else live[None, ..., None]
             setattr(st, f, torch.where(m, new, old))
@@ -804,13 +837,46 @@ def _solve_eps(data, cs, x0, y, n_iters: int, restart: bool, eps_g: float,
         ok_z = viol_z <= eps_g
         ok = ok_z | ((viol_zhat <= eps_g) & (gap <= eps_V))
         newly = ok & live
-        it = torch.where(newly, k + 1, it)
+        it = torch.where(newly, k_now, it)
         zu_sel = torch.where(ok_z[None, ..., None], st.zu, us)
         zu_out = torch.where(newly[None, ..., None], zu_sel, zu_out)
-        conv = conv | ok
-        window = [getattr(st, f) for f in st.fields()]
-        if k + 1 < n_iters and bool(conv.all()):
-            break
+        return conv | ok, it, zu_out
+
+    if torch.compiler.is_exporting():
+        def step(carry, theta_k, beta_k):
+            st = _State.of(carry[:6])
+            w, _, us, g = _iteration(data, cs, st, x0, theta_k, beta_k,
+                                     restart)
+            return (*st.values(), w, us, g)
+
+        def window(k0, chunk, state):
+            start = state[:6]
+            y = start[0]
+            oracle = (torch.zeros_like(y), torch.zeros_like(start[3]),
+                      torch.zeros_like(y))
+            carry = _export_scan(step, (*start, *oracle), cs.theta, cs.beta,
+                                 k0, chunk, restart)
+            st = _State.of(carry[:6])
+            out = test(k0 + chunk, st, start, *carry[6:], *state[6:])
+            return (*st.values(), *out)
+
+        C = max(min(check_every, n_iters), 1)
+        n_full, rem = divmod(n_iters, C)
+        state = _export_windows(window, (*st.values(), conv, it, zu_out), 6,
+                                n_full, C, rem)
+        st, (conv, it, zu_out) = _State.of(state[:6]), state[6:]
+    else:
+        window = st.values()
+        for k in range(n_iters):
+            w, xs, us, g = _iteration(data, cs, st, x0,
+                                      *_schedule_at(cs, k, restart), restart)
+            if not ((k + 1) % check_every == 0 or k + 1 == n_iters):
+                continue
+            conv, it, zu_out = test(k + 1, st, window, w, us, g, conv, it,
+                                    zu_out)
+            window = st.values()
+            if k + 1 < n_iters and bool(conv.all()):
+                break
     zu_f = torch.where(conv[None, ..., None], zu_out, st.zu)
     g = _rows(cs, _rollout(cs, zu_f, x0), zu_f)
     residual = torch.clamp_min(_max_rows(g), 0.0)

@@ -27,10 +27,13 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
+from torch import Tensor
 
 from tpu_gpad_torch.solver import kernels
+from tpu_gpad_torch.solver.kernels import on_card
 
 # Launches of the resident kernel in this process; a run resets it to 0 to
 # show that a path went through the kernel.
@@ -504,24 +507,85 @@ def check_inputs(data, x0, y0, iterations: int, restart: bool):
     return y0
 
 
-def on_card(x0) -> bool:
-    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
-    if x0.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {x0.device}")
-    return x0.device.type == "cuda"
-
-
-def launch_head(pack: StagewisePack, data, x0, y0, iterations: int,
-                restart: bool, log2_tile: int):
+def launch_head(pack: StagewisePack, x0, y0, iterations: int, restart: bool,
+                log2_tile: int):
     """The arguments both C launchers share, in order."""
     ptr = kernels._ptr
-    y0_stride = 0 if y0 is None or y0.shape[0] == 1 else data.horizon * (
-        data.m_x + data.m_u)
+    y0_stride = 0 if y0 is None or y0.shape[0] == 1 else pack.N * pack.m
     return (ptr(pack.RT), ptr(pack.HBT), ptr(pack.MT), ptr(pack.Gx),
             ptr(pack.Gu), ptr(pack.h), ptr(pack.V), ptr(pack.theta),
             ptr(pack.beta), ptr(pack.L), ptr(x0), ptr(y0), y0_stride,
-            x0.shape[0], data.horizon, data.n_x, data.n_u, data.m_x,
-            data.m_u, iterations, int(restart), log2_tile)
+            x0.shape[0], pack.N, pack.n, pack.p, pack.m_x,
+            pack.m - pack.m_x, iterations, int(restart), log2_tile)
+
+
+def _outputs(pack: StagewisePack, x0):
+    """Empty (zu, y, residual, gap) of a launch."""
+    B, f32 = x0.shape[0], dict(dtype=torch.float32, device=x0.device)
+    return (torch.empty((B, pack.N, pack.p), **f32),
+            torch.empty((B, pack.N, pack.m), **f32),
+            torch.empty((B,), **f32), torch.empty((B,), **f32))
+
+
+def plain_op(pack: StagewisePack, x0, y0, iterations: int, restart: bool):
+    """The CPU implementation of both kernels' ops: ``stagewise_plain``'s
+    (zu, y, residual, gap), none an alias of an input."""
+    _, zu, y, residual, gap = stagewise_plain(pack, x0, y0,
+                                              iterations=iterations,
+                                              restart=restart)
+    return kernels._fresh((zu, y, residual, gap), (x0, y0))
+
+
+# The resident kernel as the op tpu_gpad_torch::stagewise_resident (see the
+# note above kernels._register): the CPU implementation is the plain
+# version; the CUDA one launches the layout the wrapper picked and counts.
+def _resident_cpu(RT: Tensor, HBT: Tensor, MT: Tensor, Gx: Tensor, Gu: Tensor,
+                  h: Tensor, V: Tensor, theta: Tensor, beta: Tensor, L: Tensor,
+                  x0: Tensor, y0: Optional[Tensor], iterations: int,
+                  restart: bool, log2_tile: int, warps: int,
+                  chains_in_smem: bool, smem: int,
+                  ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    pack = StagewisePack(RT, HBT, MT, Gx, Gu, h, V, theta, beta, L)
+    return plain_op(pack, x0, y0, iterations, restart)
+
+
+def _resident_cuda(RT, HBT, MT, Gx, Gu, h, V, theta, beta, L, x0, y0,
+                   iterations, restart, log2_tile, warps, chains_in_smem,
+                   smem):
+    global STAGEWISE_LAUNCHES
+    pack = StagewisePack(RT, HBT, MT, Gx, Gu, h, V, theta, beta, L)
+    zu, y, residual, gap = _outputs(pack, x0)
+    # the segment products of both chains, per block, where they are not
+    # in shared memory
+    B, n = x0.shape[0], pack.n
+    qscratch = None if chains_in_smem else torch.empty(
+        (-(-B // (1 << log2_tile)) * _up4(2 * warps * n * n),),
+        dtype=torch.float32, device=x0.device)
+    resident, _ = _launch_fns()
+    ptr = kernels._ptr
+    kernels._launch("gpad_stagewise", resident, x0.device,
+                    *launch_head(pack, x0, y0, iterations, restart,
+                                 log2_tile),
+                    warps, int(chains_in_smem), ptr(qscratch), ptr(y),
+                    ptr(zu), ptr(residual), ptr(gap), smem)
+    STAGEWISE_LAUNCHES += 1
+    return zu, y, residual, gap
+
+
+def fake_outputs(RT, HBT, MT, Gx, Gu, h, V, theta, beta, L, x0, *_):
+    """Both stage-wise ops' fake implementation: the outputs' shapes."""
+    return _outputs(StagewisePack(RT, HBT, MT, Gx, Gu, h, V, theta, beta, L),
+                    x0)
+
+
+resident_op = kernels._register("stagewise_resident", _resident_cpu,
+                                _resident_cuda, fake_outputs)
+
+
+def pack_args(pack: StagewisePack) -> tuple:
+    """A pack's tensors in the ops' argument order."""
+    return (pack.RT, pack.HBT, pack.MT, pack.Gx, pack.Gu, pack.h, pack.V,
+            pack.theta, pack.beta, pack.L)
 
 
 def solve_stagewise_cuda(data, x0, iterations: int, restart: bool = False,
@@ -535,44 +599,23 @@ def solve_stagewise_cuda(data, x0, iterations: int, restart: bool = False,
     zu (B, N, n_u), y (B, N, m_x + m_u), residual (B,), gap (B,)), the
     contract of ``tpu_gpad.stagewise_kernel.solve_stagewise_pallas``.
     CUDA tensors launch the kernel (or raise); CPU tensors run
-    ``stagewise_plain``. ``log2_tile``, ``warps`` and ``chains_in_smem``
-    force the launch (sweeps); else ``resident_layout`` picks it."""
-    global STAGEWISE_LAUNCHES
+    ``stagewise_plain`` (the op ``tpu_gpad_torch::stagewise_resident``).
+    ``log2_tile``, ``warps`` and ``chains_in_smem`` force the launch
+    (sweeps); else ``resident_layout`` picks it."""
     y0 = check_inputs(data, x0, y0, iterations, restart)
     pack = pack_stagewise_constants(data)
-    if not on_card(x0):
-        return stagewise_plain(pack, x0, y0, iterations=iterations,
-                               restart=restart)
-    ok, why = stagewise_kernel_compatible(data)
-    if not ok:
-        raise ValueError(f"stagewise kernel cannot take this: {why}")
-    B, N = x0.shape[0], data.horizon
-    lay = resident_layout(data, B, sm_count(x0.device), log2_tile, warps,
-                          chains_in_smem)
-    if lay is None:
-        raise ValueError(f"no resident block of tile 2**{log2_tile}, "
-                         f"{warps} warps, chains_in_smem={chains_in_smem} "
-                         "fits shared memory")
-    resident, _ = _launch_fns()
-    f32 = dict(dtype=torch.float32, device=x0.device)
-    y = torch.empty((B, N, data.m_x + data.m_u), **f32)
-    zu = torch.empty((B, N, data.n_u), **f32)
-    residual = torch.empty((B,), **f32)
-    gap = torch.empty((B,), **f32)
-    # the segment products of both chains, per block, where they are not
-    # in shared memory
-    n = data.n_x
-    qscratch = None if lay.chains_in_smem else torch.empty(
-        (-(-B // (1 << lay.log2_tile)) * _up4(2 * lay.warps * n * n),), **f32)
-    ptr = kernels._ptr
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = resident(*launch_head(pack, data, x0, y0, iterations, restart,
-                                    lay.log2_tile),
-                       lay.warps, int(lay.chains_in_smem), ptr(qscratch),
-                       ptr(y), ptr(zu), ptr(residual), ptr(gap), lay.smem,
-                       stream)
-    if err != 0:
-        raise RuntimeError(f"gpad_stagewise launch failed: CUDA error {err}")
-    STAGEWISE_LAUNCHES += 1
+    lay = ResidentLayout(0, 0, False, 0)
+    if on_card(x0):
+        ok, why = stagewise_kernel_compatible(data)
+        if not ok:
+            raise ValueError(f"stagewise kernel cannot take this: {why}")
+        lay = resident_layout(data, x0.shape[0], sm_count(x0.device),
+                              log2_tile, warps, chains_in_smem)
+        if lay is None:
+            raise ValueError(f"no resident block of tile 2**{log2_tile}, "
+                             f"{warps} warps, chains_in_smem={chains_in_smem} "
+                             "fits shared memory")
+    zu, y, residual, gap = resident_op(
+        *pack_args(pack), x0, y0, iterations, restart, lay.log2_tile,
+        lay.warps, lay.chains_in_smem, lay.smem)
     return zu[:, 0].contiguous(), zu, y, residual, gap

@@ -15,7 +15,10 @@ resident kernel's wrapper, same plain version
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch import Tensor
 
 from tpu_gpad_torch import stagewise_kernel as sk
 from tpu_gpad_torch.solver import kernels
@@ -59,56 +62,75 @@ def stagewise_stream_compatible(data) -> tuple:
     return True, ""
 
 
-def solve_stagewise_stream(data, x0, iterations: int, restart: bool = False,
-                           y0=None, log2_tile: int | None = None):
-    """Fixed-budget stage-wise GPAD for a batch on the streamed kernel; the
-    contract of ``stagewise_kernel.solve_stagewise_cuda``: returns (u0, zu,
-    y, residual, gap). CUDA tensors launch the kernel (or raise); CPU
-    tensors run ``stagewise_kernel.stagewise_plain``."""
+# The streamed kernel as the op tpu_gpad_torch::stagewise_stream (see the
+# note above kernels._register).
+def _stream_cpu(RT: Tensor, HBT: Tensor, MT: Tensor, Gx: Tensor, Gu: Tensor,
+                h: Tensor, V: Tensor, theta: Tensor, beta: Tensor, L: Tensor,
+                x0: Tensor, y0: Optional[Tensor], iterations: int,
+                restart: bool, log2_tile: int, aux_in_smem: bool, smem: int,
+                aux_floats: int, dual_floats: int,
+                ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    pack = sk.StagewisePack(RT, HBT, MT, Gx, Gu, h, V, theta, beta, L)
+    return sk.plain_op(pack, x0, y0, iterations, restart)
+
+
+def _stream_cuda(RT, HBT, MT, Gx, Gu, h, V, theta, beta, L, x0, y0,
+                 iterations, restart, log2_tile, aux_in_smem, smem,
+                 aux_floats, dual_floats):
     global STAGEWISE_STREAM_LAUNCHES
-    y0 = sk.check_inputs(data, x0, y0, iterations, restart)
-    pack = sk.pack_stagewise_constants(data)
-    if not sk.on_card(x0):
-        return sk.stagewise_plain(pack, x0, y0, iterations=iterations,
-                                  restart=restart)
-    ok, why = stagewise_stream_compatible(data)
-    if not ok:
-        raise ValueError(f"stagewise stream kernel cannot take this: {why}")
-    B, N = x0.shape[0], data.horizon
-    log2_tile, aux_in_smem, smem = stream_layout(
-        data, B, sk.sm_count(x0.device), log2_tile)
-    if smem > kernels.SMEM_LIMIT_BYTES:
-        raise ValueError(f"tile 2**{log2_tile} needs {smem} bytes of shared "
-                         "memory")
-    _, stream_fn = sk._launch_fns()
+    pack = sk.StagewisePack(RT, HBT, MT, Gx, Gu, h, V, theta, beta, L)
+    N, n = pack.N, pack.n
     T = 1 << log2_tile
-    blocks = -(-B // T)
-    _, aux_floats, dual_floats = sk._smem_floats(data, T)
+    blocks = -(-x0.shape[0] // T)
     f32 = dict(dtype=torch.float32, device=x0.device)
     # the kernel's own work layout: one region per block of T scenarios
     y_work = torch.empty((blocks * dual_floats,), **f32)
     yp_work = torch.empty((blocks * dual_floats,), **f32)
     aux = None if aux_in_smem else torch.empty((blocks * aux_floats,), **f32)
-    y = torch.empty((B, N, data.m_x + data.m_u), **f32)
-    zu = torch.empty((B, N, data.n_u), **f32)
-    residual = torch.empty((B,), **f32)
-    gap = torch.empty((B,), **f32)
+    zu, y, residual, gap = sk._outputs(pack, x0)
     # the chains' matrices, rows padded to 128 bytes for the bulk copies:
     # [0][k] the E' rows of R'_{k+1}, [1][k] the E rows of M'_k
-    n = data.n_x
     chain_e = torch.zeros((2, N, n, 32), **f32)
-    chain_e[0, :N - 1, :, :n] = pack.RT[1:, :n]
-    chain_e[1, :, :, :n] = pack.MT[:, :n, :n]
+    chain_e[0, :N - 1, :, :n] = RT[1:, :n]
+    chain_e[1, :, :, :n] = MT[:, :n, :n]
+    _, stream_fn = sk._launch_fns()
     ptr = kernels._ptr
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = stream_fn(ptr(chain_e),
-                        *sk.launch_head(pack, data, x0, y0, iterations,
-                                        restart, log2_tile),
-                        ptr(y_work), ptr(yp_work), ptr(aux), ptr(y), ptr(zu),
-                        ptr(residual), ptr(gap), smem, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"gpad_stagewise_stream launch failed: CUDA error {err}")
+    kernels._launch("gpad_stagewise_stream", stream_fn, x0.device,
+                    ptr(chain_e),
+                    *sk.launch_head(pack, x0, y0, iterations, restart,
+                                    log2_tile),
+                    ptr(y_work), ptr(yp_work), ptr(aux), ptr(y), ptr(zu),
+                    ptr(residual), ptr(gap), smem)
     STAGEWISE_STREAM_LAUNCHES += 1
+    return zu, y, residual, gap
+
+
+stream_op = kernels._register("stagewise_stream", _stream_cpu, _stream_cuda,
+                              sk.fake_outputs)
+
+
+def solve_stagewise_stream(data, x0, iterations: int, restart: bool = False,
+                           y0=None, log2_tile: int | None = None):
+    """Fixed-budget stage-wise GPAD for a batch on the streamed kernel; the
+    contract of ``stagewise_kernel.solve_stagewise_cuda``: returns (u0, zu,
+    y, residual, gap). CUDA tensors launch the kernel (or raise); CPU
+    tensors run ``stagewise_kernel.stagewise_plain`` (the op
+    ``tpu_gpad_torch::stagewise_stream``)."""
+    y0 = sk.check_inputs(data, x0, y0, iterations, restart)
+    pack = sk.pack_stagewise_constants(data)
+    layout = (0, False, 0, 0, 0)
+    if sk.on_card(x0):
+        ok, why = stagewise_stream_compatible(data)
+        if not ok:
+            raise ValueError(f"stagewise stream kernel cannot take this: {why}")
+        log2_tile, aux_in_smem, smem = stream_layout(
+            data, x0.shape[0], sk.sm_count(x0.device), log2_tile)
+        if smem > kernels.SMEM_LIMIT_BYTES:
+            raise ValueError(f"tile 2**{log2_tile} needs {smem} bytes of "
+                             "shared memory")
+        # the kernel's work regions, per block
+        _, aux_floats, dual_floats = sk._smem_floats(data, 1 << log2_tile)
+        layout = (log2_tile, aux_in_smem, smem, aux_floats, dual_floats)
+    zu, y, residual, gap = stream_op(*sk.pack_args(pack), x0, y0, iterations,
+                                     restart, *layout)
     return zu[:, 0].contiguous(), zu, y, residual, gap
