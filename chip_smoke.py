@@ -53,8 +53,15 @@ that 2 does not divide: the torch engine; 28 plants through
 unsharded times in turns; and AOT export (``tpu_gpad_torch.aot``): every
 kernel's route exported at a concrete batch and one symbolic artifact of
 each solver, loaded in a fresh process, each loaded call launching the
-live call's kernel as many times and equal to it. It times
-kernels and
+live call's kernel as many times and equal to it; and the precision
+tiers of the torch engine (``tiers_path``: each tier's u against fp32
+"highest" at the headline and the flagship, a kernel route refusing the
+tier, "highest" deaf to the caller's TF32 switch, each tier shown to take
+effect at the flagship, the bf16 product fp32-accumulated) and the timing
+harness
+(``timing_path``: ``interleaved_ab`` of the tiers and of ``auto`` against
+the bare flat kernel op, ``matmul_peak_tflops`` of each tier, the headline
+solve's ``device_time_stats`` and percentiles). It times kernels and
 plain versions with CUDA events, computes each kernel's roofline bound
 from its shapes, and prints one JSON object per phase. Any failed check exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``. It imports
@@ -4015,6 +4022,195 @@ def phase_aot_path(torch, tg, ctr, smi):
             if legs[name][0]}
 
 
+# The precision tiers of the torch engine (SolverConfig.precision and
+# matmul_dtype), each one's max |u - u(highest)| allowed at the headline,
+# B4096 x 100 (tests/test_pallas.py's bounds for "high" and bf16)
+TIER_KW = {"highest": {}, "high": dict(precision="high"),
+           "default": dict(precision="default"),
+           "bfloat16": dict(matmul_dtype="bfloat16")}
+TIER_TOL = {"high": 5e-4, "default": 5e-3, "bfloat16": 5e-2}
+# at the flagship, where one TF32 product moves u visibly, each tier must
+# show that it took effect: "high" within TIER_HIGH_FLAGSHIP of "highest"
+# (one TF32 product reads about 1e-4 there), "default" and bf16 at least
+# TIER_APART times as far off as "high" (an fp32 product reads 0)
+TIER_HIGH_FLAGSHIP = 1e-5
+TIER_APART = 10.0
+# the bf16 product's error over the largest |entry| of the exact product of
+# the bf16-rounded operands: fp32 accumulation and output, where a bf16
+# output would round at 2^-9
+BF16_PRODUCT_TOL = 2e-4
+# interleaved A/B of the tiers (the torch engine, 20-100 ms a call): short
+# windows of 1 and 4 calls; the headline against the bare kernel op
+TIER_AB = dict(rounds=5, k_small=1, k_large=4, min_window_s=0.05)
+AUTO_AB = dict(rounds=8)
+PEAK_SIZE = 4096
+
+
+def tier_shapes(torch, tg, seed):
+    """(name, qp, data, x0) at the headline B4096 and the flagship B256."""
+    for name, (qp, data), B in (("headline", headline(tg), BATCH),
+                                ("flagship", flagship(tg), FLAG_BATCH)):
+        yield name, qp, data, flag_x0(torch, qp.n_x, B, seed)[1]
+
+
+def phase_tiers_path(torch, tg, core, ctr, smi):
+    """The precision tiers on the torch engine at the headline and the
+    flagship: each tier's max |u - u(highest)| (held to TIER_TOL at both,
+    finite everywhere); under each tier, the route ``auto``
+    takes (a kernel) raises NotImplementedError and ``engine="torch"``
+    runs it; "highest" with the caller's TF32 switch on equals the solve
+    with it off bit for bit, and the switch is as the caller left it. Each
+    leg's launches (one ``auto`` "highest" solve, the kernel its route
+    names) counted from 0. At the flagship each tier shows that it took
+    effect (TIER_HIGH_FLAGSHIP, TIER_APART). The bf16 product is
+    ``mm(out_dtype=float32)``, fp32-accumulated (BF16_PRODUCT_TOL)."""
+    out = {"phase": "tiers_path", "smi": smi}
+    mb = core._Matmul(tg.SolverConfig(matmul_dtype="bfloat16"), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    a, b = (torch.randn(shape, generator=gen, device=DEVICE)
+            for shape in ((256, 1024), (1024, 256)))
+    got = mb(a, mb.prep(b))
+    exact = a.bfloat16().double() @ b.bfloat16().double()
+    rel = ((got.double() - exact).abs().max() / exact.abs().max()).item()
+    out.update(bf16_product=mb.route, bf16_product_rel_err=rel)
+    check(mb.route == "out_dtype" and got.dtype == torch.float32,
+          f"tiers: the bf16 product is {mb.route} -> {got.dtype}")
+    check(rel <= BF16_PRODUCT_TOL, f"tiers: the bf16 product is off by "
+          f"{rel} of its largest entry (> {BF16_PRODUCT_TOL})")
+    launches = {}
+    for name, qp, data, X0 in tier_shapes(torch, tg, seed=16):
+        kernel = core.cuda_kernel(data, tg.SolverConfig())
+        reset_counters(*ctr)
+        auto = tg.solve_batch(data, X0, tg.SolverConfig())
+        torch.cuda.synchronize()
+        launches[name] = launch_counts(*ctr)
+        check(launches[name] == {f"gpad_{kernel}": 1},
+              f"tiers {name}: auto launched {launches[name]}")
+        leg = {"batch": int(X0.shape[0]), "auto_kernel": kernel}
+        u = {}
+        for tier, kw in TIER_KW.items():
+            if tier != "highest":
+                try:
+                    tg.solve_batch(data, X0, tg.SolverConfig(**kw))
+                    raised = ""
+                except NotImplementedError as e:
+                    raised = str(e)
+                check("precision tiers for the CUDA kernels" in raised
+                      and "engine='torch'" in raised,
+                      f"tiers {name} {tier}: auto did not refuse ({raised})")
+            reset_counters(*ctr)
+            u[tier] = tg.solve_batch(data, X0, tg.SolverConfig(
+                engine="torch", **kw)).u
+            torch.cuda.synchronize()
+            check(launch_counts(*ctr) == {}, f"tiers {name} {tier}: the "
+                  "torch engine launched a kernel")
+            check(bool(torch.isfinite(u[tier]).all()),
+                  f"tiers {name} {tier}: u not finite")
+        for tier, tol in TIER_TOL.items():
+            du = (u[tier] - u["highest"]).abs().max().item()
+            leg[f"max_du_{tier}"] = du
+            check(du <= tol, f"tiers {name}: {tier} |du| {du} > {tol}")
+        if name == "flagship":
+            high = leg["max_du_high"]
+            check(high <= TIER_HIGH_FLAGSHIP, f"tiers {name}: high |du| "
+                  f"{high} > {TIER_HIGH_FLAGSHIP} (3xTF32 not in effect)")
+            for tier in ("default", "bfloat16"):
+                du = leg[f"max_du_{tier}"]
+                check(du > 0 and du >= TIER_APART * high,
+                      f"tiers {name}: {tier} |du| {du} is not {TIER_APART}x "
+                      f"high's {high} (the tier took no effect)")
+        leg["max_du_auto_kernel_vs_torch"] = (
+            auto.u - u["highest"]).abs().max().item()
+        caller = torch.backends.cuda.matmul.allow_tf32
+        try:
+            runs = {}
+            for flag in (True, False):
+                torch.backends.cuda.matmul.allow_tf32 = flag
+                runs[flag] = tg.solve_batch(data, X0, tg.SolverConfig(
+                    engine="torch"))
+                check(torch.backends.cuda.matmul.allow_tf32 is flag,
+                      f"tiers {name}: the caller's TF32 switch was changed")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = caller
+        same = all(torch.equal(getattr(runs[True], f), getattr(runs[False], f))
+                   for f in AOT_FIELDS)
+        check(same, f"tiers {name}: highest differs with the caller's TF32 on")
+        leg["highest_ignores_callers_tf32"] = same
+        out[name] = leg
+    emit(out)
+    return launches
+
+
+def phase_timing_path(torch, tg, core, kernels, ctr, smi):
+    """``tpu_gpad_torch.utils.timing`` on the card: ``interleaved_ab`` of
+    "highest" against each tier on the torch engine at the flagship B256
+    and the headline B4096; of the bare ``tpu_gpad_torch::paired_flat`` op
+    against ``solve_batch(engine="auto")`` at the headline (the same
+    kernel and plan; the solve adds x0's affine maps, the wrapper's checks
+    and the residuals); ``matmul_peak_tflops`` of the four tiers at 4096;
+    ``device_time_stats`` and ``device_time_percentiles`` of the headline
+    solve. Ratios are B over A."""
+    from tpu_gpad_torch.utils import (device_time_percentiles,
+                                      device_time_stats, interleaved_ab,
+                                      matmul_peak_tflops)
+
+    keys = ("ratio_b_over_a_median", "ratio_b_over_a_iqr", "t_a_median_s",
+            "t_b_median_s", "rounds", "rejected_rounds", "unstable")
+    t_phase = time.perf_counter()
+    out = {"phase": "timing_path", "smi": smi}
+    for name, qp, data, X0 in tier_shapes(torch, tg, seed=17):
+        def solve(kw, data=data, X0=X0):
+            cfg = tg.SolverConfig(engine="torch", **kw)
+            return lambda: tg.solve_batch(data, X0, cfg).u
+
+        out[name] = {}
+        for tier in TIER_TOL:
+            ab = interleaved_ab(solve({}), solve(TIER_KW[tier]), **TIER_AB)
+            out[name][f"highest_vs_{tier}"] = {k: ab[k] for k in keys}
+            check(ab["rounds"] > 0, f"timing {name} {tier}: no valid round")
+    qp, data = headline(tg)
+    _, X0 = flag_x0(torch, qp.n_x, BATCH, seed=17)
+    g_P, p_D = core.affine_params(data, X0)
+    plan = kernels._paired_plan(data.m_half, data.n_z, data.n_struct, BATCH)
+    args = (data.MG_T, data.GL_T, g_P, p_D, None, kernels._od(data),
+            data.theta, data.beta, data.L, data.n_struct, ITERS, *plan, True)
+    bare = lambda: torch.ops.tpu_gpad_torch.paired_flat(*args)[0]
+    auto = lambda: tg.solve_batch(data, X0, tg.SolverConfig()).u
+    du = (bare()[:, :data.n_u] - auto()).abs().max().item()
+    check(du <= KERNEL_TOL, f"timing: the bare op and the auto solve differ "
+          f"by {du}")
+    out["headline_kernel_op_vs_auto_max_du"] = du
+    launches = {}
+    reset_counters(*ctr)
+    ab = interleaved_ab(bare, auto, **AUTO_AB)
+    torch.cuda.synchronize()
+    launches["auto_vs_kernel"] = launch_counts(*ctr)
+    check(set(launches["auto_vs_kernel"]) == {"gpad_paired_flat"},
+          f"timing: auto against the op launched {launches['auto_vs_kernel']}")
+    out["headline_kernel_op_vs_auto"] = {k: ab[k] for k in keys}
+    check(ab["rounds"] > 0, "timing: auto against the op, no valid round")
+    reset_counters(*ctr)
+    stats = device_time_stats(auto, n=9)
+    pct = device_time_percentiles(auto, n=100)
+    torch.cuda.synchronize()
+    launches["stats"] = launch_counts(*ctr)
+    out["headline_auto_stats"] = {k: stats[k] for k in (
+        "median_s", "iqr_s", "n", "rejected", "window_calls")}
+    out["headline_auto_percentiles"] = pct
+    out["matmul_peak_tflops"] = {
+        tier: matmul_peak_tflops(kw.get("matmul_dtype", "float32"),
+                                 kw.get("precision", "highest"),
+                                 size=PEAK_SIZE)
+        for tier, kw in TIER_KW.items()}
+    check(all(np.isfinite(v) and v > 0
+              for v in out["matmul_peak_tflops"].values()),
+          f"timing: matmul_peak_tflops {out['matmul_peak_tflops']}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
+
+
 def kernel_ms(med, kernel, B=BATCH) -> float:
     """A resident kernel's time at batch B: the profiler's device time of
     its launch, or where the profiler saw none, the CUDA-event time of its
@@ -4157,6 +4353,10 @@ def main() -> int:
     }
     # AOT artifacts, every kernel's route loaded in a fresh process
     aot_launches = phase_aot_path(torch, tg, ctr, smi)
+    # the precision tiers on the torch engine, then the timing harness
+    late = {"tiers_path": phase_tiers_path(torch, tg, core, ctr, smi),
+            "timing_path": phase_timing_path(torch, tg, core, kernels, ctr,
+                                             smi)}
     med = phase_timing(torch, tg, kernels, dual_kernels, core, smi)
     dmed = phase_dual_timing(torch, tg, kernels, dual_kernels, core, smi)
     smed = phase_stagewise_timing(torch, tg, sk, ss, ts, smi)
@@ -4308,6 +4508,11 @@ def main() -> int:
             by_kernel.setdefault(kernel, {})["aot"] = n
     check(all("aot" in by_kernel.get(k["name"], {}) for k in line),
           f"the AOT path launched {aot_launches}")
+    # and the legs of the tiers and timing paths
+    for phase, legs in late.items():
+        for leg, got in legs.items():
+            for kernel, n in got.items():
+                by_kernel.setdefault(kernel, {})[f"{phase}.{leg}"] = n
     for k in line:
         legs = by_kernel.get(k["name"], {})
         k["launches_by_path"] = {"earlier_paths": k["launches"], **legs}

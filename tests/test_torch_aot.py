@@ -258,3 +258,59 @@ def test_mesh_axes_refused(kw):
                              iterations=40, device="cpu")
     with pytest.raises(ValueError, match="process groups"):
         aot.export_stagewise_solver(d_s, SolverConfig(iterations=40, **kw))
+
+
+# Exports in one fresh process (dynamo's cache empty at its start): a
+# stage-wise artifact, then condensed ones; each artifact loaded and run
+# against its live solve. Prints the legs that matched, as JSON.
+_EXPORT_SEQUENCE = r"""
+import json, sys
+import numpy as np, torch
+torch.set_num_threads(2)
+import tpu_gpad_torch as tg
+from tpu_gpad_torch import aot
+from tpu_gpad_torch.solver import SolverConfig
+
+legs = sys.argv[1].split(",")
+x0 = np.random.default_rng(0).uniform(-0.4, 0.4, (5, 3)).astype(np.float32)
+done = []
+for leg in legs:
+    if leg == "stagewise":
+        data = tg.build_stagewise(tg.problems.battery(3, 12), iterations=200,
+                                  device="cpu")
+        blob = aot.export_stagewise_solver(data, SolverConfig())
+        live = tg.solve_stagewise(data, x0, config=SolverConfig(),
+                                  engine="torch", scan="sequential")
+    else:
+        data = tg.dualize(tg.condense(tg.problems.battery(3, 10)),
+                          iterations=100, paired=True, device="cpu")
+        cfg = {"mvp_fixed": SolverConfig(form="mvp", flat="on"),
+               "mvp_restart": SolverConfig(form="mvp", restart=True),
+               "dual_restart": SolverConfig(restart=True)}[leg]
+        blob = aot.export_solver(data, cfg)
+        live = tg.solve_batch(data, x0, cfg)
+    out = aot.load_solver(blob)(x0)
+    assert all(torch.equal(out[k], getattr(live, k)) for k in out), leg
+    done.append(leg)
+print(json.dumps(done))
+"""
+
+
+@pytest.mark.parametrize("legs", [
+    ("stagewise", "mvp_fixed", "dual_restart"),
+    ("stagewise", "mvp_restart"),
+], ids=["fixed_then_dual_restart", "mvp_restart"])
+def test_condensed_export_after_stagewise(legs):
+    """A condensed export after a stage-wise one in the same process: the
+    fixed mvp loop (``core._solve_fixed``) and the restart loops (restart
+    runs ``scan`` over placeholders) each export, load and equal their live
+    solves. Dynamo caches every ``scan`` body under one frame; two restart
+    placeholders that were one tensor failed the cached stage-wise body's
+    no-aliasing guard, and dynamo's reason for it evaluated that body's
+    guard sources against the condensed body's closure and raised."""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "-c", _EXPORT_SEQUENCE, ",".join(legs)], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == list(legs)

@@ -43,7 +43,8 @@ def test_port_imports_no_jax():
                  "solver.multi", "sweep", "robust", "estimator", "mhe",
                  "analysis", "utils.debug", "nonlinear", "device_condense",
                  "problems.pendulum", "problems.point_mass", "diff",
-                 "parallel", "parallel.distrib", "parallel.mp_worker", "aot"):
+                 "parallel", "parallel.distrib", "parallel.mp_worker", "aot",
+                 "utils.timing"):
         assert f"tpu_gpad_torch.{name}" in out["imported"]
     assert out["bad"] == []
 
@@ -61,11 +62,6 @@ def test_chip_smoke_fails_without_a_card():
 # Public names of tpu_gpad that the port does not carry yet, each with the
 # module (ROADMAP Queue 1) that brings it; the set shrinks with each slice.
 UNPORTED = {
-    "device_time_percentiles": "utils/timing.py",
-    "device_time_stats": "utils/timing.py",
-    "interleaved_ab": "utils/timing.py",
-    "matmul_peak_tflops": "utils/timing.py",
-    "wall_times": "utils/timing.py",
     # no counterpart: the port runs eagerly (tpu_gpad_torch/stagewise.py)
     "solve_stagewise_jit": "none, eager port",
 }

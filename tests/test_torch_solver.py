@@ -180,13 +180,17 @@ def test_sharding_axes_need_a_bound_group(paired_pair, one_rank_group, kw):
 
 @pytest.mark.parametrize(
     "kw, missing",
-    # each message names what is still to be ported and points at the ROADMAP
-    [(dict(precision="high"), "precision tiers"),
-     (dict(matmul_dtype="bfloat16"), "precision tiers")],
+    # the CUDA kernels are fp32 "highest" only: a kernel route under another
+    # tier names what is still to be ported, points at the ROADMAP and at
+    # the engine that serves the tier
+    [(dict(precision="high"), "precision tiers for the CUDA kernels"),
+     (dict(matmul_dtype="bfloat16"), "precision tiers for the CUDA kernels")],
     ids=["precision", "matmul_dtype"],
 )
 def test_unported_modes_raise(paired_pair, kw, missing):
     _, _, d_t = paired_pair
-    with pytest.raises(NotImplementedError, match=f"{missing}.*ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match=f"{missing}.*ROADMAP.*engine='torch'"):
         tpu_gpad_torch.solve_batch(
-            d_t, np.zeros((1, 3), np.float32), SolverConfig(**kw))
+            d_t, np.zeros((1, 3), np.float32),
+            SolverConfig(engine="cuda", **kw))

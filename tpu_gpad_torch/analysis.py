@@ -19,13 +19,15 @@ import torch
 
 from tpu_gpad_torch.solver.core import (
     SolverConfig,
-    _check_ported,
+    _check_config,
     _init_state,
     _iteration,
+    _Matmul,
     _momentum,
     _residuals,
     _restart_update,
     affine_params,
+    tf32_matmuls,
 )
 from tpu_gpad_torch.types import GPADData
 
@@ -48,7 +50,9 @@ def convergence_trace(
     recording residual and gap at every step, as
     ``tpu_gpad.analysis.convergence_trace``. Uses the mvp-form iteration of
     the torch engine (the same math as the production engines); supports
-    ``config.restart``. The records stay on the device until the end."""
+    ``config.restart``, and the products of ``config``'s precision tier
+    (``solver.core._Matmul``), as JAX's. The records stay on the
+    device until the end."""
     if config.iterations is None:
         config = dataclasses.replace(config, iterations=data.max_iters)
     if config.iterations > data.max_iters and not config.restart:
@@ -59,27 +63,31 @@ def convergence_trace(
             f"shipped momentum schedule only has {data.max_iters}; "
             "re-dualize with a longer one"
         )
-    _check_ported(config)
+    _check_config(config)
     x0 = torch.atleast_2d(
         torch.as_tensor(x0, dtype=torch.float32, device=data.device))
-    g_P, p_D = affine_params(data, x0)
+    with tf32_matmuls(False):
+        g_P, p_D = affine_params(data, x0)
     batch_shape = g_P.shape[:-1]
     y, y_prev, z, _, _ = _init_state(data, batch_shape)
     th = th_prev = torch.ones(batch_shape, dtype=torch.float32,
                               device=data.device)
+    mm = _Matmul(config, data)
     res_hist, gap_hist = [], []
-    for k in range(config.iterations):
-        theta_k, beta_k = _momentum(config, data, k, th, th_prev)
-        w, zhat, z, y_next = _iteration(
-            data, g_P, p_D, theta_k, beta_k, y, y_prev, z)
-        if config.restart:
-            y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w)
-        else:
-            y_prev = y
-        y = y_next
-        viol_z, _, gap = _residuals(data, g_P, p_D, z, zhat, w)
-        res_hist.append(torch.clamp_min(viol_z, 0.0))
-        gap_hist.append(gap)
+    with tf32_matmuls(mm.tf32):
+        for k in range(config.iterations):
+            theta_k, beta_k = _momentum(config, data, k, th, th_prev)
+            w, zhat, z, y_next = _iteration(
+                data, g_P, p_D, theta_k, beta_k, y, y_prev, z, mm)
+            if config.restart:
+                y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next,
+                                                      w)
+            else:
+                y_prev = y
+            y = y_next
+            viol_z, _, gap = _residuals(data, g_P, p_D, z, zhat, w, mm)
+            res_hist.append(torch.clamp_min(viol_z, 0.0))
+            gap_hist.append(gap)
     return ConvergenceTrace(
         residual=torch.stack(res_hist).cpu().numpy(),
         gap=torch.stack(gap_hist).cpu().numpy(),

@@ -27,20 +27,31 @@ The solver's loops export as one body each (a ``scan`` over the schedule,
 a ``while_loop`` over eps check windows), so an artifact's graph does not
 grow with the iteration budget. The callable returns the ``SolveResult``
 fields as a plain dict.
+
+A precision tier (``SolverConfig.precision``, ``matmul_dtype``; the torch
+engine only) exports as the ops that the graph holds: the bf16 casts and
+the 3xTF32 split. The TF32 switch is process state, not a graph op, so the
+artifact records its tier in the archive (``gpad_tier.json``) and
+``load_solver``'s callable runs under the same scoped switch
+(``solver.core.tf32_matmuls``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import io
+import json
 from pathlib import Path
 
 import torch
 
+from tpu_gpad_torch.solver import core
 from tpu_gpad_torch.solver.core import SolverConfig, solve_batch
 from tpu_gpad_torch.types import GPAD_TENSOR_FIELDS, GPADData
 
 _RESULT_KEYS = ("u", "z", "y", "iterations", "residual", "gap", "converged")
+# the archive entry that records the tier an artifact's products run at
+_TIER_FILE = "gpad_tier.json"
 
 
 class _Solve(torch.nn.Module):
@@ -70,9 +81,16 @@ def _refuse_axes(config: SolverConfig) -> None:
             "solve")
 
 
-def _export(module, data, batch_size, path) -> bytes:
+def _tier_record(config: SolverConfig) -> dict:
+    """The tier an artifact's products run at, as ``load_solver`` reads it."""
+    return {"precision": config.precision, "matmul_dtype": config.matmul_dtype,
+            "tier": core.tier(config), "tf32": core._tf32(config)}
+
+
+def _export(module, data, batch_size, path, tier: dict) -> bytes:
     """Trace ``module`` on an ``x0`` of (batch_size or a symbolic b, n_x)
-    float32 on the data's device; save, write to ``path``, return bytes."""
+    float32 on the data's device; save with its ``tier`` record, write to
+    ``path``, return bytes."""
     if batch_size is None:
         B, dynamic = 2, ({0: torch.export.Dim("b")},)
     else:
@@ -80,7 +98,7 @@ def _export(module, data, batch_size, path) -> bytes:
     x0 = torch.zeros((B, data.n_x), dtype=torch.float32, device=data.device)
     program = torch.export.export(module, (x0,), dynamic_shapes=dynamic)
     buf = io.BytesIO()
-    torch.export.save(program, buf)
+    torch.export.save(program, buf, extra_files={_TIER_FILE: json.dumps(tier)})
     blob = buf.getvalue()
     if path is not None:
         Path(path).write_bytes(blob)
@@ -101,13 +119,15 @@ def export_solver(
     float32, on the data's device. ``batch_size=None`` exports a symbolic
     batch on the torch engine; a concrete one routes as a live solve on
     the exporting device and serves that card type only (see the module
-    docstring)."""
+    docstring). A tier other than fp32 "highest" runs the torch engine: a
+    concrete batch that a kernel would serve raises, as the live call."""
     _refuse_axes(config)
+    core._check_config(config)
     if batch_size is None:
         config = dataclasses.replace(config, engine="torch")
     module = _Solve(data, GPAD_TENSOR_FIELDS,
                     lambda d, x0: solve_batch(d, x0, config=config))
-    return _export(module, data, batch_size, path)
+    return _export(module, data, batch_size, path, _tier_record(config))
 
 
 def load_solver(src: bytes | str | Path):
@@ -119,18 +139,24 @@ def load_solver(src: bytes | str | Path):
     launcher modules are imported first: deserialization resolves the
     kernel ops (``torch.ops.tpu_gpad_torch.*``) a concrete artifact holds.
     No re-trace happens; a symbolic artifact would load with
-    ``torch.export.load`` alone."""
+    ``torch.export.load`` alone. Each call runs with TF32 set as the
+    artifact's tier sets it (off for fp32 "highest" and for an archive
+    that records no tier), and the caller's setting restored after it."""
     from tpu_gpad_torch import stagewise_kernel, stagewise_stream  # noqa: F401
     from tpu_gpad_torch.solver import dual_kernels, kernels  # noqa: F401
 
     if not isinstance(src, (bytes, bytearray)):
         src = Path(src).read_bytes()
-    program = torch.export.load(io.BytesIO(bytes(src)))
+    extra = {_TIER_FILE: ""}
+    program = torch.export.load(io.BytesIO(bytes(src)), extra_files=extra)
+    tf32 = bool(json.loads(extra[_TIER_FILE] or "{}").get("tf32", False))
     device = next(iter(program.state_dict.values())).device
     module = program.module()
 
     def solve(x0):
-        return module(torch.as_tensor(x0, dtype=torch.float32, device=device))
+        x0 = torch.as_tensor(x0, dtype=torch.float32, device=device)
+        with core.tf32_matmuls(tf32):
+            return module(x0)
 
     return solve
 
@@ -148,7 +174,9 @@ def export_stagewise_solver(
     Same two batch conventions: a symbolic batch pins the torch engine with
     sequential sweeps (the kernels' launches and the routing rules need a
     concrete B); a concrete ``batch_size`` resolves routing exactly as a
-    live ``solve_stagewise`` would on the exporting device."""
+    live ``solve_stagewise`` would on the exporting device. The stage-wise
+    engine runs fp32 "highest" whatever the config's tier, as
+    ``tpu_gpad.stagewise`` does, and its artifact records that."""
     from tpu_gpad_torch.stagewise import (STAGEWISE_TENSOR_FIELDS,
                                           solve_stagewise)
 
@@ -159,4 +187,5 @@ def export_stagewise_solver(
     module = _Solve(data, STAGEWISE_TENSOR_FIELDS,
                     lambda d, x0: solve_stagewise(d, x0, config=config,
                                                   engine=engine, scan=scan))
-    return _export(module, data, batch_size, path)
+    return _export(module, data, batch_size, path,
+                   _tier_record(SolverConfig()))

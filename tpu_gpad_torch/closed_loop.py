@@ -151,8 +151,9 @@ class Controller:
     tolerance. ``reset()`` drops the warm start. ``polish=True`` refines
     each step's u* to the exact QP optimum on the host
     (``solver.qp.polish_batch``, float64 NumPy), as ``tpu_gpad`` does;
-    ``gain`` needs ``diff.py``, not yet ported. ``from_qp`` serves a
-    prebuilt ``CondensedQP``, e.g. a ``robust.scenario_qp`` stack."""
+    ``gain`` differentiates u* through the solve (``diff.py``).
+    ``from_qp`` serves a prebuilt ``CondensedQP``, e.g. a
+    ``robust.scenario_qp`` stack."""
 
     def __init__(
         self,

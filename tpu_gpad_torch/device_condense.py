@@ -43,7 +43,6 @@ converged.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -51,20 +50,8 @@ import numpy as np
 import torch
 
 from tpu_gpad_torch.schedule import momentum_schedule
+from tpu_gpad_torch.solver.core import tf32_matmuls
 from tpu_gpad_torch.types import PAD_BIG, GPADData
-
-
-@contextlib.contextmanager
-def fp32_matmuls():
-    """Hold TF32 off for the products in the block, and restore the caller's
-    setting after it (the counterpart of the JAX package's
-    ``default_matmul_precision("highest")``)."""
-    flag = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = flag
 
 
 def _prediction(A, B, c):
@@ -94,7 +81,7 @@ def prediction_matrices_device(A: torch.Tensor, B: torch.Tensor):
     (..., N, n_x, n_x) / (..., N, n_x, n_u) -> dense T (..., N n_x, n_x),
     S (..., N n_x, N n_u), float32 with TF32 off."""
     A = A.to(torch.float32)
-    with fp32_matmuls():
+    with tf32_matmuls(False):
         T, S, _ = _prediction(A, B.to(A), torch.zeros(A.shape[:-1], dtype=A.dtype,
                                                       device=A.device))
     return T, S
@@ -371,7 +358,7 @@ def dualize_ltv(k: LTVConstants, A, B, c) -> GPADData:
             f"{n_u}), (..., {N}, {n_x}); got {tuple(A.shape)}, "
             f"{tuple(B.shape)}, {tuple(c.shape)}")
     n_z = N * n_u
-    with fp32_matmuls():
+    with tf32_matmuls(False):
         T, S, s_off = _prediction(A, B, c)
         H, F, g = _costs(k.Qs, k.Rbar, T, S, s_off, k.ones_kron)
         ex = lambda t: t.expand(*lead, *t.shape)  # a constant block per batch
@@ -661,7 +648,7 @@ def dualize_scenario(k: ScenarioConstants, A, B, c) -> GPADData:
     n_tilde = n_u + S * tail
     w = k.weights
     f32 = dict(dtype=torch.float32, device=dev)
-    with fp32_matmuls():
+    with tf32_matmuls(False):
         Ts, Ss, s_offs = _prediction(A, B, c)
         Hs, Fs, gs = _costs(k.Qs, k.Rbar, Ts, Ss, s_offs, k.ones_kron)
         # the selector's block structure: z~'s shared block accumulates

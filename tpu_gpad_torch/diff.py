@@ -37,8 +37,8 @@ import dataclasses
 
 import torch
 
-from tpu_gpad_torch.device_condense import fp32_matmuls
 from tpu_gpad_torch.solver import core as _core
+from tpu_gpad_torch.solver.core import tf32_matmuls
 from tpu_gpad_torch.types import GPAD_TENSOR_FIELDS, GPADData
 
 # method="auto": JAX takes CG on a TPU (batched factorizations measured
@@ -174,7 +174,7 @@ def sensitivity(data: GPADData, y, tol: float = 1e-7, ridge: float = 0.0,
     if single:
         y = y[None]
     m_b, plus = active_signs(data, y, tol)
-    with fp32_matmuls():
+    with tf32_matmuls(False):
         R = _masked_rhs_map(data, m_b, plus)
         dY = _solve_masked_system(data, m_b, ridge, R, method)
         K_z = -torch.einsum("sz,bsp->bzp", data.MG_T, dY) - data.gP_map.mT
@@ -230,7 +230,7 @@ class _ParamSolve(torch.autograd.Function):
         m_b, plus = ctx.saved_tensors
         data, s = ctx.data, ctx.s
         z_bar_full = _pad_cotangent(z_bar, data.n_z)
-        with fp32_matmuls():
+        with tf32_matmuls(False):
             R = _masked_rhs_map(data, m_b, plus)  # (..., S, n_p)
             t = z_bar_full @ data.MG_T.mT  # (..., S)
             w = _solve_masked_system(data, m_b, s.ridge, t[..., None],
@@ -297,7 +297,7 @@ class _DataSolve(torch.autograd.Function):
         plus = None if plus is None else plus.reshape(-1, S)
         y_eff = y_eff.reshape(-1, S)
         z_star = z_star.reshape(-1, n_z)
-        with fp32_matmuls():
+        with tf32_matmuls(False):
             t = z_bar_full @ data.MG_T.mT
             w = m_b * _solve_masked_system(data, m_b, s.ridge, t[..., None],
                                            s.method)[..., 0]
@@ -445,7 +445,7 @@ def _sw_vjp(data, cs, m_b, z_bar, ridge: float, full: bool, cg_iters: int):
                              device=z_bar.device)
         ru_bar[0] = z_bar
     mb = m_b.transpose(0, 1)
-    with fp32_matmuls():
+    with tf32_matmuls(False):
         # t = (dzhat/dw)' zbar = G(-H^-1 zbar): one linear LQR solve
         zero_q = torch.zeros((N, B, data.n_x), dtype=ru_bar.dtype,
                              device=ru_bar.device)

@@ -45,7 +45,7 @@ import torch
 
 from tpu_gpad_torch.types import LinearMPCProblem
 from tpu_gpad_torch.closed_loop import Controller
-from tpu_gpad_torch.solver.core import SolverConfig
+from tpu_gpad_torch.solver.core import SolverConfig, tf32_matmuls
 
 
 def kalman_gain(
@@ -343,13 +343,9 @@ class ExtendedKalmanFilter:
         Jacobian corrupts the float64 covariance recursion it feeds)."""
         t = [torch.as_tensor(np.asarray(a, np.float32).reshape(-1),
                              device=self.device) for a in args]
-        tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
+        with tf32_matmuls(False):
             val = fn(*t)
             jac = torch.func.jacfwd(fn, argnums=0)(*t)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
         return (val.detach().cpu().double().numpy(),
                 jac.detach().cpu().double().numpy())
 

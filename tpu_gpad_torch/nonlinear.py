@@ -43,11 +43,11 @@ from tpu_gpad_torch.condense import condense, dualize
 from tpu_gpad_torch.device_condense import (
     dualize_ltv,
     dualize_scenario,
-    fp32_matmuls,
     ltv_constants,
     scenario_constants,
 )
 from tpu_gpad_torch.solver import SolverConfig, solve_batch
+from tpu_gpad_torch.solver.core import tf32_matmuls
 from tpu_gpad_torch.solver.multi import solve_multi, stack_data
 from tpu_gpad_torch.types import LinearMPCProblem
 
@@ -81,7 +81,7 @@ def rollout(f: Callable, x0: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
     n_x). Leading dimensions are scenarios (``torch.func.vmap``)."""
     fb = _over_leading(f, x0.ndim - 1)
     x, xs = x0, []
-    with fp32_matmuls():
+    with tf32_matmuls(False):
         for k in range(us.shape[-2]):
             x = fb(x, us[..., k, :])
             xs.append(x)
@@ -101,7 +101,7 @@ def linearize(f: Callable, xs: torch.Tensor, us: torch.Tensor):
     lead = xs.shape[:-1]
     n_x, n_u = xs.shape[-1], us.shape[-1]
     xf, uf = xs.reshape(-1, n_x), us.reshape(-1, n_u)
-    with fp32_matmuls():
+    with tf32_matmuls(False):
         # float32 Jacobians: forward-mode tangents of a product with a
         # Python float may come back in float64 on some torch builds
         A, B = (J.to(xf.dtype) for J in torch.func.vmap(

@@ -41,7 +41,6 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-import functools
 from dataclasses import dataclass
 
 import torch
@@ -69,9 +68,21 @@ class SolverConfig:
     outside it they raise ``ValueError``. The torch engine serves
     ``model_axis``, as XLA does in the JAX package.
 
-    Not yet ported (raise ``NotImplementedError``): ``precision`` other
-    than "highest" and ``matmul_dtype`` other than "float32". ``unroll`` is
-    accepted for parity and has no effect on the eager loop.
+    ``precision`` ("highest" | "high" | "default") and ``matmul_dtype``
+    ("float32" | "bfloat16") set the torch engine's hot products, as the
+    JAX package's ``_make_matmul`` does (``_Matmul`` here): "highest" is
+    IEEE fp32 with TF32 held off, "high" 3xTF32 (each operand split into a
+    TF32-exact part and its remainder, three products), "default" one TF32
+    product, "bfloat16" bf16 operands accumulated and returned in fp32; on
+    the CPU the TF32 tiers compute in fp32. The CUDA kernels are fp32
+    "highest" only: a solve that a kernel would serve raises
+    ``NotImplementedError`` under another tier (``engine="torch"`` serves
+    it). A solve sets TF32 for its own scope through torch's one
+    process-wide switch (``tf32_matmuls``), so the tiers are not
+    thread-safe: solves under different tiers in concurrent threads of one
+    process can run each other's products under the wrong setting;
+    serialize them. ``unroll`` is accepted for parity and has no effect on
+    the eager loop.
     """
 
     iterations: int | None = None  # None: the full shipped schedule
@@ -148,22 +159,134 @@ def _all_converged(converged, config: SolverConfig) -> bool:
     return int(n) == 0
 
 
-def _check_ported(config: SolverConfig) -> None:
-    """Raise for the configuration values the port does not carry yet."""
+PRECISIONS = ("highest", "high", "default")
+MATMUL_DTYPES = ("float32", "bfloat16")
+
+
+def _check_config(config: SolverConfig) -> None:
+    """Raise for a mode, engine, precision or matmul dtype that no engine
+    knows."""
     if config.mode not in ("fixed", "eps"):
         raise ValueError(f"unknown mode: {config.mode!r}")
-    if config.precision != "highest":
-        raise NotImplementedError(
-            f"precision={config.precision!r} needs the precision tiers, "
-            "not yet ported to tpu_gpad_torch (see ROADMAP)"
-        )
-    if config.matmul_dtype != "float32":
-        raise NotImplementedError(
-            f"matmul_dtype={config.matmul_dtype!r} needs the precision "
-            "tiers, not yet ported to tpu_gpad_torch (see ROADMAP)"
-        )
+    if config.precision not in PRECISIONS:
+        raise ValueError(f"unknown precision: {config.precision!r} "
+                         f"(one of {PRECISIONS})")
+    if config.matmul_dtype not in MATMUL_DTYPES:
+        raise ValueError(f"unknown matmul_dtype: {config.matmul_dtype!r} "
+                         f"(one of {MATMUL_DTYPES})")
     if config.engine not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown engine: {config.engine!r}")
+
+
+def tier(config: SolverConfig) -> str:
+    """The tier of the hot products: "bfloat16" (the operand dtype decides,
+    as ``tpu_gpad.utils.matmul_peak_tflops`` applies ``precision`` to fp32
+    operands only), else the precision."""
+    return "bfloat16" if config.matmul_dtype == "bfloat16" else config.precision
+
+
+@contextlib.contextmanager
+def tf32_matmuls(on: bool):
+    """TF32 on (or held off) for CUDA fp32 products in the block, and the
+    caller's setting restored after it, also after an exception. The switch
+    is process-global, not per thread: a scope in one thread sets it for
+    every thread's products until it exits. Every scope in the port goes
+    through ``torch.backends.cuda.matmul.allow_tf32`` (mixing it with the
+    newer ``fp32_precision`` API can raise)."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def _split_tf32(a):
+    """(hi, lo): ``hi`` is ``a`` with the low 13 of its 23 mantissa bits
+    cleared, exact in TF32; ``lo = a - hi`` is exact in fp32."""
+    hi = (a.view(torch.int32) & -(1 << 13)).view(torch.float32)
+    return hi, a - hi
+
+
+def _tf32(config: SolverConfig) -> bool:
+    """Whether ``config``'s products run with TF32 on ("high", "default")."""
+    return tier(config) in ("high", "default")
+
+
+class _Matmul:
+    """The hot products of one solve at its config's tier: the counterpart
+    of ``tpu_gpad.solver.core._make_matmul``'s closure. ``mm(a, b)`` takes
+    an fp32 ``a`` of any leading shape and a constant operand ``b``
+    prepared by ``mm.prep`` (split once for "high", cast once for
+    "bfloat16", as ``tpu_gpad/solver/kernels.py:198-233`` pre-splits its
+    constants), and returns fp32. With ``data``, the constants of the
+    loop's form are prepared once, outside the loop: ``mm.MG_T``, then
+    ``mm.GL_s`` (the structural columns ``GL_T[:, :n_struct]``) for a
+    ``flat`` loop or ``mm.GL_T`` for another, and ``mm.D`` for the
+    ``dual`` form; the others are None.
+
+    ===========  ==========================  ==============================
+    tier         on the card                 on the CPU
+    ===========  ==========================  ==============================
+    highest      IEEE fp32, TF32 held off    fp32
+    high         3xTF32: hi.hi + hi.lo +     the same split algebra in fp32
+                 lo.hi, TF32 on
+    default      one TF32 product            fp32
+    bfloat16     bf16 operands, fp32         bf16-rounded operands
+                 accumulation and output     multiplied in fp32
+    ===========  ==========================  ==============================
+
+    ``route`` is the bf16 product, chosen by device type: "out_dtype"
+    (``torch.mm(..., out_dtype=torch.float32)``) on a CUDA device, "upcast"
+    on the CPU, whose torch has no such kernel. ``tf32`` is the TF32
+    setting the products run under (``tf32_matmuls``)."""
+
+    def __init__(self, config: SolverConfig, data: GPADData | None = None, *,
+                 device=None, flat: bool = False, dual: bool = False):
+        self.tier = tier(config)
+        self.tf32 = _tf32(config)
+        device = torch.device(device if data is None else data.device)
+        self.route = "out_dtype" if device.type == "cuda" else "upcast"
+        if data is not None:
+            ns = data.n_struct if flat else None
+            self.MG_T = self.prep(data.MG_T)
+            self.GL_T = None if flat else self.prep(data.GL_T)
+            self.GL_s = self.prep(data.GL_T[:, :ns]) if ns else None
+            self.D = self.prep(data.D) if dual else None
+
+    def prep(self, b):
+        """A constant operand in the form ``__call__`` multiplies by."""
+        if self.tier == "high":
+            return _split_tf32(b)
+        if self.tier == "bfloat16":
+            b = b.to(torch.bfloat16)
+            return b if self.route == "out_dtype" else b.float()
+        return b
+
+    def __call__(self, a, b):
+        if self.tier == "high":
+            (a_hi, a_lo), (b_hi, b_lo) = _split_tf32(a), b
+            return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+        if self.tier == "bfloat16":
+            a = a.to(torch.bfloat16)
+            if self.route == "out_dtype":  # mm takes 2-D operands only
+                out = torch.mm(a.reshape(-1, a.shape[-1]), b,
+                               out_dtype=torch.float32)
+                return out.reshape(*a.shape[:-1], out.shape[-1])
+            return a.float() @ b
+        return a @ b
+
+
+def _refuse_kernel_tier(config: SolverConfig) -> None:
+    """A CUDA kernel runs fp32 "highest" only: raise for another tier where
+    a kernel would serve the solve, rather than re-route it."""
+    if tier(config) != "highest":
+        raise NotImplementedError(
+            f"precision={config.precision!r}, matmul_dtype="
+            f"{config.matmul_dtype!r}: a CUDA kernel serves this solve, and "
+            "the precision tiers for the CUDA kernels are not ported yet "
+            "(see ROADMAP); engine='torch' serves the tier"
+        )
 
 
 def affine_params(data: GPADData, x0: torch.Tensor):
@@ -196,15 +319,15 @@ def resolve_flat(data: GPADData, config: SolverConfig) -> bool:
     raise ValueError(f"unknown flat: {config.flat!r}")
 
 
-def _step4_product(data: GPADData, zhat, flat: bool):
+def _step4_product(data: GPADData, zhat, flat: bool, mm: _Matmul):
     """q = zhat @ GL_T for the paired layout; with ``flat`` the box columns
     of GL_T are exactly I/L and cost a division instead of a product."""
     if not flat:
-        return zhat @ data.GL_T
+        return mm(zhat, mm.GL_T)
     ns = data.n_struct
     if ns == 0:
         return zhat / data.L
-    q_s = zhat @ data.GL_T[:, :ns]
+    q_s = mm(zhat, mm.GL_s)
     return torch.cat([q_s, zhat / data.L], dim=-1)
 
 
@@ -219,41 +342,42 @@ def _expand_to(v, like):
 
 
 def _iteration(data: GPADData, g_P, p_D, theta_k, beta_k, y, y_prev, z,
-               flat: bool = False, model_axis=None):
-    """One GPAD iteration (steps 1-4), batched. ``theta_k``/``beta_k`` are
-    schedule scalars, or per-scenario rows under restart. With the dual
-    dimension sharded over ``model_axis``, step 2's partial product is
-    summed over it before ``g_P`` enters (once, not once a rank)."""
+               mm: _Matmul, flat: bool = False, model_axis=None):
+    """One GPAD iteration (steps 1-4), batched, its products ``mm``'s.
+    ``theta_k``/``beta_k`` are schedule scalars, or per-scenario rows under
+    restart. With the dual dimension sharded over ``model_axis``, step 2's
+    partial product is summed over it before ``g_P`` enters (once, not once
+    a rank)."""
     w = y + _expand_to(beta_k, y) * (y - y_prev)
     if data.paired:
-        zhat_partial = (w[..., 0, :] - w[..., 1, :]) @ data.MG_T
+        zhat_partial = mm(w[..., 0, :] - w[..., 1, :], mm.MG_T)
     else:
-        zhat_partial = w @ data.MG_T
+        zhat_partial = mm(w, mm.MG_T)
     zhat = -_all_reduce(zhat_partial, model_axis) - g_P
     theta_z = _expand_to(theta_k, z)
     z = (1.0 - theta_z) * z + theta_z * zhat
     w_s = w if data.soft_damp is None else w * (1.0 - data.soft_damp)
     if data.paired:
-        q = _step4_product(data, zhat, flat)
+        q = _step4_product(data, zhat, flat, mm)
         y_next = torch.clamp_min(w_s + _pm(q) + p_D, 0.0)
     else:
-        y_next = torch.clamp_min(w_s + zhat @ data.GL_T + p_D, 0.0)
+        y_next = torch.clamp_min(w_s + mm(zhat, mm.GL_T) + p_D, 0.0)
     return w, zhat, z, y_next
 
 
-def _residuals(data: GPADData, g_P, p_D, z, zhat, w, flat: bool = False,
-               y=None, model_axis=None):
+def _residuals(data: GPADData, g_P, p_D, z, zhat, w, mm: _Matmul,
+               flat: bool = False, y=None, model_axis=None):
     """Primal violation max(G z - b) and gap surrogate -w' g(zhat),
     recovered from the scaled operands as g(z) = L (G_L z + p_D); soft rows
     are measured against the recovered slack (see tpu_gpad.solver.core).
     With the dual dimension sharded over ``model_axis``, the maxima are
     taken and the gap summed over it."""
     if data.paired:
-        gz = data.L * (_pm(_step4_product(data, z, flat)) + p_D)
-        gzh = data.L * (_pm(_step4_product(data, zhat, flat)) + p_D)
+        gz = data.L * (_pm(_step4_product(data, z, flat, mm)) + p_D)
+        gzh = data.L * (_pm(_step4_product(data, zhat, flat, mm)) + p_D)
     else:
-        gz = data.L * (z @ data.GL_T + p_D)
-        gzh = data.L * (zhat @ data.GL_T + p_D)
+        gz = data.L * (mm(z, mm.GL_T) + p_D)
+        gzh = data.L * (mm(zhat, mm.GL_T) + p_D)
     if data.soft_damp is not None:
         if y is not None:
             gz = gz - (data.L * data.soft_damp) * y
@@ -305,23 +429,32 @@ def _schedule_window(theta, beta, k0, n: int):
     return theta[k0:k0 + n], beta[k0:k0 + n]
 
 
-def _export_scan(step, carry, theta, beta, k0, iterations: int,
+def _export_scan(body, carry, theta, beta, k0, iterations: int,
                  restart: bool):
-    """``iterations`` applications of ``step(carry, theta_k, beta_k) ->
-    carry`` from schedule index ``k0`` as torch.export traces them: one
-    ``scan`` over the schedule's window (under restart, whose momentum is
-    the carry's own, over placeholders, since the budget may pass the
-    schedule), so that the graph holds one copy of the body whatever the
-    budget."""
+    """``iterations`` turns of a loop from schedule index ``k0`` as
+    torch.export traces them: one ``scan`` of ``body(carry, (theta_k,
+    beta_k)) -> (carry, [])`` over the schedule's window (under restart,
+    whose momentum is the carry's own, over placeholders, since the budget
+    may pass the schedule), so that the graph holds one copy of the body
+    whatever the budget.
+
+    Each call site defines its own ``body`` (its carry passed through
+    ``_unaliased``) and it reaches ``scan`` as it is. ``scan`` compiles
+    every body through one cached frame, and dynamo checks the guards of
+    each body compiled before against the next: two inputs that are one
+    tensor where the cached body had two fail its no-aliasing guard, and
+    dynamo then evaluates that body's guard sources against the new one's
+    captured state, which raises where the two capture different things
+    (a condensed export after a stage-wise one). So no two inputs here are
+    one tensor: the restart placeholders are two."""
     from torch._higher_order_ops import scan
 
     if restart:
-        theta = beta = torch.zeros(iterations, dtype=torch.float32,
-                                   device=carry[0].device)
+        theta, beta = (torch.zeros(iterations, dtype=torch.float32,
+                                   device=carry[0].device) for _ in range(2))
     else:
         theta, beta = _schedule_window(theta, beta, k0, iterations)
-    carry, _ = scan(lambda c, x: (_unaliased(step(c, x[0], x[1]), c), []),
-                    _unaliased(carry), (theta, beta))
+    carry, _ = scan(body, _unaliased(carry), (theta, beta))
     return carry
 
 
@@ -386,11 +519,13 @@ def _init_state(data: GPADData, batch_shape, y0=None):
     return y, y, z, torch.zeros_like(y), torch.zeros_like(z)
 
 
-def _finish(data: GPADData, g_P, p_D, z, zhat, w, y, config, flat):
-    """Residual/gap recovery and the SolveResult of a fixed-budget solve."""
+def _finish(data: GPADData, g_P, p_D, z, zhat, w, y, config, flat,
+            mm: _Matmul):
+    """Residual/gap recovery and the SolveResult of a fixed-budget solve,
+    its products ``mm``'s."""
     batch_shape = g_P.shape[:-1]
     if config.diagnostics:
-        viol_z, _, gap = _residuals(data, g_P, p_D, z, zhat, w, flat, y=y,
+        viol_z, _, gap = _residuals(data, g_P, p_D, z, zhat, w, mm, flat, y=y,
                                     model_axis=config.model_axis)
         residual = torch.clamp_min(viol_z, 0.0)
     else:
@@ -410,7 +545,7 @@ def _finish(data: GPADData, g_P, p_D, z, zhat, w, y, config, flat):
 
 
 def _mvp_step(data: GPADData, g_P, p_D, config: SolverConfig, flat: bool,
-              carry, theta_k, beta_k):
+              mm: _Matmul, carry, theta_k, beta_k):
     """One iteration of the mvp loop on its carry (y, y_prev, z, w, zhat,
     th, th_prev), at the schedule's (theta_k, beta_k) or, under restart,
     the carry's own momentum: the body both the eager loop and the loop
@@ -420,7 +555,7 @@ def _mvp_step(data: GPADData, g_P, p_D, config: SolverConfig, flat: bool,
     if config.restart:
         theta_k, beta_k = th, th * (1.0 / th_prev - 1.0)
     w, zhat, z, y_next = _iteration(
-        data, g_P, p_D, theta_k, beta_k, y, y_prev, z, flat, ma
+        data, g_P, p_D, theta_k, beta_k, y, y_prev, z, mm, flat, ma
     )
     if config.restart:
         y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w, ma)
@@ -433,19 +568,27 @@ def _solve_fixed(data: GPADData, g_P, p_D, config: SolverConfig,
                  y0=None) -> SolveResult:
     """Fixed-budget mvp loop (flat or dense products, paired or dense)."""
     flat = resolve_flat(data, config)
+    mm = _Matmul(config, data, flat=flat)
     y, y_prev, z, w, zhat = _init_state(data, g_P.shape[:-1], y0)
     th = th_prev = torch.ones(g_P.shape[:-1], dtype=torch.float32,
                               device=g_P.device)
-    step = functools.partial(_mvp_step, data, g_P, p_D, config, flat)
+
+    def step(carry, theta_k, beta_k):
+        return _mvp_step(data, g_P, p_D, config, flat, mm, carry, theta_k,
+                         beta_k)
+
     carry = (y, y_prev, z, w, zhat, th, th_prev)
     if torch.compiler.is_exporting():
-        carry = _export_scan(step, carry, data.theta, data.beta, 0,
+        def body(c, x):
+            return _unaliased(step(c, *x), c), []
+
+        carry = _export_scan(body, carry, data.theta, data.beta, 0,
                              config.iterations, config.restart)
     else:
         for k in range(config.iterations):
             carry = step(carry, *_schedule_at(data, config, k))
     y, _, z, w, zhat, _, _ = carry
-    return _finish(data, g_P, p_D, z, zhat, w, y, config, flat)
+    return _finish(data, g_P, p_D, z, zhat, w, y, config, flat, mm)
 
 
 def _solve_fixed_dual(data: GPADData, g_P, p_D, config: SolverConfig,
@@ -461,7 +604,8 @@ def _solve_fixed_dual(data: GPADData, g_P, p_D, config: SolverConfig,
     s = torch.zeros(tuple(batch_shape) + (data.m_half,), dtype=torch.float32,
                     device=g_P.device)
     th = th_prev = torch.ones(batch_shape, dtype=torch.float32, device=g_P.device)
-    e = g_P @ data.GL_T  # (B, m_h), hoisted out of the loop
+    mm = _Matmul(config, data, dual=True)
+    e = mm(g_P, mm.GL_T)  # (B, m_h), hoisted out of the loop
 
     def step(carry, theta_k, beta_k):
         y, y_prev, w, s, th, th_prev = carry
@@ -469,7 +613,7 @@ def _solve_fixed_dual(data: GPADData, g_P, p_D, config: SolverConfig,
             theta_k, beta_k = th, th * (1.0 / th_prev - 1.0)
         w = y + _expand_to(beta_k, y) * (y - y_prev)
         wd = w[..., 0, :] - w[..., 1, :]
-        q = -(wd @ data.D) - e
+        q = -mm(wd, mm.D) - e
         w_s = w if data.soft_damp is None else w * (1.0 - data.soft_damp)
         y_next = torch.clamp_min(w_s + _pm(q) + p_D, 0.0)
         theta_s = _expand_to(theta_k, s)
@@ -482,28 +626,32 @@ def _solve_fixed_dual(data: GPADData, g_P, p_D, config: SolverConfig,
 
     carry = (y, y, w, s, th, th_prev)
     if torch.compiler.is_exporting():
-        carry = _export_scan(step, carry, data.theta, data.beta, 0,
+        def body(c, x):
+            return _unaliased(step(c, *x), c), []
+
+        carry = _export_scan(body, carry, data.theta, data.beta, 0,
                              config.iterations, config.restart)
     else:
         for k in range(config.iterations):
             carry = step(carry, *_schedule_at(data, config, k))
     y, _, w, s, _, _ = carry
     a = 1.0 - torch.prod(1.0 - data.theta[: config.iterations])
-    z = -(s @ data.MG_T) - a * g_P
+    z = -mm(s, mm.MG_T) - a * g_P
     wd = w[..., 0, :] - w[..., 1, :]
-    zhat = -(wd @ data.MG_T) - g_P
-    return _finish(data, g_P, p_D, z, zhat, w, y, config, flat=False)
+    zhat = -mm(wd, mm.MG_T) - g_P
+    return _finish(data, g_P, p_D, z, zhat, w, y, config, False, mm)
 
 
 def _eps_test(data: GPADData, g_P, p_D, config: SolverConfig, k_now: int,
-             z, zhat, w, y, converged, iters, z_out, flat: bool = False):
+             z, zhat, w, y, converged, iters, z_out, flat: bool,
+             mm: _Matmul):
     """Algorithm 1's test at iteration ``k_now``: capture each newly
     converged scenario's eps-optimal point (z on the primal branch, zhat on
     the gap branch, where zhat is exactly optimal for the Lagrangian at w
     while the averaged z may still be infeasible). Returns the updated
-    (converged, iters, z_out)."""
-    viol_z, viol_zhat, gap = _residuals(data, g_P, p_D, z, zhat, w, flat, y=y,
-                                        model_axis=config.model_axis)
+    (converged, iters, z_out); the products are ``mm``'s."""
+    viol_z, viol_zhat, gap = _residuals(data, g_P, p_D, z, zhat, w, mm, flat,
+                                        y=y, model_axis=config.model_axis)
     ok_z = viol_z <= config.eps_g
     ok = ok_z | ((viol_zhat <= config.eps_g) & (gap <= config.eps_V))
     newly = ok & ~converged
@@ -513,12 +661,12 @@ def _eps_test(data: GPADData, g_P, p_D, config: SolverConfig, k_now: int,
 
 
 def _eps_result(data: GPADData, g_P, p_D, z, zhat, w, y, converged, iters,
-               z_out, flat: bool = False, model_axis=None) -> SolveResult:
+               z_out, flat: bool, model_axis, mm: _Matmul) -> SolveResult:
     """The SolveResult of an eps solve: the captured point where a scenario
-    converged, the last iterate elsewhere."""
+    converged, the last iterate elsewhere; its products ``mm``'s."""
     z_final = torch.where(converged[..., None], z_out, z)
-    viol_z, _, gap = _residuals(data, g_P, p_D, z_final, zhat, w, flat, y=y,
-                                model_axis=model_axis)
+    viol_z, _, gap = _residuals(data, g_P, p_D, z_final, zhat, w, mm, flat,
+                                y=y, model_axis=model_axis)
     return SolveResult(
         u=z_final[..., : data.n_u], z=z_final, y=y, iterations=iters,
         residual=torch.clamp_min(viol_z, 0.0), gap=gap, converged=converged,
@@ -538,17 +686,24 @@ def _solve_eps(data: GPADData, g_P, p_D, config: SolverConfig,
     converged = torch.zeros(batch_shape, dtype=torch.bool, device=g_P.device)
     iters = torch.full(batch_shape, config.iterations, dtype=torch.int32,
                        device=g_P.device)
-    step = functools.partial(_mvp_step, data, g_P, p_D, config, flat)
+    mm = _Matmul(config, data, flat=flat)
+
+    def step(carry, theta_k, beta_k):
+        return _mvp_step(data, g_P, p_D, config, flat, mm, carry, theta_k,
+                         beta_k)
 
     def test(k_now, carry, converged, iters, z_out):
         y, _, z, w, zhat, _, _ = carry
         return _eps_test(data, g_P, p_D, config, k_now, z, zhat, w, y,
-                         converged, iters, z_out, flat)
+                         converged, iters, z_out, flat, mm)
 
     carry = (y, y_prev, z, w, zhat, th, th_prev)
     if torch.compiler.is_exporting():
+        def body(c, x):
+            return _unaliased(step(c, *x), c), []
+
         def window(k0, chunk, state):
-            carry = _export_scan(step, state[:7], data.theta, data.beta, k0,
+            carry = _export_scan(body, state[:7], data.theta, data.beta, k0,
                                  chunk, config.restart)
             return (*carry, *test(k0 + chunk, carry, *state[7:]))
 
@@ -569,7 +724,7 @@ def _solve_eps(data: GPADData, g_P, p_D, config: SolverConfig,
                 break
     y, _, z, w, zhat, _, _ = carry
     return _eps_result(data, g_P, p_D, z, zhat, w, y, converged, iters, z_out,
-                      flat, config.model_axis)
+                      flat, config.model_axis, mm)
 
 
 def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:
@@ -628,10 +783,14 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
     JAX package's ``jax.default_backend() == "tpu"`` test); a warm start
     never changes the choice. A sharded dual dimension (``model_axis``)
     runs the torch engine, as it runs XLA in the JAX package. Forcing
-    "cuda" where no kernel serves the case raises."""
+    "cuda" where no kernel serves the case raises. The tier never changes
+    the choice either (JAX's routing ignores it): where a kernel would
+    serve a solve under a tier other than fp32 "highest", forced or under
+    "auto" on the card, this raises ``NotImplementedError``."""
     if config.engine == "torch":
         return "torch"
     if config.engine == "cuda":
+        _refuse_kernel_tier(config)
         if config.model_axis is not None:
             raise ValueError(
                 "engine='cuda' does not support dual-dimension tensor "
@@ -655,6 +814,7 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
     if config.engine != "auto":
         raise ValueError(f"unknown engine: {config.engine!r}")
     if data.device.type == "cuda" and cuda_kernel(data, config) is not None:
+        _refuse_kernel_tier(config)
         return "cuda"
     return "torch"
 
@@ -712,7 +872,14 @@ def solve_batch(
     All scenarios share the plant; per-scenario constants are the affine
     maps of x0. ``x0`` (and ``y0``) may be NumPy arrays or tensors; they
     are moved to the data's device. ``y0`` warm-starts the dual iterate
-    and must broadcast to (..., 2, m_half) (paired) or (..., m)."""
+    and must broadcast to (..., 2, m_half) (paired) or (..., m).
+
+    The products run at the config's tier (``SolverConfig``) with TF32 set
+    for the call's scope alone (``tf32_matmuls``): held off under "highest"
+    and for the affine maps of x0, whatever the caller's process set. A
+    kernel route runs under TF32 held off too: around its launch it
+    multiplies in torch (the dual kernels' ``e = g_P GL_T``, the primal
+    recovery, the residuals), all fp32 "highest"."""
     n_iters = (
         config.iterations if config.iterations is not None else data.max_iters
     )
@@ -728,22 +895,24 @@ def solve_batch(
             "diagnostics=False requires mode='fixed' (the eps termination "
             "test needs the residual/gap diagnostics)"
         )
-    _check_ported(config)
+    _check_config(config)
     _check_axes(config)
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=data.device)
     if y0 is not None:
         y0 = torch.as_tensor(y0, dtype=torch.float32, device=data.device)
-    g_P, p_D = affine_params(data, x0)
-    if resolve_engine(data, config) == "cuda":
-        from tpu_gpad_torch.solver import kernels
+    with tf32_matmuls(False):
+        g_P, p_D = affine_params(data, x0)
+        if resolve_engine(data, config) == "cuda":
+            from tpu_gpad_torch.solver import kernels
 
-        return kernels.solve_batch_cuda(data, g_P, p_D, config, y0=y0)
+            return kernels.solve_batch_cuda(data, g_P, p_D, config, y0=y0)
     form = resolve_form(data, config)  # in eps mode: validates the form
-    if config.mode == "eps":
-        return _solve_eps(data, g_P, p_D, config, y0)
-    if form == "dual":
-        return _solve_fixed_dual(data, g_P, p_D, config, y0)
-    return _solve_fixed(data, g_P, p_D, config, y0)
+    with tf32_matmuls(_tf32(config)):
+        if config.mode == "eps":
+            return _solve_eps(data, g_P, p_D, config, y0)
+        if form == "dual":
+            return _solve_fixed_dual(data, g_P, p_D, config, y0)
+        return _solve_fixed(data, g_P, p_D, config, y0)
 
 
 def solve(

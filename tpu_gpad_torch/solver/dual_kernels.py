@@ -672,6 +672,7 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
     n_full, rem = divmod(iterations, C)
     c = relu_offsets(data, g_P, p_D)
     y, s, mom = _init_state(data, B, y0, dev)
+    mm = core._Matmul(config, data)  # the residual tests' products
     if chunk_fn is None:
         # the kernel's checks and launch plan once, for every window: sizes
         # are symbols in the body of a loop that torch.export traces, and a
@@ -696,7 +697,7 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
         z, zhat = _primal(data, g_P, s, w, 1.0)  # a = 1: theta_0 = 1
         converged, iters, z_out = core._eps_test(
             data, g_P, p_D, config, k0 + chunk, z, zhat, w, y, converged,
-            iters, z_out)
+            iters, z_out, False, mm)
         return y, y_prev, s, mom, w, converged, iters, z_out
 
     state = (y, y.clone(), s, mom, torch.zeros_like(y),
@@ -718,4 +719,4 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
     y, _, s, _, w, converged, iters, z_out = state
     z, zhat = _primal(data, g_P, s, w, 1.0)
     return core._eps_result(data, g_P, p_D, z, zhat, w, y, converged, iters,
-                           z_out)
+                           z_out, False, None, mm)

@@ -938,7 +938,8 @@ def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
             z, y, w, zhat = gpad_fixed_dense(data, gP2, pD2, y0, **kw)
         else:
             raise ValueError("no CUDA kernel serves this solve")
-        res = core._finish(data, gP2, pD2, z, zhat, w, y, config, flat=False)
+        res = core._finish(data, gP2, pD2, z, zhat, w, y, config, False,
+                           core._Matmul(config, data))
     return SolveResult(
         **{
             name: t.reshape(tuple(batch_shape) + tuple(t.shape[1:]))

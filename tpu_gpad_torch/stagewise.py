@@ -769,17 +769,17 @@ def _schedule_at(cs: _Consts, k: int, restart: bool):
 
 def _solve_fixed(data, cs, x0, y, n_iters: int, restart: bool):
     """Fixed budget; diagnostics on the averaged primal (zx, zu)."""
-    from tpu_gpad_torch.solver.core import _export_scan
+    from tpu_gpad_torch.solver.core import _export_scan, _unaliased
 
     batch = tuple(x0.shape[:-1])
     st = _State(y, data.horizon, batch, data.n_x, data.n_u)
     if torch.compiler.is_exporting():
-        def step(carry, theta_k, beta_k):
+        def body(carry, x):
             st = _State.of(carry)
-            _iteration(data, cs, st, x0, theta_k, beta_k, restart)
-            return st.values()
+            _iteration(data, cs, st, x0, *x, restart)
+            return _unaliased(st.values(), carry), []
 
-        st = _State.of(_export_scan(step, st.values(), cs.theta, cs.beta, 0,
+        st = _State.of(_export_scan(body, st.values(), cs.theta, cs.beta, 0,
                                     n_iters, restart))
     else:
         for k in range(n_iters):
@@ -814,7 +814,8 @@ def _solve_eps(data, cs, x0, y, n_iters: int, restart: bool, eps_g: float,
     (its state is frozen, as under JAX's vmapped ``while_loop``) and keeps
     the point it converged at. The host learns "all converged" with one
     sync per check and then stops."""
-    from tpu_gpad_torch.solver.core import _export_scan, _export_windows
+    from tpu_gpad_torch.solver.core import (_export_scan, _export_windows,
+                                            _unaliased)
 
     batch, dev = tuple(x0.shape[:-1]), x0.device
     st = _State(y, data.horizon, batch, data.n_x, data.n_u)
@@ -843,18 +844,17 @@ def _solve_eps(data, cs, x0, y, n_iters: int, restart: bool, eps_g: float,
         return conv | ok, it, zu_out
 
     if torch.compiler.is_exporting():
-        def step(carry, theta_k, beta_k):
+        def body(carry, x):
             st = _State.of(carry[:6])
-            w, _, us, g = _iteration(data, cs, st, x0, theta_k, beta_k,
-                                     restart)
-            return (*st.values(), w, us, g)
+            w, _, us, g = _iteration(data, cs, st, x0, *x, restart)
+            return _unaliased((*st.values(), w, us, g), carry), []
 
         def window(k0, chunk, state):
             start = state[:6]
             y = start[0]
             oracle = (torch.zeros_like(y), torch.zeros_like(start[3]),
                       torch.zeros_like(y))
-            carry = _export_scan(step, (*start, *oracle), cs.theta, cs.beta,
+            carry = _export_scan(body, (*start, *oracle), cs.theta, cs.beta,
                                  k0, chunk, restart)
             st = _State.of(carry[:6])
             out = test(k0 + chunk, st, start, *carry[6:], *state[6:])
