@@ -54,11 +54,15 @@ unsharded times in turns; and AOT export (``tpu_gpad_torch.aot``): every
 kernel's route exported at a concrete batch and one symbolic artifact of
 each solver, loaded in a fresh process, each loaded call launching the
 live call's kernel as many times and equal to it; and the precision
-tiers of the torch engine (``tiers_path``: each tier's u against fp32
-"highest" at the headline and the flagship, a kernel route refusing the
-tier, "highest" deaf to the caller's TF32 switch, each tier shown to take
-effect at the flagship, the bf16 product fp32-accumulated) and the timing
-harness
+tiers (``tiers_path``: on the torch engine each tier's u against fp32
+"highest" at the headline and the flagship, the flagship's tiled route
+refusing the tier, "highest" deaf to the caller's TF32 switch, each tier
+shown to take effect at the flagship, the bf16 product fp32-accumulated;
+on the flat, full paired, dual and chunk kernels at the headline and at
+battery n5 N20, each route under each tier launching its kernel, its u
+against "highest"'s, each tier shown to take effect, each kernel against
+its plain version at the tier; a restart ``Controller`` and the CLI's
+``solve`` under a tier) and the timing harness
 (``timing_path``: ``interleaved_ab`` of the tiers and of ``auto`` against
 the bare flat kernel op, ``matmul_peak_tflops`` of each tier, the headline
 solve's ``device_time_stats`` and percentiles). It times kernels and
@@ -78,14 +82,16 @@ tile x warps per block, hence chain segments, x the chains' placement;
 the streamed one by tile) and the tiled kernels by tile and cluster size,
 or the families named;
 
-    python3 chip_smoke.py --times [resident] [stagewise]
+    python3 chip_smoke.py --times [resident] [stagewise] [tiers]
 
 times the resident dense, dual, chunk and flat kernels at B 256 and 4096,
 the full paired kernel at B4096, the flat tiled kernel and the default
 fixed solve (flat tiled kernel against torch engine) at the flagship and
 at n5 N30, and a warm flat, dense and restart ``Controller``
 (``resident``); the resident stage-wise kernel at n8 N60 B1024 and B4096
-and the streamed one at n30 N200 B1024 (``stagewise``); both by default.
+and the streamed one at n30 N200 B1024 (``stagewise``); the flat, full
+paired, dual and chunk kernels at each precision tier in turns with
+"highest" at B 256 and 4096 (``tiers``); all three by default.
 Through public arguments only, so that a checkout of an earlier design
 can be timed beside this one: copy this script into its root and run it
 there;
@@ -254,13 +260,18 @@ DIFF_CROSS_HORIZONS, DIFF_CROSS_BATCHES = (10, 20, 30, 40, 50), (1024, 4096)
 # cores, and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# the products' peak by precision tier: fp32 FFMA, TF32 and bf16 on the
+# tensor cores (dense); "high" is three TF32 products
+TIER_PEAK_FLOPS = {"highest": PEAK_FP32_FLOPS, "high": 495e12 / 3,
+                   "default": 495e12, "bfloat16": 989e12}
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, tier: str = "highest") -> dict:
     """The least time the card could take: the larger of the operations
-    over the fp32 peak and the bytes (each input read once, each output
-    written once) over the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    over the tier's peak (fp32 for "highest") and the bytes (each input
+    read once, each output written once) over the HBM rate."""
+    t_ops = flops / TIER_PEAK_FLOPS[tier]
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
@@ -566,9 +577,10 @@ def phase_timing(torch, tg, kernels, dual_kernels, core, smi):
     return med
 
 
-def headline(tg):
-    """The headline QP and its data on the card, 100-iteration schedule."""
-    qp = tg.condense(tg.problems.battery(**HEADLINE))
+def headline(tg, shape=HEADLINE):
+    """The headline QP (or a battery ``shape``'s) and its data on the card,
+    100-iteration schedule."""
+    qp = tg.condense(tg.problems.battery(**shape))
     return qp, tg.dualize(qp, ITERS, paired="auto", device=DEVICE)
 
 
@@ -918,20 +930,25 @@ def profiled_ms(torch, fn, name, calls=10):
 
 
 def resident_runs(torch, tg, kernels, dual_kernels, core, B, seed,
-                  which=("dense", "dual", "chunk"), plan=None):
-    """Timed calls at battery n3 N10, batch B, keyed "<kernel>@<B>" and
-    "<kernel>_plain@<B>": the dense kernel (100 iterations), the dual
-    kernel (100 restart iterations), the chunk kernel (a 10-iteration
-    restart window from the state 30 iterations left), the flat and the
-    full paired kernel (100 iterations); and each one's bound from these
-    inputs. ``plan`` (log2_tile, split) overrides the launch. Only the
-    wrappers' public arguments are used without it, so a checkout of an
-    earlier design runs this too."""
+                  which=("dense", "dual", "chunk"), plan=None,
+                  tier="highest", shape=HEADLINE):
+    """Timed calls at battery n3 N10 (or ``shape``), batch B, keyed
+    "<kernel>@<B>" and "<kernel>_plain@<B>": the dense kernel (100
+    iterations), the dual kernel (100 restart iterations), the chunk kernel
+    (a 10-iteration restart window from the state 30 iterations left), the
+    flat and the full paired kernel (100 iterations); and each one's bound
+    from these inputs. ``plan`` (log2_tile, split) overrides the launch;
+    ``tier`` runs the paired and dual kernels and their plain versions at
+    a precision tier, each bound at the tier's peak. Only the wrappers'
+    public arguments are used without either, so a checkout of an earlier
+    design runs this too."""
     _, dense = dense_headline(tg)
-    _, data = headline(tg)
+    _, data = headline(tg, shape)
     X0 = torch.as_tensor(np.random.default_rng(seed).uniform(
         -0.4, 0.4, (B, data.n_x)).astype(np.float32), device=DEVICE)
     over = {} if plan is None else dict(log2_tile=plan[0], split=plan[1])
+    tkw = {} if tier == "highest" else {"tier": tier}
+    over.update(tkw)
     runs, bounds = {}, {}
     m, n_z, m_h = dense.m, dense.n_z, data.m_half
     if "dense" in which:
@@ -952,13 +969,15 @@ def resident_runs(torch, tg, kernels, dual_kernels, core, B, seed,
         runs[f"dual@{B}"] = lambda: dual_kernels.gpad_fixed_dual(
             data, g_P, p_D, **kw, **over)
         runs[f"dual_plain@{B}"] = lambda: dual_kernels.gpad_fixed_dual_torch(
-            data, g_P, p_D, **kw)
+            data, g_P, p_D, **kw, **tkw)
         # the product w D per scenario and iteration (2 m_h^2), the offsets
-        # g_P GL_T and the recovery s MG_T once; z, y, w, zhat written once
+        # g_P GL_T and the recovery s MG_T once (fp32 at every tier); z, y,
+        # w, zhat written once
+        loop, around = B * ITERS * 2.0 * m_h * m_h, B * 4.0 * m_h * data.n_z
         bounds[f"dual@{B}"] = bound(
-            B * (ITERS * 2.0 * m_h * m_h + 4.0 * m_h * n_z),
+            loop + around * TIER_PEAK_FLOPS[tier] / PEAK_FP32_FLOPS,
             nbytes(data.D, data.GL_T, data.MG_T, g_P, p_D)
-            + 4 * B * (2 * data.n_z + 4 * m_h))
+            + 4 * B * (2 * data.n_z + 4 * m_h), tier)
     for name in ("flat", "paired"):
         if name not in which:
             continue
@@ -968,25 +987,26 @@ def resident_runs(torch, tg, kernels, dual_kernels, core, B, seed,
         runs[f"{name}@{B}"] = lambda fn=fn: fn(data, g_P, p_D,
                                                iterations=ITERS, **over)
         runs[f"{name}_plain@{B}"] = lambda plain=plain: plain(
-            data, g_P, p_D, iterations=ITERS)
+            data, g_P, p_D, iterations=ITERS, **tkw)
         bounds[f"{name}@{B}"] = paired_bound(data, g_P, p_D, B,
-                                             full=name == "paired")
+                                             full=name == "paired", tier=tier)
     if "chunk" in which:
         c = dual_kernels.relu_offsets(data, g_P, p_D)
         zero = torch.zeros((B, 2, m_h), device=DEVICE)
         state = dual_kernels.gpad_dual_chunk_torch(
             data, c, zero, zero, torch.zeros((B, m_h), device=DEVICE),
             torch.ones((B, 2), device=DEVICE), k0=0, chunk=30,
-            restart=True)[:4]
+            restart=True, **tkw)[:4]
         win = dict(k0=30, chunk=10, restart=True)
         runs[f"chunk@{B}"] = lambda: dual_kernels.gpad_dual_chunk(
             data, c, *state, **win, **over)
         runs[f"chunk_plain@{B}"] = lambda: dual_kernels.gpad_dual_chunk_torch(
-            data, c, *state, **win)
+            data, c, *state, **win, **tkw)
         # the state in and back, and w
         bounds[f"chunk@{B}"] = bound(
             B * 10 * 2.0 * m_h * m_h,
-            nbytes(data.D, c, *state) + nbytes(*state) + 4 * B * 2 * m_h)
+            nbytes(data.D, c, *state) + nbytes(*state) + 4 * B * 2 * m_h,
+            tier)
     return runs, bounds
 
 
@@ -1051,15 +1071,59 @@ def times_resident(torch, tg, kernels, dual_kernels, core, smi):
                   iterations=RESTART_ITERS, restart=True))}})
 
 
-def paired_bound(d, g, p, B, full=False) -> dict:
+TIMED_TIER_KERNELS = ("flat", "paired", "dual", "chunk")
+
+
+def times_tiers(torch, tg, kernels, dual_kernels, core, smi):
+    """``--times tiers``: the flat, full paired, dual and chunk kernels at
+    each precision tier beside "highest", at B 256 and 4096 (battery n3
+    N10), profiler device ms in turns (highest, tier, tier, highest), each
+    with its bound at the tier's peak and its plain version's ms at the
+    tier (CUDA events). A checkout whose kernels take no tier says so."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    if not hasattr(kernels, "KERNEL_TIERS"):
+        emit({"phase": "tier_times", "gpu": smi,
+              "note": "this checkout's kernels take no tier"})
+        return
+    for B in RESIDENT_BATCHES:
+        base, base_bounds = resident_runs(torch, tg, kernels, dual_kernels,
+                                          core, B, seed=66,
+                                          which=TIMED_TIER_KERNELS)
+        rows = {}
+        for tier in TIER_TOL:
+            runs, bounds = resident_runs(torch, tg, kernels, dual_kernels,
+                                         core, B, seed=66,
+                                         which=TIMED_TIER_KERNELS, tier=tier)
+            for k in TIMED_TIER_KERNELS:
+                key = f"{k}@{B}"
+                turns = [(t, profiled_ms(torch, fn, KERNEL_NAMES[k]))
+                         for t, fn in (("highest", base[key]),
+                                       (tier, runs[key]), (tier, runs[key]),
+                                       ("highest", base[key]))]
+                rows.setdefault(k, {})[tier] = {
+                    "ms": [ms for t, ms in turns if t == tier],
+                    "highest_ms": [ms for t, ms in turns if t == "highest"],
+                    "bound_ms": bounds[key]["bound_ms"],
+                    "bound_by": bounds[key]["bound_by"],
+                    "plain_ms": device_time_per_call(
+                        runs[f"{k}_plain@{B}"], warmup=1, repeats=3) * 1e3}
+        emit({"phase": "tier_times", "gpu": smi, "batch": B,
+              "highest_bound_ms": {k: base_bounds[f"{k}@{B}"]["bound_ms"]
+                                   for k in TIMED_TIER_KERNELS},
+              "kernels": rows})
+
+
+def paired_bound(d, g, p, B, full=False, tier="highest") -> dict:
     """The paired loop's bound at B scenarios: its two products, MG_T over
     every row and GL_T's n_s struct columns (the full loop: all m_h), per
-    scenario and iteration; z, y, w, zhat written once."""
+    scenario and iteration, at the tier's peak; z, y, w, zhat written
+    once."""
     m_h, n_z = d.m_half, d.n_z
     n_s = m_h if full else d.n_struct
     return bound(B * ITERS * 2.0 * n_z * (m_h + n_s),
                  nbytes(d.MG_T, d.GL_T[:, :n_s], g, p, d.theta[:ITERS],
-                        d.beta[:ITERS]) + 4 * B * (2 * n_z + 4 * m_h))
+                        d.beta[:ITERS]) + 4 * B * (2 * n_z + 4 * m_h), tier)
 
 
 def serve_ms(tg, config, paired="auto") -> float:
@@ -4053,17 +4117,293 @@ def tier_shapes(torch, tg, seed):
         yield name, qp, data, flag_x0(torch, qp.n_x, B, seed)[1]
 
 
+# The resident condensed kernels under each tier (csrc/mma_product.cuh), at
+# the headline and at battery n5 N20 (m_h 220, the paired guard's top), both
+# B4096: each route through ``auto`` (the flat and the full paired kernel,
+# the dual kernel under restart, the chunk kernel in ``solve_to_accuracy``)
+TIER_KERNEL_SHAPES = (("headline", HEADLINE),
+                      ("n5_N20", dict(n_cells=5, horizon=20)))
+TIER_ROUTES = {"paired_flat": {}, "paired": dict(form="mvp", flat="off"),
+               "dual": dict(restart=True), "dual_chunk": None}
+# where each tier shows that it took effect, free of restart decisions and
+# of where an eps solve stops: the fixed dual form (the dual kernel) and an
+# eps solve that no scenario meets (ten windows of the chunk kernel)
+TIER_EFFECT = {"dual": dict(form="dual"),
+               "dual_chunk": dict(mode="eps", eps_g=0.0, eps_V=0.0)}
+# each kernel against its plain version at the tier: a tenth of TIER_TOL on
+# z (u's source; under restart, where a decision near r = 0 may part a
+# scenario, as below) and on every output over one iteration, where a
+# rounding mode that differs would show. Past one iteration a tier's
+# roundings amplify any fp32 difference: the plain version moves as far
+# when its products are summed in float64 (``tier_mm_fp64``) or its input
+# moves by one fp32 unit (the larger of the two is its spread), so every
+# output over the budget is held to TIER_SENSITIVITY times that spread
+TIER_KERNEL_TOL = {"high": 1e-4, "default": 5e-4, "bfloat16": 5e-3}
+# a tensor core's mma sums inside it without IEEE round-to-nearest (its
+# aligned addends are truncated), a bias that the plain version's fp32 or
+# fp64 sums do not share: measured on an H100 at up to 3.0 times that
+# spread (a 10-iteration window at "default"); no such excess over one
+# iteration, where every output meets TIER_KERNEL_TOL
+TIER_SENSITIVITY = 4.0
+TIER_SERVE_STEPS = 3
+
+
+def one_ulp(torch, t):
+    """``t`` with every entry moved up by one float32 unit."""
+    return torch.nextafter(t, torch.full_like(t, float("inf")))
+
+
+def tier_mm_fp64(a, b, tier):
+    """``kernels._tier_mm`` with its products summed in float64: the same
+    rounded operands, another summation (the plain version's spread)."""
+    from tpu_gpad_torch.solver import core
+
+    d = lambda t: t.double()  # noqa: E731
+    if tier == "high":
+        (a_hi, a_lo), (b_hi, b_lo) = core._split_tf32_rna(a), b
+        return ((d(a_lo) @ d(b_hi) + d(a_hi) @ d(b_lo))
+                + d(a_hi) @ d(b_hi)).float()
+    rnd = core._round_tf32 if tier == "default" else core._round_bf16
+    return (d(rnd(a)) @ d(b)).float()
+
+
+def summed_in_fp64(kernels, fn):
+    """``fn()`` with the plain versions' products summed in float64."""
+    mm = kernels._tier_mm
+    kernels._tier_mm = tier_mm_fp64
+    try:
+        return fn()
+    finally:
+        kernels._tier_mm = mm
+
+
+def tier_kernel_vs_plain(torch, kernels, dual_kernels, data, g_P, p_D, tier):
+    """Each resident kernel at ``tier`` against its plain version at it, on
+    the card: per kernel the errors over one iteration from a warm state
+    (every output), over 100 iterations cold (per output: z, y, w, zhat;
+    the chunk kernel a 10-iteration window from the state 30 left, its
+    outputs y, y_prev, s, mom, w and the recovered z), and the plain
+    version's own spread: its move when p_D (the chunk: c) moves by one
+    fp32 unit, and when its products are summed in float64. Checked
+    against TIER_KERNEL_TOL and TIER_SENSITIVITY."""
+    tol = TIER_KERNEL_TOL[tier]
+    B, m_h = g_P.shape[0], data.m_half
+    y_warm = kernels.gpad_fixed_paired_flat_torch(data, g_P, p_D,
+                                                  iterations=30)[1]
+    errs = lambda a, b: [(x - y).abs().max().item()  # noqa: E731
+                         for x, y in zip(a, b) if x is not None]
+    out = {}
+    fixed = {"paired_flat": (kernels.gpad_fixed_paired_flat,
+                             kernels.gpad_fixed_paired_flat_torch, {}),
+             "paired": (kernels.gpad_fixed_paired,
+                        kernels.gpad_fixed_paired_torch, {}),
+             "dual": (dual_kernels.gpad_fixed_dual,
+                      dual_kernels.gpad_fixed_dual_torch, {}),
+             "dual_restart": (dual_kernels.gpad_fixed_dual,
+                              dual_kernels.gpad_fixed_dual_torch,
+                              dict(restart=True))}
+    for name, (fn, plain, kw) in fixed.items():
+        kw = dict(kw, tier=tier)
+        one = errs(fn(data, g_P, p_D, y_warm, iterations=1, **kw),
+                   plain(data, g_P, p_D, y_warm, iterations=1, **kw))
+        ref = plain(data, g_P, p_D, iterations=ITERS, **kw)
+        full = errs(fn(data, g_P, p_D, iterations=ITERS, **kw), ref)
+        moved = errs(plain(data, g_P, one_ulp(torch, p_D), iterations=ITERS,
+                           **kw), ref)
+        fp64 = errs(summed_in_fp64(kernels, lambda: plain(
+            data, g_P, p_D, iterations=ITERS, **kw)), ref)
+        if name == "dual_restart":  # z only, as at "highest"
+            full, moved, fp64 = full[:1], moved[:1], fp64[:1]
+        out[name] = {"one_iteration": one, "iterations_100": full,
+                     "plain_one_ulp": moved, "plain_fp64_products": fp64}
+    c = dual_kernels.relu_offsets(data, g_P, p_D)
+    zero = torch.zeros((B, 2, m_h), device=DEVICE)
+    state = dual_kernels.gpad_dual_chunk_torch(
+        data, c, zero, zero, torch.zeros((B, m_h), device=DEVICE),
+        torch.ones((B, 2), device=DEVICE), k0=0, chunk=30, tier=tier)[:4]
+    win = dict(k0=30, tier=tier)
+    one = errs(dual_kernels.gpad_dual_chunk(data, c, *state, chunk=1, **win),
+               dual_kernels.gpad_dual_chunk_torch(data, c, *state, chunk=1,
+                                                  **win))
+    got = dual_kernels.gpad_dual_chunk(data, c, *state, chunk=10, **win)
+    ref = dual_kernels.gpad_dual_chunk_torch(data, c, *state, chunk=10, **win)
+    moved = errs(dual_kernels.gpad_dual_chunk_torch(
+        data, one_ulp(torch, c), *state, chunk=10, **win), ref)
+    fp64 = errs(summed_in_fp64(kernels, lambda: dual_kernels.
+                               gpad_dual_chunk_torch(data, c, *state,
+                                                     chunk=10, **win)), ref)
+    z_err = ((got[2] - ref[2]) @ data.MG_T).abs().max().item()
+    out["dual_chunk"] = {"one_iteration": one, "iterations_10": errs(got, ref),
+                         "plain_one_ulp": moved, "plain_fp64_products": fp64,
+                         "z": z_err}
+    torch.cuda.synchronize()
+    for name, e in out.items():
+        check(max(e["one_iteration"]) <= tol, f"tiers {tier} {name}: one "
+              f"iteration off its plain version by {e['one_iteration']}")
+        full = e.get("iterations_100", e.get("iterations_10"))
+        z = e.get("z", full[0])
+        # under restart a decision near r = 0 may flip and part a scenario:
+        # its z is held to the plain version's own one-unit move alone
+        check(name == "dual_restart" or z <= tol,
+              f"tiers {tier} {name}: z off by {z} (> {tol})")
+        spread = [max(a, b) for a, b in zip(e["plain_one_ulp"],
+                                            e["plain_fp64_products"])]
+        for got_e, spread_e in zip(full, spread):
+            check(got_e <= max(tol, TIER_SENSITIVITY * spread_e),
+                  f"tiers {tier} {name}: {full} against the plain version's "
+                  f"own spread {spread}")
+    return out
+
+
+def tier_parted(du, tol) -> dict:
+    """Per-scenario |du| against ``tol``: a restart decision near r = 0, or
+    an eps solve's stopping window, may part a scenario; at most
+    SW_RESTART_PARTED_SHARE of them (at least one) may be past ``tol``."""
+    per = du.abs().amax(dim=1)
+    parted = int((per > tol).sum())
+    return {"max": per.max().item(), "p99": per.quantile(0.99).item(),
+            "parted": parted, "parted_max": parted_max(per.shape[0]),
+            "ok": parted <= parted_max(per.shape[0])}
+
+
+def tier_kernel_legs(torch, tg, core, kernels, dual_kernels, ctr, name, shape):
+    """The resident routes of one shape under each tier: launches counted
+    from 0 a leg, |u - u(highest)| held to TIER_TOL (fixed routes on their
+    max; the restart and eps routes per scenario, TIER_TOL past 1% at
+    most), each tier's effect shown (TIER_APART: "default" and bf16 at
+    least that many times as far off as "high", above 0) on the fixed
+    routes, and each kernel held against its plain version at the tier."""
+    qp, data = headline(tg, shape)
+    X0 = flag_x0(torch, qp.n_x, BATCH, seed=18)[1]
+    g_P, p_D = core.affine_params(data, X0)
+    leg = {"batch": BATCH, "m_half": data.m_half, "plans": {
+        tier: {"paired_flat": kernels._paired_plan(
+                   data.m_half, data.n_z, data.n_struct, BATCH, tier=tier),
+               "dual": dual_kernels._dual_plan(data.m_half, BATCH, tier=tier)}
+        for tier in TIER_KW}}
+    launches, by_tier, u = {}, {}, {}
+    for tier, kw in TIER_KW.items():
+        for route, rkw in {**TIER_ROUTES, **{f"{r}_effect": e for r, e in
+                                            TIER_EFFECT.items()}}.items():
+            kernel = f"gpad_{route.removesuffix('_effect')}"
+            if rkw is None:  # the eps route: one launch a window
+                fn = lambda kw=kw: tg.solve_to_accuracy(  # noqa: E731
+                    data, X0, tol=EPS_TOL, **kw)
+                want = lambda res, k=kernel: {  # noqa: E731
+                    k: -(-int(res.iterations.max()) // 10)}
+            else:
+                cfg = tg.SolverConfig(**rkw, **kw)
+                fn = lambda cfg=cfg: tg.solve_batch(data, X0, cfg)  # noqa: E731
+                want = {kernel: ITERS // 10 if rkw.get("mode") == "eps"
+                        else 1}
+            res, got = counted(torch, ctr, fn, want, f"tiers {name} {tier} "
+                               f"{route}")
+            check(bool(torch.isfinite(res.u).all()),
+                  f"tiers {name} {tier} {route}: u not finite")
+            if route == "dual_chunk_effect":
+                check(not bool(res.converged.any()), f"tiers {name} {tier}: "
+                      "the eps solve of no scenario converged")
+            u[tier, route] = res.u
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+                by_tier.setdefault(k, {})[tier] = (
+                    by_tier.get(k, {}).get(tier, 0) + n)
+            if route == "dual_chunk":
+                leg.setdefault("eps_converged", {})[tier] = int(
+                    res.converged.sum())
+    for route in TIER_ROUTES:
+        effect = route if route in ("paired_flat", "paired") else (
+            f"{route}_effect")
+        du = {t: (u[t, route] - u["highest", route]) for t in TIER_TOL}
+        eff = {t: (u[t, effect] - u["highest", effect]).abs().max().item()
+               for t in TIER_TOL}
+        row = leg.setdefault("routes", {}).setdefault(route, {})
+        row["effect_max_du"] = eff
+        for tier, tol in TIER_TOL.items():
+            if route in ("paired_flat", "paired"):
+                row[f"max_du_{tier}"] = du[tier].abs().max().item()
+                check(row[f"max_du_{tier}"] <= tol, f"tiers {name} {route}: "
+                      f"{tier} |du| {row[f'max_du_{tier}']} > {tol}")
+            else:
+                row[f"du_{tier}"] = part = tier_parted(du[tier], tol)
+                check(part["ok"], f"tiers {name} {route}: {tier} {part}")
+        for tier in ("default", "bfloat16"):
+            check(eff[tier] > 0 and eff[tier] >= TIER_APART * eff["high"],
+                  f"tiers {name} {route}: {tier} |du| {eff[tier]} is not "
+                  f"{TIER_APART}x high's {eff['high']} (no effect)")
+    leg["kernel_vs_plain"] = {
+        tier: tier_kernel_vs_plain(torch, kernels, dual_kernels, data, g_P,
+                                   p_D, tier) for tier in TIER_KERNEL_TOL}
+    leg["launches"] = launches
+    return leg, launches, by_tier
+
+
+def tier_serving(torch, tg, ctr, smi):
+    """A restart ``Controller`` on the serving fleet under each tier
+    (TIER_SERVE_STEPS steps, one dual launch each), and the CLI's ``solve``
+    under ``--precision default`` and ``--dtype bfloat16`` in process (one
+    flat launch each)."""
+    import contextlib
+    import io as textio
+
+    from tpu_gpad_torch import cli
+
+    problem = tg.problems.battery(**HEADLINE)
+    A = np.asarray(problem.A, dtype=np.float32)
+    Bm = np.asarray(problem.B, dtype=np.float32)
+    out, launches, by_tier = {}, {}, {}
+    x0 = np.random.default_rng(19).uniform(
+        -0.4, 0.4, (SERVE_PLANTS, problem.n_x)).astype(np.float32)
+    for tier, kw in TIER_KW.items():
+        ctl = tg.Controller(problem, config=tg.SolverConfig(
+            iterations=RESTART_ITERS, restart=True, **kw), device=DEVICE)
+
+        def serve(ctl=ctl):
+            x, us = x0, []
+            for _ in range(TIER_SERVE_STEPS):
+                us.append(ctl.step(x))  # host NumPy: the device work done
+                x = x @ A.T + us[-1] @ Bm.T
+            return us
+
+        us, got = counted(torch, ctr, serve, {"gpad_dual": TIER_SERVE_STEPS},
+                          f"tiers serving {tier}")
+        by_tier.setdefault("gpad_dual", {})[tier] = TIER_SERVE_STEPS
+        out[f"controller_{tier}_max_abs_u"] = float(np.abs(us[-1]).max())
+        check(np.isfinite(us[-1]).all() and np.abs(us[-1]).max() <= 0.3 + 1e-2,
+              f"tiers serving {tier}: u {np.abs(us[-1]).max()}")
+        launches[f"controller_{tier}"] = got
+    for flags in (["--precision", "default"], ["--dtype", "bfloat16"]):
+        def run(flags=flags):
+            buf = textio.StringIO()
+            with contextlib.redirect_stdout(buf):
+                check(cli.main(["solve", "--batch", str(BATCH), "--device",
+                                DEVICE, *flags]) == 0, f"cli solve {flags}")
+            return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+        res, got = counted(torch, ctr, run, {"gpad_paired_flat": 1},
+                           f"tiers cli {flags}")
+        by_tier.setdefault("gpad_paired_flat", {})[flags[1]] = 1
+        check(res.get("engine") == "cuda" and np.isfinite(res["u_star"]).all(),
+              f"tiers cli {flags}: {res}")
+        out[f"cli_{flags[1]}_engine"] = res["engine"]
+        launches[f"cli_{flags[1]}"] = got
+    out["launches"] = launches
+    return out, launches, by_tier
+
+
 def phase_tiers_path(torch, tg, core, ctr, smi):
-    """The precision tiers on the torch engine at the headline and the
+    """The precision tiers. On the torch engine at the headline and the
     flagship: each tier's max |u - u(highest)| (held to TIER_TOL at both,
-    finite everywhere); under each tier, the route ``auto``
-    takes (a kernel) raises NotImplementedError and ``engine="torch"``
-    runs it; "highest" with the caller's TF32 switch on equals the solve
-    with it off bit for bit, and the switch is as the caller left it. Each
-    leg's launches (one ``auto`` "highest" solve, the kernel its route
-    names) counted from 0. At the flagship each tier shows that it took
-    effect (TIER_HIGH_FLAGSHIP, TIER_APART). The bf16 product is
-    ``mm(out_dtype=float32)``, fp32-accumulated (BF16_PRODUCT_TOL)."""
+    finite everywhere), "highest" with the caller's TF32 switch on equal
+    to the solve with it off bit for bit (the switch as the caller left
+    it); at the flagship each tier shows that it took effect
+    (TIER_HIGH_FLAGSHIP, TIER_APART) and ``auto`` under a tier raises
+    NotImplementedError naming its tiled route. The bf16 product is
+    ``mm(out_dtype=float32)``, fp32-accumulated (BF16_PRODUCT_TOL). On the
+    resident condensed kernels (``tier_kernel_legs``) at the headline and
+    at n5 N20; a restart ``Controller`` and the CLI under a tier
+    (``tier_serving``). Each leg's launches counted from 0."""
+    kernels, dual_kernels = ctr[:2]
     out = {"phase": "tiers_path", "smi": smi}
     mb = core._Matmul(tg.SolverConfig(matmul_dtype="bfloat16"), device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(16)
@@ -4077,7 +4417,7 @@ def phase_tiers_path(torch, tg, core, ctr, smi):
           f"tiers: the bf16 product is {mb.route} -> {got.dtype}")
     check(rel <= BF16_PRODUCT_TOL, f"tiers: the bf16 product is off by "
           f"{rel} of its largest entry (> {BF16_PRODUCT_TOL})")
-    launches = {}
+    launches, tier_launches = {}, {}
     for name, qp, data, X0 in tier_shapes(torch, tg, seed=16):
         kernel = core.cuda_kernel(data, tg.SolverConfig())
         reset_counters(*ctr)
@@ -4089,13 +4429,13 @@ def phase_tiers_path(torch, tg, core, ctr, smi):
         leg = {"batch": int(X0.shape[0]), "auto_kernel": kernel}
         u = {}
         for tier, kw in TIER_KW.items():
-            if tier != "highest":
+            if tier != "highest" and name == "flagship":
                 try:
                     tg.solve_batch(data, X0, tg.SolverConfig(**kw))
                     raised = ""
                 except NotImplementedError as e:
                     raised = str(e)
-                check("precision tiers for the CUDA kernels" in raised
+                check(f"the '{kernel}' CUDA kernel" in raised
                       and "engine='torch'" in raised,
                       f"tiers {name} {tier}: auto did not refuse ({raised})")
             reset_counters(*ctr)
@@ -4137,8 +4477,25 @@ def phase_tiers_path(torch, tg, core, ctr, smi):
         check(same, f"tiers {name}: highest differs with the caller's TF32 on")
         leg["highest_ignores_callers_tf32"] = same
         out[name] = leg
+    def add(by_tier):
+        for k, tiers in by_tier.items():
+            for tier, n in tiers.items():
+                row = tier_launches.setdefault(k, {})
+                row[tier] = row.get(tier, 0) + n
+
+    for name, shape in TIER_KERNEL_SHAPES:
+        leg, got, by_tier = tier_kernel_legs(torch, tg, core, kernels,
+                                             dual_kernels, ctr, name, shape)
+        out[f"kernels_{name}"] = leg
+        launches[f"kernels_{name}"] = got
+        add(by_tier)
+    out["serving"], serving, by_tier = tier_serving(torch, tg, ctr, smi)
+    add(by_tier)
+    for leg_name, got in serving.items():
+        launches[f"serving_{leg_name}"] = got
+    out["tier_launches"] = tier_launches
     emit(out)
-    return launches
+    return launches, tier_launches
 
 
 def phase_timing_path(torch, tg, core, kernels, ctr, smi):
@@ -4252,11 +4609,13 @@ def main() -> int:
         profile_stagewise(torch, tg, sk, ss, smi)
         return 0
     if sys.argv[1:2] == ["--times"]:  # builds only what it launches
-        families = sys.argv[2:] or ["resident", "stagewise"]
+        families = sys.argv[2:] or ["resident", "stagewise", "tiers"]
         if "resident" in families:
             times_resident(torch, tg, kernels, dual_kernels, core, smi)
         if "stagewise" in families:
             times_stagewise(torch, tg, sk, ss, smi)
+        if "tiers" in families:
+            times_tiers(torch, tg, kernels, dual_kernels, core, smi)
         return 0
     phase_build()
     if sys.argv[1:2] == ["--sweep"]:
@@ -4354,7 +4713,8 @@ def main() -> int:
     # AOT artifacts, every kernel's route loaded in a fresh process
     aot_launches = phase_aot_path(torch, tg, ctr, smi)
     # the precision tiers on the torch engine, then the timing harness
-    late = {"tiers_path": phase_tiers_path(torch, tg, core, ctr, smi),
+    tiers_launches, tier_launches = phase_tiers_path(torch, tg, core, ctr, smi)
+    late = {"tiers_path": tiers_launches,
             "timing_path": phase_timing_path(torch, tg, core, kernels, ctr,
                                              smi)}
     med = phase_timing(torch, tg, kernels, dual_kernels, core, smi)
@@ -4517,6 +4877,12 @@ def main() -> int:
         legs = by_kernel.get(k["name"], {})
         k["launches_by_path"] = {"earlier_paths": k["launches"], **legs}
         k["launches"] += sum(legs.values())
+        # the precision tiers it ran on, with their launches in tiers_path
+        # (the other paths run "highest")
+        k["tiers"] = {"highest": k["launches"] - sum(
+            n for t, n in tier_launches.get(k["name"], {}).items()
+            if t != "highest"), **{t: n for t, n in tier_launches.get(
+                k["name"], {}).items() if t != "highest"}}
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1342,3 +1342,257 @@ def test_a_refused_launch_raises_and_counts_nothing(dev):
         dual_kernels.dual_op(data.D, None, c, None, data.theta, data.beta,
                              ITERS, False, 10, 1, True)
     assert dual_kernels.DUAL_LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the precision tiers of the resident condensed kernels (csrc/mma_product.cuh)
+# ---------------------------------------------------------------------------
+
+# Each tier's kernel against its plain version at that tier (operands
+# rounded as the kernel rounds them, fp32 sums with TF32 off): a tenth of
+# chip_smoke.py's TIER_TOL on z (u's source) and on every output over one
+# iteration, where a rounding mode that differs would show. Past one
+# iteration a tier's roundings amplify any fp32 difference: the plain
+# version moves as far when its products are summed in float64 or its
+# input moves by one fp32 unit (the larger is its spread), so every output
+# over the budget is held to TIER_SENSITIVITY times that spread.
+TIER_KERNEL_TOL = {"high": 1e-4, "default": 5e-4, "bfloat16": 5e-3}
+# a tensor core's mma sums inside it without IEEE round-to-nearest (its
+# aligned addends are truncated), a bias that the plain version's fp32 or
+# fp64 sums do not share: measured on an H100 at up to 3.0 times that
+# spread (a 10-iteration window at "default"); no such excess over one
+# iteration, where every output meets TIER_KERNEL_TOL
+TIER_SENSITIVITY = 4.0
+TIER_KW = {"high": dict(precision="high"), "default": dict(precision="default"),
+           "bfloat16": dict(matmul_dtype="bfloat16")}
+
+
+def _tier_close(out_k, out_p, tier, names=("z", "y", "w", "zhat")):
+    for name, a, b in zip(names, out_k, out_p):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, b, atol=TIER_KERNEL_TOL[tier], rtol=0,
+                                   msg=f"{tier} {name}")
+
+
+def _tier_fns(kernel):
+    """(wrapper, plain version, launch counter, keywords) of a resident
+    kernel; "dual_restart" is the dual kernel under restart."""
+    if kernel.startswith("dual"):
+        return (dual_kernels.gpad_fixed_dual, dual_kernels.gpad_fixed_dual_torch,
+                (dual_kernels, "DUAL_LAUNCHES"),
+                dict(restart=kernel == "dual_restart"))
+    counter = "PAIRED_FLAT_LAUNCHES" if kernel == "paired_flat" else (
+        "PAIRED_LAUNCHES")
+    return (getattr(kernels, f"gpad_fixed_{kernel}"),
+            getattr(kernels, f"gpad_fixed_{kernel}_torch"), (kernels, counter),
+            {})
+
+
+def _tier_run(kernel, data, g_P, p_D, y0, tier, iterations=ITERS, **plan):
+    """A resident kernel at ``tier`` (counted) and its plain version at it."""
+    fn, plain, counter, kw = _tier_fns(kernel)
+    kw = dict(kw, iterations=iterations, tier=tier)
+    before = getattr(*counter)
+    out_k = fn(data, g_P, p_D, y0, **plan, **kw)
+    assert getattr(*counter) == before + 1
+    out_p = plain(data, g_P, p_D, y0, **kw)
+    torch.cuda.synchronize()
+    return out_k, out_p
+
+
+def _tier_mm_fp64(a, b, tier):
+    """``kernels._tier_mm`` with its products summed in float64: the same
+    rounded operands, another summation."""
+    d = lambda t: t.double()  # noqa: E731
+    if tier == "high":
+        (a_hi, a_lo), (b_hi, b_lo) = core._split_tf32_rna(a), b
+        return ((d(a_lo) @ d(b_hi) + d(a_hi) @ d(b_lo))
+                + d(a_hi) @ d(b_hi)).float()
+    rnd = core._round_tf32 if tier == "default" else core._round_bf16
+    return (d(rnd(a)) @ d(b)).float()
+
+
+def _spread(plain_call, out_p, monkeypatch, moved_call):
+    """Per output the plain version's own spread: the larger of its move
+    with its products summed in float64 and with its input moved by one
+    fp32 unit."""
+    with monkeypatch.context() as m:
+        m.setattr(kernels, "_tier_mm", _tier_mm_fp64)
+        fp64 = plain_call()
+    moved = moved_call()
+    return [max((x - b).abs().max().item(), (y - b).abs().max().item())
+            for x, y, b in zip(fp64, moved, out_p)]
+
+
+def _tier_held(kernel, data, g_P, p_D, y0, tier, monkeypatch, **plan):
+    """``kernel`` at ``tier`` held to its plain version: every output over
+    one iteration from a warm state and z over 100 iterations within
+    TIER_KERNEL_TOL (under restart, where a decision near r = 0 may part a
+    scenario, z as the last iterates), every output over 100 iterations
+    within TIER_SENSITIVITY times the plain version's own spread. Returns
+    the 100-iteration outputs."""
+    tol = TIER_KERNEL_TOL[tier]
+    warm = y0 if y0 is not None else kernels.gpad_fixed_paired_flat_torch(
+        data, g_P, p_D, iterations=30)[1]
+    _tier_close(*_tier_run(kernel, data, g_P, p_D, warm, tier, iterations=1,
+                           **plan), tier)
+    out_k, out_p = _tier_run(kernel, data, g_P, p_D, y0, tier, **plan)
+    _, plain, _, kw = _tier_fns(kernel)
+    kw = dict(kw, iterations=ITERS, tier=tier)
+    spread = _spread(
+        lambda: plain(data, g_P, p_D, y0, **kw), out_p, monkeypatch,
+        lambda: plain(data, g_P, torch.nextafter(p_D, p_D + 1.0), y0, **kw))
+    names = ("z",) if kernel == "dual_restart" else ("z", "y", "w", "zhat")
+    for name, a, b, own in zip(names, out_k, out_p, spread):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        err = (a - b).abs().max().item()
+        assert err <= max(tol, TIER_SENSITIVITY * own), (tier, name, err, own)
+    if kernel != "dual_restart":
+        torch.testing.assert_close(out_k[0], out_p[0], atol=tol, rtol=0,
+                                   msg=f"{tier} z")
+    return out_k
+
+
+@pytest.mark.parametrize("tier", list(TIER_KERNEL_TOL))
+@pytest.mark.parametrize("case", list(PAIRED_CASES))
+@pytest.mark.parametrize("kernel",
+                         ["paired_flat", "paired", "dual", "dual_restart"])
+def test_tier_kernel_matches_plain(dev, monkeypatch, kernel, case, tier):
+    """Each resident kernel at each tier against its plain version at the
+    tier: the headline and serving batches, a partial last tile, soft rows,
+    one scenario; and the tier took effect (z differs from "highest"'s)."""
+    data, g_P, p_D, y0 = _paired_case(_data(dev), case, seed=12)
+    out_k = _tier_held(kernel, data, g_P, p_D, y0, tier, monkeypatch)
+    highest = _tier_run(kernel, data, g_P, p_D, y0, "highest")[0]
+    assert not torch.equal(out_k[0], highest[0]), "the tier took no effect"
+
+
+@pytest.mark.parametrize("tier", list(TIER_KERNEL_TOL))
+@pytest.mark.parametrize("plan", PAIRED_PLANS, ids=lambda p: (
+    "pick" if p[0] is None else f"tile{1 << p[0]}_split{p[1]}"))
+@pytest.mark.parametrize("kernel", ["paired_flat", "paired"])
+def test_tier_paired_plans_match_plain(dev, monkeypatch, kernel, plan, tier):
+    """Both paired instances at every plan and tier: each tile width's warp
+    tiles (T 1 to 16) and split-K parts."""
+    data, g_P, p_D, y0 = _paired_case(_data(dev), "B300_warm_shared", seed=13)
+    _tier_held(kernel, data, g_P, p_D, y0, tier, monkeypatch,
+               log2_tile=plan[0], split=plan[1])
+
+
+@pytest.mark.parametrize("tier", list(TIER_KERNEL_TOL))
+@pytest.mark.parametrize("plan", DUAL_PLANS, ids=_plan_id)
+@pytest.mark.parametrize("shape", [(3, 10), (3, 7)], ids=["n3N10", "n3N7"])
+def test_tier_dual_plans_match_plain(dev, monkeypatch, shape, plan, tier):
+    """The dual kernel at every plan its registers take (T 1 to 16) and
+    tier, at m_h 70 and 49 (rows not a multiple of the warp tile's 16)."""
+    data, g_P, p_D, y0 = _paired_case(_data(dev, *shape), "B300_warm_shared",
+                                      seed=14)
+    log2, split = (None, None) if plan is None else plan
+    _tier_held("dual", data, g_P, p_D, y0, tier, monkeypatch, log2_tile=log2,
+               split=split)
+
+
+@pytest.mark.parametrize("tier", list(TIER_KERNEL_TOL))
+@pytest.mark.parametrize("B", [256, 4096])
+def test_tier_dual_chunk_matches_plain(dev, monkeypatch, B, tier):
+    """One window of 10 at each tier from k0 = 30, on the state 30
+    iterations left, against the plain version at the tier: one iteration
+    of it on every output, the recovered z, and the window's outputs
+    against the plain version's own one-unit move, as ``_tier_held``."""
+    data = _data(dev)
+    g_P, p_D = _inputs(data, B, seed=5)
+    c = dual_kernels.relu_offsets(data, g_P, p_D)
+    y = torch.zeros((B, 2, data.m_half), device=dev)
+    state = dual_kernels.gpad_dual_chunk_torch(
+        data, c, y, y, torch.zeros((B, data.m_half), device=dev),
+        torch.ones((B, 2), device=dev), k0=0, chunk=30, tier=tier)[:4]
+    names = ("y", "y_prev", "s", "mom", "w")
+    before = dual_kernels.DUAL_CHUNK_LAUNCHES
+    one = [fn(data, c, *state, k0=30, chunk=1, tier=tier) for fn in (
+        dual_kernels.gpad_dual_chunk, dual_kernels.gpad_dual_chunk_torch)]
+    out_k = dual_kernels.gpad_dual_chunk(data, c, *state, k0=30, chunk=10,
+                                         tier=tier)
+    out_p = dual_kernels.gpad_dual_chunk_torch(data, c, *state, k0=30,
+                                               chunk=10, tier=tier)
+    window = lambda c: dual_kernels.gpad_dual_chunk_torch(  # noqa: E731
+        data, c, *state, k0=30, chunk=10, tier=tier)
+    spread = _spread(lambda: window(c), out_p, monkeypatch,
+                     lambda: window(torch.nextafter(c, c + 1.0)))
+    torch.cuda.synchronize()
+    assert dual_kernels.DUAL_CHUNK_LAUNCHES == before + 2
+    _tier_close(*one, tier, names)
+    tol = TIER_KERNEL_TOL[tier]
+    z_err = ((out_k[2] - out_p[2]) @ data.MG_T).abs().max().item()
+    assert z_err <= tol, z_err
+    for name, a, b, own in zip(names, out_k, out_p, spread):
+        err = (a - b).abs().max().item()
+        assert err <= max(tol, TIER_SENSITIVITY * own), (tier, name, err, own)
+
+
+@pytest.mark.parametrize("tier", list(TIER_KERNEL_TOL))
+def test_tier_solves_route_through_resident_kernels(dev, tier):
+    """Under each tier ``auto`` launches the kernel "highest" launches: the
+    flat kernel at the headline, the full paired one with the flat block
+    off, the dual one under restart, the chunk one in eps mode; each u
+    within chip_smoke.py's TIER_TOL of "highest"'s."""
+    tol = {"high": 5e-4, "default": 5e-3, "bfloat16": 5e-2}[tier]
+    data = _data(dev)
+    X0 = torch.as_tensor(np.random.default_rng(15).uniform(
+        -0.4, 0.4, (512, data.n_x)), dtype=torch.float32, device=dev)
+    routes = {("PAIRED_FLAT_LAUNCHES", kernels): {},
+              ("PAIRED_LAUNCHES", kernels): dict(form="mvp", flat="off"),
+              ("DUAL_LAUNCHES", dual_kernels): dict(restart=True)}
+    for (counter, module), kw in routes.items():
+        before = getattr(module, counter)
+        res = tg.solve_batch(data, X0, tg.SolverConfig(**kw, **TIER_KW[tier]))
+        torch.cuda.synchronize()
+        assert getattr(module, counter) == before + 1, counter
+        ref = tg.solve_batch(data, X0, tg.SolverConfig(**kw))
+        assert (res.u - ref.u).abs().max().item() <= tol, counter
+    before = dual_kernels.DUAL_CHUNK_LAUNCHES
+    res = tg.solve_to_accuracy(data, X0, tol=1e-5, **TIER_KW[tier])
+    assert dual_kernels.DUAL_CHUNK_LAUNCHES > before
+    assert bool(torch.isfinite(res.u).all())
+    ref = tg.solve_to_accuracy(data, X0, tol=1e-5)
+    assert (res.u - ref.u).abs().max().item() <= tol
+
+
+def test_unknown_tier_is_refused(dev):
+    """A tier the kernels do not know: the launcher refuses it, the op
+    raises, and no launch is counted."""
+    data = _data(dev)
+    g_P, p_D = _inputs(data, 8)
+    plan = kernels._paired_plan(data.m_half, data.n_z, data.n_struct, 8)
+    before = kernels.PAIRED_FLAT_LAUNCHES
+    with pytest.raises(RuntimeError, match="gpad_paired_flat launch failed"):
+        kernels.paired_flat_op(
+            data.MG_T, data.GL_T, g_P, p_D, None, None, data.theta, data.beta,
+            data.L, data.n_struct, ITERS, *plan, True, "float16")
+    assert kernels.PAIRED_FLAT_LAUNCHES == before
+    c = dual_kernels.relu_offsets(data, g_P, p_D)
+    before = dual_kernels.DUAL_LAUNCHES
+    with pytest.raises(RuntimeError, match="gpad_dual launch failed"):
+        dual_kernels.dual_op(data.D, None, c, None, data.theta, data.beta,
+                             ITERS, False, *dual_kernels._dual_plan(
+                                 data.m_half, 8), True, "float16")
+    assert dual_kernels.DUAL_LAUNCHES == before
+
+
+def test_dense_and_tiled_routes_refuse_a_tier(dev):
+    """The kernels without tier products raise under a tier, naming their
+    route, and never re-route."""
+    dense = tg.dualize(tg.condense(tg.problems.battery(3, 10)), ITERS,
+                       paired=False, device=dev)
+    X0 = torch.zeros((4, dense.n_x), device=dev)
+    with pytest.raises(NotImplementedError, match="'dense' CUDA kernel"):
+        tg.solve_batch(dense, X0, tg.SolverConfig(precision="default"))
+    flag = _tiled_data(dev, 30, 30)
+    X0 = torch.zeros((2, flag.n_x), device=dev)
+    with pytest.raises(NotImplementedError, match="'flat_tiled' CUDA kernel"):
+        tg.solve_batch(flag, X0, tg.SolverConfig(matmul_dtype="bfloat16"))
+    with pytest.raises(NotImplementedError, match="'dual_tiled' CUDA kernel"):
+        tg.solve_batch(flag, X0, tg.SolverConfig(restart=True,
+                                                 precision="high"))

@@ -2,9 +2,9 @@
 ``matmul_dtype``) against ``tpu_gpad``'s XLA engine on the same seeded
 inputs: battery n3 N10, paired and dense, B6, 100 iterations, for the mvp
 (flat and dense), dual-form, restart and eps loops and for
-``convergence_trace``; then the TF32 switch's scope, the refusal of a
-kernel route under a tier, AOT artifacts exported under a tier and the
-CLI.
+``convergence_trace``; then the TF32 switch's scope, the refusal of the
+dense kernel's route under a tier and the routes of the resident kernels
+under one, AOT artifacts exported under a tier and the CLI.
 
 Tolerances, stated before the code was written:
 
@@ -193,19 +193,41 @@ def test_highest_ignores_the_callers_tf32(data):
                                 dict(matmul_dtype="bfloat16")],
                          ids=["high", "default", "bfloat16"])
 def test_kernel_route_under_a_tier_raises(data, monkeypatch, kw):
-    """Where ``auto`` on the card would launch a kernel, a tier raises and
-    never re-routes; ``engine="torch"`` serves it. The card is stood in
-    for by the data's device."""
+    """Where ``auto`` on the card would launch a kernel without tier
+    products (the dense one here: unpaired n3 N10), a tier raises and never
+    re-routes; ``engine="torch"`` serves it. The card is stood in for by
+    the data's device."""
+    _, d_t = data["dense"]
+    monkeypatch.setattr(GPADData, "device",
+                        property(lambda self: torch.device("cuda")))
+    assert core.cuda_kernel(d_t, SolverConfig(**kw)) == "dense"
+    assert core.resolve_engine(d_t, SolverConfig()) == "cuda"
+    with pytest.raises(NotImplementedError,
+                       match="'dense' CUDA kernel.*precision tiers for the "
+                             "CUDA kernels.*ROADMAP.*engine='torch'"):
+        core.resolve_engine(d_t, SolverConfig(**kw))
+    assert core.resolve_engine(d_t, SolverConfig(engine="torch", **kw)) == "torch"
+
+
+@pytest.mark.parametrize("kw", [dict(precision="high"),
+                                dict(precision="default"),
+                                dict(matmul_dtype="bfloat16")],
+                         ids=["high", "default", "bfloat16"])
+def test_resident_kernel_routes_take_a_tier(data, monkeypatch, kw):
+    """The paired flat route (``auto`` at the headline) and the other
+    resident condensed routes resolve to "cuda" under each tier, to the
+    kernel "highest" takes. The card is stood in for by the data's
+    device."""
     _, d_t = data["paired"]
     monkeypatch.setattr(GPADData, "device",
                         property(lambda self: torch.device("cuda")))
-    assert core.cuda_kernel(d_t, SolverConfig(**kw)) is not None
-    assert core.resolve_engine(d_t, SolverConfig()) == "cuda"
-    with pytest.raises(NotImplementedError,
-                       match="precision tiers for the CUDA kernels.*ROADMAP"
-                             ".*engine='torch'"):
-        core.resolve_engine(d_t, SolverConfig(**kw))
-    assert core.resolve_engine(d_t, SolverConfig(engine="torch", **kw)) == "torch"
+    assert core.resolve_engine(d_t, SolverConfig(**kw)) == "cuda"
+    assert core.cuda_kernel(d_t, SolverConfig(**kw)) == "paired_flat"
+    for route in (dict(form="mvp", flat="off"), dict(restart=True),
+                  dict(mode="eps", restart=True), dict(engine="cuda")):
+        assert core.resolve_engine(d_t, SolverConfig(**route, **kw)) == "cuda"
+        assert (core.cuda_kernel(d_t, SolverConfig(**route, **kw))
+                == core.cuda_kernel(d_t, SolverConfig(**route)))
 
 
 @pytest.mark.parametrize("bad", [dict(precision="fastest"),

@@ -180,15 +180,15 @@ def test_sharding_axes_need_a_bound_group(paired_pair, one_rank_group, kw):
 
 @pytest.mark.parametrize(
     "kw, missing",
-    # the CUDA kernels are fp32 "highest" only: a kernel route under another
-    # tier names what is still to be ported, points at the ROADMAP and at
-    # the engine that serves the tier
-    [(dict(precision="high"), "precision tiers for the CUDA kernels"),
-     (dict(matmul_dtype="bfloat16"), "precision tiers for the CUDA kernels")],
+    # the dense (and tiled) CUDA kernels are fp32 "highest" only: their
+    # route under another tier names the kernel and what is still to be
+    # ported, points at the ROADMAP and at the engine that serves the tier
+    [(dict(precision="high"), "'dense' CUDA kernel.*precision tiers"),
+     (dict(matmul_dtype="bfloat16"), "'dense' CUDA kernel.*precision tiers")],
     ids=["precision", "matmul_dtype"],
 )
-def test_unported_modes_raise(paired_pair, kw, missing):
-    _, _, d_t = paired_pair
+def test_unported_modes_raise(dense_pair, kw, missing):
+    _, _, d_t = dense_pair
     with pytest.raises(NotImplementedError,
                        match=f"{missing}.*ROADMAP.*engine='torch'"):
         tpu_gpad_torch.solve_batch(

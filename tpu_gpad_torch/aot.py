@@ -28,10 +28,13 @@ a ``while_loop`` over eps check windows), so an artifact's graph does not
 grow with the iteration budget. The callable returns the ``SolveResult``
 fields as a plain dict.
 
-A precision tier (``SolverConfig.precision``, ``matmul_dtype``; the torch
-engine only) exports as the ops that the graph holds: the bf16 casts and
-the 3xTF32 split. The TF32 switch is process state, not a graph op, so the
-artifact records its tier in the archive (``gpad_tier.json``) and
+A precision tier (``SolverConfig.precision``, ``matmul_dtype``) exports
+as the ops that the graph holds: on the torch engine the bf16 casts and
+the 3xTF32 split; on a kernel route the kernel op with its ``tier``
+argument, the ops around it fp32. The TF32 switch is process state, not a
+graph op, so the artifact records its tier in the archive
+(``gpad_tier.json``: TF32 on for the torch engine's "high" and "default",
+off for a kernel route, whose kernel runs its tier itself) and
 ``load_solver``'s callable runs under the same scoped switch
 (``solver.core.tf32_matmuls``).
 """
@@ -81,10 +84,13 @@ def _refuse_axes(config: SolverConfig) -> None:
             "solve")
 
 
-def _tier_record(config: SolverConfig) -> dict:
-    """The tier an artifact's products run at, as ``load_solver`` reads it."""
+def _tier_record(config: SolverConfig, kernel: bool = False) -> dict:
+    """The tier an artifact's products run at, as ``load_solver`` reads it;
+    on a ``kernel`` route the ops around the launch hold TF32 off, as the
+    live call's do."""
     return {"precision": config.precision, "matmul_dtype": config.matmul_dtype,
-            "tier": core.tier(config), "tf32": core._tf32(config)}
+            "tier": core.tier(config),
+            "tf32": core._tf32(config) and not kernel}
 
 
 def _export(module, data, batch_size, path, tier: dict) -> bytes:
@@ -119,15 +125,18 @@ def export_solver(
     float32, on the data's device. ``batch_size=None`` exports a symbolic
     batch on the torch engine; a concrete one routes as a live solve on
     the exporting device and serves that card type only (see the module
-    docstring). A tier other than fp32 "highest" runs the torch engine: a
-    concrete batch that a kernel would serve raises, as the live call."""
+    docstring). Under a tier other than fp32 "highest" a concrete batch
+    routes as the live call too: a resident condensed kernel runs it at the
+    tier, and a route to the dense or a tiled kernel raises."""
     _refuse_axes(config)
     core._check_config(config)
     if batch_size is None:
         config = dataclasses.replace(config, engine="torch")
+    kernel = core.resolve_engine(data, config) == "cuda"
     module = _Solve(data, GPAD_TENSOR_FIELDS,
                     lambda d, x0: solve_batch(d, x0, config=config))
-    return _export(module, data, batch_size, path, _tier_record(config))
+    return _export(module, data, batch_size, path,
+                   _tier_record(config, kernel))
 
 
 def load_solver(src: bytes | str | Path):

@@ -58,12 +58,19 @@
 // shuffles, one partial per warp goes to shared memory, and after a
 // barrier every thread of the scenario adds the same 8 partials in the
 // same order, so all reach the same decision; it then forms the next wd (a
-// third barrier per iteration under restart). Products are plain fp32 FMA
-// (precision "highest").
+// third barrier per iteration under restart).
+//
+// Precision: the tier is a template parameter of both kernels. "highest"
+// runs the plain fp32 FMA product above; "high", "default" and "bfloat16"
+// run wd D on the tensor cores (mma_product.cuh: warp tiles of 16 rows x 8
+// scenarios over the same D and the same split-K scratch), as
+// _make_dual_body runs _kdot at its tier. The epilogue, the restart test and
+// s stay fp32 at every tier.
 
 #include <cuda_runtime.h>
 
 #include "block_product.cuh"
+#include "mma_product.cuh"
 
 namespace {
 
@@ -185,8 +192,8 @@ __device__ __forceinline__ bool restart_step(const Tile& t, int T, int me,
 // thread's scenario's restart recursion; on return `st`, th and thp hold
 // the state after iteration n - 1 with its restart decision applied, and
 // w_out (B, 2, m_h), if given, the extrapolated point of iteration n - 1
-// (zeros when n is 0).
-template <int ST>
+// (zeros when n is 0). The product runs at kTier (gpad_mma::Tier).
+template <int ST, int kTier>
 __device__ __forceinline__ void dual_iterations(const Tile& t, State& st, int m_h, int log2T,
                                 int S, int k0, int n,
                                 const float* __restrict__ theta,
@@ -229,9 +236,13 @@ __device__ __forceinline__ void dual_iterations(const Tile& t, State& st, int m_
         const bool last = k + 1 == n;
         const float b_next = restart || last ? 0.0f : beta[k0 + k + 1];
         // d = -(wd D): each part's sums into t.part
-        gpad_block::block_product<4, ST, kThreads>(
-            t.D, mp, t.wd, log2T, P, t.part,
-            [](int, int, const float (&)[ST]) {});
+        if constexpr (kTier == gpad_mma::kHighest)
+            gpad_block::block_product<4, ST, kThreads>(
+                t.D, mp, t.wd, log2T, P, t.part,
+                [](int, int, const float (&)[ST]) {});
+        else
+            gpad_mma::mma_product<kTier, kThreads>(t.D, mp, t.wd, log2T, m_h,
+                                                   m_h, S, t.part);
         __syncthreads();
         // projection, s, the restart partials, and (no restart) next wd
         float rsum = 0.0f;
@@ -284,7 +295,7 @@ __device__ __forceinline__ void dual_iterations(const Tile& t, State& st, int m_
     }
 }
 
-template <int ST>
+template <int ST, int kTier>
 __global__ void __launch_bounds__(kThreads, 2)
 gpad_dual_kernel(
     const float* __restrict__ D,      // (m_h, m_h)
@@ -307,12 +318,12 @@ gpad_dual_kernel(
     stage(t, st, D, od, c, y0, y0, y0_stride, nullptr, B, m_h, log2T, b0);
     __syncthreads();
     float th = 1.0f, thp = 1.0f;
-    dual_iterations<ST>(t, st, m_h, log2T, S, 0, iterations, theta, beta,
-                        restart != 0, th, thp, w_out, B, b0);
+    dual_iterations<ST, kTier>(t, st, m_h, log2T, S, 0, iterations, theta,
+                               beta, restart != 0, th, thp, w_out, B, b0);
     store_state(st, y_out, nullptr, s_out, B, m_h, log2T, b0);
 }
 
-template <int ST>
+template <int ST, int kTier>
 __global__ void __launch_bounds__(kThreads, 2)
 gpad_dual_chunk_kernel(
     const float* __restrict__ D, const float* __restrict__ od,
@@ -340,8 +351,8 @@ gpad_dual_chunk_kernel(
     const long long b = b0 + (tid & (T - 1));
     float th = b < B ? mom_in[2 * b] : 1.0f;
     float thp = b < B ? mom_in[2 * b + 1] : 1.0f;
-    dual_iterations<ST>(t, st, m_h, log2T, S, k0, chunk, theta, beta,
-                        restart != 0, th, thp, w_out, B, b0);
+    dual_iterations<ST, kTier>(t, st, m_h, log2T, S, k0, chunk, theta, beta,
+                               restart != 0, th, thp, w_out, B, b0);
     store_state(st, y_out, yprev_out, s_out, B, m_h, log2T, b0);
     if (tid < T && b < B) {  // thread s holds scenario s's recursion
         mom_out[2 * b] = th;
@@ -351,15 +362,38 @@ gpad_dual_chunk_kernel(
 
 int grid_of(int B, int log2T) { return (B + (1 << log2T) - 1) >> log2T; }
 
-// The instances for a thread's product tile of min(T, 4) scenarios.
-auto fixed_of(int log2T) {
-    return log2T == 0 ? gpad_dual_kernel<1>
-         : log2T == 1 ? gpad_dual_kernel<2> : gpad_dual_kernel<4>;
+using FixedKernel = decltype(&gpad_dual_kernel<1, gpad_mma::kHighest>);
+using ChunkKernel = decltype(&gpad_dual_chunk_kernel<1, gpad_mma::kHighest>);
+
+// The instances of a tier (gpad_mma::Tier), or null for an unknown one:
+// "highest" by a thread's product tile of min(T, 4) scenarios; the tiers'
+// warp tiles take any T.
+FixedKernel fixed_of(int log2T, int tier) {
+    using namespace gpad_mma;
+    switch (tier) {
+    case kHighest:
+        return log2T == 0 ? gpad_dual_kernel<1, kHighest>
+             : log2T == 1 ? gpad_dual_kernel<2, kHighest>
+                          : gpad_dual_kernel<4, kHighest>;
+    case kHigh: return gpad_dual_kernel<1, kHigh>;
+    case kDefault: return gpad_dual_kernel<1, kDefault>;
+    case kBfloat16: return gpad_dual_kernel<1, kBfloat16>;
+    default: return nullptr;
+    }
 }
 
-auto chunk_of(int log2T) {
-    return log2T == 0 ? gpad_dual_chunk_kernel<1>
-         : log2T == 1 ? gpad_dual_chunk_kernel<2> : gpad_dual_chunk_kernel<4>;
+ChunkKernel chunk_of(int log2T, int tier) {
+    using namespace gpad_mma;
+    switch (tier) {
+    case kHighest:
+        return log2T == 0 ? gpad_dual_chunk_kernel<1, kHighest>
+             : log2T == 1 ? gpad_dual_chunk_kernel<2, kHighest>
+                          : gpad_dual_chunk_kernel<4, kHighest>;
+    case kHigh: return gpad_dual_chunk_kernel<1, kHigh>;
+    case kDefault: return gpad_dual_chunk_kernel<1, kDefault>;
+    case kBfloat16: return gpad_dual_chunk_kernel<1, kBfloat16>;
+    default: return nullptr;
+    }
 }
 
 }  // namespace
@@ -367,11 +401,13 @@ auto chunk_of(int log2T) {
 extern "C" {
 
 // Both launchers run on `stream` and return cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue for a plan the kernels do not take.
-// `smem` is the block's dynamic shared memory in bytes and `split` the
-// product's parts, computed by the caller (dual_kernels.py::_dual_plan,
-// _dual_smem_bytes) so the routing guard and the launch agree; log2_tile
-// must be in [0, 5], split >= 1, and m_h 2**log2_tile <= kMaxE kThreads.
+// success), or cudaErrorInvalidValue for a plan or a tier the kernels do
+// not take. `smem` is the block's dynamic shared memory in bytes and
+// `split` the product's parts, computed by the caller
+// (dual_kernels.py::_dual_plan, _dual_smem_bytes) so the routing guard and
+// the launch agree; log2_tile must be in [0, 5], split >= 1, and m_h
+// 2**log2_tile <= kMaxE kThreads. `tier` is the product's precision
+// (gpad_mma::Tier: 0 "highest", 1 "high", 2 "default", 3 "bfloat16").
 
 static bool takes(int m_h, int log2_tile, int split) {
     return log2_tile >= 0 && log2_tile <= 5 && split >= 1
@@ -382,10 +418,12 @@ int gpad_dual_launch(
     const float* D, const float* od, const float* c, const float* y0,
     long long y0_stride, const float* theta, const float* beta,
     int B, int m_h, int iterations, int restart, int log2_tile, int split,
-    float* s_out, float* y_out, float* w_out, int smem, void* stream)
+    float* s_out, float* y_out, float* w_out, int smem, int tier,
+    void* stream)
 {
-    if (!takes(m_h, log2_tile, split)) return (int)cudaErrorInvalidValue;
-    const auto kernel = fixed_of(log2_tile);
+    const auto kernel = fixed_of(log2_tile, tier);
+    if (!takes(m_h, log2_tile, split) || !kernel)
+        return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -402,10 +440,11 @@ int gpad_dual_chunk_launch(
     const float* theta, const float* beta,
     int B, int m_h, int k0, int chunk, int restart, int log2_tile, int split,
     float* y_out, float* yprev_out, float* s_out, float* mom_out,
-    float* w_out, int smem, void* stream)
+    float* w_out, int smem, int tier, void* stream)
 {
-    if (!takes(m_h, log2_tile, split)) return (int)cudaErrorInvalidValue;
-    const auto kernel = chunk_of(log2_tile);
+    const auto kernel = chunk_of(log2_tile, tier);
+    if (!takes(m_h, log2_tile, split) || !kernel)
+        return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;

@@ -51,19 +51,31 @@
 // last iteration's w and zhat go straight to device memory. Where the
 // padded carve-up does not fit shared memory (shapes near the guard), V =
 // 1 keeps the operands unpadded at one scenario per block, within the
-// first design's carve-up, so the guard admits what it did. Products are
-// plain fp32 FMA (precision "highest").
+// first design's carve-up, so the guard admits what it did.
+//
+// Precision: the tier is a template parameter of the kernel. "highest" runs
+// the plain fp32 FMA products above; "high", "default" and "bfloat16" run
+// both products on the tensor cores (mma_product.cuh: warp tiles of 16 rows
+// x 8 scenarios over the same operands and the same split-K scratch), as
+// the Pallas kernels run _kdot at their tier. The epilogues, and the 1 / L
+// of the flat instance's identity rows, stay fp32 at every tier.
 
 #include <cuda_runtime.h>
 
 #include "block_product.cuh"
+#include "mma_product.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 // Dual and primal elements a thread keeps in registers (mirrored by
-// kernels.py::_PAIRED_MAX_ELEMENTS and _PAIRED_MAX_PRIMAL)
-constexpr int kMaxE = 6;
+// kernels.py::_paired_max_elements and _PAIRED_MAX_PRIMAL): a tier's
+// tensor-core product keeps its fragments in registers too, so its
+// instances keep one dual element fewer, or they would spill past the 128
+// registers of two blocks per SM
+__host__ __device__ constexpr int max_elements(int tier) {
+    return tier == gpad_mma::kHighest ? 6 : 5;
+}
 constexpr int kMaxP = 2;
 using gpad_block::up4;
 
@@ -101,15 +113,32 @@ struct Args {
 #define FOR_MEM(idx, n, kMax)                                              \
     for (int idx = threadIdx.x + kMax * kThreads; idx < (n); idx += kThreads)
 
+// The block's share of out = A' X, its parts into `part`: the FFMA block
+// product ("highest") or the tier's tensor-core one.
+template <int V, int ST, int kTier>
+__device__ __forceinline__ void product(const float* __restrict__ A, int lda,
+                                        const float* __restrict__ X, int log2T,
+                                        const gpad_block::Product& P,
+                                        float* part)
+{
+    if constexpr (kTier == gpad_mma::kHighest)
+        gpad_block::block_product<V, ST, kThreads>(
+            A, lda, X, log2T, P, part, [](int, int, const float (&)[ST]) {});
+    else
+        gpad_mma::mma_product<kTier, kThreads>(A, lda, X, log2T, P.R, P.K,
+                                               P.S, part);
+}
+
 // Two blocks per SM where rows are padded; the unpadded layout (shapes
 // near the guard, whose carve-up leaves room for one block) takes the
 // registers of one.
-template <bool kFlat, int V, int ST>
+template <bool kFlat, int V, int ST, int kTier>
 __global__ void __launch_bounds__(kThreads, V == 4 ? 2 : 1)
 gpad_paired_kernel(const Args a)
 {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
+    constexpr int kMaxE = max_elements(kTier);
     const int log2T = a.log2T, T = 1 << log2T;
     const int m_h = a.m_h, n_z = a.n_z, n_s = a.n_s;
     const float inv_L = 1.0f / a.L[0];  // IEEE division, as torch's 1 / L
@@ -185,14 +214,12 @@ gpad_paired_kernel(const Args a)
         gpad_block::make_product<ST>(n_z, m_h, log2T, a.s1);
     const gpad_block::Product P2 =
         gpad_block::make_product<ST>(n_s, n_z, log2T, a.s2);
-    const auto none = [](int, int, const float (&)[ST]) {};
     for (int k = 0; k < a.iterations; ++k) {
         const float th = a.theta[k], bk = a.beta[k];
         const bool last = k + 1 == a.iterations;
         const float bn = last ? 0.0f : a.beta[k + 1];
         // zhat = -MG_T' wd - g_P, its parts into `part`
-        gpad_block::block_product<V, ST, kThreads>(sMG, np, sWd, log2T, P1,
-                                                   part, none);
+        product<V, ST, kTier>(sMG, np, sWd, log2T, P1, part);
         __syncthreads();
         // zhat and z of the thread's primal elements
         auto primal = [&](int idx, float& zq, float gq) {
@@ -213,8 +240,7 @@ gpad_paired_kernel(const Args a)
         }
         __syncthreads();
         // q = GL_T[:, :n_s]' zhat, its parts into `part`
-        gpad_block::block_product<V, ST, kThreads>(sGL, nsp, sZh, log2T, P2,
-                                                   part, none);
+        product<V, ST, kTier>(sGL, nsp, sZh, log2T, P2, part);
         __syncthreads();
         // projection, and the next iteration's wd from (y_next, y)
         auto dual = [&](int idx, Dual& e) {
@@ -273,24 +299,45 @@ gpad_paired_kernel(const Args a)
     FOR_REG(q, idx, zT, kMaxP) a.z_out[zo + (idx >> log2T)] = z[q];
 }
 
-// The instance for a plan: the full or flat body, padded rows (V = 4) with
+using Kernel = void (*)(const Args);
+
+// The instance of a tier's tensor-core products: padded rows (V = 4) or
+// unpadded (the warp tiles take any row stride and any T).
+template <bool kFlat, int kTier>
+Kernel tier_instance(int vec) {
+    return vec == 1 ? gpad_paired_kernel<kFlat, 1, 1, kTier>
+                    : gpad_paired_kernel<kFlat, 4, 1, kTier>;
+}
+
+// The instance for a plan and a tier (gpad_mma::Tier), or null for an
+// unknown tier: "highest" the full or flat body, padded rows (V = 4) with
 // a product tile of min(T, 4) scenarios, or unpadded at one scenario.
 template <bool kFlat>
-auto instance(int vec, int log2T) {
-    return vec == 1      ? gpad_paired_kernel<kFlat, 1, 1>
-         : log2T == 0    ? gpad_paired_kernel<kFlat, 4, 1>
-         : log2T == 1    ? gpad_paired_kernel<kFlat, 4, 2>
-                         : gpad_paired_kernel<kFlat, 4, 4>;
+Kernel instance(int vec, int log2T, int tier) {
+    switch (tier) {
+    case gpad_mma::kHighest:
+        return vec == 1   ? gpad_paired_kernel<kFlat, 1, 1, gpad_mma::kHighest>
+             : log2T == 0 ? gpad_paired_kernel<kFlat, 4, 1, gpad_mma::kHighest>
+             : log2T == 1 ? gpad_paired_kernel<kFlat, 4, 2, gpad_mma::kHighest>
+                          : gpad_paired_kernel<kFlat, 4, 4, gpad_mma::kHighest>;
+    case gpad_mma::kHigh: return tier_instance<kFlat, gpad_mma::kHigh>(vec);
+    case gpad_mma::kDefault:
+        return tier_instance<kFlat, gpad_mma::kDefault>(vec);
+    case gpad_mma::kBfloat16:
+        return tier_instance<kFlat, gpad_mma::kBfloat16>(vec);
+    default: return nullptr;
+    }
 }
 
 template <bool kFlat>
-int launch(const Args& a, int vec, int smem, void* stream)
+int launch(const Args& a, int vec, int smem, int tier, void* stream)
 {
     if (a.log2T < 0 || a.log2T > 4 || a.s1 < 1 || a.s2 < 1
         || (vec != 4 && (vec != 1 || a.log2T != 0 || a.s1 != 1 || a.s2 != 1))
-        || (a.m_h << a.log2T > kMaxE * kThreads && !a.yprev))
+        || (a.m_h << a.log2T > max_elements(tier) * kThreads && !a.yprev))
         return (int)cudaErrorInvalidValue;
-    const auto kernel = instance<kFlat>(vec, a.log2T);
+    const Kernel kernel = instance<kFlat>(vec, a.log2T, tier);
+    if (!kernel) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -305,14 +352,16 @@ int launch(const Args& a, int vec, int smem, void* stream)
 extern "C" {
 
 // Both launch on `stream` and return cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a plan the kernel does not take. `smem` is the
-// block's dynamic shared memory in bytes and (log2_tile, vec, s1, s2) the
-// plan, computed by the caller (kernels.py::_paired_plan,
+// cudaErrorInvalidValue for a plan or a tier the kernel does not take.
+// `smem` is the block's dynamic shared memory in bytes and (log2_tile, vec,
+// s1, s2) the plan, computed by the caller (kernels.py::_paired_plan,
 // _paired_smem_bytes) so the routing guard and the launch agree: vec 4
 // (padded rows) or 1 (unpadded, one scenario per block, no split), s1 and
 // s2 the parts of the zhat and q products. `yprev` is a (B, 2, m_h)
-// scratch, needed only where m_h 2**log2_tile exceeds the 1536 dual
-// elements the block's registers hold.
+// scratch, needed only where m_h 2**log2_tile exceeds the dual elements
+// the block's registers hold (1536 at "highest", 1280 under a tier).
+// `tier` is the products' precision (gpad_mma::Tier: 0 "highest", 1
+// "high", 2 "default", 3 "bfloat16").
 int gpad_paired_flat_launch(
     const float* MG, const float* GL, const float* gP, const float* pD,
     const float* y0, long long y0_stride, const float* od,
@@ -320,12 +369,12 @@ int gpad_paired_flat_launch(
     int B, int m_h, int n_z, int n_s, int iterations, int log2_tile,
     int vec, int s1, int s2,
     float* z_out, float* y_out, float* w_out, float* zhat_out, float* yprev,
-    int smem, void* stream)
+    int smem, int tier, void* stream)
 {
     const Args a{MG, GL, gP, pD, y0, y0_stride, od, theta, beta, L,
                  B, m_h, n_z, n_s, iterations, log2_tile, s1, s2,
                  z_out, y_out, w_out, zhat_out, yprev};
-    return launch<true>(a, vec, smem, stream);
+    return launch<true>(a, vec, smem, tier, stream);
 }
 
 // The full instance: n_s must be m_h.
@@ -336,13 +385,13 @@ int gpad_paired_launch(
     int B, int m_h, int n_z, int n_s, int iterations, int log2_tile,
     int vec, int s1, int s2,
     float* z_out, float* y_out, float* w_out, float* zhat_out, float* yprev,
-    int smem, void* stream)
+    int smem, int tier, void* stream)
 {
     if (n_s != m_h) return (int)cudaErrorInvalidValue;
     const Args a{MG, GL, gP, pD, y0, y0_stride, od, theta, beta, L,
                  B, m_h, n_z, n_s, iterations, log2_tile, s1, s2,
                  z_out, y_out, w_out, zhat_out, yprev};
-    return launch<false>(a, vec, smem, stream);
+    return launch<false>(a, vec, smem, tier, stream);
 }
 
 }  // extern "C"

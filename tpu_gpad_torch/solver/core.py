@@ -74,10 +74,16 @@ class SolverConfig:
     IEEE fp32 with TF32 held off, "high" 3xTF32 (each operand split into a
     TF32-exact part and its remainder, three products), "default" one TF32
     product, "bfloat16" bf16 operands accumulated and returned in fp32; on
-    the CPU the TF32 tiers compute in fp32. The CUDA kernels are fp32
-    "highest" only: a solve that a kernel would serve raises
-    ``NotImplementedError`` under another tier (``engine="torch"`` serves
-    it). A solve sets TF32 for its own scope through torch's one
+    the CPU the TF32 tiers compute in fp32. The resident condensed CUDA
+    kernels (paired flat, paired, dual, dual chunk) run their products at
+    the tier on the tensor cores (``csrc/mma_product.cuh``: "high" 3xTF32,
+    "default" one TF32 ``mma.sync``, "bfloat16" bf16 operands with fp32
+    accumulation), and the products around their launch (relu offsets,
+    primal recovery, residuals) in fp32 with TF32 held off, where the JAX
+    package runs those at the tier too; a solve that the dense or a tiled
+    kernel would serve raises ``NotImplementedError`` under a tier
+    (``engine="torch"`` serves it). Routing is the same under every tier.
+    A solve sets TF32 for its own scope through torch's one
     process-wide switch (``tf32_matmuls``), so the tiers are not
     thread-safe: solves under different tiers in concurrent threads of one
     process can run each other's products under the wrong setting;
@@ -208,6 +214,36 @@ def _split_tf32(a):
     return hi, a - hi
 
 
+def _round_tf32(a):
+    """``a`` (float32) rounded to TF32, to nearest with ties away from zero,
+    as the kernels' ``cvt.rna.tf32.f32`` rounds it: half a TF32 unit (bit
+    12) added to the magnitude, the low 13 mantissa bits cleared. Inf and
+    NaN pass unchanged."""
+    bits = (a.view(torch.int32) + (1 << 12)) & -(1 << 13)
+    return torch.where(torch.isfinite(a), bits.view(torch.float32), a)
+
+
+def _split_tf32_rna(a):
+    """(hi, lo) of the kernels' 3xTF32 product: ``hi = rna(a)`` and ``lo =
+    rna(a - hi)`` (``_round_tf32``; ``a - hi`` is exact in fp32)."""
+    hi = _round_tf32(a)
+    return hi, _round_tf32(a - hi)
+
+
+def _round_bf16(a):
+    """``a`` rounded to bf16 (to nearest even, as ``__float2bfloat16_rn``)
+    and back to float32."""
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+def _fp32(config: SolverConfig) -> SolverConfig:
+    """``config`` at fp32 "highest": the tier of the products a kernel route
+    runs around its launch (the dual kernels' relu offsets, the primal
+    recovery, the residuals), whatever the tier of the kernel's own."""
+    return dataclasses.replace(config, precision="highest",
+                               matmul_dtype="float32")
+
+
 def _tf32(config: SolverConfig) -> bool:
     """Whether ``config``'s products run with TF32 on ("high", "default")."""
     return tier(config) in ("high", "default")
@@ -277,15 +313,24 @@ class _Matmul:
         return a @ b
 
 
-def _refuse_kernel_tier(config: SolverConfig) -> None:
-    """A CUDA kernel runs fp32 "highest" only: raise for another tier where
-    a kernel would serve the solve, rather than re-route it."""
-    if tier(config) != "highest":
+# The kernel routes that run fp32 "highest" only: the dense kernel and the
+# tiled ones (csrc/tiled_product.cuh) have no tier products yet
+UNTIERED_KERNELS = ("dense", "dual_tiled", "dual_tiled_chunk", "flat_tiled")
+
+
+def _refuse_kernel_tier(config: SolverConfig, kernel: str | None) -> None:
+    """Raise where ``kernel`` (a ``cuda_kernel`` route) would serve the solve
+    under a tier other than fp32 "highest" and has no tier products, rather
+    than re-route it. The resident condensed kernels (paired flat, paired,
+    dual, dual chunk) take every tier."""
+    if tier(config) != "highest" and kernel in UNTIERED_KERNELS:
         raise NotImplementedError(
             f"precision={config.precision!r}, matmul_dtype="
-            f"{config.matmul_dtype!r}: a CUDA kernel serves this solve, and "
-            "the precision tiers for the CUDA kernels are not ported yet "
-            "(see ROADMAP); engine='torch' serves the tier"
+            f"{config.matmul_dtype!r}: the {kernel!r} CUDA kernel serves "
+            "this solve, and the precision tiers for the CUDA kernels are "
+            "ported to the resident condensed kernels only (the dense and "
+            "tiled kernels are still to come, see ROADMAP); engine='torch' "
+            "serves the tier"
         )
 
 
@@ -784,13 +829,16 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
     never changes the choice. A sharded dual dimension (``model_axis``)
     runs the torch engine, as it runs XLA in the JAX package. Forcing
     "cuda" where no kernel serves the case raises. The tier never changes
-    the choice either (JAX's routing ignores it): where a kernel would
-    serve a solve under a tier other than fp32 "highest", forced or under
-    "auto" on the card, this raises ``NotImplementedError``."""
+    the choice either (JAX's routing ignores it): under every tier the
+    resident condensed kernels serve what they serve at fp32 "highest";
+    where a kernel without tier products (``UNTIERED_KERNELS``: the dense
+    and the tiled kernels) would serve a solve under another tier, forced
+    or under "auto" on the card, this raises ``NotImplementedError``."""
     if config.engine == "torch":
         return "torch"
     if config.engine == "cuda":
-        _refuse_kernel_tier(config)
+        kernel = cuda_kernel(data, config)
+        _refuse_kernel_tier(config, kernel)
         if config.model_axis is not None:
             raise ValueError(
                 "engine='cuda' does not support dual-dimension tensor "
@@ -801,7 +849,7 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
                 "engine='cuda' needs the data on a CUDA device; got "
                 f"{data.device}"
             )
-        if cuda_kernel(data, config) is None:
+        if kernel is None:
             raise ValueError(
                 "engine='cuda' serves fixed mvp solves without restart "
                 "(paired: kernels.flat_fits_smem, flat_tiled_fits or "
@@ -813,9 +861,11 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
         return "cuda"
     if config.engine != "auto":
         raise ValueError(f"unknown engine: {config.engine!r}")
-    if data.device.type == "cuda" and cuda_kernel(data, config) is not None:
-        _refuse_kernel_tier(config)
-        return "cuda"
+    if data.device.type == "cuda":
+        kernel = cuda_kernel(data, config)
+        if kernel is not None:
+            _refuse_kernel_tier(config, kernel)
+            return "cuda"
     return "torch"
 
 

@@ -20,6 +20,11 @@ tensors they run the plain versions ``gpad_fixed_dual_torch`` and
 
 The state keeps the public layouts: y and y_prev (B, 2, m_h), s (B, m_h),
 and ``mom`` (B, 2), each scenario's restart recursion (theta, theta_prev).
+
+The resident kernels take the precision tier (``kernels.KERNEL_TIERS``):
+the product ``wd D`` runs fp32 FFMA at "highest" and on the tensor cores
+under a tier (``csrc/mma_product.cuh``); the relu offsets and the primal
+recovery around a launch stay fp32. The tiled kernels run "highest" only.
 """
 
 from __future__ import annotations
@@ -100,18 +105,21 @@ def _dual_smem_bytes(m_h: int, plan: DualPlan) -> int:
 
 
 def _dual_plan(m_h: int, B: int, log2_tile: int | None = None,
-               split: int | None = None) -> DualPlan | None:
-    """The resident dual kernels' launch for B scenarios: the tile of
-    ``kernels.grid_tile`` (or ``log2_tile``), narrowed until a thread's
-    share of the state fits its registers, then it or its parts (at most
-    ``split``) halved until the block fits shared memory; None when not
-    even one scenario does."""
+               split: int | None = None,
+               tier: str = "highest") -> DualPlan | None:
+    """The resident dual kernels' launch for B scenarios at ``tier``: the
+    tile of ``kernels.grid_tile`` (or ``log2_tile``), narrowed until a
+    thread's share of the state fits its registers, then it or its parts
+    (at most ``split``, counted by ``kernels.block_parts`` at the tier)
+    halved until the block fits shared memory; None when not even one
+    scenario does. The tile, and whether a plan exists, are the same under
+    every tier."""
     top = (kernels.grid_tile(B, DUAL_MAX_LOG2_TILE, DUAL_MIN_BLOCKS)
            if log2_tile is None else log2_tile)
     for log2 in range(top, -1 if log2_tile is None else top - 1, -1):
         if m_h << log2 > _MAX_ELEMENTS * kernels.BLOCK_THREADS:
             continue
-        parts = kernels.block_parts(m_h, log2, m_h, split)
+        parts = kernels.block_parts(m_h, log2, m_h, split, tier)
         while True:
             plan = DualPlan(log2, parts)
             if _dual_smem_bytes(m_h, plan) <= kernels.SMEM_LIMIT_BYTES:
@@ -212,19 +220,22 @@ def recovery_weight(data: GPADData, iterations: int):
 
 
 def gpad_dual_chunk_torch(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
-                          chunk: int, restart: bool = False):
+                          chunk: int, restart: bool = False,
+                          tier: str = "highest"):
     """The kernels' iteration body in torch ops, on any device: the plain
     version of the chunk kernel (same contract as ``gpad_dual_chunk``),
     and, from k0 = 0, of the whole-solve kernel's loop."""
     return _dual_loop(data.D, kernels._od(data), data.theta, data.beta, c, y,
-                      y_prev, s, mom, k0, chunk, restart)
+                      y_prev, s, mom, k0, chunk, restart, tier)
 
 
 def _dual_loop(D, od, theta, beta, c, y, y_prev, s, mom, k0: int, chunk: int,
-               restart: bool):
-    """``gpad_dual_chunk_torch`` on the operands themselves."""
+               restart: bool, tier: str = "highest"):
+    """``gpad_dual_chunk_torch`` on the operands themselves, the product
+    ``wd D`` at ``tier`` (``kernels._tier_mm``)."""
     from tpu_gpad_torch.solver import core
 
+    Dp = kernels._tier_operand(D, tier)
     th, thp = mom[:, 0], mom[:, 1]
     w = torch.zeros_like(y)
     for i in range(chunk):
@@ -235,7 +246,7 @@ def _dual_loop(D, od, theta, beta, c, y, y_prev, s, mom, k0: int, chunk: int,
             theta_k, beta_k = theta[k0 + i], beta[k0 + i]
         w = y + beta_k * (y - y_prev)
         wd = w[:, 0] - w[:, 1]
-        d = -(wd @ D)
+        d = -kernels._tier_mm(wd, Dp, tier)
         w_s = w if od is None else w * od
         y_next = torch.clamp_min(w_s + torch.stack([d, -d], dim=1) + c, 0.0)
         s = s + theta_k * (wd - s)
@@ -266,9 +277,10 @@ def _launch_fns():
     lib = cuda_build.load("gpad_dual")
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fixed, chunk = lib.gpad_dual_launch, lib.gpad_dual_chunk_launch
-    fixed.argtypes = [P, P, P, P, LL, P, P, I, I, I, I, I, I, P, P, P, I, P]
+    fixed.argtypes = [P, P, P, P, LL, P, P, I, I, I, I, I, I, P, P, P, I, I,
+                      P]
     chunk.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                      P, P, P, P, P, I, P]
+                      P, P, P, P, P, I, I, P]
     fixed.restype = chunk.restype = I
     return fixed, chunk
 
@@ -286,10 +298,11 @@ def _tiled_launch_fns():
     return fixed, chunk
 
 
-def _plan_or_raise(m_h: int, B: int, log2_tile, split) -> DualPlan:
+def _plan_or_raise(m_h: int, B: int, log2_tile, split,
+                   tier: str = "highest") -> DualPlan:
     if log2_tile is not None and not 0 <= log2_tile <= 5:
         raise ValueError(f"log2_tile {log2_tile} outside 0..5")
-    plan = _dual_plan(m_h, B, log2_tile, split)
+    plan = _dual_plan(m_h, B, log2_tile, split, tier)
     if plan is None and log2_tile is not None:
         raise ValueError(f"the resident dual kernels take no tile of "
                          f"2**{log2_tile} at m_half={m_h}")
@@ -303,14 +316,14 @@ def _plan_or_raise(m_h: int, B: int, log2_tile, split) -> DualPlan:
 
 def gpad_fixed_dual_torch(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
-    restart: bool = False, diagnostics: bool = True,
+    restart: bool = False, diagnostics: bool = True, tier: str = "highest",
 ):
     """The whole-solve kernel in torch ops, on any device: the plain version
     the kernel is checked against. Same contract as ``gpad_fixed_dual``."""
     y, s, mom = _init_state(data, g_P.shape[0], y0, g_P.device)
     y, _, s, _, w = gpad_dual_chunk_torch(
         data, relu_offsets(data, g_P, p_D), y, y, s, mom, k0=0,
-        chunk=iterations, restart=restart,
+        chunk=iterations, restart=restart, tier=tier,
     )
     z, zhat = _primal(data, g_P, s, w, recovery_weight(data, iterations),
                       diagnostics)
@@ -354,16 +367,16 @@ def _check_chunk(data: GPADData, c, y, y_prev, s, mom, k0: int, chunk: int,
 def _dual_cpu(D: Tensor, od: Optional[Tensor], c: Tensor, y0: Optional[Tensor],
               theta: Tensor, beta: Tensor, iterations: int, restart: bool,
               log2_tile: int, split: int, diagnostics: bool,
-              ) -> tuple[Tensor, Tensor, Tensor]:
+              tier: str = "highest") -> tuple[Tensor, Tensor, Tensor]:
     y, s, mom = _init_rows(c.shape[0], c.shape[2], y0, c.device)
     y, _, s, _, w = _dual_loop(D, od, theta, beta, c, y, y, s, mom, 0,
-                               iterations, restart)
+                               iterations, restart, tier)
     return kernels._fresh((s, y, w if diagnostics else kernels._empty(s)),
                           (c, y0))
 
 
 def _dual_cuda(D, od, c, y0, theta, beta, iterations, restart, log2_tile,
-               split, diagnostics):
+               split, diagnostics, tier="highest"):
     global DUAL_LAUNCHES
     fixed, _ = _launch_fns()
     B, m_h = c.shape[0], c.shape[2]
@@ -375,7 +388,7 @@ def _dual_cuda(D, od, c, y0, theta, beta, iterations, restart, log2_tile,
     kernels._launch("gpad_dual", fixed, c.device, ptr(D), ptr(od), ptr(c),
                     ptr(y0), y0_stride, ptr(theta), ptr(beta), B, m_h,
                     iterations, int(restart), *plan, ptr(s), ptr(y), ptr(w),
-                    _dual_smem_bytes(m_h, plan))
+                    _dual_smem_bytes(m_h, plan), kernels._tier_code(tier))
     DUAL_LAUNCHES += 1
     return s, y, w if diagnostics else kernels._empty(s)
 
@@ -388,7 +401,7 @@ def _whole_fake(c, diagnostics):
 dual_op = kernels._register(
     "dual", _dual_cpu, _dual_cuda,
     lambda D, od, c, y0, theta, beta, iterations, restart, log2_tile, split,
-    diagnostics: _whole_fake(c, diagnostics))
+    diagnostics, tier="highest": _whole_fake(c, diagnostics))
 
 
 def _dual_tiled_cpu(D: Tensor, c: Tensor, y0: Optional[Tensor], theta: Tensor,
@@ -428,15 +441,15 @@ dual_tiled_op = kernels._register(
 def _chunk_cpu(D: Tensor, od: Optional[Tensor], c: Tensor, y: Tensor,
                y_prev: Tensor, s: Tensor, mom: Tensor, theta: Tensor,
                beta: Tensor, k0: int, chunk: int, restart: bool,
-               log2_tile: int, split: int,
+               log2_tile: int, split: int, tier: str = "highest",
                ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     return kernels._fresh(
         _dual_loop(D, od, theta, beta, c, y, y_prev, s, mom, k0, chunk,
-                   restart), (c, y, y_prev, s, mom))
+                   restart, tier), (c, y, y_prev, s, mom))
 
 
 def _chunk_cuda(D, od, c, y, y_prev, s, mom, theta, beta, k0, chunk, restart,
-                log2_tile, split):
+                log2_tile, split, tier="highest"):
     global DUAL_CHUNK_LAUNCHES
     _, launch = _launch_fns()
     B, m_h = c.shape[0], c.shape[2]
@@ -446,7 +459,8 @@ def _chunk_cuda(D, od, c, y, y_prev, s, mom, theta, beta, k0, chunk, restart,
     kernels._launch("gpad_dual_chunk", launch, c.device, ptr(D), ptr(od),
                     ptr(c), ptr(y), ptr(y_prev), ptr(s), ptr(mom), ptr(theta),
                     ptr(beta), B, m_h, k0, chunk, int(restart), *plan,
-                    *(ptr(t) for t in out), _dual_smem_bytes(m_h, plan))
+                    *(ptr(t) for t in out), _dual_smem_bytes(m_h, plan),
+                    kernels._tier_code(tier))
     DUAL_CHUNK_LAUNCHES += 1
     return tuple(out)
 
@@ -458,7 +472,7 @@ def _chunk_fake(c, y, y_prev, s, mom):
 dual_chunk_op = kernels._register(
     "dual_chunk", _chunk_cpu, _chunk_cuda,
     lambda D, od, c, y, y_prev, s, mom, theta, beta, k0, chunk, restart,
-    log2_tile, split: _chunk_fake(c, y, y_prev, s, mom))
+    log2_tile, split, tier="highest": _chunk_fake(c, y, y_prev, s, mom))
 
 
 def _tiled_chunk_cpu(D: Tensor, c: Tensor, y: Tensor, y_prev: Tensor,
@@ -496,6 +510,7 @@ def gpad_fixed_dual(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     restart: bool = False, diagnostics: bool = True,
     log2_tile: int | None = None, split: int | None = None,
+    tier: str = "highest",
 ):
     """Fixed-budget dual-form GPAD for a batch: returns (z, y, w, zhat).
 
@@ -505,17 +520,19 @@ def gpad_fixed_dual(
     come back only with ``diagnostics`` (else None). Under ``restart`` the
     budget may exceed the schedule. ``log2_tile`` and ``split`` override
     the scenarios per block and cap the product's split-K parts (for
-    sweeps). CUDA tensors launch the kernel (or raise); CPU tensors run the
-    plain version."""
+    sweeps). ``tier`` (``kernels.KERNEL_TIERS``) is the product's
+    precision. CUDA tensors launch the kernel (or raise); CPU tensors run
+    the plain version."""
     _check_fixed(data, g_P, p_D, y0, iterations, restart)
     B, m_h = g_P.shape[0], data.m_half
     plan = DualPlan(0, 0)
     if kernels.on_card(g_P):
-        plan = _plan_or_raise(m_h, B, log2_tile, split)
+        plan = _plan_or_raise(m_h, B, log2_tile, split, tier)
     c = relu_offsets(data, g_P, p_D)
     y0_rows = None if y0 is None else kernels._norm_y0(y0, B, m_h)
     s, y, w = dual_op(data.D, kernels._od(data), c, y0_rows, data.theta,
-                      data.beta, iterations, restart, *plan, diagnostics)
+                      data.beta, iterations, restart, *plan, diagnostics,
+                      tier)
     w = w if diagnostics else None
     z, zhat = _primal(data, g_P, s, w, recovery_weight(data, iterations),
                       diagnostics)
@@ -590,20 +607,21 @@ def _window_schedule(data: GPADData, k0, chunk: int, restart: bool):
 
 def gpad_dual_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
                     chunk: int, restart: bool = False,
-                    log2_tile: int | None = None, split: int | None = None):
+                    log2_tile: int | None = None, split: int | None = None,
+                    tier: str = "highest"):
     """``chunk`` dual-form iterations from schedule index ``k0``: returns
     the advanced (y, y_prev, s, mom) and the last iteration's w.
 
     ``c`` (B, 2, m_h) are the relu offsets (``relu_offsets``); y, y_prev
     (B, 2, m_h), s (B, m_h) and mom (B, 2) the state, which comes back in
     new tensors. Consecutive chunks compose to one whole solve.
-    ``log2_tile`` and ``split`` override the launch, as for
-    ``gpad_fixed_dual``. CUDA tensors launch the kernel (or raise); CPU
-    tensors run the plain version (the op ``tpu_gpad_torch::dual_chunk``)."""
+    ``log2_tile``, ``split`` and ``tier`` as for ``gpad_fixed_dual``. CUDA
+    tensors launch the kernel (or raise); CPU tensors run the plain version
+    (the op ``tpu_gpad_torch::dual_chunk``)."""
     _check_chunk(data, c, y, y_prev, s, mom, k0, chunk, restart)
-    plan = _chunk_plan(data, c, False, log2_tile, split)
+    plan = _chunk_plan(data, c, False, log2_tile, split, tier)
     return _launch_chunk(data, False, plan, c, y, y_prev, s, mom, k0, chunk,
-                         restart)
+                         restart, tier)
 
 
 def gpad_dual_tiled_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
@@ -623,33 +641,41 @@ def gpad_dual_tiled_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
                          restart)
 
 
-def _chunk_plan(data: GPADData, c, tiled: bool, log2_tile, split_or_cluster):
-    """A chunk kernel's launch for the batch of ``c``: (log2_tile, split),
-    or for the tiled one (log2_tile, cluster); zeros for CPU tensors."""
+def _chunk_plan(data: GPADData, c, tiled: bool, log2_tile, split_or_cluster,
+                tier: str = "highest"):
+    """A chunk kernel's launch for the batch of ``c``: (log2_tile, split)
+    at ``tier``, or for the tiled one (log2_tile, cluster); zeros for CPU
+    tensors."""
     if not kernels.on_card(c):
         return 0, 0
-    pick = _tiled_tile_or_raise if tiled else _plan_or_raise
-    return tuple(pick(data.m_half, c.shape[0], log2_tile, split_or_cluster))
+    if tiled:
+        return _tiled_tile_or_raise(data.m_half, c.shape[0], log2_tile,
+                                    split_or_cluster)
+    return tuple(_plan_or_raise(data.m_half, c.shape[0], log2_tile,
+                                split_or_cluster, tier))
 
 
 def _launch_chunk(data: GPADData, tiled: bool, plan, c, y, y_prev, s, mom,
-                  k0, chunk: int, restart: bool):
-    """One window on a chunk kernel's op, its inputs checked and its
-    ``plan`` fixed by the caller."""
+                  k0, chunk: int, restart: bool, tier: str = "highest"):
+    """One window on a chunk kernel's op (the tiled one runs "highest"
+    only), its inputs checked and its ``plan`` fixed by the caller."""
     theta, beta, k0 = _window_schedule(data, k0, chunk, restart)
     if tiled:
         return dual_tiled_chunk_op(data.D, c, y, y_prev, s, mom, theta, beta,
                                    k0, chunk, restart, *plan)
     return dual_chunk_op(data.D, kernels._od(data), c, y, y_prev, s, mom,
-                         theta, beta, k0, chunk, restart, *plan)
+                         theta, beta, k0, chunk, restart, *plan, tier)
 
 
 def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
                   chunk_fn=None) -> SolveResult:
     """Algorithm-1 (eps-terminated) solve of a batch with the chunk kernel:
     the resident one where ``dual_fits_smem`` admits the data, else the
-    tiled one where ``dual_tiled_fits`` does. ``chunk_fn`` replaces it
-    (``gpad_dual_chunk_torch`` runs the same loop on the plain version).
+    tiled one where ``dual_tiled_fits`` does. The windows run at the
+    config's tier (``core.tier``; the tiled kernel takes "highest" only),
+    the residual tests and the primal recovery in fp32. ``chunk_fn``
+    replaces the kernel (``gpad_dual_chunk_torch`` runs the same loop on
+    the plain version, ``tier`` passed as a keyword).
 
     Full windows of C = min(check_every, iterations) iterations, then one
     partial window to the budget's end. After each window the host runs
@@ -670,9 +696,10 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
     iterations = config.iterations
     C = max(min(config.check_every, iterations), 1)
     n_full, rem = divmod(iterations, C)
+    tier = core.tier(config)
     c = relu_offsets(data, g_P, p_D)
     y, s, mom = _init_state(data, B, y0, dev)
-    mm = core._Matmul(config, data)  # the residual tests' products
+    mm = core._Matmul(core._fp32(config), data)  # the tests' products
     if chunk_fn is None:
         # the kernel's checks and launch plan once, for every window: sizes
         # are symbols in the body of a loop that torch.export traces, and a
@@ -680,19 +707,21 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
         tiled = not dual_fits_smem(data) and dual_tiled_fits(data)
         if tiled:
             kernels._refuse_soft(data, "the tiled dual kernels")
+            core._refuse_kernel_tier(config, "dual_tiled_chunk")
         _check_chunk(data, c, y, y, s, mom, 0, iterations, config.restart)
-        plan = _chunk_plan(data, c, tiled, None, None)
+        plan = _chunk_plan(data, c, tiled, None, None, tier)
 
-        def chunk_fn(data, c, y, y_prev, s, mom, *, k0, chunk, restart):
+        def chunk_fn(data, c, y, y_prev, s, mom, *, k0, chunk, restart,
+                     tier):
             return _launch_chunk(data, tiled, plan, c, y, y_prev, s, mom, k0,
-                                 chunk, restart)
+                                 chunk, restart, tier)
 
     def window(k0, chunk, state):
         """One check window from schedule index ``k0`` and its test."""
         y, y_prev, s, mom, w, converged, iters, z_out = state
         y, y_prev, s, mom, w = chunk_fn(
             data, c, y, y_prev, s, mom, k0=k0, chunk=chunk,
-            restart=config.restart,
+            restart=config.restart, tier=tier,
         )
         z, zhat = _primal(data, g_P, s, w, 1.0)  # a = 1: theta_0 = 1
         converged, iters, z_out = core._eps_test(

@@ -27,6 +27,12 @@ the helpers the dual kernels share (``dual_kernels.py``) and
 The data's dual rows are already in the flat kernel's [struct | box] order
 (``dualize`` puts the identity rows last), so unlike the TPU kernels there
 is no padding, transposition or layout mapping around a launch.
+
+The paired kernels (and the dual ones) take the solve's precision tier
+(``KERNEL_TIERS``): fp32 FFMA products at "highest", tensor-core
+``mma.sync`` products at "high" (3xTF32), "default" (TF32) and "bfloat16"
+(``csrc/mma_product.cuh``); their plain versions mirror each tier's
+rounding (``_tier_mm``). The dense and tiled kernels run "highest" only.
 """
 
 from __future__ import annotations
@@ -64,24 +70,40 @@ def grid_tile(B: int, max_log2: int, min_blocks: int) -> int:
 # The resident dense and dual kernels (csrc/gpad_dense.cu, csrc/gpad_dual.cu)
 # run blocks of 256 threads over register-tiled block products
 # (csrc/block_product.cuh): tiles of 4 rows x min(T, 4) scenarios, each
-# split over K into parts of at least _MIN_PART_K steps.
+# split over K into parts of at least _MIN_PART_K steps. Under a tier the
+# paired and dual kernels' products are tensor-core ones
+# (csrc/mma_product.cuh): a warp's tile of 16 rows x 8 scenarios, split
+# over K into parts of at least _MMA_MIN_PART_K steps (one bf16 mma, two
+# TF32 ones).
 BLOCK_THREADS = 256
+BLOCK_WARPS = BLOCK_THREADS // 32
 _MIN_PART_K = 4
+_MMA_ROWS, _MMA_COLS = 16, 8
+_MMA_MIN_PART_K = 16
+
+# The precision tiers the paired and dual kernels take, in the order of the
+# C launchers' ``tier`` argument (gpad_mma::Tier, csrc/mma_product.cuh)
+KERNEL_TIERS = ("highest", "high", "default", "bfloat16")
 
 
 def _up4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def block_parts(rows: int, log2_tile: int, K: int,
-                cap: int | None = None) -> int:
+def block_parts(rows: int, log2_tile: int, K: int, cap: int | None = None,
+                tier: str = "highest") -> int:
     """Split-K parts of a block product of ``rows`` output rows for
-    2**log2_tile scenarios over K: as many as leave every tile-part one
-    thread of the block, none shorter than _MIN_PART_K steps of k, and at
-    most ``cap``."""
+    2**log2_tile scenarios over K, at most ``cap``: at "highest" as many as
+    leave every tile-part one thread of the block, none shorter than
+    _MIN_PART_K steps of k; under a tier as many as leave every warp tile
+    and part one warp, none shorter than _MMA_MIN_PART_K."""
     T = 1 << log2_tile
-    tiles = _up4(rows) // 4 * (T // min(T, 4))
-    parts = min(BLOCK_THREADS // tiles, -(-K // _MIN_PART_K))
+    if tier == "highest":
+        tiles = _up4(rows) // 4 * (T // min(T, 4))
+        parts = min(BLOCK_THREADS // tiles, -(-K // _MIN_PART_K))
+    else:
+        tiles = -(-rows // _MMA_ROWS) * -(-T // _MMA_COLS)
+        parts = min(BLOCK_WARPS // tiles, -(-K // _MMA_MIN_PART_K))
     if cap is not None:
         parts = min(parts, cap)
     return max(parts, 1)
@@ -181,48 +203,61 @@ def _paired_split_cap(log2_tile: int) -> int:
 
 
 # Dual and primal elements of the [row][scenario] state a thread keeps in
-# registers (kMaxE, kMaxP of csrc/gpad_paired_flat.cu); past them, at one
-# scenario per block, the kernel keeps the rest in device memory.
+# registers (max_elements, kMaxP of csrc/gpad_paired_flat.cu: one dual
+# element fewer under a tier, whose product's fragments take registers too);
+# past them, at one scenario per block, the kernel keeps the rest in device
+# memory.
 _PAIRED_MAX_ELEMENTS = 6
+_PAIRED_MAX_ELEMENTS_TIER = 5
 _PAIRED_MAX_PRIMAL = 2
+
+
+def _paired_max_elements(tier: str = "highest") -> int:
+    return _PAIRED_MAX_ELEMENTS if tier == "highest" else _PAIRED_MAX_ELEMENTS_TIER
 
 
 def _paired_smem_bytes(m_h: int, n_z: int, n_s: int, plan: PairedPlan) -> int:
     """Shared memory of one block of the paired kernels (csrc carve-up):
     MG_T and the n_s used columns of GL_T (the full instance has n_s =
     m_h), their rows padded to 4 (vec 4), wd and zhat of 2**log2_tile
-    scenarios (rows padded to 4), and the products' parts (one scratch)."""
+    scenarios (rows padded to 4), and the products' parts (one scratch of
+    at least one part). Every tier has this carve-up, with fp32 operands:
+    a tier changes only the plan's parts."""
     T = 1 << plan.log2_tile
     np_, nsp = (_up4(n_z), _up4(n_s)) if plan.vec == 4 else (n_z, n_s)
     scratch = max(plan.split1 * _up4(n_z), plan.split2 * _up4(n_s))
     return 4 * (m_h * np_ + n_z * nsp + (_up4(m_h) + _up4(n_z) + scratch) * T)
 
 
-def _paired_overflows(m_h: int, log2_tile: int) -> bool:
-    """Does a tile's dual state pass the block's registers (the kernel then
-    keeps the rest in device memory, y_prev in a scratch)?"""
-    return m_h << log2_tile > _PAIRED_MAX_ELEMENTS * BLOCK_THREADS
+def _paired_overflows(m_h: int, log2_tile: int, tier: str = "highest") -> bool:
+    """Does a tile's dual state pass the block's registers at ``tier`` (the
+    kernel then keeps the rest in device memory, y_prev in a scratch)?"""
+    return m_h << log2_tile > _paired_max_elements(tier) * BLOCK_THREADS
 
 
 def _paired_plan(m_h: int, n_z: int, n_s: int, B: int,
-                 log2_tile: int | None = None,
-                 split: int | None = None) -> PairedPlan | None:
-    """The paired kernels' launch for B scenarios: the tile of
+                 log2_tile: int | None = None, split: int | None = None,
+                 tier: str = "highest") -> PairedPlan | None:
+    """The paired kernels' launch for B scenarios at ``tier``: the tile of
     ``grid_tile`` (or ``log2_tile``), narrowed until a thread's share of
-    the state fits its registers, then it or its parts (at most ``split``)
-    halved until the block fits shared memory; past that the unpadded
-    layout at one scenario per block (so every shape the first design's
-    carve-up took still runs); None when nothing fits."""
+    the state fits its registers, then it or its parts (at most ``split``,
+    counted by ``block_parts`` at the tier) halved until the block fits
+    shared memory; past that the unpadded layout at one scenario per block
+    (so every shape the first design's carve-up took still runs); None
+    when nothing fits. Whether a plan exists is the same under every tier
+    (a tier may narrow the tile, its registers holding one dual element
+    fewer, and a tile fits at some parts iff it fits at one), so routing
+    never depends on the tier."""
     top = (grid_tile(B, PAIRED_MAX_LOG2_TILE, PAIRED_MIN_BLOCKS)
            if log2_tile is None else log2_tile)
     for log2 in range(top, -1 if log2_tile is None else top - 1, -1):
         if log2_tile is None and log2 and (
-                _paired_overflows(m_h, log2) or n_z << log2
+                _paired_overflows(m_h, log2, tier) or n_z << log2
                 > _PAIRED_MAX_PRIMAL * BLOCK_THREADS):
             continue
         cap = _paired_split_cap(log2) if split is None else split
-        s1 = block_parts(n_z, log2, m_h, cap)
-        s2 = block_parts(n_s, log2, n_z, cap) if n_s else 1
+        s1 = block_parts(n_z, log2, m_h, cap, tier)
+        s2 = block_parts(n_s, log2, n_z, cap, tier) if n_s else 1
         while True:
             plan = PairedPlan(log2, 4, s1, s2)
             if _paired_smem_bytes(m_h, n_z, n_s, plan) <= SMEM_LIMIT_BYTES:
@@ -377,15 +412,53 @@ def _od(data: GPADData):
     return 1.0 - data.soft_damp.to(torch.float32)
 
 
+def _tier_operand(b, tier: str):
+    """A constant operand as the kernels' products at ``tier`` read it
+    (``_tier_mm``'s ``b``, prepared once outside the loop): itself at
+    "highest", rounded to TF32 ("default") or bf16 ("bfloat16"), its TF32
+    (hi, lo) pair ("high")."""
+    from tpu_gpad_torch.solver import core
+
+    if tier == "highest":
+        return b
+    if tier == "high":
+        return core._split_tf32_rna(b)
+    if tier == "default":
+        return core._round_tf32(b)
+    if tier == "bfloat16":
+        return core._round_bf16(b)
+    raise ValueError(f"unknown tier {tier!r} (one of {KERNEL_TIERS})")
+
+
+def _tier_mm(a, b, tier: str):
+    """``a @ b`` as the kernels compute it at ``tier``
+    (csrc/mma_product.cuh), with ``b`` from ``_tier_operand``: fp32 products
+    of the tier's rounded operands ("high": lo.hi + hi.lo first, then
+    hi.hi). On the card it runs with TF32 held off (the caller's switch),
+    as the solve routes do."""
+    from tpu_gpad_torch.solver import core
+
+    if tier == "highest":
+        return a @ b
+    if tier == "high":
+        (a_hi, a_lo), (b_hi, b_lo) = core._split_tf32_rna(a), b
+        return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+    if tier == "default":
+        return core._round_tf32(a) @ b
+    return core._round_bf16(a) @ b
+
+
 def _paired_loop(MG_T, GL_T, theta, beta, L, od, g_P, p_D, y0,
-                 iterations: int, diagnostics: bool, n_s: int, flat: bool):
+                 iterations: int, diagnostics: bool, n_s: int, flat: bool,
+                 tier: str = "highest"):
     """The paired kernels' loop in torch ops, on any device, on the
-    operands themselves (``_paired_plain`` takes them from the data).
-    ``flat`` replaces the identity block's product by a division, as the
-    flat kernel does; ``n_s`` is the columns of ``GL_T`` the product
-    uses."""
+    operands themselves (``_paired_plain`` takes them from the data), its
+    two products at ``tier``. ``flat`` replaces the identity block's
+    product by a division, as the flat kernel does; ``n_s`` is the columns
+    of ``GL_T`` the product uses."""
     B, m_h = g_P.shape[0], p_D.shape[-1]
-    GLs = GL_T[:, :n_s]
+    MGp = _tier_operand(MG_T, tier)
+    GLp = _tier_operand(GL_T[:, :n_s], tier)
     inv_L = 1.0 / L
     if y0 is None:
         y = torch.zeros((B, 2, m_h), dtype=torch.float32, device=g_P.device)
@@ -397,9 +470,9 @@ def _paired_loop(MG_T, GL_T, theta, beta, L, od, g_P, p_D, y0,
     zhat = torch.zeros_like(g_P)
     for k in range(iterations):
         w = y + beta[k] * (y - y_prev)
-        zhat = -((w[:, 0] - w[:, 1]) @ MG_T) - g_P
+        zhat = -_tier_mm(w[:, 0] - w[:, 1], MGp, tier) - g_P
         z = (1.0 - theta[k]) * z + theta[k] * zhat
-        q = zhat @ GLs
+        q = _tier_mm(zhat, GLp, tier)
         if flat:
             q = torch.cat([q, zhat * inv_L], dim=-1)
         w_s = w if od is None else w * od
@@ -410,32 +483,34 @@ def _paired_loop(MG_T, GL_T, theta, beta, L, od, g_P, p_D, y0,
 
 
 def _paired_plain(data: GPADData, g_P, p_D, y0, iterations: int,
-                  diagnostics: bool, flat: bool):
+                  diagnostics: bool, flat: bool, tier: str):
     """The paired kernels' loop in torch ops, on any device."""
     n_s = data.n_struct if flat else data.m_half
     return _paired_loop(data.MG_T, data.GL_T, data.theta, data.beta, data.L,
                         _od(data), g_P, p_D, y0, iterations, diagnostics,
-                        n_s, flat)
+                        n_s, flat, tier)
 
 
 def gpad_fixed_paired_flat_torch(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
-    diagnostics: bool = True,
+    diagnostics: bool = True, tier: str = "highest",
 ):
     """The flat kernel's loop in torch ops, on any device: the plain
     version the kernel is checked against. Same contract as
     ``gpad_fixed_paired_flat``."""
-    return _paired_plain(data, g_P, p_D, y0, iterations, diagnostics, flat=True)
+    return _paired_plain(data, g_P, p_D, y0, iterations, diagnostics, True,
+                         tier)
 
 
 def gpad_fixed_paired_torch(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
-    diagnostics: bool = True,
+    diagnostics: bool = True, tier: str = "highest",
 ):
     """The full paired kernel's loop in torch ops, on any device: the plain
     version the kernel is checked against. Same contract as
     ``gpad_fixed_paired``."""
-    return _paired_plain(data, g_P, p_D, y0, iterations, diagnostics, flat=False)
+    return _paired_plain(data, g_P, p_D, y0, iterations, diagnostics, False,
+                         tier)
 
 
 def gpad_fixed_dense_torch(
@@ -475,7 +550,7 @@ _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the launchers in csrc/gpad_paired_flat.cu (both
 # instances), csrc/gpad_dense.cu and csrc/gpad_flat_tiled.cu
 _PAIRED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 9 + [_PTR] * 5
-                    + [_INT, _PTR])
+                    + [_INT, _INT, _PTR])
 _DENSE_ARGTYPES = [_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 8 + [_PTR] * 4 + [_INT, _PTR]
 _FLAT_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 3 + [_INT] * 8 + [_PTR] * 4
                         + [_INT, _PTR])
@@ -572,6 +647,12 @@ def _fresh(outs, ins):
     return tuple(res)
 
 
+def _tier_code(tier: str) -> int:
+    """The C launchers' ``tier`` (gpad_mma::Tier), -1 for a tier no kernel
+    takes (the launcher then refuses it and the op raises)."""
+    return KERNEL_TIERS.index(tier) if tier in KERNEL_TIERS else -1
+
+
 def _launch(name: str, fn, device, *args) -> None:
     """Call a C launcher on ``device``'s current stream; raise on a CUDA
     error."""
@@ -613,7 +694,8 @@ def _too_big(what: str, shape: str):
 # CUDA implementation's launches: live calls and loaded artifacts alike,
 # tracing none.
 def _paired_fake(MG_T, GL_T, g_P, p_D, y0, od, theta, beta, L, n_s,
-                 iterations, log2_tile, vec, split1, split2, diagnostics):
+                 iterations, log2_tile, vec, split1, split2, diagnostics,
+                 tier="highest"):
     z, y = g_P.new_empty(g_P.shape), p_D.new_empty(p_D.shape)
     if not diagnostics:
         return z, y, _empty(z), _empty(z)
@@ -627,9 +709,11 @@ def _paired_cpu(flat: bool):
              y0: Optional[Tensor], od: Optional[Tensor], theta: Tensor,
              beta: Tensor, L: Tensor, n_s: int, iterations: int,
              log2_tile: int, vec: int, split1: int, split2: int,
-             diagnostics: bool) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+             diagnostics: bool, tier: str = "highest",
+             ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
         z, y, w, zhat = _paired_loop(MG_T, GL_T, theta, beta, L, od, g_P, p_D,
-                                     y0, iterations, diagnostics, n_s, flat)
+                                     y0, iterations, diagnostics, n_s, flat,
+                                     tier)
         if not diagnostics:
             w, zhat = _empty(z), _empty(z)
         return _fresh((z, y, w, zhat), (g_P, p_D, y0))
@@ -638,7 +722,7 @@ def _paired_cpu(flat: bool):
 
 def _paired_cuda(flat: bool):
     def impl(MG_T, GL_T, g_P, p_D, y0, od, theta, beta, L, n_s, iterations,
-             log2_tile, vec, split1, split2, diagnostics):
+             log2_tile, vec, split1, split2, diagnostics, tier="highest"):
         global PAIRED_FLAT_LAUNCHES, PAIRED_LAUNCHES
         B, m_h, n_z = g_P.shape[0], p_D.shape[2], g_P.shape[1]
         plan = PairedPlan(log2_tile, vec, split1, split2)
@@ -647,7 +731,7 @@ def _paired_cuda(flat: bool):
         zhat = g_P.new_empty(g_P.shape) if diagnostics else None
         # y_prev of the dual elements past the registers (large m_h only)
         y_prev = (p_D.new_empty(p_D.shape)
-                  if _paired_overflows(m_h, log2_tile) else None)
+                  if _paired_overflows(m_h, log2_tile, tier) else None)
         y0_stride = 0 if y0 is None or y0.shape[0] == 1 else 2 * m_h
         name = "gpad_paired_flat" if flat else "gpad_paired"
         fn = _launch_fn("gpad_paired_flat", f"{name}_launch", _PAIRED_ARGTYPES)
@@ -655,7 +739,7 @@ def _paired_cuda(flat: bool):
                 _ptr(p_D), _ptr(y0), y0_stride, _ptr(od), _ptr(theta),
                 _ptr(beta), _ptr(L), B, m_h, n_z, n_s, iterations, *plan,
                 _ptr(z), _ptr(y), _ptr(w), _ptr(zhat), _ptr(y_prev),
-                _paired_smem_bytes(m_h, n_z, n_s, plan))
+                _paired_smem_bytes(m_h, n_z, n_s, plan), _tier_code(tier))
         if flat:
             PAIRED_FLAT_LAUNCHES += 1
         else:
@@ -769,9 +853,9 @@ dense_op = _register("dense", _dense_cpu, _dense_cuda, _dense_fake)
 
 
 def _paired(data: GPADData, g_P, p_D, y0, iterations: int, diagnostics: bool,
-            flat: bool, log2_tile, split):
-    """A paired kernel instance's op: the kernel on CUDA tensors, the plain
-    version on CPU ones."""
+            flat: bool, log2_tile, split, tier: str):
+    """A paired kernel instance's op at ``tier``: the kernel on CUDA
+    tensors, the plain version on CPU ones."""
     B, m_h, n_z = g_P.shape[0], data.m_half, data.n_z
     n_s = data.n_struct if flat else m_h
     plan = PairedPlan(0, 0, 0, 0)
@@ -779,21 +863,21 @@ def _paired(data: GPADData, g_P, p_D, y0, iterations: int, diagnostics: bool,
         if log2_tile is not None and not 0 <= log2_tile <= PAIRED_MAX_LOG2_TILE:
             raise ValueError(f"log2_tile {log2_tile} outside "
                              f"0..{PAIRED_MAX_LOG2_TILE}")
-        plan = _paired_plan(m_h, n_z, n_s, B, log2_tile, split)
+        plan = _paired_plan(m_h, n_z, n_s, B, log2_tile, split, tier)
         if plan is None:
             raise _too_big("flat" if flat else "paired",
                            f"m_half={m_h}, n_z={n_z}, n_struct={n_s}")
     y0_rows = None if y0 is None else _norm_y0(y0, B, m_h)
     z, y, w, zhat = (paired_flat_op if flat else paired_op)(
         data.MG_T, data.GL_T, g_P, p_D, y0_rows, _od(data), data.theta,
-        data.beta, data.L, n_s, iterations, *plan, diagnostics)
+        data.beta, data.L, n_s, iterations, *plan, diagnostics, tier)
     return (z, y, *_none_if_empty(w, zhat, diagnostics))
 
 
 def gpad_fixed_paired_flat(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     diagnostics: bool = True, log2_tile: int | None = None,
-    split: int | None = None,
+    split: int | None = None, tier: str = "highest",
 ):
     """Fixed-budget flat paired GPAD for a batch: returns (z, y, w, zhat).
 
@@ -802,17 +886,18 @@ def gpad_fixed_paired_flat(
     (B, 2, m_h); ``w`` and ``zhat`` are the last iteration's, and both are
     None when ``diagnostics`` is False. ``log2_tile`` and ``split``
     override the scenarios per block and cap the split-K parts (for
-    sweeps). CUDA tensors launch the kernel (or raise); CPU tensors run the
-    plain version (the op ``tpu_gpad_torch::paired_flat``)."""
+    sweeps). ``tier`` (``KERNEL_TIERS``) is the products' precision. CUDA
+    tensors launch the kernel (or raise); CPU tensors run the plain version
+    (the op ``tpu_gpad_torch::paired_flat``)."""
     _check_inputs(data, g_P, p_D, y0, iterations)
     return _paired(data, g_P, p_D, y0, iterations, diagnostics, True,
-                   log2_tile, split)
+                   log2_tile, split, tier)
 
 
 def gpad_fixed_paired(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     diagnostics: bool = True, log2_tile: int | None = None,
-    split: int | None = None,
+    split: int | None = None, tier: str = "highest",
 ):
     """Fixed-budget paired mvp GPAD with the full ``GL_T`` product (no
     identity block), soft rows carried: the contract of
@@ -821,7 +906,7 @@ def gpad_fixed_paired(
     ``tpu_gpad_torch::paired``)."""
     _check_inputs(data, g_P, p_D, y0, iterations, flat=False)
     return _paired(data, g_P, p_D, y0, iterations, diagnostics, False,
-                   log2_tile, split)
+                   log2_tile, split, tier)
 
 
 def gpad_fixed_flat_tiled(
@@ -906,11 +991,16 @@ def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
     counterpart of ``tpu_gpad.solver.kernels.solve_batch_pallas``, with the
     kernel that ``core.cuda_kernel`` picks.
 
-    Residuals and gap are recovered outside the kernels with plain
-    products, as the JAX package does outside Pallas."""
+    Residuals and gap are recovered outside the kernels with plain fp32
+    products, as the JAX package does outside Pallas (at the tier there).
+    The resident condensed kernels run their products at the config's tier
+    (``core.tier``); a dense or tiled route under a tier raises
+    (``core._refuse_kernel_tier``)."""
     from tpu_gpad_torch.solver import core, dual_kernels
 
     kernel = core.cuda_kernel(data, config)
+    tier = core.tier(config)
+    core._refuse_kernel_tier(config, kernel)
     batch_shape = g_P.shape[:-1]
     gP2 = g_P.reshape(-1, data.n_z).contiguous()
     dual_shape = (2, data.m_half) if data.paired else (data.m,)
@@ -924,22 +1014,24 @@ def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
     else:
         if kernel == "dual":
             z, y, w, zhat = dual_kernels.gpad_fixed_dual(
-                data, gP2, pD2, y0, restart=config.restart, **kw)
+                data, gP2, pD2, y0, restart=config.restart, tier=tier, **kw)
         elif kernel == "dual_tiled":
             z, y, w, zhat = dual_kernels.gpad_fixed_dual_tiled(
                 data, gP2, pD2, y0, restart=config.restart, **kw)
         elif kernel == "paired_flat":
-            z, y, w, zhat = gpad_fixed_paired_flat(data, gP2, pD2, y0, **kw)
+            z, y, w, zhat = gpad_fixed_paired_flat(data, gP2, pD2, y0,
+                                                   tier=tier, **kw)
         elif kernel == "flat_tiled":
             z, y, w, zhat = gpad_fixed_flat_tiled(data, gP2, pD2, y0, **kw)
         elif kernel == "paired":
-            z, y, w, zhat = gpad_fixed_paired(data, gP2, pD2, y0, **kw)
+            z, y, w, zhat = gpad_fixed_paired(data, gP2, pD2, y0, tier=tier,
+                                              **kw)
         elif kernel == "dense":
             z, y, w, zhat = gpad_fixed_dense(data, gP2, pD2, y0, **kw)
         else:
             raise ValueError("no CUDA kernel serves this solve")
         res = core._finish(data, gP2, pD2, z, zhat, w, y, config, False,
-                           core._Matmul(config, data))
+                           core._Matmul(core._fp32(config), data))
     return SolveResult(
         **{
             name: t.reshape(tuple(batch_shape) + tuple(t.shape[1:]))
