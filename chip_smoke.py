@@ -358,9 +358,14 @@ def instance_spills(log: str) -> dict:
 # NMAX 32 (200-488 bytes: a chain lane's two 32-wide matrix rows; n >= 17,
 # which routes to the streamed kernel unless forced), the streamed
 # kernel's (8-16 bytes, as its PR 6 design's) and the tiled dual kernels'
-# (8-16 bytes).
+# at "highest" (8-16 bytes). The tiled kernels' tier instances ("<T,tier>",
+# tier 1-3) keep at most 16 bytes of frame and of spill stores (8 in the
+# build timed in PERF.md section 6; a strip of four tiles and the flat
+# kernel's epilogue inlined at each fragment element spilled 40-192).
 SPILL_LIMITS = ((r"gpad_(dense|dual|paired_flat)\.cu", None, 0),
-                (r"gpad_stagewise_resident_kernel<\d+,(8|16)>", 32, None))
+                (r"gpad_stagewise_resident_kernel<\d+,(8|16)>", 32, None),
+                (r"gpad_(dual|flat)_tiled\.cu: gpad_[a-z_]+_kernel<\d+,[123]>",
+                 16, 16))
 
 
 def spills_past_limits(spills: dict) -> dict:
@@ -902,7 +907,9 @@ RESIDENT_BATCHES = (SERVE_PLANTS, BATCH)
 KERNEL_NAMES = {"dense": "gpad_dense_kernel", "dual": "gpad_dual_kernel",
                 "chunk": "gpad_dual_chunk_kernel", "flat": "gpad_paired_kernel",
                 "paired": "gpad_paired_kernel",
-                "flat_tiled": "gpad_flat_tiled_kernel"}
+                "flat_tiled": "gpad_flat_tiled_kernel",
+                "dual_tiled": "gpad_dual_tiled_kernel",
+                "tiled_chunk": "gpad_dual_tiled_chunk_kernel"}
 
 
 def profiled_ms(torch, fn, name, calls=10):
@@ -938,10 +945,10 @@ def resident_runs(torch, tg, kernels, dual_kernels, core, B, seed,
     (a 10-iteration restart window from the state 30 iterations left), the
     flat and the full paired kernel (100 iterations); and each one's bound
     from these inputs. ``plan`` (log2_tile, split) overrides the launch;
-    ``tier`` runs the paired and dual kernels and their plain versions at
-    a precision tier, each bound at the tier's peak. Only the wrappers'
-    public arguments are used without either, so a checkout of an earlier
-    design runs this too."""
+    ``tier`` runs the kernels and their plain versions at a precision
+    tier, each bound at the tier's peak. Only the wrappers' public
+    arguments are used without either, so a checkout of an earlier design
+    runs this too."""
     _, dense = dense_headline(tg)
     _, data = headline(tg, shape)
     X0 = torch.as_tensor(np.random.default_rng(seed).uniform(
@@ -956,13 +963,13 @@ def resident_runs(torch, tg, kernels, dual_kernels, core, B, seed,
         runs[f"dense@{B}"] = lambda: kernels.gpad_fixed_dense(
             dense, gd, pd, iterations=ITERS, **over)
         runs[f"dense_plain@{B}"] = lambda: kernels.gpad_fixed_dense_torch(
-            dense, gd, pd, iterations=ITERS)
+            dense, gd, pd, iterations=ITERS, **tkw)
         # two products per scenario and iteration, 2 (m n_z) + 2 (n_z m);
         # z, y, w, zhat written once
         bounds[f"dense@{B}"] = bound(
             B * ITERS * 4.0 * m * n_z,
             nbytes(dense.MG_T, dense.GL_T, gd, pd, dense.theta[:ITERS],
-                   dense.beta[:ITERS]) + 4 * B * (2 * n_z + 2 * m))
+                   dense.beta[:ITERS]) + 4 * B * (2 * n_z + 2 * m), tier)
     g_P, p_D = core.affine_params(data, X0)
     if "dual" in which:
         kw = dict(iterations=ITERS, restart=True)
@@ -1071,47 +1078,134 @@ def times_resident(torch, tg, kernels, dual_kernels, core, smi):
                   iterations=RESTART_ITERS, restart=True))}})
 
 
-TIMED_TIER_KERNELS = ("flat", "paired", "dual", "chunk")
+def tiled_runs(torch, tg, kernels, dual_kernels, core, seed,
+               tier="highest"):
+    """Timed calls at the flagship B256, keyed "<kernel>@256" and
+    "<kernel>_plain@256": the tiled dual kernel (100 restart iterations),
+    the flat tiled kernel (100 iterations) and the tiled chunk kernel (a
+    10-iteration restart window from the state 30 iterations left), with
+    their plain versions, at ``tier``; each one's bound from these inputs
+    at the tier's peak. Public arguments only at "highest"."""
+    _, flag = flagship(tg)
+    B = FLAG_BATCH
+    _, X0 = flag_x0(torch, flag.n_x, B, seed=seed)
+    g, p = core.affine_params(flag, X0)
+    tkw = {} if tier == "highest" else {"tier": tier}
+    c = dual_kernels.relu_offsets(flag, g, p)
+    zero = torch.zeros((B, 2, flag.m_half), device=DEVICE)
+    state = dual_kernels.gpad_dual_chunk_torch(
+        flag, c, zero, zero, torch.zeros((B, flag.m_half), device=DEVICE),
+        torch.ones((B, 2), device=DEVICE), k0=0, chunk=30, restart=True,
+        **tkw)[:4]
+    win = dict(k0=30, chunk=10, restart=True, **tkw)
+    kw = dict(iterations=ITERS, **tkw)
+    runs = {
+        f"dual_tiled@{B}": lambda: dual_kernels.gpad_fixed_dual_tiled(
+            flag, g, p, restart=True, **kw),
+        f"dual_tiled_plain@{B}": lambda: dual_kernels.gpad_fixed_dual_torch(
+            flag, g, p, restart=True, **kw),
+        f"flat_tiled@{B}": lambda: kernels.gpad_fixed_flat_tiled(flag, g, p,
+                                                                 **kw),
+        f"flat_tiled_plain@{B}": lambda: kernels.gpad_fixed_paired_flat_torch(
+            flag, g, p, **kw),
+        f"tiled_chunk@{B}": lambda: dual_kernels.gpad_dual_tiled_chunk(
+            flag, c, *state, **win),
+        f"tiled_chunk_plain@{B}": lambda: dual_kernels.gpad_dual_chunk_torch(
+            flag, c, *state, **win),
+    }
+    m_h, n_z = flag.m_half, flag.n_z
+    # the product w D per scenario and iteration, the offsets and the
+    # recovery once (fp32 at every tier); z, y, w, zhat written once
+    loop, around = B * ITERS * 2.0 * m_h * m_h, B * 4.0 * m_h * n_z
+    bounds = {
+        f"dual_tiled@{B}": bound(
+            loop + around * TIER_PEAK_FLOPS[tier] / PEAK_FP32_FLOPS,
+            nbytes(flag.D, flag.GL_T, flag.MG_T, g, p)
+            + 4 * B * (2 * n_z + 4 * m_h), tier),
+        f"flat_tiled@{B}": paired_bound(flag, g, p, B, tier=tier),
+        f"tiled_chunk@{B}": bound(
+            B * 10 * 2.0 * m_h * m_h,
+            nbytes(flag.D, c, *state) + nbytes(*state) + 4 * B * 2 * m_h,
+            tier)}
+    return runs, bounds
+
+
+TIMED_TIER_KERNELS = ("flat", "paired", "dual", "chunk", "dense")
+TIMED_TILED_TIER_KERNELS = ("dual_tiled", "flat_tiled", "tiled_chunk")
+
+
+def tier_turns(torch, base, runs, bounds, names, B, tier) -> dict:
+    """Each named kernel at ``tier`` in turns with "highest" (highest,
+    tier, tier, highest; profiler device ms), with its bound and its plain
+    version's ms at the tier (CUDA events)."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    rows = {}
+    for k in names:
+        key = f"{k}@{B}"
+        turns = [(t, profiled_ms(torch, fn, KERNEL_NAMES[k]))
+                 for t, fn in (("highest", base[key]), (tier, runs[key]),
+                               (tier, runs[key]), ("highest", base[key]))]
+        rows[k] = {
+            "ms": [ms for t, ms in turns if t == tier],
+            "highest_ms": [ms for t, ms in turns if t == "highest"],
+            "bound_ms": bounds[key]["bound_ms"],
+            "bound_by": bounds[key]["bound_by"],
+            "plain_ms": device_time_per_call(
+                runs[f"{k}_plain@{B}"], warmup=1, repeats=3) * 1e3}
+    return rows
 
 
 def times_tiers(torch, tg, kernels, dual_kernels, core, smi):
-    """``--times tiers``: the flat, full paired, dual and chunk kernels at
-    each precision tier beside "highest", at B 256 and 4096 (battery n3
-    N10), profiler device ms in turns (highest, tier, tier, highest), each
-    with its bound at the tier's peak and its plain version's ms at the
-    tier (CUDA events). A checkout whose kernels take no tier says so."""
-    from tpu_gpad_torch.utils import device_time_per_call
+    """``--times tiers``: the flat, full paired, dual, chunk and dense
+    kernels at each precision tier beside "highest", at B 256 and 4096
+    (battery n3 N10), and the tiled dual, flat tiled and tiled chunk
+    kernels at the flagship B256: profiler device ms in turns (highest,
+    tier, tier, highest), each with its bound at the tier's peak and its
+    plain version's ms at the tier (CUDA events). A checkout whose kernels
+    take no tier, or whose dense and tiled kernels take none, says so."""
+    import inspect
 
     if not hasattr(kernels, "KERNEL_TIERS"):
         emit({"phase": "tier_times", "gpu": smi,
               "note": "this checkout's kernels take no tier"})
         return
+    all_tiered = "tier" in inspect.signature(kernels.gpad_fixed_dense).parameters
+    names = TIMED_TIER_KERNELS if all_tiered else TIMED_TIER_KERNELS[:4]
     for B in RESIDENT_BATCHES:
         base, base_bounds = resident_runs(torch, tg, kernels, dual_kernels,
-                                          core, B, seed=66,
-                                          which=TIMED_TIER_KERNELS)
+                                          core, B, seed=66, which=names)
         rows = {}
         for tier in TIER_TOL:
             runs, bounds = resident_runs(torch, tg, kernels, dual_kernels,
-                                         core, B, seed=66,
-                                         which=TIMED_TIER_KERNELS, tier=tier)
-            for k in TIMED_TIER_KERNELS:
-                key = f"{k}@{B}"
-                turns = [(t, profiled_ms(torch, fn, KERNEL_NAMES[k]))
-                         for t, fn in (("highest", base[key]),
-                                       (tier, runs[key]), (tier, runs[key]),
-                                       ("highest", base[key]))]
-                rows.setdefault(k, {})[tier] = {
-                    "ms": [ms for t, ms in turns if t == tier],
-                    "highest_ms": [ms for t, ms in turns if t == "highest"],
-                    "bound_ms": bounds[key]["bound_ms"],
-                    "bound_by": bounds[key]["bound_by"],
-                    "plain_ms": device_time_per_call(
-                        runs[f"{k}_plain@{B}"], warmup=1, repeats=3) * 1e3}
+                                         core, B, seed=66, which=names,
+                                         tier=tier)
+            for k, row in tier_turns(torch, base, runs, bounds, names, B,
+                                     tier).items():
+                rows.setdefault(k, {})[tier] = row
         emit({"phase": "tier_times", "gpu": smi, "batch": B,
               "highest_bound_ms": {k: base_bounds[f"{k}@{B}"]["bound_ms"]
-                                   for k in TIMED_TIER_KERNELS},
+                                   for k in names},
               "kernels": rows})
+    if not all_tiered:
+        emit({"phase": "tier_times", "gpu": smi, "shape": "flagship",
+              "note": "this checkout's dense and tiled kernels take no tier"})
+        return
+    base, base_bounds = tiled_runs(torch, tg, kernels, dual_kernels, core,
+                                   seed=67)
+    rows = {}
+    for tier in TIER_TOL:
+        runs, bounds = tiled_runs(torch, tg, kernels, dual_kernels, core,
+                                  seed=67, tier=tier)
+        for k, row in tier_turns(torch, base, runs, bounds,
+                                 TIMED_TILED_TIER_KERNELS, FLAG_BATCH,
+                                 tier).items():
+            rows.setdefault(k, {})[tier] = row
+    emit({"phase": "tier_times", "gpu": smi, "batch": FLAG_BATCH,
+          "shape": "flagship",
+          "highest_bound_ms": {k: base_bounds[f"{k}@{FLAG_BATCH}"]["bound_ms"]
+                               for k in TIMED_TILED_TIER_KERNELS},
+          "kernels": rows})
 
 
 def paired_bound(d, g, p, B, full=False, tier="highest") -> dict:
@@ -4130,6 +4224,21 @@ TIER_ROUTES = {"paired_flat": {}, "paired": dict(form="mvp", flat="off"),
 # eps solve that no scenario meets (ten windows of the chunk kernel)
 TIER_EFFECT = {"dual": dict(form="dual"),
                "dual_chunk": dict(mode="eps", eps_g=0.0, eps_V=0.0)}
+# the dense kernel under each tier on the headline's unpaired stack, at the
+# headline and the serving batch (route "dense_B256": the same kernel)
+TIER_DENSE_BATCHES = {"dense": BATCH, "dense_B256": SERVE_PLANTS}
+# the tiled kernels under each tier at the flagship B256: the default solve
+# (flat tiled), restart (tiled dual), solve_to_accuracy with the flat block
+# off (tiled chunk); their effects on the fixed dual form and an eps solve
+# that no scenario meets, the flat block off (ten tiled windows)
+TIER_TILED_ROUTES = {"flat_tiled": {}, "dual_tiled": dict(restart=True),
+                     "dual_tiled_chunk": None}
+TIER_TILED_EFFECT = {"dual_tiled": dict(form="dual"),
+                     "dual_tiled_chunk": dict(mode="eps", eps_g=0.0,
+                                              eps_V=0.0, flat="off")}
+# the routes whose u is held on its max (the rest per scenario)
+TIER_FIXED_ROUTES = ("paired_flat", "paired", "dense", "dense_B256",
+                     "flat_tiled")
 # each kernel against its plain version at the tier: a tenth of TIER_TOL on
 # z (u's source; under restart, where a decision near r = 0 may part a
 # scenario, as below) and on every output over one iteration, where a
@@ -4177,32 +4286,49 @@ def summed_in_fp64(kernels, fn):
         kernels._tier_mm = mm
 
 
-def tier_kernel_vs_plain(torch, kernels, dual_kernels, data, g_P, p_D, tier):
-    """Each resident kernel at ``tier`` against its plain version at it, on
+def tier_fixed(kernels, dual_kernels, names) -> dict:
+    """(wrapper, plain version, keywords) of each named fixed-budget kernel
+    ("dual_restart", "dual_tiled_restart": under restart)."""
+    table = {
+        "paired_flat": (kernels.gpad_fixed_paired_flat,
+                        kernels.gpad_fixed_paired_flat_torch, {}),
+        "paired": (kernels.gpad_fixed_paired, kernels.gpad_fixed_paired_torch,
+                   {}),
+        "dense": (kernels.gpad_fixed_dense, kernels.gpad_fixed_dense_torch,
+                  {}),
+        "flat_tiled": (kernels.gpad_fixed_flat_tiled,
+                       kernels.gpad_fixed_paired_flat_torch, {}),
+    }
+    for name, fn in (("dual", dual_kernels.gpad_fixed_dual),
+                     ("dual_tiled", dual_kernels.gpad_fixed_dual_tiled)):
+        table[name] = (fn, dual_kernels.gpad_fixed_dual_torch, {})
+        table[f"{name}_restart"] = (fn, dual_kernels.gpad_fixed_dual_torch,
+                                    dict(restart=True))
+    return {n: table[n] for n in names}
+
+
+def tier_kernel_vs_plain(torch, kernels, dual_kernels, data, g_P, p_D, tier,
+                         names=("paired_flat", "paired", "dual",
+                                "dual_restart"), chunk="dual_chunk"):
+    """Each named kernel at ``tier`` against its plain version at it, on
     the card: per kernel the errors over one iteration from a warm state
     (every output), over 100 iterations cold (per output: z, y, w, zhat;
-    the chunk kernel a 10-iteration window from the state 30 left, its
-    outputs y, y_prev, s, mom, w and the recovered z), and the plain
-    version's own spread: its move when p_D (the chunk: c) moves by one
-    fp32 unit, and when its products are summed in float64. Checked
-    against TIER_KERNEL_TOL and TIER_SENSITIVITY."""
+    the chunk kernel, ``chunk`` ("dual_chunk", "dual_tiled_chunk" or None),
+    a 10-iteration window from the state 30 left, its outputs y, y_prev, s,
+    mom, w and the recovered z), and the plain version's own spread: its
+    move when p_D (the chunk: c) moves by one fp32 unit, and when its
+    products are summed in float64. Checked against TIER_KERNEL_TOL and
+    TIER_SENSITIVITY."""
     tol = TIER_KERNEL_TOL[tier]
-    B, m_h = g_P.shape[0], data.m_half
-    y_warm = kernels.gpad_fixed_paired_flat_torch(data, g_P, p_D,
-                                                  iterations=30)[1]
+    B = g_P.shape[0]
+    y_warm = (kernels.gpad_fixed_dense_torch if not data.paired
+              else kernels.gpad_fixed_paired_flat_torch)(
+                  data, g_P, p_D, iterations=30)[1]
     errs = lambda a, b: [(x - y).abs().max().item()  # noqa: E731
                          for x, y in zip(a, b) if x is not None]
     out = {}
-    fixed = {"paired_flat": (kernels.gpad_fixed_paired_flat,
-                             kernels.gpad_fixed_paired_flat_torch, {}),
-             "paired": (kernels.gpad_fixed_paired,
-                        kernels.gpad_fixed_paired_torch, {}),
-             "dual": (dual_kernels.gpad_fixed_dual,
-                      dual_kernels.gpad_fixed_dual_torch, {}),
-             "dual_restart": (dual_kernels.gpad_fixed_dual,
-                              dual_kernels.gpad_fixed_dual_torch,
-                              dict(restart=True))}
-    for name, (fn, plain, kw) in fixed.items():
+    for name, (fn, plain, kw) in tier_fixed(kernels, dual_kernels,
+                                            names).items():
         kw = dict(kw, tier=tier)
         one = errs(fn(data, g_P, p_D, y_warm, iterations=1, **kw),
                    plain(data, g_P, p_D, y_warm, iterations=1, **kw))
@@ -4212,30 +4338,32 @@ def tier_kernel_vs_plain(torch, kernels, dual_kernels, data, g_P, p_D, tier):
                            **kw), ref)
         fp64 = errs(summed_in_fp64(kernels, lambda: plain(
             data, g_P, p_D, iterations=ITERS, **kw)), ref)
-        if name == "dual_restart":  # z only, as at "highest"
+        if name.endswith("restart"):  # z only, as at "highest"
             full, moved, fp64 = full[:1], moved[:1], fp64[:1]
         out[name] = {"one_iteration": one, "iterations_100": full,
                      "plain_one_ulp": moved, "plain_fp64_products": fp64}
-    c = dual_kernels.relu_offsets(data, g_P, p_D)
-    zero = torch.zeros((B, 2, m_h), device=DEVICE)
-    state = dual_kernels.gpad_dual_chunk_torch(
-        data, c, zero, zero, torch.zeros((B, m_h), device=DEVICE),
-        torch.ones((B, 2), device=DEVICE), k0=0, chunk=30, tier=tier)[:4]
-    win = dict(k0=30, tier=tier)
-    one = errs(dual_kernels.gpad_dual_chunk(data, c, *state, chunk=1, **win),
-               dual_kernels.gpad_dual_chunk_torch(data, c, *state, chunk=1,
-                                                  **win))
-    got = dual_kernels.gpad_dual_chunk(data, c, *state, chunk=10, **win)
-    ref = dual_kernels.gpad_dual_chunk_torch(data, c, *state, chunk=10, **win)
-    moved = errs(dual_kernels.gpad_dual_chunk_torch(
-        data, one_ulp(torch, c), *state, chunk=10, **win), ref)
-    fp64 = errs(summed_in_fp64(kernels, lambda: dual_kernels.
-                               gpad_dual_chunk_torch(data, c, *state,
-                                                     chunk=10, **win)), ref)
-    z_err = ((got[2] - ref[2]) @ data.MG_T).abs().max().item()
-    out["dual_chunk"] = {"one_iteration": one, "iterations_10": errs(got, ref),
-                         "plain_one_ulp": moved, "plain_fp64_products": fp64,
-                         "z": z_err}
+    if chunk is not None:
+        m_h = data.m_half
+        fn = getattr(dual_kernels, f"gpad_{chunk}")
+        plain = dual_kernels.gpad_dual_chunk_torch
+        c = dual_kernels.relu_offsets(data, g_P, p_D)
+        zero = torch.zeros((B, 2, m_h), device=DEVICE)
+        state = plain(data, c, zero, zero, torch.zeros((B, m_h), device=DEVICE),
+                      torch.ones((B, 2), device=DEVICE), k0=0, chunk=30,
+                      tier=tier)[:4]
+        win = dict(k0=30, tier=tier)
+        one = errs(fn(data, c, *state, chunk=1, **win),
+                   plain(data, c, *state, chunk=1, **win))
+        got = fn(data, c, *state, chunk=10, **win)
+        ref = plain(data, c, *state, chunk=10, **win)
+        moved = errs(plain(data, one_ulp(torch, c), *state, chunk=10, **win),
+                     ref)
+        fp64 = errs(summed_in_fp64(kernels, lambda: plain(
+            data, c, *state, chunk=10, **win)), ref)
+        z_err = ((got[2] - ref[2]) @ data.MG_T).abs().max().item()
+        out[chunk] = {"one_iteration": one, "iterations_10": errs(got, ref),
+                      "plain_one_ulp": moved, "plain_fp64_products": fp64,
+                      "z": z_err}
     torch.cuda.synchronize()
     for name, e in out.items():
         check(max(e["one_iteration"]) <= tol, f"tiers {tier} {name}: one "
@@ -4244,7 +4372,7 @@ def tier_kernel_vs_plain(torch, kernels, dual_kernels, data, g_P, p_D, tier):
         z = e.get("z", full[0])
         # under restart a decision near r = 0 may flip and part a scenario:
         # its z is held to the plain version's own one-unit move alone
-        check(name == "dual_restart" or z <= tol,
+        check(name.endswith("restart") or z <= tol,
               f"tiers {tier} {name}: z off by {z} (> {tol})")
         spread = [max(a, b) for a, b in zip(e["plain_one_ulp"],
                                             e["plain_fp64_products"])]
@@ -4260,80 +4388,190 @@ def tier_parted(du, tol) -> dict:
     an eps solve's stopping window, may part a scenario; at most
     SW_RESTART_PARTED_SHARE of them (at least one) may be past ``tol``."""
     per = du.abs().amax(dim=1)
+    if not per.numel():
+        return {"max": 0.0, "p99": 0.0, "parted": 0, "parted_max": 0,
+                "ok": True}
     parted = int((per > tol).sum())
     return {"max": per.max().item(), "p99": per.quantile(0.99).item(),
             "parted": parted, "parted_max": parted_max(per.shape[0]),
             "ok": parted <= parted_max(per.shape[0])}
 
 
-def tier_kernel_legs(torch, tg, core, kernels, dual_kernels, ctr, name, shape):
-    """The resident routes of one shape under each tier: launches counted
-    from 0 a leg, |u - u(highest)| held to TIER_TOL (fixed routes on their
-    max; the restart and eps routes per scenario, TIER_TOL past 1% at
-    most), each tier's effect shown (TIER_APART: "default" and bf16 at
-    least that many times as far off as "high", above 0) on the fixed
-    routes, and each kernel held against its plain version at the tier."""
-    qp, data = headline(tg, shape)
-    X0 = flag_x0(torch, qp.n_x, BATCH, seed=18)[1]
-    g_P, p_D = core.affine_params(data, X0)
-    leg = {"batch": BATCH, "m_half": data.m_half, "plans": {
-        tier: {"paired_flat": kernels._paired_plan(
-                   data.m_half, data.n_z, data.n_struct, BATCH, tier=tier),
-               "dual": dual_kernels._dual_plan(data.m_half, BATCH, tier=tier)}
-        for tier in TIER_KW}}
-    launches, by_tier, u = {}, {}, {}
+def tier_route_legs(torch, tg, ctr, name, legs, effects, eps_tol, eps_kw,
+                    flagship=False):
+    """Routes under each tier, each through ``auto``, launches counted from
+    0 a leg: ``legs`` maps a route (its kernel's name, "gpad_" left out) to
+    (data, x0, config keywords; None: ``solve_to_accuracy(tol=eps_tol,
+    **eps_kw)``), ``effects`` a route to the keywords of its effect leg.
+    |u - u(highest)| is held to TIER_TOL (TIER_FIXED_ROUTES on their max;
+    the restart and eps routes per scenario, TIER_TOL past 1% at most), and
+    each tier shows its effect (TIER_APART: "default" and bf16 at least
+    that many times as far off as "high", above 0) on the fixed routes and
+    the effect legs; at the flagship "high" there stays within
+    TIER_HIGH_FLAGSHIP. On its eps route (tolerance 1e-4, where two fp32
+    summation orders already stop in other windows) a scenario that
+    converged in both solves, in another window than "highest"'s, meets
+    the tolerance at another point and is not held to TIER_TOL; one whose
+    solve under the tier does not converge within the budget (the tier's
+    floor is above the tolerance: its dual iterates wander about the
+    optimum as far as the tier's rounding moves them) is held to TIER_TOL
+    against the plain version's eps loop at the tier, the same algorithm
+    and rounding, and its distance from "highest" is reported. Returns
+    (leg, launches, by_tier)."""
+    from tpu_gpad_torch.solver import core
+
+    dual_kernels = ctr[1]
+    leg, launches, by_tier, u, stops, plain_u = {}, {}, {}, {}, {}, {}
+    runs = {**legs, **{f"{r}_effect": (legs[r][0], legs[r][1], e)
+                       for r, e in effects.items()}}
     for tier, kw in TIER_KW.items():
-        for route, rkw in {**TIER_ROUTES, **{f"{r}_effect": e for r, e in
-                                            TIER_EFFECT.items()}}.items():
-            kernel = f"gpad_{route.removesuffix('_effect')}"
+        for route, (data, X0, rkw) in runs.items():
+            kernel = "gpad_" + route.removesuffix("_effect").removesuffix(
+                "_B256")
             if rkw is None:  # the eps route: one launch a window
-                fn = lambda kw=kw: tg.solve_to_accuracy(  # noqa: E731
-                    data, X0, tol=EPS_TOL, **kw)
+                fn = lambda data=data, X0=X0, kw=kw: tg.solve_to_accuracy(  # noqa: E731
+                    data, X0, tol=eps_tol, **eps_kw, **kw)
                 want = lambda res, k=kernel: {  # noqa: E731
                     k: -(-int(res.iterations.max()) // 10)}
             else:
                 cfg = tg.SolverConfig(**rkw, **kw)
-                fn = lambda cfg=cfg: tg.solve_batch(data, X0, cfg)  # noqa: E731
+                fn = lambda data=data, X0=X0, cfg=cfg: tg.solve_batch(  # noqa: E731
+                    data, X0, cfg)
                 want = {kernel: ITERS // 10 if rkw.get("mode") == "eps"
                         else 1}
             res, got = counted(torch, ctr, fn, want, f"tiers {name} {tier} "
                                f"{route}")
             check(bool(torch.isfinite(res.u).all()),
                   f"tiers {name} {tier} {route}: u not finite")
-            if route == "dual_chunk_effect":
+            if route.endswith("chunk_effect"):
                 check(not bool(res.converged.any()), f"tiers {name} {tier}: "
                       "the eps solve of no scenario converged")
             u[tier, route] = res.u
+            stops[tier, route] = (res.iterations, res.converged)
+            if flagship and rkw is None and not bool(res.converged.all()):
+                cfg = tg.SolverConfig(mode="eps", eps_g=eps_tol, eps_V=eps_tol,
+                                      check_every=10, iterations=2000,
+                                      restart=True, **eps_kw, **kw)
+                plain_u[tier, route] = dual_kernels.gpad_eps_dual(
+                    data, *core.affine_params(data, X0), cfg,
+                    chunk_fn=dual_kernels.gpad_dual_chunk_torch).u
             for k, n in got.items():
                 launches[k] = launches.get(k, 0) + n
                 by_tier.setdefault(k, {})[tier] = (
                     by_tier.get(k, {}).get(tier, 0) + n)
-            if route == "dual_chunk":
+            if rkw is None:
                 leg.setdefault("eps_converged", {})[tier] = int(
                     res.converged.sum())
-    for route in TIER_ROUTES:
-        effect = route if route in ("paired_flat", "paired") else (
-            f"{route}_effect")
+    for route in legs:
+        fixed = route in TIER_FIXED_ROUTES
+        effect = route if fixed else f"{route}_effect"
         du = {t: (u[t, route] - u["highest", route]) for t in TIER_TOL}
         eff = {t: (u[t, effect] - u["highest", effect]).abs().max().item()
                for t in TIER_TOL}
         row = leg.setdefault("routes", {}).setdefault(route, {})
         row["effect_max_du"] = eff
         for tier, tol in TIER_TOL.items():
-            if route in ("paired_flat", "paired"):
+            if fixed:
                 row[f"max_du_{tier}"] = du[tier].abs().max().item()
                 check(row[f"max_du_{tier}"] <= tol, f"tiers {name} {route}: "
                       f"{tier} |du| {row[f'max_du_{tier}']} > {tol}")
+            elif flagship and legs[route][2] is None:
+                (it, conv), (it_h, conv_h) = (stops[tier, route],
+                                              stops["highest", route])
+                apart = (it != it_h) & conv & conv_h
+                row[f"du_{tier}"] = part = tier_parted(
+                    du[tier][conv & ~apart], tol)
+                part["converged_in_another_window"] = int(apart.sum())
+                part["unconverged"] = floor = int((~conv).sum())
+                if floor:
+                    off = du[tier][~conv].abs().amax(dim=1)
+                    part["unconverged_vs_highest"] = {
+                        "max": off.max().item(),
+                        "past_tol": int((off > tol).sum())}
+                    part["unconverged_vs_plain"] = tier_parted(
+                        (u[tier, route] - plain_u[tier, route])[~conv], tol)
+                ok = part["ok"] and (not floor
+                                     or part["unconverged_vs_plain"]["ok"])
+                check(ok, f"tiers {name} {route}: {tier} {part}")
             else:
                 row[f"du_{tier}"] = part = tier_parted(du[tier], tol)
                 check(part["ok"], f"tiers {name} {route}: {tier} {part}")
+        if flagship:
+            check(eff["high"] <= TIER_HIGH_FLAGSHIP, f"tiers {name} {route}: "
+                  f"high |du| {eff['high']} > {TIER_HIGH_FLAGSHIP}")
         for tier in ("default", "bfloat16"):
             check(eff[tier] > 0 and eff[tier] >= TIER_APART * eff["high"],
                   f"tiers {name} {route}: {tier} |du| {eff[tier]} is not "
                   f"{TIER_APART}x high's {eff['high']} (no effect)")
+    return leg, launches, by_tier
+
+
+def tier_kernel_legs(torch, tg, core, kernels, dual_kernels, ctr, name, shape):
+    """The resident routes of one shape under each tier at B4096
+    (``tier_route_legs``), and at the headline the dense kernel on its
+    unpaired stack at B4096 and B256; each kernel held against its plain
+    version at the tier (``tier_kernel_vs_plain``)."""
+    qp, data = headline(tg, shape)
+    X0 = flag_x0(torch, qp.n_x, BATCH, seed=18)[1]
+    g_P, p_D = core.affine_params(data, X0)
+    legs = {r: (data, X0, kw) for r, kw in TIER_ROUTES.items()}
+    plans = {tier: {"paired_flat": kernels._paired_plan(
+                        data.m_half, data.n_z, data.n_struct, BATCH,
+                        tier=tier),
+                    "dual": dual_kernels._dual_plan(data.m_half, BATCH,
+                                                    tier=tier)}
+             for tier in TIER_KW}
+    dense = None
+    if name == "headline":
+        _, dense = dense_headline(tg)
+        Xd = flag_x0(torch, dense.n_x, BATCH, seed=18)[1]
+        for route, B in TIER_DENSE_BATCHES.items():
+            legs[route] = (dense, Xd[:B], {})
+            for tier in TIER_KW:
+                plans[tier][route] = kernels._dense_plan(dense.m, dense.n_z, B,
+                                                         tier=tier)
+    leg, launches, by_tier = tier_route_legs(torch, tg, ctr, name, legs,
+                                             TIER_EFFECT, EPS_TOL, {})
+    leg.update(batch=BATCH, m_half=data.m_half, plans=plans)
     leg["kernel_vs_plain"] = {
         tier: tier_kernel_vs_plain(torch, kernels, dual_kernels, data, g_P,
                                    p_D, tier) for tier in TIER_KERNEL_TOL}
+    if dense is not None:
+        leg["dense_vs_plain"] = {}
+        for route, B in TIER_DENSE_BATCHES.items():
+            gd, pd = core.affine_params(dense, Xd[:B])
+            leg["dense_vs_plain"][route] = {
+                tier: tier_kernel_vs_plain(torch, kernels, dual_kernels,
+                                           dense, gd, pd, tier, ("dense",),
+                                           None)
+                for tier in TIER_KERNEL_TOL}
+    leg["launches"] = launches
+    return leg, launches, by_tier
+
+
+def tier_tiled_legs(torch, tg, core, kernels, dual_kernels, ctr):
+    """The tiled kernels under each tier at the flagship B256
+    (``tier_route_legs``: TIER_TILED_ROUTES and TIER_TILED_EFFECT, the eps
+    route at FLAG_EPS_TOL with the flat block off), each held against its
+    plain version at the tier (the tiled dual kernel fixed and under
+    restart, the flat tiled kernel, a tiled chunk window)."""
+    qp, flag = flagship(tg)
+    X0 = flag_x0(torch, qp.n_x, FLAG_BATCH, seed=20)[1]
+    legs = {r: (flag, X0, kw) for r, kw in TIER_TILED_ROUTES.items()}
+    leg, launches, by_tier = tier_route_legs(
+        torch, tg, ctr, "flagship", legs, TIER_TILED_EFFECT, FLAG_EPS_TOL,
+        dict(flat="off"), flagship=True)
+    leg.update(batch=FLAG_BATCH, m_half=flag.m_half,
+               log2_tile=dual_kernels.pick_tiled_tiles(flag.m_half,
+                                                       FLAG_BATCH),
+               flat_plan=kernels.pick_flat_tiled(flag.m_half, flag.n_z,
+                                                 FLAG_BATCH))
+    g_P, p_D = core.affine_params(flag, X0)
+    leg["kernel_vs_plain"] = {
+        tier: tier_kernel_vs_plain(
+            torch, kernels, dual_kernels, flag, g_P, p_D, tier,
+            ("dual_tiled", "dual_tiled_restart", "flat_tiled"),
+            "dual_tiled_chunk") for tier in TIER_KERNEL_TOL}
     leg["launches"] = launches
     return leg, launches, by_tier
 
@@ -4342,7 +4580,8 @@ def tier_serving(torch, tg, ctr, smi):
     """A restart ``Controller`` on the serving fleet under each tier
     (TIER_SERVE_STEPS steps, one dual launch each), and the CLI's ``solve``
     under ``--precision default`` and ``--dtype bfloat16`` in process (one
-    flat launch each)."""
+    flat launch each), and at the flagship under ``--precision default``
+    (one flat tiled launch)."""
     import contextlib
     import io as textio
 
@@ -4372,21 +4611,31 @@ def tier_serving(torch, tg, ctr, smi):
         check(np.isfinite(us[-1]).all() and np.abs(us[-1]).max() <= 0.3 + 1e-2,
               f"tiers serving {tier}: u {np.abs(us[-1]).max()}")
         launches[f"controller_{tier}"] = got
-    for flags in (["--precision", "default"], ["--dtype", "bfloat16"]):
+    flag_shape = ["--cells", str(FLAGSHIP["n_cells"]), "--horizon",
+                  str(FLAGSHIP["horizon"])]
+    for key, flags, kernel in (
+            ("default", ["--batch", str(BATCH), "--precision", "default"],
+             "gpad_paired_flat"),
+            ("bfloat16", ["--batch", str(BATCH), "--dtype", "bfloat16"],
+             "gpad_paired_flat"),
+            ("flagship_default", [*flag_shape, "--batch", str(FLAG_BATCH),
+                                  "--precision", "default"],
+             "gpad_flat_tiled")):
         def run(flags=flags):
             buf = textio.StringIO()
             with contextlib.redirect_stdout(buf):
-                check(cli.main(["solve", "--batch", str(BATCH), "--device",
-                                DEVICE, *flags]) == 0, f"cli solve {flags}")
+                check(cli.main(["solve", "--device", DEVICE, *flags]) == 0,
+                      f"cli solve {flags}")
             return json.loads(buf.getvalue().strip().splitlines()[-1])
 
-        res, got = counted(torch, ctr, run, {"gpad_paired_flat": 1},
-                           f"tiers cli {flags}")
-        by_tier.setdefault("gpad_paired_flat", {})[flags[1]] = 1
+        res, got = counted(torch, ctr, run, {kernel: 1}, f"tiers cli {flags}")
+        tier = flags[-1]
+        row = by_tier.setdefault(kernel, {})
+        row[tier] = row.get(tier, 0) + 1
         check(res.get("engine") == "cuda" and np.isfinite(res["u_star"]).all(),
               f"tiers cli {flags}: {res}")
-        out[f"cli_{flags[1]}_engine"] = res["engine"]
-        launches[f"cli_{flags[1]}"] = got
+        out[f"cli_{key}_engine"] = res["engine"]
+        launches[f"cli_{key}"] = got
     out["launches"] = launches
     return out, launches, by_tier
 
@@ -4397,13 +4646,16 @@ def phase_tiers_path(torch, tg, core, ctr, smi):
     finite everywhere), "highest" with the caller's TF32 switch on equal
     to the solve with it off bit for bit (the switch as the caller left
     it); at the flagship each tier shows that it took effect
-    (TIER_HIGH_FLAGSHIP, TIER_APART) and ``auto`` under a tier raises
-    NotImplementedError naming its tiled route. The bf16 product is
-    ``mm(out_dtype=float32)``, fp32-accumulated (BF16_PRODUCT_TOL). On the
-    resident condensed kernels (``tier_kernel_legs``) at the headline and
-    at n5 N20; a restart ``Controller`` and the CLI under a tier
-    (``tier_serving``). Each leg's launches counted from 0."""
+    (TIER_HIGH_FLAGSHIP, TIER_APART), and ``auto`` under each tier
+    launches one flat tiled kernel, under restart one tiled dual kernel.
+    The bf16 product is ``mm(out_dtype=float32)``, fp32-accumulated
+    (BF16_PRODUCT_TOL). On the kernels under each tier: the resident
+    condensed ones at the headline and at n5 N20 and the dense one at the
+    headline (``tier_kernel_legs``), the tiled ones at the flagship
+    (``tier_tiled_legs``); a restart ``Controller`` and the CLI under a
+    tier (``tier_serving``). Each leg's launches counted from 0."""
     kernels, dual_kernels = ctr[:2]
+    t0 = time.perf_counter()
     out = {"phase": "tiers_path", "smi": smi}
     mb = core._Matmul(tg.SolverConfig(matmul_dtype="bfloat16"), device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(16)
@@ -4429,15 +4681,16 @@ def phase_tiers_path(torch, tg, core, ctr, smi):
         leg = {"batch": int(X0.shape[0]), "auto_kernel": kernel}
         u = {}
         for tier, kw in TIER_KW.items():
-            if tier != "highest" and name == "flagship":
-                try:
-                    tg.solve_batch(data, X0, tg.SolverConfig(**kw))
-                    raised = ""
-                except NotImplementedError as e:
-                    raised = str(e)
-                check(f"the '{kernel}' CUDA kernel" in raised
-                      and "engine='torch'" in raised,
-                      f"tiers {name} {tier}: auto did not refuse ({raised})")
+            if name == "flagship":  # auto takes the kernel at every tier
+                for rkw, k in (({}, kernel), (dict(restart=True),
+                                              "dual_tiled")):
+                    counted(torch, ctr, lambda rkw=rkw, kw=kw: tg.solve_batch(
+                        data, X0, tg.SolverConfig(**rkw, **kw)),
+                        {f"gpad_{k}": 1}, f"tiers {name} {tier} {rkw}")
+                    for row, key in ((launches.setdefault(
+                            f"{name}_auto", {}), f"gpad_{k}"),
+                            (tier_launches.setdefault(f"gpad_{k}", {}), tier)):
+                        row[key] = row.get(key, 0) + 1
             reset_counters(*ctr)
             u[tier] = tg.solve_batch(data, X0, tg.SolverConfig(
                 engine="torch", **kw)).u
@@ -4489,11 +4742,17 @@ def phase_tiers_path(torch, tg, core, ctr, smi):
         out[f"kernels_{name}"] = leg
         launches[f"kernels_{name}"] = got
         add(by_tier)
+    leg, got, by_tier = tier_tiled_legs(torch, tg, core, kernels, dual_kernels,
+                                        ctr)
+    out["kernels_flagship"] = leg
+    launches["kernels_flagship"] = got
+    add(by_tier)
     out["serving"], serving, by_tier = tier_serving(torch, tg, ctr, smi)
     add(by_tier)
     for leg_name, got in serving.items():
         launches[f"serving_{leg_name}"] = got
     out["tier_launches"] = tier_launches
+    out["phase_s"] = time.perf_counter() - t0
     emit(out)
     return launches, tier_launches
 

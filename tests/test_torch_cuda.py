@@ -614,6 +614,9 @@ TILED_CASES = {
                                16),
     "n3N10_tile1_cluster1": ((3, 10), 33, None, True, True, 0, 1),
     "n3N10_tile2_cluster2": ((3, 10), 33, "shared", False, True, 1, 2),
+    # one block a cluster: the products' rows in one group (the flat tiled
+    # kernel's columns summed whole in a thread or a fragment)
+    "flagship_B1_cluster1": ((30, 30), 1, None, False, True, None, 1),
 }
 
 
@@ -1367,6 +1370,13 @@ TIER_KW = {"high": dict(precision="high"), "default": dict(precision="default"),
            "bfloat16": dict(matmul_dtype="bfloat16")}
 
 
+def _parted(du, tol):
+    """Scenarios whose |du| passes ``tol`` (a restart decision near r = 0
+    may part one), and how many may."""
+    per = du.abs().amax(dim=-1)
+    return int((per > tol).sum()), max(1, per.shape[0] // 100)
+
+
 def _tier_close(out_k, out_p, tier, names=("z", "y", "w", "zhat")):
     for name, a, b in zip(names, out_k, out_p):
         if b is None:
@@ -1378,8 +1388,21 @@ def _tier_close(out_k, out_p, tier, names=("z", "y", "w", "zhat")):
 
 
 def _tier_fns(kernel):
-    """(wrapper, plain version, launch counter, keywords) of a resident
-    kernel; "dual_restart" is the dual kernel under restart."""
+    """(wrapper, plain version, launch counter, keywords) of a kernel;
+    "dual_restart" and "dual_tiled_restart" are the dual kernels under
+    restart."""
+    if kernel == "dense":
+        return (kernels.gpad_fixed_dense, kernels.gpad_fixed_dense_torch,
+                (kernels, "DENSE_LAUNCHES"), {})
+    if kernel == "flat_tiled":
+        return (kernels.gpad_fixed_flat_tiled,
+                kernels.gpad_fixed_paired_flat_torch,
+                (kernels, "FLAT_TILED_LAUNCHES"), {})
+    if kernel.startswith("dual_tiled"):
+        return (dual_kernels.gpad_fixed_dual_tiled,
+                dual_kernels.gpad_fixed_dual_torch,
+                (dual_kernels, "DUAL_TILED_LAUNCHES"),
+                dict(restart=kernel == "dual_tiled_restart"))
     if kernel.startswith("dual"):
         return (dual_kernels.gpad_fixed_dual, dual_kernels.gpad_fixed_dual_torch,
                 (dual_kernels, "DUAL_LAUNCHES"),
@@ -1392,7 +1415,7 @@ def _tier_fns(kernel):
 
 
 def _tier_run(kernel, data, g_P, p_D, y0, tier, iterations=ITERS, **plan):
-    """A resident kernel at ``tier`` (counted) and its plain version at it."""
+    """A kernel at ``tier`` (counted) and its plain version at it."""
     fn, plain, counter, kw = _tier_fns(kernel)
     kw = dict(kw, iterations=iterations, tier=tier)
     before = getattr(*counter)
@@ -1435,8 +1458,10 @@ def _tier_held(kernel, data, g_P, p_D, y0, tier, monkeypatch, **plan):
     within TIER_SENSITIVITY times the plain version's own spread. Returns
     the 100-iteration outputs."""
     tol = TIER_KERNEL_TOL[tier]
-    warm = y0 if y0 is not None else kernels.gpad_fixed_paired_flat_torch(
-        data, g_P, p_D, iterations=30)[1]
+    warm = y0 if y0 is not None else (
+        kernels.gpad_fixed_dense_torch if kernel == "dense"
+        else kernels.gpad_fixed_paired_flat_torch)(
+            data, g_P, p_D, iterations=30)[1]
     _tier_close(*_tier_run(kernel, data, g_P, p_D, warm, tier, iterations=1,
                            **plan), tier)
     out_k, out_p = _tier_run(kernel, data, g_P, p_D, y0, tier, **plan)
@@ -1445,12 +1470,17 @@ def _tier_held(kernel, data, g_P, p_D, y0, tier, monkeypatch, **plan):
     spread = _spread(
         lambda: plain(data, g_P, p_D, y0, **kw), out_p, monkeypatch,
         lambda: plain(data, g_P, torch.nextafter(p_D, p_D + 1.0), y0, **kw))
-    names = ("z",) if kernel == "dual_restart" else ("z", "y", "w", "zhat")
+    restart = kernel.endswith("restart")
+    names = ("z",) if restart else ("z", "y", "w", "zhat")
     for name, a, b, own in zip(names, out_k, out_p, spread):
         assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        if kernel == "dual_tiled_restart":  # per scenario, 1% may part
+            parted, most = _parted(a - b, max(tol, TIER_SENSITIVITY * own))
+            assert parted <= most, (tier, name, parted, own)
+            continue
         err = (a - b).abs().max().item()
         assert err <= max(tol, TIER_SENSITIVITY * own), (tier, name, err, own)
-    if kernel != "dual_restart":
+    if not restart:
         torch.testing.assert_close(out_k[0], out_p[0], atol=tol, rtol=0,
                                    msg=f"{tier} z")
     return out_k
@@ -1581,18 +1611,158 @@ def test_unknown_tier_is_refused(dev):
     assert dual_kernels.DUAL_LAUNCHES == before
 
 
-def test_dense_and_tiled_routes_refuse_a_tier(dev):
-    """The kernels without tier products raise under a tier, naming their
-    route, and never re-route."""
-    dense = tg.dualize(tg.condense(tg.problems.battery(3, 10)), ITERS,
-                       paired=False, device=dev)
-    X0 = torch.zeros((4, dense.n_x), device=dev)
-    with pytest.raises(NotImplementedError, match="'dense' CUDA kernel"):
-        tg.solve_batch(dense, X0, tg.SolverConfig(precision="default"))
+# the dense and tiled kernels under each tier: the dense kernel on the
+# unpaired headline stack at the serving and headline batches and near its
+# guard (n3 N20); the tiled ones on the flagship and at forced tiles and
+# clusters (TILED_CASES: T 1 to 16, clusters of 1 to 16, partial tiles)
+TIER_DENSE_CASES = {"n3N10_B4096": ((3, 10), 4096),
+                    "n3N10_B256": ((3, 10), 256), "n3N20_B33": ((3, 20), 33)}
+TIER_TILED_CASES = ("flagship_cold", "flagship_B5", "flagship_B300_cluster16",
+                    "flagship_B1_cluster1", "n5N30_restart", "n3N10_tile1",
+                    "n3N10_tile8", "n3N10_tile16_cluster16",
+                    "n3N10_tile1_cluster1", "n3N10_tile2_cluster2")
+
+
+@pytest.mark.parametrize("tier", list(TIER_KERNEL_TOL))
+@pytest.mark.parametrize("case", list(TIER_DENSE_CASES))
+def test_tier_dense_kernel_matches_plain(dev, monkeypatch, case, tier):
+    """The dense kernel at each tier against its plain version at the tier
+    (``_tier_held``), and the tier took effect."""
+    data = _dense_data(dev, *TIER_DENSE_CASES[case][0])
+    B = TIER_DENSE_CASES[case][1]
+    g_P, p_D = _inputs(data, B, seed=B + 16)
+    out_k = _tier_held("dense", data, g_P, p_D, None, tier, monkeypatch)
+    highest = _tier_run("dense", data, g_P, p_D, None, "highest")[0]
+    assert not torch.equal(out_k[0], highest[0]), "the tier took no effect"
+
+
+@pytest.mark.parametrize("tier", list(TIER_KERNEL_TOL))
+@pytest.mark.parametrize("case", TIER_TILED_CASES)
+def test_tier_tiled_kernels_match_plain(dev, monkeypatch, case, tier):
+    """The tiled dual kernel (under restart where the case restarts) and the
+    flat tiled kernel at each tier against their plain versions at the tier
+    (``_tier_held``), at the case's tile and cluster; the fixed ones show
+    that the tier took effect."""
+    data, g_P, p_D, y0, restart, _, tile, cluster = _tiled_args(dev, case)
+    plan = dict(log2_tile=tile, cluster=cluster)
+    for kernel in (("dual_tiled_restart",) if restart
+                   else ("dual_tiled", "flat_tiled")):
+        out_k = _tier_held(kernel, data, g_P, p_D, y0, tier, monkeypatch,
+                           **plan)
+        if not restart:
+            highest = _tier_run(kernel, data, g_P, p_D, y0, "highest",
+                                **plan)[0]
+            assert not torch.equal(out_k[0], highest[0]), kernel
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIER_KERNEL_TOL])
+@pytest.mark.parametrize("cluster", [1, 4])
+def test_flat_tiled_ungrouped_plan_matches_plain(dev, cluster, tier):
+    """The flat tiled kernel's plan near its guard, one scenario a cluster
+    without the groups' scratch (``pick_flat_tiled``'s fallback), forced
+    through the op at the flagship B3: its sums go from each thread (or,
+    under a tier, each fragment) to the epilogue. One iteration from a warm
+    state on every output and 100 on z, against the plain version at the
+    tier; a wider tile without the scratch is refused under a tier."""
+    data = _tiled_data(dev, 30, 30)
+    g_P, p_D = _inputs(data, 3, seed=21)
+    warm = kernels.gpad_fixed_paired_flat_torch(data, g_P, p_D,
+                                                iterations=30)[1]
+    tol = TOL if tier == "highest" else TIER_KERNEL_TOL[tier]
+
+    def op(y0, iterations, log2_tile=0):
+        return kernels.flat_tiled_op(
+            data.MG_T, data.GL_T, g_P, p_D, y0, data.theta, data.beta, data.L,
+            data.n_struct, iterations, log2_tile, cluster, False, True, tier)
+
+    for y0, iterations in ((warm, 1), (None, ITERS)):
+        before = kernels.FLAT_TILED_LAUNCHES
+        out_k = op(y0, iterations)
+        assert kernels.FLAT_TILED_LAUNCHES == before + 1
+        out_p = kernels.gpad_fixed_paired_flat_torch(
+            data, g_P, p_D, y0, iterations=iterations, tier=tier)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("z", "y", "w", "zhat"), out_k, out_p):
+            if iterations == 1 or name == "z":
+                torch.testing.assert_close(a, b, atol=tol, rtol=0,
+                                           msg=f"{tier} {name}")
+    if tier != "highest":
+        with pytest.raises(RuntimeError, match="gpad_flat_tiled launch failed"):
+            op(None, 1, log2_tile=1)
+
+
+@pytest.mark.parametrize("tier", list(TIER_KERNEL_TOL))
+def test_tier_dual_tiled_chunk_matches_plain(dev, monkeypatch, tier):
+    """One window of 10 of the tiled chunk kernel at each tier from k0 = 30
+    at the flagship B256, on the state 30 iterations left, against the
+    plain version at the tier: one iteration on every output, the recovered
+    z, and the window's outputs against the plain version's own spread."""
+    data = _tiled_data(dev, 30, 30)
+    B = 256
+    g_P, p_D = _inputs(data, B, seed=6)
+    c = dual_kernels.relu_offsets(data, g_P, p_D)
+    y = torch.zeros((B, 2, data.m_half), device=dev)
+    state = dual_kernels.gpad_dual_chunk_torch(
+        data, c, y, y, torch.zeros((B, data.m_half), device=dev),
+        torch.ones((B, 2), device=dev), k0=0, chunk=30, tier=tier)[:4]
+    names = ("y", "y_prev", "s", "mom", "w")
+    before = dual_kernels.DUAL_TILED_CHUNK_LAUNCHES
+    one = [fn(data, c, *state, k0=30, chunk=1, tier=tier) for fn in (
+        dual_kernels.gpad_dual_tiled_chunk, dual_kernels.gpad_dual_chunk_torch)]
+    out_k = dual_kernels.gpad_dual_tiled_chunk(data, c, *state, k0=30,
+                                               chunk=10, tier=tier)
+    window = lambda c: dual_kernels.gpad_dual_chunk_torch(  # noqa: E731
+        data, c, *state, k0=30, chunk=10, tier=tier)
+    out_p = window(c)
+    spread = _spread(lambda: window(c), out_p, monkeypatch,
+                     lambda: window(torch.nextafter(c, c + 1.0)))
+    torch.cuda.synchronize()
+    assert dual_kernels.DUAL_TILED_CHUNK_LAUNCHES == before + 2
+    _tier_close(*one, tier, names)
+    tol = TIER_KERNEL_TOL[tier]
+    z_err = ((out_k[2] - out_p[2]) @ data.MG_T).abs().max().item()
+    assert z_err <= tol, z_err
+    for name, a, b, own in zip(names, out_k, out_p, spread):
+        err = (a - b).abs().max().item()
+        assert err <= max(tol, TIER_SENSITIVITY * own), (tier, name, err, own)
+
+
+@pytest.mark.parametrize("tier", list(TIER_KERNEL_TOL))
+def test_tier_solves_route_through_dense_and_tiled_kernels(dev, tier):
+    """Under each tier ``auto`` launches the kernel "highest" launches: the
+    dense kernel on the unpaired headline (B4096), at the flagship (B256)
+    the flat tiled kernel, the tiled dual one under restart and the tiled
+    chunk one in eps mode with the flat block off; each u within
+    chip_smoke.py's TIER_TOL of "highest"'s (restart per scenario, 1% may
+    part; eps per scenario too, where a scenario that converged in both
+    solves, in another window than "highest"'s, meets the tolerance at
+    another point and is not held to TIER_TOL)."""
+    tol = {"high": 5e-4, "default": 5e-3, "bfloat16": 5e-2}[tier]
+    dense = _dense_data(dev)
     flag = _tiled_data(dev, 30, 30)
-    X0 = torch.zeros((2, flag.n_x), device=dev)
-    with pytest.raises(NotImplementedError, match="'flat_tiled' CUDA kernel"):
-        tg.solve_batch(flag, X0, tg.SolverConfig(matmul_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="'dual_tiled' CUDA kernel"):
-        tg.solve_batch(flag, X0, tg.SolverConfig(restart=True,
-                                                 precision="high"))
+    legs = [(dense, 4096, ("DENSE_LAUNCHES", kernels), {}),
+            (flag, 256, ("FLAT_TILED_LAUNCHES", kernels), {}),
+            (flag, 256, ("DUAL_TILED_LAUNCHES", dual_kernels),
+             dict(restart=True)),
+            (flag, 256, ("DUAL_TILED_CHUNK_LAUNCHES", dual_kernels),
+             dict(mode="eps", restart=True, flat="off", eps_g=1e-4,
+                  eps_V=1e-4))]
+    for data, B, (counter, module), kw in legs:
+        X0 = torch.as_tensor(np.random.default_rng(17).uniform(
+            -0.4, 0.4, (B, data.n_x)), dtype=torch.float32, device=dev)
+        before = getattr(module, counter)
+        res = tg.solve_batch(data, X0, tg.SolverConfig(**kw, **TIER_KW[tier]))
+        torch.cuda.synchronize()
+        assert getattr(module, counter) > before, counter
+        assert bool(torch.isfinite(res.u).all()), counter
+        ref = tg.solve_batch(data, X0, tg.SolverConfig(**kw))
+        if kw.get("mode") == "eps":
+            apart = ((res.iterations != ref.iterations) & res.converged
+                     & ref.converged)
+            parted = _parted((res.u - ref.u)[~apart], tol)[0]
+            assert parted <= max(1, B // 100), (counter, parted)
+        elif kw:
+            parted, most = _parted(res.u - ref.u, tol)
+            assert parted <= most, (counter, parted)
+        else:
+            assert (res.u - ref.u).abs().max().item() <= tol, counter

@@ -2,9 +2,9 @@
 ``matmul_dtype``) against ``tpu_gpad``'s XLA engine on the same seeded
 inputs: battery n3 N10, paired and dense, B6, 100 iterations, for the mvp
 (flat and dense), dual-form, restart and eps loops and for
-``convergence_trace``; then the TF32 switch's scope, the refusal of the
-dense kernel's route under a tier and the routes of the resident kernels
-under one, AOT artifacts exported under a tier and the CLI.
+``convergence_trace``; then the TF32 switch's scope, the routes of the
+dense, tiled and resident kernels under a tier (each the kernel "highest"
+takes), AOT artifacts exported under a tier and the CLI.
 
 Tolerances, stated before the code was written:
 
@@ -193,19 +193,34 @@ def test_highest_ignores_the_callers_tf32(data):
                                 dict(matmul_dtype="bfloat16")],
                          ids=["high", "default", "bfloat16"])
 def test_kernel_route_under_a_tier_raises(data, monkeypatch, kw):
-    """Where ``auto`` on the card would launch a kernel without tier
-    products (the dense one here: unpaired n3 N10), a tier raises and never
-    re-routes; ``engine="torch"`` serves it. The card is stood in for by
-    the data's device."""
-    _, d_t = data["dense"]
+    """Whether a kernel route under a tier raises: none does. The dense
+    route (``auto`` on unpaired n3 N10) and the tiled ones (the paired
+    data with the resident kernels' guards stood down, as past shared
+    memory: flat tiled, tiled dual under restart or the dual form, tiled
+    chunk in eps mode) resolve to "cuda" under each tier, to the kernel
+    "highest" takes. The card is stood in for by the data's device."""
+    from tpu_gpad_torch.solver import dual_kernels, kernels
+
     monkeypatch.setattr(GPADData, "device",
                         property(lambda self: torch.device("cuda")))
-    assert core.cuda_kernel(d_t, SolverConfig(**kw)) == "dense"
-    assert core.resolve_engine(d_t, SolverConfig()) == "cuda"
-    with pytest.raises(NotImplementedError,
-                       match="'dense' CUDA kernel.*precision tiers for the "
-                             "CUDA kernels.*ROADMAP.*engine='torch'"):
-        core.resolve_engine(d_t, SolverConfig(**kw))
+    _, d_t = data["dense"]
+    for route in (dict(), dict(engine="cuda")):
+        cfg = SolverConfig(**route, **kw)
+        assert core.resolve_engine(d_t, cfg) == "cuda"
+        assert core.cuda_kernel(d_t, cfg) == "dense"
+    monkeypatch.setattr(kernels, "flat_fits_smem", lambda data: False)
+    monkeypatch.setattr(dual_kernels, "dual_fits_smem", lambda data: False)
+    _, d_t = data["paired"]
+    routes = {"flat_tiled": dict(), "dual_tiled": dict(restart=True),
+              "dual_tiled_chunk": dict(mode="eps", restart=True, flat="off")}
+    for kernel, route in routes.items():
+        assert core.cuda_kernel(d_t, SolverConfig(**route, **kw)) == kernel
+        for forms in (dict(), dict(engine="cuda")):
+            cfg = SolverConfig(**route, **forms, **kw)
+            assert core.resolve_engine(d_t, cfg) == "cuda", kernel
+            assert (core.cuda_kernel(d_t, cfg)
+                    == core.cuda_kernel(d_t, SolverConfig(**route, **forms)))
+    assert core.cuda_kernel(d_t, SolverConfig(form="dual", **kw)) == "dual_tiled"
     assert core.resolve_engine(d_t, SolverConfig(engine="torch", **kw)) == "torch"
 
 

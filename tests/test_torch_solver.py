@@ -179,18 +179,32 @@ def test_sharding_axes_need_a_bound_group(paired_pair, one_rank_group, kw):
 
 
 @pytest.mark.parametrize(
-    "kw, missing",
-    # the dense (and tiled) CUDA kernels are fp32 "highest" only: their
-    # route under another tier names the kernel and what is still to be
-    # ported, points at the ROADMAP and at the engine that serves the tier
-    [(dict(precision="high"), "'dense' CUDA kernel.*precision tiers"),
-     (dict(matmul_dtype="bfloat16"), "'dense' CUDA kernel.*precision tiers")],
-    ids=["precision", "matmul_dtype"],
+    "kw, tol",
+    # "high" is 3xTF32 on the route and fp32 on the CPU's torch engine;
+    # "default" and bf16 round the route's operands where the torch
+    # engine's CPU products stay fp32 ("default") or round them itself
+    [(dict(precision="high"), 2e-5), (dict(precision="default"), 5e-3),
+     (dict(matmul_dtype="bfloat16"), 5e-3)],
+    ids=["high", "default", "bfloat16"],
 )
-def test_unported_modes_raise(dense_pair, kw, missing):
+def test_forced_dense_route_takes_a_tier(dense_pair, monkeypatch, kw, tol):
+    """The dense kernel's route forced under a tier, on CPU tensors (the
+    card's routing stood in for): the dense op runs its plain version at
+    the tier, u within ``tol`` of the torch engine's at the tier, and the
+    tier took effect (y differs from the route's "highest")."""
+    from tpu_gpad_torch.solver import kernels
+
     _, _, d_t = dense_pair
-    with pytest.raises(NotImplementedError,
-                       match=f"{missing}.*ROADMAP.*engine='torch'"):
-        tpu_gpad_torch.solve_batch(
-            d_t, np.zeros((1, 3), np.float32),
-            SolverConfig(engine="cuda", **kw))
+    x0 = np.random.default_rng(4).uniform(-0.4, 0.4, (8, 3)).astype(np.float32)
+    ref = tpu_gpad_torch.solve_batch(d_t, x0, SolverConfig(engine="torch",
+                                                           **kw))
+    monkeypatch.setattr(core, "resolve_engine", lambda data, config: "cuda")
+    calls = []
+    op = kernels.dense_op
+    monkeypatch.setattr(kernels, "dense_op", lambda *a: calls.append(a[-1])
+                        or op(*a))
+    got = tpu_gpad_torch.solve_batch(d_t, x0, SolverConfig(engine="cuda", **kw))
+    highest = tpu_gpad_torch.solve_batch(d_t, x0, SolverConfig(engine="cuda"))
+    assert calls == [core.tier(SolverConfig(**kw)), "highest"]
+    assert (got.u - ref.u).abs().max().item() <= tol
+    assert not torch.equal(got.y, highest.y)

@@ -126,8 +126,7 @@ def export_solver(
     batch on the torch engine; a concrete one routes as a live solve on
     the exporting device and serves that card type only (see the module
     docstring). Under a tier other than fp32 "highest" a concrete batch
-    routes as the live call too: a resident condensed kernel runs it at the
-    tier, and a route to the dense or a tiled kernel raises."""
+    routes as the live call too: its kernel runs it at the tier."""
     _refuse_axes(config)
     core._check_config(config)
     if batch_size is None:

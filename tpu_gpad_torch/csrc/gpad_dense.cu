@@ -42,17 +42,30 @@
 // layout does not fit shared memory (shapes near the guard), V = 1 keeps
 // the operands unpadded at one scenario per block: the first design's
 // carve-up, so the guard admits what it did.
+//
+// Precision: the tier is a template parameter, as in the resident dual and
+// paired kernels. "highest" runs the fp32 FMA products above; "high",
+// "default" and "bfloat16" run both on the tensor cores (mma_product.cuh:
+// warp tiles of 16 rows x 8 scenarios over the same operands in shared
+// memory), as _gpad_kernel runs _kdot at its tier. A product of S > 1
+// parts writes the same split-K scratch and its epilogue adds the parts in
+// the same order; a product of one part hands each sum from its fragment to
+// the epilogue (mma_product_emit), as "highest"'s hands them from its
+// registers, so a tier needs no scratch where "highest" has none and its
+// plans fit wherever "highest"'s do. The tiers' instances take one scenario
+// per epilogue access (ST = 1). The epilogues stay fp32 at every tier.
 
 #include <cuda_runtime.h>
 
 #include "block_product.cuh"
+#include "mma_product.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 using gpad_block::up4;
 
-template <int V, int ST>
+template <int V, int ST, int kTier>
 __global__ void __launch_bounds__(kThreads, 2)
 gpad_dense_kernel(
     const float* __restrict__ MG,     // (m, n_z) row-major
@@ -120,6 +133,8 @@ gpad_dense_kernel(
     }
     __syncthreads();
 
+    static_assert(kTier == gpad_mma::kHighest || ST == 1,
+                  "the tiers' epilogues take one scenario an access");
     const gpad_block::Product P1 = gpad_block::make_product<ST>(n_z, m, log2T, s1);
     const gpad_block::Product P2 = gpad_block::make_product<ST>(m, n_z, log2T, s2);
     for (int k = 0; k < iterations; ++k) {
@@ -138,9 +153,19 @@ gpad_dense_kernel(
             gpad_block::store_vec<ST>(sZh + idx, zh);
             gpad_block::store_vec<ST>(sZ + idx, z);
         };
-        gpad_block::block_product<V, ST, kThreads>(
-            sMG, np, sW, log2T, P1, part1,
-            [&](int j, int s0, const float (&v)[ST]) { emit1(j * T + s0, v); });
+        if constexpr (kTier == gpad_mma::kHighest)
+            gpad_block::block_product<V, ST, kThreads>(
+                sMG, np, sW, log2T, P1, part1,
+                [&](int j, int s0, const float (&v)[ST]) { emit1(j * T + s0, v); });
+        else if (part1)
+            gpad_mma::mma_product<kTier, kThreads>(sMG, np, sW, log2T, n_z, m,
+                                                   s1, part1);
+        else
+            gpad_mma::mma_product_emit<kTier, kThreads>(
+                sMG, np, sW, log2T, n_z, m, [&](int j, int s, float v) {
+                    const float a[1] = {v};
+                    emit1(j * T + s, a);
+                });
         if (part1) {
             __syncthreads();
             for (int idx = tid * ST; idx < n_z * T; idx += kThreads * ST) {
@@ -167,9 +192,19 @@ gpad_dense_kernel(
             gpad_block::store_vec<ST>(sY + idx, y);
             if (more) gpad_block::store_vec<ST>(sW + idx, w);
         };
-        gpad_block::block_product<V, ST, kThreads>(
-            sGL, mp, sZh, log2T, P2, part2,
-            [&](int i, int s0, const float (&v)[ST]) { emit2(i * T + s0, v); });
+        if constexpr (kTier == gpad_mma::kHighest)
+            gpad_block::block_product<V, ST, kThreads>(
+                sGL, mp, sZh, log2T, P2, part2,
+                [&](int i, int s0, const float (&v)[ST]) { emit2(i * T + s0, v); });
+        else if (part2)
+            gpad_mma::mma_product<kTier, kThreads>(sGL, mp, sZh, log2T, m, n_z,
+                                                   s2, part2);
+        else
+            gpad_mma::mma_product_emit<kTier, kThreads>(
+                sGL, mp, sZh, log2T, m, n_z, [&](int i, int s, float v) {
+                    const float a[1] = {v};
+                    emit2(i * T + s, a);
+                });
         if (part2) {
             __syncthreads();
             for (int idx = tid * ST; idx < m * T; idx += kThreads * ST) {
@@ -199,31 +234,56 @@ gpad_dense_kernel(
     }
 }
 
+using Kernel = decltype(&gpad_dense_kernel<1, 1, gpad_mma::kHighest>);
+
+// The instances of a plan and tier, or null for an unknown tier: "highest"
+// by a thread's product tile of min(T, 4) scenarios, the tiers' warp tiles
+// at any T with one scenario an epilogue access.
+Kernel kernel_of(int vec, int log2_tile, int tier) {
+    using namespace gpad_mma;
+    switch (tier) {
+    case kHighest:
+        return vec == 1        ? gpad_dense_kernel<1, 1, kHighest>
+             : log2_tile == 0  ? gpad_dense_kernel<4, 1, kHighest>
+             : log2_tile == 1  ? gpad_dense_kernel<4, 2, kHighest>
+                               : gpad_dense_kernel<4, 4, kHighest>;
+    case kHigh:
+        return vec == 1 ? gpad_dense_kernel<1, 1, kHigh>
+                        : gpad_dense_kernel<4, 1, kHigh>;
+    case kDefault:
+        return vec == 1 ? gpad_dense_kernel<1, 1, kDefault>
+                        : gpad_dense_kernel<4, 1, kDefault>;
+    case kBfloat16:
+        return vec == 1 ? gpad_dense_kernel<1, 1, kBfloat16>
+                        : gpad_dense_kernel<4, 1, kBfloat16>;
+    default: return nullptr;
+    }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a plan the kernel does not take. `smem` is the
-// block's dynamic shared memory in bytes and (vec, s1, s2) the carve-up,
-// computed by the caller (kernels.py::_dense_smem_bytes) so the routing
-// guard and the launch agree: vec 4 (padded rows) or 1 (unpadded, one
-// scenario per block, no split), s1 and s2 the parts of the two products.
+// cudaErrorInvalidValue for a plan or a tier the kernel does not take.
+// `smem` is the block's dynamic shared memory in bytes and (vec, s1, s2)
+// the carve-up, computed by the caller (kernels.py::_dense_plan,
+// _dense_smem_bytes) so the routing guard and the launch agree: vec 4
+// (padded rows) or 1 (unpadded, one scenario per block, no split), s1 and
+// s2 the parts of the two products. `tier` is the products' precision
+// (gpad_mma::Tier: 0 "highest", 1 "high", 2 "default", 3 "bfloat16").
 int gpad_dense_launch(
     const float* MG, const float* GL, const float* gP, const float* pD,
     const float* y0, long long y0_stride, const float* theta,
     const float* beta, int B, int m, int n_z, int iterations, int log2_tile,
     int vec, int s1, int s2,
     float* z_out, float* y_out, float* w_out, float* zhat_out,
-    int smem, void* stream)
+    int smem, int tier, void* stream)
 {
-    if (log2_tile < 0 || log2_tile > 5 || s1 < 1 || s2 < 1
+    const Kernel kernel = kernel_of(vec, log2_tile, tier);
+    if (log2_tile < 0 || log2_tile > 5 || s1 < 1 || s2 < 1 || !kernel
         || (vec != 4 && (vec != 1 || log2_tile != 0 || s1 != 1 || s2 != 1)))
         return (int)cudaErrorInvalidValue;
-    const auto kernel = vec == 1        ? gpad_dense_kernel<1, 1>
-                      : log2_tile == 0  ? gpad_dense_kernel<4, 1>
-                      : log2_tile == 1  ? gpad_dense_kernel<4, 2>
-                                        : gpad_dense_kernel<4, 4>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;

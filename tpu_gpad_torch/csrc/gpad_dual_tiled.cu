@@ -23,9 +23,11 @@
 //
 // What bounds it: at the flagship an iteration is 2 m_h^2 = 6.7 MFLOP per
 // scenario, so B = 256 x 100 iterations is 171.5 GFLOP, 2.56 ms at the
-// card's FP32 rate. Every D word read from L2 feeds T FMAs per scenario
-// tile, so the L2-to-SM traffic is 4 m_h^2 B/T bytes per iteration: with
-// few scenarios per D word L2 bounds it, with many the FMA rate.
+// card's FP32 rate (0.35 ms at TF32's, 1.04 ms for "high"'s three
+// products, 0.17 ms at bf16's). Every D word read from L2 feeds T FMAs per
+// scenario tile, so the L2-to-SM traffic is 4 m_h^2 B/T bytes per
+// iteration: with few scenarios per D word L2 bounds it, with many the FMA
+// rate; under a tier, whose products the tensor cores run, L2 and latency.
 //
 // Design: a thread-block cluster of C blocks (512 threads each) owns a tile
 // of T scenarios (T a power of two <= 16) for the whole launch. Block r of
@@ -46,7 +48,19 @@
 // memory (L2), updated in place in the output tensors; a block touches only
 // its own columns. Two cluster barriers per iteration: wd complete before
 // the products, wd consumed (and the restart partials in) before the next
-// iteration writes them. Products are plain fp32 FMA (precision "highest").
+// iteration writes them.
+//
+// Precision: the tier is a template parameter of both kernels, as in the
+// resident ones (csrc/gpad_dual.cu). "highest" runs the fp32 FMA product
+// above (tiled_product.cuh's product_rows); "high", "default" and
+// "bfloat16" run each pass's product on the tensor cores
+// (tiled_product.cuh's mma_strip): a warp of a group takes a strip of 64
+// columns x the T scenarios over the group's rows, reading D's fragments
+// from L2, and writes its sums into the same slots of the groups' partial
+// sums, which the epilogue adds in the same order, as
+// _gpad_kernel_dual_tiled runs _kdot at its tier. The epilogue, the restart
+// test, s and the cluster barriers stay fp32 and as they are at every
+// tier.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -118,8 +132,9 @@ __device__ Slice make_slice(int m_h, const cg::cluster_group& cl) {
 // (512 / T) in the elementwise phases; th/thp are that scenario's restart
 // recursion, held alike by every block of the cluster. On return the state
 // holds the state after iteration n - 1 with its restart decision applied,
-// and w that iteration's extrapolated point.
-template <int T>
+// and w that iteration's extrapolated point. The products run at kTier
+// (gpad_mma::Tier).
+template <int T, int kTier>
 __device__ void dual_tiled_iterations(
     const float* __restrict__ D, const State& st, int B, int m_h, long long b0,
     int k0, int n, const float* __restrict__ theta,
@@ -210,14 +225,23 @@ __device__ void dual_tiled_iterations(
         const int cpp = kCols * tpg;  // columns per pass
         for (int p0 = sl.lo; p0 < sl.hi; p0 += cpp) {
             const int pend = min(sl.hi, p0 + cpp);
-            float acc[kCols][T];
-            gpad_tiled::product_rows<T, kCols, rows_in_flight<T>()>(
-                D, m_h, j_lo, j_hi, p0 + kCols * lt, pend, wd, acc);
+            if constexpr (kTier == gpad_mma::kHighest) {
+                float acc[kCols][T];
+                gpad_tiled::product_rows<T, kCols, rows_in_flight<T>()>(
+                    D, m_h, j_lo, j_hi, p0 + kCols * lt, pend, wd, acc);
 #pragma unroll
-            for (int tt = 0; tt < T; ++tt)
+                for (int tt = 0; tt < T; ++tt)
 #pragma unroll
-                for (int q = 0; q < kCols; ++q)
-                    red[(g * T + tt) * cpp + kCols * lt + q] = acc[q][tt];
+                    for (int q = 0; q < kCols; ++q)
+                        red[(g * T + tt) * cpp + kCols * lt + q] = acc[q][tt];
+            } else {
+                // the group's warps take its pass's columns in strips
+                gpad_tiled::mma_strip<kTier, T>(
+                    D, m_h, j_lo, j_hi, p0 + gpad_tiled::kStripCols * (lt >> 5),
+                    pend, wd, [&](int col, int s, float v) {
+                        red[(g * T + s) * cpp + col - p0] = v;
+                    });
+            }
             __syncthreads();
             if (valid)
                 for (int i = p0 + lc; i < pend; i += tps) {
@@ -281,7 +305,7 @@ __device__ void fill_rows(float* dst, const float* __restrict__ src, int m_h,
     }
 }
 
-template <int T>
+template <int T, int kTier>
 __global__ void __launch_bounds__(kThreads, 1)
 gpad_dual_tiled_kernel(
     const float* __restrict__ D,      // (m_h, m_h)
@@ -308,12 +332,13 @@ gpad_dual_tiled_kernel(
     cl.sync();  // every block of the cluster has started (its wd exists)
     float th = 1.0f, thp = 1.0f;
     const State st{c, y_out, yprev_buf, w_out, s_out};
-    dual_tiled_iterations<T>(D, st, B, m_h, b0, 0, iterations, theta, beta,
+    dual_tiled_iterations<T, kTier>(D, st, B, m_h, b0, 0, iterations, theta,
+                                    beta,
                              restart != 0, th, thp,
                              reinterpret_cast<float*>(smem4), sl, cl);
 }
 
-template <int T>
+template <int T, int kTier>
 __global__ void __launch_bounds__(kThreads, 1)
 gpad_dual_tiled_chunk_kernel(
     const float* __restrict__ D, const float* __restrict__ c,
@@ -343,7 +368,8 @@ gpad_dual_tiled_chunk_kernel(
     float th = valid ? mom_in[2 * (b0 + t)] : 1.0f;
     float thp = valid ? mom_in[2 * (b0 + t) + 1] : 1.0f;
     const State st{c, y_out, yprev_out, w_out, s_out};
-    dual_tiled_iterations<T>(D, st, B, m_h, b0, k0, chunk, theta, beta,
+    dual_tiled_iterations<T, kTier>(D, st, B, m_h, b0, k0, chunk, theta,
+                                    beta,
                              restart != 0, th, thp,
                              reinterpret_cast<float*>(smem4), sl, cl);
     if (sl.rank == 0 && valid && threadIdx.x % (kThreads / T) == 0) {
@@ -389,39 +415,82 @@ bool bad_launch(int B, int m_h, int log2_tile, int cluster, int smem)
     return 4 * smem_floats(m_h, 1 << log2_tile) > smem;
 }
 
+using FixedKernel = decltype(&gpad_dual_tiled_kernel<1, gpad_mma::kHighest>);
+using ChunkKernel =
+    decltype(&gpad_dual_tiled_chunk_kernel<1, gpad_mma::kHighest>);
+
+// The instances of a tier at 2**log2_tile scenarios per cluster (0..4)
+template <int kTier>
+FixedKernel fixed_at(int log2_tile) {
+    switch (log2_tile) {
+        case 0: return gpad_dual_tiled_kernel<1, kTier>;
+        case 1: return gpad_dual_tiled_kernel<2, kTier>;
+        case 2: return gpad_dual_tiled_kernel<4, kTier>;
+        case 3: return gpad_dual_tiled_kernel<8, kTier>;
+        default: return gpad_dual_tiled_kernel<16, kTier>;
+    }
+}
+
+template <int kTier>
+ChunkKernel chunk_at(int log2_tile) {
+    switch (log2_tile) {
+        case 0: return gpad_dual_tiled_chunk_kernel<1, kTier>;
+        case 1: return gpad_dual_tiled_chunk_kernel<2, kTier>;
+        case 2: return gpad_dual_tiled_chunk_kernel<4, kTier>;
+        case 3: return gpad_dual_tiled_chunk_kernel<8, kTier>;
+        default: return gpad_dual_tiled_chunk_kernel<16, kTier>;
+    }
+}
+
+// gpad_mma::Tier's instances, or null for an unknown tier
+FixedKernel fixed_of(int log2_tile, int tier) {
+    using namespace gpad_mma;
+    switch (tier) {
+        case kHighest: return fixed_at<kHighest>(log2_tile);
+        case kHigh: return fixed_at<kHigh>(log2_tile);
+        case kDefault: return fixed_at<kDefault>(log2_tile);
+        case kBfloat16: return fixed_at<kBfloat16>(log2_tile);
+        default: return nullptr;
+    }
+}
+
+ChunkKernel chunk_of(int log2_tile, int tier) {
+    using namespace gpad_mma;
+    switch (tier) {
+        case kHighest: return chunk_at<kHighest>(log2_tile);
+        case kHigh: return chunk_at<kHigh>(log2_tile);
+        case kDefault: return chunk_at<kDefault>(log2_tile);
+        case kBfloat16: return chunk_at<kBfloat16>(log2_tile);
+        default: return nullptr;
+    }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Both launchers run on `stream` and return a cudaError_t (0 on success):
 // cudaErrorInvalidValue for a tile outside [0, 4], a cluster that is not a
-// power of two up to 16, or `smem` below the carve-up's need, else the
-// launch's error. `smem` is the block's dynamic shared memory in bytes,
-// computed by the caller (dual_kernels.py::_dual_tiled_smem_bytes) so the
-// routing guard and the launch agree. A cluster of `cluster` blocks owns
-// 2**log2_tile scenarios.
+// power of two up to 16, `smem` below the carve-up's need or an unknown
+// tier, else the launch's error. `smem` is the block's dynamic shared
+// memory in bytes, computed by the caller (dual_kernels.py::
+// _dual_tiled_smem_bytes) so the routing guard and the launch agree. A
+// cluster of `cluster` blocks owns 2**log2_tile scenarios. `tier` is the
+// products' precision (gpad_mma::Tier: 0 "highest", 1 "high", 2
+// "default", 3 "bfloat16").
 
 int gpad_dual_tiled_launch(
     const float* D, const float* c, const float* y0, long long y0_stride,
     const float* theta, const float* beta, int B, int m_h, int iterations,
     int restart, int log2_tile, int cluster, float* s_out, float* y_out,
-    float* yprev_buf, float* w_out, int smem, void* stream)
+    float* yprev_buf, float* w_out, int smem, int tier, void* stream)
 {
-    if (bad_launch(B, m_h, log2_tile, cluster, smem))
+    const FixedKernel kernel = fixed_of(log2_tile, tier);
+    if (bad_launch(B, m_h, log2_tile, cluster, smem) || !kernel)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-#define GPAD_FIXED(T)                                                         \
-    return launch(gpad_dual_tiled_kernel<T>, B, T, cluster, smem, st, D, c,   \
-                  y0, y0_stride, theta, beta, B, m_h, iterations, restart,    \
-                  s_out, y_out, yprev_buf, w_out)
-    switch (log2_tile) {
-        case 0: GPAD_FIXED(1);
-        case 1: GPAD_FIXED(2);
-        case 2: GPAD_FIXED(4);
-        case 3: GPAD_FIXED(8);
-        default: GPAD_FIXED(16);
-    }
-#undef GPAD_FIXED
+    return launch(kernel, B, 1 << log2_tile, cluster, smem,
+                  (cudaStream_t)stream, D, c, y0, y0_stride, theta, beta, B,
+                  m_h, iterations, restart, s_out, y_out, yprev_buf, w_out);
 }
 
 int gpad_dual_tiled_chunk_launch(
@@ -429,23 +498,15 @@ int gpad_dual_tiled_chunk_launch(
     const float* s_in, const float* mom_in, const float* theta,
     const float* beta, int B, int m_h, int k0, int chunk, int restart,
     int log2_tile, int cluster, float* y_out, float* yprev_out, float* s_out,
-    float* mom_out, float* w_out, int smem, void* stream)
+    float* mom_out, float* w_out, int smem, int tier, void* stream)
 {
-    if (bad_launch(B, m_h, log2_tile, cluster, smem))
+    const ChunkKernel kernel = chunk_of(log2_tile, tier);
+    if (bad_launch(B, m_h, log2_tile, cluster, smem) || !kernel)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-#define GPAD_CHUNK(T)                                                         \
-    return launch(gpad_dual_tiled_chunk_kernel<T>, B, T, cluster, smem, st,   \
-                  D, c, y_in, yprev_in, s_in, mom_in, theta, beta, B, m_h,    \
-                  k0, chunk, restart, y_out, yprev_out, s_out, mom_out, w_out)
-    switch (log2_tile) {
-        case 0: GPAD_CHUNK(1);
-        case 1: GPAD_CHUNK(2);
-        case 2: GPAD_CHUNK(4);
-        case 3: GPAD_CHUNK(8);
-        default: GPAD_CHUNK(16);
-    }
-#undef GPAD_CHUNK
+    return launch(kernel, B, 1 << log2_tile, cluster, smem,
+                  (cudaStream_t)stream, D, c, y_in, yprev_in, s_in, mom_in,
+                  theta, beta, B, m_h, k0, chunk, restart, y_out, yprev_out,
+                  s_out, mom_out, w_out);
 }
 
 }  // extern "C"

@@ -21,7 +21,8 @@
 //
 // What bounds it: at the flagship an iteration is 2 n_z (m_h + n_s) =
 // 4.97 MFLOP per scenario, so B = 256 x 100 iterations is 127.2 GFLOP,
-// 1.90 ms at the card's FP32 rate. Every operand word read from L2 feeds T
+// 1.90 ms at the card's FP32 rate (0.26 ms at TF32's, 0.77 ms for "high"'s
+// three products, 0.13 ms at bf16's). Every operand word read from L2 feeds T
 // multiply-adds per scenario tile, so the L2-to-SM traffic is 9.9 MB B / T
 // per iteration. The first design ran one block per tile of up to 8
 // scenarios, and every block streamed both whole operands on every
@@ -48,8 +49,19 @@
 // scratch does not fit (shapes near the guard, one scenario), a single
 // group keeps each column's sums in its thread. The state (y, w, z) lives
 // in device memory in the output tensors: a block touches only its own
-// rows and columns of it. Products are plain fp32 FMA (precision
-// "highest").
+// rows and columns of it.
+//
+// Precision: the tier is a template parameter of the kernel. "highest" runs
+// both products in fp32 FMA (tiled_product.cuh's product_rows); "high",
+// "default" and "bfloat16" run them on the tensor cores (tiled_product.
+// cuh's mma_strip), as _gpad_kernel_flat_tiled runs _kdot at its tier: a
+// warp of a group takes a strip of 64 columns x the T scenarios over the
+// group's rows, its fragments read from L2, and hands its sums to the same
+// two rounds of the groups' scratch (a grouped product keeps at least two
+// groups under a tier), or, in the one-scenario plan without that scratch,
+// straight from the fragments to the epilogue, so a tier needs no shared
+// memory that "highest" does not. The box rows' division, the projection and the
+// pushes stay fp32 and as they are at every tier.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -125,10 +137,16 @@ __device__ void push(const cg::cluster_group& cl, const Slice& sl,
 
 // The block's columns [lo, hi) of X' A (A row-major (K, lda), X [j][t] in
 // shared memory): epi(c, t, sum) once for each column c and scenario t,
-// each sum taken in one fixed order. Threads form G groups of tpg (the
-// fewest threads whose kCols columns cover the columns in one pass, G = 1
-// without `grouped`); group g sums its K / G rows of A.
-template <int T, typename Epi>
+// each sum taken in one fixed order, its products at kTier. Threads form G
+// groups of tpg (the fewest threads whose kCols columns cover the columns
+// in one pass, G = 1 without `grouped`); group g sums its K / G rows of A,
+// at "highest" each thread kCols columns, under a tier each warp a strip
+// of 64 (the group's pass has as many columns either way). Under a tier a
+// grouped product keeps at least two groups (their two rounds fit the same
+// scratch), so only the one-scenario product without it (T = 1) hands its
+// sums from the fragments to the epilogue: inlined at every fragment
+// element of a wider tile, the epilogue spilled.
+template <int T, int kTier, typename Epi>
 __device__ __forceinline__ void product(
     const float* __restrict__ A, int lda, int K, int lo, int hi,
     const float* X, float* red, bool grouped, Epi&& epi)
@@ -137,39 +155,67 @@ __device__ __forceinline__ void product(
     if (W <= 0) return;  // the block's slice is empty (uniform)
     const int tid = threadIdx.x;
     int tpg = grouped ? 32 : kThreads;
-    while (tpg < kThreads && kCols * tpg < W) tpg <<= 1;
+    const int most = kTier == gpad_mma::kHighest || !grouped ? kThreads
+                                                              : kThreads / 2;
+    while (tpg < most && kCols * tpg < W) tpg <<= 1;
     const int G = kThreads / tpg, H = G / 2, g = tid / tpg, lt = tid - g * tpg;
     const int jr = (K + G - 1) / G;
     const int j_lo = min(K, g * jr), j_hi = min(K, j_lo + jr);
     const int cpp = kCols * tpg;  // columns per pass
     for (int p0 = lo; p0 < hi; p0 += cpp) {
-        const int pend = min(hi, p0 + cpp), c0 = p0 + kCols * lt;
-        float acc[kCols][T];
-        gpad_tiled::product_rows<T, kCols, rows_in_flight<T>()>(
-            A, lda, j_lo, j_hi, c0, pend, X, acc);
-        if (G == 1) {  // each column's sums are whole in its thread
-#pragma unroll
-            for (int q = 0; q < kCols; ++q)
-                if (c0 + q < pend)
-#pragma unroll
-                    for (int t = 0; t < T; ++t) epi(c0 + q, t, acc[q][t]);
-            continue;
-        }
-        // group g >= H stores, then group g - H adds its own: slot h holds
-        // group h + group h + H, and the slots are added in order
-        float* slot = red + (long long)(g % H) * T * cpp + kCols * lt;
-        if (g >= H)
-#pragma unroll
-            for (int t = 0; t < T; ++t)
-#pragma unroll
-                for (int q = 0; q < kCols; ++q) slot[t * cpp + q] = acc[q][t];
-        __syncthreads();
-        if (g < H)
-#pragma unroll
-            for (int t = 0; t < T; ++t)
+        const int pend = min(hi, p0 + cpp);
+        if constexpr (kTier == gpad_mma::kHighest) {
+            const int c0 = p0 + kCols * lt;
+            float acc[kCols][T];
+            gpad_tiled::product_rows<T, kCols, rows_in_flight<T>()>(
+                A, lda, j_lo, j_hi, c0, pend, X, acc);
+            if (G == 1) {  // each column's sums are whole in its thread
 #pragma unroll
                 for (int q = 0; q < kCols; ++q)
-                    slot[t * cpp + q] = acc[q][t] + slot[t * cpp + q];
+                    if (c0 + q < pend)
+#pragma unroll
+                        for (int t = 0; t < T; ++t) epi(c0 + q, t, acc[q][t]);
+                continue;
+            }
+            // group g >= H stores, then group g - H adds its own: slot h
+            // holds group h + group h + H, and the slots are added in order
+            float* slot = red + (long long)(g % H) * T * cpp + kCols * lt;
+            if (g >= H)
+#pragma unroll
+                for (int t = 0; t < T; ++t)
+#pragma unroll
+                    for (int q = 0; q < kCols; ++q) slot[t * cpp + q] = acc[q][t];
+            __syncthreads();
+            if (g < H)
+#pragma unroll
+                for (int t = 0; t < T; ++t)
+#pragma unroll
+                    for (int q = 0; q < kCols; ++q)
+                        slot[t * cpp + q] = acc[q][t] + slot[t * cpp + q];
+        } else {
+            const int c0 = p0 + gpad_tiled::kStripCols * (lt >> 5);
+            float d[gpad_tiled::kStripTiles][gpad_tiled::kScenarioTiles<T>][4];
+            gpad_tiled::mma_strip<kTier, T>(A, lda, j_lo, j_hi, c0, pend, X, d);
+            constexpr int NC = gpad_tiled::kStripTiles;
+            if constexpr (T == 1) {
+                if (G == 1) {  // each sum is whole in its fragment
+                    gpad_tiled::for_each_sum<T, NC>(d, c0, pend, epi);
+                    continue;
+                }
+            }
+            // the same two rounds, from the fragments
+            float* slot = red + (long long)(g % H) * T * cpp;
+            if (g >= H)
+                gpad_tiled::for_each_sum<T, NC>(
+                    d, c0, pend,
+                    [&](int c, int t, float v) { slot[t * cpp + c - p0] = v; });
+            __syncthreads();
+            if (g < H)
+                gpad_tiled::for_each_sum<T, NC>(
+                    d, c0, pend, [&](int c, int t, float v) {
+                        slot[t * cpp + c - p0] = v + slot[t * cpp + c - p0];
+                    });
+        }
         __syncthreads();
         const int Wp = pend - p0;
         for (int e = tid; e < Wp * T; e += kThreads) {
@@ -182,7 +228,7 @@ __device__ __forceinline__ void product(
     }
 }
 
-template <int T>
+template <int T, int kTier>
 __global__ void __launch_bounds__(kThreads, 1)
 gpad_flat_tiled_kernel(
     const float* __restrict__ MG,     // (m_h, n_z) row-major
@@ -251,17 +297,17 @@ gpad_flat_tiled_kernel(
         const bool more = k + 1 < iterations;
         const float bn = more ? beta[k + 1] : 0.0f;
         // (1) zhat = -(wd MG_T) - g_P and z for the block's columns
-        product<T>(MG, n_z, m_h, sl.zlo, sl.zhi, wd, red, grouped != 0,
-                   [&](int c, int t, float acc) {
-                       float v = 0.0f;
-                       if (t < nv) {
-                           const long long o = (b0 + t) * n_z + c;
-                           v = -acc - gP[o];
-                           z[o] = (1.0f - th) * z[o] + th * v;
-                           if (!more && zhat) zhat[o] = v;
-                       }
-                       zh[c * T + t] = v;
-                   });
+        product<T, kTier>(MG, n_z, m_h, sl.zlo, sl.zhi, wd, red, grouped != 0,
+                          [&](int c, int t, float acc) {
+                              float v = 0.0f;
+                              if (t < nv) {
+                                  const long long o = (b0 + t) * n_z + c;
+                                  v = -acc - gP[o];
+                                  z[o] = (1.0f - th) * z[o] + th * v;
+                                  if (!more && zhat) zhat[o] = v;
+                              }
+                              zh[c * T + t] = v;
+                          });
         __syncthreads();
         push(cl, sl, wd, zoff + sl.zlo * T, zoff + sl.zhi * T);
         cl.sync();
@@ -283,8 +329,8 @@ gpad_flat_tiled_kernel(
                 wd[i * T + t] = wp - wm;
             }
         };
-        product<T>(GL, m_h, n_z, sl.slo, sl.shi, zh, red, grouped != 0,
-                   project);
+        product<T, kTier>(GL, m_h, n_z, sl.slo, sl.shi, zh, red,
+                          grouped != 0, project);
         for (int e = tid; e < nb * T; e += kThreads) {
             const int t = e / nb, i = sl.blo + e - t * nb;
             project(i, t, zh[(i - n_s) * T + t] * inv_L);
@@ -325,43 +371,64 @@ int launch(void (*kernel)(P...), int B, int T, int cluster, int smem,
     return (int)cudaGetLastError();
 }
 
+using Kernel = decltype(&gpad_flat_tiled_kernel<1, gpad_mma::kHighest>);
+
+// The instances of a tier at 2**log2_tile scenarios per cluster (0..4)
+template <int kTier>
+Kernel kernel_at(int log2_tile) {
+    switch (log2_tile) {
+        case 0: return gpad_flat_tiled_kernel<1, kTier>;
+        case 1: return gpad_flat_tiled_kernel<2, kTier>;
+        case 2: return gpad_flat_tiled_kernel<4, kTier>;
+        case 3: return gpad_flat_tiled_kernel<8, kTier>;
+        default: return gpad_flat_tiled_kernel<16, kTier>;
+    }
+}
+
+// gpad_mma::Tier's instances, or null for an unknown tier
+Kernel kernel_of(int log2_tile, int tier) {
+    using namespace gpad_mma;
+    switch (tier) {
+        case kHighest: return kernel_at<kHighest>(log2_tile);
+        case kHigh: return kernel_at<kHigh>(log2_tile);
+        case kDefault: return kernel_at<kDefault>(log2_tile);
+        case kBfloat16: return kernel_at<kBfloat16>(log2_tile);
+        default: return nullptr;
+    }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Runs on `stream` and returns a cudaError_t (0 on success):
 // cudaErrorInvalidValue for a tile outside [0, 4], a cluster that is not a
-// power of two up to 16, or `smem` below the carve-up's need, else the
-// launch's error. `smem` is the block's dynamic shared memory in bytes and
-// (log2_tile, cluster, grouped) the plan, computed by the caller
-// (kernels.py::pick_flat_tiled, _flat_tiled_smem_bytes) so the routing
-// guard and the launch agree. A cluster of `cluster` blocks owns
-// 2**log2_tile scenarios. `w` is the state (the last w on return);
-// `zhat` may be null.
+// power of two up to 16, `smem` below the carve-up's need, an unknown tier
+// or, under a tier, a tile wider than one scenario without the groups'
+// scratch (pick_flat_tiled gives none), else the launch's error. `smem` is the block's dynamic shared
+// memory in bytes and (log2_tile, cluster, grouped) the plan, computed by
+// the caller (kernels.py::pick_flat_tiled, _flat_tiled_smem_bytes) so the
+// routing guard and the launch agree. A cluster of `cluster` blocks owns
+// 2**log2_tile scenarios. `w` is the state (the last w on return); `zhat`
+// may be null. `tier` is the products' precision (gpad_mma::Tier: 0
+// "highest", 1 "high", 2 "default", 3 "bfloat16").
 int gpad_flat_tiled_launch(
     const float* MG, const float* GL, const float* gP, const float* pD,
     const float* y0, long long y0_stride, const float* theta,
     const float* beta, const float* L, int B, int m_h, int n_z, int n_s,
     int iterations, int log2_tile, int cluster, int grouped, float* z,
-    float* y, float* w, float* zhat, int smem, void* stream)
+    float* y, float* w, float* zhat, int smem, int tier, void* stream)
 {
+    const Kernel kernel = kernel_of(log2_tile, tier);
     if (B < 1 || log2_tile < 0 || log2_tile > 4 || cluster < 1
-        || cluster > kMaxCluster || (cluster & (cluster - 1))
+        || cluster > kMaxCluster || (cluster & (cluster - 1)) || !kernel
+        || (tier != gpad_mma::kHighest && log2_tile > 0 && !grouped)
         || 4 * smem_floats(m_h, n_z, 1 << log2_tile, grouped != 0) > smem)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-#define GPAD_FLAT(T)                                                          \
-    return launch(gpad_flat_tiled_kernel<T>, B, T, cluster, smem, st, MG, GL, \
-                  gP, pD, y0, y0_stride, theta, beta, L, B, m_h, n_z, n_s,    \
-                  iterations, grouped, z, y, w, zhat)
-    switch (log2_tile) {
-        case 0: GPAD_FLAT(1);
-        case 1: GPAD_FLAT(2);
-        case 2: GPAD_FLAT(4);
-        case 3: GPAD_FLAT(8);
-        default: GPAD_FLAT(16);
-    }
-#undef GPAD_FLAT
+    return launch(kernel, B, 1 << log2_tile, cluster, smem,
+                  (cudaStream_t)stream, MG, GL, gP, pD, y0, y0_stride, theta,
+                  beta, L, B, m_h, n_z, n_s, iterations, grouped, z, y, w,
+                  zhat);
 }
 
 }  // extern "C"

@@ -1,7 +1,10 @@
-// The tensor-core block product of the precision tiers in the resident
-// dual and paired GPAD kernels (csrc/gpad_dual.cu, csrc/gpad_paired_flat.cu):
-// the tier counterpart of block_product.cuh, which stays the fp32 FFMA
-// product of precision "highest". It computes the same
+// The tensor-core products of the precision tiers in the GPAD kernels: the
+// tier counterpart of block_product.cuh (the resident dual, paired and dense
+// kernels, csrc/gpad_dual.cu, csrc/gpad_paired_flat.cu, csrc/gpad_dense.cu)
+// and, through the fragment helpers below, of tiled_product.cuh (the tiled
+// kernels, csrc/gpad_dual_tiled.cu, csrc/gpad_flat_tiled.cu). The FFMA
+// products of those headers stay the products of precision "highest". The
+// block form computes the same
 //
 //   out[r][s] = sum_{k < K} A[k][r] X[k][s]      r < R, s < T
 //
@@ -28,11 +31,13 @@
 // The tiles x parts work items go round the block's warps; part p covers the
 // k-steps [p steps / S, (p + 1) steps / S), and every part's sums go to the
 // caller's split-K scratch [p][up4(R)][T], which gpad_block::sum_parts adds
-// in part order, so a run is deterministic. What bounds it at these shapes is
-// latency, as it bounds the FFMA product (PERF.md section 5: the resident
-// kernels at 4.4-9.3x their fp32 bound at B4096): a k-step is one mma, or
-// three, behind its fragments' shared-memory loads. wgmma, TMA and bf16
-// operands in shared memory are not used.
+// in part order, so a run is deterministic; a product of one part may hand
+// each sum to the caller's epilogue from the fragment instead (the dense
+// kernel, whose one-part products have no scratch). What bounds it at these
+// shapes is latency, as it bounds the FFMA product (PERF.md section 5: the
+// resident kernels at 4.4-9.3x their fp32 bound at B4096): a k-step is one
+// mma, or three, behind its fragments' shared-memory loads. wgmma, TMA and
+// bf16 operands in shared memory are not used.
 
 #pragma once
 
@@ -86,6 +91,75 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The k of the values a lane loads in a k-step, e < kLaneK: the PTX
+// fragment layouts' (TF32: t and t + 4; bf16: 2t, 2t + 1, 2t + 8, 2t + 9)
+template <int kTier>
+constexpr int kLaneK = kStep<kTier> / 4;
+
+template <int kTier>
+__device__ __forceinline__ int lane_k(int t, int e) {
+    if constexpr (kTier == kBfloat16) return 2 * t + (e & 1) + 8 * (e >> 1);
+    else return t + 4 * e;
+}
+
+// One k-step's A fragment at kTier from a lane's raw fp32 values a[e][h]
+// (k = lane_k(t, e), row g + 8 h): TF32 hi and, for "high", lo; bf16 pairs
+// (lo unused).
+template <int kTier>
+__device__ __forceinline__ void a_frag(const float (&a)[kLaneK<kTier>][2],
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    if constexpr (kTier == kBfloat16) {
+        hi[0] = bf16_pair(a[0][0], a[1][0]);
+        hi[1] = bf16_pair(a[0][1], a[1][1]);
+        hi[2] = bf16_pair(a[2][0], a[3][0]);
+        hi[3] = bf16_pair(a[2][1], a[3][1]);
+    } else {
+        const float v[4] = {a[0][0], a[0][1], a[1][0], a[1][1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            hi[e] = tf32_rna(v[e]);
+            if constexpr (kTier == kHigh)
+                lo[e] = tf32_rna(v[e] - __uint_as_float(hi[e]));
+        }
+    }
+}
+
+// One k-step's X fragment at kTier from a lane's raw values x[e]
+// (k = lane_k(t, e), scenario g)
+template <int kTier>
+__device__ __forceinline__ void b_frag(const float (&x)[kLaneK<kTier>],
+                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+    if constexpr (kTier == kBfloat16) {
+        hi[0] = bf16_pair(x[0], x[1]);
+        hi[1] = bf16_pair(x[2], x[3]);
+    } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            hi[e] = tf32_rna(x[e]);
+            if constexpr (kTier == kHigh)
+                lo[e] = tf32_rna(x[e] - __uint_as_float(hi[e]));
+        }
+    }
+}
+
+// d += one k-step's product at kTier, in warp_tile's order ("high": lo.hi,
+// hi.lo, then hi.hi)
+template <int kTier>
+__device__ __forceinline__ void mma_tier(float (&d)[4], const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const uint32_t (&bh)[2],
+                                         const uint32_t (&bl)[2]) {
+    if constexpr (kTier == kBfloat16) {
+        mma_bf16(d, ah, bh);
+    } else {
+        if constexpr (kTier == kHigh) {
+            mma_tf32(d, al, bh);
+            mma_tf32(d, ah, bl);
+        }
+        mma_tf32(d, ah, bh);
+    }
+}
+
 // The warp's sums d of the tile at rows r0.., scenarios s0.., k in [k0, k1).
 // Lane (g, t) = (lane / 4, lane mod 4) loads the fragments of the PTX
 // layouts: A's rows g and g + 8 (the mma's row-major A is A[k][r] read
@@ -96,68 +170,47 @@ __device__ __forceinline__ void warp_tile(
     const float* __restrict__ A, int lda, int R, const float* __restrict__ X,
     int T, int r0, int s0, int k0, int k1, float (&d)[4])
 {
+    constexpr int KL = kLaneK<kTier>;
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const bool row_a = r0 + g < R, row_b = r0 + g + 8 < R, col = s0 + g < T;
     const float* Ag = A + r0 + g;
     const float* Xg = X + s0 + g;
-    // A[k][r0 + g + dr] and X[k][s0 + g], zero past the edges and the part
-    auto a_at = [&](int k, int dr, bool row) {
-        return row && k < k1 ? Ag[k * lda + dr] : 0.0f;
-    };
-    auto x_at = [&](int k) { return col && k < k1 ? Xg[k * T] : 0.0f; };
 #pragma unroll
     for (int e = 0; e < 4; ++e) d[e] = 0.0f;
     for (int kk = k0; kk < k1; kk += kStep<kTier>) {
-        if constexpr (kTier == kBfloat16) {
-            const int ka = kk + 2 * t, kb = ka + 8;
-            const uint32_t a[4] = {
-                bf16_pair(a_at(ka, 0, row_a), a_at(ka + 1, 0, row_a)),
-                bf16_pair(a_at(ka, 8, row_b), a_at(ka + 1, 8, row_b)),
-                bf16_pair(a_at(kb, 0, row_a), a_at(kb + 1, 0, row_a)),
-                bf16_pair(a_at(kb, 8, row_b), a_at(kb + 1, 8, row_b))};
-            const uint32_t b[2] = {bf16_pair(x_at(ka), x_at(ka + 1)),
-                                   bf16_pair(x_at(kb), x_at(kb + 1))};
-            mma_bf16(d, a, b);
-        } else {
-            const int ka = kk + t, kb = ka + 4;
-            const float av[4] = {a_at(ka, 0, row_a), a_at(ka, 8, row_b),
-                                 a_at(kb, 0, row_a), a_at(kb, 8, row_b)};
-            const float xv[2] = {x_at(ka), x_at(kb)};
-            uint32_t a_hi[4], b_hi[2];
+        // A[k][r0 + g + 8 h] and X[k][s0 + g], zero past the edges and the
+        // part
+        float a[KL][2], x[KL];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) a_hi[e] = tf32_rna(av[e]);
-#pragma unroll
-            for (int e = 0; e < 2; ++e) b_hi[e] = tf32_rna(xv[e]);
-            if constexpr (kTier == kHigh) {
-                uint32_t a_lo[4], b_lo[2];
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    a_lo[e] = tf32_rna(av[e] - __uint_as_float(a_hi[e]));
-#pragma unroll
-                for (int e = 0; e < 2; ++e)
-                    b_lo[e] = tf32_rna(xv[e] - __uint_as_float(b_hi[e]));
-                mma_tf32(d, a_lo, b_hi);
-                mma_tf32(d, a_hi, b_lo);
-            }
-            mma_tf32(d, a_hi, b_hi);
+        for (int e = 0; e < KL; ++e) {
+            const int k = kk + lane_k<kTier>(t, e);
+            const bool in = k < k1;
+            a[e][0] = row_a && in ? Ag[k * lda] : 0.0f;
+            a[e][1] = row_b && in ? Ag[k * lda + 8] : 0.0f;
+            x[e] = col && in ? Xg[k * T] : 0.0f;
         }
+        uint32_t ah[4], al[4] = {}, bh[2], bl[2] = {};
+        a_frag<kTier>(a, ah, al);
+        b_frag<kTier>(x, bh, bl);
+        mma_tier<kTier>(d, ah, al, bh, bl);
     }
 }
 
-// The block's share of out = A' X at a tier (kHigh, kDefault, kBfloat16)
-// for 2**log2T scenarios in S parts: work item w = p tiles + tile taken by
-// warp w mod kWarps (every lane of a warp takes the same items, as mma.sync
-// needs); each item's sums go to `part` (S * up4(R) * T floats, [p][r][s]).
-template <int kTier, int kThreads>
-__device__ __forceinline__ void mma_product(
+// The warp tiles of out = A' X at a tier (kHigh, kDefault, kBfloat16) for
+// 2**log2T scenarios in S parts: work item w = p tiles + tile taken by warp
+// w mod kWarps (every lane of a warp takes the same items, as mma.sync
+// needs); store(p, r, s, sum) once for each of an item's sums at r < R and
+// s < T.
+template <int kTier, int kThreads, typename Store>
+__device__ __forceinline__ void mma_items(
     const float* __restrict__ A, int lda, const float* __restrict__ X,
-    int log2T, int R, int K, int S, float* __restrict__ part)
+    int log2T, int R, int K, int S, Store&& store)
 {
     static_assert(kTier != kHighest, "highest runs block_product.cuh");
     constexpr int kWarps = kThreads / 32, kS = kStep<kTier>;
     const int T = 1 << log2T, cols = (T + kCols - 1) / kCols;
     const int tiles = (R + kRows - 1) / kRows * cols;
-    const int steps = (K + kS - 1) / kS, Rp = (R + 3) & ~3;
+    const int steps = (K + kS - 1) / kS;
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     for (int w = threadIdx.x >> 5; w < tiles * S; w += kWarps) {
         const int tile = w % tiles, p = w / tiles;
@@ -166,16 +219,42 @@ __device__ __forceinline__ void mma_product(
         const int k1 = min((p + 1) * steps / S * kS, K);
         float d[4];
         warp_tile<kTier>(A, lda, R, X, T, r0, s0, k0, k1, d);
-        float* dst = part + (long long)p * Rp * T;
         const int s = s0 + 2 * t;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             const int r = r0 + g + 8 * h;
             if (r >= R) continue;
-            if (s < T) dst[r * T + s] = d[2 * h];
-            if (s + 1 < T) dst[r * T + s + 1] = d[2 * h + 1];
+            if (s < T) store(p, r, s, d[2 * h]);
+            if (s + 1 < T) store(p, r, s + 1, d[2 * h + 1]);
         }
     }
+}
+
+// The block's share of out = A' X at a tier in S parts, each item's sums to
+// `part` (S * up4(R) * T floats, [p][r][s]).
+template <int kTier, int kThreads>
+__device__ __forceinline__ void mma_product(
+    const float* __restrict__ A, int lda, const float* __restrict__ X,
+    int log2T, int R, int K, int S, float* __restrict__ part)
+{
+    const int T = 1 << log2T, Rp = (R + 3) & ~3;
+    mma_items<kTier, kThreads>(A, lda, X, log2T, R, K, S,
+                               [&](int p, int r, int s, float v) {
+                                   part[((long long)p * Rp + r) * T + s] = v;
+                               });
+}
+
+// The block's share of out = A' X at a tier in one part, with no scratch:
+// emit(r, s, sum) once for each r < R and s < T, from the fragment.
+template <int kTier, int kThreads, typename Emit>
+__device__ __forceinline__ void mma_product_emit(
+    const float* __restrict__ A, int lda, const float* __restrict__ X,
+    int log2T, int R, int K, Emit&& emit)
+{
+    mma_items<kTier, kThreads>(A, lda, X, log2T, R, K, 1,
+                               [&](int, int r, int s, float v) {
+                                   emit(r, s, v);
+                               });
 }
 
 }  // namespace gpad_mma

@@ -74,15 +74,15 @@ class SolverConfig:
     IEEE fp32 with TF32 held off, "high" 3xTF32 (each operand split into a
     TF32-exact part and its remainder, three products), "default" one TF32
     product, "bfloat16" bf16 operands accumulated and returned in fp32; on
-    the CPU the TF32 tiers compute in fp32. The resident condensed CUDA
-    kernels (paired flat, paired, dual, dual chunk) run their products at
-    the tier on the tensor cores (``csrc/mma_product.cuh``: "high" 3xTF32,
-    "default" one TF32 ``mma.sync``, "bfloat16" bf16 operands with fp32
+    the CPU the TF32 tiers compute in fp32. The CUDA kernels of the
+    condensed solve (paired flat, paired, dense, dual, dual chunk and the
+    tiled dual, dual chunk and flat ones) run their products at the tier on
+    the tensor cores (``csrc/mma_product.cuh``: "high" 3xTF32, "default"
+    one TF32 ``mma.sync``, "bfloat16" bf16 operands with fp32
     accumulation), and the products around their launch (relu offsets,
     primal recovery, residuals) in fp32 with TF32 held off, where the JAX
-    package runs those at the tier too; a solve that the dense or a tiled
-    kernel would serve raises ``NotImplementedError`` under a tier
-    (``engine="torch"`` serves it). Routing is the same under every tier.
+    package runs those at the tier too. Routing is the same under every
+    tier.
     A solve sets TF32 for its own scope through torch's one
     process-wide switch (``tf32_matmuls``), so the tiers are not
     thread-safe: solves under different tiers in concurrent threads of one
@@ -311,27 +311,6 @@ class _Matmul:
                 return out.reshape(*a.shape[:-1], out.shape[-1])
             return a.float() @ b
         return a @ b
-
-
-# The kernel routes that run fp32 "highest" only: the dense kernel and the
-# tiled ones (csrc/tiled_product.cuh) have no tier products yet
-UNTIERED_KERNELS = ("dense", "dual_tiled", "dual_tiled_chunk", "flat_tiled")
-
-
-def _refuse_kernel_tier(config: SolverConfig, kernel: str | None) -> None:
-    """Raise where ``kernel`` (a ``cuda_kernel`` route) would serve the solve
-    under a tier other than fp32 "highest" and has no tier products, rather
-    than re-route it. The resident condensed kernels (paired flat, paired,
-    dual, dual chunk) take every tier."""
-    if tier(config) != "highest" and kernel in UNTIERED_KERNELS:
-        raise NotImplementedError(
-            f"precision={config.precision!r}, matmul_dtype="
-            f"{config.matmul_dtype!r}: the {kernel!r} CUDA kernel serves "
-            "this solve, and the precision tiers for the CUDA kernels are "
-            "ported to the resident condensed kernels only (the dense and "
-            "tiled kernels are still to come, see ROADMAP); engine='torch' "
-            "serves the tier"
-        )
 
 
 def affine_params(data: GPADData, x0: torch.Tensor):
@@ -829,16 +808,13 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
     never changes the choice. A sharded dual dimension (``model_axis``)
     runs the torch engine, as it runs XLA in the JAX package. Forcing
     "cuda" where no kernel serves the case raises. The tier never changes
-    the choice either (JAX's routing ignores it): under every tier the
-    resident condensed kernels serve what they serve at fp32 "highest";
-    where a kernel without tier products (``UNTIERED_KERNELS``: the dense
-    and the tiled kernels) would serve a solve under another tier, forced
-    or under "auto" on the card, this raises ``NotImplementedError``."""
+    the choice either (JAX's routing ignores it): under every tier each
+    kernel serves what it serves at fp32 "highest", its products at the
+    tier."""
     if config.engine == "torch":
         return "torch"
     if config.engine == "cuda":
         kernel = cuda_kernel(data, config)
-        _refuse_kernel_tier(config, kernel)
         if config.model_axis is not None:
             raise ValueError(
                 "engine='cuda' does not support dual-dimension tensor "
@@ -861,11 +837,8 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
         return "cuda"
     if config.engine != "auto":
         raise ValueError(f"unknown engine: {config.engine!r}")
-    if data.device.type == "cuda":
-        kernel = cuda_kernel(data, config)
-        if kernel is not None:
-            _refuse_kernel_tier(config, kernel)
-            return "cuda"
+    if data.device.type == "cuda" and cuda_kernel(data, config) is not None:
+        return "cuda"
     return "torch"
 
 

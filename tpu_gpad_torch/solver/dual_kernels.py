@@ -21,10 +21,11 @@ tensors they run the plain versions ``gpad_fixed_dual_torch`` and
 The state keeps the public layouts: y and y_prev (B, 2, m_h), s (B, m_h),
 and ``mom`` (B, 2), each scenario's restart recursion (theta, theta_prev).
 
-The resident kernels take the precision tier (``kernels.KERNEL_TIERS``):
+Every kernel here takes the precision tier (``kernels.KERNEL_TIERS``):
 the product ``wd D`` runs fp32 FFMA at "highest" and on the tensor cores
-under a tier (``csrc/mma_product.cuh``); the relu offsets and the primal
-recovery around a launch stay fp32. The tiled kernels run "highest" only.
+under a tier (``csrc/mma_product.cuh``, the tiled kernels' strips in
+``csrc/tiled_product.cuh``); the relu offsets and the primal recovery
+around a launch stay fp32.
 """
 
 from __future__ import annotations
@@ -292,8 +293,9 @@ def _tiled_launch_fns():
     lib = cuda_build.load("gpad_dual_tiled")
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fixed, chunk = lib.gpad_dual_tiled_launch, lib.gpad_dual_tiled_chunk_launch
-    fixed.argtypes = [P, P, P, LL, P, P, I, I, I, I, I, I, P, P, P, P, I, P]
-    chunk.argtypes = [P] * 8 + [I] * 7 + [P] * 5 + [I, P]
+    fixed.argtypes = [P, P, P, LL, P, P, I, I, I, I, I, I, P, P, P, P, I, I,
+                      P]
+    chunk.argtypes = [P] * 8 + [I] * 7 + [P] * 5 + [I, I, P]
     fixed.restype = chunk.restype = I
     return fixed, chunk
 
@@ -407,13 +409,14 @@ dual_op = kernels._register(
 def _dual_tiled_cpu(D: Tensor, c: Tensor, y0: Optional[Tensor], theta: Tensor,
                     beta: Tensor, iterations: int, restart: bool,
                     log2_tile: int, cluster: int, diagnostics: bool,
+                    tier: str = "highest",
                     ) -> tuple[Tensor, Tensor, Tensor]:
     return _dual_cpu(D, None, c, y0, theta, beta, iterations, restart,
-                     log2_tile, 0, diagnostics)
+                     log2_tile, 0, diagnostics, tier)
 
 
 def _dual_tiled_cuda(D, c, y0, theta, beta, iterations, restart, log2_tile,
-                     cluster, diagnostics):
+                     cluster, diagnostics, tier="highest"):
     global DUAL_TILED_LAUNCHES
     fixed, _ = _tiled_launch_fns()
     B, m_h = c.shape[0], c.shape[2]
@@ -427,7 +430,8 @@ def _dual_tiled_cuda(D, c, y0, theta, beta, iterations, restart, log2_tile,
                     ptr(y0), y0_stride, ptr(theta), ptr(beta), B, m_h,
                     iterations, int(restart), log2_tile, cluster, ptr(s),
                     ptr(y), ptr(y_prev), ptr(w),
-                    _dual_tiled_smem_bytes(m_h, log2_tile))
+                    _dual_tiled_smem_bytes(m_h, log2_tile),
+                    kernels._tier_code(tier))
     DUAL_TILED_LAUNCHES += 1
     return s, y, w if diagnostics else kernels._empty(s)
 
@@ -435,7 +439,7 @@ def _dual_tiled_cuda(D, c, y0, theta, beta, iterations, restart, log2_tile,
 dual_tiled_op = kernels._register(
     "dual_tiled", _dual_tiled_cpu, _dual_tiled_cuda,
     lambda D, c, y0, theta, beta, iterations, restart, log2_tile, cluster,
-    diagnostics: _whole_fake(c, diagnostics))
+    diagnostics, tier="highest": _whole_fake(c, diagnostics))
 
 
 def _chunk_cpu(D: Tensor, od: Optional[Tensor], c: Tensor, y: Tensor,
@@ -478,14 +482,14 @@ dual_chunk_op = kernels._register(
 def _tiled_chunk_cpu(D: Tensor, c: Tensor, y: Tensor, y_prev: Tensor,
                      s: Tensor, mom: Tensor, theta: Tensor, beta: Tensor,
                      k0: int, chunk: int, restart: bool, log2_tile: int,
-                     cluster: int,
+                     cluster: int, tier: str = "highest",
                      ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     return _chunk_cpu(D, None, c, y, y_prev, s, mom, theta, beta, k0, chunk,
-                      restart, log2_tile, 0)
+                      restart, log2_tile, 0, tier)
 
 
 def _tiled_chunk_cuda(D, c, y, y_prev, s, mom, theta, beta, k0, chunk,
-                      restart, log2_tile, cluster):
+                      restart, log2_tile, cluster, tier="highest"):
     global DUAL_TILED_CHUNK_LAUNCHES
     _, launch = _tiled_launch_fns()
     B, m_h = c.shape[0], c.shape[2]
@@ -495,7 +499,8 @@ def _tiled_chunk_cuda(D, c, y, y_prev, s, mom, theta, beta, k0, chunk,
                     ptr(y), ptr(y_prev), ptr(s), ptr(mom), ptr(theta),
                     ptr(beta), B, m_h, k0, chunk, int(restart), log2_tile,
                     cluster, *(ptr(t) for t in out),
-                    _dual_tiled_smem_bytes(m_h, log2_tile))
+                    _dual_tiled_smem_bytes(m_h, log2_tile),
+                    kernels._tier_code(tier))
     DUAL_TILED_CHUNK_LAUNCHES += 1
     return tuple(out)
 
@@ -503,7 +508,7 @@ def _tiled_chunk_cuda(D, c, y, y_prev, s, mom, theta, beta, k0, chunk,
 dual_tiled_chunk_op = kernels._register(
     "dual_tiled_chunk", _tiled_chunk_cpu, _tiled_chunk_cuda,
     lambda D, c, y, y_prev, s, mom, theta, beta, k0, chunk, restart,
-    log2_tile, cluster: _chunk_fake(c, y, y_prev, s, mom))
+    log2_tile, cluster, tier="highest": _chunk_fake(c, y, y_prev, s, mom))
 
 
 def gpad_fixed_dual(
@@ -567,14 +572,16 @@ def gpad_fixed_dual_tiled(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     restart: bool = False, diagnostics: bool = True,
     log2_tile: int | None = None, cluster: int | None = None,
+    tier: str = "highest",
 ):
     """``gpad_fixed_dual``'s contract for duals too large for it: D is read
     from device memory on every iteration (the counterpart of
     ``tpu_gpad.solver.kernels.gpad_pallas_fixed_dual_tiled``). Soft rows
     are refused. ``log2_tile`` and ``cluster`` override the scenarios per
-    cluster and the blocks per cluster (for sweeps). CUDA tensors launch
-    the kernel (or raise); CPU tensors run the plain version,
-    ``gpad_fixed_dual_torch``."""
+    cluster and the blocks per cluster (for sweeps); ``tier``
+    (``kernels.KERNEL_TIERS``) is the product's precision and does not
+    change the launch plan. CUDA tensors launch the kernel (or raise); CPU
+    tensors run the plain version, ``gpad_fixed_dual_torch``."""
     kernels._refuse_soft(data, "the tiled dual kernels")
     _check_fixed(data, g_P, p_D, y0, iterations, restart)
     B, m_h = g_P.shape[0], data.m_half
@@ -584,7 +591,7 @@ def gpad_fixed_dual_tiled(
     y0_rows = None if y0 is None else kernels._norm_y0(y0, B, m_h)
     s, y, w = dual_tiled_op(data.D, c, y0_rows, data.theta, data.beta,
                             iterations, restart, log2_tile, cluster,
-                            diagnostics)
+                            diagnostics, tier)
     w = w if diagnostics else None
     z, zhat = _primal(data, g_P, s, w, recovery_weight(data, iterations),
                       diagnostics)
@@ -627,18 +634,19 @@ def gpad_dual_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
 def gpad_dual_tiled_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
                           chunk: int, restart: bool = False,
                           log2_tile: int | None = None,
-                          cluster: int | None = None):
+                          cluster: int | None = None, tier: str = "highest"):
     """``gpad_dual_chunk``'s contract for duals too large for it, with D
     read from device memory on every iteration (the chunk form of
     ``gpad_fixed_dual_tiled``; ``_dual_tiled_call`` in tpu_gpad). Soft
-    rows are refused. CUDA tensors launch the kernel (or raise); CPU
-    tensors run the plain version, ``gpad_dual_chunk_torch`` (the op
+    rows are refused. ``tier`` as for ``gpad_fixed_dual_tiled``. CUDA
+    tensors launch the kernel (or raise); CPU tensors run the plain
+    version, ``gpad_dual_chunk_torch`` (the op
     ``tpu_gpad_torch::dual_tiled_chunk``)."""
     kernels._refuse_soft(data, "the tiled dual kernels")
     _check_chunk(data, c, y, y_prev, s, mom, k0, chunk, restart)
     plan = _chunk_plan(data, c, True, log2_tile, cluster)
     return _launch_chunk(data, True, plan, c, y, y_prev, s, mom, k0, chunk,
-                         restart)
+                         restart, tier)
 
 
 def _chunk_plan(data: GPADData, c, tiled: bool, log2_tile, split_or_cluster,
@@ -657,12 +665,12 @@ def _chunk_plan(data: GPADData, c, tiled: bool, log2_tile, split_or_cluster,
 
 def _launch_chunk(data: GPADData, tiled: bool, plan, c, y, y_prev, s, mom,
                   k0, chunk: int, restart: bool, tier: str = "highest"):
-    """One window on a chunk kernel's op (the tiled one runs "highest"
-    only), its inputs checked and its ``plan`` fixed by the caller."""
+    """One window on a chunk kernel's op at ``tier``, its inputs checked and
+    its ``plan`` fixed by the caller."""
     theta, beta, k0 = _window_schedule(data, k0, chunk, restart)
     if tiled:
         return dual_tiled_chunk_op(data.D, c, y, y_prev, s, mom, theta, beta,
-                                   k0, chunk, restart, *plan)
+                                   k0, chunk, restart, *plan, tier)
     return dual_chunk_op(data.D, kernels._od(data), c, y, y_prev, s, mom,
                          theta, beta, k0, chunk, restart, *plan, tier)
 
@@ -672,8 +680,8 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
     """Algorithm-1 (eps-terminated) solve of a batch with the chunk kernel:
     the resident one where ``dual_fits_smem`` admits the data, else the
     tiled one where ``dual_tiled_fits`` does. The windows run at the
-    config's tier (``core.tier``; the tiled kernel takes "highest" only),
-    the residual tests and the primal recovery in fp32. ``chunk_fn``
+    config's tier (``core.tier``), the residual tests and the primal
+    recovery in fp32. ``chunk_fn``
     replaces the kernel (``gpad_dual_chunk_torch`` runs the same loop on
     the plain version, ``tier`` passed as a keyword).
 
@@ -707,7 +715,6 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
         tiled = not dual_fits_smem(data) and dual_tiled_fits(data)
         if tiled:
             kernels._refuse_soft(data, "the tiled dual kernels")
-            core._refuse_kernel_tier(config, "dual_tiled_chunk")
         _check_chunk(data, c, y, y, s, mom, 0, iterations, config.restart)
         plan = _chunk_plan(data, c, tiled, None, None, tier)
 

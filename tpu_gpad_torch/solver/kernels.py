@@ -28,11 +28,12 @@ The data's dual rows are already in the flat kernel's [struct | box] order
 (``dualize`` puts the identity rows last), so unlike the TPU kernels there
 is no padding, transposition or layout mapping around a launch.
 
-The paired kernels (and the dual ones) take the solve's precision tier
+Every kernel here (and every dual one) takes the solve's precision tier
 (``KERNEL_TIERS``): fp32 FFMA products at "highest", tensor-core
 ``mma.sync`` products at "high" (3xTF32), "default" (TF32) and "bfloat16"
-(``csrc/mma_product.cuh``); their plain versions mirror each tier's
-rounding (``_tier_mm``). The dense and tiled kernels run "highest" only.
+(``csrc/mma_product.cuh``; the tiled kernels' strips in
+``csrc/tiled_product.cuh``); their plain versions mirror each tier's
+rounding (``_tier_mm``).
 """
 
 from __future__ import annotations
@@ -71,18 +72,18 @@ def grid_tile(B: int, max_log2: int, min_blocks: int) -> int:
 # run blocks of 256 threads over register-tiled block products
 # (csrc/block_product.cuh): tiles of 4 rows x min(T, 4) scenarios, each
 # split over K into parts of at least _MIN_PART_K steps. Under a tier the
-# paired and dual kernels' products are tensor-core ones
-# (csrc/mma_product.cuh): a warp's tile of 16 rows x 8 scenarios, split
-# over K into parts of at least _MMA_MIN_PART_K steps (one bf16 mma, two
-# TF32 ones).
+# resident kernels' products are tensor-core ones (csrc/mma_product.cuh): a
+# warp's tile of 16 rows x 8 scenarios, split over K into parts of at least
+# _MMA_MIN_PART_K steps (one bf16 mma, two TF32 ones).
 BLOCK_THREADS = 256
 BLOCK_WARPS = BLOCK_THREADS // 32
 _MIN_PART_K = 4
 _MMA_ROWS, _MMA_COLS = 16, 8
 _MMA_MIN_PART_K = 16
 
-# The precision tiers the paired and dual kernels take, in the order of the
-# C launchers' ``tier`` argument (gpad_mma::Tier, csrc/mma_product.cuh)
+# The precision tiers every kernel of the condensed solve takes, in the
+# order of the C launchers' ``tier`` argument (gpad_mma::Tier,
+# csrc/mma_product.cuh)
 KERNEL_TIERS = ("highest", "high", "default", "bfloat16")
 
 
@@ -135,7 +136,9 @@ def _dense_smem_bytes(m: int, n_z: int, plan: DensePlan) -> int:
     """Shared memory of one block of the dense kernel (csrc carve-up): both
     operands with their rows padded to 4 (vec 4), 3 dual-row and 3
     primal-row arrays of 2**log2_tile scenarios each, and the scratch of
-    the products' parts where either splits."""
+    the products' parts where either splits. Every tier has this carve-up:
+    a tier's product of one part hands its sums to the epilogue from the
+    fragments, as "highest"'s does from its registers."""
     T = 1 << plan.log2_tile
     mp, np_ = (_up4(m), _up4(n_z)) if plan.vec == 4 else (m, n_z)
     scratch = max([parts * _up4(rows) * T for parts, rows in
@@ -145,17 +148,21 @@ def _dense_smem_bytes(m: int, n_z: int, plan: DensePlan) -> int:
 
 
 def _dense_plan(m: int, n_z: int, B: int, log2_tile: int | None = None,
-                split: int | None = None) -> DensePlan | None:
-    """The dense kernel's launch for B scenarios: the tile of ``grid_tile``
-    (or ``log2_tile``), narrowed, then its parts (at most ``split``)
-    halved, until the block fits shared memory; past that the unpadded
-    layout at one scenario per block (the carve-up of the kernel's first
-    design, so every shape it took still runs); None when nothing fits."""
+                split: int | None = None,
+                tier: str = "highest") -> DensePlan | None:
+    """The dense kernel's launch for B scenarios at ``tier``: the tile of
+    ``grid_tile`` (or ``log2_tile``), narrowed, then its parts (at most
+    ``split``, counted by ``block_parts`` at the tier) halved, until the
+    block fits shared memory; past that the unpadded layout at one scenario
+    per block (the carve-up of the kernel's first design, so every shape it
+    took still runs); None when nothing fits. The tile, and whether a plan
+    exists, are the same under every tier: a tile fits at some parts iff
+    it fits at one, and one part needs no scratch at any tier."""
     top = (grid_tile(B, DENSE_MAX_LOG2_TILE, DENSE_MIN_BLOCKS)
            if log2_tile is None else log2_tile)
     for log2 in range(top, -1 if log2_tile is None else top - 1, -1):
-        s1 = block_parts(n_z, log2, m, split)
-        s2 = block_parts(m, log2, n_z, split)
+        s1 = block_parts(n_z, log2, m, split, tier)
+        s2 = block_parts(m, log2, n_z, split, tier)
         while True:
             plan = DensePlan(log2, 4, s1, s2)
             if _dense_smem_bytes(m, n_z, plan) <= SMEM_LIMIT_BYTES:
@@ -515,19 +522,21 @@ def gpad_fixed_paired_torch(
 
 def gpad_fixed_dense_torch(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
-    diagnostics: bool = True,
+    diagnostics: bool = True, tier: str = "highest",
 ):
     """The dense kernel's loop in torch ops, on any device: the plain
     version the kernel is checked against. Same contract as
     ``gpad_fixed_dense``."""
     return _dense_loop(data.MG_T, data.GL_T, data.theta, data.beta, g_P, p_D,
-                       y0, iterations, diagnostics)
+                       y0, iterations, diagnostics, tier)
 
 
 def _dense_loop(MG_T, GL_T, theta, beta, g_P, p_D, y0, iterations: int,
-                diagnostics: bool):
-    """``gpad_fixed_dense_torch`` on the operands themselves."""
+                diagnostics: bool, tier: str = "highest"):
+    """``gpad_fixed_dense_torch`` on the operands themselves, its two
+    products at ``tier`` (``_tier_mm``)."""
     B, m = g_P.shape[0], p_D.shape[-1]
+    MGp, GLp = _tier_operand(MG_T, tier), _tier_operand(GL_T, tier)
     if y0 is None:
         y = torch.zeros((B, m), dtype=torch.float32, device=g_P.device)
     else:
@@ -538,9 +547,10 @@ def _dense_loop(MG_T, GL_T, theta, beta, g_P, p_D, y0, iterations: int,
     zhat = torch.zeros_like(g_P)
     for k in range(iterations):
         w = y + beta[k] * (y - y_prev)
-        zhat = -(w @ MG_T) - g_P
+        zhat = -_tier_mm(w, MGp, tier) - g_P
         z = (1.0 - theta[k]) * z + theta[k] * zhat
-        y_prev, y = y, torch.clamp_min(w + zhat @ GL_T + p_D, 0.0)
+        y_prev, y = y, torch.clamp_min(w + _tier_mm(zhat, GLp, tier) + p_D,
+                                       0.0)
     if not diagnostics:
         return z, y, None, None
     return z, y, w, zhat
@@ -551,9 +561,10 @@ _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # instances), csrc/gpad_dense.cu and csrc/gpad_flat_tiled.cu
 _PAIRED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 9 + [_PTR] * 5
                     + [_INT, _INT, _PTR])
-_DENSE_ARGTYPES = [_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 8 + [_PTR] * 4 + [_INT, _PTR]
+_DENSE_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 8 + [_PTR] * 4
+                   + [_INT, _INT, _PTR])
 _FLAT_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 3 + [_INT] * 8 + [_PTR] * 4
-                        + [_INT, _PTR])
+                        + [_INT, _INT, _PTR])
 
 
 def _launch_fn(library: str, symbol: str, argtypes):
@@ -770,16 +781,18 @@ def _flat_tiled_cpu(MG_T: Tensor, GL_T: Tensor, g_P: Tensor, p_D: Tensor,
                     y0: Optional[Tensor], theta: Tensor, beta: Tensor,
                     L: Tensor, n_s: int, iterations: int, log2_tile: int,
                     cluster: int, grouped: bool, diagnostics: bool,
+                    tier: str = "highest",
                     ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     z, y, w, zhat = _paired_loop(MG_T, GL_T, theta, beta, L, None, g_P, p_D,
-                                 y0, iterations, diagnostics, n_s, True)
+                                 y0, iterations, diagnostics, n_s, True, tier)
     if not diagnostics:
         w, zhat = _empty(z), _empty(z)
     return _fresh((z, y, w, zhat), (g_P, p_D, y0))
 
 
 def _flat_tiled_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, L, n_s,
-                     iterations, log2_tile, cluster, grouped, diagnostics):
+                     iterations, log2_tile, cluster, grouped, diagnostics,
+                     tier="highest"):
     global FLAT_TILED_LAUNCHES
     B, m_h, n_z = g_P.shape[0], p_D.shape[2], g_P.shape[1]
     z, y = g_P.new_empty(g_P.shape), p_D.new_empty(p_D.shape)
@@ -793,7 +806,8 @@ def _flat_tiled_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, L, n_s,
             _ptr(g_P), _ptr(p_D), _ptr(y0), y0_stride, _ptr(theta),
             _ptr(beta), _ptr(L), B, m_h, n_z, n_s, iterations, log2_tile,
             cluster, grouped, _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
-            _flat_tiled_smem_bytes(m_h, n_z, log2_tile, grouped))
+            _flat_tiled_smem_bytes(m_h, n_z, log2_tile, grouped),
+            _tier_code(tier))
     FLAT_TILED_LAUNCHES += 1
     if not diagnostics:
         return z, y, _empty(z), _empty(z)
@@ -801,7 +815,8 @@ def _flat_tiled_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, L, n_s,
 
 
 def _flat_tiled_fake(MG_T, GL_T, g_P, p_D, y0, theta, beta, L, n_s,
-                     iterations, log2_tile, cluster, grouped, diagnostics):
+                     iterations, log2_tile, cluster, grouped, diagnostics,
+                     tier="highest"):
     return _paired_fake(MG_T, GL_T, g_P, p_D, y0, None, theta, beta, L, n_s,
                         iterations, log2_tile, 0, 0, 0, diagnostics)
 
@@ -813,17 +828,17 @@ flat_tiled_op = _register("flat_tiled", _flat_tiled_cpu, _flat_tiled_cuda,
 def _dense_cpu(MG_T: Tensor, GL_T: Tensor, g_P: Tensor, p_D: Tensor,
                y0: Optional[Tensor], theta: Tensor, beta: Tensor,
                iterations: int, log2_tile: int, vec: int, split1: int,
-               split2: int, diagnostics: bool,
+               split2: int, diagnostics: bool, tier: str = "highest",
                ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     z, y, w, zhat = _dense_loop(MG_T, GL_T, theta, beta, g_P, p_D, y0,
-                                iterations, diagnostics)
+                                iterations, diagnostics, tier)
     if not diagnostics:
         w, zhat = _empty(z), _empty(z)
     return _fresh((z, y, w, zhat), (g_P, p_D, y0))
 
 
 def _dense_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations,
-                log2_tile, vec, split1, split2, diagnostics):
+                log2_tile, vec, split1, split2, diagnostics, tier="highest"):
     global DENSE_LAUNCHES
     B, m, n_z = g_P.shape[0], p_D.shape[1], g_P.shape[1]
     plan = DensePlan(log2_tile, vec, split1, split2)
@@ -835,7 +850,7 @@ def _dense_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations,
     _launch("gpad_dense", fn, g_P.device, _ptr(MG_T), _ptr(GL_T), _ptr(g_P),
             _ptr(p_D), _ptr(y0), y0_stride, _ptr(theta), _ptr(beta), B, m,
             n_z, iterations, *plan, _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
-            _dense_smem_bytes(m, n_z, plan))
+            _dense_smem_bytes(m, n_z, plan), _tier_code(tier))
     DENSE_LAUNCHES += 1
     if not diagnostics:
         w, zhat = _empty(z), _empty(z)
@@ -843,7 +858,7 @@ def _dense_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations,
 
 
 def _dense_fake(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations,
-                log2_tile, vec, split1, split2, diagnostics):
+                log2_tile, vec, split1, split2, diagnostics, tier="highest"):
     return _paired_fake(MG_T, GL_T, g_P, p_D, y0, None, theta, beta, None, 0,
                         iterations, log2_tile, vec, split1, split2,
                         diagnostics)
@@ -912,16 +927,18 @@ def gpad_fixed_paired(
 def gpad_fixed_flat_tiled(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     diagnostics: bool = True, log2_tile: int | None = None,
-    cluster: int | None = None,
+    cluster: int | None = None, tier: str = "highest",
 ):
     """``gpad_fixed_paired_flat``'s contract for flat stacks too large for
     it: both operands are read from device memory on every iteration (the
     counterpart of ``tpu_gpad.solver.kernels.gpad_pallas_fixed_flat_tiled``).
     Fixed mode, no restart; soft rows and an empty structural block are
     refused. ``log2_tile`` and ``cluster`` override the scenarios per
-    cluster and the blocks per cluster (for sweeps). CUDA tensors launch
-    the kernel (or raise); CPU tensors run the plain version,
-    ``gpad_fixed_paired_flat_torch`` (the op ``tpu_gpad_torch::flat_tiled``)."""
+    cluster and the blocks per cluster (for sweeps). ``tier``
+    (``KERNEL_TIERS``) is the products' precision; it does not change the
+    launch plan. CUDA tensors launch the kernel (or raise); CPU tensors run
+    the plain version, ``gpad_fixed_paired_flat_torch`` (the op
+    ``tpu_gpad_torch::flat_tiled``)."""
     _refuse_soft(data, "the flat tiled kernel")
     if data.n_struct == 0:
         raise ValueError("the flat tiled kernel needs a non-empty structural "
@@ -941,14 +958,14 @@ def gpad_fixed_flat_tiled(
     y0_rows = None if y0 is None else _norm_y0(y0, B, m_h)
     z, y, w, zhat = flat_tiled_op(
         data.MG_T, data.GL_T, g_P, p_D, y0_rows, data.theta, data.beta,
-        data.L, n_s, iterations, *plan, diagnostics)
+        data.L, n_s, iterations, *plan, diagnostics, tier)
     return (z, y, *_none_if_empty(w, zhat, diagnostics))
 
 
 def gpad_fixed_dense(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
     diagnostics: bool = True, log2_tile: int | None = None,
-    split: int | None = None,
+    split: int | None = None, tier: str = "highest",
 ):
     """Fixed-budget dense (unpaired) GPAD for a batch: returns
     (z, y, w, zhat).
@@ -959,8 +976,9 @@ def gpad_fixed_dense(
     iteration's, and both are None when ``diagnostics`` is False. Soft rows
     are refused, as by ``tpu_gpad``'s dense kernel. ``log2_tile`` and
     ``split`` override the scenarios per block and cap the split-K parts
-    (for sweeps). CUDA tensors launch the kernel (or raise); CPU tensors run
-    the plain version (the op ``tpu_gpad_torch::dense``)."""
+    (for sweeps). ``tier`` (``KERNEL_TIERS``) is the products' precision.
+    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
+    version (the op ``tpu_gpad_torch::dense``)."""
     if data.paired:
         raise ValueError("the dense kernel needs unpaired data")
     if data.soft_damp is not None:
@@ -976,13 +994,13 @@ def gpad_fixed_dense(
     if on_card(g_P):
         if log2_tile is not None and not 0 <= log2_tile <= 5:
             raise ValueError(f"log2_tile {log2_tile} outside 0..5")
-        plan = _dense_plan(m, n_z, B, log2_tile, split)
+        plan = _dense_plan(m, n_z, B, log2_tile, split, tier)
         if plan is None:
             raise _too_big("dense", f"m={m}, n_z={n_z}")
     y0_rows = None if y0 is None else _norm_dense_y0(y0, B, m)
     z, y, w, zhat = dense_op(data.MG_T, data.GL_T, g_P, p_D, y0_rows,
                              data.theta, data.beta, iterations, *plan,
-                             diagnostics)
+                             diagnostics, tier)
     return (z, y, *_none_if_empty(w, zhat, diagnostics))
 
 
@@ -993,14 +1011,11 @@ def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
 
     Residuals and gap are recovered outside the kernels with plain fp32
     products, as the JAX package does outside Pallas (at the tier there).
-    The resident condensed kernels run their products at the config's tier
-    (``core.tier``); a dense or tiled route under a tier raises
-    (``core._refuse_kernel_tier``)."""
+    Every kernel runs its products at the config's tier (``core.tier``)."""
     from tpu_gpad_torch.solver import core, dual_kernels
 
     kernel = core.cuda_kernel(data, config)
     tier = core.tier(config)
-    core._refuse_kernel_tier(config, kernel)
     batch_shape = g_P.shape[:-1]
     gP2 = g_P.reshape(-1, data.n_z).contiguous()
     dual_shape = (2, data.m_half) if data.paired else (data.m,)
@@ -1017,17 +1032,19 @@ def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
                 data, gP2, pD2, y0, restart=config.restart, tier=tier, **kw)
         elif kernel == "dual_tiled":
             z, y, w, zhat = dual_kernels.gpad_fixed_dual_tiled(
-                data, gP2, pD2, y0, restart=config.restart, **kw)
+                data, gP2, pD2, y0, restart=config.restart, tier=tier, **kw)
         elif kernel == "paired_flat":
             z, y, w, zhat = gpad_fixed_paired_flat(data, gP2, pD2, y0,
                                                    tier=tier, **kw)
         elif kernel == "flat_tiled":
-            z, y, w, zhat = gpad_fixed_flat_tiled(data, gP2, pD2, y0, **kw)
+            z, y, w, zhat = gpad_fixed_flat_tiled(data, gP2, pD2, y0,
+                                                  tier=tier, **kw)
         elif kernel == "paired":
             z, y, w, zhat = gpad_fixed_paired(data, gP2, pD2, y0, tier=tier,
                                               **kw)
         elif kernel == "dense":
-            z, y, w, zhat = gpad_fixed_dense(data, gP2, pD2, y0, **kw)
+            z, y, w, zhat = gpad_fixed_dense(data, gP2, pD2, y0, tier=tier,
+                                             **kw)
         else:
             raise ValueError("no CUDA kernel serves this solve")
         res = core._finish(data, gP2, pD2, z, zhat, w, y, config, False,
