@@ -19,7 +19,11 @@ over the reference's 28 plants, a dense ``Controller`` and a checkpointed
 kernel); the reference's 30x30 flagship (the tiled kernels): restart and
 dual-form solves, a restart ``Controller``, ``solve_to_accuracy`` with the
 flat block off, a forced flat solve, the default solve (the flat tiled
-kernel too) and the CLI's ``closedloop`` and ``info``; and the
+kernel too) and the CLI's ``closedloop`` and ``info``; the dense and full
+paired loops past one block's shared memory (the tiled dense kernel and
+the flat tiled kernel at n_s = m_h): ``auto`` on the dense n10 N20
+layout, a dense ``Controller`` and ``solve_multi`` at n5 N20, a
+``flat="off"`` solve at n10 N30 and the CLI's ``--paired off``; and the
 stage-wise O(N) engine at full width: ``auto_solver``
 at battery n30 N200 B1024 (the streamed kernel) and n8 N60 B4096 and
 B1024 (the resident kernel), a warm ``StagewiseController`` and the
@@ -82,7 +86,7 @@ tile x warps per block, hence chain segments, x the chains' placement;
 the streamed one by tile) and the tiled kernels by tile and cluster size,
 or the families named;
 
-    python3 chip_smoke.py --times [resident] [stagewise] [tiers]
+    python3 chip_smoke.py --times [resident] [stagewise] [tiers] [routes]
 
 times the resident dense, dual, chunk and flat kernels at B 256 and 4096,
 the full paired kernel at B4096, the flat tiled kernel and the default
@@ -91,7 +95,10 @@ at n5 N30, and a warm flat, dense and restart ``Controller``
 (``resident``); the resident stage-wise kernel at n8 N60 B1024 and B4096
 and the streamed one at n30 N200 B1024 (``stagewise``); the flat, full
 paired, dual and chunk kernels at each precision tier in turns with
-"highest" at B 256 and 4096 (``tiers``); all three by default.
+"highest" at B 256 and 4096 (``tiers``); all three by default; and the
+tiled dense and paired tiled routes against the torch engine over the
+shapes past the resident kernels' shared memory, on to the flagship
+(``routes``: the measurement behind ``auto``'s edges).
 Through public arguments only, so that a checkout of an earlier design
 can be timed beside this one: copy this script into its root and run it
 there;
@@ -168,6 +175,32 @@ TILED_MID = dict(n_cells=5, horizon=30)
 FLAG_SERVE_STEPS, FLAG_SERVE_SETTLE = 20, 5
 FLAG_EPS_TOL = 1e-4
 FLAG_CLI_STEPS = 5
+# The dense and full paired loops past one block's shared memory (the tiled
+# dense kernel; the flat tiled kernel at n_s = m_h): battery n5 N20 (dense
+# m 440, n_z 100, past the resident dense kernel's m 280), n10 N20 (m 840)
+# and the flagship's dense layout (m 3660); battery n5 N30 (m_h 330, past
+# the resident paired kernel's 220) and n10 N30 (m_h 630), all at B256; a
+# dense Controller, solve_multi over a few plants
+DENSE_MID = dict(n_cells=5, horizon=20)
+DENSE_WIDE = dict(n_cells=10, horizon=20)
+PAIRED_WIDE = dict(n_cells=10, horizon=30)
+ROUTE_BATCH = 256
+ROUTE_SERVE_STEPS, ROUTE_PLANTS = 10, 4
+ROUTE_EDGE_BATCH = 4096  # past auto's work edge at dense n10 N20
+# the flagship's dense layout under each tier: B64 runs the 8-scenario
+# tile of its B256 plan at a quarter of the plain version's float64 work
+ROUTE_TIER_FLAG_BATCH = 64
+# --times routes: the tiled routes against the torch engine over the gap
+# between the resident kernels' guards and tpu_gpad's VMEM guards, and the
+# dense layout on to the flagship, where auto's edge lies (battery n, N)
+ROUTE_GAP = ((5, 20), (3, 50), (5, 30), (10, 20), (5, 50), (10, 30))
+ROUTE_DENSE_EDGE = ((15, 30), (20, 30), (25, 30), (30, 30))
+ROUTE_PAIRED_EDGE = ((15, 30), (20, 30), (30, 30))
+# ... at each of these batches (one solve, serving fleets, the sweep's
+# chunk and past it): a batch's shapes in order of rows, cut after the
+# kernel lost at ROUTE_LOSSES_TO_STOP in a row
+ROUTE_BATCHES = (1, 64, 256, 1024, 4096, 16384)
+ROUTE_LOSSES_TO_STOP = 2
 # The robust stack: three actuator realizations (B x 0.8, 1.0, 1.2) of
 # battery n3 N10 as one scenario_qp stack served to the 256 plants, its
 # stage-wise twin at n3 N10 and n8 N60 (B256 x 200), converged at 2000
@@ -361,11 +394,13 @@ def instance_spills(log: str) -> dict:
 # at "highest" (8-16 bytes). The tiled kernels' tier instances ("<T,tier>",
 # tier 1-3) keep at most 16 bytes of frame and of spill stores (8 in the
 # build timed in PERF.md section 6; a strip of four tiles and the flat
-# kernel's epilogue inlined at each fragment element spilled 40-192).
+# kernel's epilogue inlined at each fragment element spilled 40-192; the
+# flat and dense body of csrc/tiled_mvp.cuh, its arguments in a struct,
+# 80-88 at <16,1>).
 SPILL_LIMITS = ((r"gpad_(dense|dual|paired_flat)\.cu", None, 0),
                 (r"gpad_stagewise_resident_kernel<\d+,(8|16)>", 32, None),
-                (r"gpad_(dual|flat)_tiled\.cu: gpad_[a-z_]+_kernel<\d+,[123]>",
-                 16, 16))
+                (r"gpad_(dual|flat|dense)_tiled\.cu: "
+                 r"gpad_[a-z_]+_kernel<\d+,[123]>", 16, 16))
 
 
 def spills_past_limits(spills: dict) -> dict:
@@ -386,7 +421,7 @@ def phase_build():
     from tpu_gpad_torch import cuda_build
 
     names = ["gpad_paired_flat", "gpad_dense", "gpad_dual", "gpad_stagewise",
-             "gpad_dual_tiled", "gpad_flat_tiled"]
+             "gpad_dual_tiled", "gpad_flat_tiled", "gpad_dense_tiled"]
     cuda_build.load_all(names)  # every nvcc run at once
     logs = {n: cuda_build.BUILD_LOG.get(n, "").splitlines() for n in names}
     spills = {n: instance_spills(cuda_build.BUILD_LOG.get(n, ""))
@@ -592,7 +627,8 @@ def headline(tg, shape=HEADLINE):
 def reset_counters(kernels, dual_kernels, sk, ss):
     kernels.PAIRED_FLAT_LAUNCHES = 0
     kernels.PAIRED_LAUNCHES = kernels.DENSE_LAUNCHES = 0
-    kernels.FLAT_TILED_LAUNCHES = 0
+    kernels.FLAT_TILED_LAUNCHES = kernels.PAIRED_TILED_LAUNCHES = 0
+    kernels.DENSE_TILED_LAUNCHES = 0
     dual_kernels.DUAL_LAUNCHES = dual_kernels.DUAL_CHUNK_LAUNCHES = 0
     dual_kernels.DUAL_TILED_LAUNCHES = dual_kernels.DUAL_TILED_CHUNK_LAUNCHES = 0
     dual_kernels.EPS_SYNCS = 0
@@ -607,6 +643,9 @@ def launch_counts(kernels, dual_kernels, sk, ss) -> dict:
         "gpad_paired": kernels.PAIRED_LAUNCHES,
         "gpad_dense": kernels.DENSE_LAUNCHES,
         "gpad_flat_tiled": kernels.FLAT_TILED_LAUNCHES,
+        # the flat tiled kernel at n_s = m_h: the full paired loop
+        "gpad_paired_tiled": kernels.PAIRED_TILED_LAUNCHES,
+        "gpad_dense_tiled": kernels.DENSE_TILED_LAUNCHES,
         "gpad_dual": dual_kernels.DUAL_LAUNCHES,
         "gpad_dual_chunk": dual_kernels.DUAL_CHUNK_LAUNCHES,
         "gpad_dual_tiled": dual_kernels.DUAL_TILED_LAUNCHES,
@@ -1560,13 +1599,13 @@ def phase_dense_timing(torch, tg, kernels, dual_kernels, core, smi):
 _FLAG = {}
 
 
-def flagship(tg, shape=FLAGSHIP):
-    """A battery QP and its paired data on the card (100-iteration
-    schedule), built once per shape."""
-    key = tuple(shape.values())
+def flagship(tg, shape=FLAGSHIP, paired="auto"):
+    """A battery QP and its paired (or ``paired=False``: dense) data on the
+    card (100-iteration schedule), built once per shape and layout."""
+    key = (*shape.values(), paired)
     if key not in _FLAG:
         qp = tg.condense(tg.problems.battery(**shape))
-        _FLAG[key] = qp, tg.dualize(qp, ITERS, paired="auto", device=DEVICE)
+        _FLAG[key] = qp, tg.dualize(qp, ITERS, paired=paired, device=DEVICE)
     return _FLAG[key]
 
 
@@ -2075,6 +2114,403 @@ def sweep_tiled(torch, tg, kernels, dual_kernels, core, smi):
                   "iterations": ITERS,
                   "default": kernels.pick_flat_tiled(d.m_half, d.n_z, B),
                   "ms_by_log2_tile_per_cluster": row})
+
+
+# ---------------------------------------------------------------------------
+# the dense and full paired loops past one block's shared memory
+# ---------------------------------------------------------------------------
+
+ROUTE_FNS = {"dense_tiled": ("gpad_fixed_dense_tiled",
+                             "gpad_fixed_dense_torch",
+                             "gpad_dense_tiled_kernel"),
+             "paired_tiled": ("gpad_fixed_paired_tiled",
+                              "gpad_fixed_paired_torch",
+                              "gpad_flat_tiled_kernel")}
+
+
+def shape_label(shape) -> str:
+    return "n{n_cells}_N{horizon}".format(**shape)
+
+
+def route_data(tg, route, shape):
+    """(qp, data) of a tiled route's battery ``shape`` on the card: dense
+    layout for "dense_tiled", paired for "paired_tiled"."""
+    return flagship(tg, shape, paired=False if route == "dense_tiled"
+                    else "auto")
+
+
+def phase_tiled_routes_vs_plain(torch, tg, kernels, dual_kernels, core):
+    """The tiled dense kernel against its plain version
+    (``gpad_fixed_dense_torch``) at battery n5 N20 (m 440): B4096 cold,
+    warm per scenario and shared, diagnostics off (the iterates bit for bit
+    those with it on), then B256, a ragged B300 and B1 warm; at n10 N20
+    B256 and at the flagship's dense layout B256 (8 scenarios a cluster);
+    the paired tiled route (the flat tiled kernel at n_s = m_h) against
+    ``gpad_fixed_paired_torch`` at n5 N30 and n10 N30 B256, cold and warm,
+    diagnostics off. Then each under every tier against its plain version
+    at the tier (``tier_kernel_vs_plain``: one iteration and z within
+    TIER_KERNEL_TOL, every output within TIER_SENSITIVITY x the plain
+    version's own spread) at n5 N20 B256, the flagship's dense layout B64
+    (the 8-scenario tile of its B256 plan) and n5 N30 B256."""
+    t_phase = time.perf_counter()
+    errs = {"dense_tiled": {}, "paired_tiled": {}}
+    bitwise, plans, tiers = {}, {}, {}
+
+    def run(route, name, d, g, p, y0=None, diagnostics=True):
+        fn, plain = (getattr(kernels, f) for f in ROUTE_FNS[route][:2])
+        kw = dict(iterations=ITERS, diagnostics=diagnostics)
+        out_k = fn(d, g, p, y0, **kw)
+        out_p = plain(d, g, p, y0, **kw)
+        torch.cuda.synchronize()
+        for t in out_k:
+            if t is not None:
+                check(bool(torch.isfinite(t).all()),
+                      f"{route} {name}: output not finite")
+        if not diagnostics:
+            check(out_k[2] is None and out_k[3] is None,
+                  f"{route} {name}: diagnostics=False returned w/zhat")
+        errs[route][name] = max_err(out_k, out_p)
+        return out_k
+
+    for route, cases in (("dense_tiled", ((DENSE_MID, BATCH), (DENSE_WIDE,
+                                           ROUTE_BATCH), (FLAGSHIP,
+                                                          ROUTE_BATCH))),
+                         ("paired_tiled", ((TILED_MID, ROUTE_BATCH),
+                                           (PAIRED_WIDE, ROUTE_BATCH)))):
+        for shape, B in cases:
+            _, d = route_data(tg, route, shape)
+            label = shape_label(shape)
+            g, p = core.affine_params(d, flag_x0(torch, d.n_x, B, seed=70)[1])
+            rows = d.m_half if d.paired else d.m
+            plans[f"{route}_{label}"] = kernels.pick_flat_tiled(rows, d.n_z, B)
+            y = run(route, f"{label}_cold", d, g, p)[1]
+            on = run(route, f"{label}_warm_per_scenario", d, g, p, y)
+            off = run(route, f"{label}_no_diagnostics", d, g, p, y,
+                      diagnostics=False)
+            bitwise[f"{route}_{label}"] = (torch.equal(on[0], off[0])
+                                           and torch.equal(on[1], off[1]))
+            if B == BATCH:
+                run(route, f"{label}_warm_shared", d, g, p, y[0].contiguous())
+                # the serving batch, a ragged last tile, one scenario
+                for b in (ROUTE_BATCH, 300, 1):
+                    plans[f"{route}_{label}_B{b}"] = kernels.pick_flat_tiled(
+                        rows, d.n_z, b)
+                    run(route, f"{label}_B{b}", d, g[:b].contiguous(),
+                        p[:b].contiguous(), y[:b].contiguous())
+    for route, shape, B in (("dense_tiled", DENSE_MID, ROUTE_BATCH),
+                            ("dense_tiled", FLAGSHIP, ROUTE_TIER_FLAG_BATCH),
+                            ("paired_tiled", TILED_MID, ROUTE_BATCH)):
+        _, d = route_data(tg, route, shape)
+        g, p = core.affine_params(d, flag_x0(torch, d.n_x, B, seed=71)[1])
+        tiers[f"{route}_{shape_label(shape)}"] = {
+            tier: tier_kernel_vs_plain(torch, kernels, dual_kernels, d, g, p,
+                                       tier, (route,), None)
+            for tier in TIER_KERNEL_TOL}
+    worst = {route: max(e.values()) for route, e in errs.items()}
+    emit({"phase": "tiled_routes_vs_plain", "plans": plans,
+          "max_abs_err": errs, "diagnostics_off_bit_identical": bitwise,
+          "tiers": tiers, "tol": KERNEL_TOL,
+          "phase_s": time.perf_counter() - t_phase})
+    check(max(worst.values()) <= KERNEL_TOL,
+          f"tiled routes disagree with their plain versions: {errs}")
+    check(all(bitwise.values()),
+          f"diagnostics=False changed the iterates {bitwise}")
+    flag = plans[f"dense_tiled_{shape_label(FLAGSHIP)}"]
+    check(flag.log2_tile == 3,
+          f"flagship dense plan {flag}, expected 8 scenarios a cluster")
+    return worst
+
+
+def phase_tiled_routes_path(torch, tg, kernels, core, reference, ctr):
+    """The new routes through the entry points, each leg counted from 0:
+    ``solve_batch(engine="auto")`` on the dense n10 N20 layout, B256 (one
+    tiled dense launch, u* against the NumPy oracle); a dense
+    ``Controller`` serving 256 plants at n5 N20 (one launch a step, moves
+    within the limits up to the solve's residual); ``solve_multi`` over
+    ROUTE_PLANTS dense n5 N20 plants (one launch a plant, each plant's
+    first u* against the oracle on its QP); a ``flat="off"`` solve at n10
+    N30 (the paired tiled route, one launch of the flat tiled kernel at
+    n_s = m_h, u* against the oracle and the torch engine); the CLI's
+    ``solve --paired off`` and ``info --paired off`` at n5 N20 in
+    process; and auto on the dense n10 N20 layout at ROUTE_EDGE_BATCH, past
+    its work edge (the torch engine, no launch). Returns the launches by
+    leg."""
+    import contextlib
+    import io as textio
+
+    from tpu_gpad_torch import cli
+    from tpu_gpad_torch.solver.multi import solve_multi
+
+    t_phase = time.perf_counter()
+    out = {"phase": "tiled_routes_path"}
+    legs = {}
+
+    def leg(name, fn, expect):
+        res, got = counted(torch, ctr, fn, expect, f"tiled routes {name}")
+        legs[name] = got
+        return res
+
+    def oracle_err(qp, X0np, u, n=4):
+        return [float(np.abs(u[i].cpu().numpy() - reference.gpad_solve_qp(
+            qp, X0np[i].astype(np.float64), ITERS).u).max()) for i in range(n)]
+
+    qp, dense = route_data(tg, "dense_tiled", DENSE_WIDE)
+    X0np, X0 = flag_x0(torch, dense.n_x, ROUTE_BATCH, seed=72)
+    cfg = tg.SolverConfig()
+    res = leg("auto_dense_n10_N20", lambda: tg.solve_batch(dense, X0, cfg),
+              {"gpad_dense_tiled": 1})
+    out["auto_dense_n10_N20"] = {
+        "engine": core.resolve_engine(dense, cfg, ROUTE_BATCH),
+        "kernel": core.cuda_kernel(dense, cfg, ROUTE_BATCH), "m": dense.m,
+        "u_vs_oracle": oracle_err(qp, X0np, res.u),
+        "residual_max": res.residual.max().item()}
+    check(out["auto_dense_n10_N20"]["kernel"] == "dense_tiled"
+          and max(out["auto_dense_n10_N20"]["u_vs_oracle"]) < ORACLE_TOL,
+          f"auto dense n10 N20 {out['auto_dense_n10_N20']}")
+    # past auto's work edge (B4096 at n10 N20, where the kernel tied the
+    # torch engine) auto runs the torch engine: no launch
+    big = flag_x0(torch, dense.n_x, ROUTE_EDGE_BATCH, seed=72)[1]
+    leg("auto_dense_n10_N20_past_edge",
+        lambda: tg.solve_batch(dense, big, cfg), {})
+    out["auto_dense_n10_N20_past_edge"] = {
+        "batch": ROUTE_EDGE_BATCH,
+        "kernel": core.cuda_kernel(dense, cfg, ROUTE_EDGE_BATCH)}
+    check(out["auto_dense_n10_N20_past_edge"]["kernel"] is None,
+          f"auto dense n10 N20 past the edge {out}")
+
+    problem = tg.problems.battery(**DENSE_MID)
+    ctl = tg.Controller(problem, iterations=ITERS, paired=False, device=DEVICE)
+    A = np.asarray(problem.A, dtype=np.float32)
+    Bm = np.asarray(problem.B, dtype=np.float32)
+    x = flag_x0(torch, problem.n_x, SERVE_PLANTS, seed=73)[0]
+    moves = {"max_abs_u": 0.0, "max_abs_sum_u": 0.0,
+             "excess_over_residual": -np.inf}
+    step_ms = []
+
+    def serve():
+        nonlocal x
+        for _ in range(ROUTE_SERVE_STEPS):
+            t0 = time.perf_counter()
+            u = ctl.step(x)  # returns host NumPy: the device work is done
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            residual = ctl.last_result.residual.cpu().numpy()
+            excess = np.maximum(np.abs(u).max(1) - 0.3, np.abs(u.sum(1)))
+            for k, v in (("max_abs_u", np.abs(u).max()),
+                         ("max_abs_sum_u", np.abs(u.sum(1)).max()),
+                         ("excess_over_residual", (excess - residual).max())):
+                moves[k] = max(moves[k], float(v))
+            x = x @ A.T + u @ Bm.T
+
+    leg("dense_controller_n5_N20", serve,
+        {"gpad_dense_tiled": ROUTE_SERVE_STEPS})
+    out["dense_controller_n5_N20"] = dict(
+        plants=SERVE_PLANTS, steps=ROUTE_SERVE_STEPS, **moves,
+        step_ms_host_clock={"median": float(np.median(step_ms[1:])),
+                            "first": step_ms[0]})
+    # 100 fixed iterations leave a residual: each plant's moves past the
+    # limits by no more than its solve's residual
+    check(np.isfinite(x).all()
+          and moves["excess_over_residual"] <= SW_RESIDUAL_TOL,
+          f"dense Controller n5 N20 {out['dense_controller_n5_N20']}")
+
+    caps = np.linspace(0.08, 0.15, ROUTE_PLANTS)
+    qps = [tg.condense(tg.problems.battery(**DENSE_MID, cell_capacity_ah=c))
+           for c in caps]
+    datas = [tg.dualize(q, ITERS, paired=False, device=DEVICE) for q in qps]
+    X0m = np.random.default_rng(74).uniform(
+        -0.4, 0.4, (ROUTE_PLANTS, ROUTE_BATCH, qps[0].n_x)).astype(np.float32)
+    res = leg("multi_n5_N20", lambda: solve_multi(datas, X0m),
+              {"gpad_dense_tiled": ROUTE_PLANTS})
+    oracle = [float(np.abs(res.u[p, 0].cpu().numpy() - reference.gpad_solve_qp(
+        qps[p], X0m[p, 0].astype(np.float64), ITERS).u).max())
+        for p in range(ROUTE_PLANTS)]
+    out["multi_n5_N20"] = {"plants": ROUTE_PLANTS, "batch": ROUTE_BATCH,
+                           "u_vs_oracle": oracle}
+    check(bool(torch.isfinite(res.u).all()) and max(oracle) < ORACLE_TOL,
+          f"solve_multi n5 N20 {out['multi_n5_N20']}")
+
+    qp, wide = route_data(tg, "paired_tiled", PAIRED_WIDE)
+    X0np, X0 = flag_x0(torch, wide.n_x, ROUTE_BATCH, seed=75)
+    cfg = tg.SolverConfig(form="mvp", flat="off")
+    res = leg("flat_off_n10_N30", lambda: tg.solve_batch(wide, X0, cfg),
+              {"gpad_paired_tiled": 1})
+    plain = tg.solve_batch(wide, X0, dataclasses.replace(cfg, engine="torch"))
+    out["flat_off_n10_N30"] = {
+        "kernel": core.cuda_kernel(wide, cfg, ROUTE_BATCH),
+        "m_half": wide.m_half,
+        "u_vs_oracle": oracle_err(qp, X0np, res.u),
+        "u_vs_torch_engine": (res.u - plain.u).abs().max().item()}
+    check(max(out["flat_off_n10_N30"]["u_vs_oracle"]) < ORACLE_TOL
+          and out["flat_off_n10_N30"]["u_vs_torch_engine"] < ORACLE_TOL,
+          f"flat off n10 N30 {out['flat_off_n10_N30']}")
+
+    def run_cli(argv):
+        buf = textio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(argv) == 0, f"cli {argv[0]} failed")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    shape = ["--cells", "5", "--horizon", "20", "--paired", "off",
+             "--device", DEVICE]
+    solved = leg("cli_solve_paired_off", lambda: run_cli(
+        ["solve", *shape, "--batch", str(ROUTE_BATCH)]),
+        {"gpad_dense_tiled": 1})
+    info = leg("cli_info_paired_off", lambda: run_cli(["info", *shape]), {})
+    out["cli"] = {"solve_engine": solved["engine"],
+                  "info_kernel": info["kernel"],
+                  "info_engine": info["resolved_engine"]}
+    check(solved["engine"] == "cuda" and info["kernel"] == "dense_tiled",
+          f"cli --paired off {out['cli']}")
+    out["launches"] = legs
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return legs
+
+
+def route_bound(d, g, p, B, tier="highest") -> dict:
+    """A tiled route's bound at B scenarios: the dense loop's two products
+    (2 m n_z each) or the full paired loop's (``paired_bound``), per
+    scenario and iteration, at the tier's peak; z, y, w, zhat written
+    once."""
+    if d.paired:
+        return paired_bound(d, g, p, B, full=True, tier=tier)
+    return bound(B * ITERS * 4.0 * d.m * d.n_z,
+                 nbytes(d.MG_T, d.GL_T, g, p, d.theta[:ITERS], d.beta[:ITERS])
+                 + 4 * B * (2 * d.n_z + 2 * d.m), tier)
+
+
+def route_runs(torch, tg, kernels, core, route, shape, B, seed):
+    """(data, runs, bound) of a tiled route at battery ``shape``, B
+    scenarios x 100: the kernel's wrapper, its plain version, and the
+    solves through ``auto`` (its ``engine="cuda"`` route where auto takes
+    the torch engine) and the torch engine on the same configuration."""
+    _, d = route_data(tg, route, shape)
+    X0 = flag_x0(torch, d.n_x, B, seed)[1]
+    g, p = core.affine_params(d, X0)
+    fn, plain = (getattr(kernels, f) for f in ROUTE_FNS[route][:2])
+    S = tg.SolverConfig
+    kw = {} if route == "dense_tiled" else dict(form="mvp", flat="off")
+    return d, {
+        "kernel": lambda: fn(d, g, p, iterations=ITERS),
+        "plain": lambda: plain(d, g, p, iterations=ITERS),
+        "auto": lambda: tg.solve_batch(d, X0, S(**kw)),
+        "forced": lambda: tg.solve_batch(d, X0, S(engine="cuda", **kw)),
+        "torch_engine": lambda: tg.solve_batch(d, X0, S(engine="torch", **kw)),
+    }, route_bound(d, g, p, B)
+
+
+def route_times(torch, tg, kernels, core, route, shape, B, which, seed=76):
+    """The named runs of ``route_runs`` in two turns of opposite order
+    (CUDA events, median of 5 calls a turn), the kernel's device time from
+    the profiler, and the bound."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    d, runs, bnd = route_runs(torch, tg, kernels, core, route, shape, B, seed)
+    ms = {k: [] for k in which}
+    for turn in (list(which), list(which)[::-1]):
+        for k in turn:
+            ms[k].append(device_time_per_call(runs[k], warmup=1, repeats=5)
+                         * 1e3)
+    cfg = tg.SolverConfig(**({} if route == "dense_tiled"
+                             else dict(form="mvp", flat="off")))
+    return {"m": d.m_half if d.paired else d.m, "n_z": d.n_z, "batch": B,
+            "auto_kernel": core.cuda_kernel(d, cfg, batch=B),
+            "plan": kernels.pick_flat_tiled(d.m_half if d.paired else d.m,
+                                            d.n_z, B),
+            "device_ms": profiled_ms(torch, runs["kernel"],
+                                     ROUTE_FNS[route][2]),
+            "ms_median_of_5_per_turn": ms,
+            "ms": {k: float(np.mean(v)) for k, v in ms.items()}, **bnd}
+
+
+ROUTE_TIMED = (("dense_tiled", DENSE_MID), ("dense_tiled", DENSE_WIDE),
+               ("dense_tiled", FLAGSHIP), ("paired_tiled", TILED_MID),
+               ("paired_tiled", PAIRED_WIDE))
+
+
+def phase_tiled_routes_timing(torch, tg, kernels, core, smi):
+    """Each tiled route at B256 x 100 at ROUTE_TIMED's shapes: the
+    kernel's device time (profiler), its wrapper, its plain version, the
+    solve through ``auto`` and the torch engine on the same configuration
+    (CUDA events, two turns), and the bound."""
+    t_phase, out = time.perf_counter(), {}
+    for route, shape in ROUTE_TIMED:
+        key = f"{route}_{shape_label(shape)}"
+        out[key] = route_times(torch, tg, kernels, core, route, shape,
+                               ROUTE_BATCH, ("kernel", "plain", "auto",
+                                             "torch_engine"))
+    emit({"phase": "tiled_routes_timing", "gpu": smi, "iterations": ITERS,
+          **out, "phase_s": time.perf_counter() - t_phase})
+    return out
+
+
+def times_routes(torch, tg, kernels, core, smi):
+    """``python3 chip_smoke.py --times routes``: each tiled route against
+    the torch engine x 100 over the gap between the resident kernels'
+    guards and tpu_gpad's VMEM guards (ROUTE_GAP), and on to the flagship
+    (ROUTE_DENSE_EDGE, ROUTE_PAIRED_EDGE), at each of ROUTE_BATCHES, where
+    ``auto``'s edges lie: the kernel's device time (profiler), the solve on
+    its route (``engine="cuda"``) and the torch engine in turns (CUDA
+    events), with the route ``auto`` takes at that batch; then each route
+    under every tier (``route_tier_times``)."""
+    for route, shapes in (("dense_tiled", ROUTE_GAP + ROUTE_DENSE_EDGE),
+                          ("paired_tiled", ROUTE_GAP + ROUTE_PAIRED_EDGE)):
+        gap = []
+        for n, N in shapes:
+            _, d = route_data(tg, route, dict(n_cells=n, horizon=N))
+            if not (kernels.dense_fits_smem(d) if route == "dense_tiled"
+                    else kernels.paired_fits_smem(d)):
+                gap.append((d.m_half if d.paired else d.m, n, N))
+        for B in ROUTE_BATCHES:
+            lost = 0
+            for rows, n, N in sorted(gap):
+                if lost == ROUTE_LOSSES_TO_STOP:
+                    emit({"phase": "times_routes", "route": route,
+                          "batch": B, "stopped_before": [n, N], "m": rows})
+                    break
+                row = route_times(torch, tg, kernels, core, route,
+                                  dict(n_cells=n, horizon=N), B,
+                                  ("forced", "torch_engine"))
+                row["kernel_faster"] = row["ms"]["forced"] < row["ms"][
+                    "torch_engine"]
+                lost = 0 if row["kernel_faster"] else lost + 1
+                emit({"phase": "times_routes", "gpu": smi, "route": route,
+                      "shape": [n, N], **row})
+    route_tier_times(torch, tg, kernels, core, smi)
+
+
+def route_tier_times(torch, tg, kernels, core, smi, B=ROUTE_BATCH):
+    """Each tiled route (tiled dense at n10 N20, paired tiled at n10 N30)
+    at each tier beside "highest", B x 100: profiler device ms in turns
+    (highest, tier, tier, highest), the bound at the tier's peak, and the
+    plain version's ms at the tier (CUDA events)."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    for route, shape in (("dense_tiled", DENSE_WIDE),
+                         ("paired_tiled", PAIRED_WIDE)):
+        _, d = route_data(tg, route, shape)
+        g, p = core.affine_params(d, flag_x0(torch, d.n_x, B, 77)[1])
+        fn, plain = (getattr(kernels, f) for f in ROUTE_FNS[route][:2])
+        name = ROUTE_FNS[route][2]
+
+        def run(f, tier, d=d, g=g, p=p):
+            return lambda: f(d, g, p, iterations=ITERS, tier=tier)
+
+        rows = {}
+        for tier in TIER_TOL:
+            turns = [(t, profiled_ms(torch, run(fn, t), name))
+                     for t in ("highest", tier, tier, "highest")]
+            bnd = route_bound(d, g, p, B, tier)
+            rows[tier] = {
+                "ms": [ms for t, ms in turns if t == tier],
+                "highest_ms": [ms for t, ms in turns if t == "highest"],
+                "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+                "plain_ms": device_time_per_call(
+                    run(plain, tier), warmup=1, repeats=3) * 1e3}
+        emit({"phase": "route_tier_times", "gpu": smi, "route": route,
+              "shape": shape_label(shape), "batch": B,
+              "highest_bound_ms": route_bound(d, g, p, B)["bound_ms"],
+              "tiers": rows})
 
 
 # ---------------------------------------------------------------------------
@@ -3935,6 +4371,10 @@ COUNTERS = {
     "gpad_paired": ("tpu_gpad_torch.solver.kernels", "PAIRED_LAUNCHES"),
     "gpad_dense": ("tpu_gpad_torch.solver.kernels", "DENSE_LAUNCHES"),
     "gpad_flat_tiled": ("tpu_gpad_torch.solver.kernels", "FLAT_TILED_LAUNCHES"),
+    "gpad_paired_tiled": ("tpu_gpad_torch.solver.kernels",
+                          "PAIRED_TILED_LAUNCHES"),
+    "gpad_dense_tiled": ("tpu_gpad_torch.solver.kernels",
+                         "DENSE_TILED_LAUNCHES"),
     "gpad_dual": ("tpu_gpad_torch.solver.dual_kernels", "DUAL_LAUNCHES"),
     "gpad_dual_chunk": ("tpu_gpad_torch.solver.dual_kernels",
                         "DUAL_CHUNK_LAUNCHES"),
@@ -4027,6 +4467,14 @@ def aot_legs(torch, tg):
             "gpad_stagewise_stream", ex_sw,
             sw_data(tg, SW_FULL, SW_FULL_ITERS),
             tg.SolverConfig(iterations=SW_FULL_ITERS), (SW_FULL_BATCH,), 21),
+        # the routes past shared memory (phase_tiled_routes_path)
+        "dense_tiled": ("gpad_dense_tiled", ex,
+                        route_data(tg, "dense_tiled", DENSE_WIDE)[1],
+                        tg.SolverConfig(iterations=ITERS), (ROUTE_BATCH,), 72),
+        "paired_tiled": ("gpad_paired_tiled", ex,
+                         route_data(tg, "paired_tiled", PAIRED_WIDE)[1],
+                         tg.SolverConfig(iterations=ITERS, form="mvp",
+                                         flat="off"), (ROUTE_BATCH,), 75),
         "symbolic": (None, ex, head, tg.SolverConfig(iterations=ITERS),
                      AOT_SYMBOLIC_BATCHES, 65),
         # the robust twin's stage-wise shape (robust_stagewise_path)
@@ -4298,6 +4746,10 @@ def tier_fixed(kernels, dual_kernels, names) -> dict:
                   {}),
         "flat_tiled": (kernels.gpad_fixed_flat_tiled,
                        kernels.gpad_fixed_paired_flat_torch, {}),
+        "dense_tiled": (kernels.gpad_fixed_dense_tiled,
+                        kernels.gpad_fixed_dense_torch, {}),
+        "paired_tiled": (kernels.gpad_fixed_paired_tiled,
+                         kernels.gpad_fixed_paired_torch, {}),
     }
     for name, fn in (("dual", dual_kernels.gpad_fixed_dual),
                      ("dual_tiled", dual_kernels.gpad_fixed_dual_tiled)):
@@ -4875,6 +5327,8 @@ def main() -> int:
             times_stagewise(torch, tg, sk, ss, smi)
         if "tiers" in families:
             times_tiers(torch, tg, kernels, dual_kernels, core, smi)
+        if "routes" in families:
+            times_routes(torch, tg, kernels, core, smi)
         return 0
     phase_build()
     if sys.argv[1:2] == ["--sweep"]:
@@ -4897,6 +5351,8 @@ def main() -> int:
     worst_paired = phase_paired_kernel_vs_plain(torch, tg, kernels, core)
     worst_tiled = phase_tiled_kernels_vs_plain(torch, tg, kernels, dual_kernels,
                                                core)
+    worst_routes = phase_tiled_routes_vs_plain(torch, tg, kernels,
+                                               dual_kernels, core)
     worst_nmpc = phase_nmpc_dual_vs_plain(torch, tg, dual_kernels, core)
     # each path's launches are counted from 0, set just before it
     reset_counters(kernels, dual_kernels, sk, ss)
@@ -4941,6 +5397,9 @@ def main() -> int:
     check(set(tiled_launches) == {"gpad_dual_tiled", "gpad_dual_tiled_chunk",
                                   "gpad_flat_tiled"},
           f"flagship path launches {tiled_launches}")
+    # the routes past shared memory, each leg counted from 0
+    route_legs = phase_tiled_routes_path(torch, tg, kernels, core, reference,
+                                         (kernels, dual_kernels, sk, ss))
     reset_counters(kernels, dual_kernels, sk, ss)
     phase_stagewise_main_path(torch, tg, sk, ss, ts)
     phase_stagewise_serving(torch, tg, ss)
@@ -4981,6 +5440,15 @@ def main() -> int:
     smed = phase_stagewise_timing(torch, tg, sk, ss, ts, smi)
     dnmed = phase_dense_timing(torch, tg, kernels, dual_kernels, core, smi)
     tmed = phase_tiled_timing(torch, tg, kernels, dual_kernels, core, smi)
+    rmed = phase_tiled_routes_timing(torch, tg, kernels, core, smi)
+    route_row = lambda r: {  # noqa: E731
+        "ms": r["ms"]["kernel"] if r["device_ms"] is None else r["device_ms"],
+        "wrapper_ms": r["ms"]["kernel"], "plain_ms": r["ms"]["plain"],
+        "torch_engine_ms": r["ms"]["torch_engine"],
+        "auto_solve_ms": r["ms"]["auto"], "auto_kernel": r["auto_kernel"],
+        "m": r["m"], "n_z": r["n_z"], "batch": r["batch"],
+        **{k: r[k] for k in ("bound_ms", "bound_by", "flops", "bytes")}}
+    routes = {k: route_row(r) for k, r in rmed.items()}
     # no single PyTorch call computes a GPAD solve loop
     no_library = {"library_ms": None}
     line = [{
@@ -5109,29 +5577,59 @@ def main() -> int:
         "torch_engine_ms": tmed["default_torch_engine"],
         "auto_solve_ms": tmed["default_auto"],
         **tmed["flat_bound"], **no_library,
+        # at n_s = m_h, the full paired loop past shared memory
+        "max_abs_err_paired_tiled": worst_routes["paired_tiled"],
+        "paired_tiled_by_shape": {k: v for k, v in routes.items()
+                                  if k.startswith("paired_tiled")},
+    }, {
+        # the dense loop past one block's shared memory, at the auto path's
+        # shape (dense n10 N20, B256)
+        "name": "gpad_dense_tiled",
+        "route": "cuda",
+        "source": "tpu_gpad_torch/csrc/gpad_dense_tiled.cu",
+        "replaces": "tpu_gpad/solver/kernels.py:336",
+        "launches": 0,
+        "max_abs_err": worst_routes["dense_tiled"],
+        **routes["dense_tiled_n10_N20"], **no_library,
+        "by_shape": {k: v for k, v in routes.items()
+                     if k.startswith("dense_tiled")},
     }]
     # each kernel's launches: its earlier paths, then the legs of the
     # estimation and robust stacks that launched it
     by_kernel = {}
+
+    def fold(kernel, path, n):
+        """A leg's launches of a kernel; the paired tiled route's are the
+        flat tiled kernel's."""
+        if kernel == "gpad_paired_tiled":
+            kernel, path = "gpad_flat_tiled", f"{path}.paired_tiled"
+        row = by_kernel.setdefault(kernel, {})
+        row[path] = row.get(path, 0) + n
+
     for phase, legs in stacks.items():
         for leg, got in legs.items():
             for kernel, n in got.items():
-                by_kernel.setdefault(kernel, {})[f"{phase}.{leg}"] = n
+                fold(kernel, f"{phase}.{leg}", n)
     check(set(by_kernel) == {"gpad_paired_flat", "gpad_dual", "gpad_dual_chunk",
                              "gpad_dual_tiled", "gpad_stagewise_resident",
                              "gpad_stagewise_stream", "gpad_dense"},
           f"the stacks and the parallel path launched {by_kernel}")
+    # the routes past shared memory
+    for leg, got in route_legs.items():
+        for kernel, n in got.items():
+            fold(kernel, f"tiled_routes_path.{leg}", n)
     # and the launches of the loaded artifacts (phase_aot_path)
     for got in aot_launches.values():
         for kernel, n in got.items():
-            by_kernel.setdefault(kernel, {})["aot"] = n
-    check(all("aot" in by_kernel.get(k["name"], {}) for k in line),
+            fold(kernel, "aot", n)
+    check(all("aot" in by_kernel.get(k["name"], {}) for k in line)
+          and "aot.paired_tiled" in by_kernel["gpad_flat_tiled"],
           f"the AOT path launched {aot_launches}")
     # and the legs of the tiers and timing paths
     for phase, legs in late.items():
         for leg, got in legs.items():
             for kernel, n in got.items():
-                by_kernel.setdefault(kernel, {})[f"{phase}.{leg}"] = n
+                fold(kernel, f"{phase}.{leg}", n)
     for k in line:
         legs = by_kernel.get(k["name"], {})
         k["launches_by_path"] = {"earlier_paths": k["launches"], **legs}
@@ -5142,6 +5640,10 @@ def main() -> int:
             n for t, n in tier_launches.get(k["name"], {}).items()
             if t != "highest"), **{t: n for t, n in tier_launches.get(
                 k["name"], {}).items() if t != "highest"}}
+    check(all(k["launches"] > 0 for k in line)
+          and "tiled_routes_path.flat_off_n10_N30.paired_tiled"
+          in by_kernel["gpad_flat_tiled"],
+          f"a kernel no path launched: {[k['name'] for k in line]}")
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1766,3 +1766,96 @@ def test_tier_solves_route_through_dense_and_tiled_kernels(dev, tier):
             assert parted <= most, (counter, parted)
         else:
             assert (res.u - ref.u).abs().max().item() <= tol, counter
+
+
+# The dense and full paired loops past one block's shared memory: the tiled
+# dense kernel (battery n5 N20, m 440; n10 N20, m 840; the flagship's dense
+# layout, m 3660) and the flat tiled kernel at n_s = m_h (n5 N30, m_h 330;
+# n10 N30, m_h 630)
+_ROUTE_DATA = {}
+
+
+def _route_data(dev, n, N, paired):
+    if (n, N, paired) not in _ROUTE_DATA:
+        _ROUTE_DATA[n, N, paired] = tg.dualize(
+            tg.condense(tg.problems.battery(n, N)), ITERS, paired=paired,
+            device=dev)
+    return _ROUTE_DATA[n, N, paired]
+
+
+ROUTE_CASES = {
+    # case: (route, battery shape, B, warm start, diagnostics, tile,
+    # blocks per cluster; None: the picks)
+    "dense_n5N20": ("dense", (5, 20), 256, None, True, None, None),
+    "dense_n5N20_warm": ("dense", (5, 20), 256, "per_scenario", True, None,
+                         None),
+    "dense_n5N20_warm_shared": ("dense", (5, 20), 33, "shared", True, None,
+                                None),
+    "dense_n5N20_no_diagnostics": ("dense", (5, 20), 33, "per_scenario",
+                                   False, None, None),
+    "dense_n5N20_B1": ("dense", (5, 20), 1, None, True, None, None),
+    "dense_n5N20_B300": ("dense", (5, 20), 300, "per_scenario", True, None,
+                         None),
+    "dense_n10N20": ("dense", (10, 20), 256, None, True, None, None),
+    "dense_flagship": ("dense", (30, 30), 256, "per_scenario", True, None,
+                       None),
+    "paired_n5N30": ("paired", (5, 30), 256, None, True, None, None),
+    "paired_n5N30_warm_shared": ("paired", (5, 30), 33, "shared", True, None,
+                                 None),
+    "paired_n10N30": ("paired", (10, 30), 256, "per_scenario", False, None,
+                      None),
+}
+ROUTE_CASES.update({
+    f"{r}_tile{1 << t}_cluster{c}": (r, (5, 20) if r == "dense" else (5, 30),
+                                     33, "per_scenario", True, t, c)
+    for r in ("dense", "paired") for t in (0, 2, 4) for c in (4, 16)})
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_tiled_route_kernels_match_plain(dev, case):
+    route, shape, B, warm, diagnostics, tile, cluster = ROUTE_CASES[case]
+    data = _route_data(dev, *shape, "auto" if route == "paired" else False)
+    g_P, p_D = _inputs(data, B, seed=B + 19)
+    dual = (2, data.m_half) if data.paired else (data.m,)
+    y0 = (None if warm is None else torch.rand(
+        (B if warm == "per_scenario" else 1, *dual), device=dev) * 0.5)
+    kw = dict(iterations=ITERS, diagnostics=diagnostics)
+    fn, plain, counter = {
+        "dense": (kernels.gpad_fixed_dense_tiled,
+                  kernels.gpad_fixed_dense_torch, "DENSE_TILED_LAUNCHES"),
+        "paired": (kernels.gpad_fixed_paired_tiled,
+                   kernels.gpad_fixed_paired_torch, "PAIRED_TILED_LAUNCHES"),
+    }[route]
+    before = getattr(kernels, counter), kernels.FLAT_TILED_LAUNCHES
+    out_k = fn(data, g_P, p_D, y0, log2_tile=tile, cluster=cluster, **kw)
+    assert (getattr(kernels, counter), kernels.FLAT_TILED_LAUNCHES) == (
+        before[0] + 1, before[1])
+    out_p = plain(data, g_P, p_D, y0, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out_k, out_p)
+
+
+def test_tiled_routes_through_solve_batch(dev):
+    """``auto`` on the dense n10 N20 layout and a ``flat="off"`` solve at
+    n10 N30 each launch their tiled route once at B256, u within TOL of the
+    torch engine's; at B4096 auto's dense solve launches none."""
+    legs = [(_route_data(dev, 10, 20, False), "DENSE_TILED_LAUNCHES", {}),
+            (_route_data(dev, 10, 30, "auto"), "PAIRED_TILED_LAUNCHES",
+             dict(form="mvp", flat="off"))]
+    for data, counter, kw in legs:
+        X0 = torch.as_tensor(np.random.default_rng(23).uniform(
+            -0.4, 0.4, (256, data.n_x)), dtype=torch.float32, device=dev)
+        before = getattr(kernels, counter)
+        res = tg.solve_batch(data, X0, tg.SolverConfig(**kw))
+        torch.cuda.synchronize()
+        assert getattr(kernels, counter) == before + 1, counter
+        ref = tg.solve_batch(data, X0, tg.SolverConfig(engine="torch", **kw))
+        assert (res.u - ref.u).abs().max().item() <= TOL, counter
+    # at B4096 the dense n10 N20 solve is past auto's work edge (the kernel
+    # tied the torch engine there): auto runs the torch engine
+    data = legs[0][0]
+    X0 = torch.zeros((4096, data.n_x), device=dev)
+    before = kernels.DENSE_TILED_LAUNCHES
+    tg.solve_batch(data, X0, tg.SolverConfig())
+    torch.cuda.synchronize()
+    assert kernels.DENSE_TILED_LAUNCHES == before

@@ -157,6 +157,34 @@ def test_cuda_kernel_routing(dense, paired):
     assert core.cuda_kernel(p_t, SolverConfig(form="dual")) == "dual"
 
 
+def test_cuda_kernel_routing_past_shared_memory(dense, paired, monkeypatch):
+    """Where the resident kernels' shared memory declines, the dense loop
+    takes the tiled dense kernel and the full paired loop the flat tiled
+    kernel at n_s = m_h (soft rows, restart and eps still route nowhere)."""
+    _, d_t = dense
+    _, p_t = paired
+    monkeypatch.setattr(kernels, "dense_fits_smem", lambda data: False)
+    monkeypatch.setattr(kernels, "paired_fits_smem", lambda data: False)
+    soft = dataclasses.replace(d_t, soft_damp=torch.zeros(d_t.m))
+    for engine in ("auto", "cuda"):
+        cfg = SolverConfig(engine=engine)
+        assert core.cuda_kernel(d_t, cfg) == "dense_tiled"
+        assert core.cuda_kernel(soft, cfg) is None
+        assert core.cuda_kernel(d_t, SolverConfig(engine=engine,
+                                                  restart=True)) is None
+        assert core.cuda_kernel(d_t, SolverConfig(engine=engine,
+                                                  mode="eps")) is None
+        assert core.cuda_kernel(p_t, SolverConfig(
+            engine=engine, form="mvp", flat="off")) == "paired_tiled"
+        no_block = dataclasses.replace(p_t, n_struct=None, D=None)
+        assert core.cuda_kernel(no_block, cfg) == "paired_tiled"
+        assert core.cuda_kernel(dataclasses.replace(
+            no_block, soft_damp=torch.zeros(p_t.m_half)), cfg) is None
+        # the flat routes are as they were
+        assert core.cuda_kernel(p_t, SolverConfig(engine=engine,
+                                                  form="mvp")) == "paired_flat"
+
+
 def test_shared_memory_guards():
     """The dense guard admits battery n3 N10 and n3 N20 (n_z 60, m 280) at a
     tile of 16 and refuses the reference's 30x30 flagship; the full paired
@@ -180,3 +208,9 @@ def test_shared_memory_guards():
     assert kernels.paired_fits_smem(head) and not kernels.dense_fits_smem(head)
     assert not kernels.paired_fits_smem(n10)
     assert not kernels.paired_fits_smem(data(30, 30, "auto"))
+    # past them the tiled routes: battery n5 N20 dense (m 440) and n5 N30
+    # paired (m_h 330), JAX's Pallas kernels' reach
+    n5 = data(5, 20, False)
+    assert not kernels.dense_fits_smem(n5) and kernels.dense_tiled_fits(n5)
+    mid = data(5, 30, "auto")
+    assert not kernels.paired_fits_smem(mid) and kernels.paired_tiled_fits(mid)

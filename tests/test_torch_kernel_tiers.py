@@ -325,7 +325,8 @@ def test_kernel_route_exported_under_a_tier(pair, monkeypatch, route, tier):
     live one bit for bit. On the CPU the route is taken by standing in the
     card's routing; its ops run their plain versions at the tier."""
     _, d_t, _, _ = pair
-    monkeypatch.setattr(core, "resolve_engine", lambda data, config: "cuda")
+    monkeypatch.setattr(core, "resolve_engine",
+                        lambda data, config, batch=1: "cuda")
     cfg = SolverConfig(iterations=ITERS // 2, **ROUTES[route], **TIERS[tier])
     assert core.cuda_kernel(d_t, cfg) == route
     X0 = np.random.default_rng(3).uniform(-0.4, 0.4, (B, 3)).astype(np.float32)

@@ -1,4 +1,4 @@
-"""The ten kernel launchers as registered ops (``tpu_gpad_torch::*``), on
+"""The eleven kernel launchers as registered ops (``tpu_gpad_torch::*``), on
 the CPU, where each op's implementation is its kernel's plain version:
 ``torch.library.opcheck`` of each op with the arguments its public wrapper
 passes, an export round trip of each wrapper whose graph holds the op, and
@@ -57,6 +57,10 @@ CASES = {
                                          i["y0"][:1], iterations=ITERS)),
     "dense": (kernels, "dense_op", lambda i: kernels.gpad_fixed_dense(
         i["dense"], i["gd"], i["pd"], iterations=ITERS)),
+    "dense_tiled": (kernels, "dense_tiled_op", lambda i: kernels.
+                    gpad_fixed_dense_tiled(i["dense"], i["gd"], i["pd"],
+                                           0.5 * i["pd"][:1].abs(),
+                                           iterations=ITERS)),
     "dual": (dual_kernels, "dual_op", lambda i: dual_kernels.gpad_fixed_dual(
         i["paired"], i["g_P"], i["p_D"], i["y0"], iterations=ITERS,
         restart=True)),
@@ -130,17 +134,21 @@ def test_wrapper_exports_through_its_op(inputs, name):
 
 
 @pytest.mark.parametrize("name", ["paired_flat", "paired", "flat_tiled",
-                                  "dense", "dual", "dual_tiled"])
+                                  "paired_tiled", "dense", "dense_tiled",
+                                  "dual", "dual_tiled"])
 def test_diagnostics_off_returns_none(inputs, name):
     """Without diagnostics an op returns empty placeholders for w and zhat;
     the wrapper hands back None for both, and z and y as with them."""
     i = inputs
-    data = i["dense"] if name == "dense" else i["paired"]
-    g_P, p_D = (i["gd"], i["pd"]) if name == "dense" else (i["g_P"], i["p_D"])
+    dense = name.startswith("dense")
+    data = i["dense"] if dense else i["paired"]
+    g_P, p_D = (i["gd"], i["pd"]) if dense else (i["g_P"], i["p_D"])
     fn = {"paired_flat": kernels.gpad_fixed_paired_flat,
           "paired": kernels.gpad_fixed_paired,
           "flat_tiled": kernels.gpad_fixed_flat_tiled,
+          "paired_tiled": kernels.gpad_fixed_paired_tiled,
           "dense": kernels.gpad_fixed_dense,
+          "dense_tiled": kernels.gpad_fixed_dense_tiled,
           "dual": dual_kernels.gpad_fixed_dual,
           "dual_tiled": dual_kernels.gpad_fixed_dual_tiled}[name]
     z, y, w, zhat = fn(data, g_P, p_D, iterations=ITERS, diagnostics=False)

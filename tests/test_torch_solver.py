@@ -198,7 +198,8 @@ def test_forced_dense_route_takes_a_tier(dense_pair, monkeypatch, kw, tol):
     x0 = np.random.default_rng(4).uniform(-0.4, 0.4, (8, 3)).astype(np.float32)
     ref = tpu_gpad_torch.solve_batch(d_t, x0, SolverConfig(engine="torch",
                                                            **kw))
-    monkeypatch.setattr(core, "resolve_engine", lambda data, config: "cuda")
+    monkeypatch.setattr(core, "resolve_engine",
+                        lambda data, config, batch=1: "cuda")
     calls = []
     op = kernels.dense_op
     monkeypatch.setattr(kernels, "dense_op", lambda *a: calls.append(a[-1])

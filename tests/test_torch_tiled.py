@@ -215,6 +215,11 @@ FLAGSHIP_ROUTES = [
     ("eps_restart_flat_off", dict(mode="eps", flat="off", restart=True),
      "dual_tiled_chunk"),
     ("mvp_restart", dict(form="mvp", restart=True), None),
+    # the full paired loop past shared memory: the flat tiled kernel at
+    # n_s = m_h, under auto too (it beat the torch engine at m_h 1830)
+    ("mvp_flat_off", dict(form="mvp", flat="off"), "paired_tiled"),
+    ("mvp_flat_off_forced", dict(engine="cuda", form="mvp", flat="off"),
+     "paired_tiled"),
 ]
 
 
@@ -234,7 +239,8 @@ def test_flagship_soft_rows_route_nowhere(flagship):
         (flagship.m_half,), 0.1))
     for kw in (dict(restart=True), dict(form="dual"), dict(engine="cuda"),
                dict(engine="cuda", form="mvp"), dict(mode="eps", flat="off"),
-               dict(mode="eps", engine="cuda")):
+               dict(mode="eps", engine="cuda"),
+               dict(engine="cuda", form="mvp", flat="off")):
         assert core.cuda_kernel(soft, SolverConfig(**kw)) is None, kw
 
 

@@ -327,7 +327,8 @@ def test_tiled_route_exported_under_a_tier(pair, dense_pair, monkeypatch,
     running their plain versions at the tier."""
     paired, kw = ROUTES[route]
     d_t = (dense_pair if paired is False else pair)[1]
-    monkeypatch.setattr(core, "resolve_engine", lambda data, config: "cuda")
+    monkeypatch.setattr(core, "resolve_engine",
+                        lambda data, config, batch=1: "cuda")
     monkeypatch.setattr(kernels, "flat_fits_smem", lambda data: False)
     monkeypatch.setattr(dual_kernels, "dual_fits_smem", lambda data: False)
     cfg = SolverConfig(iterations=ITERS // 2, **kw, **TIERS[tier])

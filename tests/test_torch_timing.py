@@ -76,11 +76,21 @@ def test_gate_unstable_when_too_few_valid():
 
 
 def test_interleaved_ab_smoke_cpu():
-    # end-to-end: equal workloads -> ratio near 1, all contract keys present
+    # end-to-end: equal workloads -> ratio near 1, all contract keys present.
+    # One intra-op thread while it runs: on a host oversubscribed by other
+    # test workers, a product split over threads waits for a descheduled
+    # peer, more per call in a short window than in a long one, and the two
+    # sides' windows differ in length (each sized by its own probe), so
+    # equal work read 0.05-0.1x in 3 of 60 runs under six workers
     x = torch.ones((256, 256))
     f = lambda: torch.tanh(x @ x)
-    out = interleaved_ab(f, f, rounds=3, k_large=4, min_window_s=0.01,
-                         device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = interleaved_ab(f, f, rounds=3, k_large=4, min_window_s=0.01,
+                             device="cpu")
+    finally:
+        torch.set_num_threads(threads)
     for key in (
         "ratio_b_over_a_median",
         "ratios_all",

@@ -131,7 +131,7 @@ def export_solver(
     core._check_config(config)
     if batch_size is None:
         config = dataclasses.replace(config, engine="torch")
-    kernel = core.resolve_engine(data, config) == "cuda"
+    kernel = core.resolve_engine(data, config, batch_size or 1) == "cuda"
     module = _Solve(data, GPAD_TENSOR_FIELDS,
                     lambda d, x0: solve_batch(d, x0, config=config))
     return _export(module, data, batch_size, path,

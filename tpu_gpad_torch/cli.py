@@ -160,7 +160,7 @@ def cmd_solve(args) -> int:
         "residual_max": float(res.residual.max()),
         "converged_all": bool(res.converged.all()),
         "u_star": res.u[0].cpu().tolist(),
-        "engine": resolve_engine(data, config),
+        "engine": resolve_engine(data, config, int(X0.shape[0])),
         "device": str(data.device),
     }
     if args.time:
@@ -237,7 +237,8 @@ def cmd_closedloop(args) -> int:
         "final_state": X[-1].tolist() if X.ndim == 2 else X[-1, 0].tolist(),
         "max_residual": float(result.residual.max()),
         "mean_iterations": float(result.iterations.float().mean()),
-        "engine": resolve_engine(data, config),
+        "engine": resolve_engine(data, config,
+                                 int(np.prod(np.shape(X0)[:-1]))),
         "device": str(data.device),
     })
     if args.plot:
@@ -344,7 +345,8 @@ def _sweep(args, device, solve_fn=None, emit: bool = True) -> int:
         "residual_max": float(out.residual.max()),
         "converged_all": bool(out.converged.all()),
         "checkpoint": str(args.checkpoint) if args.checkpoint else None,
-        "engine": resolve_engine(data, config),
+        "engine": resolve_engine(data, config,
+                                 min(args.chunk_size, int(X0.shape[0]))),
         "device": str(data.device),
     })
     if args.out:
@@ -377,8 +379,8 @@ def cmd_export(args) -> int:
                              path=args.out)
         route = "torch"
         if args.aot_batch is not None and core.resolve_engine(
-                data, config) == "cuda":
-            route = core.cuda_kernel(data, config)
+                data, config, args.aot_batch) == "cuda":
+            route = core.cuda_kernel(data, config, args.aot_batch)
         _emit({"artifact": args.out, "bytes": len(blob),
                "batch": args.aot_batch or "symbolic",
                "n_x": data.n_x, "n_u": data.n_u,
@@ -460,7 +462,7 @@ def cmd_info(args) -> int:
         "paired": data.paired,
         "n_struct": data.n_struct,
         "L": float(data.L),
-        "resolved_engine": resolve_engine(data, cfg),
+        "resolved_engine": resolve_engine(data, cfg, args.batch),
         "resolved_form": form + ("+flat" if flat else ""),
         "flops_per_iteration_dense": int(
             3 * qp.m + 2 * qp.n_z * qp.m + 3 * qp.n_z + 2 * qp.n_z * qp.m),
@@ -468,7 +470,7 @@ def cmd_info(args) -> int:
             solve_flops(data, 2, form, flat=flat)
             - solve_flops(data, 1, form, flat=flat)),
         "devices": _devices(),
-        "kernel": cuda_kernel(data, cfg),
+        "kernel": cuda_kernel(data, cfg, args.batch),
         "device": str(data.device),
     }
     if args.bound:
@@ -572,7 +574,9 @@ def main(argv=None) -> int:
                         "exact eq.-(16) MILP")
     p.add_argument("--eps-v", type=float, default=1e-6)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--batch", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--batch", type=int, default=1,
+                   help="scenarios a solve would hold (the tiled routes' "
+                        "auto edges depend on it)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_info)
 

@@ -41,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
@@ -751,10 +752,12 @@ def _solve_eps(data: GPADData, g_P, p_D, config: SolverConfig,
                       flat, config.model_axis, mm)
 
 
-def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:
+def cuda_kernel(data: GPADData, config: SolverConfig,
+                batch: int = 1) -> str | None:
     """The CUDA kernel that serves this (data, config) on the card, device
     aside: "paired_flat", "paired", "dense", "dual", "dual_tiled",
-    "flat_tiled", "dual_chunk" or "dual_tiled_chunk" (eps mode), or None.
+    "flat_tiled", "paired_tiled", "dense_tiled", "dual_chunk" or
+    "dual_tiled_chunk" (eps mode), or None.
     Follows ``tpu_gpad.solver.core.resolve_engine`` and
     ``solve_batch_pallas``; like them, independent of ``diagnostics``, so
     the flag never changes which loop runs. A flat fixed solve past the
@@ -765,7 +768,13 @@ def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:
     PERF.md §5). ``engine="auto"`` and a forced ``"cuda"`` part ways
     where the JAX package's do: an eps solve past shared memory with the
     flat block on (auto: the torch engine; forced: the tiled chunk
-    kernel)."""
+    kernel). Past the resident paired and dense kernels' shared memory the
+    full paired loop takes the flat tiled kernel at n_s = m_h
+    ("paired_tiled") and the dense loop the tiled dense kernel
+    ("dense_tiled"): a forced ``"cuda"`` wherever its plan fits,
+    ``"auto"`` where it beat the torch engine at the solve's ``batch``
+    scenarios (``kernels.tiled_auto``; the only route that depends on the
+    batch)."""
     from tpu_gpad_torch.solver import dual_kernels, kernels
 
     if config.model_axis is not None:
@@ -794,13 +803,21 @@ def cuda_kernel(data: GPADData, config: SolverConfig) -> str | None:
         return "paired_flat"
     if flat and kernels.flat_tiled_fits(data):
         return "flat_tiled"
+    tiled = forced or kernels.tiled_auto(data, batch)
     if data.paired:
-        return "paired" if kernels.paired_fits_smem(data) else None
-    # the dense kernel declines soft rows (dense_fits_smem), as tpu_gpad's
-    return "dense" if kernels.dense_fits_smem(data) else None
+        if kernels.paired_fits_smem(data):
+            return "paired"
+        if tiled and kernels.paired_tiled_fits(data):
+            return "paired_tiled"
+        return None
+    # the dense kernels decline soft rows (dense_fits_smem), as tpu_gpad's
+    if kernels.dense_fits_smem(data):
+        return "dense"
+    return "dense_tiled" if tiled and kernels.dense_tiled_fits(data) else None
 
 
-def resolve_engine(data: GPADData, config: SolverConfig) -> str:
+def resolve_engine(data: GPADData, config: SolverConfig,
+                   batch: int = 1) -> str:
     """Pick the execution engine: "cuda" (a kernel) or "torch".
 
     "auto" keys on the device of the data tensors (the counterpart of the
@@ -810,11 +827,11 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
     "cuda" where no kernel serves the case raises. The tier never changes
     the choice either (JAX's routing ignores it): under every tier each
     kernel serves what it serves at fp32 "highest", its products at the
-    tier."""
+    tier. ``batch`` is the solve's scenarios (``cuda_kernel``)."""
     if config.engine == "torch":
         return "torch"
     if config.engine == "cuda":
-        kernel = cuda_kernel(data, config)
+        kernel = cuda_kernel(data, config, batch)
         if config.model_axis is not None:
             raise ValueError(
                 "engine='cuda' does not support dual-dimension tensor "
@@ -828,16 +845,18 @@ def resolve_engine(data: GPADData, config: SolverConfig) -> str:
         if kernel is None:
             raise ValueError(
                 "engine='cuda' serves fixed mvp solves without restart "
-                "(paired: kernels.flat_fits_smem, flat_tiled_fits or "
-                "paired_fits_smem; unpaired without soft rows: "
-                "kernels.dense_fits_smem), and the dual form with D, fixed "
-                "or eps, restart or not (dual_kernels.dual_fits_smem, or "
-                "dual_tiled_fits without soft rows); use engine='torch' here"
+                "(paired: kernels.flat_fits_smem, flat_tiled_fits, "
+                "paired_fits_smem or paired_tiled_fits; unpaired without "
+                "soft rows: kernels.dense_fits_smem or dense_tiled_fits), "
+                "and the dual form with D, fixed or eps, restart or not "
+                "(dual_kernels.dual_fits_smem, or dual_tiled_fits without "
+                "soft rows); use engine='torch' here"
             )
         return "cuda"
     if config.engine != "auto":
         raise ValueError(f"unknown engine: {config.engine!r}")
-    if data.device.type == "cuda" and cuda_kernel(data, config) is not None:
+    if (data.device.type == "cuda"
+            and cuda_kernel(data, config, batch) is not None):
         return "cuda"
     return "torch"
 
@@ -925,7 +944,7 @@ def solve_batch(
         y0 = torch.as_tensor(y0, dtype=torch.float32, device=data.device)
     with tf32_matmuls(False):
         g_P, p_D = affine_params(data, x0)
-        if resolve_engine(data, config) == "cuda":
+        if resolve_engine(data, config, math.prod(x0.shape[:-1])) == "cuda":
             from tpu_gpad_torch.solver import kernels
 
             return kernels.solve_batch_cuda(data, g_P, p_D, config, y0=y0)

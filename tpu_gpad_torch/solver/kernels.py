@@ -1,7 +1,7 @@
 """The paired and dense GPAD kernels (CUDA C++ for Hopper) and their plain
 versions.
 
-Four whole-solve kernels, each one launch per fixed-budget solve:
+Five whole-solve kernels, each one launch per fixed-budget solve:
 
 - ``gpad_fixed_paired_flat``: the flat paired mvp loop (the identity block
   of the input box costs a division), ``csrc/gpad_paired_flat.cu``; the
@@ -17,6 +17,13 @@ Four whole-solve kernels, each one launch per fixed-budget solve:
   operands read from device memory on every iteration,
   ``csrc/gpad_flat_tiled.cu``; the counterpart of
   ``gpad_pallas_fixed_flat_tiled``.
+- ``gpad_fixed_paired_tiled``: the full paired loop past one block's shared
+  memory, the same kernel with every dual row structural (n_s = m_h); the
+  counterpart of ``gpad_pallas_fixed_paired`` there.
+- ``gpad_fixed_dense_tiled``: the dense loop past one block's shared
+  memory, ``csrc/gpad_dense_tiled.cu`` (the flat tiled kernel's body,
+  ``csrc/tiled_mvp.cuh``, with a one-sided state); the counterpart of
+  ``gpad_pallas_fixed`` there.
 
 On CUDA tensors each launches its kernel or raises; on CPU tensors it runs
 its plain version (``*_torch``), the same loop in torch ops, which is also
@@ -39,6 +46,7 @@ rounding (``_tier_mm``).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -52,6 +60,9 @@ PAIRED_FLAT_LAUNCHES = 0
 PAIRED_LAUNCHES = 0
 DENSE_LAUNCHES = 0
 FLAT_TILED_LAUNCHES = 0
+# the flat tiled kernel's launches at n_s = m_h (the full paired loop)
+PAIRED_TILED_LAUNCHES = 0
+DENSE_TILED_LAUNCHES = 0
 
 # Dynamic shared memory one block may use on an H100 (232,448 bytes, the
 # sm_90 opt-in maximum). The guard below is derived from it alone: which
@@ -363,6 +374,63 @@ def flat_tiled_fits(data: GPADData) -> bool:
             and pick_flat_tiled(data.m_half, data.n_z) is not None)
 
 
+def paired_tiled_fits(data: GPADData) -> bool:
+    """Can the flat tiled kernel run this data's full paired loop (n_s =
+    m_h): a paired layout without soft rows whose one scenario's wd and
+    zhat fit a block's shared memory?"""
+    return (data.paired and data.soft_damp is None
+            and pick_flat_tiled(data.m_half, data.n_z) is not None)
+
+
+def dense_tiled_fits(data: GPADData) -> bool:
+    """Can the tiled dense kernel run this data: an unpaired stack without
+    soft rows whose one scenario's w and zhat fit a block's shared memory
+    (the flat tiled plan at m)?"""
+    return (not data.paired and data.soft_damp is None
+            and pick_flat_tiled(data.m, data.n_z) is not None)
+
+
+# engine="auto" takes the paired tiled and the tiled dense route where the
+# kernel beat the torch engine. The torch engine sits on a launch floor of
+# 15-45 ms per 100 iterations until its products outgrow it (52 ms at
+# dense m 660 B16384); the kernel's time follows its work, rows a side x
+# n_z x B (4.1-7.9e-8 ms each over 100 iterations once its grid fills the
+# card), so the edge is a work, and at most the largest measured
+# shape (at B1 one cluster runs the solve, whose time grows with the
+# shape alone). Measured on an H100 80GB HBM3 at 700 W (PERF.md, section
+# 5, ``chip_smoke.py --times routes``: ms of 100 iterations on battery
+# shapes, the route's solve against the torch engine's in two turns, at
+# B1, 64, 256, 1024, 4096, 16384). Dense: faster at every shape to the
+# flagship's m 3660 at B1 (5.88 against 28.6) and B64 (14.8 against
+# 38.1); at B256 to m 2460 (19.2 against 20.2), m 3060 lost (31.2 against
+# 18.2); at B1024 to m 1260 (18.3 against 24.3), m 1860 lost (25.8
+# against 19.4); at B4096 to m 700 (21.7 against 29.7: work 700 x 150 x
+# 4096, the largest won), m 840 tied (25.7 against 25.3); at B16384 m 440
+# lost (55.1 against 30.4). Paired: faster at every shape to the
+# flagship's m_h 1830 at B1, B64 and B256 (15.4 against 34.1); at B1024
+# to m_h 1230 (30.8 against 43.0), m_h 1830 lost (45.3 against 31.6); at
+# B4096 to m_h 550 (23.8 against 35.3: work 550 x 250 x 4096), m_h 630
+# lost (40.7 against 33.3, within 3% of B1024 m_h 1230's work, which is
+# left out of the edge); at B16384 m_h 330 lost (55.8 against 49.7).
+DENSE_TILED_AUTO_MAX_M, DENSE_TILED_AUTO_MAX_WORK = 3660, 700 * 150 * 4096
+PAIRED_TILED_AUTO_MAX_M_HALF, PAIRED_TILED_AUTO_MAX_WORK = (
+    1830, 550 * 250 * 4096)
+
+
+def tiled_auto(data: GPADData, batch: int = 1) -> bool:
+    """Does ``engine="auto"`` take the paired tiled or the tiled dense
+    route for this data at ``batch`` scenarios: a shape no larger than the
+    largest measured, and work (rows a side x n_z x batch) no more than
+    the most at which the kernel was measured faster than the torch
+    engine? Plan and layout aside: ``paired_tiled_fits`` and
+    ``dense_tiled_fits`` say whether the kernel runs it at all."""
+    rows, most_rows, most_work = (
+        (data.m_half, PAIRED_TILED_AUTO_MAX_M_HALF, PAIRED_TILED_AUTO_MAX_WORK)
+        if data.paired
+        else (data.m, DENSE_TILED_AUTO_MAX_M, DENSE_TILED_AUTO_MAX_WORK))
+    return rows <= most_rows and rows * data.n_z * batch <= most_work
+
+
 def paired_fits_smem(data: GPADData) -> bool:
     """Can the full paired kernel run this data: a paired layout whose
     operands and one scenario's state fit one block's shared memory?"""
@@ -558,13 +626,16 @@ def _dense_loop(MG_T, GL_T, theta, beta, g_P, p_D, y0, iterations: int,
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the launchers in csrc/gpad_paired_flat.cu (both
-# instances), csrc/gpad_dense.cu and csrc/gpad_flat_tiled.cu
+# instances), csrc/gpad_dense.cu, csrc/gpad_flat_tiled.cu and
+# csrc/gpad_dense_tiled.cu
 _PAIRED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 9 + [_PTR] * 5
                     + [_INT, _INT, _PTR])
 _DENSE_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 8 + [_PTR] * 4
                    + [_INT, _INT, _PTR])
 _FLAT_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 3 + [_INT] * 8 + [_PTR] * 4
                         + [_INT, _INT, _PTR])
+_DENSE_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 7
+                         + [_PTR] * 4 + [_INT, _INT, _PTR])
 
 
 def _launch_fn(library: str, symbol: str, argtypes):
@@ -783,8 +854,10 @@ def _flat_tiled_cpu(MG_T: Tensor, GL_T: Tensor, g_P: Tensor, p_D: Tensor,
                     cluster: int, grouped: bool, diagnostics: bool,
                     tier: str = "highest",
                     ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    # n_s = m_h: every dual row structural, the full paired loop
     z, y, w, zhat = _paired_loop(MG_T, GL_T, theta, beta, L, None, g_P, p_D,
-                                 y0, iterations, diagnostics, n_s, True, tier)
+                                 y0, iterations, diagnostics, n_s,
+                                 n_s < p_D.shape[2], tier)
     if not diagnostics:
         w, zhat = _empty(z), _empty(z)
     return _fresh((z, y, w, zhat), (g_P, p_D, y0))
@@ -793,7 +866,7 @@ def _flat_tiled_cpu(MG_T: Tensor, GL_T: Tensor, g_P: Tensor, p_D: Tensor,
 def _flat_tiled_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, L, n_s,
                      iterations, log2_tile, cluster, grouped, diagnostics,
                      tier="highest"):
-    global FLAT_TILED_LAUNCHES
+    global FLAT_TILED_LAUNCHES, PAIRED_TILED_LAUNCHES
     B, m_h, n_z = g_P.shape[0], p_D.shape[2], g_P.shape[1]
     z, y = g_P.new_empty(g_P.shape), p_D.new_empty(p_D.shape)
     # the state lives in device memory: w is the kernel's too
@@ -808,7 +881,10 @@ def _flat_tiled_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, L, n_s,
             cluster, grouped, _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
             _flat_tiled_smem_bytes(m_h, n_z, log2_tile, grouped),
             _tier_code(tier))
-    FLAT_TILED_LAUNCHES += 1
+    if n_s == m_h:
+        PAIRED_TILED_LAUNCHES += 1
+    else:
+        FLAT_TILED_LAUNCHES += 1
     if not diagnostics:
         return z, y, _empty(z), _empty(z)
     return z, y, w, zhat
@@ -865,6 +941,50 @@ def _dense_fake(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations,
 
 
 dense_op = _register("dense", _dense_cpu, _dense_cuda, _dense_fake)
+
+
+def _dense_tiled_cpu(MG_T: Tensor, GL_T: Tensor, g_P: Tensor, p_D: Tensor,
+                     y0: Optional[Tensor], theta: Tensor, beta: Tensor,
+                     iterations: int, log2_tile: int, cluster: int,
+                     grouped: bool, diagnostics: bool, tier: str = "highest",
+                     ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    return _dense_cpu(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations, 0,
+                      0, 0, 0, diagnostics, tier)
+
+
+def _dense_tiled_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations,
+                      log2_tile, cluster, grouped, diagnostics,
+                      tier="highest"):
+    global DENSE_TILED_LAUNCHES
+    B, m, n_z = g_P.shape[0], p_D.shape[1], g_P.shape[1]
+    z, y = g_P.new_empty(g_P.shape), p_D.new_empty(p_D.shape)
+    # the state lives in device memory: w is the kernel's too
+    w = p_D.new_empty(p_D.shape)
+    zhat = g_P.new_empty(g_P.shape) if diagnostics else None
+    y0_stride = 0 if y0 is None or y0.shape[0] == 1 else m
+    fn = _launch_fn("gpad_dense_tiled", "gpad_dense_tiled_launch",
+                    _DENSE_TILED_ARGTYPES)
+    _launch("gpad_dense_tiled", fn, g_P.device, _ptr(MG_T), _ptr(GL_T),
+            _ptr(g_P), _ptr(p_D), _ptr(y0), y0_stride, _ptr(theta),
+            _ptr(beta), B, m, n_z, iterations, log2_tile, cluster, grouped,
+            _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
+            _flat_tiled_smem_bytes(m, n_z, log2_tile, grouped),
+            _tier_code(tier))
+    DENSE_TILED_LAUNCHES += 1
+    if not diagnostics:
+        return z, y, _empty(z), _empty(z)
+    return z, y, w, zhat
+
+
+def _dense_tiled_fake(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations,
+                      log2_tile, cluster, grouped, diagnostics,
+                      tier="highest"):
+    return _paired_fake(MG_T, GL_T, g_P, p_D, y0, None, theta, beta, None, 0,
+                        iterations, log2_tile, 0, 0, 0, diagnostics)
+
+
+dense_tiled_op = _register("dense_tiled", _dense_tiled_cpu, _dense_tiled_cuda,
+                           _dense_tiled_fake)
 
 
 def _paired(data: GPADData, g_P, p_D, y0, iterations: int, diagnostics: bool,
@@ -944,22 +1064,71 @@ def gpad_fixed_flat_tiled(
         raise ValueError("the flat tiled kernel needs a non-empty structural "
                          "block (GPADData.n_struct > 0)")
     _check_inputs(data, g_P, p_D, y0, iterations)
-    B, m_h, n_z, n_s = g_P.shape[0], data.m_half, data.n_z, data.n_struct
-    plan = FlatTiledPlan(0, 0, False)
-    if on_card(g_P):
-        if log2_tile is not None and not 0 <= log2_tile <= FLAT_TILED_MAX_LOG2_TILE:
-            raise ValueError(f"log2_tile {log2_tile} outside "
-                             f"0..{FLAT_TILED_MAX_LOG2_TILE}")
-        if cluster is not None and (cluster not in (1, 2, 4, 8, 16)):
-            raise ValueError(f"cluster {cluster} is not a power of two up to 16")
-        plan = pick_flat_tiled(m_h, n_z, B, log2_tile, cluster)
-        if plan is None:
-            raise _too_big("flat tiled", f"m_half={m_h}, n_z={n_z}")
+    return _flat_tiled(data, g_P, p_D, y0, iterations, diagnostics,
+                       data.n_struct, log2_tile, cluster, tier)
+
+
+def gpad_fixed_paired_tiled(
+    data: GPADData, g_P, p_D, y0=None, *, iterations: int,
+    diagnostics: bool = True, log2_tile: int | None = None,
+    cluster: int | None = None, tier: str = "highest",
+):
+    """``gpad_fixed_paired``'s contract for paired stacks too large for it:
+    the flat tiled kernel with every dual row structural (n_s = m_h), so
+    the full ``GL_T`` product on every row (the counterpart of
+    ``tpu_gpad.solver.kernels.gpad_pallas_fixed_paired`` past one block's
+    shared memory). Fixed mode; soft rows are refused, as by every tiled
+    kernel (tpu_gpad's resident paired kernel carries them). ``log2_tile``,
+    ``cluster`` and ``tier`` as in ``gpad_fixed_flat_tiled``. CUDA tensors
+    launch the kernel (or raise; counted in ``PAIRED_TILED_LAUNCHES``); CPU
+    tensors run the plain version, ``gpad_fixed_paired_torch`` (the op
+    ``tpu_gpad_torch::flat_tiled`` at n_s = m_h)."""
+    _refuse_soft(data, "the paired tiled kernel")
+    _check_inputs(data, g_P, p_D, y0, iterations, flat=False)
+    return _flat_tiled(data, g_P, p_D, y0, iterations, diagnostics,
+                       data.m_half, log2_tile, cluster, tier)
+
+
+def _tiled_plan(g_P, rows: int, n_z: int, log2_tile, cluster,
+                what: str) -> FlatTiledPlan:
+    """The flat tiled plan of B scenarios over ``rows`` dual rows a side on
+    the card (zeros on the CPU, where the op runs its plain version)."""
+    if not on_card(g_P):
+        return FlatTiledPlan(0, 0, False)
+    top = FLAT_TILED_MAX_LOG2_TILE
+    if log2_tile is not None and not 0 <= log2_tile <= top:
+        raise ValueError(f"log2_tile {log2_tile} outside 0..{top}")
+    if cluster is not None and (cluster not in (1, 2, 4, 8, 16)):
+        raise ValueError(f"cluster {cluster} is not a power of two up to 16")
+    plan = pick_flat_tiled(rows, n_z, g_P.shape[0], log2_tile, cluster)
+    if plan is None:
+        raise _too_big(what, f"rows={rows}, n_z={n_z}")
+    return plan
+
+
+def _flat_tiled(data: GPADData, g_P, p_D, y0, iterations: int,
+                diagnostics: bool, n_s: int, log2_tile, cluster, tier: str):
+    """The flat tiled kernel's op at ``n_s`` structural rows (m_h: the full
+    paired loop)."""
+    B, m_h = g_P.shape[0], data.m_half
+    plan = _tiled_plan(g_P, m_h, data.n_z, log2_tile, cluster,
+                       "flat tiled" if n_s < m_h else "paired tiled")
     y0_rows = None if y0 is None else _norm_y0(y0, B, m_h)
     z, y, w, zhat = flat_tiled_op(
         data.MG_T, data.GL_T, g_P, p_D, y0_rows, data.theta, data.beta,
         data.L, n_s, iterations, *plan, diagnostics, tier)
     return (z, y, *_none_if_empty(w, zhat, diagnostics))
+
+
+def _check_dense(data: GPADData, what: str) -> None:
+    """Raise unless the data is unpaired and without soft rows."""
+    if data.paired:
+        raise ValueError(f"{what} needs unpaired data")
+    if data.soft_damp is not None:
+        raise ValueError(
+            f"{what} does not carry soft (dual-damped) rows; soft data is "
+            "paired: use the paired kernels or engine='torch'"
+        )
 
 
 def gpad_fixed_dense(
@@ -979,14 +1148,7 @@ def gpad_fixed_dense(
     (for sweeps). ``tier`` (``KERNEL_TIERS``) is the products' precision.
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     version (the op ``tpu_gpad_torch::dense``)."""
-    if data.paired:
-        raise ValueError("the dense kernel needs unpaired data")
-    if data.soft_damp is not None:
-        raise ValueError(
-            "the dense (unpaired) kernel does not carry soft (dual-damped) "
-            "rows; soft data is paired: use the paired kernels or "
-            "engine='torch'"
-        )
+    _check_dense(data, "the dense kernel")
     m, n_z = data.m, data.n_z
     _check_common(data, g_P, p_D, (m,), iterations, [y0])
     B = g_P.shape[0]
@@ -1004,6 +1166,31 @@ def gpad_fixed_dense(
     return (z, y, *_none_if_empty(w, zhat, diagnostics))
 
 
+def gpad_fixed_dense_tiled(
+    data: GPADData, g_P, p_D, y0=None, *, iterations: int,
+    diagnostics: bool = True, log2_tile: int | None = None,
+    cluster: int | None = None, tier: str = "highest",
+):
+    """``gpad_fixed_dense``'s contract for dense stacks too large for it:
+    both operands read from device memory on every iteration, on the flat
+    tiled kernel's clusters (the counterpart of
+    ``tpu_gpad.solver.kernels.gpad_pallas_fixed`` past one block's shared
+    memory). Soft rows are refused. ``log2_tile``, ``cluster`` and
+    ``tier`` as in ``gpad_fixed_flat_tiled`` (its plan at m). CUDA tensors
+    launch the kernel (or raise); CPU tensors run the plain version,
+    ``gpad_fixed_dense_torch`` (the op ``tpu_gpad_torch::dense_tiled``)."""
+    _check_dense(data, "the tiled dense kernel")
+    m = data.m
+    _check_common(data, g_P, p_D, (m,), iterations, [y0])
+    B = g_P.shape[0]
+    plan = _tiled_plan(g_P, m, data.n_z, log2_tile, cluster, "tiled dense")
+    y0_rows = None if y0 is None else _norm_dense_y0(y0, B, m)
+    z, y, w, zhat = dense_tiled_op(data.MG_T, data.GL_T, g_P, p_D, y0_rows,
+                                   data.theta, data.beta, iterations, *plan,
+                                   diagnostics, tier)
+    return (z, y, *_none_if_empty(w, zhat, diagnostics))
+
+
 def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
     """CUDA-engine entry called from ``solver.core.solve_batch``: the
     counterpart of ``tpu_gpad.solver.kernels.solve_batch_pallas``, with the
@@ -1014,9 +1201,9 @@ def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
     Every kernel runs its products at the config's tier (``core.tier``)."""
     from tpu_gpad_torch.solver import core, dual_kernels
 
-    kernel = core.cuda_kernel(data, config)
-    tier = core.tier(config)
     batch_shape = g_P.shape[:-1]
+    kernel = core.cuda_kernel(data, config, batch=math.prod(batch_shape))
+    tier = core.tier(config)
     gP2 = g_P.reshape(-1, data.n_z).contiguous()
     dual_shape = (2, data.m_half) if data.paired else (data.m,)
     pD2 = p_D.reshape((-1,) + dual_shape).contiguous()
@@ -1042,9 +1229,15 @@ def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
         elif kernel == "paired":
             z, y, w, zhat = gpad_fixed_paired(data, gP2, pD2, y0, tier=tier,
                                               **kw)
+        elif kernel == "paired_tiled":
+            z, y, w, zhat = gpad_fixed_paired_tiled(data, gP2, pD2, y0,
+                                                    tier=tier, **kw)
         elif kernel == "dense":
             z, y, w, zhat = gpad_fixed_dense(data, gP2, pD2, y0, tier=tier,
                                              **kw)
+        elif kernel == "dense_tiled":
+            z, y, w, zhat = gpad_fixed_dense_tiled(data, gP2, pD2, y0,
+                                                   tier=tier, **kw)
         else:
             raise ValueError("no CUDA kernel serves this solve")
         res = core._finish(data, gP2, pD2, z, zhat, w, y, config, False,
