@@ -23,8 +23,15 @@ kernel too) and the CLI's ``closedloop`` and ``info``; the dense and full
 paired loops past one block's shared memory (the tiled dense kernel and
 the flat tiled kernel at n_s = m_h): ``auto`` on the dense n10 N20
 layout, a dense ``Controller`` and ``solve_multi`` at n5 N20, a
-``flat="off"`` solve at n10 N30 and the CLI's ``--paired off``; and the
-stage-wise O(N) engine at full width: ``auto_solver``
+``flat="off"`` solve at n10 N30 and the CLI's ``--paired off``; soft
+(dual-damped) rows past shared memory, on battery n10 N30 and n5 N30
+condensed on the card with a softened state box (``dualize_ltv_device``,
+``soft_state``): the default, ``flat="off"``, restart and eps solves
+through ``auto`` (the flat tiled kernel, the paired tiled route, the
+tiled dual and chunk kernels), the flagship's forced soft routes, each
+soft kernel against its plain version (every tier at n5 N30, a zero damp
+against the hard launch bit for bit) and timed against its hard launch
+and the torch engine; and the stage-wise O(N) engine at full width: ``auto_solver``
 at battery n30 N200 B1024 (the streamed kernel) and n8 N60 B4096 and
 B1024 (the resident kernel), a warm ``StagewiseController`` and the
 long-horizon eps example (the torch engine); and the estimation and
@@ -97,8 +104,11 @@ and the streamed one at n30 N200 B1024 (``stagewise``); the flat, full
 paired, dual and chunk kernels at each precision tier in turns with
 "highest" at B 256 and 4096 (``tiers``); all three by default; and the
 tiled dense and paired tiled routes against the torch engine over the
-shapes past the resident kernels' shared memory, on to the flagship
-(``routes``: the measurement behind ``auto``'s edges).
+shapes past the resident kernels' shared memory, on to the flagship, and
+the soft routes (flat tiled, paired tiled, tiled dual under restart) at
+n5 N30, n10 N30 and the flagship at B 256, 1024 and 4096 against their
+hard launch and the torch engine (``routes``: the measurement behind
+``auto``'s edges).
 Through public arguments only, so that a checkout of an earlier design
 can be timed beside this one: copy this script into its root and run it
 there;
@@ -201,6 +211,18 @@ ROUTE_PAIRED_EDGE = ((15, 30), (20, 30), (30, 30))
 # kernel lost at ROUTE_LOSSES_TO_STOP in a row
 ROUTE_BATCHES = (1, 64, 256, 1024, 4096, 16384)
 ROUTE_LOSSES_TO_STOP = 2
+# soft (dual-damped) rows past shared memory: the battery condensed on the
+# card with its state box softened (dualize_ltv_device, soft_state), at n5
+# N30, n10 N30 and the flagship, B256; the kernels' checks on a seeded
+# damp in [0, SOFT_SEEDED_DAMP] (od in [0.5, 1]); p = [x0; 0], x0 within
+# SOFT_X0_SPREAD of the reference's default_x0 and SOFT_X0_MAX of 0, so
+# some cells start past the 0.5 state box and the soft rows hold active
+# duals (about 10 at most: the duals, and fp32's spread, grow with x0)
+SOFT_SHAPES = (TILED_MID, PAIRED_WIDE, FLAGSHIP)
+SOFT_STATE, SOFT_SEEDED_DAMP = 1e3, 0.5
+SOFT_SCHEDULE = 400  # the eps legs' budget; the fixed ones run ITERS
+SOFT_X0_SPREAD, SOFT_X0_MAX = 0.5, 0.6
+SOFT_ROUTE_BATCHES = (256, 1024, 4096)  # --times routes' soft points
 # The robust stack: three actuator realizations (B x 0.8, 1.0, 1.2) of
 # battery n3 N10 as one scenario_qp stack served to the 256 plants, its
 # stage-wise twin at n3 N10 and n8 N60 (B256 x 200), converged at 2000
@@ -367,14 +389,17 @@ def phase_device(torch):
 
 def instance_spills(log: str) -> dict:
     """ptxas's stack-frame and spill line of each kernel instance that
-    keeps a frame or spills anything, keyed "name<T,NMAX>" (or the mangled
-    name where it has no such arguments)."""
+    keeps a frame or spills anything, keyed "name<T,NMAX>" (the tiled
+    kernels' soft-row instances "name<T,tier,soft>"; or the mangled name
+    where it has no such arguments)."""
     out, fn = {}, None
     for ln in log.splitlines():
         if "Function properties for" in ln:
             fn = ln.rsplit(" ", 1)[-1]
-            m = re.search(r"(gpad_[a-z_]+?_kernel)ILi(\d+)ELi(\d+)E", fn)
-            fn = f"{m[1]}<{m[2]},{m[3]}>" if m else fn
+            m = re.search(r"(gpad_[a-z_]+?_kernel)ILi(\d+)ELi(\d+)E(Lb1E)?",
+                          fn)
+            fn = (f"{m[1]}<{m[2]},{m[3]}{',soft' if m[4] else ''}>" if m
+                  else fn)
         elif "bytes stack frame" in ln and any(
                 int(v) for v in re.findall(r"(\d+) bytes", ln)):
             out[fn] = ln.strip()
@@ -396,11 +421,13 @@ def instance_spills(log: str) -> dict:
 # build timed in PERF.md section 6; a strip of four tiles and the flat
 # kernel's epilogue inlined at each fragment element spilled 40-192; the
 # flat and dense body of csrc/tiled_mvp.cuh, its arguments in a struct,
-# 80-88 at <16,1>).
+# 80-88 at <16,1>), their soft-row instances ("<T,tier,soft>") too (the
+# damp column in the epilogue of the hard instances kept 24-88 at <1,1-3>
+# flat and <16,1> dual; instances of their own keep the hard frames).
 SPILL_LIMITS = ((r"gpad_(dense|dual|paired_flat)\.cu", None, 0),
                 (r"gpad_stagewise_resident_kernel<\d+,(8|16)>", 32, None),
                 (r"gpad_(dual|flat|dense)_tiled\.cu: "
-                 r"gpad_[a-z_]+_kernel<\d+,[123]>", 16, 16))
+                 r"gpad_[a-z_]+_kernel<\d+,[123](,soft)?>", 16, 16))
 
 
 def spills_past_limits(spills: dict) -> dict:
@@ -2514,6 +2541,392 @@ def route_tier_times(torch, tg, kernels, core, smi, B=ROUTE_BATCH):
 
 
 # ---------------------------------------------------------------------------
+# soft (dual-damped) rows through the tiled kernels
+# ---------------------------------------------------------------------------
+
+_SOFT = {}
+
+
+def soft_data(torch, tg, shape):
+    """battery ``shape`` condensed on the card with its state box softened
+    (``dualize_ltv_device`` with K_u and soft_state=SOFT_STATE; a schedule
+    of SOFT_SCHEDULE iterations), built once. Its parameters are p = [x0;
+    r] (``n_x`` is their width)."""
+    key = tuple(shape.values())
+    if key not in _SOFT:
+        from tpu_gpad_torch.device_condense import dualize_ltv_device
+
+        prob = tg.problems.battery(**shape)
+        N = prob.horizon
+        stack = lambda M: torch.as_tensor(  # noqa: E731
+            np.repeat(np.asarray(M, np.float32)[None], N, axis=0),
+            device=DEVICE)
+        _SOFT[key] = dualize_ltv_device(
+            stack(prob.A), stack(prob.B),
+            torch.zeros((N, prob.n_x), device=DEVICE), prob.Q, prob.R,
+            prob.u_min, prob.u_max, SOFT_SCHEDULE, x_min=prob.x_min,
+            x_max=prob.x_max, K_u=prob.K_u, soft_state=SOFT_STATE)
+    return _SOFT[key]
+
+
+def soft_p(torch, shape, B, seed):
+    """B parameters p = [x0; 0] of battery ``shape``: x0 within
+    SOFT_X0_SPREAD of the reference's default_x0, clipped to
+    SOFT_X0_MAX."""
+    from tpu_gpad_torch.problems.battery import default_x0
+
+    n = shape["n_cells"]
+    x0 = np.clip(default_x0(n, seed)[None] + np.random.default_rng(
+        seed).uniform(-SOFT_X0_SPREAD, SOFT_X0_SPREAD, (B, n)),
+        -SOFT_X0_MAX, SOFT_X0_MAX)
+    P = np.concatenate([x0, np.zeros((B, n))], axis=1).astype(np.float32)
+    return torch.as_tensor(P, device=DEVICE)
+
+
+def seeded_damp(torch, data, seed):
+    """``data`` with a seeded damp in [0, SOFT_SEEDED_DAMP] on every row."""
+    damp = np.random.default_rng(seed).uniform(
+        0.0, SOFT_SEEDED_DAMP, data.m_half).astype(np.float32)
+    return dataclasses.replace(data,
+                               soft_damp=torch.as_tensor(damp, device=DEVICE))
+
+
+# the whole-solve kernels that carry soft rows past shared memory
+# (``tier_fixed``'s names)
+SOFT_FIXED = ("flat_tiled", "paired_tiled", "dual_tiled",
+              "dual_tiled_restart")
+
+
+def phase_tiled_soft_vs_plain(torch, tg, kernels, dual_kernels, core):
+    """Soft rows through each tiled kernel against its plain version, on
+    data condensed on the card with a seeded damp in [0, 0.5] (od in
+    [0.5, 1]) at n5 N30, n10 N30 and the flagship, B256: the flat tiled
+    kernel (n_s < m_h), the paired tiled route (n_s = m_h), the tiled dual
+    solve cold, warm per scenario and under restart (per scenario,
+    ``restart_parting``: 1% may part, or as many as part the plain
+    version's own fp32 run from the float64 one), one tiled chunk window
+    from k0 = 30 with restart and without; every output within
+    KERNEL_TOL. Then soft_damp = 0 (od
+    exactly 1) against the hard launch, bit for bit, each kernel at n10
+    N30, and each kernel under every tier at n5 N30
+    (``tier_kernel_vs_plain``)."""
+    t_phase = time.perf_counter()
+    B = ROUTE_BATCH
+    errs, restart, zero, tiers = {}, {}, {}, {}
+    rng = np.random.default_rng(80)
+
+    def window(d, c, rs, k0=30):
+        zero_y = torch.zeros((B, 2, d.m_half), device=DEVICE)
+        state = dual_kernels.gpad_dual_chunk_torch(
+            d, c, zero_y, zero_y, torch.zeros((B, d.m_half), device=DEVICE),
+            torch.ones((B, 2), device=DEVICE), k0=0, chunk=k0, restart=rs)[:4]
+        return (dual_kernels.gpad_dual_tiled_chunk(d, c, *state, k0=k0,
+                                                   chunk=10, restart=rs),
+                dual_kernels.gpad_dual_chunk_torch(d, c, *state, k0=k0,
+                                                   chunk=10, restart=rs))
+
+    for i, shape in enumerate(SOFT_SHAPES):
+        label = shape_label(shape)
+        d = seeded_damp(torch, soft_data(torch, tg, shape), 81 + i)
+        g, p = core.affine_params(d, flag_x0(torch, d.n_x, B, seed=82 + i)[1])
+        y_warm = torch.as_tensor(rng.uniform(0.0, 0.5, (B, 2, d.m_half)),
+                                 dtype=torch.float32, device=DEVICE)
+        for name, (fn, plain, kw) in tier_fixed(kernels, dual_kernels,
+                                                SOFT_FIXED).items():
+            starts = ((("cold", None), ("warm", y_warm))
+                      if name == "dual_tiled" else (("cold", None),))
+            for start, y0 in starts:
+                out_k = fn(d, g, p, y0, iterations=ITERS, **kw)
+                out_p = plain(d, g, p, y0, iterations=ITERS, **kw)
+                torch.cuda.synchronize()
+                check(all(bool(torch.isfinite(t).all()) for t in out_k),
+                      f"soft {name} {label}: output not finite")
+                if kw.get("restart"):
+                    restart[label] = restart_parting(torch, d, g, p, y0,
+                                                     out_k[0], out_p[0])
+                else:
+                    errs[f"{name}_{label}_{start}"] = max_err(out_k, out_p)
+        c = dual_kernels.relu_offsets(d, g, p)
+        for rs in (False, True):
+            out_k, out_p = window(d, c, rs)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in out_k),
+                  f"soft tiled chunk {label}: output not finite")
+            # under restart the recovered z, as for the whole solve
+            errs[f"dual_tiled_chunk_{label}_{'restart' if rs else 'plain'}"] = (
+                ((out_k[2] - out_p[2]) @ d.MG_T).abs().max().item() if rs
+                else max_err(out_k, out_p))
+        if shape is PAIRED_WIDE:  # od exactly 1 against the hard launch
+            hard = dataclasses.replace(d, soft_damp=None)
+            one = dataclasses.replace(d, soft_damp=torch.zeros_like(
+                d.soft_damp))
+            for name, (fn, _, kw) in tier_fixed(kernels, dual_kernels,
+                                                SOFT_FIXED).items():
+                zero[name] = all(torch.equal(a, b) for a, b in zip(
+                    fn(one, g, p, y_warm, iterations=ITERS, **kw),
+                    fn(hard, g, p, y_warm, iterations=ITERS, **kw)))
+            for rs in (False, True):
+                zero[f"dual_tiled_chunk{'_restart' if rs else ''}"] = all(
+                    torch.equal(a, b) for a, b in zip(
+                        window(one, c, rs)[0], window(hard, c, rs)[0]))
+        if shape is TILED_MID:
+            tiers = {tier: tier_kernel_vs_plain(
+                torch, kernels, dual_kernels, d, g, p, tier, SOFT_FIXED,
+                "dual_tiled_chunk")
+                for tier in TIER_KERNEL_TOL}
+    kept = [float("inf") if v["u_z"] is None else v["u_z"]
+            for v in restart.values()]
+    worst = {"flat_tiled": max(v for k, v in errs.items()
+                               if k.startswith("flat_tiled")),
+             "paired_tiled": max(v for k, v in errs.items()
+                                 if k.startswith("paired_tiled")),
+             "dual_tiled": max([v for k, v in errs.items()
+                                if k.startswith("dual_tiled_n")] + kept),
+             "dual_tiled_chunk": max(v for k, v in errs.items()
+                                     if k.startswith("dual_tiled_chunk"))}
+    emit({"phase": "tiled_soft_vs_plain", "batch": B,
+          "shapes": {shape_label(s): [soft_data(torch, tg, s).n_z,
+                                      soft_data(torch, tg, s).m_half]
+                     for s in SOFT_SHAPES},
+          "max_abs_err": errs, "restart_u_z": restart,
+          "zero_damp_bit_equal_to_hard": zero, "tiers_n5_N30": tiers,
+          "tol": KERNEL_TOL, "restart_tol_u_z": RESTART_TOL,
+          "phase_s": time.perf_counter() - t_phase})
+    check(max(v for k, v in errs.items() if "restart" not in k)
+          <= KERNEL_TOL, f"soft tiled kernels vs plain: {errs}")
+    # restart per scenario (restart_parting): at most 1% parted from the
+    # plain version, or, where a damp on every row leaves many decisions
+    # near r = 0 (the flagship), no more parted from the float64 run than
+    # the plain version's own fp32 sums part from it
+    check(max(v for k, v in errs.items() if k.endswith("restart"))
+          <= RESTART_TOL and max(kept) <= RESTART_TOL
+          and all(v["parted"] <= v["parted_max"]
+                  or v["parted_vs_float64"] <= v["plain_parted_vs_float64"]
+                  for v in restart.values()),
+          f"soft tiled restart: {errs} {restart}")
+    check(all(zero.values()), f"soft_damp = 0 is not the hard launch {zero}")
+    return worst
+
+
+# the soft path's configs: the route each takes through auto (B256)
+SOFT_EPS = dict(mode="eps", eps_g=FLAG_EPS_TOL, eps_V=FLAG_EPS_TOL,
+                check_every=10, iterations=SOFT_SCHEDULE)
+SOFT_PATH = {
+    "fixed": (dict(iterations=ITERS), "gpad_flat_tiled"),
+    "flat_off": (dict(iterations=ITERS, form="mvp", flat="off"),
+                 "gpad_paired_tiled"),
+    "restart": (dict(iterations=ITERS, restart=True), "gpad_dual_tiled"),
+    "eps_flat_off": (dict(SOFT_EPS, flat="off"), "gpad_dual_tiled_chunk"),
+}
+
+
+def phase_tiled_soft_path(torch, tg, core, ctr):
+    """Soft rows through ``solve_batch(engine="auto")`` on data condensed
+    on the card (``dualize_ltv_device`` with soft_state) at n10 N30 and n5
+    N30, B256, each leg counted from 0: the default fixed solve (the flat
+    tiled kernel), ``flat="off"`` (the paired tiled route), restart (the
+    tiled dual kernel) and eps with ``flat="off"`` (the tiled chunk
+    kernel, one launch a window); u against the torch engine on the card,
+    within ORACLE_TOL (restart per scenario, 1% may part; eps within
+    EPS_U_TOL, 1% may part), the soft rows' duals active; then the
+    flagship's forced soft routes (flat tiled, paired tiled, tiled dual
+    under restart, the tiled chunk), each launched and finite. Returns the
+    launches by leg."""
+    t_phase = time.perf_counter()
+    out, legs = {"phase": "tiled_soft_path"}, {}
+    B = ROUTE_BATCH
+    for shape in (PAIRED_WIDE, TILED_MID):
+        label = shape_label(shape)
+        d = soft_data(torch, tg, shape)
+        P = soft_p(torch, shape, B, seed=84)
+        soft_rows = d.soft_damp > 0
+        for name, (kw, kernel) in SOFT_PATH.items():
+            cfg = tg.SolverConfig(**kw)
+            route = core.cuda_kernel(d, cfg, B)
+            check(f"gpad_{route}" == kernel,
+                  f"soft {label} {name}: auto routes to {route}")
+            leg = f"{name}_{label}"
+            windows = lambda r: {kernel: -(-int(r.iterations.max())  # noqa
+                                           // cfg.check_every)}
+            res, got = counted(torch, ctr, lambda: tg.solve_batch(d, P, cfg),
+                               windows if cfg.mode == "eps" else {kernel: 1},
+                               f"soft path {leg}")
+            legs[leg] = got
+            ref = tg.solve_batch(d, P, dataclasses.replace(cfg,
+                                                           engine="torch"))
+            du = res.u - ref.u
+            row = {"kernel": route, "launches": got,
+                   "soft_rows_y_max": res.y[..., soft_rows].max().item()}
+            if cfg.mode == "eps":
+                row.update(eps_agreement(res, ref),
+                           parted=tier_parted(du.reshape(B, -1), EPS_U_TOL),
+                           converged=int(res.converged.sum()))
+            else:
+                row["u_vs_torch_engine"] = tier_parted(du.reshape(B, -1),
+                                                       ORACLE_TOL)
+                if not cfg.restart:
+                    check(row["u_vs_torch_engine"]["max"] <= ORACLE_TOL,
+                          f"soft path {leg}: {row}")
+            check(bool(torch.isfinite(res.u).all())
+                  and row.get("parted", row.get("u_vs_torch_engine"))["ok"]
+                  and row["soft_rows_y_max"] > 0, f"soft path {leg}: {row}")
+            out[leg] = row
+    # the flagship's forced soft routes
+    flag = soft_data(torch, tg, FLAGSHIP)
+    P = soft_p(torch, FLAGSHIP, B, seed=85)
+    for name, kw, kernel in (
+            ("forced_mvp", dict(iterations=ITERS, form="mvp"),
+             "gpad_flat_tiled"),
+            ("forced_flat_off", dict(iterations=ITERS, form="mvp",
+                                     flat="off"), "gpad_paired_tiled"),
+            ("forced_restart", dict(iterations=ITERS, restart=True),
+             "gpad_dual_tiled"),
+            ("forced_eps", SOFT_EPS, "gpad_dual_tiled_chunk")):
+        cfg = tg.SolverConfig(engine="cuda", **kw)
+        leg = f"flagship_{name}"
+        res, got = counted(
+            torch, ctr, lambda: tg.solve_batch(flag, P, cfg),
+            lambda r: {kernel: -(-int(r.iterations.max()) // 10)
+                       if cfg.mode == "eps" else 1}, f"soft path {leg}")
+        legs[leg] = got
+        out[leg] = {"kernel": core.cuda_kernel(flag, cfg, B), "launches": got,
+                    "finite": bool(torch.isfinite(res.u).all())}
+        check(out[leg]["finite"], f"soft path {leg}: {out[leg]}")
+    out["launches"] = legs
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return legs
+
+
+def soft_runs(torch, tg, kernels, dual_kernels, core, shape, B, seed):
+    """(data, runs, bounds) of the soft kernels at battery ``shape``, B x
+    100: each soft kernel, the same kernel on the data's hard rows
+    (soft_damp None), and the torch engine on the soft configuration; one
+    10-iteration restart window soft and hard. Bound: the hard one plus
+    the damp column's m_h floats."""
+    d = soft_data(torch, tg, shape)
+    hard = dataclasses.replace(d, soft_damp=None)
+    P = soft_p(torch, shape, B, seed)
+    g, p = core.affine_params(d, P)
+    c = dual_kernels.relu_offsets(d, g, p)
+    zero = torch.zeros((B, 2, d.m_half), device=DEVICE)
+    state = dual_kernels.gpad_dual_chunk_torch(
+        d, c, zero, zero, torch.zeros((B, d.m_half), device=DEVICE),
+        torch.ones((B, 2), device=DEVICE), k0=0, chunk=30, restart=True)[:4]
+    S = tg.SolverConfig
+    runs, bounds = {}, {}
+    for name, cfg in (("flat_tiled", S(iterations=ITERS, form="mvp")),
+                      ("paired_tiled", S(iterations=ITERS, form="mvp",
+                                         flat="off")),
+                      ("dual_tiled_restart", S(iterations=ITERS,
+                                               restart=True))):
+        fn, _, kw = tier_fixed(kernels, dual_kernels, (name,))[name]
+        runs[f"{name}_soft"] = lambda fn=fn, kw=kw: fn(d, g, p,
+                                                       iterations=ITERS, **kw)
+        runs[f"{name}_hard"] = lambda fn=fn, kw=kw: fn(hard, g, p,
+                                                       iterations=ITERS, **kw)
+        runs[f"{name}_torch_engine"] = lambda cfg=cfg: tg.solve_batch(
+            d, P, dataclasses.replace(cfg, engine="torch"))
+    win = dict(k0=30, chunk=10, restart=True)
+    runs["dual_tiled_chunk_soft"] = lambda: dual_kernels.gpad_dual_tiled_chunk(
+        d, c, *state, **win)
+    runs["dual_tiled_chunk_hard"] = lambda: dual_kernels.gpad_dual_tiled_chunk(
+        hard, c, *state, **win)
+    od = 4 * d.m_half
+    m_h, n_z = d.m_half, d.n_z
+    for name, b in (
+            ("flat_tiled", paired_bound(d, g, p, B)),
+            ("paired_tiled", paired_bound(d, g, p, B, full=True)),
+            ("dual_tiled_restart", bound(
+                B * (ITERS * 2.0 * m_h * m_h + 4.0 * m_h * n_z),
+                nbytes(d.D, d.GL_T, d.MG_T, g, p)
+                + 4 * B * (2 * n_z + 4 * m_h))),
+            ("dual_tiled_chunk", bound(
+                B * 10 * 2.0 * m_h * m_h,
+                nbytes(d.D, c, *state) + nbytes(*state) + 4 * B * 2 * m_h))):
+        bounds[name] = bound(b["flops"], b["bytes"] + od)
+    return d, runs, bounds
+
+
+def phase_tiled_soft_timing(torch, tg, kernels, dual_kernels, core, smi):
+    """The soft kernels at n5 N30, n10 N30 and the flagship, B256 x 100:
+    each against the same kernel on the data's hard rows and the torch
+    engine on the soft configuration (a restart window soft and hard at
+    the flagship), CUDA events, median of 5 calls a turn, two turns of
+    opposite order; the bound (the hard one plus od's m_h floats)."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    t_phase, out = time.perf_counter(), {}
+    for shape in SOFT_SHAPES:
+        d, runs, bounds = soft_runs(torch, tg, kernels, dual_kernels, core,
+                                    shape, ROUTE_BATCH, seed=86)
+        if shape is not FLAGSHIP:
+            runs = {k: v for k, v in runs.items()
+                    if not k.startswith("dual_tiled_chunk")}
+        ms = {k: [] for k in runs}
+        for turn in (list(runs), list(runs)[::-1]):
+            for k in turn:
+                ms[k].append(device_time_per_call(runs[k], warmup=1,
+                                                  repeats=5) * 1e3)
+        med = {k: float(np.mean(v)) for k, v in ms.items()}
+        rows = {}
+        for name, bnd in bounds.items():
+            if f"{name}_soft" not in med:
+                continue
+            rows[name] = {
+                "ms": med[f"{name}_soft"], "hard_ms": med[f"{name}_hard"],
+                "soft_over_hard": med[f"{name}_soft"] / med[f"{name}_hard"],
+                "torch_engine_ms": med.get(f"{name}_torch_engine"),
+                "ms_median_of_5_per_turn": {
+                    k: v for k, v in ms.items() if k.startswith(name)},
+                **bnd}
+        out[shape_label(shape)] = {"m_h": d.m_half, "n_z": d.n_z,
+                                   "batch": ROUTE_BATCH, **rows}
+    emit({"phase": "tiled_soft_timing", "gpu": smi, "iterations": ITERS,
+          **out, "phase_s": time.perf_counter() - t_phase})
+    return out
+
+
+def times_soft_routes(torch, tg, kernels, dual_kernels, core, smi):
+    """``--times routes``' soft points: each soft route (the flat tiled
+    kernel, the paired tiled route, the tiled dual kernel under restart)
+    at n5 N30, n10 N30 and the flagship, at each of SOFT_ROUTE_BATCHES:
+    the soft kernel, the same kernel on the hard rows and the torch engine
+    on the soft configuration, in turns (CUDA events), with the kernel
+    ``auto`` names for the soft data at that batch: where ``auto``'s soft
+    edges lie beside the hard ones."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    for shape in SOFT_SHAPES:
+        for B in SOFT_ROUTE_BATCHES:
+            d, runs, bounds = soft_runs(torch, tg, kernels, dual_kernels,
+                                        core, shape, B, seed=87)
+            runs = {k: v for k, v in runs.items()
+                    if not k.startswith("dual_tiled_chunk")}
+            ms = {k: [] for k in runs}
+            for turn in (list(runs), list(runs)[::-1]):
+                for k in turn:
+                    ms[k].append(device_time_per_call(runs[k], warmup=1,
+                                                      repeats=3) * 1e3)
+            med = {k: float(np.mean(v)) for k, v in ms.items()}
+            S = tg.SolverConfig
+            auto = {name: core.cuda_kernel(d, cfg, B) for name, cfg in (
+                ("flat_tiled", S()), ("paired_tiled", S(form="mvp",
+                                                        flat="off")),
+                ("dual_tiled_restart", S(restart=True)))}
+            emit({"phase": "times_soft_routes", "gpu": smi,
+                  "shape": shape_label(shape), "batch": B, "m_h": d.m_half,
+                  "n_z": d.n_z, "auto_kernel": auto, "ms": med,
+                  "kernel_faster": {
+                      n: med[f"{n}_soft"] < med[f"{n}_torch_engine"]
+                      for n in auto},
+                  "hard_faster": {
+                      n: med[f"{n}_hard"] < med[f"{n}_torch_engine"]
+                      for n in auto},
+                  "bound_ms": {n: b["bound_ms"] for n, b in bounds.items()}})
+
+
+# ---------------------------------------------------------------------------
 # the stage-wise O(N) engine
 # ---------------------------------------------------------------------------
 
@@ -4475,6 +4888,11 @@ def aot_legs(torch, tg):
                          route_data(tg, "paired_tiled", PAIRED_WIDE)[1],
                          tg.SolverConfig(iterations=ITERS, form="mvp",
                                          flat="off"), (ROUTE_BATCH,), 75),
+        # soft rows past shared memory (phase_tiled_soft_path's restart)
+        "dual_tiled_soft": ("gpad_dual_tiled", ex,
+                            soft_data(torch, tg, PAIRED_WIDE),
+                            tg.SolverConfig(iterations=ITERS, restart=True),
+                            (ROUTE_BATCH,), 84),
         "symbolic": (None, ex, head, tg.SolverConfig(iterations=ITERS),
                      AOT_SYMBOLIC_BATCHES, 65),
         # the robust twin's stage-wise shape (robust_stagewise_path)
@@ -5329,6 +5747,7 @@ def main() -> int:
             times_tiers(torch, tg, kernels, dual_kernels, core, smi)
         if "routes" in families:
             times_routes(torch, tg, kernels, core, smi)
+            times_soft_routes(torch, tg, kernels, dual_kernels, core, smi)
         return 0
     phase_build()
     if sys.argv[1:2] == ["--sweep"]:
@@ -5353,6 +5772,8 @@ def main() -> int:
                                                core)
     worst_routes = phase_tiled_routes_vs_plain(torch, tg, kernels,
                                                dual_kernels, core)
+    worst_soft = phase_tiled_soft_vs_plain(torch, tg, kernels, dual_kernels,
+                                           core)
     worst_nmpc = phase_nmpc_dual_vs_plain(torch, tg, dual_kernels, core)
     # each path's launches are counted from 0, set just before it
     reset_counters(kernels, dual_kernels, sk, ss)
@@ -5400,6 +5821,9 @@ def main() -> int:
     # the routes past shared memory, each leg counted from 0
     route_legs = phase_tiled_routes_path(torch, tg, kernels, core, reference,
                                          (kernels, dual_kernels, sk, ss))
+    # soft rows past shared memory through auto, each leg counted from 0
+    soft_legs = phase_tiled_soft_path(torch, tg, core,
+                                      (kernels, dual_kernels, sk, ss))
     reset_counters(kernels, dual_kernels, sk, ss)
     phase_stagewise_main_path(torch, tg, sk, ss, ts)
     phase_stagewise_serving(torch, tg, ss)
@@ -5441,6 +5865,12 @@ def main() -> int:
     dnmed = phase_dense_timing(torch, tg, kernels, dual_kernels, core, smi)
     tmed = phase_tiled_timing(torch, tg, kernels, dual_kernels, core, smi)
     rmed = phase_tiled_routes_timing(torch, tg, kernels, core, smi)
+    smed_soft = phase_tiled_soft_timing(torch, tg, kernels, dual_kernels,
+                                        core, smi)
+    soft_row = lambda name: {  # noqa: E731
+        label: {k: v for k, v in rows[name].items()
+                if k != "ms_median_of_5_per_turn"}
+        for label, rows in smed_soft.items() if name in rows}
     route_row = lambda r: {  # noqa: E731
         "ms": r["ms"]["kernel"] if r["device_ms"] is None else r["device_ms"],
         "wrapper_ms": r["ms"]["kernel"], "plain_ms": r["ms"]["plain"],
@@ -5550,6 +5980,9 @@ def main() -> int:
         "plain_ms": tmed["dual_restart_plain"],
         "torch_engine_ms": tmed["restart_torch_engine"],
         **tmed["dual_bound"], **no_library,
+        # soft rows under restart, soft against hard and the torch engine
+        "max_abs_err_soft": worst_soft["dual_tiled"],
+        "soft_by_shape": soft_row("dual_tiled_restart"),
     }, {
         "name": "gpad_dual_tiled_chunk",
         "route": "cuda",
@@ -5564,6 +5997,9 @@ def main() -> int:
         "eps_solve_ms": tmed["eps_auto"],
         "eps_solve_torch_engine_ms": tmed["eps_torch"],
         **tmed["window_bound"], **no_library,
+        # soft rows: a restart window at the flagship, soft against hard
+        "max_abs_err_soft": worst_soft["dual_tiled_chunk"],
+        "soft_by_shape": soft_row("dual_tiled_chunk"),
     }, {
         "name": "gpad_flat_tiled",
         "route": "cuda",
@@ -5581,6 +6017,11 @@ def main() -> int:
         "max_abs_err_paired_tiled": worst_routes["paired_tiled"],
         "paired_tiled_by_shape": {k: v for k, v in routes.items()
                                   if k.startswith("paired_tiled")},
+        # soft rows: the flat loop and the paired tiled route
+        "max_abs_err_soft": worst_soft["flat_tiled"],
+        "max_abs_err_paired_tiled_soft": worst_soft["paired_tiled"],
+        "soft_by_shape": soft_row("flat_tiled"),
+        "paired_tiled_soft_by_shape": soft_row("paired_tiled"),
     }, {
         # the dense loop past one block's shared memory, at the auto path's
         # shape (dense n10 N20, B256)
@@ -5618,6 +6059,9 @@ def main() -> int:
     for leg, got in route_legs.items():
         for kernel, n in got.items():
             fold(kernel, f"tiled_routes_path.{leg}", n)
+    for leg, got in soft_legs.items():
+        for kernel, n in got.items():
+            fold(kernel, f"tiled_soft_path.{leg}", n)
     # and the launches of the loaded artifacts (phase_aot_path)
     for got in aot_launches.values():
         for kernel, n in got.items():
@@ -5640,9 +6084,17 @@ def main() -> int:
             n for t, n in tier_launches.get(k["name"], {}).items()
             if t != "highest"), **{t: n for t, n in tier_launches.get(
                 k["name"], {}).items() if t != "highest"}}
+    soft_paths = {"gpad_flat_tiled": ("tiled_soft_path.fixed_n10_N30",
+                                      "tiled_soft_path.flat_off_n10_N30"
+                                      ".paired_tiled"),
+                  "gpad_dual_tiled": ("tiled_soft_path.restart_n10_N30",),
+                  "gpad_dual_tiled_chunk": (
+                      "tiled_soft_path.eps_flat_off_n10_N30",)}
     check(all(k["launches"] > 0 for k in line)
           and "tiled_routes_path.flat_off_n10_N30.paired_tiled"
-          in by_kernel["gpad_flat_tiled"],
+          in by_kernel["gpad_flat_tiled"]
+          and all(p in by_kernel[k] for k, ps in soft_paths.items()
+                  for p in ps),
           f"a kernel no path launched: {[k['name'] for k in line]}")
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

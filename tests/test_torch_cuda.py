@@ -130,7 +130,7 @@ def test_forced_cuda_engine_refuses_unserved_cases(dev):
         tg.solve_batch(data, X0, tg.SolverConfig(engine="cuda", form="mvp",
                                                  restart=True))
     # the flagship's forced dual, eps and restart solves ride the tiled
-    # kernels; with soft rows, which those do not carry, they raise
+    # kernels, soft rows or not (the tiled kernels carry the damp column)
     flagship = tg.dualize(tg.condense(tg.problems.battery(30, 30)), 10,
                           paired="auto", device=dev)
     X30 = torch.zeros((2, flagship.n_x), device=dev)
@@ -143,9 +143,8 @@ def test_forced_cuda_engine_refuses_unserved_cases(dev):
     soft30 = dataclasses.replace(flagship, soft_damp=torch.full(
         (flagship.m_half,), 0.1, device=dev))
     for cfg in served + (tg.SolverConfig(engine="cuda", form="mvp"),):
-        with pytest.raises(ValueError, match="engine='cuda'"):
-            tg.solve_batch(soft30, X30, cfg)
-    assert core.resolve_engine(soft30, tg.SolverConfig(restart=True)) == "torch"
+        assert torch.isfinite(tg.solve_batch(soft30, X30, cfg).u).all()
+    assert core.resolve_engine(soft30, tg.SolverConfig(restart=True)) == "cuda"
     dense = tg.dualize(tg.condense(tg.problems.battery(3, 10)), ITERS,
                        paired=False, device=dev)
     soft = dataclasses.replace(dense, soft_damp=torch.full(
@@ -761,6 +760,82 @@ def test_dual_tiled_chunks(dev, restart, B):
     assert torch.equal(state[0], y) and torch.equal(w, w_f)
     torch.testing.assert_close(-(state[2] @ data.MG_T) - g_P, z, atol=1e-6,
                                rtol=0)
+
+
+# Soft (dual-damped) rows through the tiled kernels: a seeded od = 1 -
+# soft_damp in [0.5, 1] at n5 N30 (m_h 330, past the resident kernels'
+# shared memory) and the flagship, each kernel against its plain version
+SOFT_TILED = ["flat_tiled", "paired_tiled", "dual_tiled",
+              "dual_tiled_restart", "dual_tiled_chunk",
+              "dual_tiled_chunk_restart"]
+
+
+def _soft(data, damp=None):
+    if damp is None:
+        gen = torch.Generator().manual_seed(data.m_half)
+        damp = torch.rand(data.m_half, generator=gen) * 0.5
+    return dataclasses.replace(data, soft_damp=damp.to(data.device))
+
+
+def _soft_pair(data, kernel, B, y0):
+    """The tiled kernel's and its plain version's outputs on ``data``."""
+    g_P, p_D = _inputs(data, B, seed=B + 29)
+    restart = kernel.endswith("restart")
+    if kernel.startswith("dual_tiled_chunk"):
+        c = dual_kernels.relu_offsets(data, g_P, p_D)
+        state = (y0, y0, torch.zeros((B, data.m_half), device=y0.device),
+                 torch.ones((B, 2), device=y0.device))
+        kw = dict(k0=30, chunk=10, restart=restart)
+        return (dual_kernels.gpad_dual_tiled_chunk(data, c, *state, **kw),
+                dual_kernels.gpad_dual_chunk_torch(data, c, *state, **kw))
+    kw = dict(iterations=ITERS)
+    fns = {"flat_tiled": (kernels.gpad_fixed_flat_tiled,
+                          kernels.gpad_fixed_paired_flat_torch),
+           "paired_tiled": (kernels.gpad_fixed_paired_tiled,
+                            kernels.gpad_fixed_paired_torch)}
+    if kernel.startswith("dual_tiled"):
+        fns[kernel] = (dual_kernels.gpad_fixed_dual_tiled,
+                       dual_kernels.gpad_fixed_dual_torch)
+        kw["restart"] = restart
+    tiled, plain = fns[kernel]
+    return tiled(data, g_P, p_D, y0, **kw), plain(data, g_P, p_D, y0, **kw)
+
+
+@pytest.mark.parametrize("kernel", SOFT_TILED)
+@pytest.mark.parametrize("shape", [(5, 30), (30, 30)],
+                         ids=["n5N30", "flagship"])
+def test_tiled_kernels_carry_soft_rows(dev, shape, kernel):
+    """Each tiled kernel on soft rows against its plain version at B256
+    from a warm start: every output within TOL, restart per scenario (z
+    of the whole solve; s of a window)."""
+    data = _soft(_tiled_data(dev, *shape))
+    y0 = torch.rand((256, 2, data.m_half), device=dev) * 0.5
+    out_k, out_p = _soft_pair(data, kernel, 256, y0)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in out_k if t is not None)
+    if kernel == "dual_tiled_restart":
+        _assert_restart_close(out_k[0], out_p[0])
+    elif kernel == "dual_tiled_chunk_restart":
+        _assert_restart_close(out_k[2], out_p[2])
+    elif kernel == "dual_tiled_chunk":
+        for a, b in zip(out_k, out_p):
+            torch.testing.assert_close(a, b, atol=TOL, rtol=0)
+    else:
+        _assert_close(out_k, out_p)
+
+
+@pytest.mark.parametrize("kernel", SOFT_TILED)
+def test_tiled_kernels_zero_damp_is_the_hard_launch(dev, kernel):
+    """soft_damp = 0 (od exactly 1) gives the hard launch's outputs bit for
+    bit, at n5 N30 B33 (a partial last tile)."""
+    data = _tiled_data(dev, 5, 30)
+    y0 = torch.rand((33, 2, data.m_half), device=dev) * 0.5
+    hard, _ = _soft_pair(data, kernel, 33, y0)
+    soft, _ = _soft_pair(_soft(data, torch.zeros(data.m_half)), kernel, 33,
+                         y0)
+    torch.cuda.synchronize()
+    for a, b in zip(hard, soft):
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 def test_flagship_routes_through_tiled_kernels(dev):
@@ -1672,8 +1747,9 @@ def test_flat_tiled_ungrouped_plan_matches_plain(dev, cluster, tier):
 
     def op(y0, iterations, log2_tile=0):
         return kernels.flat_tiled_op(
-            data.MG_T, data.GL_T, g_P, p_D, y0, data.theta, data.beta, data.L,
-            data.n_struct, iterations, log2_tile, cluster, False, True, tier)
+            data.MG_T, data.GL_T, g_P, p_D, y0, None, data.theta, data.beta,
+            data.L, data.n_struct, iterations, log2_tile, cluster, False, True,
+            tier)
 
     for y0, iterations in ((warm, 1), (None, ITERS)):
         before = kernels.FLAT_TILED_LAUNCHES

@@ -160,7 +160,8 @@ def test_cuda_kernel_routing(dense, paired):
 def test_cuda_kernel_routing_past_shared_memory(dense, paired, monkeypatch):
     """Where the resident kernels' shared memory declines, the dense loop
     takes the tiled dense kernel and the full paired loop the flat tiled
-    kernel at n_s = m_h (soft rows, restart and eps still route nowhere)."""
+    kernel at n_s = m_h, soft rows or not (the dense loop's soft rows,
+    restart and eps still route nowhere)."""
     _, d_t = dense
     _, p_t = paired
     monkeypatch.setattr(kernels, "dense_fits_smem", lambda data: False)
@@ -179,7 +180,8 @@ def test_cuda_kernel_routing_past_shared_memory(dense, paired, monkeypatch):
         no_block = dataclasses.replace(p_t, n_struct=None, D=None)
         assert core.cuda_kernel(no_block, cfg) == "paired_tiled"
         assert core.cuda_kernel(dataclasses.replace(
-            no_block, soft_damp=torch.zeros(p_t.m_half)), cfg) is None
+            no_block, soft_damp=torch.zeros(p_t.m_half)),
+            cfg) == "paired_tiled"
         # the flat routes are as they were
         assert core.cuda_kernel(p_t, SolverConfig(engine=engine,
                                                   form="mvp")) == "paired_flat"

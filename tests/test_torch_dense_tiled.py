@@ -138,7 +138,7 @@ def test_paired_tiled_is_the_flat_tiled_op_at_every_row(paired, monkeypatch):
     real = kernels.flat_tiled_op
 
     def spy(*args):
-        seen.append(args[8])  # n_s
+        seen.append(args[9])  # n_s
         return real(*args)
 
     monkeypatch.setattr(kernels, "flat_tiled_op", spy)
@@ -206,8 +206,9 @@ def gap():
 def test_routing_across_the_gap(gap, shape):
     """Resident below each guard, the tiled route above it (forced: wherever
     its plan fits; auto: where ``kernels.tiled_auto`` says the kernel was
-    measured faster), the flat routes unchanged, and no route for soft
-    rows, a restart on dense data, or eps without the dual form."""
+    measured faster), the flat routes unchanged, soft paired rows on the
+    route hard ones take, and no route for soft dense rows, a restart on
+    dense data, or eps without the dual form."""
     dense, pair = gap[(*shape, False)], gap[(*shape, "auto")]
     m, m_h = dense.m, pair.m_half
     assert (m, m_h) == (2 * m_h, m_h)
@@ -236,9 +237,12 @@ def test_routing_across_the_gap(gap, shape):
             cfg, restart=True)) is None
         assert core.cuda_kernel(dense, dataclasses.replace(
             cfg, mode="eps")) is None
-    if not resident:  # the resident paired kernel carries soft rows
-        assert core.cuda_kernel(soft_pair, SolverConfig(engine="cuda",
-                                                        **off)) is None
+    # every paired kernel carries soft rows: the route of the hard rows
+    for engine in ("auto", "cuda"):
+        cfg = SolverConfig(engine=engine, **off)
+        assert core.cuda_kernel(soft_pair, cfg) == core.cuda_kernel(pair, cfg)
+    assert core.cuda_kernel(soft_pair, SolverConfig(engine="cuda", **off)) == (
+        "paired" if resident else "paired_tiled")
     # at B16384 the kernel lost at every gap shape: auto keeps the resident
     # kernels and the torch engine, a forced "cuda" the tiled routes
     big = 16384
@@ -333,8 +337,8 @@ def test_cli_info_routes_at_its_batch(capsys):
 def test_tiled_guards_and_plans(gap):
     """Both routes take the flat tiled plan at their rows a side: at the
     30x30 flagship's dense layout (m 3660, n_z 900) 8 scenarios a cluster
-    at B256, 162 KB a block; the guards refuse soft rows and the other
-    layout."""
+    at B256, 162 KB a block; the dense guard refuses soft rows, the paired
+    one takes them, and each refuses the other layout."""
     assert kernels.pick_flat_tiled(3660, 900, 256).log2_tile == 3
     assert kernels._flat_tiled_smem_bytes(3660, 900, 3) == 4 * 8 * (
         3660 + 900 + 512)
@@ -344,7 +348,7 @@ def test_tiled_guards_and_plans(gap):
     assert kernels.paired_tiled_fits(pair) and not kernels.paired_tiled_fits(dense)
     assert not kernels.dense_tiled_fits(
         dataclasses.replace(dense, soft_damp=torch.zeros(dense.m)))
-    assert not kernels.paired_tiled_fits(
+    assert kernels.paired_tiled_fits(
         dataclasses.replace(pair, soft_damp=torch.zeros(pair.m_half)))
     # a stack whose one scenario's wd and zhat pass a block's shared memory
     assert kernels.pick_flat_tiled(58_100, 100) is None
@@ -415,13 +419,18 @@ def test_tiled_wrappers_refuse_and_cpu_counts_nothing(dense, paired):
         kernels.gpad_fixed_dense_tiled(d_t, g, p, iterations=ITERS + 1)
     with pytest.raises(ValueError, match="paired data"):
         kernels.gpad_fixed_paired_tiled(d_t, g, p, iterations=5)
-    with pytest.raises(ValueError, match="soft"):
-        kernels.gpad_fixed_paired_tiled(
-            dataclasses.replace(p_t, soft_damp=torch.zeros(p_t.m_half)), pg,
-            pp, iterations=5)
     before = (kernels.DENSE_TILED_LAUNCHES, kernels.PAIRED_TILED_LAUNCHES,
               kernels.FLAT_TILED_LAUNCHES)
     kernels.gpad_fixed_dense_tiled(d_t, g, p, iterations=5)
     kernels.gpad_fixed_paired_tiled(p_t, pg, pp, iterations=5)
+    # soft rows are carried: the plain version of the full paired loop
+    soft = dataclasses.replace(
+        p_t, soft_damp=torch.linspace(0.0, 0.3, p_t.m_half))
+    out = kernels.gpad_fixed_paired_tiled(soft, pg, pp, iterations=5)
+    ref = kernels.gpad_fixed_paired_torch(soft, pg, pp, iterations=5)
+    hard = kernels.gpad_fixed_paired_torch(p_t, pg, pp, iterations=5)
+    assert (out[1] - hard[1]).abs().max() > 0  # the damp took effect
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
     assert (kernels.DENSE_TILED_LAUNCHES, kernels.PAIRED_TILED_LAUNCHES,
             kernels.FLAT_TILED_LAUNCHES) == before

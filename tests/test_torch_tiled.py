@@ -171,7 +171,7 @@ def test_eps_loop_takes_tiled_chunks_when_smem_declines(pair, monkeypatch,
     orig = dual_kernels.dual_tiled_chunk_op
 
     def spy(*a):
-        calls.append(a[8])  # k0
+        calls.append(a[9])  # k0
         return orig(*a)
 
     monkeypatch.setattr(dual_kernels, "dual_tiled_chunk_op", spy)
@@ -235,13 +235,13 @@ def test_flagship_routing_table(flagship, kw, kernel):
 
 
 def test_flagship_soft_rows_route_nowhere(flagship):
+    """Soft rows route nowhere the hard rows do not: every tiled kernel
+    carries the damp column, so soft data at the flagship takes the hard
+    routing table's kernel, the flat-on eps solve under auto none."""
     soft = dataclasses.replace(flagship, soft_damp=torch.full(
         (flagship.m_half,), 0.1))
-    for kw in (dict(restart=True), dict(form="dual"), dict(engine="cuda"),
-               dict(engine="cuda", form="mvp"), dict(mode="eps", flat="off"),
-               dict(mode="eps", engine="cuda"),
-               dict(engine="cuda", form="mvp", flat="off")):
-        assert core.cuda_kernel(soft, SolverConfig(**kw)) is None, kw
+    for _, kw, kernel in FLAGSHIP_ROUTES:
+        assert core.cuda_kernel(soft, SolverConfig(**kw)) == kernel, kw
 
 
 def test_tiled_guards():
@@ -306,8 +306,8 @@ def test_tiled_fits_refusals(pair, flagship):
     assert not dual_kernels.dual_fits_smem(flagship)
     assert not kernels.flat_fits_smem(flagship)
     soft = dataclasses.replace(d_t, soft_damp=torch.zeros(d_t.m_half))
-    assert not dual_kernels.dual_tiled_fits(soft)
-    assert not kernels.flat_tiled_fits(soft)
+    assert dual_kernels.dual_tiled_fits(soft)  # soft rows are carried
+    assert kernels.flat_tiled_fits(soft)
     assert not dual_kernels.dual_tiled_fits(dataclasses.replace(d_t, D=None))
     assert not kernels.flat_tiled_fits(dataclasses.replace(d_t, n_struct=0))
     assert not kernels.flat_tiled_fits(dataclasses.replace(d_t, n_struct=None))
@@ -322,15 +322,24 @@ def test_tiled_wrappers_reject_bad_inputs(pair):
     _, d_t = pair
     g_P = torch.zeros((3, d_t.n_z))
     p_D = torch.zeros((3, 2, d_t.m_half))
-    soft = dataclasses.replace(d_t, soft_damp=torch.zeros(d_t.m_half))
-    with pytest.raises(ValueError, match="soft"):
-        dual_kernels.gpad_fixed_dual_tiled(soft, g_P, p_D, iterations=5)
-    with pytest.raises(ValueError, match="soft"):
-        kernels.gpad_fixed_flat_tiled(soft, g_P, p_D, iterations=5)
+    # soft rows are carried: each wrapper's plain version on soft data
+    soft = dataclasses.replace(d_t, soft_damp=torch.full((d_t.m_half,), 0.2))
+    g_s = torch.full((3, d_t.n_z), 0.1)
+    p_s = torch.full((3, 2, d_t.m_half), -0.05)
+    for tiled, plain in (
+            (dual_kernels.gpad_fixed_dual_tiled,
+             dual_kernels.gpad_fixed_dual_torch),
+            (kernels.gpad_fixed_flat_tiled,
+             kernels.gpad_fixed_paired_flat_torch)):
+        for a, b in zip(tiled(soft, g_s, p_s, iterations=5),
+                        plain(soft, g_s, p_s, iterations=5)):
+            assert torch.equal(a, b)
     y, s, mom = p_D, torch.zeros((3, d_t.m_half)), torch.ones((3, 2))
-    with pytest.raises(ValueError, match="soft"):
-        dual_kernels.gpad_dual_tiled_chunk(soft, p_D, y, y, s, mom, k0=0,
-                                           chunk=5)
+    for a, b in zip(dual_kernels.gpad_dual_tiled_chunk(
+            soft, p_s, y, y, s, mom, k0=0, chunk=5),
+            dual_kernels.gpad_dual_chunk_torch(soft, p_s, y, y, s, mom, k0=0,
+                                               chunk=5)):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="p_D"):
         dual_kernels.gpad_fixed_dual_tiled(d_t, g_P, p_D[:2], iterations=5)
     with pytest.raises(ValueError, match="exceed"):

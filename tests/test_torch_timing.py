@@ -75,22 +75,30 @@ def test_gate_unstable_when_too_few_valid():
     assert out["unstable"] == jax_gate(pairs, rounds=8)["unstable"]
 
 
-def test_interleaved_ab_smoke_cpu():
-    # end-to-end: equal workloads -> ratio near 1, all contract keys present.
-    # One intra-op thread while it runs: on a host oversubscribed by other
-    # test workers, a product split over threads waits for a descheduled
-    # peer, more per call in a short window than in a long one, and the two
-    # sides' windows differ in length (each sized by its own probe), so
-    # equal work read 0.05-0.1x in 3 of 60 runs under six workers
-    x = torch.ones((256, 256))
-    f = lambda: torch.tanh(x @ x)
+@pytest.fixture
+def one_intra_op_thread():
+    """Torch on one intra-op thread while a test reads a host-clock ratio
+    from ``interleaved_ab``, restored afterwards. On a host oversubscribed
+    by other test workers, a product split over threads waits for a
+    descheduled peer, more per call in a short window than in a long one,
+    and the two sides' windows differ in length (each sized by its own
+    probe), so equal work read 0.05-0.1x in 3 of 60 runs under six
+    workers, and a pass whose every round the gate rejected sent the
+    autoscale to a second pass."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        out = interleaved_ab(f, f, rounds=3, k_large=4, min_window_s=0.01,
-                             device="cpu")
+        yield
     finally:
         torch.set_num_threads(threads)
+
+
+def test_interleaved_ab_smoke_cpu(one_intra_op_thread):
+    # end-to-end: equal workloads -> ratio near 1, all contract keys present
+    x = torch.ones((256, 256))
+    f = lambda: torch.tanh(x @ x)
+    out = interleaved_ab(f, f, rounds=3, k_large=4, min_window_s=0.01,
+                         device="cpu")
     for key in (
         "ratio_b_over_a_median",
         "ratios_all",
@@ -117,7 +125,7 @@ def test_interleaved_ab_floor_rejects_impossible_side():
     assert math.isnan(out["ratio_b_over_a_median"])
 
 
-def test_interleaved_ab_iqr_autoscale():
+def test_interleaved_ab_iqr_autoscale(one_intra_op_thread):
     # an easy target is met in one pass; an impossible one exhausts the
     # wall budget, keeps the tightest pass, and reports the escalation
     x = torch.ones((256, 256))

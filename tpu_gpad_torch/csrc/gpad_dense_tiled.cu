@@ -50,15 +50,17 @@ gpad_dense_tiled_kernel(
     const float* __restrict__ L, int B, int m_h, int n_z, int n_s,
     int iterations, int grouped, float* z, float* y, float* w, float* zhat)
 {
+    // no soft rows: the dense loop never reads od
     gpad_tiled_mvp::mvp_loop<T, kTier, true>(
-        MG, GL, gP, pD, y0, y0_stride, theta, beta, L, B, m_h, n_z, n_s,
-        iterations, grouped, z, y, w, zhat);
+        MG, GL, gP, pD, y0, y0_stride, nullptr, theta, beta, L, B, m_h, n_z,
+        n_s, iterations, grouped, z, y, w, zhat);
 }
 
-// The instances, for gpad_tiled_mvp::kernel_of
+// The instances, for gpad_tiled_mvp::kernel_of (no soft rows)
 struct Instances {
     using Fn = decltype(&gpad_dense_tiled_kernel<1, gpad_mma::kHighest>);
-    template <int T, int kTier>
+    static constexpr bool kHasSoft = false;
+    template <int T, int kTier, bool>
     static Fn of() { return gpad_dense_tiled_kernel<T, kTier>; }
 };
 

@@ -12,10 +12,16 @@
 //   wd   = w+ - w-
 //   s    = s + theta_k (wd - s)
 //   d    = -(wd D)                               D (m_h, m_h)
-//   y+   = relu(w+ + d + c+),  y- = relu(w- - d + c-)
+//   y+   = relu(w+ od + d + c+),  y- = relu(w- od - d + c-)
 //
-// c+- = p_D+- -+ g_P GL_T is folded by the caller. There are no soft rows
-// (the wrappers refuse them, as tpu_gpad's tiled kernel does). Without
+// c+- = p_D+- -+ g_P GL_T is folded by the caller; od is 1 - soft_damp, as
+// in the resident kernels (csrc/gpad_dual.cu) and tpu_gpad's
+// _gpad_kernel_dual and _gpad_kernel_dual_chunk, which carry soft rows up
+// to their 12 MB VMEM budget, past the resident kernels' 227 KB (tpu_gpad's
+// tiled kernel declines them). Instances of their own read it (a hard
+// launch passes null and runs the hard ones, compiled as they were). The
+// damp enters y_next only: w, wd, s and the restart test keep the undamped
+// w. Without
 // restart theta_k/beta_k are the schedule's entries k0 + k; with restart
 // they come from each scenario's own recursion (th, th_prev), and when
 // r = sum (w - y_next)(y_next - y) over both halves is > 0 the recursion
@@ -133,10 +139,12 @@ __device__ Slice make_slice(int m_h, const cg::cluster_group& cl) {
 // recursion, held alike by every block of the cluster. On return the state
 // holds the state after iteration n - 1 with its restart decision applied,
 // and w that iteration's extrapolated point. The products run at kTier
-// (gpad_mma::Tier).
-template <int T, int kTier>
+// (gpad_mma::Tier); kSoft instances damp the soft rows by od (1 -
+// soft_damp, read by them alone, so the hard instances are as they were).
+template <int T, int kTier, bool kSoft>
 __device__ void dual_tiled_iterations(
-    const float* __restrict__ D, const State& st, int B, int m_h, long long b0,
+    const float* __restrict__ D, const float* __restrict__ od,
+    const State& st, int B, int m_h, long long b0,
     int k0, int n, const float* __restrict__ theta,
     const float* __restrict__ beta, bool restart, float& th, float& thp,
     float* smem, const Slice& sl, const cg::cluster_group& cl)
@@ -251,8 +259,16 @@ __device__ void dual_tiled_iterations(
                         a += red[(gg * T + t) * cpp + x];
                     const float wp = st.w[o + i], wm = st.w[o + m_h + i];
                     const float yp = st.y[o + i], ym = st.y[o + m_h + i];
-                    const float ypn = fmaxf(wp - a + st.c[o + i], 0.0f);
-                    const float ymn = fmaxf(wm + a + st.c[o + m_h + i], 0.0f);
+                    float wps = wp, wms = wm;
+                    if constexpr (kSoft) {
+                        // damped apart from the sums (od = 1: the hard
+                        // rows' results, bit for bit)
+                        wps = __fmul_rn(wp, od[i]);
+                        wms = __fmul_rn(wm, od[i]);
+                    }
+                    const float ypn = fmaxf(wps - a + st.c[o + i], 0.0f);
+                    const float ymn = fmaxf(wms + a + st.c[o + m_h + i], 0.0f);
+                    // the restart test keeps the undamped w
                     rsum += (wp - ypn) * (ypn - yp) + (wm - ymn) * (ymn - ym);
                     st.yprev[o + i] = yp;
                     st.yprev[o + m_h + i] = ym;
@@ -305,10 +321,11 @@ __device__ void fill_rows(float* dst, const float* __restrict__ src, int m_h,
     }
 }
 
-template <int T, int kTier>
+template <int T, int kTier, bool kSoft>
 __global__ void __launch_bounds__(kThreads, 1)
 gpad_dual_tiled_kernel(
     const float* __restrict__ D,      // (m_h, m_h)
+    const float* __restrict__ od,     // (m_h,) or null (no soft rows)
     const float* __restrict__ c,      // (B, 2, m_h) relu offsets c+-
     const float* __restrict__ y0,     // (., 2, m_h) or null (cold start)
     long long y0_stride,              // 0 (one y0 for all) or 2 m_h
@@ -332,16 +349,16 @@ gpad_dual_tiled_kernel(
     cl.sync();  // every block of the cluster has started (its wd exists)
     float th = 1.0f, thp = 1.0f;
     const State st{c, y_out, yprev_buf, w_out, s_out};
-    dual_tiled_iterations<T, kTier>(D, st, B, m_h, b0, 0, iterations, theta,
-                                    beta,
-                             restart != 0, th, thp,
-                             reinterpret_cast<float*>(smem4), sl, cl);
+    dual_tiled_iterations<T, kTier, kSoft>(
+        D, od, st, B, m_h, b0, 0, iterations, theta, beta, restart != 0, th,
+        thp, reinterpret_cast<float*>(smem4), sl, cl);
 }
 
-template <int T, int kTier>
+template <int T, int kTier, bool kSoft>
 __global__ void __launch_bounds__(kThreads, 1)
 gpad_dual_tiled_chunk_kernel(
-    const float* __restrict__ D, const float* __restrict__ c,
+    const float* __restrict__ D, const float* __restrict__ od,
+    const float* __restrict__ c,
     const float* __restrict__ y_in,      // (B, 2, m_h)
     const float* __restrict__ yprev_in,  // (B, 2, m_h)
     const float* __restrict__ s_in,      // (B, m_h)
@@ -368,10 +385,9 @@ gpad_dual_tiled_chunk_kernel(
     float th = valid ? mom_in[2 * (b0 + t)] : 1.0f;
     float thp = valid ? mom_in[2 * (b0 + t) + 1] : 1.0f;
     const State st{c, y_out, yprev_out, w_out, s_out};
-    dual_tiled_iterations<T, kTier>(D, st, B, m_h, b0, k0, chunk, theta,
-                                    beta,
-                             restart != 0, th, thp,
-                             reinterpret_cast<float*>(smem4), sl, cl);
+    dual_tiled_iterations<T, kTier, kSoft>(
+        D, od, st, B, m_h, b0, k0, chunk, theta, beta, restart != 0, th, thp,
+        reinterpret_cast<float*>(smem4), sl, cl);
     if (sl.rank == 0 && valid && threadIdx.x % (kThreads / T) == 0) {
         mom_out[2 * (b0 + t)] = th;
         mom_out[2 * (b0 + t) + 1] = thp;
@@ -415,52 +431,56 @@ bool bad_launch(int B, int m_h, int log2_tile, int cluster, int smem)
     return 4 * smem_floats(m_h, 1 << log2_tile) > smem;
 }
 
-using FixedKernel = decltype(&gpad_dual_tiled_kernel<1, gpad_mma::kHighest>);
+using FixedKernel =
+    decltype(&gpad_dual_tiled_kernel<1, gpad_mma::kHighest, false>);
 using ChunkKernel =
-    decltype(&gpad_dual_tiled_chunk_kernel<1, gpad_mma::kHighest>);
+    decltype(&gpad_dual_tiled_chunk_kernel<1, gpad_mma::kHighest, false>);
 
-// The instances of a tier at 2**log2_tile scenarios per cluster (0..4)
-template <int kTier>
+// The instances of a tier, with soft rows or without, at 2**log2_tile
+// scenarios per cluster (0..4)
+template <int kTier, bool kSoft>
 FixedKernel fixed_at(int log2_tile) {
     switch (log2_tile) {
-        case 0: return gpad_dual_tiled_kernel<1, kTier>;
-        case 1: return gpad_dual_tiled_kernel<2, kTier>;
-        case 2: return gpad_dual_tiled_kernel<4, kTier>;
-        case 3: return gpad_dual_tiled_kernel<8, kTier>;
-        default: return gpad_dual_tiled_kernel<16, kTier>;
+        case 0: return gpad_dual_tiled_kernel<1, kTier, kSoft>;
+        case 1: return gpad_dual_tiled_kernel<2, kTier, kSoft>;
+        case 2: return gpad_dual_tiled_kernel<4, kTier, kSoft>;
+        case 3: return gpad_dual_tiled_kernel<8, kTier, kSoft>;
+        default: return gpad_dual_tiled_kernel<16, kTier, kSoft>;
     }
 }
 
-template <int kTier>
+template <int kTier, bool kSoft>
 ChunkKernel chunk_at(int log2_tile) {
     switch (log2_tile) {
-        case 0: return gpad_dual_tiled_chunk_kernel<1, kTier>;
-        case 1: return gpad_dual_tiled_chunk_kernel<2, kTier>;
-        case 2: return gpad_dual_tiled_chunk_kernel<4, kTier>;
-        case 3: return gpad_dual_tiled_chunk_kernel<8, kTier>;
-        default: return gpad_dual_tiled_chunk_kernel<16, kTier>;
+        case 0: return gpad_dual_tiled_chunk_kernel<1, kTier, kSoft>;
+        case 1: return gpad_dual_tiled_chunk_kernel<2, kTier, kSoft>;
+        case 2: return gpad_dual_tiled_chunk_kernel<4, kTier, kSoft>;
+        case 3: return gpad_dual_tiled_chunk_kernel<8, kTier, kSoft>;
+        default: return gpad_dual_tiled_chunk_kernel<16, kTier, kSoft>;
     }
 }
 
-// gpad_mma::Tier's instances, or null for an unknown tier
+// gpad_mma::Tier's instances (soft: od given), or null for an unknown tier
+template <bool kSoft>
 FixedKernel fixed_of(int log2_tile, int tier) {
     using namespace gpad_mma;
     switch (tier) {
-        case kHighest: return fixed_at<kHighest>(log2_tile);
-        case kHigh: return fixed_at<kHigh>(log2_tile);
-        case kDefault: return fixed_at<kDefault>(log2_tile);
-        case kBfloat16: return fixed_at<kBfloat16>(log2_tile);
+        case kHighest: return fixed_at<kHighest, kSoft>(log2_tile);
+        case kHigh: return fixed_at<kHigh, kSoft>(log2_tile);
+        case kDefault: return fixed_at<kDefault, kSoft>(log2_tile);
+        case kBfloat16: return fixed_at<kBfloat16, kSoft>(log2_tile);
         default: return nullptr;
     }
 }
 
+template <bool kSoft>
 ChunkKernel chunk_of(int log2_tile, int tier) {
     using namespace gpad_mma;
     switch (tier) {
-        case kHighest: return chunk_at<kHighest>(log2_tile);
-        case kHigh: return chunk_at<kHigh>(log2_tile);
-        case kDefault: return chunk_at<kDefault>(log2_tile);
-        case kBfloat16: return chunk_at<kBfloat16>(log2_tile);
+        case kHighest: return chunk_at<kHighest, kSoft>(log2_tile);
+        case kHigh: return chunk_at<kHigh, kSoft>(log2_tile);
+        case kDefault: return chunk_at<kDefault, kSoft>(log2_tile);
+        case kBfloat16: return chunk_at<kBfloat16, kSoft>(log2_tile);
         default: return nullptr;
     }
 }
@@ -475,36 +495,41 @@ extern "C" {
 // tier, else the launch's error. `smem` is the block's dynamic shared
 // memory in bytes, computed by the caller (dual_kernels.py::
 // _dual_tiled_smem_bytes) so the routing guard and the launch agree. A
-// cluster of `cluster` blocks owns 2**log2_tile scenarios. `tier` is the
-// products' precision (gpad_mma::Tier: 0 "highest", 1 "high", 2
-// "default", 3 "bfloat16").
+// cluster of `cluster` blocks owns 2**log2_tile scenarios. `od` (m_h,) is
+// 1 - soft_damp, or null for hard rows. `tier` is the products' precision
+// (gpad_mma::Tier: 0 "highest", 1 "high", 2 "default", 3 "bfloat16").
 
 int gpad_dual_tiled_launch(
-    const float* D, const float* c, const float* y0, long long y0_stride,
-    const float* theta, const float* beta, int B, int m_h, int iterations,
-    int restart, int log2_tile, int cluster, float* s_out, float* y_out,
-    float* yprev_buf, float* w_out, int smem, int tier, void* stream)
+    const float* D, const float* od, const float* c, const float* y0,
+    long long y0_stride, const float* theta, const float* beta, int B,
+    int m_h, int iterations, int restart, int log2_tile, int cluster,
+    float* s_out, float* y_out, float* yprev_buf, float* w_out, int smem,
+    int tier, void* stream)
 {
-    const FixedKernel kernel = fixed_of(log2_tile, tier);
+    const FixedKernel kernel = od ? fixed_of<true>(log2_tile, tier)
+                                  : fixed_of<false>(log2_tile, tier);
     if (bad_launch(B, m_h, log2_tile, cluster, smem) || !kernel)
         return (int)cudaErrorInvalidValue;
     return launch(kernel, B, 1 << log2_tile, cluster, smem,
-                  (cudaStream_t)stream, D, c, y0, y0_stride, theta, beta, B,
-                  m_h, iterations, restart, s_out, y_out, yprev_buf, w_out);
+                  (cudaStream_t)stream, D, od, c, y0, y0_stride, theta, beta,
+                  B, m_h, iterations, restart, s_out, y_out, yprev_buf,
+                  w_out);
 }
 
 int gpad_dual_tiled_chunk_launch(
-    const float* D, const float* c, const float* y_in, const float* yprev_in,
-    const float* s_in, const float* mom_in, const float* theta,
-    const float* beta, int B, int m_h, int k0, int chunk, int restart,
+    const float* D, const float* od, const float* c, const float* y_in,
+    const float* yprev_in, const float* s_in, const float* mom_in,
+    const float* theta, const float* beta, int B, int m_h, int k0, int chunk,
+    int restart,
     int log2_tile, int cluster, float* y_out, float* yprev_out, float* s_out,
     float* mom_out, float* w_out, int smem, int tier, void* stream)
 {
-    const ChunkKernel kernel = chunk_of(log2_tile, tier);
+    const ChunkKernel kernel = od ? chunk_of<true>(log2_tile, tier)
+                                  : chunk_of<false>(log2_tile, tier);
     if (bad_launch(B, m_h, log2_tile, cluster, smem) || !kernel)
         return (int)cudaErrorInvalidValue;
     return launch(kernel, B, 1 << log2_tile, cluster, smem,
-                  (cudaStream_t)stream, D, c, y_in, yprev_in, s_in, mom_in,
+                  (cudaStream_t)stream, D, od, c, y_in, yprev_in, s_in, mom_in,
                   theta, beta, B, m_h, k0, chunk, restart, y_out, yprev_out,
                   s_out, mom_out, w_out);
 }

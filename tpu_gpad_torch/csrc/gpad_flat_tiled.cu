@@ -12,12 +12,19 @@
 //   zhat = -MG_T' (w+ - w-) - g_P                 MG_T (m_h, n_z)
 //   z    = (1 - theta_k) z + theta_k zhat         z starts at 0
 //   q    = [ GL_T[:, :n_s]' zhat ; zhat / L ]     box rows need no product
-//   y+   = relu(w+ + q + p_D+),  y- = relu(w- - q + p_D-)
+//   y+   = relu(w+ od + q + p_D+),  y- = relu(w- od - q + p_D-)
 //
 // The dual rows are in [struct | box] order (dualize puts the identity rows
 // last), so unlike the TPU kernel there is no padding or layout mapping on
-// either side. Fixed mode only: no restart and no soft rows, as in
-// tpu_gpad.
+// either side. Fixed mode only: no restart, as in tpu_gpad. od = 1 -
+// soft_damp damps the soft rows of device-condensed data (one float a row,
+// read from L1/L2 beside p_D, in instances of their own), as the resident
+// kernels _gpad_kernel_paired_flat and _gpad_kernel_paired carry it;
+// tpu_gpad's streamed kernel declines soft data, which its resident ones
+// take up to their 12 MB VMEM budget, past this port's resident kernels'
+// 227 KB. The damp adds m_h floats to the bytes moved and one multiply a
+// row an iteration: soft ran at 1.000-1.008x the hard launch's time on an
+// H100 80GB HBM3 at 700 W (PERF.md, section 5).
 //
 // What bounds it: at the flagship an iteration is 2 n_z (m_h + n_s) =
 // 4.97 MFLOP per scenario, so B = 256 x 100 iterations is 127.2 GFLOP,
@@ -47,26 +54,29 @@
 
 namespace {
 
-template <int T, int kTier>
+template <int T, int kTier, bool kSoft>
 __global__ void __launch_bounds__(gpad_tiled_mvp::kThreads, 1)
 gpad_flat_tiled_kernel(
     const float* __restrict__ MG, const float* __restrict__ GL,
     const float* __restrict__ gP, const float* __restrict__ pD,
     const float* __restrict__ y0, long long y0_stride,
+    const float* __restrict__ od,
     const float* __restrict__ theta, const float* __restrict__ beta,
     const float* __restrict__ L, int B, int m_h, int n_z, int n_s,
     int iterations, int grouped, float* z, float* y, float* w, float* zhat)
 {
-    gpad_tiled_mvp::mvp_loop<T, kTier, false>(
-        MG, GL, gP, pD, y0, y0_stride, theta, beta, L, B, m_h, n_z, n_s,
+    gpad_tiled_mvp::mvp_loop<T, kTier, false, kSoft>(
+        MG, GL, gP, pD, y0, y0_stride, od, theta, beta, L, B, m_h, n_z, n_s,
         iterations, grouped, z, y, w, zhat);
 }
 
-// The instances, for gpad_tiled_mvp::kernel_of
+// The instances, for gpad_tiled_mvp::kernel_of: soft rows (od) in
+// instances of their own, so the hard ones are as they were
 struct Instances {
-    using Fn = decltype(&gpad_flat_tiled_kernel<1, gpad_mma::kHighest>);
-    template <int T, int kTier>
-    static Fn of() { return gpad_flat_tiled_kernel<T, kTier>; }
+    using Fn = decltype(&gpad_flat_tiled_kernel<1, gpad_mma::kHighest, false>);
+    static constexpr bool kHasSoft = true;
+    template <int T, int kTier, bool kSoft>
+    static Fn of() { return gpad_flat_tiled_kernel<T, kTier, kSoft>; }
 };
 
 }  // namespace
@@ -82,13 +92,14 @@ extern "C" {
 // grouped) the plan, computed by the caller (kernels.py::pick_flat_tiled,
 // _flat_tiled_smem_bytes) so the routing guard and the launch agree. A
 // cluster of `cluster` blocks owns 2**log2_tile scenarios. pD, y0, y and w
-// are (., 2, m_h); n_s = m_h runs the full paired loop. `w` is the state
-// (the last w on return); `zhat` may be null. `tier` is the products'
+// are (., 2, m_h); n_s = m_h runs the full paired loop. `od` (m_h,) is
+// 1 - soft_damp, or null for hard rows. `w` is the state (the last w on
+// return, undamped); `zhat` may be null. `tier` is the products'
 // precision (gpad_mma::Tier: 0 "highest", 1 "high", 2 "default", 3
 // "bfloat16").
 int gpad_flat_tiled_launch(
     const float* MG, const float* GL, const float* gP, const float* pD,
-    const float* y0, long long y0_stride, const float* theta,
+    const float* y0, long long y0_stride, const float* od, const float* theta,
     const float* beta, const float* L, int B, int m_h, int n_z, int n_s,
     int iterations, int log2_tile, int cluster, int grouped, float* z,
     float* y, float* w, float* zhat, int smem, int tier, void* stream)
@@ -98,10 +109,10 @@ int gpad_flat_tiled_launch(
                                     smem, tier))
         return (int)cudaErrorInvalidValue;
     return gpad_tiled_mvp::launch(
-        gpad_tiled_mvp::kernel_of<Instances>(log2_tile, tier), B,
-        1 << log2_tile, cluster, smem, (cudaStream_t)stream, MG, GL, gP, pD,
-        y0, y0_stride, theta, beta, L, B, m_h, n_z, n_s, iterations, grouped,
-        z, y, w, zhat);
+        gpad_tiled_mvp::kernel_of<Instances>(log2_tile, tier, od != nullptr),
+        B, 1 << log2_tile, cluster, smem, (cudaStream_t)stream, MG, GL, gP,
+        pD, y0, y0_stride, od, theta, beta, L, B, m_h, n_z, n_s, iterations,
+        grouped, z, y, w, zhat);
 }
 
 }  // extern "C"

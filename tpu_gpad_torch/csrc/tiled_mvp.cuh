@@ -10,7 +10,7 @@
 //   zhat = -MG_T' wd - g_P                        MG_T (m_h, n_z)
 //   z    = (1 - theta_k) z + theta_k zhat         z starts at 0
 //   q    = [ GL_T[:, :n_s]' zhat ; zhat / L ]     box rows need no product
-//   y+   = relu(w+ + q + p_D+),  y- = relu(w- - q + p_D-)
+//   y+   = relu(w+ od + q + p_D+),  y- = relu(w- od - q + p_D-)
 //
 //   dense (kDense true), the state y, w of (B, m) and n_s = m (no box rows):
 //   w    = y + beta_k (y - y_prev),  wd = w
@@ -19,7 +19,14 @@
 //
 // The dual rows are in [struct | box] order (dualize puts the identity rows
 // last). With n_s = m_h there are no box rows: the paired loop with the
-// full GL_T. Fixed mode only: no restart and no soft rows, as in tpu_gpad.
+// full GL_T. od (m_h,) is 1 - soft_damp in the same row order, the soft
+// rows' damp of their extrapolated dual, as _gpad_kernel_paired_flat and
+// _gpad_kernel_paired carry it; w and wd keep the undamped w. Only the
+// kSoft instances read od (a hard launch passes null and runs instances
+// compiled as they were without it: the damp in their epilogue, inlined at
+// every fragment of the one-scenario tier product, spilled 24-88 bytes).
+// The dense loop has no soft rows, as tpu_gpad's dense kernel has none.
+// Fixed mode only: no restart, as in tpu_gpad.
 //
 // Design: a thread-block cluster of C blocks (512 threads each) owns a
 // tile of T scenarios (T a power of two <= 16) for the whole launch, as
@@ -232,12 +239,16 @@ __device__ __forceinline__ void product(
 // (B, m_h) where kDense (then n_s = m_h, and L is not read); y0 null (cold
 // start) or rows of y0_stride floats (0: one y0 for all); theta and beta at
 // least `iterations` long; L the Lipschitz constant (the box rows'
-// division). `w` is the state (the last w on return), `zhat` may be null.
-template <int T, int kTier, bool kDense>
+// division); od (m_h,) the soft rows' damp, read by the kSoft instances
+// alone (the paired loop's: the dense loop has no soft rows), which keep
+// the hard instances as they were. `w` is the state (the last w on
+// return), `zhat` may be null.
+template <int T, int kTier, bool kDense, bool kSoft = false>
 __device__ __forceinline__ void mvp_loop(
     const float* __restrict__ MG, const float* __restrict__ GL,
     const float* __restrict__ gP, const float* __restrict__ pD,
     const float* __restrict__ y0, long long y0_stride,
+    const float* __restrict__ od,
     const float* __restrict__ theta, const float* __restrict__ beta,
     const float* __restrict__ L, int B, int m_h, int n_z, int n_s,
     int iterations, int grouped, float* z, float* y, float* w, float* zhat)
@@ -316,8 +327,8 @@ __device__ __forceinline__ void mvp_loop(
             if (t >= nv) return;
             const long long o = (b0 + t) * h;
             const float yp = y[o + i];
-            const float ypn = fmaxf(w[o + i] + q + pD[o + i], 0.0f);
             if constexpr (kDense) {
+                const float ypn = fmaxf(w[o + i] + q + pD[o + i], 0.0f);
                 y[o + i] = ypn;
                 if (more) {
                     const float wp = ypn + bn * (ypn - yp);
@@ -325,17 +336,26 @@ __device__ __forceinline__ void mvp_loop(
                     wd[i * T + t] = wp;
                 }
             } else {
+                float wp = w[o + i], wm = w[o + m_h + i];
+                if constexpr (kSoft) {
+                    // a soft row damps its extrapolated dual on both halves,
+                    // a rounded product apart from the sums (od = 1: the
+                    // hard rows' results, bit for bit)
+                    const float damp = od[i];
+                    wp = __fmul_rn(wp, damp);
+                    wm = __fmul_rn(wm, damp);
+                }
+                const float ypn = fmaxf(wp + q + pD[o + i], 0.0f);
                 const float ym = y[o + m_h + i];
-                const float ymn =
-                    fmaxf(w[o + m_h + i] - q + pD[o + m_h + i], 0.0f);
+                const float ymn = fmaxf(wm - q + pD[o + m_h + i], 0.0f);
                 y[o + i] = ypn;
                 y[o + m_h + i] = ymn;
                 if (more) {
-                    const float wp = ypn + bn * (ypn - yp);
-                    const float wm = ymn + bn * (ymn - ym);
-                    w[o + i] = wp;
-                    w[o + m_h + i] = wm;
-                    wd[i * T + t] = wp - wm;
+                    const float wpn = ypn + bn * (ypn - yp);
+                    const float wmn = ymn + bn * (ymn - ym);
+                    w[o + i] = wpn;
+                    w[o + m_h + i] = wmn;
+                    wd[i * T + t] = wpn - wmn;
                 }
             }
         };
@@ -354,29 +374,37 @@ __device__ __forceinline__ void mvp_loop(
     }
 }
 
-// The instance K::of<T, kTier>() of one .cu file's __global__ wrapper at
-// T = 2**log2_tile scenarios per cluster (0..4) and gpad_mma::Tier `tier`
-// (plan_ok has refused any other tile or tier). K holds the wrapper's
-// pointer type Fn and the template `of`.
-template <class K, int kTier>
+// The instance K::of<T, kTier, kSoft>() of one .cu file's __global__
+// wrapper at T = 2**log2_tile scenarios per cluster (0..4), gpad_mma::Tier
+// `tier` (plan_ok has refused any other tile or tier) and, where
+// K::kHasSoft, with soft rows or without. K holds the wrapper's pointer
+// type Fn and the template `of`.
+template <class K, int kTier, bool kSoft>
 typename K::Fn kernel_at(int log2_tile) {
     switch (log2_tile) {
-        case 0: return K::template of<1, kTier>();
-        case 1: return K::template of<2, kTier>();
-        case 2: return K::template of<4, kTier>();
-        case 3: return K::template of<8, kTier>();
-        default: return K::template of<16, kTier>();
+        case 0: return K::template of<1, kTier, kSoft>();
+        case 1: return K::template of<2, kTier, kSoft>();
+        case 2: return K::template of<4, kTier, kSoft>();
+        case 3: return K::template of<8, kTier, kSoft>();
+        default: return K::template of<16, kTier, kSoft>();
     }
 }
 
+template <class K, int kTier>
+typename K::Fn kernel_at(int log2_tile, bool soft) {
+    if constexpr (K::kHasSoft)
+        if (soft) return kernel_at<K, kTier, true>(log2_tile);
+    return kernel_at<K, kTier, false>(log2_tile);
+}
+
 template <class K>
-typename K::Fn kernel_of(int log2_tile, int tier) {
+typename K::Fn kernel_of(int log2_tile, int tier, bool soft = false) {
     using namespace gpad_mma;
     switch (tier) {
-        case kHighest: return kernel_at<K, kHighest>(log2_tile);
-        case kHigh: return kernel_at<K, kHigh>(log2_tile);
-        case kDefault: return kernel_at<K, kDefault>(log2_tile);
-        default: return kernel_at<K, kBfloat16>(log2_tile);
+        case kHighest: return kernel_at<K, kHighest>(log2_tile, soft);
+        case kHigh: return kernel_at<K, kHigh>(log2_tile, soft);
+        case kDefault: return kernel_at<K, kDefault>(log2_tile, soft);
+        default: return kernel_at<K, kBfloat16>(log2_tile, soft);
     }
 }
 

@@ -15,13 +15,18 @@ rows the dense kernel; fixed dual-form solves (restart, ``form="dual"``,
 ``flat="off"``) the dual kernel; eps solves in the dual form the chunked
 dual kernel, one launch per check window. Each only where its state fits
 one block's shared memory. Past it (the reference's 30x30 flagship),
-dual-form solves without soft rows read D from device memory in the
-tiled dual kernels, fixed or one eps window at a time (eps only with
-``flat="off"`` or a forced ``engine="cuda"``), and a fixed flat solve
-(the default at the flagship) reads its operands so in the flat tiled
-kernel. Everything else (flat-on eps past shared memory, unpaired restart
-or eps, soft rows past shared memory) runs the torch engine, as the JAX
-package sends what its kernels do not serve to XLA.
+dual-form solves read D from device memory in the tiled dual kernels,
+fixed or one eps window at a time (eps only with ``flat="off"`` or a
+forced ``engine="cuda"``), a fixed flat solve (the default at the
+flagship) reads its operands so in the flat tiled kernel, and the full
+paired loop in the same kernel at every row (under ``auto`` below its
+work edge, ``kernels.tiled_auto``). Soft (dual-damped) rows ride every
+paired and dual kernel, resident or tiled, as the JAX package's resident
+kernels carry them; only the dense layout, which has none, refuses them.
+Everything else (flat-on eps past shared memory, unpaired restart or
+eps, the tiled paired and dense routes past their work edge under
+``auto``) runs the torch engine, as the JAX package sends what its
+kernels do not serve to XLA.
 
 Eps mode (Algorithm 1) checks the stopping test every ``check_every``
 iterations and once more at a budget that is not a multiple of it; the
@@ -774,7 +779,10 @@ def cuda_kernel(data: GPADData, config: SolverConfig,
     ("dense_tiled"): a forced ``"cuda"`` wherever its plan fits,
     ``"auto"`` where it beat the torch engine at the solve's ``batch``
     scenarios (``kernels.tiled_auto``; the only route that depends on the
-    batch)."""
+    batch). Soft rows take the route hard rows take at the same shape:
+    every paired and dual kernel, resident or tiled, carries the damp
+    column, so the guards alone decide; only the dense kernels refuse
+    them, as tpu_gpad's dense kernel does."""
     from tpu_gpad_torch.solver import dual_kernels, kernels
 
     if config.model_axis is not None:
@@ -845,12 +853,13 @@ def resolve_engine(data: GPADData, config: SolverConfig,
         if kernel is None:
             raise ValueError(
                 "engine='cuda' serves fixed mvp solves without restart "
-                "(paired: kernels.flat_fits_smem, flat_tiled_fits, "
-                "paired_fits_smem or paired_tiled_fits; unpaired without "
-                "soft rows: kernels.dense_fits_smem or dense_tiled_fits), "
-                "and the dual form with D, fixed or eps, restart or not "
-                "(dual_kernels.dual_fits_smem, or dual_tiled_fits without "
-                "soft rows); use engine='torch' here"
+                "(paired, soft rows or not: kernels.flat_fits_smem, "
+                "flat_tiled_fits, paired_fits_smem or paired_tiled_fits; "
+                "unpaired without soft rows: kernels.dense_fits_smem or "
+                "dense_tiled_fits), and the dual form with D, fixed or eps, "
+                "restart or not, soft rows or not "
+                "(dual_kernels.dual_fits_smem or dual_tiled_fits); use "
+                "engine='torch' here"
             )
         return "cuda"
     if config.engine != "auto":

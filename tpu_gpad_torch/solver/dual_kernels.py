@@ -10,13 +10,14 @@ kernels are in ``csrc/gpad_dual.cu`` and share one iteration body; they
 keep D and the state in one block's shared memory (``dual_fits_smem``).
 For larger duals (the reference's 30x30 flagship, D 13.4 MB),
 ``gpad_fixed_dual_tiled`` and ``gpad_dual_tiled_chunk`` have the same
-contracts and read D from device memory on every iteration
-(``csrc/gpad_dual_tiled.cu``, the counterpart of ``_gpad_kernel_dual_tiled``;
-``dual_tiled_fits``); the eps loop takes them where ``dual_fits_smem``
-declines. On CUDA tensors the wrappers launch the kernel or raise; on CPU
-tensors they run the plain versions ``gpad_fixed_dual_torch`` and
-``gpad_dual_chunk_torch``, which are also what the tests and
-``chip_smoke.py`` hold the kernels against.
+contracts, soft rows included, and read D from device memory on every
+iteration (``csrc/gpad_dual_tiled.cu``, the counterpart of
+``_gpad_kernel_dual_tiled``, and of the resident Pallas kernels on soft
+data; ``dual_tiled_fits``); the eps loop takes them where
+``dual_fits_smem`` declines. On CUDA tensors the wrappers launch the
+kernel or raise; on CPU tensors they run the plain versions
+``gpad_fixed_dual_torch`` and ``gpad_dual_chunk_torch``, which are also
+what the tests and ``chip_smoke.py`` hold the kernels against.
 
 The state keeps the public layouts: y and y_prev (B, 2, m_h), s (B, m_h),
 and ``mom`` (B, 2), each scenario's restart recursion (theta, theta_prev).
@@ -174,10 +175,12 @@ def pick_tiled_cluster(log2_tile: int, B: int) -> int:
 
 
 def dual_tiled_fits(data: GPADData) -> bool:
-    """Can the tiled dual kernels run this data: paired with D, no soft
-    rows (the tiled kernels do not carry the damp column, as tpu_gpad's
-    do not), and one scenario's wd within a block's shared memory?"""
-    return (data.paired and data.D is not None and data.soft_damp is None
+    """Can the tiled dual kernels run this data: paired with D and one
+    scenario's wd within a block's shared memory? Soft rows ride along
+    (the damp column is read from device memory, so it costs no shared
+    memory), as tpu_gpad's resident dual kernels carry them within their
+    VMEM budget."""
+    return (data.paired and data.D is not None
             and pick_tiled_tiles(data.m_half) is not None)
 
 
@@ -293,9 +296,9 @@ def _tiled_launch_fns():
     lib = cuda_build.load("gpad_dual_tiled")
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fixed, chunk = lib.gpad_dual_tiled_launch, lib.gpad_dual_tiled_chunk_launch
-    fixed.argtypes = [P, P, P, LL, P, P, I, I, I, I, I, I, P, P, P, P, I, I,
-                      P]
-    chunk.argtypes = [P] * 8 + [I] * 7 + [P] * 5 + [I, I, P]
+    fixed.argtypes = [P, P, P, P, LL, P, P, I, I, I, I, I, I, P, P, P, P, I,
+                      I, P]
+    chunk.argtypes = [P] * 9 + [I] * 7 + [P] * 5 + [I, I, P]
     fixed.restype = chunk.restype = I
     return fixed, chunk
 
@@ -406,17 +409,17 @@ dual_op = kernels._register(
     diagnostics, tier="highest": _whole_fake(c, diagnostics))
 
 
-def _dual_tiled_cpu(D: Tensor, c: Tensor, y0: Optional[Tensor], theta: Tensor,
-                    beta: Tensor, iterations: int, restart: bool,
-                    log2_tile: int, cluster: int, diagnostics: bool,
-                    tier: str = "highest",
+def _dual_tiled_cpu(D: Tensor, od: Optional[Tensor], c: Tensor,
+                    y0: Optional[Tensor], theta: Tensor, beta: Tensor,
+                    iterations: int, restart: bool, log2_tile: int,
+                    cluster: int, diagnostics: bool, tier: str = "highest",
                     ) -> tuple[Tensor, Tensor, Tensor]:
-    return _dual_cpu(D, None, c, y0, theta, beta, iterations, restart,
+    return _dual_cpu(D, od, c, y0, theta, beta, iterations, restart,
                      log2_tile, 0, diagnostics, tier)
 
 
-def _dual_tiled_cuda(D, c, y0, theta, beta, iterations, restart, log2_tile,
-                     cluster, diagnostics, tier="highest"):
+def _dual_tiled_cuda(D, od, c, y0, theta, beta, iterations, restart,
+                     log2_tile, cluster, diagnostics, tier="highest"):
     global DUAL_TILED_LAUNCHES
     fixed, _ = _tiled_launch_fns()
     B, m_h = c.shape[0], c.shape[2]
@@ -426,8 +429,8 @@ def _dual_tiled_cuda(D, c, y0, theta, beta, iterations, restart, log2_tile,
     s = c.new_empty((B, m_h))
     y, y_prev, w = (c.new_empty(c.shape) for _ in range(3))
     ptr = kernels._ptr
-    kernels._launch("gpad_dual_tiled", fixed, c.device, ptr(D), ptr(c),
-                    ptr(y0), y0_stride, ptr(theta), ptr(beta), B, m_h,
+    kernels._launch("gpad_dual_tiled", fixed, c.device, ptr(D), ptr(od),
+                    ptr(c), ptr(y0), y0_stride, ptr(theta), ptr(beta), B, m_h,
                     iterations, int(restart), log2_tile, cluster, ptr(s),
                     ptr(y), ptr(y_prev), ptr(w),
                     _dual_tiled_smem_bytes(m_h, log2_tile),
@@ -438,8 +441,8 @@ def _dual_tiled_cuda(D, c, y0, theta, beta, iterations, restart, log2_tile,
 
 dual_tiled_op = kernels._register(
     "dual_tiled", _dual_tiled_cpu, _dual_tiled_cuda,
-    lambda D, c, y0, theta, beta, iterations, restart, log2_tile, cluster,
-    diagnostics, tier="highest": _whole_fake(c, diagnostics))
+    lambda D, od, c, y0, theta, beta, iterations, restart, log2_tile,
+    cluster, diagnostics, tier="highest": _whole_fake(c, diagnostics))
 
 
 def _chunk_cpu(D: Tensor, od: Optional[Tensor], c: Tensor, y: Tensor,
@@ -479,24 +482,25 @@ dual_chunk_op = kernels._register(
     log2_tile, split, tier="highest": _chunk_fake(c, y, y_prev, s, mom))
 
 
-def _tiled_chunk_cpu(D: Tensor, c: Tensor, y: Tensor, y_prev: Tensor,
-                     s: Tensor, mom: Tensor, theta: Tensor, beta: Tensor,
-                     k0: int, chunk: int, restart: bool, log2_tile: int,
-                     cluster: int, tier: str = "highest",
+def _tiled_chunk_cpu(D: Tensor, od: Optional[Tensor], c: Tensor, y: Tensor,
+                     y_prev: Tensor, s: Tensor, mom: Tensor, theta: Tensor,
+                     beta: Tensor, k0: int, chunk: int, restart: bool,
+                     log2_tile: int, cluster: int, tier: str = "highest",
                      ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
-    return _chunk_cpu(D, None, c, y, y_prev, s, mom, theta, beta, k0, chunk,
+    return _chunk_cpu(D, od, c, y, y_prev, s, mom, theta, beta, k0, chunk,
                       restart, log2_tile, 0, tier)
 
 
-def _tiled_chunk_cuda(D, c, y, y_prev, s, mom, theta, beta, k0, chunk,
+def _tiled_chunk_cuda(D, od, c, y, y_prev, s, mom, theta, beta, k0, chunk,
                       restart, log2_tile, cluster, tier="highest"):
     global DUAL_TILED_CHUNK_LAUNCHES
     _, launch = _tiled_launch_fns()
     B, m_h = c.shape[0], c.shape[2]
     out = [torch.empty_like(t) for t in (y, y_prev, s, mom, y)]
     ptr = kernels._ptr
-    kernels._launch("gpad_dual_tiled_chunk", launch, c.device, ptr(D), ptr(c),
-                    ptr(y), ptr(y_prev), ptr(s), ptr(mom), ptr(theta),
+    kernels._launch("gpad_dual_tiled_chunk", launch, c.device, ptr(D),
+                    ptr(od), ptr(c), ptr(y), ptr(y_prev), ptr(s), ptr(mom),
+                    ptr(theta),
                     ptr(beta), B, m_h, k0, chunk, int(restart), log2_tile,
                     cluster, *(ptr(t) for t in out),
                     _dual_tiled_smem_bytes(m_h, log2_tile),
@@ -507,7 +511,7 @@ def _tiled_chunk_cuda(D, c, y, y_prev, s, mom, theta, beta, k0, chunk,
 
 dual_tiled_chunk_op = kernels._register(
     "dual_tiled_chunk", _tiled_chunk_cpu, _tiled_chunk_cuda,
-    lambda D, c, y, y_prev, s, mom, theta, beta, k0, chunk, restart,
+    lambda D, od, c, y, y_prev, s, mom, theta, beta, k0, chunk, restart,
     log2_tile, cluster, tier="highest": _chunk_fake(c, y, y_prev, s, mom))
 
 
@@ -576,22 +580,22 @@ def gpad_fixed_dual_tiled(
 ):
     """``gpad_fixed_dual``'s contract for duals too large for it: D is read
     from device memory on every iteration (the counterpart of
-    ``tpu_gpad.solver.kernels.gpad_pallas_fixed_dual_tiled``). Soft rows
-    are refused. ``log2_tile`` and ``cluster`` override the scenarios per
-    cluster and the blocks per cluster (for sweeps); ``tier``
+    ``tpu_gpad.solver.kernels.gpad_pallas_fixed_dual_tiled``, and of
+    ``gpad_pallas_fixed_dual`` on soft data past one block's shared
+    memory); soft rows carried. ``log2_tile`` and ``cluster`` override the
+    scenarios per cluster and the blocks per cluster (for sweeps); ``tier``
     (``kernels.KERNEL_TIERS``) is the product's precision and does not
     change the launch plan. CUDA tensors launch the kernel (or raise); CPU
     tensors run the plain version, ``gpad_fixed_dual_torch``."""
-    kernels._refuse_soft(data, "the tiled dual kernels")
     _check_fixed(data, g_P, p_D, y0, iterations, restart)
     B, m_h = g_P.shape[0], data.m_half
     log2_tile, cluster = ((0, 0) if not kernels.on_card(g_P) else
                           _tiled_tile_or_raise(m_h, B, log2_tile, cluster))
     c = relu_offsets(data, g_P, p_D)
     y0_rows = None if y0 is None else kernels._norm_y0(y0, B, m_h)
-    s, y, w = dual_tiled_op(data.D, c, y0_rows, data.theta, data.beta,
-                            iterations, restart, log2_tile, cluster,
-                            diagnostics, tier)
+    s, y, w = dual_tiled_op(data.D, kernels._od(data), c, y0_rows,
+                            data.theta, data.beta, iterations, restart,
+                            log2_tile, cluster, diagnostics, tier)
     w = w if diagnostics else None
     z, zhat = _primal(data, g_P, s, w, recovery_weight(data, iterations),
                       diagnostics)
@@ -637,12 +641,12 @@ def gpad_dual_tiled_chunk(data: GPADData, c, y, y_prev, s, mom, *, k0: int,
                           cluster: int | None = None, tier: str = "highest"):
     """``gpad_dual_chunk``'s contract for duals too large for it, with D
     read from device memory on every iteration (the chunk form of
-    ``gpad_fixed_dual_tiled``; ``_dual_tiled_call`` in tpu_gpad). Soft
-    rows are refused. ``tier`` as for ``gpad_fixed_dual_tiled``. CUDA
+    ``gpad_fixed_dual_tiled``; ``_dual_tiled_call`` in tpu_gpad, and
+    ``_dual_chunk_call`` on soft data past one block's shared memory); soft
+    rows carried. ``tier`` as for ``gpad_fixed_dual_tiled``. CUDA
     tensors launch the kernel (or raise); CPU tensors run the plain
     version, ``gpad_dual_chunk_torch`` (the op
     ``tpu_gpad_torch::dual_tiled_chunk``)."""
-    kernels._refuse_soft(data, "the tiled dual kernels")
     _check_chunk(data, c, y, y_prev, s, mom, k0, chunk, restart)
     plan = _chunk_plan(data, c, True, log2_tile, cluster)
     return _launch_chunk(data, True, plan, c, y, y_prev, s, mom, k0, chunk,
@@ -668,11 +672,9 @@ def _launch_chunk(data: GPADData, tiled: bool, plan, c, y, y_prev, s, mom,
     """One window on a chunk kernel's op at ``tier``, its inputs checked and
     its ``plan`` fixed by the caller."""
     theta, beta, k0 = _window_schedule(data, k0, chunk, restart)
-    if tiled:
-        return dual_tiled_chunk_op(data.D, c, y, y_prev, s, mom, theta, beta,
-                                   k0, chunk, restart, *plan, tier)
-    return dual_chunk_op(data.D, kernels._od(data), c, y, y_prev, s, mom,
-                         theta, beta, k0, chunk, restart, *plan, tier)
+    op = dual_tiled_chunk_op if tiled else dual_chunk_op
+    return op(data.D, kernels._od(data), c, y, y_prev, s, mom, theta, beta,
+              k0, chunk, restart, *plan, tier)
 
 
 def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
@@ -713,8 +715,6 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
         # are symbols in the body of a loop that torch.export traces, and a
         # plan cannot branch on them there
         tiled = not dual_fits_smem(data) and dual_tiled_fits(data)
-        if tiled:
-            kernels._refuse_soft(data, "the tiled dual kernels")
         _check_chunk(data, c, y, y, s, mom, 0, iterations, config.restart)
         plan = _chunk_plan(data, c, tiled, None, None, tier)
 

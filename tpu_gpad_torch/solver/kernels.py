@@ -366,19 +366,19 @@ def pick_flat_tiled(m_half: int, n_z: int, B: int = 1,
 
 def flat_tiled_fits(data: GPADData) -> bool:
     """Can the flat tiled kernel run this data: the flat paired layout with
-    a non-empty structural block, no soft rows (the tiled kernels do not
-    carry the damp column, as tpu_gpad's do not), and one scenario's wd and
-    zhat within a block's shared memory?"""
+    a non-empty structural block and one scenario's wd and zhat within a
+    block's shared memory? Soft rows ride along (the damp column is read
+    from device memory, so it costs no shared memory), as tpu_gpad's
+    resident flat kernel carries them within its VMEM budget."""
     return (data.paired and data.n_struct is not None and data.n_struct > 0
-            and data.soft_damp is None
             and pick_flat_tiled(data.m_half, data.n_z) is not None)
 
 
 def paired_tiled_fits(data: GPADData) -> bool:
     """Can the flat tiled kernel run this data's full paired loop (n_s =
-    m_h): a paired layout without soft rows whose one scenario's wd and
+    m_h): a paired layout, soft rows or not, whose one scenario's wd and
     zhat fit a block's shared memory?"""
-    return (data.paired and data.soft_damp is None
+    return (data.paired
             and pick_flat_tiled(data.m_half, data.n_z) is not None)
 
 
@@ -632,8 +632,8 @@ _PAIRED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 9 + [_PTR] * 5
                     + [_INT, _INT, _PTR])
 _DENSE_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 8 + [_PTR] * 4
                    + [_INT, _INT, _PTR])
-_FLAT_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 3 + [_INT] * 8 + [_PTR] * 4
-                        + [_INT, _INT, _PTR])
+_FLAT_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 8
+                        + [_PTR] * 4 + [_INT, _INT, _PTR])
 _DENSE_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 7
                          + [_PTR] * 4 + [_INT, _INT, _PTR])
 
@@ -744,14 +744,6 @@ def _launch(name: str, fn, device, *args) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def _refuse_soft(data: GPADData, what: str) -> None:
-    """The tiled kernels do not carry the damp column, as tpu_gpad's
-    streamed kernels do not."""
-    if data.soft_damp is not None:
-        raise ValueError(f"{what} does not carry soft (dual-damped) rows; "
-                         "use engine='torch'")
-
-
 def on_card(t) -> bool:
     """True for a CUDA tensor (the op launches its kernel), False for a CPU
     one (the op runs its plain version); raise for any other device."""
@@ -849,13 +841,13 @@ paired_op = _register("paired", _paired_cpu(False), _paired_cuda(False),
 
 
 def _flat_tiled_cpu(MG_T: Tensor, GL_T: Tensor, g_P: Tensor, p_D: Tensor,
-                    y0: Optional[Tensor], theta: Tensor, beta: Tensor,
-                    L: Tensor, n_s: int, iterations: int, log2_tile: int,
-                    cluster: int, grouped: bool, diagnostics: bool,
-                    tier: str = "highest",
+                    y0: Optional[Tensor], od: Optional[Tensor], theta: Tensor,
+                    beta: Tensor, L: Tensor, n_s: int, iterations: int,
+                    log2_tile: int, cluster: int, grouped: bool,
+                    diagnostics: bool, tier: str = "highest",
                     ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     # n_s = m_h: every dual row structural, the full paired loop
-    z, y, w, zhat = _paired_loop(MG_T, GL_T, theta, beta, L, None, g_P, p_D,
+    z, y, w, zhat = _paired_loop(MG_T, GL_T, theta, beta, L, od, g_P, p_D,
                                  y0, iterations, diagnostics, n_s,
                                  n_s < p_D.shape[2], tier)
     if not diagnostics:
@@ -863,7 +855,7 @@ def _flat_tiled_cpu(MG_T: Tensor, GL_T: Tensor, g_P: Tensor, p_D: Tensor,
     return _fresh((z, y, w, zhat), (g_P, p_D, y0))
 
 
-def _flat_tiled_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, L, n_s,
+def _flat_tiled_cuda(MG_T, GL_T, g_P, p_D, y0, od, theta, beta, L, n_s,
                      iterations, log2_tile, cluster, grouped, diagnostics,
                      tier="highest"):
     global FLAT_TILED_LAUNCHES, PAIRED_TILED_LAUNCHES
@@ -876,7 +868,7 @@ def _flat_tiled_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, L, n_s,
     fn = _launch_fn("gpad_flat_tiled", "gpad_flat_tiled_launch",
                     _FLAT_TILED_ARGTYPES)
     _launch("gpad_flat_tiled", fn, g_P.device, _ptr(MG_T), _ptr(GL_T),
-            _ptr(g_P), _ptr(p_D), _ptr(y0), y0_stride, _ptr(theta),
+            _ptr(g_P), _ptr(p_D), _ptr(y0), y0_stride, _ptr(od), _ptr(theta),
             _ptr(beta), _ptr(L), B, m_h, n_z, n_s, iterations, log2_tile,
             cluster, grouped, _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
             _flat_tiled_smem_bytes(m_h, n_z, log2_tile, grouped),
@@ -890,10 +882,10 @@ def _flat_tiled_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, L, n_s,
     return z, y, w, zhat
 
 
-def _flat_tiled_fake(MG_T, GL_T, g_P, p_D, y0, theta, beta, L, n_s,
+def _flat_tiled_fake(MG_T, GL_T, g_P, p_D, y0, od, theta, beta, L, n_s,
                      iterations, log2_tile, cluster, grouped, diagnostics,
                      tier="highest"):
-    return _paired_fake(MG_T, GL_T, g_P, p_D, y0, None, theta, beta, L, n_s,
+    return _paired_fake(MG_T, GL_T, g_P, p_D, y0, od, theta, beta, L, n_s,
                         iterations, log2_tile, 0, 0, 0, diagnostics)
 
 
@@ -1051,15 +1043,15 @@ def gpad_fixed_flat_tiled(
 ):
     """``gpad_fixed_paired_flat``'s contract for flat stacks too large for
     it: both operands are read from device memory on every iteration (the
-    counterpart of ``tpu_gpad.solver.kernels.gpad_pallas_fixed_flat_tiled``).
-    Fixed mode, no restart; soft rows and an empty structural block are
-    refused. ``log2_tile`` and ``cluster`` override the scenarios per
-    cluster and the blocks per cluster (for sweeps). ``tier``
+    counterpart of ``tpu_gpad.solver.kernels.gpad_pallas_fixed_flat_tiled``,
+    and of ``gpad_pallas_fixed_paired_flat`` on soft data past one block's
+    shared memory). Fixed mode, no restart; soft rows carried, an empty
+    structural block refused. ``log2_tile`` and ``cluster`` override the
+    scenarios per cluster and the blocks per cluster (for sweeps). ``tier``
     (``KERNEL_TIERS``) is the products' precision; it does not change the
     launch plan. CUDA tensors launch the kernel (or raise); CPU tensors run
     the plain version, ``gpad_fixed_paired_flat_torch`` (the op
     ``tpu_gpad_torch::flat_tiled``)."""
-    _refuse_soft(data, "the flat tiled kernel")
     if data.n_struct == 0:
         raise ValueError("the flat tiled kernel needs a non-empty structural "
                          "block (GPADData.n_struct > 0)")
@@ -1077,13 +1069,12 @@ def gpad_fixed_paired_tiled(
     the flat tiled kernel with every dual row structural (n_s = m_h), so
     the full ``GL_T`` product on every row (the counterpart of
     ``tpu_gpad.solver.kernels.gpad_pallas_fixed_paired`` past one block's
-    shared memory). Fixed mode; soft rows are refused, as by every tiled
-    kernel (tpu_gpad's resident paired kernel carries them). ``log2_tile``,
-    ``cluster`` and ``tier`` as in ``gpad_fixed_flat_tiled``. CUDA tensors
-    launch the kernel (or raise; counted in ``PAIRED_TILED_LAUNCHES``); CPU
-    tensors run the plain version, ``gpad_fixed_paired_torch`` (the op
-    ``tpu_gpad_torch::flat_tiled`` at n_s = m_h)."""
-    _refuse_soft(data, "the paired tiled kernel")
+    shared memory). Fixed mode; soft rows carried, as tpu_gpad's resident
+    paired kernel carries them. ``log2_tile``, ``cluster`` and ``tier`` as
+    in ``gpad_fixed_flat_tiled``. CUDA tensors launch the kernel (or raise;
+    counted in ``PAIRED_TILED_LAUNCHES``); CPU tensors run the plain
+    version, ``gpad_fixed_paired_torch`` (the op ``tpu_gpad_torch::
+    flat_tiled`` at n_s = m_h)."""
     _check_inputs(data, g_P, p_D, y0, iterations, flat=False)
     return _flat_tiled(data, g_P, p_D, y0, iterations, diagnostics,
                        data.m_half, log2_tile, cluster, tier)
@@ -1115,8 +1106,8 @@ def _flat_tiled(data: GPADData, g_P, p_D, y0, iterations: int,
                        "flat tiled" if n_s < m_h else "paired tiled")
     y0_rows = None if y0 is None else _norm_y0(y0, B, m_h)
     z, y, w, zhat = flat_tiled_op(
-        data.MG_T, data.GL_T, g_P, p_D, y0_rows, data.theta, data.beta,
-        data.L, n_s, iterations, *plan, diagnostics, tier)
+        data.MG_T, data.GL_T, g_P, p_D, y0_rows, _od(data), data.theta,
+        data.beta, data.L, n_s, iterations, *plan, diagnostics, tier)
     return (z, y, *_none_if_empty(w, zhat, diagnostics))
 
 
