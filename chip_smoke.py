@@ -196,10 +196,11 @@ DENSE_WIDE = dict(n_cells=10, horizon=20)
 PAIRED_WIDE = dict(n_cells=10, horizon=30)
 ROUTE_BATCH = 256
 ROUTE_SERVE_STEPS, ROUTE_PLANTS = 10, 4
-ROUTE_EDGE_BATCH = 4096  # past auto's work edge at dense n10 N20
-# the flagship's dense layout under each tier: B64 runs the 8-scenario
-# tile of its B256 plan at a quarter of the plain version's float64 work
-ROUTE_TIER_FLAG_BATCH = 64
+ROUTE_EDGE_BATCH = 16384  # past auto's flat tiled work edge at n10 N30
+# the tiled dense kernel beside its plain version at the flagship's dense
+# layout: a batch past one scenario tile of 128 that fills none, and one
+# scenario (each at every tier too)
+ROUTE_RAGGED_BATCH = 130
 # --times routes: the tiled routes against the torch engine over the gap
 # between the resident kernels' guards and tpu_gpad's VMEM guards, and the
 # dense layout on to the flagship, where auto's edge lies (battery n, N)
@@ -2143,6 +2144,40 @@ def sweep_tiled(torch, tg, kernels, dual_kernels, core, smi):
                   "ms_by_log2_tile_per_cluster": row})
 
 
+def sweep_dense_tiled(torch, tg, kernels, core, smi):
+    """The tiled dense kernel by plan (``--sweep dense_tiled``, and with
+    ``tiled``): at the flagship's dense layout B 1, 64, 256 and 1024 and at
+    n5 N20 and n10 N20 B256, every scenario tile the batch fills, each with
+    the pick's parts and with one part, half and twice the pick's in each
+    phase (profiler device ms of 100 iterations); the measurement behind
+    ``kernels.pick_dense_tiled``'s model."""
+    cases = [(FLAGSHIP, B) for B in (1, 64, ROUTE_BATCH, 1024)] + [
+        (DENSE_MID, ROUTE_BATCH), (DENSE_WIDE, ROUTE_BATCH)]
+    for shape, B in cases:
+        d = route_data(tg, "dense_tiled", shape)[1]
+        g, p = core.affine_params(d, flag_x0(torch, d.n_x, B, seed=56)[1])
+        kt_a, kt_b = -(-d.m // 32), -(-d.n_z // 32)
+        pick = kernels.pick_dense_tiled(d.m, d.n_z, B)
+        row = {}
+        for tile in kernels.DENSE_TILED_TILES:
+            if tile > max(16, 1 << max(B - 1, 0).bit_length()):
+                continue
+            own = kernels.pick_dense_tiled(d.m, d.n_z, B, tile=tile)
+            pa, pb = own.parts_a, own.parts_b
+            for parts in {(pa, pb), (1, 1), (max(1, pa // 2), pb),
+                          (min(kt_a, 2 * pa), pb), (pa, max(1, pb // 2)),
+                          (pa, min(kt_b, 2 * pb))}:
+                row[f"{tile}/{parts[0]}/{parts[1]}"] = profiled_ms(
+                    torch, lambda: kernels.gpad_fixed_dense_tiled(
+                        d, g, p, iterations=ITERS, tile=tile,
+                        parts_a=parts[0], parts_b=parts[1]),
+                    ROUTE_FNS["dense_tiled"][2])
+        emit({"phase": "dense_tiled_sweep", "gpu": smi,
+              "shape": shape_label(shape), "m": d.m, "n_z": d.n_z,
+              "batch": B, "iterations": ITERS, "pick": pick._asdict(),
+              "ms_by_tile_parts_a_parts_b": row})
+
+
 # ---------------------------------------------------------------------------
 # the dense and full paired loops past one block's shared memory
 # ---------------------------------------------------------------------------
@@ -2152,7 +2187,13 @@ ROUTE_FNS = {"dense_tiled": ("gpad_fixed_dense_tiled",
                              "gpad_dense_tiled_kernel"),
              "paired_tiled": ("gpad_fixed_paired_tiled",
                               "gpad_fixed_paired_torch",
-                              "gpad_flat_tiled_kernel")}
+                              "gpad_flat_tiled_kernel"),
+             "flat_tiled": ("gpad_fixed_flat_tiled",
+                            "gpad_fixed_paired_flat_torch",
+                            "gpad_flat_tiled_kernel")}
+# the configuration of each route's solve (auto, forced, the torch engine)
+ROUTE_CFG = {"dense_tiled": {}, "paired_tiled": dict(form="mvp", flat="off"),
+             "flat_tiled": {}}
 
 
 def shape_label(shape) -> str:
@@ -2161,9 +2202,39 @@ def shape_label(shape) -> str:
 
 def route_data(tg, route, shape):
     """(qp, data) of a tiled route's battery ``shape`` on the card: dense
-    layout for "dense_tiled", paired for "paired_tiled"."""
+    layout for "dense_tiled", paired for "paired_tiled" and "flat_tiled"."""
     return flagship(tg, shape, paired=False if route == "dense_tiled"
                     else "auto")
+
+
+def route_plan(kernels, route, d, B) -> dict:
+    """A tiled route's launch plan at B scenarios: the tiled dense kernel's
+    (``pick_dense_tiled``: tile, parts, units a phase), the flat tiled
+    kernel's (``pick_flat_tiled``) for the paired route."""
+    if route == "dense_tiled":
+        return kernels.pick_dense_tiled(d.m, d.n_z, B)._asdict()
+    return kernels.pick_flat_tiled(d.m_half, d.n_z, B)._asdict()
+
+
+def dense_tiled_layout(torch, kernels, d, B) -> dict:
+    """The tiled dense kernel's plan at B on this card, with the blocks an
+    SM holds of its instance and the SMs its phases' units use, beside the
+    plan of the cluster design it replaced (the flat tiled kernel's plan at
+    m, ``pick_flat_tiled``) and the clusters of that plan the card holds at
+    once (cudaOccupancyMaxActiveClusters, measured on the flat tiled
+    kernel, whose blocks are that design's at the same shared memory)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = kernels.pick_dense_tiled(d.m, d.n_z, B, sms=sms)
+    old = kernels.pick_flat_tiled(d.m, d.n_z, B)
+    clusters = -(-B // (1 << old.log2_tile))
+    return {"plan": plan._asdict(), "sms": sms,
+            "blocks_per_sm": kernels.dense_tiled_blocks_per_sm(plan.tile),
+            "sms_used": {"a": min(sms, plan.units_a), "b": min(sms, plan.units_b)},
+            "cluster_design": {**old._asdict(), "clusters": clusters,
+                               "blocks": clusters * old.cluster,
+                               "max_active_clusters":
+                                   kernels.flat_tiled_max_clusters(
+                                       old, d.m, d.n_z)}}
 
 
 def phase_tiled_routes_vs_plain(torch, tg, kernels, dual_kernels, core):
@@ -2171,17 +2242,22 @@ def phase_tiled_routes_vs_plain(torch, tg, kernels, dual_kernels, core):
     (``gpad_fixed_dense_torch``) at battery n5 N20 (m 440): B4096 cold,
     warm per scenario and shared, diagnostics off (the iterates bit for bit
     those with it on), then B256, a ragged B300 and B1 warm; at n10 N20
-    B256 and at the flagship's dense layout B256 (8 scenarios a cluster);
-    the paired tiled route (the flat tiled kernel at n_s = m_h) against
-    ``gpad_fixed_paired_torch`` at n5 N30 and n10 N30 B256, cold and warm,
-    diagnostics off. Then each under every tier against its plain version
-    at the tier (``tier_kernel_vs_plain``: one iteration and z within
-    TIER_KERNEL_TOL, every output within TIER_SENSITIVITY x the plain
-    version's own spread) at n5 N20 B256, the flagship's dense layout B64
-    (the 8-scenario tile of its B256 plan) and n5 N30 B256."""
+    B256 and at the flagship's dense layout B256, a ragged B130 and B1;
+    two launches bit-equal at each shape; its plan, the SMs it uses and the
+    cluster design's plan beside it (``dense_tiled_layout``) and its ptxas
+    lines; the paired tiled route (the flat tiled kernel at n_s = m_h)
+    against ``gpad_fixed_paired_torch`` at n5 N30 and n10 N30 B256, cold
+    and warm, diagnostics off. Then each under every tier against its
+    plain version at the tier (``tier_kernel_vs_plain``: one iteration and
+    z within TIER_KERNEL_TOL, every output within TIER_SENSITIVITY x the
+    plain version's own spread): the tiled dense kernel at n5 N20, n10 N20
+    and the flagship B256, the flagship's B130 and n5 N20's B1; the paired
+    tiled route at n5 N30 B256."""
+    from tpu_gpad_torch import cuda_build
+
     t_phase = time.perf_counter()
     errs = {"dense_tiled": {}, "paired_tiled": {}}
-    bitwise, plans, tiers = {}, {}, {}
+    bitwise, plans, tiers, repeat = {}, {}, {}, {}
 
     def run(route, name, d, g, p, y0=None, diagnostics=True):
         fn, plain = (getattr(kernels, f) for f in ROUTE_FNS[route][:2])
@@ -2197,6 +2273,10 @@ def phase_tiled_routes_vs_plain(torch, tg, kernels, dual_kernels, core):
             check(out_k[2] is None and out_k[3] is None,
                   f"{route} {name}: diagnostics=False returned w/zhat")
         errs[route][name] = max_err(out_k, out_p)
+        if route == "dense_tiled":  # a second launch, bit for bit
+            again = fn(d, g, p, y0, **kw)
+            repeat[name] = all(a is None or torch.equal(a, b)
+                               for a, b in zip(out_k, again))
         return out_k
 
     for route, cases in (("dense_tiled", ((DENSE_MID, BATCH), (DENSE_WIDE,
@@ -2208,43 +2288,61 @@ def phase_tiled_routes_vs_plain(torch, tg, kernels, dual_kernels, core):
             _, d = route_data(tg, route, shape)
             label = shape_label(shape)
             g, p = core.affine_params(d, flag_x0(torch, d.n_x, B, seed=70)[1])
-            rows = d.m_half if d.paired else d.m
-            plans[f"{route}_{label}"] = kernels.pick_flat_tiled(rows, d.n_z, B)
+            plans[f"{route}_{label}"] = route_plan(kernels, route, d, B)
             y = run(route, f"{label}_cold", d, g, p)[1]
             on = run(route, f"{label}_warm_per_scenario", d, g, p, y)
             off = run(route, f"{label}_no_diagnostics", d, g, p, y,
                       diagnostics=False)
             bitwise[f"{route}_{label}"] = (torch.equal(on[0], off[0])
                                            and torch.equal(on[1], off[1]))
+            # the serving batch, a ragged last tile, one scenario
+            extra = ((ROUTE_BATCH, 300, 1) if B == BATCH
+                     else (ROUTE_RAGGED_BATCH, 1) if shape is FLAGSHIP else ())
             if B == BATCH:
                 run(route, f"{label}_warm_shared", d, g, p, y[0].contiguous())
-                # the serving batch, a ragged last tile, one scenario
-                for b in (ROUTE_BATCH, 300, 1):
-                    plans[f"{route}_{label}_B{b}"] = kernels.pick_flat_tiled(
-                        rows, d.n_z, b)
-                    run(route, f"{label}_B{b}", d, g[:b].contiguous(),
-                        p[:b].contiguous(), y[:b].contiguous())
+            for b in extra:
+                plans[f"{route}_{label}_B{b}"] = route_plan(kernels, route,
+                                                            d, b)
+                run(route, f"{label}_B{b}", d, g[:b].contiguous(),
+                    p[:b].contiguous(), y[:b].contiguous())
+    layout = {}
+    for shape, B in ((FLAGSHIP, ROUTE_BATCH), (FLAGSHIP, 1),
+                     (DENSE_WIDE, ROUTE_BATCH), (DENSE_MID, ROUTE_BATCH)):
+        d = route_data(tg, "dense_tiled", shape)[1]
+        layout[f"{shape_label(shape)}_B{B}"] = dense_tiled_layout(
+            torch, kernels, d, B)
     for route, shape, B in (("dense_tiled", DENSE_MID, ROUTE_BATCH),
-                            ("dense_tiled", FLAGSHIP, ROUTE_TIER_FLAG_BATCH),
+                            ("dense_tiled", DENSE_WIDE, ROUTE_BATCH),
+                            ("dense_tiled", FLAGSHIP, ROUTE_BATCH),
+                            ("dense_tiled", FLAGSHIP, ROUTE_RAGGED_BATCH),
+                            ("dense_tiled", DENSE_MID, 1),
                             ("paired_tiled", TILED_MID, ROUTE_BATCH)):
         _, d = route_data(tg, route, shape)
         g, p = core.affine_params(d, flag_x0(torch, d.n_x, B, seed=71)[1])
-        tiers[f"{route}_{shape_label(shape)}"] = {
+        tiers[f"{route}_{shape_label(shape)}_B{B}"] = {
             tier: tier_kernel_vs_plain(torch, kernels, dual_kernels, d, g, p,
                                        tier, (route,), None)
             for tier in TIER_KERNEL_TOL}
     worst = {route: max(e.values()) for route, e in errs.items()}
     emit({"phase": "tiled_routes_vs_plain", "plans": plans,
+          "dense_tiled_layout": layout,
+          "dense_tiled_ptxas": [
+              ln.strip() for ln in cuda_build.BUILD_LOG.get(
+                  "gpad_dense_tiled", "").splitlines()
+              if "registers" in ln or "spill" in ln],
           "max_abs_err": errs, "diagnostics_off_bit_identical": bitwise,
+          "dense_tiled_two_launches_bit_equal": repeat,
           "tiers": tiers, "tol": KERNEL_TOL,
           "phase_s": time.perf_counter() - t_phase})
     check(max(worst.values()) <= KERNEL_TOL,
           f"tiled routes disagree with their plain versions: {errs}")
     check(all(bitwise.values()),
           f"diagnostics=False changed the iterates {bitwise}")
+    check(all(repeat.values()), f"two tiled dense launches differ {repeat}")
+    # the plan PERF.md times at the flagship's dense layout B256
     flag = plans[f"dense_tiled_{shape_label(FLAGSHIP)}"]
-    check(flag.log2_tile == 3,
-          f"flagship dense plan {flag}, expected 8 scenarios a cluster")
+    check((flag["tile"], flag["parts_a"], flag["parts_b"]) == (64, 4, 1),
+          f"flagship dense plan {flag}, expected tiles of 64, parts 4 x 1")
     return worst
 
 
@@ -2259,9 +2357,10 @@ def phase_tiled_routes_path(torch, tg, kernels, core, reference, ctr):
     N30 (the paired tiled route, one launch of the flat tiled kernel at
     n_s = m_h, u* against the oracle and the torch engine); the CLI's
     ``solve --paired off`` and ``info --paired off`` at n5 N20 in
-    process; and auto on the dense n10 N20 layout at ROUTE_EDGE_BATCH, past
-    its work edge (the torch engine, no launch). Returns the launches by
-    leg."""
+    process; auto on the dense n10 N20 layout at B4096 (one launch); and
+    the default (flat) solve at n10 N30 B ROUTE_EDGE_BATCH, past auto's
+    flat tiled work edge (the torch engine, no launch). Returns the
+    launches by leg."""
     import contextlib
     import io as textio
 
@@ -2294,16 +2393,11 @@ def phase_tiled_routes_path(torch, tg, kernels, core, reference, ctr):
     check(out["auto_dense_n10_N20"]["kernel"] == "dense_tiled"
           and max(out["auto_dense_n10_N20"]["u_vs_oracle"]) < ORACLE_TOL,
           f"auto dense n10 N20 {out['auto_dense_n10_N20']}")
-    # past auto's work edge (B4096 at n10 N20, where the kernel tied the
-    # torch engine) auto runs the torch engine: no launch
-    big = flag_x0(torch, dense.n_x, ROUTE_EDGE_BATCH, seed=72)[1]
-    leg("auto_dense_n10_N20_past_edge",
-        lambda: tg.solve_batch(dense, big, cfg), {})
-    out["auto_dense_n10_N20_past_edge"] = {
-        "batch": ROUTE_EDGE_BATCH,
-        "kernel": core.cuda_kernel(dense, cfg, ROUTE_EDGE_BATCH)}
-    check(out["auto_dense_n10_N20_past_edge"]["kernel"] is None,
-          f"auto dense n10 N20 past the edge {out}")
+    # at B4096 too (the cluster design tied the torch engine there; the
+    # redesigned kernel beat it at every measured batch)
+    big = flag_x0(torch, dense.n_x, 4096, seed=72)[1]
+    leg("auto_dense_n10_N20_B4096", lambda: tg.solve_batch(dense, big, cfg),
+        {"gpad_dense_tiled": 1})
 
     problem = tg.problems.battery(**DENSE_MID)
     ctl = tg.Controller(problem, iterations=ITERS, paired=False, device=DEVICE)
@@ -2370,6 +2464,20 @@ def phase_tiled_routes_path(torch, tg, kernels, core, reference, ctr):
     check(max(out["flat_off_n10_N30"]["u_vs_oracle"]) < ORACLE_TOL
           and out["flat_off_n10_N30"]["u_vs_torch_engine"] < ORACLE_TOL,
           f"flat off n10 N30 {out['flat_off_n10_N30']}")
+    # the default (flat) solve past auto's flat tiled work edge runs the
+    # torch engine: no launch
+    big = flag_x0(torch, wide.n_x, ROUTE_EDGE_BATCH, seed=75)[1]
+    leg("auto_flat_n10_N30_past_edge",
+        lambda: tg.solve_batch(wide, big, tg.SolverConfig()), {})
+    out["auto_flat_n10_N30_past_edge"] = {
+        "batch": ROUTE_EDGE_BATCH,
+        "kernel": core.cuda_kernel(wide, tg.SolverConfig(), ROUTE_EDGE_BATCH),
+        "kernel_at_256": core.cuda_kernel(wide, tg.SolverConfig(),
+                                          ROUTE_BATCH)}
+    check(out["auto_flat_n10_N30_past_edge"] == {
+        "batch": ROUTE_EDGE_BATCH, "kernel": None,
+        "kernel_at_256": "flat_tiled"},
+        f"auto flat n10 N30 past the edge {out}")
 
     def run_cli(argv):
         buf = textio.StringIO()
@@ -2394,13 +2502,13 @@ def phase_tiled_routes_path(torch, tg, kernels, core, reference, ctr):
     return legs
 
 
-def route_bound(d, g, p, B, tier="highest") -> dict:
+def route_bound(d, g, p, B, tier="highest", flat=False) -> dict:
     """A tiled route's bound at B scenarios: the dense loop's two products
-    (2 m n_z each) or the full paired loop's (``paired_bound``), per
-    scenario and iteration, at the tier's peak; z, y, w, zhat written
-    once."""
+    (2 m n_z each) or the full (or ``flat``) paired loop's
+    (``paired_bound``), per scenario and iteration, at the tier's peak; z,
+    y, w, zhat written once."""
     if d.paired:
-        return paired_bound(d, g, p, B, full=True, tier=tier)
+        return paired_bound(d, g, p, B, full=not flat, tier=tier)
     return bound(B * ITERS * 4.0 * d.m * d.n_z,
                  nbytes(d.MG_T, d.GL_T, g, p, d.theta[:ITERS], d.beta[:ITERS])
                  + 4 * B * (2 * d.n_z + 2 * d.m), tier)
@@ -2416,14 +2524,40 @@ def route_runs(torch, tg, kernels, core, route, shape, B, seed):
     g, p = core.affine_params(d, X0)
     fn, plain = (getattr(kernels, f) for f in ROUTE_FNS[route][:2])
     S = tg.SolverConfig
-    kw = {} if route == "dense_tiled" else dict(form="mvp", flat="off")
+    kw = ROUTE_CFG[route]
     return d, {
         "kernel": lambda: fn(d, g, p, iterations=ITERS),
         "plain": lambda: plain(d, g, p, iterations=ITERS),
         "auto": lambda: tg.solve_batch(d, X0, S(**kw)),
         "forced": lambda: tg.solve_batch(d, X0, S(engine="cuda", **kw)),
         "torch_engine": lambda: tg.solve_batch(d, X0, S(engine="torch", **kw)),
-    }, route_bound(d, g, p, B)
+    }, route_bound(d, g, p, B, flat=route == "flat_tiled")
+
+
+def two_products_ms(torch, d, B, flat=False, seed=78) -> float:
+    """The yardstick of what the card's library does with an iteration's
+    two products: ms of 100 x (w MG_T, zhat GL_T) as two ``torch.mm``
+    calls with TF32 off, at the route's shapes (dense: w (B, m); paired:
+    wd (B, m_h), GL_T's n_struct columns on the flat route, all m_h on the
+    full paired one), CUDA events. The port never calls it."""
+    from tpu_gpad_torch.utils import device_time_per_call
+
+    rows = d.m_half if d.paired else d.m
+    cols = d.n_struct if flat else rows
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    w = torch.rand((B, rows), device=DEVICE, generator=gen)
+    zh = torch.rand((B, d.n_z), device=DEVICE, generator=gen)
+    GL = d.GL_T[:, :cols].contiguous()
+    out1 = torch.empty((B, d.n_z), device=DEVICE)
+    out2 = torch.empty((B, cols), device=DEVICE)
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
+
+    def run():
+        for _ in range(ITERS):
+            torch.mm(w, d.MG_T, out=out1)
+            torch.mm(zh, GL, out=out2)
+
+    return device_time_per_call(run, warmup=1, repeats=3) * 1e3
 
 
 def route_times(torch, tg, kernels, core, route, shape, B, which, seed=76):
@@ -2438,14 +2572,14 @@ def route_times(torch, tg, kernels, core, route, shape, B, which, seed=76):
         for k in turn:
             ms[k].append(device_time_per_call(runs[k], warmup=1, repeats=5)
                          * 1e3)
-    cfg = tg.SolverConfig(**({} if route == "dense_tiled"
-                             else dict(form="mvp", flat="off")))
+    cfg = tg.SolverConfig(**ROUTE_CFG[route])
     return {"m": d.m_half if d.paired else d.m, "n_z": d.n_z, "batch": B,
             "auto_kernel": core.cuda_kernel(d, cfg, batch=B),
-            "plan": kernels.pick_flat_tiled(d.m_half if d.paired else d.m,
-                                            d.n_z, B),
+            "plan": route_plan(kernels, route, d, B),
             "device_ms": profiled_ms(torch, runs["kernel"],
                                      ROUTE_FNS[route][2]),
+            "two_torch_mm_ms": two_products_ms(
+                torch, d, B, flat=route == "flat_tiled"),
             "ms_median_of_5_per_turn": ms,
             "ms": {k: float(np.mean(v)) for k, v in ms.items()}, **bnd}
 
@@ -2478,15 +2612,23 @@ def times_routes(torch, tg, kernels, core, smi):
     (ROUTE_DENSE_EDGE, ROUTE_PAIRED_EDGE), at each of ROUTE_BATCHES, where
     ``auto``'s edges lie: the kernel's device time (profiler), the solve on
     its route (``engine="cuda"``) and the torch engine in turns (CUDA
-    events), with the route ``auto`` takes at that batch; then each route
-    under every tier (``route_tier_times``)."""
+    events), with the route ``auto`` takes at that batch and the two
+    products of an iteration as two ``torch.mm`` calls x 100
+    (``two_products_ms``); the tiled dense route, the paired tiled route
+    and the flat tiled route (the default solve past the flat kernel's
+    shared memory); then each route under every tier
+    (``route_tier_times``)."""
     for route, shapes in (("dense_tiled", ROUTE_GAP + ROUTE_DENSE_EDGE),
-                          ("paired_tiled", ROUTE_GAP + ROUTE_PAIRED_EDGE)):
+                          ("paired_tiled", ROUTE_GAP + ROUTE_PAIRED_EDGE),
+                          ("flat_tiled", ROUTE_GAP + ROUTE_PAIRED_EDGE)):
         gap = []
         for n, N in shapes:
             _, d = route_data(tg, route, dict(n_cells=n, horizon=N))
-            if not (kernels.dense_fits_smem(d) if route == "dense_tiled"
-                    else kernels.paired_fits_smem(d)):
+            if (not kernels.dense_fits_smem(d) if route == "dense_tiled"
+                    else not kernels.paired_fits_smem(d)
+                    if route == "paired_tiled"
+                    else kernels.flat_tiled_fits(d)
+                    and not kernels.flat_fits_smem(d)):
                 gap.append((d.m_half if d.paired else d.m, n, N))
         for B in ROUTE_BATCHES:
             lost = 0
@@ -2506,14 +2648,43 @@ def times_routes(torch, tg, kernels, core, smi):
     route_tier_times(torch, tg, kernels, core, smi)
 
 
+# --times dense: the tiled dense kernel at these (battery shape, batch)
+DENSE_AB = ((FLAGSHIP, 1), (FLAGSHIP, 64), (FLAGSHIP, ROUTE_BATCH),
+            (FLAGSHIP, 1024), (DENSE_WIDE, ROUTE_BATCH),
+            (DENSE_MID, ROUTE_BATCH))
+
+
+def times_dense(torch, tg, kernels, core, smi):
+    """``python3 chip_smoke.py --times dense``: the tiled dense kernel's
+    device time (profiler, 10 calls) x 100 at DENSE_AB through its public
+    wrapper alone, its default plan, so that a copy of this script beside
+    a checkout of an earlier commit times that commit's kernel (the
+    cluster design of ``tiled_mvp.cuh`` before it); each row names the
+    design it timed."""
+    phases = hasattr(kernels, "pick_dense_tiled")
+    for shape, B in DENSE_AB:
+        d = tg.dualize(tg.condense(tg.problems.battery(**shape)), ITERS,
+                       paired=False, device=DEVICE)
+        g, p = core.affine_params(d, flag_x0(torch, d.n_x, B, seed=79)[1])
+        ms = profiled_ms(torch, lambda: kernels.gpad_fixed_dense_tiled(
+            d, g, p, iterations=ITERS), "gpad_dense_tiled_kernel")
+        emit({"phase": "times_dense", "gpu": smi,
+              "design": "phases" if phases else "clusters",
+              "shape": shape_label(shape), "m": d.m, "n_z": d.n_z,
+              "batch": B, "iterations": ITERS, "device_ms": ms,
+              "plan": (kernels.pick_dense_tiled(d.m, d.n_z, B)[:3] if phases
+                       else kernels.pick_flat_tiled(d.m, d.n_z, B))})
+
+
 def route_tier_times(torch, tg, kernels, core, smi, B=ROUTE_BATCH):
-    """Each tiled route (tiled dense at n10 N20, paired tiled at n10 N30)
-    at each tier beside "highest", B x 100: profiler device ms in turns
+    """Each tiled route (tiled dense at n10 N20 and the flagship's dense
+    layout, paired tiled at n10 N30) at each tier beside "highest", B x 100: profiler device ms in turns
     (highest, tier, tier, highest), the bound at the tier's peak, and the
     plain version's ms at the tier (CUDA events)."""
     from tpu_gpad_torch.utils import device_time_per_call
 
     for route, shape in (("dense_tiled", DENSE_WIDE),
+                         ("dense_tiled", FLAGSHIP),
                          ("paired_tiled", PAIRED_WIDE)):
         _, d = route_data(tg, route, shape)
         g, p = core.affine_params(d, flag_x0(torch, d.n_x, B, 77)[1])
@@ -5745,6 +5916,8 @@ def main() -> int:
             times_stagewise(torch, tg, sk, ss, smi)
         if "tiers" in families:
             times_tiers(torch, tg, kernels, dual_kernels, core, smi)
+        if "dense" in families:
+            times_dense(torch, tg, kernels, core, smi)
         if "routes" in families:
             times_routes(torch, tg, kernels, core, smi)
             times_soft_routes(torch, tg, kernels, dual_kernels, core, smi)
@@ -5761,6 +5934,8 @@ def main() -> int:
             sweep_stagewise(torch, tg, sk, ss, ts, smi)
         if "tiled" in families:
             sweep_tiled(torch, tg, kernels, dual_kernels, core, smi)
+        if "tiled" in families or "dense_tiled" in families:
+            sweep_dense_tiled(torch, tg, kernels, core, smi)
         return 0
     worst = phase_kernel_vs_plain(torch, tg, kernels, core)
     worst_dual = phase_dual_kernel_vs_plain(torch, tg, dual_kernels, core)
@@ -5877,6 +6052,7 @@ def main() -> int:
         "torch_engine_ms": r["ms"]["torch_engine"],
         "auto_solve_ms": r["ms"]["auto"], "auto_kernel": r["auto_kernel"],
         "m": r["m"], "n_z": r["n_z"], "batch": r["batch"],
+        "two_torch_mm_ms": r["two_torch_mm_ms"],
         **{k: r[k] for k in ("bound_ms", "bound_by", "flops", "bytes")}}
     routes = {k: route_row(r) for k, r in rmed.items()}
     # no single PyTorch call computes a GPAD solve loop
@@ -6028,6 +6204,11 @@ def main() -> int:
         "name": "gpad_dense_tiled",
         "route": "cuda",
         "source": "tpu_gpad_torch/csrc/gpad_dense_tiled.cu",
+        "design": "one persistent cooperative launch, two card-wide product "
+                  "phases an iteration on operand and state tiles staged "
+                  "by bulk copies into a ring of up to 8 shared-memory "
+                  "stages on mbarriers; fp32 FFMA register tiles at "
+                  "highest, mma.sync under a tier",
         "replaces": "tpu_gpad/solver/kernels.py:336",
         "launches": 0,
         "max_abs_err": worst_routes["dense_tiled"],

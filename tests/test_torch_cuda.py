@@ -1469,6 +1469,9 @@ def _tier_fns(kernel):
     if kernel == "dense":
         return (kernels.gpad_fixed_dense, kernels.gpad_fixed_dense_torch,
                 (kernels, "DENSE_LAUNCHES"), {})
+    if kernel == "dense_tiled":
+        return (kernels.gpad_fixed_dense_tiled, kernels.gpad_fixed_dense_torch,
+                (kernels, "DENSE_TILED_LAUNCHES"), {})
     if kernel == "flat_tiled":
         return (kernels.gpad_fixed_flat_tiled,
                 kernels.gpad_fixed_paired_flat_torch,
@@ -1860,36 +1863,45 @@ def _route_data(dev, n, N, paired):
 
 
 ROUTE_CASES = {
-    # case: (route, battery shape, B, warm start, diagnostics, tile,
-    # blocks per cluster; None: the picks)
-    "dense_n5N20": ("dense", (5, 20), 256, None, True, None, None),
-    "dense_n5N20_warm": ("dense", (5, 20), 256, "per_scenario", True, None,
-                         None),
-    "dense_n5N20_warm_shared": ("dense", (5, 20), 33, "shared", True, None,
-                                None),
+    # case: (route, battery shape, B, warm start, diagnostics, plan
+    # overrides: the tiled dense kernel's tile, parts_a and parts_b, the
+    # flat tiled kernel's log2_tile and cluster; {}: the picks)
+    "dense_n5N20": ("dense", (5, 20), 256, None, True, {}),
+    "dense_n5N20_warm": ("dense", (5, 20), 256, "per_scenario", True, {}),
+    "dense_n5N20_warm_shared": ("dense", (5, 20), 33, "shared", True, {}),
     "dense_n5N20_no_diagnostics": ("dense", (5, 20), 33, "per_scenario",
-                                   False, None, None),
-    "dense_n5N20_B1": ("dense", (5, 20), 1, None, True, None, None),
-    "dense_n5N20_B300": ("dense", (5, 20), 300, "per_scenario", True, None,
-                         None),
-    "dense_n10N20": ("dense", (10, 20), 256, None, True, None, None),
-    "dense_flagship": ("dense", (30, 30), 256, "per_scenario", True, None,
-                       None),
-    "paired_n5N30": ("paired", (5, 30), 256, None, True, None, None),
-    "paired_n5N30_warm_shared": ("paired", (5, 30), 33, "shared", True, None,
-                                 None),
-    "paired_n10N30": ("paired", (10, 30), 256, "per_scenario", False, None,
-                      None),
+                                   False, {}),
+    "dense_n5N20_B1": ("dense", (5, 20), 1, None, True, {}),
+    "dense_n5N20_B300": ("dense", (5, 20), 300, "per_scenario", True, {}),
+    "dense_n10N20": ("dense", (10, 20), 256, None, True, {}),
+    "dense_flagship": ("dense", (30, 30), 256, "per_scenario", True, {}),
+    # a batch past one tile of 128 that fills none, one scenario, a batch
+    # whose phase B runs in two waves of units
+    "dense_flagship_B130": ("dense", (30, 30), 130, "shared", True, {}),
+    "dense_flagship_B1": ("dense", (30, 30), 1, "per_scenario", False, {}),
+    "dense_n10N20_B1024": ("dense", (10, 20), 1024, None, True, {}),
+    # m and n_z not multiples of the tiles, nor of 4 floats (n3 N31: m 434,
+    # n_z 93, operand rows staged from zero-padded copies)
+    "dense_n3N30": ("dense", (3, 30), 77, "per_scenario", True, {}),
+    "dense_n3N31": ("dense", (3, 31), 77, "shared", True, {}),
+    "paired_n5N30": ("paired", (5, 30), 256, None, True, {}),
+    "paired_n5N30_warm_shared": ("paired", (5, 30), 33, "shared", True, {}),
+    "paired_n10N30": ("paired", (10, 30), 256, "per_scenario", False, {}),
 }
 ROUTE_CASES.update({
-    f"{r}_tile{1 << t}_cluster{c}": (r, (5, 20) if r == "dense" else (5, 30),
-                                     33, "per_scenario", True, t, c)
-    for r in ("dense", "paired") for t in (0, 2, 4) for c in (4, 16)})
+    f"dense_tile{t}_parts{pa}x{pb}": ("dense", (5, 20), 33, "per_scenario",
+                                      True, dict(tile=t, parts_a=pa,
+                                                 parts_b=pb))
+    for t in (16, 32, 64, 128) for pa, pb in ((1, 1), (5, 2), (14, 4))})
+ROUTE_CASES.update({
+    f"paired_tile{1 << t}_cluster{c}": ("paired", (5, 30), 33, "per_scenario",
+                                        True, dict(log2_tile=t, cluster=c))
+    for t in (0, 2, 4) for c in (4, 16)})
 
 
 @pytest.mark.parametrize("case", list(ROUTE_CASES))
 def test_tiled_route_kernels_match_plain(dev, case):
-    route, shape, B, warm, diagnostics, tile, cluster = ROUTE_CASES[case]
+    route, shape, B, warm, diagnostics, plan = ROUTE_CASES[case]
     data = _route_data(dev, *shape, "auto" if route == "paired" else False)
     g_P, p_D = _inputs(data, B, seed=B + 19)
     dual = (2, data.m_half) if data.paired else (data.m,)
@@ -1903,7 +1915,7 @@ def test_tiled_route_kernels_match_plain(dev, case):
                    kernels.gpad_fixed_paired_torch, "PAIRED_TILED_LAUNCHES"),
     }[route]
     before = getattr(kernels, counter), kernels.FLAT_TILED_LAUNCHES
-    out_k = fn(data, g_P, p_D, y0, log2_tile=tile, cluster=cluster, **kw)
+    out_k = fn(data, g_P, p_D, y0, **plan, **kw)
     assert (getattr(kernels, counter), kernels.FLAT_TILED_LAUNCHES) == (
         before[0] + 1, before[1])
     out_p = plain(data, g_P, p_D, y0, **kw)
@@ -1911,10 +1923,69 @@ def test_tiled_route_kernels_match_plain(dev, case):
     _assert_close(out_k, out_p)
 
 
+@pytest.mark.parametrize("case", ["dense_flagship", "dense_n5N20_B300",
+                                  "dense_tile16_parts14x4",
+                                  "dense_tile128_parts5x2"])
+def test_dense_tiled_launches_are_bit_equal(dev, case):
+    """Every sum of the tiled dense kernel is taken in one fixed order (no
+    atomics; the parts added in part order): two launches on the same
+    inputs give the same bits."""
+    _, shape, B, warm, diagnostics, plan = ROUTE_CASES[case]
+    data = _route_data(dev, *shape, False)
+    g_P, p_D = _inputs(data, B, seed=B + 19)
+    y0 = None if warm is None else torch.rand((B, data.m), device=dev) * 0.5
+    runs = [kernels.gpad_fixed_dense_tiled(data, g_P, p_D, y0, iterations=ITERS,
+                                           **plan) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIER_KERNEL_TOL])
+def test_dense_tiled_tiles_are_bit_equal(dev, tier):
+    """A scenario's sums do not depend on the tile it shares: each is
+    taken by one thread (FFMA) or one fragment lane (mma) over the same
+    k-tiles and parts, so every tile of the same parts gives the same
+    bits, at every tier."""
+    data = _route_data(dev, 5, 20, False)
+    g_P, p_D = _inputs(data, 33, seed=31)
+    y0 = torch.rand((33, data.m), device=dev) * 0.5
+    outs = {t: kernels.gpad_fixed_dense_tiled(
+        data, g_P, p_D, y0, iterations=ITERS, tile=t, parts_a=5, parts_b=2,
+        tier=tier) for t in kernels.DENSE_TILED_TILES}
+    torch.cuda.synchronize()
+    for t, out in outs.items():
+        for name, a, b in zip(("z", "y", "w", "zhat"), out, outs[16]):
+            assert torch.equal(a, b), (t, name, (a - b).abs().max().item())
+
+
+@pytest.mark.parametrize("tier", list(TIER_KERNEL_TOL))
+@pytest.mark.parametrize("case", ["dense_n5N20_B300", "dense_flagship_B130",
+                                  "dense_n3N31", "dense_tile16_parts14x4",
+                                  "dense_tile128_parts5x2"])
+def test_tier_dense_tiled_matches_plain(dev, monkeypatch, case, tier):
+    """The tiled dense kernel at each tier (mma.sync from its staged tiles)
+    against its plain version at the tier, as ``_tier_held``; and the tier
+    took effect."""
+    _, shape, B, warm, _, plan = ROUTE_CASES[case]
+    data = _route_data(dev, *shape, False)
+    g_P, p_D = _inputs(data, B, seed=B + 29)
+    y0 = None if warm is None else torch.rand(
+        (B if warm == "per_scenario" else 1, data.m), device=dev) * 0.5
+    out_k = _tier_held("dense_tiled", data, g_P, p_D, y0, tier, monkeypatch,
+                       **plan)
+    highest = _tier_run("dense_tiled", data, g_P, p_D, y0, "highest",
+                        **plan)[0]
+    assert not torch.equal(out_k[0], highest[0]), "the tier took no effect"
+
+
 def test_tiled_routes_through_solve_batch(dev):
     """``auto`` on the dense n10 N20 layout and a ``flat="off"`` solve at
     n10 N30 each launch their tiled route once at B256, u within TOL of the
-    torch engine's; at B4096 auto's dense solve launches none."""
+    torch engine's; at B4096 auto's dense solve launches the kernel too
+    (the redesigned kernel beat the torch engine at every measured batch),
+    and the default flat solve at n10 N30 B16384, past auto's flat tiled
+    work edge, launches none."""
     legs = [(_route_data(dev, 10, 20, False), "DENSE_TILED_LAUNCHES", {}),
             (_route_data(dev, 10, 30, "auto"), "PAIRED_TILED_LAUNCHES",
              dict(form="mvp", flat="off"))]
@@ -1927,11 +1998,15 @@ def test_tiled_routes_through_solve_batch(dev):
         assert getattr(kernels, counter) == before + 1, counter
         ref = tg.solve_batch(data, X0, tg.SolverConfig(engine="torch", **kw))
         assert (res.u - ref.u).abs().max().item() <= TOL, counter
-    # at B4096 the dense n10 N20 solve is past auto's work edge (the kernel
-    # tied the torch engine there): auto runs the torch engine
     data = legs[0][0]
-    X0 = torch.zeros((4096, data.n_x), device=dev)
     before = kernels.DENSE_TILED_LAUNCHES
-    tg.solve_batch(data, X0, tg.SolverConfig())
+    tg.solve_batch(data, torch.zeros((4096, data.n_x), device=dev),
+                   tg.SolverConfig())
     torch.cuda.synchronize()
-    assert kernels.DENSE_TILED_LAUNCHES == before
+    assert kernels.DENSE_TILED_LAUNCHES == before + 1
+    wide = legs[1][0]
+    before = kernels.FLAT_TILED_LAUNCHES
+    tg.solve_batch(wide, torch.zeros((16384, wide.n_x), device=dev),
+                   tg.SolverConfig())
+    torch.cuda.synchronize()
+    assert kernels.FLAT_TILED_LAUNCHES == before

@@ -243,17 +243,24 @@ def test_routing_across_the_gap(gap, shape):
         assert core.cuda_kernel(soft_pair, cfg) == core.cuda_kernel(pair, cfg)
     assert core.cuda_kernel(soft_pair, SolverConfig(engine="cuda", **off)) == (
         "paired" if resident else "paired_tiled")
-    # at B16384 the kernel lost at every gap shape: auto keeps the resident
-    # kernels and the torch engine, a forced "cuda" the tiled routes
+    # at B16384 the paired and flat tiled kernels lost at every gap shape:
+    # auto keeps the resident kernels and the torch engine, a forced "cuda"
+    # the tiled routes; the tiled dense kernel won at every shape there
     big = 16384
     assert core.cuda_kernel(dense, SolverConfig(), big) == (
-        "dense" if m <= 280 else None)
+        "dense" if m <= 280 else "dense_tiled")
     assert core.cuda_kernel(dense, SolverConfig(engine="cuda"), big) == (
         "dense" if m <= 280 else "dense_tiled")
     assert core.cuda_kernel(pair, SolverConfig(**off), big) == (
         "paired" if resident else None)
     assert core.cuda_kernel(pair, SolverConfig(engine="cuda", **off),
                             big) == ("paired" if resident else "paired_tiled")
+    flat_resident = kernels.flat_fits_smem(pair)
+    assert core.cuda_kernel(pair, SolverConfig(form="mvp"), big) == (
+        "paired_flat" if flat_resident else None)
+    assert core.cuda_kernel(pair, SolverConfig(engine="cuda", form="mvp"),
+                            big) == ("paired_flat" if flat_resident
+                                     else "flat_tiled")
     for diagnostics in (True, False):  # the flag never changes the route
         cfg = SolverConfig(engine="cuda", diagnostics=diagnostics)
         assert core.cuda_kernel(dense, cfg) == core.cuda_kernel(
@@ -262,44 +269,54 @@ def test_routing_across_the_gap(gap, shape):
 
 def test_auto_edges_follow_the_measurement():
     """``engine="auto"`` takes the tiled routes up to the largest shape the
-    kernel was measured at (dense m 3660, paired m_h 1830) and up to the
-    most work, rows a side x n_z x batch, at which it was measured faster
-    (dense m 700 x n_z 150 x B4096, paired m_h 550 x n_z 250 x B4096), and
-    the torch engine past either; a forced "cuda" takes them wherever they
-    fit."""
+    kernel was measured at (dense m 3660, paired and flat m_h 1830) and up
+    to the most work, rows a side x n_z x batch, at which it was measured
+    faster (dense: the flagship m 3660 x n_z 900 x B16384, the largest
+    measured; paired m_h 550 x n_z 250 x B4096; flat m_h 630 x n_z 300 x
+    B4096), and the torch engine past either; a forced "cuda" takes them
+    wherever they fit."""
     def at(paired, rows, n_z=1):
         return SimpleNamespace(paired=paired, m=rows, m_half=rows, n_z=n_z)
 
-    for paired, most_rows, most_work in (
-            (False, kernels.DENSE_TILED_AUTO_MAX_M,
+    for paired, flat, most_rows, most_work in (
+            (False, False, kernels.DENSE_TILED_AUTO_MAX_M,
              kernels.DENSE_TILED_AUTO_MAX_WORK),
-            (True, kernels.PAIRED_TILED_AUTO_MAX_M_HALF,
-             kernels.PAIRED_TILED_AUTO_MAX_WORK)):
-        assert kernels.tiled_auto(at(paired, most_rows))
-        assert not kernels.tiled_auto(at(paired, most_rows + 1))
-        assert kernels.tiled_auto(at(paired, 100, 10), most_work // 1000)
+            (True, False, kernels.PAIRED_TILED_AUTO_MAX_M_HALF,
+             kernels.PAIRED_TILED_AUTO_MAX_WORK),
+            (True, True, kernels.FLAT_TILED_AUTO_MAX_M_HALF,
+             kernels.FLAT_TILED_AUTO_MAX_WORK)):
+        assert kernels.tiled_auto(at(paired, most_rows), flat=flat)
+        assert not kernels.tiled_auto(at(paired, most_rows + 1), flat=flat)
+        assert kernels.tiled_auto(at(paired, 100, 10), most_work // 1000,
+                                  flat=flat)
         assert not kernels.tiled_auto(at(paired, 100, 10),
-                                      most_work // 1000 + 1)
-    assert (kernels.DENSE_TILED_AUTO_MAX_M,
-            kernels.PAIRED_TILED_AUTO_MAX_M_HALF) == (3660, 1830)
+                                      most_work // 1000 + 1, flat=flat)
+    assert (kernels.DENSE_TILED_AUTO_MAX_M, kernels.PAIRED_TILED_AUTO_MAX_M_HALF,
+            kernels.FLAT_TILED_AUTO_MAX_M_HALF) == (3660, 1830, 1830)
     assert (kernels.DENSE_TILED_AUTO_MAX_WORK,
-            kernels.PAIRED_TILED_AUTO_MAX_WORK) == (700 * 150 * 4096,
-                                                    550 * 250 * 4096)
+            kernels.PAIRED_TILED_AUTO_MAX_WORK,
+            kernels.FLAT_TILED_AUTO_MAX_WORK) == (
+                3660 * 900 * 16384, 550 * 250 * 4096, 630 * 300 * 4096)
 
 
 # (layout, battery n, N, batch, was the kernel faster than the torch
 # engine): the edges of chip_smoke.py --times routes on an H100 (PERF.md,
-# section 5), each batch's last shape won and first shape lost
+# section 5), each batch's last shape won and first shape lost ("dense":
+# the tiled dense kernel won at the flagship, the last shape, at every
+# batch; "flat": the flat tiled route, its left-out wins past the edge
+# aside)
 MEASURED_EDGES = [
     ("dense", 30, 30, 1, True), ("dense", 30, 30, 64, True),
-    ("dense", 20, 30, 256, True), ("dense", 25, 30, 256, False),
-    ("dense", 10, 30, 1024, True), ("dense", 15, 30, 1024, False),
-    ("dense", 3, 50, 4096, True), ("dense", 10, 20, 4096, False),
-    ("dense", 5, 20, 16384, False),
+    ("dense", 30, 30, 256, True), ("dense", 30, 30, 1024, True),
+    ("dense", 30, 30, 4096, True), ("dense", 30, 30, 16384, True),
     ("paired", 30, 30, 1, True), ("paired", 30, 30, 256, True),
-    ("paired", 15, 30, 1024, True), ("paired", 30, 30, 1024, False),
+    ("paired", 15, 30, 1024, True), ("paired", 20, 30, 1024, False),
     ("paired", 5, 50, 4096, True), ("paired", 10, 30, 4096, False),
     ("paired", 5, 30, 16384, False),
+    ("flat", 30, 30, 1, True), ("flat", 30, 30, 64, True),
+    ("flat", 30, 30, 256, True), ("flat", 20, 30, 1024, True),
+    ("flat", 10, 30, 4096, True), ("flat", 15, 30, 4096, False),
+    ("flat", 5, 30, 16384, False),
 ]
 
 
@@ -311,17 +328,18 @@ def test_auto_edges_follow_the_batch(layout, n, N, batch, faster):
     tiled route where the kernel was faster and the torch engine where it
     lost."""
     qp = tpu_gpad.condense(jp.battery(n, N))
-    rows = qp.m // 2 if layout == "paired" else qp.m
-    data = SimpleNamespace(paired=layout == "paired", m=qp.m, m_half=qp.m // 2,
+    paired = layout != "dense"
+    rows = qp.m // 2 if paired else qp.m
+    data = SimpleNamespace(paired=paired, m=qp.m, m_half=qp.m // 2,
                            n_z=qp.n_z)
-    assert kernels.tiled_auto(data, batch) == faster
-    assert rows > (220 if layout == "paired" else 280)  # past the resident
+    assert kernels.tiled_auto(data, batch, flat=layout == "flat") == faster
+    assert rows > (220 if paired else 280)  # past the resident
 
 
 def test_cli_info_routes_at_its_batch(capsys):
     """``info --batch`` reports the route a solve of that many scenarios
-    takes: dense n5 N20 (m 440) on the tiled dense kernel at B1 and B4096,
-    the torch engine at B16384, where the kernel lost."""
+    takes: dense n5 N20 (m 440) on the tiled dense kernel at B1, B4096 and
+    B16384, where the redesigned kernel beat the torch engine."""
     from tpu_gpad_torch import cli
 
     kernels_seen = []
@@ -331,18 +349,24 @@ def test_cli_info_routes_at_its_batch(capsys):
                          "--device", "cpu"]) == 0
         out = capsys.readouterr().out.strip().splitlines()[-1]
         kernels_seen.append(json.loads(out)["kernel"])
-    assert kernels_seen == ["dense_tiled", "dense_tiled", None]
+    assert kernels_seen == ["dense_tiled", "dense_tiled", "dense_tiled"]
 
 
 def test_tiled_guards_and_plans(gap):
-    """Both routes take the flat tiled plan at their rows a side: at the
-    30x30 flagship's dense layout (m 3660, n_z 900) 8 scenarios a cluster
-    at B256, 162 KB a block; the dense guard refuses soft rows, the paired
-    one takes them, and each refuses the other layout."""
-    assert kernels.pick_flat_tiled(3660, 900, 256).log2_tile == 3
-    assert kernels._flat_tiled_smem_bytes(3660, 900, 3) == 4 * 8 * (
-        3660 + 900 + 512)
-    assert kernels._flat_tiled_smem_bytes(3660, 900, 4) > kernels.SMEM_LIMIT_BYTES
+    """The dense route takes the tiled dense kernel's plan, whose shared
+    memory is the staging ring's alone: at the 30x30 flagship's dense layout
+    (m 3660, n_z 900) B256 tiles of 64 scenarios, m in 4 parts and n_z in
+    one, 128 and 116 units, 8 stages of 26,624 bytes (213,120 a block with
+    the barriers); at 128 scenarios 6 stages fit. The paired route keeps
+    the flat tiled plan at its rows a side. The dense guard refuses soft
+    rows, the paired one takes them, and each refuses the other layout."""
+    plan = kernels.pick_dense_tiled(3660, 900, 256)
+    assert plan[:3] == (64, 4, 1)
+    assert (plan.units_a, plan.units_b) == (4 * 8 * 4, 4 * 29)
+    assert plan.smem == kernels._dense_tiled_smem_bytes(64) == 128 + 8 * (
+        4 * 32 * (128 + 64 + 16))
+    assert kernels.dense_tiled_stages(128) == 6
+    assert kernels.pick_flat_tiled(1830, 900, 256).log2_tile == 4
     dense, pair = gap[(10, 30, False)], gap[(10, 30, "auto")]
     assert kernels.dense_tiled_fits(dense) and not kernels.dense_tiled_fits(pair)
     assert kernels.paired_tiled_fits(pair) and not kernels.paired_tiled_fits(dense)
@@ -353,6 +377,100 @@ def test_tiled_guards_and_plans(gap):
     # a stack whose one scenario's wd and zhat pass a block's shared memory
     assert kernels.pick_flat_tiled(58_100, 100) is None
     assert kernels.pick_flat_tiled(58_000, 100).grouped is False
+
+
+def test_dense_tiled_fits_past_the_cluster_guard(gap):
+    """The cluster design held a scenario's w and zhat in each block's
+    shared memory, which refused m 58,100 at n_z 100 (``pick_flat_tiled``,
+    one scenario); the redesigned kernel keeps its state in device memory,
+    so such a stack fits, with a plan at every batch."""
+    dense = gap[(5, 20, False)]
+    wide = SimpleNamespace(paired=False, soft_damp=None, m=58_100, n_z=100)
+    assert kernels.pick_flat_tiled(wide.m, wide.n_z) is None
+    assert kernels.dense_tiled_fits(wide) and kernels.dense_tiled_fits(dense)
+    for B in (1, 256, 16384):
+        plan = kernels.pick_dense_tiled(wide.m, wide.n_z, B)
+        assert plan.smem <= kernels.SMEM_LIMIT_BYTES
+        assert 1 <= plan.parts_a <= -(-wide.m // 32)
+    assert not kernels.dense_tiled_fits(SimpleNamespace(
+        paired=False, soft_damp=torch.zeros(3), m=58_100, n_z=100))
+
+
+# (m, n_z) of the guard table: the smallest stack past the resident dense
+# kernel, battery n5 N20, n10 N20, the widest n_z, odd widths and the
+# flagship's dense layout
+PLAN_SHAPES = [(281, 60), (440, 100), (840, 200), (1861, 450), (2461, 617),
+               (3660, 900)]
+PLAN_BATCHES = (1, 7, 64, 130, 256, 1024, 4096, 16384)
+
+
+@pytest.mark.parametrize("tier", kernels.KERNEL_TIERS)
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=[f"m{m}_nz{n}" for m, n in PLAN_SHAPES])
+def test_pick_dense_tiled_guard_table(shape, tier):
+    """``pick_dense_tiled`` over m 281-3660, n_z 60-900 and B 1-16384 at
+    every tier: a plan wherever ``dense_tiled_fits`` admits (every unpaired
+    hard stack); at most 232,448 bytes of shared memory a block; each
+    phase's parts within its k-tiles and its units in one wave of the
+    card's 132 SMs where it has parts, with as many parts as fit it, so
+    that units > 132 - tiles wherever the k-tiles allow (a part more would
+    start a second wave); the tile within the batch rounded up; the same
+    plan at every tier."""
+    m, n_z = shape
+    sms = kernels.H100_SMS
+    for B in PLAN_BATCHES:
+        plan = kernels.pick_dense_tiled(m, n_z, B, tier)
+        assert plan == kernels.pick_dense_tiled(m, n_z, B)
+        assert plan.tile in kernels.DENSE_TILED_TILES
+        assert plan.tile <= max(16, 1 << (B - 1).bit_length())
+        assert plan.smem == kernels._dense_tiled_smem_bytes(plan.tile)
+        assert plan.smem <= kernels.SMEM_LIMIT_BYTES == 232_448
+        assert (plan.cols, plan.depth) == (128, 32)
+        assert plan.stages == kernels.dense_tiled_stages(plan.tile) >= 6
+        st = -(-B // plan.tile)
+        for parts, units, k, cols in ((plan.parts_a, plan.units_a, m, n_z),
+                                      (plan.parts_b, plan.units_b, n_z, m)):
+            tiles, k_tiles = st * -(-cols // 128), -(-k // 32)
+            assert 1 <= parts <= k_tiles
+            assert units == tiles * parts
+            if parts > 1:
+                assert units <= sms
+            assert parts == k_tiles or units > sms - tiles, (B, parts, units)
+        floats = kernels._dense_tiled_scratch_floats(m, n_z, B, *plan[:3])
+        assert floats >= -(-B // plan.tile) * plan.tile * 3 * (m + n_z)
+
+
+def test_dense_tiled_fake_shapes_under_export(dense):
+    """The op's fake implementation gives the kernel's output shapes
+    (z, zhat (B, n_z); y, w (B, m); w and zhat empty without diagnostics),
+    so ``torch.export`` traces a dense tiled solve at any plan."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    _, _, d_t, _, g_P, p_D = dense
+    for diagnostics in (True, False):
+        with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+            args = [mode.from_tensor(t) for t in (
+                d_t.MG_T, d_t.GL_T, torch.from_numpy(g_P),
+                torch.from_numpy(p_D))]
+            z, y, w, zhat = kernels.dense_tiled_op(
+                *args, None, mode.from_tensor(d_t.theta),
+                mode.from_tensor(d_t.beta), 5, 128, 8, 2, diagnostics,
+                "highest")
+        assert tuple(z.shape) == (B, d_t.n_z) and tuple(y.shape) == (B, d_t.m)
+        want = ((B, d_t.m), (B, d_t.n_z)) if diagnostics else ((0,), (0,))
+        assert (tuple(w.shape), tuple(zhat.shape)) == want
+
+    class Solve(torch.nn.Module):
+        def forward(self, g, p):
+            return kernels.gpad_fixed_dense_tiled(d_t, g, p, iterations=5)[:2]
+
+    g, p = torch.from_numpy(g_P), torch.from_numpy(p_D)
+    program = torch.export.export(Solve(), (g, p))
+    got = program.module()(g, p)
+    assert "tpu_gpad_torch.dense_tiled.default" in {
+        str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    for a, b in zip(got, Solve()(g, p)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("route", ["dense_tiled", "paired_tiled"])

@@ -35,8 +35,7 @@
 // scenarios, and every block streamed both whole operands on every
 // iteration.
 //
-// Design (csrc/tiled_mvp.cuh, the body this kernel shares with the tiled
-// dense kernel): clusters of up to 16 blocks own a tile of up to 16
+// Design (csrc/tiled_mvp.cuh): clusters of up to 16 blocks own a tile of up to 16
 // scenarios for the whole launch; each block reads only its slices of the
 // operands, and wd and zhat go to every block of the cluster through
 // distributed shared memory, two cluster barriers an iteration. The tier
@@ -65,7 +64,7 @@ gpad_flat_tiled_kernel(
     const float* __restrict__ L, int B, int m_h, int n_z, int n_s,
     int iterations, int grouped, float* z, float* y, float* w, float* zhat)
 {
-    gpad_tiled_mvp::mvp_loop<T, kTier, false, kSoft>(
+    gpad_tiled_mvp::mvp_loop<T, kTier, kSoft>(
         MG, GL, gP, pD, y0, y0_stride, od, theta, beta, L, B, m_h, n_z, n_s,
         iterations, grouped, z, y, w, zhat);
 }
@@ -113,6 +112,19 @@ int gpad_flat_tiled_launch(
         B, 1 << log2_tile, cluster, smem, (cudaStream_t)stream, MG, GL, gP,
         pD, y0, y0_stride, od, theta, beta, L, B, m_h, n_z, n_s, iterations,
         grouped, z, y, w, zhat);
+}
+
+// Clusters of the plan (log2_tile, cluster, smem, tier; hard rows) the
+// card holds at once (cudaOccupancyMaxActiveClusters), or a negative
+// cudaError_t.
+int gpad_flat_tiled_max_clusters(int log2_tile, int cluster, int smem,
+                                 int tier)
+{
+    if (log2_tile < 0 || log2_tile > 4 || tier < gpad_mma::kHighest
+        || tier > gpad_mma::kBfloat16)
+        return -(int)cudaErrorInvalidValue;
+    return gpad_tiled_mvp::max_clusters(
+        gpad_tiled_mvp::kernel_of<Instances>(log2_tile, tier), cluster, smem);
 }
 
 }  // extern "C"

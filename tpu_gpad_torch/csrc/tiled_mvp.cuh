@@ -1,21 +1,14 @@
-// The mvp GPAD loop with both operands read from device memory on every
-// iteration, a whole fixed-budget solve per launch: the body of the flat
-// tiled kernel (csrc/gpad_flat_tiled.cu: the flat paired loop, and the full
-// paired loop at n_s = m_h) and of the tiled dense kernel
-// (csrc/gpad_dense_tiled.cu: the unpaired loop), each source one library.
-// Per scenario, for each iteration k < iterations:
+// The paired mvp GPAD loop with both operands read from device memory on
+// every iteration, a whole fixed-budget solve per launch: the body of the
+// flat tiled kernel (csrc/gpad_flat_tiled.cu: the flat paired loop, and the
+// full paired loop at n_s = m_h). Per scenario, for each iteration
+// k < iterations, the state y+-, w+- of (B, 2, m_h):
 //
-//   paired (kDense false), the state y+-, w+- of (B, 2, m_h):
 //   w+-  = y+- + beta_k (y+- - y+-_prev),  wd = w+ - w-
 //   zhat = -MG_T' wd - g_P                        MG_T (m_h, n_z)
 //   z    = (1 - theta_k) z + theta_k zhat         z starts at 0
 //   q    = [ GL_T[:, :n_s]' zhat ; zhat / L ]     box rows need no product
 //   y+   = relu(w+ od + q + p_D+),  y- = relu(w- od - q + p_D-)
-//
-//   dense (kDense true), the state y, w of (B, m) and n_s = m (no box rows):
-//   w    = y + beta_k (y - y_prev),  wd = w
-//   zhat = -MG_T' w - g_P,  z as above            MG_T (m, n_z)
-//   y    = relu(w + GL_T' zhat + p_D)             GL_T (n_z, m)
 //
 // The dual rows are in [struct | box] order (dualize puts the identity rows
 // last). With n_s = m_h there are no box rows: the paired loop with the
@@ -25,7 +18,6 @@
 // kSoft instances read od (a hard launch passes null and runs instances
 // compiled as they were without it: the damp in their epilogue, inlined at
 // every fragment of the one-scenario tier product, spilled 24-88 bytes).
-// The dense loop has no soft rows, as tpu_gpad's dense kernel has none.
 // Fixed mode only: no restart, as in tpu_gpad.
 //
 // Design: a thread-block cluster of C blocks (512 threads each) owns a
@@ -49,9 +41,7 @@
 // Where even that scratch does not fit (shapes near the guard, one
 // scenario), a single group keeps each column's sums in its thread. The
 // state (y, w, z) lives in device memory in the output tensors: a block
-// touches only its own rows and columns of it. The dense loop is the same
-// body with a one-sided state: only its state's layout, the projection and
-// wd differ.
+// touches only its own rows and columns of it.
 //
 // Precision: the tier is a template parameter of the kernel. "highest" runs
 // both products in fp32 FMA (tiled_product.cuh's product_rows); "high",
@@ -91,8 +81,7 @@ constexpr int kRedCols = kCols * kThreads / 2;
 
 // Floats of shared memory a block needs (mirrored by kernels.py::
 // _flat_tiled_smem_bytes): wd and zhat of T scenarios and, with grouped
-// products, the groups' scratch. m_h is the dual rows of one side (m for
-// the dense loop).
+// products, the groups' scratch. m_h is the dual rows of one side.
 __host__ __device__ inline long long smem_floats(int m_h, int n_z, int T,
                                                  bool grouped) {
     return (long long)T * (m_h + n_z + (grouped ? kRedCols : 0));
@@ -235,15 +224,13 @@ __device__ __forceinline__ void product(
 
 // The whole solve of the cluster's tile: the body of a kernel of 512
 // threads on clusters. MG (m_h, n_z) and GL (n_z, m_h) row-major, GL's
-// columns [:n_s] used; gP, z and zhat (B, n_z); pD, y and w (B, 2, m_h), or
-// (B, m_h) where kDense (then n_s = m_h, and L is not read); y0 null (cold
-// start) or rows of y0_stride floats (0: one y0 for all); theta and beta at
-// least `iterations` long; L the Lipschitz constant (the box rows'
-// division); od (m_h,) the soft rows' damp, read by the kSoft instances
-// alone (the paired loop's: the dense loop has no soft rows), which keep
-// the hard instances as they were. `w` is the state (the last w on
+// columns [:n_s] used; gP, z and zhat (B, n_z); pD, y and w (B, 2, m_h); y0
+// null (cold start) or rows of y0_stride floats (0: one y0 for all); theta
+// and beta at least `iterations` long; L the Lipschitz constant (the box
+// rows' division); od (m_h,) the soft rows' damp, read by the kSoft
+// instances alone, which keep the hard instances as they were. `w` is the state (the last w on
 // return), `zhat` may be null.
-template <int T, int kTier, bool kDense, bool kSoft = false>
+template <int T, int kTier, bool kSoft = false>
 __device__ __forceinline__ void mvp_loop(
     const float* __restrict__ MG, const float* __restrict__ GL,
     const float* __restrict__ gP, const float* __restrict__ pD,
@@ -259,12 +246,11 @@ __device__ __forceinline__ void mvp_loop(
     float* red = zh + (long long)n_z * T;         // the groups' scratch
     const cg::cluster_group cl = cg::this_cluster();
     const Slice sl = make_slice(m_h, n_z, n_s, cl);
-    // IEEE division, as torch's 1 / L; the dense loop has no box rows
-    const float inv_L = kDense ? 0.0f : 1.0f / L[0];
+    const float inv_L = 1.0f / L[0];  // IEEE division, as torch's 1 / L
     const int tid = threadIdx.x;
     const long long b0 = (long long)(blockIdx.x / sl.C) * T;
     const int nv = (int)min((long long)T, B - b0);
-    const long long h = (kDense ? 1LL : 2LL) * m_h;  // a scenario's dual floats
+    const long long h = 2LL * m_h;  // a scenario's dual floats
     const int ns = sl.shi - sl.slo, nb = sl.bhi - sl.blo, nz = sl.zhi - sl.zlo;
     // the block's dual rows: e < ns structural, the rest box
     auto row_of = [&](int e) { return e < ns ? sl.slo + e : sl.blo + e - ns; };
@@ -278,14 +264,12 @@ __device__ __forceinline__ void mvp_loop(
             const long long o = (b0 + t) * h;
             if (y0) {
                 vp = y0[(b0 + t) * y0_stride + i];
-                if constexpr (!kDense) vm = y0[(b0 + t) * y0_stride + m_h + i];
+                vm = y0[(b0 + t) * y0_stride + m_h + i];
             }
             y[o + i] = vp;
+            y[o + m_h + i] = vm;
             w[o + i] = iterations > 0 ? vp : 0.0f;
-            if constexpr (!kDense) {
-                y[o + m_h + i] = vm;
-                w[o + m_h + i] = iterations > 0 ? vm : 0.0f;
-            }
+            w[o + m_h + i] = iterations > 0 ? vm : 0.0f;
         }
         wd[i * T + t] = vp - vm;
     }
@@ -327,36 +311,26 @@ __device__ __forceinline__ void mvp_loop(
             if (t >= nv) return;
             const long long o = (b0 + t) * h;
             const float yp = y[o + i];
-            if constexpr (kDense) {
-                const float ypn = fmaxf(w[o + i] + q + pD[o + i], 0.0f);
-                y[o + i] = ypn;
-                if (more) {
-                    const float wp = ypn + bn * (ypn - yp);
-                    w[o + i] = wp;
-                    wd[i * T + t] = wp;
-                }
-            } else {
-                float wp = w[o + i], wm = w[o + m_h + i];
-                if constexpr (kSoft) {
-                    // a soft row damps its extrapolated dual on both halves,
-                    // a rounded product apart from the sums (od = 1: the
-                    // hard rows' results, bit for bit)
-                    const float damp = od[i];
-                    wp = __fmul_rn(wp, damp);
-                    wm = __fmul_rn(wm, damp);
-                }
-                const float ypn = fmaxf(wp + q + pD[o + i], 0.0f);
-                const float ym = y[o + m_h + i];
-                const float ymn = fmaxf(wm - q + pD[o + m_h + i], 0.0f);
-                y[o + i] = ypn;
-                y[o + m_h + i] = ymn;
-                if (more) {
-                    const float wpn = ypn + bn * (ypn - yp);
-                    const float wmn = ymn + bn * (ymn - ym);
-                    w[o + i] = wpn;
-                    w[o + m_h + i] = wmn;
-                    wd[i * T + t] = wpn - wmn;
-                }
+            float wp = w[o + i], wm = w[o + m_h + i];
+            if constexpr (kSoft) {
+                // a soft row damps its extrapolated dual on both halves, a
+                // rounded product apart from the sums (od = 1: the hard
+                // rows' results, bit for bit)
+                const float damp = od[i];
+                wp = __fmul_rn(wp, damp);
+                wm = __fmul_rn(wm, damp);
+            }
+            const float ypn = fmaxf(wp + q + pD[o + i], 0.0f);
+            const float ym = y[o + m_h + i];
+            const float ymn = fmaxf(wm - q + pD[o + m_h + i], 0.0f);
+            y[o + i] = ypn;
+            y[o + m_h + i] = ymn;
+            if (more) {
+                const float wpn = ypn + bn * (ypn - yp);
+                const float wmn = ymn + bn * (ymn - ym);
+                w[o + i] = wpn;
+                w[o + m_h + i] = wmn;
+                wd[i * T + t] = wpn - wmn;
             }
         };
         product<T, kTier>(GL, m_h, n_z, sl.slo, sl.shi, zh, red,
@@ -436,6 +410,33 @@ int launch(void (*kernel)(P...), int B, int T, int cluster, int smem,
     err = cudaLaunchKernelEx(&cfg, kernel, args...);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+// Clusters of `cluster` blocks of `kernel` at `smem` bytes a block that
+// the card holds at once, or a negative cudaError_t.
+template <typename... P>
+int max_clusters(void (*kernel)(P...), int cluster, int smem)
+{
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess && cluster > 8)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return -(int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)cluster);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    return err == cudaSuccess ? n : -(int)err;
 }
 
 // Is (log2_tile, cluster, grouped, smem, tier) a plan the kernels take (a

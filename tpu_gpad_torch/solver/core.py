@@ -18,13 +18,14 @@ one block's shared memory. Past it (the reference's 30x30 flagship),
 dual-form solves read D from device memory in the tiled dual kernels,
 fixed or one eps window at a time (eps only with ``flat="off"`` or a
 forced ``engine="cuda"``), a fixed flat solve (the default at the
-flagship) reads its operands so in the flat tiled kernel, and the full
-paired loop in the same kernel at every row (under ``auto`` below its
-work edge, ``kernels.tiled_auto``). Soft (dual-damped) rows ride every
+flagship) reads its operands so in the flat tiled kernel, the full paired
+loop in the same kernel at every row, and a dense solve in the tiled
+dense kernel (each under ``auto`` below its work edge,
+``kernels.tiled_auto``). Soft (dual-damped) rows ride every
 paired and dual kernel, resident or tiled, as the JAX package's resident
 kernels carry them; only the dense layout, which has none, refuses them.
 Everything else (flat-on eps past shared memory, unpaired restart or
-eps, the tiled paired and dense routes past their work edge under
+eps, the tiled flat, paired and dense routes past their work edge under
 ``auto``) runs the torch engine, as the JAX package sends what its
 kernels do not serve to XLA.
 
@@ -768,9 +769,10 @@ def cuda_kernel(data: GPADData, config: SolverConfig,
     the flag never changes which loop runs. A flat fixed solve past the
     flat kernel's shared memory takes the flat tiled kernel, under
     ``engine="auto"`` too, as JAX's auto takes its streamed kernel in the
-    mid band (on an H100 it beat the torch engine 13.0 against 22-51 ms at
-    the 30x30 flagship and 1.57 against 26-52 ms at battery n5 N30, B256;
-    PERF.md §5). ``engine="auto"`` and a forced ``"cuda"`` part ways
+    mid band, there up to its measured work edge (``kernels.tiled_auto``
+    with ``flat``: on an H100 it beat the torch engine 13.0 against 22-51
+    ms at the 30x30 flagship B256 and lost at B1024; PERF.md §5).
+    ``engine="auto"`` and a forced ``"cuda"`` part ways
     where the JAX package's do: an eps solve past shared memory with the
     flat block on (auto: the torch engine; forced: the tiled chunk
     kernel). Past the resident paired and dense kernels' shared memory the
@@ -810,7 +812,10 @@ def cuda_kernel(data: GPADData, config: SolverConfig,
     if flat and kernels.flat_fits_smem(data):
         return "paired_flat"
     if flat and kernels.flat_tiled_fits(data):
-        return "flat_tiled"
+        # auto: where it beat the torch engine at this batch
+        if forced or kernels.tiled_auto(data, batch, flat=True):
+            return "flat_tiled"
+        return None
     tiled = forced or kernels.tiled_auto(data, batch)
     if data.paired:
         if kernels.paired_fits_smem(data):

@@ -21,9 +21,10 @@ Five whole-solve kernels, each one launch per fixed-budget solve:
   memory, the same kernel with every dual row structural (n_s = m_h); the
   counterpart of ``gpad_pallas_fixed_paired`` there.
 - ``gpad_fixed_dense_tiled``: the dense loop past one block's shared
-  memory, ``csrc/gpad_dense_tiled.cu`` (the flat tiled kernel's body,
-  ``csrc/tiled_mvp.cuh``, with a one-sided state); the counterpart of
-  ``gpad_pallas_fixed`` there.
+  memory, ``csrc/gpad_dense_tiled.cu`` (a persistent launch of two
+  card-wide product phases an iteration on operand tiles staged by bulk
+  copies, ``pick_dense_tiled``); the counterpart of ``gpad_pallas_fixed``
+  there.
 
 On CUDA tensors each launches its kernel or raises; on CPU tensors it runs
 its plain version (``*_torch``), the same loop in torch ops, which is also
@@ -39,8 +40,8 @@ Every kernel here (and every dual one) takes the solve's precision tier
 (``KERNEL_TIERS``): fp32 FFMA products at "highest", tensor-core
 ``mma.sync`` products at "high" (3xTF32), "default" (TF32) and "bfloat16"
 (``csrc/mma_product.cuh``; the tiled kernels' strips in
-``csrc/tiled_product.cuh``); their plain versions mirror each tier's
-rounding (``_tier_mm``).
+``csrc/tiled_product.cuh``; the tiled dense kernel's from its staged
+tiles); their plain versions mirror each tier's rounding (``_tier_mm``).
 """
 
 from __future__ import annotations
@@ -382,49 +383,204 @@ def paired_tiled_fits(data: GPADData) -> bool:
             and pick_flat_tiled(data.m_half, data.n_z) is not None)
 
 
+# The tiled dense kernel (csrc/gpad_dense_tiled.cu): one block an SM, an
+# iteration two card-wide product phases, A (zhat: K = m over n_z columns)
+# and B (q: K = n_z over the m rows); a unit is a tile of `tile` scenarios x
+# DENSE_TILED_COLS columns over one part of K, staged DENSE_TILED_DEPTH rows
+# at a time (rows padded by 8 floats) through a ring of as many stages of
+# shared memory as fit, at most DENSE_TILED_MAX_STAGES, two bulk copies a
+# stage from the operands and the state laid out in tiles in the scratch.
+# Parts past one write partial sums that a pass of their own adds in part
+# order (a grid barrier and the parts' bytes).
+DENSE_TILED_TILES = (16, 32, 64, 128)
+DENSE_TILED_COLS = 128
+DENSE_TILED_DEPTH = 32
+DENSE_TILED_MAX_STAGES = 8
+_DENSE_TILED_PAD = 8
+_DENSE_TILED_BARRIER_BYTES = 16 * DENSE_TILED_MAX_STAGES
+H100_SMS = 132
+# The plan's model of a phase's time (it only ranks the tiles): the units
+# run in waves of one an SM, each k-tile of a unit taking
+# _DENSE_TILED_KTILE_US at its tile; a grid barrier a phase; a phase of
+# several parts adds a pass over the parts' sums, a fixed cost and its
+# bytes. Fitted to the plan sweep on an H100 80GB HBM3 at 700 W
+# (``chip_smoke.py --sweep dense_tiled``, 100 iterations of the flagship's
+# dense layout at B 1-1024 and of battery n5 N20, n10 N20 at B256; PERF.md
+# section 6), within 5% at the median.
+_DENSE_TILED_KTILE_US = {16: 1.29, 32: 1.45, 64: 1.81, 128: 3.26}
+_DENSE_TILED_BARRIER_US = 2.61
+_DENSE_TILED_REDUCE_US, _DENSE_TILED_REDUCE_US_PER_MB = 1.39, 1.65
+
+
+class DenseTiledPlan(NamedTuple):
+    """A launch of the tiled dense kernel: units of ``tile`` scenarios x
+    ``cols`` columns, each phase's K in ``parts_a`` (A: m) and ``parts_b``
+    (B: n_z) parts staged ``depth`` rows at a time through ``stages``
+    shared-memory stages; ``smem`` bytes a block; ``units_a`` and
+    ``units_b`` units a phase. The op takes (tile, parts_a, parts_b)."""
+    tile: int
+    parts_a: int
+    parts_b: int
+    cols: int = DENSE_TILED_COLS
+    depth: int = DENSE_TILED_DEPTH
+    stages: int = 0
+    smem: int = 0
+    units_a: int = 0
+    units_b: int = 0
+
+
+def _dense_tiled_stage_bytes(tile: int) -> int:
+    """One stage of the ring: 32 operand rows and 32 state rows, each
+    padded by 8 floats."""
+    return 4 * DENSE_TILED_DEPTH * (DENSE_TILED_COLS + tile
+                                    + 2 * _DENSE_TILED_PAD)
+
+
+def dense_tiled_stages(tile: int) -> int:
+    """The ring's stages at ``tile`` scenarios a unit: as many as fit a
+    block's shared memory, at most DENSE_TILED_MAX_STAGES (csrc
+    stages_of)."""
+    return min(DENSE_TILED_MAX_STAGES,
+               (SMEM_LIMIT_BYTES - _DENSE_TILED_BARRIER_BYTES)
+               // _dense_tiled_stage_bytes(tile))
+
+
+def _dense_tiled_smem_bytes(tile: int) -> int:
+    """Shared memory of one block of the tiled dense kernel: the ring's
+    barriers and its stages (csrc carve-up, smem_bytes). The shape does
+    not change it."""
+    return (_DENSE_TILED_BARRIER_BYTES
+            + dense_tiled_stages(tile) * _dense_tiled_stage_bytes(tile))
+
+
+def _dense_tiled_scratch_floats(m: int, n_z: int, B: int, tile: int,
+                                parts_a: int, parts_b: int) -> int:
+    """Floats of the scratch a launch of the tiled dense kernel needs (csrc
+    layout(), gpad_dense_tiled_scratch_floats): MG_T and GL_T in column
+    tiles of 128 (K up to 32 rows of 136 floats); w, y and p_D in scenario
+    tiles (m up to 32 rows of tile + 8 floats), zhat, z and g_P likewise;
+    and the parts' sums, [part][column][B up to the tile], of each phase
+    of more than one part."""
+    def up(n, q):
+        return -(-n // q) * q
+
+    d, ld, lx = DENSE_TILED_DEPTH, DENSE_TILED_COLS + _DENSE_TILED_PAD, (
+        tile + _DENSE_TILED_PAD)
+    Bp = up(B, tile)
+    operands = (-(-n_z // DENSE_TILED_COLS) * up(m, d)
+                + -(-m // DENSE_TILED_COLS) * up(n_z, d)) * ld
+    state = 3 * Bp // tile * (up(m, d) + up(n_z, d)) * lx
+    part = max(parts_a * n_z if parts_a > 1 else 0,
+               parts_b * m if parts_b > 1 else 0) * Bp
+    return operands + state + part
+
+
+def _dense_tiled_units(m: int, n_z: int, B: int, tile: int, parts_a: int,
+                       parts_b: int) -> tuple[int, int]:
+    """Units of phase A and of phase B."""
+    st = -(-B // tile)
+    return (st * -(-n_z // DENSE_TILED_COLS) * parts_a,
+            st * -(-m // DENSE_TILED_COLS) * parts_b)
+
+
+def _phase_us(tile: int, units: int, parts: int, k_tiles: int, cols: int,
+              B: int, sms: int) -> float:
+    """The model's microseconds of one phase (see _DENSE_TILED_KTILE_US)."""
+    us = (_DENSE_TILED_BARRIER_US
+          + -(-units // sms) * -(-k_tiles // parts) * _DENSE_TILED_KTILE_US[tile])
+    if parts > 1:
+        us += (_DENSE_TILED_REDUCE_US
+               + _DENSE_TILED_REDUCE_US_PER_MB * 4e-6 * parts * cols * B)
+    return us
+
+
+def pick_dense_tiled(m: int, n_z: int, B: int = 1, tier: str = "highest",
+                     tile: int | None = None, parts_a: int | None = None,
+                     parts_b: int | None = None,
+                     sms: int = H100_SMS) -> DenseTiledPlan:
+    """The tiled dense kernel's launch for B scenarios on ``sms`` SMs: each
+    phase's K cut into as many parts as leave its units in one wave (one
+    part where its tiles alone fill the card; at most its 32-row k-tiles),
+    and the scenario tile, among those up to B rounded up to a power of two
+    (16 to 128), whose phases the model (``_phase_us``) puts fastest.
+    ``tile``, ``parts_a`` and ``parts_b`` override it (for sweeps). Every
+    tier takes the same plan: its shared memory is the ring's alone."""
+    if tier not in KERNEL_TIERS:
+        raise ValueError(f"unknown tier {tier!r} (one of {KERNEL_TIERS})")
+    kt_a = -(-m // DENSE_TILED_DEPTH)
+    kt_b = -(-n_z // DENSE_TILED_DEPTH)
+    top = min(DENSE_TILED_TILES[-1],
+              max(DENSE_TILED_TILES[0], 1 << max(B - 1, 0).bit_length()))
+    tiles = ([t for t in DENSE_TILED_TILES if t <= top] if tile is None
+             else [tile])
+    best = None
+    for t in tiles:
+        st = -(-B // t)
+        tiles_a = st * -(-n_z // DENSE_TILED_COLS)
+        tiles_b = st * -(-m // DENSE_TILED_COLS)
+        pa = parts_a or max(1, min(kt_a, sms // tiles_a))
+        pb = parts_b or max(1, min(kt_b, sms // tiles_b))
+        us = (_phase_us(t, tiles_a * pa, pa, kt_a, n_z, B, sms)
+              + _phase_us(t, tiles_b * pb, pb, kt_b, m, B, sms))
+        if best is None or us < best[0]:
+            best = (us, t, pa, pb)
+    _, t, pa, pb = best
+    units_a, units_b = _dense_tiled_units(m, n_z, B, t, pa, pb)
+    return DenseTiledPlan(t, pa, pb, stages=dense_tiled_stages(t),
+                          smem=_dense_tiled_smem_bytes(t),
+                          units_a=units_a, units_b=units_b)
+
+
 def dense_tiled_fits(data: GPADData) -> bool:
     """Can the tiled dense kernel run this data: an unpaired stack without
-    soft rows whose one scenario's w and zhat fit a block's shared memory
-    (the flat tiled plan at m)?"""
-    return (not data.paired and data.soft_damp is None
-            and pick_flat_tiled(data.m, data.n_z) is not None)
+    soft rows? Its state lives in device memory and its shared memory is
+    the staging ring's alone, so no shape is too large for it."""
+    return not data.paired and data.soft_damp is None
 
 
-# engine="auto" takes the paired tiled and the tiled dense route where the
-# kernel beat the torch engine. The torch engine sits on a launch floor of
-# 15-45 ms per 100 iterations until its products outgrow it (52 ms at
-# dense m 660 B16384); the kernel's time follows its work, rows a side x
-# n_z x B (4.1-7.9e-8 ms each over 100 iterations once its grid fills the
-# card), so the edge is a work, and at most the largest measured
-# shape (at B1 one cluster runs the solve, whose time grows with the
-# shape alone). Measured on an H100 80GB HBM3 at 700 W (PERF.md, section
-# 5, ``chip_smoke.py --times routes``: ms of 100 iterations on battery
-# shapes, the route's solve against the torch engine's in two turns, at
-# B1, 64, 256, 1024, 4096, 16384). Dense: faster at every shape to the
-# flagship's m 3660 at B1 (5.88 against 28.6) and B64 (14.8 against
-# 38.1); at B256 to m 2460 (19.2 against 20.2), m 3060 lost (31.2 against
-# 18.2); at B1024 to m 1260 (18.3 against 24.3), m 1860 lost (25.8
-# against 19.4); at B4096 to m 700 (21.7 against 29.7: work 700 x 150 x
-# 4096, the largest won), m 840 tied (25.7 against 25.3); at B16384 m 440
-# lost (55.1 against 30.4). Paired: faster at every shape to the
-# flagship's m_h 1830 at B1, B64 and B256 (15.4 against 34.1); at B1024
-# to m_h 1230 (30.8 against 43.0), m_h 1830 lost (45.3 against 31.6); at
-# B4096 to m_h 550 (23.8 against 35.3: work 550 x 250 x 4096), m_h 630
-# lost (40.7 against 33.3, within 3% of B1024 m_h 1230's work, which is
-# left out of the edge); at B16384 m_h 330 lost (55.8 against 49.7).
-DENSE_TILED_AUTO_MAX_M, DENSE_TILED_AUTO_MAX_WORK = 3660, 700 * 150 * 4096
+# engine="auto" takes the tiled dense, paired tiled and flat tiled routes
+# where the kernel beat the torch engine. The torch engine sits on a launch
+# floor of 15-45 ms per 100 iterations until its products outgrow it; a
+# kernel's time follows its work, rows a side x n_z x B, so each edge is a
+# work, and at most the largest measured shape. Measured on an H100 80GB
+# HBM3 at 700 W (PERF.md, section 5, ``chip_smoke.py --times routes``: ms
+# of 100 iterations on battery shapes from m 440 / m_h 330 to the 30x30
+# flagship, the route's solve against the torch engine's in two turns, at
+# B1, 64, 256, 1024, 4096, 16384). Dense (the redesigned kernel): faster
+# at 58 of the 60 points, from 1.27 against 19.8 ms (n5 N20, B1) to the
+# flagship at B16384 (553.8 against 681.6: work 3660 x 900 x 16384, the
+# largest measured); the other two tied within 0.7% (n25 N30 B1024, 33.25
+# against 33.20; n10 N30 B4096, 32.00 against 31.79), so the edge is the
+# largest measured work. Paired: faster at every shape to the flagship's
+# m_h 1830 at B1, B64 and B256 (15.5 against 24.0); at B1024 to m_h 930
+# (15.2 against 31.3), m_h 1230 lost (30.9 against 29.4); at B4096 to m_h
+# 550 (23.9 against 32.9: work 550 x 250 x 4096), m_h 630 lost (40.8
+# against 30.4); at B16384 m_h 330 lost (55.6 against 49.8). Flat: faster
+# at every shape at B1-256 and at B1024, the flagship's 43.96 against
+# 45.16 the closest; at B4096 to m_h 630 (35.0 against 42.2: work 630 x
+# 300 x 4096), m_h 930 lost (50.9 against 42.4); at B16384 m_h 330 lost
+# (61.2 against 49.8), m_h 350 won (62.4 against 76.1) and m_h 420 lost
+# (68.8 against 63.9); the edge is the most work won below the first loss
+# (the flagship's B1024, 2.7% ahead at 2.2x that work, and m_h 350 B16384
+# are left out of it; an earlier run had the flagship B1024 and m_h 630
+# B4096 losing, 35.8 against 33.3 and 35.9 against 32.5).
+DENSE_TILED_AUTO_MAX_M, DENSE_TILED_AUTO_MAX_WORK = 3660, 3660 * 900 * 16384
 PAIRED_TILED_AUTO_MAX_M_HALF, PAIRED_TILED_AUTO_MAX_WORK = (
     1830, 550 * 250 * 4096)
+FLAT_TILED_AUTO_MAX_M_HALF, FLAT_TILED_AUTO_MAX_WORK = 1830, 630 * 300 * 4096
 
 
-def tiled_auto(data: GPADData, batch: int = 1) -> bool:
+def tiled_auto(data: GPADData, batch: int = 1, flat: bool = False) -> bool:
     """Does ``engine="auto"`` take the paired tiled or the tiled dense
-    route for this data at ``batch`` scenarios: a shape no larger than the
-    largest measured, and work (rows a side x n_z x batch) no more than
-    the most at which the kernel was measured faster than the torch
-    engine? Plan and layout aside: ``paired_tiled_fits`` and
-    ``dense_tiled_fits`` say whether the kernel runs it at all."""
+    route (``flat``: the flat tiled one) for this data at ``batch``
+    scenarios: a shape no larger than the largest measured, and work (rows
+    a side x n_z x batch) no more than the most at which the kernel was
+    measured faster than the torch engine? Plan and layout aside:
+    ``flat_tiled_fits``, ``paired_tiled_fits`` and ``dense_tiled_fits``
+    say whether the kernel runs it at all."""
     rows, most_rows, most_work = (
+        (data.m_half, FLAT_TILED_AUTO_MAX_M_HALF, FLAT_TILED_AUTO_MAX_WORK)
+        if flat else
         (data.m_half, PAIRED_TILED_AUTO_MAX_M_HALF, PAIRED_TILED_AUTO_MAX_WORK)
         if data.paired
         else (data.m, DENSE_TILED_AUTO_MAX_M, DENSE_TILED_AUTO_MAX_WORK))
@@ -635,7 +791,7 @@ _DENSE_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 8 + [_PTR] * 4
 _FLAT_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 4 + [_INT] * 8
                         + [_PTR] * 4 + [_INT, _INT, _PTR])
 _DENSE_TILED_ARGTYPES = ([_PTR] * 5 + [_LL] + [_PTR] * 2 + [_INT] * 7
-                         + [_PTR] * 4 + [_INT, _INT, _PTR])
+                         + [_PTR] * 5 + [_INT, _INT, _PTR])
 
 
 def _launch_fn(library: str, symbol: str, argtypes):
@@ -937,42 +1093,66 @@ dense_op = _register("dense", _dense_cpu, _dense_cuda, _dense_fake)
 
 def _dense_tiled_cpu(MG_T: Tensor, GL_T: Tensor, g_P: Tensor, p_D: Tensor,
                      y0: Optional[Tensor], theta: Tensor, beta: Tensor,
-                     iterations: int, log2_tile: int, cluster: int,
-                     grouped: bool, diagnostics: bool, tier: str = "highest",
+                     iterations: int, tile: int, parts_a: int, parts_b: int,
+                     diagnostics: bool, tier: str = "highest",
                      ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     return _dense_cpu(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations, 0,
                       0, 0, 0, diagnostics, tier)
 
 
 def _dense_tiled_cuda(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations,
-                      log2_tile, cluster, grouped, diagnostics,
-                      tier="highest"):
+                      tile, parts_a, parts_b, diagnostics, tier="highest"):
     global DENSE_TILED_LAUNCHES
     B, m, n_z = g_P.shape[0], p_D.shape[1], g_P.shape[1]
+    # the operands and the state, in tiles, live in the scratch: the kernel
+    # writes the outputs on its last iteration
+    scratch = g_P.new_empty(_dense_tiled_scratch_floats(m, n_z, B, tile,
+                                                        parts_a, parts_b))
     z, y = g_P.new_empty(g_P.shape), p_D.new_empty(p_D.shape)
-    # the state lives in device memory: w is the kernel's too
-    w = p_D.new_empty(p_D.shape)
+    w = p_D.new_empty(p_D.shape) if diagnostics else None
     zhat = g_P.new_empty(g_P.shape) if diagnostics else None
     y0_stride = 0 if y0 is None or y0.shape[0] == 1 else m
     fn = _launch_fn("gpad_dense_tiled", "gpad_dense_tiled_launch",
                     _DENSE_TILED_ARGTYPES)
     _launch("gpad_dense_tiled", fn, g_P.device, _ptr(MG_T), _ptr(GL_T),
             _ptr(g_P), _ptr(p_D), _ptr(y0), y0_stride, _ptr(theta),
-            _ptr(beta), B, m, n_z, iterations, log2_tile, cluster, grouped,
-            _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
-            _flat_tiled_smem_bytes(m, n_z, log2_tile, grouped),
-            _tier_code(tier))
+            _ptr(beta), B, m, n_z, iterations, tile, parts_a, parts_b,
+            _ptr(scratch), _ptr(z), _ptr(y), _ptr(w), _ptr(zhat),
+            _dense_tiled_smem_bytes(tile), _tier_code(tier))
     DENSE_TILED_LAUNCHES += 1
     if not diagnostics:
-        return z, y, _empty(z), _empty(z)
+        w, zhat = _empty(z), _empty(z)
     return z, y, w, zhat
 
 
 def _dense_tiled_fake(MG_T, GL_T, g_P, p_D, y0, theta, beta, iterations,
-                      log2_tile, cluster, grouped, diagnostics,
-                      tier="highest"):
+                      tile, parts_a, parts_b, diagnostics, tier="highest"):
     return _paired_fake(MG_T, GL_T, g_P, p_D, y0, None, theta, beta, None, 0,
-                        iterations, log2_tile, 0, 0, 0, diagnostics)
+                        iterations, tile, 0, 0, 0, diagnostics)
+
+
+def dense_tiled_blocks_per_sm(tile: int, tier: str = "highest") -> int:
+    """Blocks of the tiled dense kernel's (tile, tier) instance an SM of the
+    current card holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the
+    launch takes one an SM. Builds the kernel at first use."""
+    from tpu_gpad_torch import cuda_build
+
+    fn = cuda_build.load("gpad_dense_tiled").gpad_dense_tiled_blocks_per_sm
+    fn.argtypes, fn.restype = [_INT, _INT, _INT], _INT
+    return fn(tile, _tier_code(tier), _dense_tiled_smem_bytes(tile))
+
+
+def flat_tiled_max_clusters(plan: FlatTiledPlan, m_h: int, n_z: int,
+                            tier: str = "highest") -> int:
+    """Clusters of the flat tiled kernel's ``plan`` at m_h rows a side the
+    current card holds at once (cudaOccupancyMaxActiveClusters)."""
+    from tpu_gpad_torch import cuda_build
+
+    fn = cuda_build.load("gpad_flat_tiled").gpad_flat_tiled_max_clusters
+    fn.argtypes, fn.restype = [_INT] * 4, _INT
+    return fn(plan.log2_tile, plan.cluster,
+              _flat_tiled_smem_bytes(m_h, n_z, plan.log2_tile, plan.grouped),
+              _tier_code(tier))
 
 
 dense_tiled_op = _register("dense_tiled", _dense_tiled_cpu, _dense_tiled_cuda,
@@ -1159,25 +1339,40 @@ def gpad_fixed_dense(
 
 def gpad_fixed_dense_tiled(
     data: GPADData, g_P, p_D, y0=None, *, iterations: int,
-    diagnostics: bool = True, log2_tile: int | None = None,
-    cluster: int | None = None, tier: str = "highest",
+    diagnostics: bool = True, tile: int | None = None,
+    parts_a: int | None = None, parts_b: int | None = None,
+    tier: str = "highest",
 ):
     """``gpad_fixed_dense``'s contract for dense stacks too large for it:
-    both operands read from device memory on every iteration, on the flat
-    tiled kernel's clusters (the counterpart of
+    both operands staged from device memory on every iteration by a
+    persistent launch of two card-wide product phases (the counterpart of
     ``tpu_gpad.solver.kernels.gpad_pallas_fixed`` past one block's shared
-    memory). Soft rows are refused. ``log2_tile``, ``cluster`` and
-    ``tier`` as in ``gpad_fixed_flat_tiled`` (its plan at m). CUDA tensors
-    launch the kernel (or raise); CPU tensors run the plain version,
-    ``gpad_fixed_dense_torch`` (the op ``tpu_gpad_torch::dense_tiled``)."""
+    memory). Soft rows are refused. ``tile`` (scenarios a unit: 16, 32,
+    64 or 128), ``parts_a`` and ``parts_b`` (each phase's parts of K)
+    override ``pick_dense_tiled``'s plan (for sweeps). ``tier``
+    (``KERNEL_TIERS``) is the products' precision; it does not change the
+    plan. CUDA tensors launch the kernel (or raise); CPU tensors run the
+    plain version, ``gpad_fixed_dense_torch`` (the op
+    ``tpu_gpad_torch::dense_tiled``)."""
     _check_dense(data, "the tiled dense kernel")
-    m = data.m
+    m, n_z = data.m, data.n_z
     _check_common(data, g_P, p_D, (m,), iterations, [y0])
     B = g_P.shape[0]
-    plan = _tiled_plan(g_P, m, data.n_z, log2_tile, cluster, "tiled dense")
+    knobs = (0, 0, 0)
+    if on_card(g_P):
+        if tile is not None and tile not in DENSE_TILED_TILES:
+            raise ValueError(f"tile {tile} is not one of {DENSE_TILED_TILES}")
+        for name, parts, k in (("parts_a", parts_a, m), ("parts_b", parts_b,
+                                                         n_z)):
+            most = -(-k // DENSE_TILED_DEPTH)
+            if parts is not None and not 1 <= parts <= most:
+                raise ValueError(f"{name} {parts} outside 1..{most}")
+        sms = torch.cuda.get_device_properties(g_P.device).multi_processor_count
+        knobs = pick_dense_tiled(m, n_z, B, tier, tile, parts_a, parts_b,
+                                 sms)[:3]
     y0_rows = None if y0 is None else _norm_dense_y0(y0, B, m)
     z, y, w, zhat = dense_tiled_op(data.MG_T, data.GL_T, g_P, p_D, y0_rows,
-                                   data.theta, data.beta, iterations, *plan,
+                                   data.theta, data.beta, iterations, *knobs,
                                    diagnostics, tier)
     return (z, y, *_none_if_empty(w, zhat, diagnostics))
 
