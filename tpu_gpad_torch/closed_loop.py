@@ -18,6 +18,7 @@ from tpu_gpad_torch.condense import condense, dualize
 from tpu_gpad_torch.diff import feedback_gain
 from tpu_gpad_torch.solver.core import SolverConfig, solve_batch
 from tpu_gpad_torch.solver.qp import polish_batch
+from tpu_gpad_torch.tracing import span
 from tpu_gpad_torch.types import CondensedQP, GPADData, LinearMPCProblem
 
 
@@ -321,29 +322,22 @@ class Controller:
         disturbance offset of the configured parameter layout. For
         rate-limited problems the previous step's move is threaded into
         the parameter (zeros on the first step or after ``reset``)."""
+        with span("step"):
+            return self._step(x, x_ref, u_ref, d)
+
+    def _step(self, x, x_ref, u_ref, d) -> np.ndarray:
+        """``step`` inside its span."""
+        dev = self.data.device
         single = np.ndim(x) == 1
-        p = self._parameter(np.asarray(x, dtype=np.float32), x_ref, u_ref, d)
-        p = torch.atleast_2d(
-            torch.as_tensor(p, dtype=torch.float32, device=self.data.device)
-        )
-        if self.rate:
-            u_prev = self._u_prev
-            if u_prev is None:
-                u_prev = torch.zeros((p.shape[0], self.data.n_u),
-                                     dtype=torch.float32, device=p.device)
-            elif u_prev.shape[0] != p.shape[0]:
-                # a stored single move broadcasts (one actuator state for
-                # every plant); any other batch change is ambiguous and
-                # would silently re-base the slew limit
-                if u_prev.shape[0] != 1:
-                    raise ValueError(
-                        f"rate-limited controller: batch size changed "
-                        f"{u_prev.shape[0]} -> {p.shape[0]} mid-run; the "
-                        f"stored previous move is ambiguous. Call "
-                        f"reset(u_prev=...) with the actuator state first."
-                    )
-                u_prev = u_prev.expand(p.shape[0], self.data.n_u)
-            p = torch.cat([p, u_prev], dim=-1)
+        with span("step.parameter"):
+            p = self._parameter(np.asarray(x, dtype=np.float32), x_ref, u_ref,
+                                d)
+            # a pageable copy, which waits on the card
+            with span("step.h2d", sync=dev):
+                p = torch.atleast_2d(
+                    torch.as_tensor(p, dtype=torch.float32, device=dev))
+            if self.rate:
+                p = torch.cat([p, self._last_move(p.shape[0])], dim=-1)
         y0 = self._y if self.warm_start else None
         if y0 is not None and y0.shape[0] != p.shape[0]:
             y0 = None  # batch size changed: the warm start no longer applies
@@ -352,13 +346,43 @@ class Controller:
         self.last_result = res
         u_applied = res.u
         if self.polish:  # the exact optimum, refined on the host in float64
-            Z, _ = polish_batch(self.qp, p.cpu().numpy(), res.z.cpu().numpy())
-            u_applied = torch.as_tensor(Z[:, : self.data.n_u],
-                                        dtype=torch.float32, device=p.device)
-        u = u_applied.cpu().numpy().astype(np.float32)
+            with span("step.polish"):
+                # every copy between host and card waits on the card
+                with span("step.wait", sync=dev):
+                    P = p.cpu().numpy()
+                with span("step.wait", sync=dev):
+                    Z0 = res.z.cpu().numpy()
+                Z, _ = polish_batch(self.qp, P, Z0)
+                with span("step.h2d", sync=dev):
+                    u_applied = torch.as_tensor(Z[:, : self.data.n_u],
+                                                dtype=torch.float32,
+                                                device=dev)
+        with span("step.wait", sync=dev):  # u* back on the host
+            u = u_applied.cpu().numpy().astype(np.float32)
         if self.rate:
             self._u_prev = u_applied
         return u[0] if single else u
+
+    def _last_move(self, batch: int) -> torch.Tensor:
+        """The previous step's move for each of ``batch`` plants, the last
+        entry of a rate-limited controller's parameter."""
+        u_prev = self._u_prev
+        if u_prev is None:
+            return torch.zeros((batch, self.data.n_u), dtype=torch.float32,
+                               device=self.data.device)
+        if u_prev.shape[0] != batch:
+            # a stored single move broadcasts (one actuator state for
+            # every plant); any other batch change is ambiguous and
+            # would silently re-base the slew limit
+            if u_prev.shape[0] != 1:
+                raise ValueError(
+                    f"rate-limited controller: batch size changed "
+                    f"{u_prev.shape[0]} -> {batch} mid-run; the "
+                    f"stored previous move is ambiguous. Call "
+                    f"reset(u_prev=...) with the actuator state first."
+                )
+            u_prev = u_prev.expand(batch, self.data.n_u)
+        return u_prev
 
     def gain(self, tol: float = 1e-7, ridge: float = 0.0) -> np.ndarray:
         """Local feedback gain du*/dp at the last ``step``'s solution, as

@@ -19,6 +19,7 @@ import torch
 
 from tpu_gpad_torch.types import LinearMPCProblem, CondensedQP, GPADData
 from tpu_gpad_torch.schedule import momentum_schedule
+from tpu_gpad_torch.tracing import traced
 
 
 def prediction_matrices(A: np.ndarray, B: np.ndarray, N: int) -> tuple[np.ndarray, np.ndarray]:
@@ -146,6 +147,7 @@ def _stage_bounds(v, N: int, n: int, name: str) -> np.ndarray:
     return arr.ravel()
 
 
+@traced("condense")
 def condense(
     problem: LinearMPCProblem,
     soft_state: float | None = None,
@@ -643,6 +645,7 @@ def _flat_reorder(P: np.ndarray):
     return order, flip, int(struct.size)
 
 
+@traced("dualize")
 def dualize(
     qp: CondensedQP,
     iterations: int = 100,

@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from tpu_gpad_torch.tracing import span
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -59,9 +61,17 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
 def load_all(names, defines: tuple = ()) -> list[ctypes.CDLL]:
     """Compile every named source that needs it, one ``nvcc`` each, all
     started together, then load them in order."""
-    pending = []
     suffix = "".join(f"+{d}" for d in defines)
     keys = [name + suffix for name in names]
+    if any(key not in _LIBS for key in keys):  # not on every launch
+        with span("build"):
+            _build(names, keys, defines, suffix)
+    return [_LIBS[key] for key in keys]
+
+
+def _build(names, keys, defines: tuple, suffix: str) -> None:
+    """Compile the sources whose build is missing, load every library."""
+    pending = []
     for name, key in zip(names, keys):
         if key in _LIBS:
             continue
@@ -93,4 +103,3 @@ def load_all(names, defines: tuple = ()) -> list[ctypes.CDLL]:
         BUILD_SECONDS[key] = time.perf_counter() - t0
         BUILD_LOG[key] = err
         _LIBS[key] = ctypes.CDLL(str(out))
-    return [_LIBS[key] for key in keys]

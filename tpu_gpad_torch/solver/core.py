@@ -52,6 +52,7 @@ from dataclasses import dataclass
 
 import torch
 
+from tpu_gpad_torch.tracing import span
 from tpu_gpad_torch.types import GPADData, SolveResult
 
 
@@ -166,10 +167,11 @@ def _all_converged(converged, config: SolverConfig) -> bool:
     count summed over each of ``config.collective_axes``, so that every
     rank takes the same branch (a rank that left the loop alone would hang
     the others at their next collective)."""
-    n = (~converged).sum()
-    for axis in config.collective_axes:
-        n = _all_reduce(n, axis)
-    return int(n) == 0
+    with span("solve_batch.eps_test", sync=converged):
+        n = (~converged).sum()
+        for axis in config.collective_axes:
+            n = _all_reduce(n, axis)
+        return int(n) == 0
 
 
 PRECISIONS = ("highest", "high", "default")
@@ -598,28 +600,30 @@ def _mvp_step(data: GPADData, g_P, p_D, config: SolverConfig, flat: bool,
 def _solve_fixed(data: GPADData, g_P, p_D, config: SolverConfig,
                  y0=None) -> SolveResult:
     """Fixed-budget mvp loop (flat or dense products, paired or dense)."""
-    flat = resolve_flat(data, config)
-    mm = _Matmul(config, data, flat=flat)
-    y, y_prev, z, w, zhat = _init_state(data, g_P.shape[:-1], y0)
-    th = th_prev = torch.ones(g_P.shape[:-1], dtype=torch.float32,
-                              device=g_P.device)
+    with span("solve_batch.iterate"):
+        flat = resolve_flat(data, config)
+        mm = _Matmul(config, data, flat=flat)
+        y, y_prev, z, w, zhat = _init_state(data, g_P.shape[:-1], y0)
+        th = th_prev = torch.ones(g_P.shape[:-1], dtype=torch.float32,
+                                  device=g_P.device)
 
-    def step(carry, theta_k, beta_k):
-        return _mvp_step(data, g_P, p_D, config, flat, mm, carry, theta_k,
-                         beta_k)
+        def step(carry, theta_k, beta_k):
+            return _mvp_step(data, g_P, p_D, config, flat, mm, carry, theta_k,
+                             beta_k)
 
-    carry = (y, y_prev, z, w, zhat, th, th_prev)
-    if torch.compiler.is_exporting():
-        def body(c, x):
-            return _unaliased(step(c, *x), c), []
+        carry = (y, y_prev, z, w, zhat, th, th_prev)
+        if torch.compiler.is_exporting():
+            def body(c, x):
+                return _unaliased(step(c, *x), c), []
 
-        carry = _export_scan(body, carry, data.theta, data.beta, 0,
-                             config.iterations, config.restart)
-    else:
-        for k in range(config.iterations):
-            carry = step(carry, *_schedule_at(data, config, k))
-    y, _, z, w, zhat, _, _ = carry
-    return _finish(data, g_P, p_D, z, zhat, w, y, config, flat, mm)
+            carry = _export_scan(body, carry, data.theta, data.beta, 0,
+                                 config.iterations, config.restart)
+        else:
+            for k in range(config.iterations):
+                carry = step(carry, *_schedule_at(data, config, k))
+        y, _, z, w, zhat, _, _ = carry
+    with span("solve_batch.finish"):
+        return _finish(data, g_P, p_D, z, zhat, w, y, config, flat, mm)
 
 
 def _solve_fixed_dual(data: GPADData, g_P, p_D, config: SolverConfig,
@@ -629,48 +633,52 @@ def _solve_fixed_dual(data: GPADData, g_P, p_D, config: SolverConfig,
     momentum combination s of the w differences:
     z_K = -(s_K @ MG_T) - a_K g_P with a_K = 1 - prod_k (1 - theta_k).
     theta_0 = 1 makes a_K = 1 under restart too."""
-    batch_shape = g_P.shape[:-1]
-    y = _init_y(data, batch_shape, y0, g_P.device)
-    w = torch.zeros_like(y)
-    s = torch.zeros(tuple(batch_shape) + (data.m_half,), dtype=torch.float32,
-                    device=g_P.device)
-    th = th_prev = torch.ones(batch_shape, dtype=torch.float32, device=g_P.device)
-    mm = _Matmul(config, data, dual=True)
-    e = mm(g_P, mm.GL_T)  # (B, m_h), hoisted out of the loop
+    with span("solve_batch.iterate"):
+        batch_shape = g_P.shape[:-1]
+        y = _init_y(data, batch_shape, y0, g_P.device)
+        w = torch.zeros_like(y)
+        s = torch.zeros(tuple(batch_shape) + (data.m_half,),
+                        dtype=torch.float32, device=g_P.device)
+        th = th_prev = torch.ones(batch_shape, dtype=torch.float32,
+                                  device=g_P.device)
+        mm = _Matmul(config, data, dual=True)
+        e = mm(g_P, mm.GL_T)  # (B, m_h), hoisted out of the loop
 
-    def step(carry, theta_k, beta_k):
-        y, y_prev, w, s, th, th_prev = carry
-        if config.restart:
-            theta_k, beta_k = th, th * (1.0 / th_prev - 1.0)
-        w = y + _expand_to(beta_k, y) * (y - y_prev)
-        wd = w[..., 0, :] - w[..., 1, :]
-        q = -mm(wd, mm.D) - e
-        w_s = w if data.soft_damp is None else w * (1.0 - data.soft_damp)
-        y_next = torch.clamp_min(w_s + _pm(q) + p_D, 0.0)
-        theta_s = _expand_to(theta_k, s)
-        s = (1.0 - theta_s) * s + theta_s * wd
-        if config.restart:
-            y_prev, th, th_prev = _restart_update(th, th_prev, y, y_next, w)
+        def step(carry, theta_k, beta_k):
+            y, y_prev, w, s, th, th_prev = carry
+            if config.restart:
+                theta_k, beta_k = th, th * (1.0 / th_prev - 1.0)
+            w = y + _expand_to(beta_k, y) * (y - y_prev)
+            wd = w[..., 0, :] - w[..., 1, :]
+            q = -mm(wd, mm.D) - e
+            w_s = w if data.soft_damp is None else w * (1.0 - data.soft_damp)
+            y_next = torch.clamp_min(w_s + _pm(q) + p_D, 0.0)
+            theta_s = _expand_to(theta_k, s)
+            s = (1.0 - theta_s) * s + theta_s * wd
+            if config.restart:
+                y_prev, th, th_prev = _restart_update(th, th_prev, y,
+                                                      y_next, w)
+            else:
+                y_prev = y
+            return y_next, y_prev, w, s, th, th_prev
+
+        carry = (y, y, w, s, th, th_prev)
+        if torch.compiler.is_exporting():
+            def body(c, x):
+                return _unaliased(step(c, *x), c), []
+
+            carry = _export_scan(body, carry, data.theta, data.beta, 0,
+                                 config.iterations, config.restart)
         else:
-            y_prev = y
-        return y_next, y_prev, w, s, th, th_prev
-
-    carry = (y, y, w, s, th, th_prev)
-    if torch.compiler.is_exporting():
-        def body(c, x):
-            return _unaliased(step(c, *x), c), []
-
-        carry = _export_scan(body, carry, data.theta, data.beta, 0,
-                             config.iterations, config.restart)
-    else:
-        for k in range(config.iterations):
-            carry = step(carry, *_schedule_at(data, config, k))
-    y, _, w, s, _, _ = carry
-    a = 1.0 - torch.prod(1.0 - data.theta[: config.iterations])
-    z = -mm(s, mm.MG_T) - a * g_P
-    wd = w[..., 0, :] - w[..., 1, :]
-    zhat = -mm(wd, mm.MG_T) - g_P
-    return _finish(data, g_P, p_D, z, zhat, w, y, config, False, mm)
+            for k in range(config.iterations):
+                carry = step(carry, *_schedule_at(data, config, k))
+        y, _, w, s, _, _ = carry
+        a = 1.0 - torch.prod(1.0 - data.theta[: config.iterations])
+        z = -mm(s, mm.MG_T) - a * g_P
+        wd = w[..., 0, :] - w[..., 1, :]
+        zhat = -mm(wd, mm.MG_T) - g_P
+    with span("solve_batch.finish"):
+        return _finish(data, g_P, p_D, z, zhat, w, y, config, False, mm)
 
 
 def _eps_test(data: GPADData, g_P, p_D, config: SolverConfig, k_now: int,
@@ -710,52 +718,57 @@ def _solve_eps(data: GPADData, g_P, p_D, config: SolverConfig,
     ``check_every`` iterations and at the budget's end. The loop leaves
     once every scenario has converged: one host sync per check, none in
     between."""
-    flat = resolve_flat(data, config)
-    batch_shape = g_P.shape[:-1]
-    y, y_prev, z, w, zhat = _init_state(data, batch_shape, y0)
-    th = th_prev = torch.ones(batch_shape, dtype=torch.float32, device=g_P.device)
-    converged = torch.zeros(batch_shape, dtype=torch.bool, device=g_P.device)
-    iters = torch.full(batch_shape, config.iterations, dtype=torch.int32,
-                       device=g_P.device)
-    mm = _Matmul(config, data, flat=flat)
+    with span("solve_batch.iterate"):
+        flat = resolve_flat(data, config)
+        batch_shape = g_P.shape[:-1]
+        y, y_prev, z, w, zhat = _init_state(data, batch_shape, y0)
+        th = th_prev = torch.ones(batch_shape, dtype=torch.float32,
+                                  device=g_P.device)
+        converged = torch.zeros(batch_shape, dtype=torch.bool,
+                                device=g_P.device)
+        iters = torch.full(batch_shape, config.iterations, dtype=torch.int32,
+                           device=g_P.device)
+        mm = _Matmul(config, data, flat=flat)
 
-    def step(carry, theta_k, beta_k):
-        return _mvp_step(data, g_P, p_D, config, flat, mm, carry, theta_k,
-                         beta_k)
+        def step(carry, theta_k, beta_k):
+            return _mvp_step(data, g_P, p_D, config, flat, mm, carry, theta_k,
+                             beta_k)
 
-    def test(k_now, carry, converged, iters, z_out):
+        def test(k_now, carry, converged, iters, z_out):
+            y, _, z, w, zhat, _, _ = carry
+            return _eps_test(data, g_P, p_D, config, k_now, z, zhat, w, y,
+                             converged, iters, z_out, flat, mm)
+
+        carry = (y, y_prev, z, w, zhat, th, th_prev)
+        if torch.compiler.is_exporting():
+            def body(c, x):
+                return _unaliased(step(c, *x), c), []
+
+            def window(k0, chunk, state):
+                carry = _export_scan(body, state[:7], data.theta,
+                                     data.beta, k0, chunk, config.restart)
+                return (*carry, *test(k0 + chunk, carry, *state[7:]))
+
+            C = max(min(config.check_every, config.iterations), 1)
+            n_full, rem = divmod(config.iterations, C)
+            state = _export_windows(window, (*carry, converged, iters, z), 7,
+                                    n_full, C, rem)
+            carry, (converged, iters, z_out) = state[:7], state[7:]
+        else:
+            z_out = z
+            for k in range(config.iterations):
+                carry = step(carry, *_schedule_at(data, config, k))
+                if (k + 1) % config.check_every and k + 1 < config.iterations:
+                    continue
+                converged, iters, z_out = test(k + 1, carry, converged, iters,
+                                               z_out)
+                if (k + 1 < config.iterations
+                        and _all_converged(converged, config)):
+                    break
         y, _, z, w, zhat, _, _ = carry
-        return _eps_test(data, g_P, p_D, config, k_now, z, zhat, w, y,
-                         converged, iters, z_out, flat, mm)
-
-    carry = (y, y_prev, z, w, zhat, th, th_prev)
-    if torch.compiler.is_exporting():
-        def body(c, x):
-            return _unaliased(step(c, *x), c), []
-
-        def window(k0, chunk, state):
-            carry = _export_scan(body, state[:7], data.theta, data.beta, k0,
-                                 chunk, config.restart)
-            return (*carry, *test(k0 + chunk, carry, *state[7:]))
-
-        C = max(min(config.check_every, config.iterations), 1)
-        n_full, rem = divmod(config.iterations, C)
-        state = _export_windows(window, (*carry, converged, iters, z), 7,
-                                n_full, C, rem)
-        carry, (converged, iters, z_out) = state[:7], state[7:]
-    else:
-        z_out = z
-        for k in range(config.iterations):
-            carry = step(carry, *_schedule_at(data, config, k))
-            if (k + 1) % config.check_every and k + 1 < config.iterations:
-                continue
-            converged, iters, z_out = test(k + 1, carry, converged, iters,
-                                           z_out)
-            if k + 1 < config.iterations and _all_converged(converged, config):
-                break
-    y, _, z, w, zhat, _, _ = carry
-    return _eps_result(data, g_P, p_D, z, zhat, w, y, converged, iters, z_out,
-                      flat, config.model_axis, mm)
+    with span("solve_batch.finish"):
+        return _eps_result(data, g_P, p_D, z, zhat, w, y, converged, iters,
+                           z_out, flat, config.model_axis, mm)
 
 
 def cuda_kernel(data: GPADData, config: SolverConfig,
@@ -936,6 +949,12 @@ def solve_batch(
     kernel route runs under TF32 held off too: around its launch it
     multiplies in torch (the dual kernels' ``e = g_P GL_T``, the primal
     recovery, the residuals), all fp32 "highest"."""
+    with span("solve_batch"):
+        return _solve_batch(data, x0, config, y0)
+
+
+def _solve_batch(data: GPADData, x0, config: SolverConfig, y0):
+    """``solve_batch`` inside its span."""
     n_iters = (
         config.iterations if config.iterations is not None else data.max_iters
     )
@@ -953,16 +972,26 @@ def solve_batch(
         )
     _check_config(config)
     _check_axes(config)
-    x0 = torch.as_tensor(x0, dtype=torch.float32, device=data.device)
-    if y0 is not None:
-        y0 = torch.as_tensor(y0, dtype=torch.float32, device=data.device)
+    # x0 or y0 from the host (NumPy or a CPU tensor) onto a card: a
+    # pageable copy, which waits on it
+    from_host = any(not isinstance(t, torch.Tensor) or t.device.type == "cpu"
+                    for t in (x0, y0) if t is not None)
     with tf32_matmuls(False):
-        g_P, p_D = affine_params(data, x0)
-        if resolve_engine(data, config, math.prod(x0.shape[:-1])) == "cuda":
+        with span("solve_batch.affine",
+                  sync=data.device if from_host else None):
+            x0 = torch.as_tensor(x0, dtype=torch.float32, device=data.device)
+            if y0 is not None:
+                y0 = torch.as_tensor(y0, dtype=torch.float32,
+                                     device=data.device)
+            g_P, p_D = affine_params(data, x0)
+        with span("solve_batch.route"):
+            engine = resolve_engine(data, config, math.prod(x0.shape[:-1]))
+            if engine != "cuda":
+                form = resolve_form(data, config)  # eps: validates the form
+        if engine == "cuda":
             from tpu_gpad_torch.solver import kernels
 
             return kernels.solve_batch_cuda(data, g_P, p_D, config, y0=y0)
-    form = resolve_form(data, config)  # in eps mode: validates the form
     with tf32_matmuls(_tf32(config)):
         if config.mode == "eps":
             return _solve_eps(data, g_P, p_D, config, y0)

@@ -38,6 +38,7 @@ import torch
 from torch import Tensor
 
 from tpu_gpad_torch.solver import kernels
+from tpu_gpad_torch.tracing import span
 from tpu_gpad_torch.types import GPADData, SolveResult
 
 # Launches of each CUDA kernel in this process; a run resets them to 0 to
@@ -702,57 +703,62 @@ def gpad_eps_dual(data: GPADData, g_P, p_D, config, y0=None,
     global EPS_SYNCS
     from tpu_gpad_torch.solver import core
 
-    B, dev = g_P.shape[0], g_P.device
-    iterations = config.iterations
-    C = max(min(config.check_every, iterations), 1)
-    n_full, rem = divmod(iterations, C)
-    tier = core.tier(config)
-    c = relu_offsets(data, g_P, p_D)
-    y, s, mom = _init_state(data, B, y0, dev)
-    mm = core._Matmul(core._fp32(config), data)  # the tests' products
-    if chunk_fn is None:
-        # the kernel's checks and launch plan once, for every window: sizes
-        # are symbols in the body of a loop that torch.export traces, and a
-        # plan cannot branch on them there
-        tiled = not dual_fits_smem(data) and dual_tiled_fits(data)
-        _check_chunk(data, c, y, y, s, mom, 0, iterations, config.restart)
-        plan = _chunk_plan(data, c, tiled, None, None, tier)
+    with span("solve_batch.iterate"):
+        B, dev = g_P.shape[0], g_P.device
+        iterations = config.iterations
+        C = max(min(config.check_every, iterations), 1)
+        n_full, rem = divmod(iterations, C)
+        tier = core.tier(config)
+        c = relu_offsets(data, g_P, p_D)
+        y, s, mom = _init_state(data, B, y0, dev)
+        mm = core._Matmul(core._fp32(config), data)  # the tests' products
+        if chunk_fn is None:
+            # the kernel's checks and launch plan once, for every window:
+            # sizes are symbols in the body of a loop that torch.export
+            # traces, and a plan cannot branch on them there
+            tiled = not dual_fits_smem(data) and dual_tiled_fits(data)
+            _check_chunk(data, c, y, y, s, mom, 0, iterations,
+                         config.restart)
+            plan = _chunk_plan(data, c, tiled, None, None, tier)
 
-        def chunk_fn(data, c, y, y_prev, s, mom, *, k0, chunk, restart,
-                     tier):
-            return _launch_chunk(data, tiled, plan, c, y, y_prev, s, mom, k0,
-                                 chunk, restart, tier)
+            def chunk_fn(data, c, y, y_prev, s, mom, *, k0, chunk, restart,
+                         tier):
+                return _launch_chunk(data, tiled, plan, c, y, y_prev, s,
+                                     mom, k0, chunk, restart, tier)
 
-    def window(k0, chunk, state):
-        """One check window from schedule index ``k0`` and its test."""
-        y, y_prev, s, mom, w, converged, iters, z_out = state
-        y, y_prev, s, mom, w = chunk_fn(
-            data, c, y, y_prev, s, mom, k0=k0, chunk=chunk,
-            restart=config.restart, tier=tier,
-        )
-        z, zhat = _primal(data, g_P, s, w, 1.0)  # a = 1: theta_0 = 1
-        converged, iters, z_out = core._eps_test(
-            data, g_P, p_D, config, k0 + chunk, z, zhat, w, y, converged,
-            iters, z_out, False, mm)
-        return y, y_prev, s, mom, w, converged, iters, z_out
+        def window(k0, chunk, state):
+            """One check window from schedule index ``k0`` and its test."""
+            y, y_prev, s, mom, w, converged, iters, z_out = state
+            y, y_prev, s, mom, w = chunk_fn(
+                data, c, y, y_prev, s, mom, k0=k0, chunk=chunk,
+                restart=config.restart, tier=tier,
+            )
+            z, zhat = _primal(data, g_P, s, w, 1.0)  # a = 1: theta_0 = 1
+            converged, iters, z_out = core._eps_test(
+                data, g_P, p_D, config, k0 + chunk, z, zhat, w, y,
+                converged, iters, z_out, False, mm)
+            return y, y_prev, s, mom, w, converged, iters, z_out
 
-    state = (y, y.clone(), s, mom, torch.zeros_like(y),
-             torch.zeros((B,), dtype=torch.bool, device=dev),
-             torch.full((B,), iterations, dtype=torch.int32, device=dev),
-             torch.zeros((B, data.n_z), dtype=torch.float32, device=dev))
-    if torch.compiler.is_exporting():
-        state = core._export_windows(window, state, 5, n_full, C, rem)
-    else:
-        windows = [C] * n_full + ([rem] if rem else [])
-        k0 = 0
-        for i, chunk in enumerate(windows):
-            state = window(k0, chunk, state)
-            k0 += chunk
-            if i + 1 < len(windows):
-                EPS_SYNCS += 1
-                if core._all_converged(state[5], config):
-                    break
-    y, _, s, _, w, converged, iters, z_out = state
-    z, zhat = _primal(data, g_P, s, w, 1.0)
-    return core._eps_result(data, g_P, p_D, z, zhat, w, y, converged, iters,
-                           z_out, False, None, mm)
+        state = (y, y.clone(), s, mom, torch.zeros_like(y),
+                 torch.zeros((B,), dtype=torch.bool, device=dev),
+                 torch.full((B,), iterations, dtype=torch.int32,
+                            device=dev),
+                 torch.zeros((B, data.n_z), dtype=torch.float32,
+                             device=dev))
+        if torch.compiler.is_exporting():
+            state = core._export_windows(window, state, 5, n_full, C, rem)
+        else:
+            windows = [C] * n_full + ([rem] if rem else [])
+            k0 = 0
+            for i, chunk in enumerate(windows):
+                state = window(k0, chunk, state)
+                k0 += chunk
+                if i + 1 < len(windows):
+                    EPS_SYNCS += 1
+                    if core._all_converged(state[5], config):
+                        break
+        y, _, s, _, w, converged, iters, z_out = state
+        z, zhat = _primal(data, g_P, s, w, 1.0)
+    with span("solve_batch.finish"):
+        return core._eps_result(data, g_P, p_D, z, zhat, w, y, converged,
+                                iters, z_out, False, None, mm)

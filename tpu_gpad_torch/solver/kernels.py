@@ -53,6 +53,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import Tensor
 
+from tpu_gpad_torch.tracing import span
 from tpu_gpad_torch.types import GPADData, SolveResult
 
 # Launches of each CUDA kernel in this process; a run resets them to 0 to
@@ -1389,17 +1390,19 @@ def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
 
     batch_shape = g_P.shape[:-1]
     kernel = core.cuda_kernel(data, config, batch=math.prod(batch_shape))
-    tier = core.tier(config)
     gP2 = g_P.reshape(-1, data.n_z).contiguous()
     dual_shape = (2, data.m_half) if data.paired else (data.m,)
     pD2 = p_D.reshape((-1,) + dual_shape).contiguous()
     # a warm start keeps its own rows (1 or B); each wrapper flattens its
     # leading batch dims, as tpu_gpad's solve_batch_pallas does
     y0 = None if y0 is None else y0.contiguous()
-    kw = dict(iterations=config.iterations, diagnostics=config.diagnostics)
-    if kernel in ("dual_chunk", "dual_tiled_chunk"):
+    if kernel in ("dual_chunk", "dual_tiled_chunk"):  # its own spans
         res = dual_kernels.gpad_eps_dual(data, gP2, pD2, config, y0)
-    else:
+        return _batched(res, batch_shape)
+    with span("solve_batch.iterate"):
+        tier = core.tier(config)
+        kw = dict(iterations=config.iterations,
+                  diagnostics=config.diagnostics)
         if kernel == "dual":
             z, y, w, zhat = dual_kernels.gpad_fixed_dual(
                 data, gP2, pD2, y0, restart=config.restart, tier=tier, **kw)
@@ -1426,8 +1429,14 @@ def solve_batch_cuda(data: GPADData, g_P, p_D, config, y0=None) -> SolveResult:
                                                    tier=tier, **kw)
         else:
             raise ValueError("no CUDA kernel serves this solve")
+    with span("solve_batch.finish"):
         res = core._finish(data, gP2, pD2, z, zhat, w, y, config, False,
                            core._Matmul(core._fp32(config), data))
+        return _batched(res, batch_shape)
+
+
+def _batched(res: SolveResult, batch_shape) -> SolveResult:
+    """A result of flattened rows in the solve's batch shape."""
     return SolveResult(
         **{
             name: t.reshape(tuple(batch_shape) + tuple(t.shape[1:]))
